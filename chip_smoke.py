@@ -6,15 +6,28 @@
 Phases, one JSON line each:
 
 1. device  -- the card's name and power limit (``nvidia-smi``);
-2. build   -- nvcc builds the four kernels from ``csrc/`` (in parallel);
-3. kernels -- each kernel against its plain PyTorch version on the card, at
-   the shapes the serving forward gives it (res2net50_w24_s4_c32, B=128,
-   1000 frames), in float32 (TF32 off) and in bfloat16, with timings;
+2. build   -- nvcc builds the seven kernels from ``csrc/`` (in parallel);
+3. kernels -- each kernel against its plain PyTorch version on the card, in
+   float32 (TF32 off) and in bfloat16, with timings: K1-K4 at the shapes
+   the serving forward gives them (res2net50_w24_s4_c32, B=128, 1000
+   frames), K4b, K5 and K6 (forward and backward, against autograd of the
+   plain versions) at the shapes of the training step below;
 4. serve   -- res2net50_w24_s4_c32 at full width, bf16, random weights from
    a seed, served over TCP by ``cli.serve.make_server``; feature, wave and
    score requests from four client threads; served embeddings checked
    against offline extraction, wave against feature requests, and a small
-   batch against the CPU plain path; every kernel's launch count must rise.
+   batch against the CPU plain path; every kernel's launch count must rise;
+5. train   -- ``training.loop.fit`` with the CLI's synthetic feeder on
+   res2net50_w8_s6_c16 at the bench shape (B=256 x A=4, 200 frames, 80-d,
+   bn_groups=8, bf16, 5994 classes): one warm-up and three timed steps;
+   finite loss, schedule-exact lr and margin, and launch counts of K4, K4b,
+   K5 and K6 equal to A x their per-microbatch counts;
+6. train_parity -- one float32 step (TF32 off) of the full-width model at
+   B=16, A=1, bn_groups=2 on the card and through the plain path on the CPU
+   from the same weights: loss, gradient norm, parameter update and BN
+   statistics within the stated tolerances;
+7. export  -- the trained state saved as an inference artifact and one batch
+   embedded through the eval path (K2-K4), against the CPU plain path.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line. Without a CUDA
@@ -23,6 +36,7 @@ device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -50,6 +64,26 @@ TOL_FP32 = 1e-4
 TOL_BF16 = {"split_conv": 5e-2, "bn_act": 2e-2, "stats_pool": 1e-2}
 TOL_SERVED_COS = 0.9999   # served vs offline / wave vs feature embeddings
 TOL_CPU_COS = 0.99        # bf16 GPU forward vs fp32 CPU plain forward
+# training step (slice 2): the bench shape, and the stated tolerances
+TRAIN_MODEL, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_FRAMES, TRAIN_GROUPS = (
+    "res2net50_w8_s6_c16", 256, 4, 200, 8)
+TRAIN_STEPS = 4           # one warm-up + three timed
+# K4b/K5/K6 vs autograd of the plain version: fp32 relative to the output's
+# largest magnitude; K5 bf16 against the plain version run in bf16; K5's
+# input gradients where both versions take the same relu decision, in fp32
+# within 1e-3: an element whose relu decision differs still moves its
+# group's sums by |dy| / n, ~1e-4 of max |dx| per element at n = 8000
+TOL_TRAIN_BF16 = 2e-2
+TOL_K5_GRAD_FP32 = 1e-3
+# fp32 GPU step vs fp32 CPU plain step (B=16, A=1, bn_groups=2): relative
+# errors of the loss and of the BN statistics (each buffer relative to
+# max(|v|, 1e-3): the head post-BN's running mean is rounding noise with no
+# scale of its own). The parameter update (L2 over all parameters) and the
+# gradient norm of a randomly initialized net at this batch are fp32-noisy
+# on either device (the update ~2% from a float64 step): the card's fp32
+# values must be no further from the CPU's float64 step than twice the CPU's
+# fp32 values are, plus 1e-3; their distance to the CPU fp32 step is reported
+TOL_PARITY = {"loss": 1e-4, "gradient_norm": 1e-3, "update": 1e-3, "batch_stats": 1e-3}
 
 
 def emit(obj) -> None:
@@ -295,6 +329,396 @@ def check_stats_pool(dev, gen, head_shape):
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def train_shapes(cfg, batch, frames, feat_dim):
+    """The training forward's K5 calls per microbatch at batch x frames, as
+    ((B, C, T, F) or (B, C), relu, shortcut mode) with multiplicities, and
+    the stats pool's input (C, T, F)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
+
+    t, f = frames, feat_dim
+    k5 = {}
+
+    def add(key):
+        k5[key] = k5.get(key, 0) + 1
+
+    add(((batch, cfg.num_filters[0], t, f), True, 0))               # initial_bn
+    for i, n in enumerate(cfg.block_sizes):
+        w, s, out_c = cfg.width[i], cfg.block_strides[i], cfg.num_filters[i] * 4
+        for j in range(n):
+            stride = s if j == 0 else 1
+            add(((batch, cfg.split * w, t, f), True, 0))            # bn1
+            t2, f2 = _strided(t, stride), _strided(f, stride)
+            if stride == 1:
+                for _ in range(cfg.split - 1):                      # one per group
+                    add(((batch, w, t, f), True, 0))
+            else:                                                   # all groups at once
+                add(((batch, w * (cfg.split - 1), t2, f2), True, 0))
+            add(((batch, out_c, t2, f2), True, 2 if j == 0 else 1))  # bn3 + shortcut
+            t, f = t2, f2
+    channels = cfg.num_filters[-1] * 4
+    add(((batch, f * 2 * channels), False, 0))                      # head pre_bn
+    add(((batch, cfg.output_dim), False, 0))                        # head post_bn
+    return k5, (channels, t, f)
+
+
+def _layout(t):
+    return t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
+
+
+def time_fwd_bwd(fn, inputs, dy):
+    """(forward ms, backward ms) of ``fn(*inputs)`` and its gradient with
+    respect to ``inputs`` for the cotangent ``dy``."""
+    with torch.no_grad():
+        fwd = time_ms(lambda: fn(*inputs))
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    y = fn(*leaves)
+    bwd = time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+    del y, leaves
+    return fwd, bwd
+
+
+def check_bn_train(dev, gen, k5_calls, groups):
+    """K5 at each training call shape: fp32 and bf16 forward, running
+    updates and backward against autograd of the plain version; bf16 times
+    of the kernel and of the plain version, forward and backward."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+    import torch.nn.functional as F
+
+    err32, err32_grad, err16, detail, flips = 0.0, 0.0, 0.0, [], 0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    by_ops = 0.0
+    for (shape, relu, sc_mode), count in sorted(k5_calls.items()):
+        c = shape[1]
+        x = _layout(torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3)
+        sc = _layout(torch.randn(shape, generator=gen, device=dev)) if sc_mode else None
+        dy = _layout(torch.randn(shape, generator=gen, device=dev))
+        rm, rv = 0.1 * torch.randn(c, generator=gen, device=dev), 0.5 + torch.rand(c, generator=gen, device=dev)
+
+        def run(fn, x, sc, dy, stats):
+            xi = x.detach().requires_grad_(True)
+            si = None if sc is None else sc.detach().requires_grad_(True)
+            kw = dict(groups=groups, relu=relu, shortcut=si)
+            if sc_mode == 2:
+                kw.update(shortcut_running_mean=stats[2], shortcut_running_var=stats[3])
+            y = fn(xi, stats[0], stats[1], **kw)
+            y.backward(dy)
+            return [y.detach(), xi.grad] + ([si.grad] if si is not None else []) + list(stats)
+
+        errs_by_dtype = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, ss, ds = x.to(dtype), None if sc is None else sc.to(dtype), dy.to(dtype)
+            got = run(ops.bn_train, xs, ss, ds, [rm.clone(), rv.clone(), rm.clone(), rv.clone()])
+            want = run(ops.bn_train_reference, xs, ss, ds,
+                       [rm.clone(), rv.clone(), rm.clone(), rv.clone()])
+            # gradients are compared where both versions take the same relu
+            # decision: a pre-relu value within rounding of zero may fall on
+            # either side, and one such element moves dx there by |dy| * rstd
+            same = ((got[0] > 0) == (want[0] > 0)) if relu else torch.ones_like(got[0], dtype=torch.bool)
+            flips = max(flips, int((~same).sum()))
+            grads = slice(1, 3 if sc is not None else 2)
+            parts = ([rel_err(a * same, b * same) for a, b in zip(got[grads], want[grads])]
+                     + [rel_err(a, b) for a, b in zip(got[:1] + got[grads.stop:],
+                                                      want[:1] + want[grads.stop:])])
+            errs_by_dtype[str(dtype).split(".")[-1]] = parts  # dx, [ds,] y, stats
+            ng = grads.stop - grads.start
+            if dtype == torch.float32:
+                err32 = max(err32, *parts[ng:])
+                err32_grad = max(err32_grad, *parts[:ng])
+            else:
+                err16 = max(err16, *parts)
+            del got, want, xs, ss, ds, same
+        xb, sb, db = x.bfloat16(), None if sc is None else sc.bfloat16(), dy.bfloat16()
+        del x, sc, dy
+        stats = [rm.clone(), rv.clone(), rm.clone(), rv.clone()]
+
+        def call(fn):
+            def f(xi, *rest):
+                kw = dict(groups=groups, relu=relu, shortcut=rest[0] if rest else None)
+                if sc_mode == 2:
+                    kw.update(shortcut_running_mean=stats[2], shortcut_running_var=stats[3])
+                return fn(xi, stats[0], stats[1], **kw)
+            return f
+
+        inputs = [xb] + ([sb] if sb is not None else [])
+        fwd, bwd = time_fwd_bwd(call(ops.bn_train), inputs, db)
+        pfwd, pbwd = time_fwd_bwd(call(ops.bn_train_reference), inputs, db)
+        n_in = 2 if sb is not None else 1
+        # forward: read x (and s) once, write y; backward: read x, y (relu),
+        # dy (and s), write dx (and ds); ~8 and ~12 fp32 operations an element
+        nbytes_f = 2 * xb.numel() * (n_in + 1)
+        nbytes_b = 2 * xb.numel() * (2 + int(relu) + (1 if sc_mode == 2 else 0) + (2 if sc_mode else 1))
+        bms, by = bound_ms(nbytes_f + nbytes_b, 20.0 * xb.numel() * n_in, torch.float32)
+        row = dict(shape=list(shape), relu=relu, shortcut_mode=sc_mode, calls_per_microbatch=count,
+                   errors=errs_by_dtype,
+                   ms_fwd_bf16=fwd, ms_bwd_bf16=bwd, plain_ms_fwd_bf16=pfwd, plain_ms_bwd_bf16=pbwd,
+                   bound_ms=bms, bound_by=by)
+        detail.append(row)
+        tot["ms"] += count * (fwd + bwd)
+        tot["plain_ms"] += count * (pfwd + pbwd)
+        tot["bound_ms"] += count * bms
+        by_ops += count * bms if by == "operations" else 0.0
+        del xb, sb, db, inputs
+        torch.cuda.empty_cache()
+    # the flag-free g=1 pass is one PyTorch call: F.batch_norm in training mode
+    shape = max((k[0] for k in k5_calls if len(k[0]) == 4), key=math.prod)
+    c = shape[1]
+    xb = _layout(torch.randn(shape, generator=gen, device=dev)).bfloat16()
+    db = _layout(torch.randn(shape, generator=gen, device=dev)).bfloat16()
+    rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    kfwd, kbwd = time_fwd_bwd(lambda x: ops.bn_train(x, rm, rv), [xb], db)
+    lfwd, lbwd = time_fwd_bwd(
+        lambda x: F.batch_norm(x, rm, rv, training=True, momentum=1 - ops.BN_MOMENTUM,
+                               eps=ops.BN_EPSILON), [xb], db)
+    library = dict(shape=list(shape), ms_fwd_bf16=kfwd, ms_bwd_bf16=kbwd,
+                   library_ms_fwd_bf16=lfwd, library_ms_bwd_bf16=lbwd)
+    del xb, db
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "bn_train", "shapes": detail, "library": library,
+          "max_relu_flips_per_shape": flips})
+    if err32 > TOL_FP32 or err32_grad > TOL_K5_GRAD_FP32 or err16 > TOL_TRAIN_BF16:
+        fail(f"bn_train: rel err fp32 {err32} (gradients {err32_grad}) bf16 {err16}")
+    return dict(name="bn_train", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/bn_train.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:117 "
+                         "(_GroupedBN + relu/residual, XLA, forward and backward)",
+                max_abs_err=err16, max_rel_err_fp32=err32, max_rel_err_fp32_grad=err32_grad,
+                tolerance=TOL_TRAIN_BF16, max_relu_flips_per_shape=flips,
+                dtype="bfloat16", per=f"training step, B={TRAIN_BATCH} x A={TRAIN_ACCUM} x "
+                f"{TRAIN_FRAMES} frames (forward + backward)",
+                **{k: TRAIN_ACCUM * v for k, v in tot.items()},
+                bound_by="operations" if by_ops * 2 > tot["bound_ms"] else "bytes",
+                library_ms=lfwd + lbwd, library_vs_kernel_ms=kfwd + kbwd,
+                library_shape=list(shape))
+
+
+def check_stats_pool_bwd(dev, gen, head_shape):
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    c, t, f = head_shape
+    x = _layout(torch.randn((TRAIN_BATCH, c, t, f), generator=gen, device=dev) * 2 + 1)
+    dout = _layout(torch.randn((TRAIN_BATCH, 2 * c, 1, f), generator=gen, device=dev))
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = []
+        for fn in (ops.stats_pool, ops.stats_pool_reference):
+            xi = x.detach().to(dtype).requires_grad_(True)
+            fn(xi, None).backward(dout.to(dtype))
+            grads.append(xi.grad)
+        errs[dtype] = rel_err(*grads)
+    xb, db = x.bfloat16(), dout.bfloat16()
+    _, ms = time_fwd_bwd(ops.stats_pool, [xb], db)
+    _, plain = time_fwd_bwd(ops.stats_pool_reference, [xb], db)
+    bms, by = bound_ms(2 * 2 * xb.numel() + 2 * db.numel(), 3.0 * xb.numel(), torch.float32)
+    if errs[torch.float32] > TOL_FP32 or errs[torch.bfloat16] > TOL_BF16["stats_pool"]:
+        fail(f"stats_pool_bwd: rel err {errs}")
+    return dict(name="stats_pool_bwd", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/stats_pool_bwd.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:487 "
+                         "(stats_pool backward, JAX autodiff, XLA)",
+                max_abs_err=errs[torch.bfloat16], max_rel_err_fp32=errs[torch.float32],
+                tolerance=TOL_BF16["stats_pool"], dtype="bfloat16",
+                per=f"training step (A={TRAIN_ACCUM} calls of (B, C, T, F)="
+                    f"{(TRAIN_BATCH, c, t, f)})",
+                ms=TRAIN_ACCUM * ms, plain_ms=TRAIN_ACCUM * plain, bound_ms=TRAIN_ACCUM * bms,
+                bound_by=by, library_ms=None)
+
+
+def check_margin_ce(dev, gen, num_centers, num_classes):
+    from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
+        margin_ce, margin_ce_reference)
+
+    shape = (num_centers, TRAIN_BATCH, num_classes)
+    cos = (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * 0.998
+    labels = torch.randint(0, num_classes, (TRAIN_BATCH,), generator=gen, device=dev)
+    dloss = torch.rand(TRAIN_BATCH, generator=gen, device=dev) / TRAIN_BATCH
+    outs = []
+    for fn in (margin_ce, margin_ce_reference):
+        ci = cos.clone().requires_grad_(True)
+        loss, correct = fn(ci, labels, 32.0, 0.2)
+        loss.backward(dloss)
+        outs.append((loss.detach(), correct, ci.grad))
+    (l, c, d), (lr_, cr, dr) = outs
+    err = max(rel_err(l, lr_), rel_err(d, dr))
+    if err > TOL_FP32 or not torch.equal(c, cr):
+        fail(f"margin_ce: rel err {err}, correct flags equal {torch.equal(c, cr)}")
+    fwd, bwd = time_fwd_bwd(lambda x: margin_ce(x, labels, 32.0, 0.2)[0], [cos], dloss)
+    pfwd, pbwd = time_fwd_bwd(lambda x: margin_ce_reference(x, labels, 32.0, 0.2)[0], [cos], dloss)
+    # forward reads cos_all once; backward reads it and writes dcos_all
+    bms, by = bound_ms(3 * 4 * cos.numel(), 30.0 * cos.numel(), torch.float32)
+    emit({"phase": "kernel", "name": "margin_ce", "shape": list(shape), "ms_fwd": fwd,
+          "ms_bwd": bwd, "plain_ms_fwd": pfwd, "plain_ms_bwd": pbwd})
+    return dict(name="margin_ce", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/margin_ce.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/losses/projections.py:96 "
+                         "(sc_cm_linear + CE of training/trainer.py:152, XLA, forward and backward)",
+                max_abs_err=err, max_rel_err_fp32=err, tolerance=TOL_FP32, dtype="float32",
+                per=f"training step (A={TRAIN_ACCUM} calls on cos_all {shape}, forward + backward)",
+                ms=TRAIN_ACCUM * (fwd + bwd), plain_ms=TRAIN_ACCUM * (pfwd + pbwd),
+                bound_ms=TRAIN_ACCUM * bms, bound_by=by, library_ms=None)
+
+
+# ----------------------------------------------------------------------
+# phases 5-7: the training step, its CPU parity, and serving what it trained
+# ----------------------------------------------------------------------
+
+def train_phase(dev, per_microbatch, smi):
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.data.dataset import (
+        BatchFeeder, SyntheticDataset)
+    from voxsrc2020_speaker_verification_tpu_torch.losses import schedules
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+    from voxsrc2020_speaker_verification_tpu_torch.training.loop import fit
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        create_train_state, schedule_values)
+
+    config, _ = get_recipe("res2net_vox2_dev_aug", model=TRAIN_MODEL, batch_size=TRAIN_BATCH,
+                           num_accumulation_steps=TRAIN_ACCUM, feat_length=TRAIN_FRAMES,
+                           seed=SEED)
+    if (config.bn_groups, config.bf16, config.num_classes) != (TRAIN_GROUPS, True, 5994):
+        fail(f"train config is not the bench shape: {config}")
+    state = create_train_state(config, dev)
+    feeder = BatchFeeder([SyntheticDataset(config.feat_dim, config.feat_length,
+                                           config.num_classes, seed=SEED + i) for i in range(4)],
+                         config.batch_size, config.num_accumulation_steps).start()
+    lines = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        result = fit(config, feeder, log_every=1, log_fn=lines.append, max_steps=TRAIN_STEPS,
+                     checkpoint=False, device=dev, state=state)
+        counts = kernels.function_launch_counts()
+    finally:
+        feeder.stop()
+    peak = torch.cuda.max_memory_allocated()
+    hist = result.history
+    if len(hist) != TRAIN_STEPS:
+        fail(f"train: {len(hist)} logged steps")
+    for h in hist:
+        lr, margin = schedule_values(config, h["step"] - 1)
+        if not math.isfinite(h["loss"]):
+            fail(f"train: non-finite loss at step {h['step']}")
+        total = float(schedules.total_margin(config.projection, margin))
+        if h["learning_rate"] != lr or h["margin"] != total:
+            fail(f"train: step {h['step']} lr {h['learning_rate']} margin {h['margin']}, "
+                 f"schedules say {lr}, {total}")
+    steps = TRAIN_STEPS * config.num_accumulation_steps
+    for fn, n in per_microbatch.items():
+        if counts[fn] != steps * n:
+            fail(f"train: {fn} launched {counts[fn]} times, expected {steps} x {n}")
+    for fn in ("split_conv.split_group", "split_conv.split_group_mma", "bn_act.bn_act"):
+        if counts[fn]:
+            fail(f"train: eval kernel {fn} launched {counts[fn]} times")
+    step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
+    med = statistics.median(step_s)
+    emit({"phase": "train", "model": TRAIN_MODEL, "dtype": "bfloat16", "batch": TRAIN_BATCH,
+          "accumulation": TRAIN_ACCUM, "frames": TRAIN_FRAMES, "bn_groups": config.bn_groups,
+          "steps": TRAIN_STEPS, "timed_steps": len(step_s), "step_ms": [1e3 * s for s in step_s],
+          "step_ms_median": 1e3 * med,
+          "audio_s_per_s": config.effective_batch * config.feat_length / 100.0 / med,
+          "peak_memory_bytes": peak, "losses": [h["loss"] for h in hist],
+          "learning_rates": [h["learning_rate"] for h in hist],
+          "margins": [h["margin"] for h in hist], "launches": counts,
+          "launches_per_microbatch": per_microbatch, "log": lines, "card": smi})
+    return result.state, config, counts
+
+
+def train_parity_phase(dev):
+    from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        create_train_state, make_train_step, schedule_values)
+
+    config = TrainConfig(model=TRAIN_MODEL, bf16=False, batch_size=16, num_accumulation_steps=1,
+                         bn_groups=2, feat_length=TRAIN_FRAMES, seed=SEED)
+    start = 4 * config.epoch_size  # constant LR, growing margin: both > 0
+    lr, margin = schedule_values(config, start)
+    rng = np.random.RandomState(SEED + 7)
+    feats = torch.from_numpy(rng.randn(1, 16, TRAIN_FRAMES, FEAT_DIM).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, config.num_classes, (1, 16)))
+    runs = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        state = create_train_state(config, device, seed=SEED + 3)
+        state.net.to(dtype)
+        state.net.encoder.dtype = dtype
+        state.momentum = {k: v.to(dtype) for k, v in state.momentum.items()}
+        state.step = start
+        before = {k: v.detach().cpu().double().clone() for k, v in state.params.items()}
+        t0 = time.perf_counter()
+        state, m = make_train_step(config)(state, feats.to(device), labels.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        update = torch.cat([(state.params[k].detach().cpu().double() - b).flatten()
+                            for k, b in before.items()])
+        stats = {k: v.detach().cpu().double() for k, v in state.batch_stats.items()}
+        runs.append((update, stats, {k: float(v) for k, v in m.items()},
+                     time.perf_counter() - t0))
+    (ug, sg, mg, tg), (uc, sc, mc, tc), (u64, _, m64, t64) = runs
+
+    def l2(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    errs = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in ("loss", "gradient_norm")}
+    errs["update"] = l2(ug, uc)
+    errs["batch_stats"] = max(float((sg[k] - v).abs().max() / v.abs().max().clamp(min=1e-3))
+                              for k, v in sc.items())
+    # the fp32 error of the update and of the gradient norm: each fp32 step
+    # against the float64 one
+    vs64 = {"update": {"gpu_fp32": l2(ug, u64), "cpu_fp32": l2(uc, u64)},
+            "gradient_norm": {name: abs(m["gradient_norm"] - m64["gradient_norm"])
+                              / m64["gradient_norm"] for name, m in (("gpu_fp32", mg),
+                                                                     ("cpu_fp32", mc))}}
+    emit({"phase": "train_parity", "model": TRAIN_MODEL, "dtype": "float32", "batch": 16,
+          "bn_groups": 2, "step": start, "learning_rate": lr, "margin": margin,
+          "gpu": mg, "cpu": mc, "rel_err": errs, "rel_err_vs_float64": vs64,
+          "tolerance": TOL_PARITY, "gpu_s": tg, "cpu_s": tc, "cpu_float64_s": t64})
+    if lr <= 0 or margin <= 0:
+        fail("train_parity: the compared step must have lr > 0 and margin > 0")
+    bad = {k: v for k, v in errs.items() if k in ("loss", "batch_stats") and not v <= TOL_PARITY[k]}
+    for k, e in vs64.items():
+        if not e["gpu_fp32"] <= 2 * e["cpu_fp32"] + TOL_PARITY[k]:
+            bad[f"{k}_vs_float64"] = e
+    if bad:
+        fail(f"train_parity: GPU vs CPU beyond tolerance: {bad}")
+
+
+def export_phase(dev, state, config, workdir):
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import (
+        load_inference_artifact, save_inference_artifact)
+
+    sd = {k: v for k, v in state.net.state_dict().items() if k.startswith("encoder.")}
+    kernel = state.net.projection.kernel.detach().float().cpu().numpy()
+    artifact = save_inference_artifact(config, sd, os.path.join(workdir, "trained"),
+                                       projection_params={"projection": {"kernel": kernel}},
+                                       step=state.step)
+    rng = np.random.RandomState(SEED + 11)
+    feats = rng.randn(8, 300, FEAT_DIM).astype(np.float32)
+    mask = np.ones((8, 300), np.float32)
+    mask[4:, 200:] = 0.0
+    feats *= mask[..., None]
+    _, embed = load_inference_artifact(artifact, dev)
+    kernels.reset_launch_counts()
+    got = embed(feats, mask).cpu().numpy()
+    counts = kernels.launch_counts()
+    _, cpu_embed = load_inference_artifact(artifact, "cpu")
+    want = cpu_embed(feats, mask).numpy()
+    cos_min = min(cos(got[i], want[i]) for i in range(len(got)))
+    emit({"phase": "export", "artifact_step": state.step, "embeddings": list(got.shape),
+          "launches": counts, "min_cos_gpu_vs_cpu": cos_min})
+    if got.shape != (8, config_output_dim(config)) or not np.isfinite(got).all():
+        fail(f"export: embeddings {got.shape} or non-finite")
+    if not all(counts[k] > 0 for k in ("split_conv", "bn_act", "stats_pool")):
+        fail(f"export: the eval path did not run K2-K4: {counts}")
+    if cos_min < TOL_CPU_COS:
+        fail(f"export: GPU vs CPU embeddings, min cosine {cos_min}")
+
+
+def config_output_dim(config):
+    from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS
+    return RES2NET_CONFIGS[config.model].output_dim
+
+
 # ----------------------------------------------------------------------
 # phase 4: serving over TCP
 # ----------------------------------------------------------------------
@@ -406,7 +830,7 @@ def serve_phase(dev, workdir, per_forward):
         cos_cpu = min(cos(got[i], want[i]) for i in range(2))
         if cos_offline < TOL_SERVED_COS or cos_wave < TOL_SERVED_COS or cos_cpu < TOL_CPU_COS:
             fail(f"parity: served/offline {cos_offline} wave/feats {cos_wave} gpu/cpu {cos_cpu}")
-        missing = [k for k, n in counts.items() if n == 0]
+        missing = [k for k in ("fbank", *per_forward) if counts[k] == 0]
         if missing:
             fail(f"kernels never launched while serving: {missing}")
         # every flush is one full-batch forward: its launches must be the
@@ -465,13 +889,34 @@ def main() -> int:
     per_forward = {"split_conv": sum(k2.values()) * (cfg.split - 1),
                    "bn_act": sum(k3.values()), "stats_pool": 1}
 
+    tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
+    k5, train_head = train_shapes(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
+    train_rows = [check_stats_pool_bwd(dev, gen, train_head),
+                  check_bn_train(dev, gen, k5, TRAIN_GROUPS),
+                  check_margin_ce(dev, gen, 2, 5994)]
+    torch.cuda.empty_cache()
+    per_microbatch = {"bn_train.bn_train_fwd": sum(k5.values()),
+                      "bn_train.bn_train_bwd": sum(k5.values()),
+                      "margin_ce.margin_ce_fwd": 1, "margin_ce.margin_ce_bwd": 1,
+                      "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
+
     with tempfile.TemporaryDirectory() as workdir:
         counts = serve_phase(dev, workdir, per_forward)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, train_cfg, train_counts = train_phase(dev, per_microbatch, smi)
+        train_parity_phase(dev)
+        export_phase(dev, state, train_cfg, workdir)
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["name"] in per_forward:
             row["launches_per_forward"] = per_forward[row["name"]]
-    emit({"kernels": rows})
+    for row in train_rows:
+        fns = {k: v for k, v in train_counts.items() if k.split(".")[0] == row["name"]}
+        row["launches"] = sum(fns.values())
+        row["launches_by_function"] = fns
+        row["launches_per_step"] = {k: TRAIN_ACCUM * per_microbatch[k] for k in fns}
+    emit({"kernels": rows + train_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

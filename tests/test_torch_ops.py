@@ -173,8 +173,16 @@ def test_batchnorm_module_head_and_training():
     bn.running_var.copy_(torch.from_numpy(var))
     np.testing.assert_allclose(bn(torch.from_numpy(x)).numpy(),
                                np.asarray(jax_bn_eval(x, mean, var)), **TOL)
-    with pytest.raises(NotImplementedError):
-        bn(torch.from_numpy(x), training=True)
+    # training mode on the 2-D head input: batch statistics, and the
+    # running variance updated with the biased variance (no Bessel on 2-D)
+    jbn = jops.BatchNorm()
+    want, mut = jbn.apply({"batch_stats": {"bn": {"mean": jnp.asarray(mean),
+                                                  "var": jnp.asarray(var)}}},
+                          jnp.asarray(x), mutable=["batch_stats"])
+    np.testing.assert_allclose(bn(torch.from_numpy(x), training=True).numpy(),
+                               np.asarray(want), **TOL)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(mut["batch_stats"]["bn"]["var"]), **TOL)
 
 
 @pytest.mark.parametrize("strides", [1, 2])

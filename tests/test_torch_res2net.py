@@ -195,9 +195,9 @@ def test_init_weights_is_seeded_and_non_trivial():
 
 
 def test_unported_paths_raise():
-    net = get_model(THIN, feat_dim=40)
-    with pytest.raises(NotImplementedError):
-        net(torch.zeros(1, 30, 40), True)
+    # training mode is ported; rematerialization is not
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(THIN, feat_dim=40, remat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model("tdnn")
     with pytest.raises(NotImplementedError, match="att_stats"):

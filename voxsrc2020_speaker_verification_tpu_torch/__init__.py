@@ -3,8 +3,10 @@ NVIDIA H100 (Hopper, ``sm_90a``).
 
 The JAX package beside this one is the reference and is imported nowhere
 here. This package serves Res2Net embeddings and verification scores
-(``eval/serving.py``, ``cli/serve.py``); its device work goes through four
-hand-written CUDA kernels (``csrc/``, built at first use by ``kernels.py``).
+(``eval/serving.py``, ``cli/serve.py``) and trains the Res2Net family on
+features (``training/``, ``cli/train.py``); its device work goes through
+seven hand-written CUDA kernels (``csrc/``, built at first use by
+``kernels.py``).
 
 Entry points run on the GPU unless the caller asks for the CPU: ``device=None``
 means ``"cuda"``, and with no CUDA device they raise. On a CPU tensor every

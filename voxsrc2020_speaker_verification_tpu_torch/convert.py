@@ -14,8 +14,10 @@ Flax paths map to module paths with the wrapper levels dropped:
 
 H is time and W is frequency on both sides; the dense rows stay in the NHWC
 flatten order, which the port's head keeps. The margin projection kernel
-(K, emb, C) is not part of the served encoder: it goes to
-``projection_weight.pkl`` (eval/export.py:export_projection_weights).
+(K, emb, C) is not part of the served encoder: the serving path ignores it
+(it travels as ``projection_weight.pkl``, eval/export.py), and the training
+net takes it unchanged as ``projection.kernel`` (``projection=True``).
+``train_state_from_flax`` maps a whole JAX TrainState.
 """
 
 from __future__ import annotations
@@ -41,12 +43,16 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, 
         yield path, tree
 
 
-def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def from_flax(variables: Dict[str, Any], *, projection: bool = False
+              ) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` nested dicts of arrays (e.g.
-    ``jax.device_get(state.params)``) -> SpeakerNet state_dict."""
+    ``jax.device_get(state.params)``) -> SpeakerNet state_dict; with
+    ``projection`` the projection kernel too, as ``projection.kernel``."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(variables.get("params", {})):
         if path[0] == "projection":
+            if projection:
+                out["projection.kernel"] = torch.from_numpy(np.array(value, np.float32))
             continue
         if path[-1] != "kernel":
             raise ValueError(f"unexpected param {'/'.join(path)}")
@@ -69,12 +75,29 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def init_weights(config: TrainConfig, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+def orthogonal(shape, generator: torch.Generator) -> torch.Tensor:
+    """``jax.nn.initializers.orthogonal(column_axis=-1)``: the (prod(shape[:-1]),
+    shape[-1]) matrix has orthonormal rows (or columns, if it is tall), signs
+    fixed by R's diagonal, reshaped to ``shape``. Float32."""
+    rows, cols = math.prod(shape[:-1]), shape[-1]
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=generator,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    return q.reshape(shape).float().contiguous()
+
+
+def init_weights(config: TrainConfig, generator: torch.Generator, *,
+                 projection: bool = False) -> Dict[str, torch.Tensor]:
     """A seeded float32 state_dict for ``config.model``: truncated-normal
     fan-in kernels (the JAX package's variance_scaling(1, fan_in,
     truncated_normal)) and non-trivial BN statistics, mean ~ N(0, 0.1) and
     var ~ U(0.5, 2), so a wrong normalization cannot hide behind identity
-    statistics."""
+    statistics. With ``projection``, also the margin head's kernel,
+    orthogonal as the JAX package initializes it: (K, emb, C) for the
+    sub-center kinds, (emb, C) otherwise."""
     net = SpeakerNet(config.model, config.feat_dim)
     state = {}
     for name, t in net.state_dict().items():
@@ -90,4 +113,24 @@ def init_weights(config: TrainConfig, generator: torch.Generator) -> Dict[str, t
         else:
             raise ValueError(f"unexpected state entry {name}")
         state[name] = v
+    if projection:
+        emb = net.encoder.config.output_dim
+        shape = ((config.num_centers, emb, config.num_classes)
+                 if config.projection.startswith("sc_") else (emb, config.num_classes))
+        state["projection.kernel"] = orthogonal(shape, generator)
     return state
+
+
+def train_state_from_flax(step, params, batch_stats, momentum, *,
+                          config: TrainConfig, device=None):
+    """A JAX ``TrainState`` (its four fields as numpy trees, e.g. from
+    ``jax.device_get``) -> the port's ``training.trainer.TrainState`` for
+    ``config`` on ``device`` (default ``cuda``)."""
+    from .training.trainer import TrainState, build_speaker_net
+
+    net = build_speaker_net(config, device)
+    net.load_state_dict(from_flax({"params": params, "batch_stats": batch_stats},
+                                  projection=True))
+    dev = next(net.parameters()).device
+    mom = {k: v.to(dev) for k, v in from_flax({"params": momentum}, projection=True).items()}
+    return TrainState(step=int(step), net=net, momentum=mom)

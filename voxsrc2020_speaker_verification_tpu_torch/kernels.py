@@ -4,14 +4,15 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The build
 happens at first use, into ``_build/`` beside this file (listed in
 ``.gitignore``); a library's file name carries the hash of its source and of
-``common.cuh``, so an edited source is rebuilt. Importing this module needs no
-``nvcc`` and no GPU.
+the shared headers (``*.cuh``), so an edited source is rebuilt. Importing
+this module needs no ``nvcc`` and no GPU.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises on a non-zero code
-and only then adds one to the kernel's launch count. The counts are what
-``chip_smoke.py`` reads to show that the serving path went through the
-kernels.
+and only then adds one to the kernel's launch count (and to the count of
+that C function: a kernel with a forward and a backward entry counts each).
+The counts are what ``chip_smoke.py`` reads to show that the serving and
+training paths went through the kernels.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ class CudaKernel:
         self.source = source
         self.functions = dict(functions)
         self.launches = 0
+        self.fn_launches = {fn: 0 for fn in self.functions}
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
@@ -71,7 +73,8 @@ class CudaKernel:
 
     def library_path(self) -> str:
         h = hashlib.sha256()
-        for path in (self.source_path, os.path.join(CSRC_DIR, "common.cuh")):
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for path in (self.source_path, *(os.path.join(CSRC_DIR, f) for f in headers)):
             with open(path, "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
@@ -127,6 +130,7 @@ class CudaKernel:
             raise KernelError(f"{self.name}.{fn}: CUDA error {code} ({msg})")
         with self._lock:
             self.launches += 1
+            self.fn_launches[fn] += 1
 
 
 FBANK = CudaKernel("fbank", "fbank.cu", {
@@ -146,7 +150,21 @@ BN_ACT = CudaKernel("bn_act", "bn_epilogue.cu", {
 STATS_POOL = CudaKernel("stats_pool", "stats_pool.cu", {
     "stats_pool": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 })
-KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL)
+STATS_POOL_BWD = CudaKernel("stats_pool_bwd", "stats_pool_bwd.cu", {
+    "stats_pool_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+})
+BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
+    "bn_train_fwd": [_I, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _F, _F, _F, _F, _P, _P, _I, _P],
+    "bn_train_bwd": [_I, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _I, _P],
+})
+MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
+    "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
+    "margin_ce_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+})
+KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
+           MARGIN_CE)
 
 
 def build_all(kernels: Sequence[CudaKernel] = KERNELS) -> float:
@@ -165,10 +183,20 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         with k._lock:
             k.launches = 0
+            k.fn_launches = {fn: 0 for fn in k.functions}
 
 
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def function_launch_counts() -> Dict[str, int]:
+    """Launches per C entry point, keyed ``"<kernel>.<function>"``."""
+    return {f"{k.name}.{fn}": n for k in KERNELS for fn, n in k.fn_launches.items()}
+
+
+def num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,4 +1,4 @@
-"""Res2Net speaker embedding models, eval mode.
+"""Res2Net speaker embedding models, eval and training mode.
 
 Same architecture, names and configs as the JAX package's
 ``models/res2net.py``: a 3x3 stem, Res2Net bottleneck-v1 blocks in four
@@ -10,7 +10,13 @@ the 3x3 conv, eval BN and relu. The stride-2 split stage is one grouped conv
 (``F.conv2d(groups=s-1)``) followed by K3 and the 3x3 average pool of the
 last group.
 
-Training mode is not ported yet: ``training=True`` raises.
+Training mode follows the JAX package's autodiff path: the stride-1 chain
+is, per group, ``F.conv2d`` -> K5 (training BN + relu, ``ops.bn_train``) ->
+the add into the next group; the stride-2 stage is one grouped conv, one K5
+launch over all s-1 groups (statistics are per channel, so this is exact)
+and the average-pool tail. K2 stays the eval path, since its BN uses running
+statistics. Rematerialization (``remat*``) is not ported: a recomputed
+forward would apply K5's running-statistics update twice.
 """
 
 from __future__ import annotations
@@ -27,12 +33,6 @@ from ..ops import nn as ops
 
 CHANNELS_LAST = torch.channels_last
 _SPLIT_TN = (12, 8, 6, 4, 3, 2, 1)  # output channels per thread in K2
-
-
-def _no_training(training: bool) -> None:
-    if training:
-        raise NotImplementedError(
-            "training mode is not ported yet (ROADMAP.md, slice 2)")
 
 
 def split_chain_reference(x, weight, means, variances, mask=None,
@@ -129,25 +129,47 @@ class Res2NetSplitConv(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _no_training(training)
         s, w = self.split, self.width
         if x.shape[1] != s * w:
             raise ValueError(f"split stage takes {s * w} channels, got {x.shape[1]}")
         weight = self.weight.to(x.dtype)
         bns = self._bns()
         if self.strides == 1:
+            if training:
+                return self._train_chain(x, weight, bns, mask)
             return split_chain(x, weight, [bn.running_mean for bn in bns],
                                [bn.running_var for bn in bns], mask, bns[0].eps)
         # stride > 1: no hierarchical adds, so the s-1 convs are one grouped
-        # conv; BN + relu of all groups is one K3 pass
+        # conv; BN + relu of all groups is one K3 (eval) or K5 (training) pass
         xp = ops.fixed_padding(x, 3)
         y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=self.strides,
                      groups=s - 1).contiguous(memory_format=CHANNELS_LAST)
-        y = ops.bn_act(y, torch.cat([bn.running_mean for bn in bns]),
-                       torch.cat([bn.running_var for bn in bns]), relu=True,
-                       eps=bns[0].eps)
+        mean = torch.cat([bn.running_mean for bn in bns])
+        var = torch.cat([bn.running_var for bn in bns])
+        if training:
+            y = ops.bn_train(y, mean, var, groups=bns[0].groups, relu=True,
+                             eps=bns[0].eps)
+            with torch.no_grad():  # the update ran on the concatenated copy
+                for i, bn in enumerate(bns):
+                    bn.running_mean.copy_(mean[i * w: (i + 1) * w])
+                    bn.running_var.copy_(var[i * w: (i + 1) * w])
+        else:
+            y = ops.bn_act(y, mean, var, relu=True, eps=bns[0].eps)
         tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], self.strides)
         return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
+
+    def _train_chain(self, x, weight, bns, mask):
+        """Stride-1 chain in training mode, step for step as the JAX
+        package's (models/res2net.py:82-107)."""
+        w = self.width
+        groups = torch.split(x, w, dim=1)
+        outputs = []
+        for i, bn in enumerate(bns):
+            inp = groups[i] if i == 0 else groups[i] + ops.mask_time(outputs[-1], mask)
+            y = F.conv2d(inp, weight[i * w: (i + 1) * w], padding=1)
+            outputs.append(bn(y, True, relu=True))
+        outputs.append(groups[-1])
+        return torch.cat(outputs, dim=1).contiguous(memory_format=CHANNELS_LAST)
 
 
 class BottleneckBlockV1(nn.Module):
@@ -174,14 +196,13 @@ class BottleneckBlockV1(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None,
                 out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _no_training(training)
         shortcut = self.proj_conv(x) if self.use_projection else x
         y = self.conv1(x)
         # re-zero pad frames before the 3x3 stage (BN shifts zeros off zero)
-        y = self.bn1(y, relu=True, mask=mask)
+        y = self.bn1(y, training, relu=True, mask=mask)
         y = self.split_conv(y, training, mask)
         y = self.conv3(y)
-        return self.bn3(y, relu=True, shortcut=shortcut,
+        return self.bn3(y, training, relu=True, shortcut=shortcut,
                         shortcut_bn=self.proj_bn if self.use_projection else None,
                         mask=out_mask)
 
@@ -237,9 +258,15 @@ class Res2Net(nn.Module):
                 freq = _strided(freq, strides)
         self.head = ops.EmbeddingHead(channels, freq, cfg.output_dim, cfg.pool)
 
+    def set_bn_groups(self, groups: int) -> None:
+        """Training BN statistics over ``groups`` equal batch groups in every
+        BN of the model (the JAX package's ``bn_groups`` context)."""
+        for m in self.modules():
+            if isinstance(m, ops.BatchNorm):
+                m.groups = max(1, int(groups))
+
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _no_training(training)
         cfg = self.config
         if x.ndim != 3:
             raise ValueError(f"expects (B, T, F) features, got {tuple(x.shape)}")
@@ -250,7 +277,7 @@ class Res2Net(nn.Module):
         x = self.initial_conv(x)
         if mask is not None:
             mask = ops.downsample_mask(mask.float(), cfg.conv_stride, x.shape[2])
-        x = self.initial_bn(x, relu=True, mask=mask)
+        x = self.initial_bn(x, training, relu=True, mask=mask)
         for block, strides in self.blocks:
             out_mask = None
             if mask is not None:

@@ -1,16 +1,19 @@
-"""NN primitives of the Res2Net serving path, eval mode.
+"""NN primitives of the Res2Net family, eval and training mode.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory, i.e.
 physically (B, T, F, C) like the JAX package's NHWC: H is time, W is
 frequency. Parameters are float32; the compute dtype is the activation's.
 
-Two of these primitives are CUDA kernels with a plain PyTorch version beside
-them:
+Three of these primitives are CUDA kernels with a plain PyTorch version
+beside them:
 
 * :func:`bn_act` -- K3 (``csrc/bn_epilogue.cu``): eval batch norm with its
   optional shortcut add, relu and time mask in one pass;
+* :func:`bn_train` -- K5 (``csrc/bn_train.cu``): training batch norm with
+  statistics per batch group, the running-statistics update and K3's
+  epilogue, forward and backward;
 * :func:`stats_pool` -- K4 (``csrc/stats_pool.cu``): masked mean ||
-  sqrt(var + eps) over time.
+  sqrt(var + eps) over time; its backward is K4b (``csrc/stats_pool_bwd.cu``).
 
 A wrapper takes the plain version only for a CPU tensor; on a CUDA tensor it
 launches the kernel or raises.
@@ -18,14 +21,17 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import BN_ACT, STATS_POOL, KernelError, check_cuda, dtype_code, ptr
+from ..kernels import (BN_ACT, BN_TRAIN, STATS_POOL, STATS_POOL_BWD, KernelError,
+                       check_cuda, dtype_code, num_sms, ptr)
 
+BN_MOMENTUM = 0.997
 BN_EPSILON = 1e-5
 POOL_EPSILON = 1e-5
 CHANNELS_LAST = torch.channels_last
@@ -190,15 +196,193 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
     return out
 
 
-class BatchNorm(nn.Module):
-    """Affine-free batch norm, eps 1e-5, eval mode only: normalizes with the
-    ``running_mean``/``running_var`` buffers. On 4-D activations it runs
-    through :func:`bn_act` with its epilogue flags; on the 2-D head inputs it
-    is a plain float32 normalize cast to the input dtype."""
+def _update_factors(x: torch.Tensor, groups: int):
+    """(rows per group, weight of the new mean, weight of the new variance)
+    of the running update. The variance carries Bessel's n/(n-1) on 4-D
+    inputs only: the reference's fused 4-D batch norm updates with the
+    unbiased variance, its 2-D head BNs with the biased one
+    (JAX ops/nn.py:156-169). The products are taken in double, as the JAX
+    package takes them, and rounded to float32 once."""
+    n = (x.shape[0] // groups) * math.prod(x.shape[2:])
+    bessel = n / (n - 1) if (n > 1 and x.ndim >= 4) else 1.0
+    return n, 1.0 - BN_MOMENTUM, (1.0 - BN_MOMENTUM) * bessel
 
-    def __init__(self, num_features: int, eps: float = BN_EPSILON):
+
+def _group_normalize(x, running_mean, running_var, groups, eps):
+    """Plain grouped training BN of one input: float32 moments per (group,
+    channel), E[x^2] - mean^2; running statistics updated in place with the
+    mean over groups; the output cast to x's dtype."""
+    b, c = x.shape[:2]
+    if b % groups:
+        raise ValueError(f"batch {b} not divisible into {groups} BN groups")
+    # (G, n, C): channels last, each group's rows contiguous (a view of a
+    # channels_last activation)
+    rows = x.movedim(1, -1)
+    xg = rows.float().reshape(groups, -1, c)
+    mean = xg.mean(dim=1)
+    var = torch.square(xg).mean(dim=1) - torch.square(mean)
+    _, upd_mean, upd_var = _update_factors(x, groups)
+    with torch.no_grad():
+        running_mean.copy_(BN_MOMENTUM * running_mean + upd_mean * mean.detach().mean(0))
+        running_var.copy_(BN_MOMENTUM * running_var + upd_var * var.detach().mean(0))
+    y = (xg - mean[:, None]) * torch.rsqrt(var[:, None] + eps)
+    return y.reshape(rows.shape).movedim(-1, 1).to(x.dtype)
+
+
+def bn_train_reference(x, running_mean, running_var, *, groups=1, relu=False,
+                       shortcut=None, shortcut_running_mean=None,
+                       shortcut_running_var=None, eps=BN_EPSILON) -> torch.Tensor:
+    """Plain version of :func:`bn_train`, differentiable by autograd; each
+    normalized term is cast to the dtype before the add, as in the JAX
+    package."""
+    y = _group_normalize(x, running_mean, running_var, groups, eps)
+    if shortcut is not None:
+        if shortcut_running_mean is not None:
+            shortcut = _group_normalize(shortcut, shortcut_running_mean,
+                                        shortcut_running_var, groups, eps)
+        y = y + shortcut
+    if relu:
+        y = torch.relu(y)
+    return y.contiguous(memory_format=CHANNELS_LAST) if y.ndim == 4 else y
+
+
+def _bn_chunks(channels: int, n: int, groups: int, sms: int) -> int:
+    """Row chunks per group of K5's reductions: about four blocks per SM, at
+    least one row lane per chunk (the C side derives the rest of the
+    geometry from the channel count alone)."""
+    cv = channels // 4
+    cpb = min(cv, 256)
+    rpb, tiles = 256 // cpb, -(-cv // cpb)
+    want = -(-4 * sms // (groups * tiles))
+    return max(1, min(want, -(-n // rpb), 4096))
+
+
+class _BNTrainFn(torch.autograd.Function):
+    """K5 forward and backward. The running statistics are updated in place
+    by the forward launch; they take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shortcut, running_mean, running_var, sc_running_mean,
+                sc_running_var, groups, relu, eps):
+        sc_mode = 0 if shortcut is None else (2 if sc_running_mean is not None else 1)
+        c = x.shape[1]
+        n, upd_mean, upd_var = _update_factors(x, groups)
+        sms = num_sms(x.device)
+        chunks = _bn_chunks(c, n, groups, sms)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        stats = torch.empty((4 if sc_mode == 2 else 2, groups, c), **f32)
+        part = torch.empty(2 * groups * chunks * c, **f32)
+        out = torch.empty_like(x)
+        mean, rstd = stats[0], stats[1]
+        sc_mean, sc_rstd = (stats[2], stats[3]) if sc_mode == 2 else (None, None)
+        BN_TRAIN.launch(
+            "bn_train_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
+            sc_mode, int(relu), n, groups, c, chunks, ptr(mean), ptr(rstd),
+            ptr(running_mean), ptr(running_var), ptr(sc_mean), ptr(sc_rstd),
+            ptr(sc_running_mean), ptr(sc_running_var), BN_MOMENTUM, upd_mean,
+            upd_var, eps, ptr(part), ptr(out), sms)
+        ctx.save_for_backward(x, out if relu else None,
+                              shortcut if sc_mode == 2 else None, stats)
+        ctx.config = (groups, sc_mode, n, chunks, sms)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y, shortcut, stats = ctx.saved_tensors
+        groups, sc_mode, n, chunks, sms = ctx.config
+        dy = _kernel_layout(dy)
+        c = x.shape[1]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        part = torch.empty(3 * groups * chunks * c, **f32)
+        coef = torch.empty(3 * groups * c, **f32)
+        dx = torch.empty_like(x)
+        dsc = torch.empty_like(x) if sc_mode else None
+        BN_TRAIN.launch(
+            "bn_train_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(y), ptr(dy),
+            ptr(shortcut), sc_mode, n, groups, c, chunks, ptr(stats[0]),
+            ptr(stats[1]), ptr(stats[2]) if sc_mode == 2 else None,
+            ptr(stats[3]) if sc_mode == 2 else None, ptr(part), ptr(coef),
+            ptr(dx), ptr(dsc), sms)
+        return dx, dsc, None, None, None, None, None, None, None
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """A 4-D tensor in channels_last memory, a 2-D one contiguous."""
+    return t.contiguous(memory_format=CHANNELS_LAST if t.ndim == 4 else torch.contiguous_format)
+
+
+def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
+             *, groups: int = 1, relu: bool = False,
+             shortcut: Optional[torch.Tensor] = None,
+             shortcut_running_mean: Optional[torch.Tensor] = None,
+             shortcut_running_var: Optional[torch.Tensor] = None,
+             eps: float = BN_EPSILON) -> torch.Tensor:
+    """Training batch norm with statistics per batch group, K5 on CUDA:
+
+        y = relu?(BN_g(x) [+ BN_g(s)  or  + s])
+
+    where BN_g normalizes each of ``groups`` equal batch groups with its own
+    float32 mean and biased variance (E[x^2] - mean^2), and updates the
+    running statistics in place: ``mom * r + (1 - mom) * mean over groups``,
+    the variance with Bessel's factor on 4-D inputs only. A normalized
+    shortcut (``shortcut_running_mean``/``var`` given) is the projection BN
+    with its own batch statistics and its own running update.
+
+    x, shortcut: (B, C, T, F) channels_last or (B, C); running statistics:
+    (C,) float32, updated in place. Differentiable in x and the shortcut.
+    """
+    if shortcut is not None and shortcut.shape != x.shape:
+        raise ValueError(f"shortcut {tuple(shortcut.shape)} != x {tuple(x.shape)}")
+    if (shortcut_running_mean is None) != (shortcut_running_var is None) or (
+            shortcut_running_mean is not None and shortcut is None):
+        raise ValueError("shortcut running mean/var come together, with a shortcut")
+    if x.shape[0] % groups:
+        raise ValueError(f"batch {x.shape[0]} not divisible into {groups} BN groups")
+    if x.device.type == "cpu":
+        return bn_train_reference(
+            x, running_mean, running_var, groups=groups, relu=relu,
+            shortcut=shortcut, shortcut_running_mean=shortcut_running_mean,
+            shortcut_running_var=shortcut_running_var, eps=eps)
+
+    fmt = CHANNELS_LAST if x.ndim == 4 else torch.contiguous_format
+    if x.ndim not in (2, 4):
+        raise KernelError(f"bn_train: expected a 2-D or 4-D input, got {tuple(x.shape)}")
+    x = _kernel_layout(x)
+    check_cuda("bn_train", x, _KERNEL_DTYPES, x.ndim, fmt)
+    c = x.shape[1]
+    if c % 4:
+        raise KernelError(f"bn_train: channels must be a multiple of 4, got {c}")
+    for name, s in (("running_mean", running_mean), ("running_var", running_var),
+                    ("shortcut_running_mean", shortcut_running_mean),
+                    ("shortcut_running_var", shortcut_running_var)):
+        if s is not None:
+            check_cuda(f"bn_train {name}", s, (torch.float32,), 1)
+            if s.shape[0] != c:
+                raise KernelError(f"bn_train: {name} has {s.shape[0]} channels, x {c}")
+    if shortcut is not None:
+        shortcut = _kernel_layout(shortcut)
+        check_cuda("bn_train shortcut", shortcut, (x.dtype,), x.ndim, fmt)
+    if x.numel() == 0:
+        raise KernelError("bn_train: empty batch")
+    return _BNTrainFn.apply(x, shortcut, running_mean, running_var,
+                            shortcut_running_mean, shortcut_running_var, groups,
+                            relu, eps)
+
+
+class BatchNorm(nn.Module):
+    """Affine-free batch norm, momentum 0.997, eps 1e-5.
+
+    Eval mode normalizes with the ``running_mean``/``running_var`` buffers:
+    on 4-D activations through :func:`bn_act` with its epilogue flags, on the
+    2-D head inputs as a plain float32 normalize cast to the input dtype.
+    Training mode is :func:`bn_train` over the module's ``groups`` batch
+    groups, on 4-D and 2-D inputs alike; a ``mask`` is then applied after
+    the epilogue."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPSILON, groups: int = 1):
         super().__init__()
         self.eps = eps
+        self.groups = groups
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
@@ -207,8 +391,13 @@ class BatchNorm(nn.Module):
                 shortcut_bn: Optional["BatchNorm"] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if training:
-            raise NotImplementedError(
-                "training-mode BN is not ported yet (ROADMAP.md, slice 2)")
+            y = bn_train(
+                x, self.running_mean, self.running_var, groups=self.groups, relu=relu,
+                shortcut=shortcut,
+                shortcut_running_mean=None if shortcut_bn is None else shortcut_bn.running_mean,
+                shortcut_running_var=None if shortcut_bn is None else shortcut_bn.running_var,
+                eps=self.eps)
+            return mask_time(y, mask)
         if x.ndim == 2:
             if relu or shortcut is not None or mask is not None:
                 raise ValueError("the 2-D head BN takes no epilogue")
@@ -247,11 +436,38 @@ def stats_pool_reference(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -
     return out.to(x.dtype).contiguous(memory_format=CHANNELS_LAST)
 
 
+class _StatsPoolFn(torch.autograd.Function):
+    """K4 forward, K4b backward (float32 moments recomputed from x)."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        b, c, t, w = x.shape
+        out = torch.empty((b, 2 * c, 1, w), dtype=x.dtype, device=x.device,
+                          memory_format=CHANNELS_LAST)
+        if out.numel():
+            STATS_POOL.launch("stats_pool", x.device, dtype_code(x.dtype), ptr(x),
+                              ptr(m), ptr(out), b, t, w, c, POOL_EPSILON)
+        ctx.save_for_backward(x, m)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, m = ctx.saved_tensors
+        b, c, t, w = x.shape
+        dout = dout.contiguous(memory_format=CHANNELS_LAST)
+        dx = torch.empty_like(x)
+        if dx.numel():
+            STATS_POOL_BWD.launch("stats_pool_bwd", x.device, dtype_code(x.dtype),
+                                  ptr(x), ptr(m), ptr(dout), ptr(dx), b, t, w, c,
+                                  POOL_EPSILON)
+        return dx, None
+
+
 def stats_pool(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Statistics pooling over time, K4 on CUDA: (B, C, T, W) channels_last
-    -> (B, 2C, 1, W) channels_last, i.e. JAX's NHWC (B, 1, W, 2C). Moments
-    are float32 with denominator max(sum(mask), 1); the output is cast to
-    x's dtype."""
+    """Statistics pooling over time, K4 on CUDA (its backward K4b): (B, C, T,
+    W) channels_last -> (B, 2C, 1, W) channels_last, i.e. JAX's NHWC (B, 1,
+    W, 2C). Moments are float32 with denominator max(sum(mask), 1); the
+    output is cast to x's dtype. Differentiable in x."""
     if x.device.type == "cpu":
         return stats_pool_reference(x, mask)
     check_cuda("stats_pool", x, _KERNEL_DTYPES, 4, CHANNELS_LAST)
@@ -261,13 +477,7 @@ def stats_pool(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Te
         m = mask[:, :t].float().contiguous()
         if m.shape != (b, t) or m.device != x.device:
             raise KernelError(f"stats_pool: mask {tuple(mask.shape)} does not cover (B, T)=({b}, {t})")
-    out = torch.empty((b, 2 * c, 1, w), dtype=x.dtype, device=x.device,
-                      memory_format=CHANNELS_LAST)
-    if out.numel() == 0:
-        return out
-    STATS_POOL.launch("stats_pool", x.device, dtype_code(x.dtype), ptr(x),
-                      ptr(m), ptr(out), b, t, w, c, POOL_EPSILON)
-    return out
+    return _StatsPoolFn.apply(x, m)
 
 
 class EmbeddingHead(nn.Module):

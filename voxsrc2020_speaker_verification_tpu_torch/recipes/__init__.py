@@ -1,0 +1,146 @@
+"""Recipe registry of the port: the JAX package's recipes, as configuration.
+
+Each recipe returns ``(TrainConfig, resume_from)``; ``resume_from`` is the
+pretrain experiment dir of an LMFT finetune, whose restored global step
+lands the LR in its 1/128 tail. Every reference-parity recipe sets
+``bn_groups=8``: BN statistics per group of ``batch_size / 8`` examples, the
+reference's per-replica BN at world size 8. ``_apply`` falls back to the
+largest feasible group count when a smoke run overrides the batch below it.
+
+A recipe whose model the port lacks builds, and its model raises in
+``models.get_model``. The JAX package's single-chip shape table is TPU
+measurements and is not carried over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+from ..config import TrainConfig
+
+VOX2_DEV_UTTS = 1_092_009   # ref run_res2net_local_vox2_dev_aug.sh:32
+VOX2_DEV_SPEAKERS = 5994
+VOX1_DEV_UTTS = 148_642     # ref scripts_for_40.../run_tdnn_local_voxsrc2020_vox1_dev_aug.sh:33
+VOX1_DEV_SPEAKERS = 1211
+
+RecipeFn = Callable[..., Tuple[TrainConfig, Optional[str]]]
+RECIPES: Dict[str, RecipeFn] = {}
+
+
+def recipe(name: str):
+    def wrap(fn: RecipeFn) -> RecipeFn:
+        RECIPES[name] = fn
+        return fn
+    return wrap
+
+
+def _apply(config: TrainConfig, overrides) -> TrainConfig:
+    if overrides:
+        config = dataclasses.replace(config, **overrides)
+    if config.batch_size % config.bn_groups:
+        # batch overridden below the recipe's group count (smoke runs):
+        # keep per-replica semantics at the largest feasible group count
+        import math
+        config = dataclasses.replace(
+            config, bn_groups=math.gcd(config.batch_size, config.bn_groups))
+    return config
+
+
+@recipe("res2net_vox2_dev_aug")
+def res2net_vox2_dev_aug(model: str = "res2net50_w24_s4_c64", **overrides):
+    """Pretrain on 5x-augmented VoxCeleb2-dev (ref run_res2net_local_vox2_dev_aug.sh:19-43)."""
+    cfg = TrainConfig(
+        model=model, projection="sc_cm_linear", scale=32.0, margin=0.2,
+        num_classes=VOX2_DEV_SPEAKERS, dataset="voxceleb2_dev_aug",
+        dataset_length=VOX2_DEV_UTTS * 5, feat_dim=80, feat_length=200,
+        batch_size=256, num_accumulation_steps=4, total_epochs=23,
+        bn_groups=8,
+    )
+    return _apply(cfg, overrides), None
+
+
+@recipe("res2net_finetune_vox2_dev")
+def res2net_finetune_vox2_dev(model: str = "res2net50_w24_s4_c64", **overrides):
+    """LMFT: continue from the pretrain dir at margin 0.4 / 600 frames on
+    non-augmented data; dataset_length deliberately stays 5x (ref
+    run_res2net_finetune_local_vox2_dev.sh:30-46) so total_epochs=24 yields
+    exactly one extra epoch at LR/128."""
+    pretrain, _ = res2net_vox2_dev_aug(model)
+    cfg = dataclasses.replace(
+        pretrain, dataset="voxceleb2_dev", margin=0.4, feat_length=600,
+        batch_size=128, num_accumulation_steps=8, total_epochs=24,
+    )
+    return _apply(cfg, overrides), pretrain.exp_dir
+
+
+@recipe("dpn_vox2_dev_aug")
+def dpn_vox2_dev_aug(model: str = "dpn68", **overrides):
+    """ref run_dpn_local_vox2_dev_aug.sh:19-43."""
+    return res2net_vox2_dev_aug(model, **overrides)
+
+
+@recipe("dpn_finetune_vox2_dev")
+def dpn_finetune_vox2_dev(model: str = "dpn68", **overrides):
+    """ref run_dpn_finetune_local_vox2_dev.sh:30-53."""
+    return res2net_finetune_vox2_dev(model, **overrides)
+
+
+def _voxsrc2020(model, _dataset, _dataset_length, _num_classes, **overrides):
+    cfg = TrainConfig(
+        model=model, projection="cm_linear_voxsrc2020", scale=32.0, margin=0.2,
+        num_classes=_num_classes, dataset=_dataset, dataset_length=_dataset_length,
+        feat_dim=40, feat_length=320,
+        batch_size=1024, num_accumulation_steps=1, total_epochs=23,
+        bn_groups=8,
+    )
+    return _apply(cfg, overrides), None
+
+
+@recipe("tdnn_voxsrc2020_vox2_dev_aug")
+def tdnn_voxsrc2020_vox2_dev_aug(model: str = "tdnn", **overrides):
+    """40-d / 320-frame VoxSRC2020 track (ref scripts_for_40.../run_tdnn_local_voxsrc2020_vox2_dev_aug.sh)."""
+    return _voxsrc2020(model, "voxceleb2_dev_aug", VOX2_DEV_UTTS * 5,
+                       VOX2_DEV_SPEAKERS, **overrides)
+
+
+@recipe("tdnn_voxsrc2020_vox2_dev")
+def tdnn_voxsrc2020_vox2_dev(model: str = "tdnn", **overrides):
+    """Non-aug variant; dataset_length stays 5x per the reference script
+    (ref scripts_for_40.../run_tdnn_local_voxsrc2020_vox2_dev.sh:32-34)."""
+    return _voxsrc2020(model, "voxceleb2_dev", VOX2_DEV_UTTS * 5,
+                       VOX2_DEV_SPEAKERS, **overrides)
+
+
+@recipe("tdnn_voxsrc2020_vox1_dev_aug")
+def tdnn_voxsrc2020_vox1_dev_aug(model: str = "tdnn", **overrides):
+    """VoxCeleb1-dev 1211-class variant (ref scripts_for_40.../run_tdnn_local_voxsrc2020_vox1_dev_aug.sh:32-34)."""
+    return _voxsrc2020(model, "voxceleb1_dev_aug", VOX1_DEV_UTTS * 5,
+                       VOX1_DEV_SPEAKERS, **overrides)
+
+
+@recipe("ecapa_vox2_dev_aug")
+def ecapa_vox2_dev_aug(model: str = "ecapa_tdnn_512", **overrides):
+    """Framework extension (no reference counterpart): ECAPA-TDNN on
+    5x-augmented VoxCeleb2-dev with AAM-softmax (arXiv:2005.07143 §3 uses
+    AAM s=30 m=0.2; we keep this framework's s=32 and margin schedule)."""
+    cfg = TrainConfig(
+        model=model, projection="aam_linear", scale=32.0, margin=0.2,
+        num_classes=VOX2_DEV_SPEAKERS, dataset="voxceleb2_dev_aug",
+        dataset_length=VOX2_DEV_UTTS * 5, feat_dim=80, feat_length=200,
+        batch_size=256, num_accumulation_steps=4, total_epochs=23,
+        specaug=True,
+    )
+    return _apply(cfg, overrides), None
+
+
+@recipe("dpn_voxsrc2020_vox2_dev_aug")
+def dpn_voxsrc2020_vox2_dev_aug(model: str = "dpn68", **overrides):
+    """ref scripts_for_40.../run_dpn_local_voxsrc2020_vox2_dev_aug.sh."""
+    return _voxsrc2020(model, "voxceleb2_dev_aug", VOX2_DEV_UTTS * 5,
+                       VOX2_DEV_SPEAKERS, **overrides)
+
+
+def get_recipe(name: str, model: Optional[str] = None, **overrides):
+    fn = RECIPES[name]
+    return fn(model, **overrides) if model else fn(**overrides)

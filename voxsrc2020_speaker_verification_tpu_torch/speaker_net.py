@@ -1,8 +1,8 @@
 """SpeakerNet: the encoder whose eval-mode embeddings the artifact serves.
 
-The margin projection head of the JAX package's ``training/speaker_net.py``
-is training-only and comes with the training slice; the served model is the
-encoder, and the projection rows travel as ``projection_weight.pkl``.
+The training net (``training/speaker_net.py``) extends it with the margin
+projection head; the served model is the encoder alone, and the projection
+rows travel as ``projection_weight.pkl``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,189 @@
+"""Training loop: feeder -> device prefetch -> train step -> logging and
+per-epoch checkpoints, single process.
+
+The JAX package's ``training/loop.py:fit`` on one device: the same log line
+every ``log_every`` optimizer steps (loss, ce, reg, accuracy, lr, margin,
+gnorm, audio-s/s), ``metrics.jsonl`` and checkpoints in the experiment dir,
+and the LMFT resume through ``resume_from``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import threading
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import TrainConfig
+from .checkpoint import restore_or_init
+from .trainer import TrainState, create_train_state, make_train_step
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: TrainState
+    steps_run: int
+    audio_seconds_per_second: float
+    history: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+
+
+class _PrefetchError:
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def device_prefetch(iterator: Iterable, device: torch.device, depth: int = 2):
+    """Double-buffered device feed of (features, labels) batches.
+
+    On CUDA a background thread pins each batch and copies it on a side
+    stream, up to ``depth`` batches ahead, so the copy overlaps the running
+    step; the consumer's stream waits on the copy's event before the batch
+    is yielded, and ``record_stream`` keeps the side stream's allocation
+    alive for the consumer. On the CPU the batches pass through as tensors.
+    """
+    def as_tensor(a):
+        return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+
+    if device.type != "cuda":
+        for feats, labels in iterator:
+            yield as_tensor(feats), as_tensor(labels).long()
+        return
+
+    stream = torch.cuda.Stream(device)
+    buf: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                buf.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def worker():
+        try:
+            for feats, labels in iterator:
+                if stop.is_set():
+                    return
+                host = [as_tensor(feats).pin_memory(), as_tensor(labels).long().pin_memory()]
+                with torch.cuda.stream(stream):
+                    dev = [t.to(device, non_blocking=True) for t in host]
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                put((dev, event))
+        except BaseException as e:  # surfaced in the consumer thread
+            put(_PrefetchError(e))
+            return
+        put(done)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = buf.get()
+            if item is done:
+                return
+            if isinstance(item, _PrefetchError):
+                raise item.exc
+            (feats, labels), event = item
+            current = torch.cuda.current_stream(device)
+            current.wait_event(event)
+            feats.record_stream(current)
+            labels.record_stream(current)
+            yield feats, labels
+    finally:
+        stop.set()
+        thread.join(timeout=5)
+
+
+def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
+        resume_from: Optional[str] = None, log_every: int = 100,
+        log_fn: Callable[[str], None] = print, max_steps: Optional[int] = None,
+        checkpoint: bool = True, save_every_steps: Optional[int] = None,
+        device: Optional[Union[str, torch.device]] = None,
+        state: Optional[TrainState] = None) -> FitResult:
+    """Train until ``config.total_steps`` (or ``max_steps`` more steps).
+
+    batches: iterable of (features (A, B, T, F), labels (A, B)) -- e.g. a
+    started BatchFeeder. ``device`` defaults to ``cuda``; ``state`` (default:
+    ``create_train_state``) is trained in place. ``FitResult.history`` holds
+    every logged step's metrics, with its audio-s/s and host time.
+    """
+    dev = resolve_device(device)
+    exp_dir = exp_dir or config.exp_dir
+    if state is None:
+        state = create_train_state(config, dev)
+
+    mgr = metrics_writer = None
+    if checkpoint:
+        from ..utils.observability import MetricsWriter
+        os.makedirs(exp_dir, exist_ok=True)
+        config.to_json(os.path.join(exp_dir, "config.json"))
+        metrics_writer = MetricsWriter(exp_dir)
+        state, mgr = restore_or_init(state, exp_dir, resume_from=resume_from,
+                                     max_to_keep=config.total_epochs + 1)
+    elif resume_from is not None:
+        # no saving, but a resume source: still restore -- training from a
+        # fresh init would be a wrong run, not a fast one
+        from .checkpoint import CheckpointManager
+        CheckpointManager(resume_from).restore(state)
+
+    step_fn = make_train_step(config)
+    start_step = state.step
+    stop_step = config.total_steps
+    if max_steps is not None:
+        stop_step = min(stop_step, start_step + max_steps)
+    epoch_size = config.epoch_size
+    audio_s_per_step = config.effective_batch * config.feat_length / 100.0
+
+    it = device_prefetch(iter(batches), dev, depth=2)
+    history: List[Dict[str, float]] = []
+    t_log = t_start = time.perf_counter()
+    steps_run = 0
+    cur = start_step
+    try:
+        while cur < stop_step:
+            feats, labels = next(it)
+            state, metrics = step_fn(state, feats, labels)
+            cur += 1
+            steps_run += 1
+            if log_every and (cur % log_every == 0 or cur == stop_step):
+                m = {k: float(v) for k, v in metrics.items()}
+                now = time.perf_counter()
+                done = log_every if cur % log_every == 0 else cur % log_every
+                rate = done / (now - t_log) * audio_s_per_step
+                t_log = now
+                log_fn(
+                    f"step {cur}/{stop_step} loss {m['loss']:.4f} "
+                    f"(ce {m['classification_loss']:.4f} reg {m['regularization_loss']:.4f}) "
+                    f"acc {m['accuracy']:.4f} lr {m['learning_rate']:.6f} "
+                    f"margin {m['margin']:.4f} gnorm {m['gradient_norm']:.2f} "
+                    f"audio-s/s {rate:.0f}")
+                history.append({"step": cur, **m, "audio_s_per_s": rate, "time": now})
+                if metrics_writer is not None:
+                    metrics_writer.write(cur, m, audio_s_per_s=rate)
+            if mgr is not None and (cur % epoch_size == 0
+                                    or (save_every_steps and cur % save_every_steps == 0)):
+                mgr.save(state, step=cur)
+    finally:
+        it.close()
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t_start
+    if mgr is not None:
+        if steps_run and cur % epoch_size != 0:
+            mgr.save(state, step=cur)
+    if metrics_writer is not None:
+        metrics_writer.close()
+    return FitResult(state=state, steps_run=steps_run,
+                     audio_seconds_per_second=steps_run * audio_s_per_step / max(elapsed, 1e-9),
+                     history=history)

@@ -1,0 +1,41 @@
+"""SpeakerNet for training: the encoder plus the margin projection.
+
+It extends the serving ``SpeakerNet`` (``speaker_net.py``) with
+``projection.kernel``, so the state_dict is the serving one plus that key:
+the encoder entries of a trained net load into the serving net with
+``strict=True``. ``bn_groups`` > 1 computes training BN statistics over that
+many equal batch groups (the reference's per-replica BN).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..losses import MarginProjection
+from ..speaker_net import SpeakerNet as EmbeddingNet
+
+
+class SpeakerNet(EmbeddingNet):
+    def __init__(self, model_name: str = "res2net50_w24_s4_c32",
+                 projection_id: str = "sc_cm_linear", num_classes: int = 5994,
+                 num_centers: int = 2, feat_dim: int = 80,
+                 dtype: Optional[torch.dtype] = None, bn_groups: int = 1):
+        super().__init__(model_name, feat_dim, dtype)
+        self.encoder.set_bn_groups(bn_groups)
+        self.projection = MarginProjection(
+            self.encoder.config.output_dim, num_classes, projection_id, num_centers)
+
+    def forward(self, feats: torch.Tensor, labels: torch.Tensor, scale: float,
+                margin: float, training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(embeddings in the compute dtype, float32 scaled logits)."""
+        emb = self.encoder(feats, training)
+        return emb, self.projection(emb, labels, scale, margin)
+
+    def loss(self, feats: torch.Tensor, labels: torch.Tensor, scale: float,
+             margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward to the per-row cross-entropy and correct flags
+        (``MarginProjection.cross_entropy``), both (B,) float32."""
+        emb = self.encoder(feats, True)
+        return self.projection.cross_entropy(emb, labels, scale, margin)

@@ -1,0 +1,164 @@
+"""The training step: one optimizer step over A microbatches.
+
+The semantics of the JAX package's ``training/trainer.py``:
+
+* the A microbatches run in sequence; each one's BN running statistics
+  update in place (K5) before the next, as the JAX scan carries them;
+* cross-entropy is the mean within each microbatch; its gradients add up in
+  float32 (``.grad`` of the float32 parameters) and are scaled by 1/A;
+* the closed-form l2 gradient ``l2_scale * p`` is added to every parameter,
+  the projection kernel included, before the global-norm clip
+  ``min(1, clip / (gnorm + 1e-12))``;
+* trace-form SGD momentum, ``m = 0.9 m + g; p -= lr * m``;
+* learning rate and margin come from the schedules at the step before the
+  increment.
+
+The update runs in place with ``torch._foreach_*`` (the JAX package builds
+new arrays). Parameters stay float32; the model casts each weight to the
+compute dtype where it uses it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from .. import resolve_device
+from ..config import TrainConfig
+from ..convert import init_weights
+from ..losses import schedules
+from .speaker_net import SpeakerNet
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                          # global optimizer step
+    net: SpeakerNet                    # params (float32) and BN batch_stats
+    momentum: Dict[str, torch.Tensor]  # SGD momentum trace per parameter, float32
+
+    @property
+    def params(self) -> Dict[str, torch.nn.Parameter]:
+        return dict(self.net.named_parameters())
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        return dict(self.net.named_buffers())
+
+
+def build_speaker_net(config: TrainConfig,
+                      device: Optional[Union[str, torch.device]] = None) -> SpeakerNet:
+    """The config's training net on ``device`` (default ``cuda``), bfloat16
+    compute when ``config.bf16``. Raises on the options the port lacks."""
+    if config.raw_audio or config.specaug:
+        raise NotImplementedError(
+            "raw-audio training and SpecAugment are not ported yet (ROADMAP.md)")
+    if config.remat or config.remat_stages or config.remat_policy or config.remat_keep_blocks:
+        raise NotImplementedError(
+            "remat / remat_stages / remat_keep_blocks are not ported yet "
+            "(ROADMAP.md): a recomputed forward would update the BN running "
+            "statistics twice")
+    dev = resolve_device(device)
+    net = SpeakerNet(config.model, config.projection, config.num_classes,
+                     config.num_centers, config.feat_dim,
+                     torch.bfloat16 if config.bf16 else None, config.bn_groups)
+    return net.to(dev)
+
+
+def create_train_state(config: TrainConfig,
+                       device: Optional[Union[str, torch.device]] = None,
+                       seed: Optional[int] = None) -> TrainState:
+    """Step 0: seeded weights (``convert.init_weights`` with the projection),
+    BN statistics at mean 0 / var 1 as the JAX package initializes them, and
+    a zero momentum trace."""
+    net = build_speaker_net(config, device)
+    gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
+    state = init_weights(config, gen, projection=True)
+    for name in state:
+        if name.endswith(".running_mean"):
+            state[name] = torch.zeros_like(state[name])
+        elif name.endswith(".running_var"):
+            state[name] = torch.ones_like(state[name])
+    net.load_state_dict(state)
+    momentum = {k: torch.zeros_like(p) for k, p in net.named_parameters()}
+    return TrainState(step=0, net=net, momentum=momentum)
+
+
+def schedule_values(config: TrainConfig, step: int) -> Tuple[float, float]:
+    """(learning rate, margin) at a global step, float32 values."""
+    epoch = config.epoch_size
+    lr_bounds = [epoch * b for b in config.lr_boundaries_epochs]
+    margin_bounds = [epoch * b for b in config.margin_boundaries_epochs]
+    if config.lr_schedule == "cosine":
+        lr = schedules.warmup_constant_cosine_decay(config.learning_rate, step, lr_bounds)
+    else:
+        lr = schedules.warmup_constant_exponential_decay(
+            config.learning_rate, step, lr_bounds, epoch, decay_rate=config.decay_rate)
+    margin = schedules.zero_linear_constant(config.margin, step, margin_bounds, epoch)
+    return float(lr), float(margin)
+
+
+def make_train_step(config: TrainConfig):
+    """Returns step(state, features, labels) -> (state, metrics).
+
+    features: (A, B, T, F) float32 or bfloat16, labels: (A, B) integers, on
+    the state's device. The state is updated in place and returned with its
+    step incremented; the metrics are 0-d float32 tensors, on the device
+    except the host-side schedule values (no host sync)."""
+
+    def step_fn(state: TrainState, features: torch.Tensor,
+                labels: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if features.ndim != 4 or labels.ndim != 2:
+            raise ValueError(f"features (A, B, T, F) and labels (A, B), got "
+                             f"{tuple(features.shape)}, {tuple(labels.shape)}")
+        lr, margin = schedule_values(config, state.step)
+        net = state.net
+        names = [k for k, _ in net.named_parameters()]
+        params = [p for _, p in net.named_parameters()]
+        for p in params:
+            p.grad = None
+        num_accum = features.shape[0]
+        ces, accs = [], []
+        for a in range(num_accum):
+            loss_rows, correct = net.loss(features[a].float(), labels[a],
+                                          config.scale, margin)
+            ce = loss_rows.mean()
+            ce.backward()
+            ces.append(ce.detach())
+            accs.append(correct.mean())
+
+        with torch.no_grad():
+            grads = [p.grad for p in params]
+            data = [p.detach() for p in params]
+            reg_loss = config.l2_scale * 0.5 * torch.stack(
+                [torch.sum(torch.square(p)) for p in data]).sum()
+            # mean over microbatches plus the closed-form l2 gradient
+            torch._foreach_mul_(grads, 1.0 / num_accum)
+            torch._foreach_add_(grads, torch._foreach_mul(data, config.l2_scale))
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            clip = torch.clamp(config.clip_norm / (gnorm + 1e-12), max=1.0)
+            torch._foreach_mul_(grads, clip)
+            mom = [state.momentum[k] for k in names]
+            torch._foreach_mul_(mom, config.momentum)
+            torch._foreach_add_(mom, grads)
+            torch._foreach_add_(data, torch._foreach_mul(mom, lr), alpha=-1.0)
+            for p in params:
+                p.grad = None
+
+        ce_mean = torch.stack(ces).mean()
+        metrics = {
+            "classification_loss": ce_mean,
+            "regularization_loss": reg_loss,
+            "loss": ce_mean + reg_loss,
+            "accuracy": torch.stack(accs).mean(),
+            # host values: the schedules run on the host
+            "learning_rate": torch.tensor(lr, dtype=torch.float32),
+            "margin": torch.tensor(float(schedules.total_margin(config.projection, margin)),
+                                   dtype=torch.float32),
+            "gradient_norm": gnorm,
+        }
+        state.step += 1
+        return state, metrics
+
+    return step_fn
