@@ -156,6 +156,14 @@ def forward_shapes(cfg):
     return k2, k3, (cfg.num_filters[-1] * 4, t, f)
 
 
+def split_launches(k2_calls, split) -> int:
+    """K2's launches per forward: one per fused chain, else one per group."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import split_plan
+
+    return sum(n * (1 if split_plan(w, t, f, torch.bfloat16, split)["variant"] == "fused"
+                    else split - 1) for (w, t, f), n in k2_calls.items())
+
+
 # ----------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ----------------------------------------------------------------------
@@ -191,14 +199,17 @@ def check_fbank(dev, gen):
                          "(fbank_fused, retired in 912d3e9; = ops/fbank.py:191 fbank)",
                 max_abs_err=err, tolerance=TOL_FBANK, dtype="float32",
                 per="one 8 s wave request", ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None,
+                library_note="none: no single PyTorch call computes Kaldi FBANK "
+                             "(the card has no torchaudio)")
 
 
 def check_split(dev, gen, k2_calls, split):
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+    import torch.nn.functional as F
 
     err32, err16, detail = 0.0, 0.0, []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     by_ops = 0.0
     for (w, t, f), count in sorted(k2_calls.items()):
         c = split * w
@@ -221,15 +232,27 @@ def check_split(dev, gen, k2_calls, split):
         bms, by = bound_ms(nbytes, flops, torch.bfloat16)
         ms = time_ms(lambda: rn.split_chain(xb, wb, means, var, mask))
         plain = time_ms(lambda: rn.split_chain_reference(xb, wb, means, var, mask))
+        # library yardstick, conv only: cuDNN's 3x3 conv of each group with the
+        # eval BN folded into its weight and bias (no masked add, no relu)
+        xg = xb[:, :w].contiguous(memory_format=torch.channels_last)
+        lib = 0.0
+        for i in range(split - 1):
+            rstd = torch.rsqrt(var[i] + 1e-5)
+            wf = (weight[i * w: (i + 1) * w] * rstd[:, None, None, None]).bfloat16().contiguous(
+                memory_format=torch.channels_last)
+            bias = (-means[i] * rstd).bfloat16()
+            lib += time_ms(lambda: F.conv2d(xg, wf, bias, padding=1))
         detail.append(dict(width=w, T=t, F=f, calls_per_forward=count, err_fp32=e32,
-                           err_bf16=e16, ms_bf16=ms, plain_ms_bf16=plain, bound_ms=bms,
-                           bound_by=by))
+                           err_bf16=e16, plan=rn.split_plan(w, t, f, torch.bfloat16, split),
+                           ms_bf16=ms, plain_ms_bf16=plain, library_ms_conv_only=lib,
+                           bound_ms=bms, bound_by=by))
         err32, err16 = max(err32, e32), max(err16, e16)
         tot["ms"] += count * ms
         tot["plain_ms"] += count * plain
+        tot["library_ms"] += count * lib
         tot["bound_ms"] += count * bms
         by_ops += count * bms if by == "operations" else 0.0
-        del xb
+        del xb, xg
         torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "split_conv", "shapes": detail})
     if err32 > TOL_FP32 or err16 > TOL_BF16["split_conv"]:
@@ -240,8 +263,9 @@ def check_split(dev, gen, k2_calls, split):
                          "(Res2NetSplitConv stride-1 branch, XLA)",
                 max_abs_err=err16, max_rel_err_fp32=err32, tolerance=TOL_BF16["split_conv"],
                 dtype="bfloat16", per=f"B={BATCH} x {FRAMES}-frame forward", **tot,
-                bound_by="operations" if by_ops * 2 > tot["bound_ms"] else "bytes",
-                library_ms=None)
+                library_call="F.conv2d (cuDNN) per group, eval BN folded into weight and "
+                             "bias, conv only",
+                bound_by="operations" if by_ops * 2 > tot["bound_ms"] else "bytes")
 
 
 def check_bn_act(dev, gen, k3_calls):
@@ -302,10 +326,24 @@ def check_bn_act(dev, gen, k3_calls):
                          "(BatchNorm eval branch + relu/residual/mask_time, XLA)",
                 max_abs_err=err16, max_rel_err_fp32=err32, tolerance=TOL_BF16["bn_act"],
                 dtype="bfloat16", per=f"B={BATCH} x {FRAMES}-frame forward", **tot,
-                bound_by="bytes", library_ms=None)
+                bound_by="bytes", library_ms=None,
+                library_note="none for the fused epilogues; F.batch_norm (eval) computes the "
+                             "flag-free pass alone: its time is in the bn_act phase line")
 
 
-def check_stats_pool(dev, gen, head_shape):
+def var_mean_ms(x, backward: bool, reps=20):
+    """The library yardstick of K4 (forward) and K4b (autograd backward): one
+    ``torch.var_mean`` over T, the pooled axis (no mask)."""
+    if not backward:
+        return time_ms(lambda: torch.var_mean(x, dim=2, keepdim=True, correction=0), reps=reps)
+    xi = x.detach().requires_grad_(True)
+    v, m = torch.var_mean(xi, dim=2, keepdim=True, correction=0)
+    dv, dm = torch.randn_like(v), torch.randn_like(m)
+    return time_ms(lambda: torch.autograd.grad((v, m), [xi], (dv, dm), retain_graph=True),
+                   reps=reps)
+
+
+def check_stats_pool(dev, gen, head_shape, train_head):
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
 
     c, t, f = head_shape
@@ -321,12 +359,19 @@ def check_stats_pool(dev, gen, head_shape):
     plain = time_ms(lambda: ops.stats_pool_reference(xb, mask), reps=20)
     if e32 > TOL_FP32 or e16 > TOL_BF16["stats_pool"]:
         fail(f"stats_pool: rel err fp32 {e32} bf16 {e16}")
+    # the library yardstick has no mask: both at the unmasked training shape
+    c, t, f = train_head
+    xt = _layout(torch.randn((TRAIN_BATCH, c, t, f), generator=gen, device=dev) * 2 + 1).bfloat16()
+    lib = var_mean_ms(xt, backward=False)
+    kernel_unmasked = time_ms(lambda: ops.stats_pool(xt), reps=20)
     return dict(name="stats_pool", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/stats_pool.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:487 (stats_pool, XLA)",
                 max_abs_err=e16, max_rel_err_fp32=e32, tolerance=TOL_BF16["stats_pool"],
                 dtype="bfloat16", per=f"B={BATCH} head, (C, T, F)={head_shape}",
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                library_call="torch.var_mean over T, no mask",
+                library_shape=[TRAIN_BATCH, c, t, f], library_vs_kernel_ms=kernel_unmasked)
 
 
 def train_shapes(cfg, batch, frames, feat_dim):
@@ -384,7 +429,7 @@ def check_bn_train(dev, gen, k5_calls, groups):
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
     import torch.nn.functional as F
 
-    err32, err32_grad, err16, detail, flips = 0.0, 0.0, 0.0, [], 0
+    err32, err32_grad, err16, detail, flips, reruns_equal = 0.0, 0.0, 0.0, [], 0, 0
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     by_ops = 0.0
     for (shape, relu, sc_mode), count in sorted(k5_calls.items()):
@@ -426,6 +471,12 @@ def check_bn_train(dev, gen, k5_calls, groups):
                 err32_grad = max(err32_grad, *parts[:ng])
             else:
                 err16 = max(err16, *parts)
+                # a rerun on the same inputs must agree bit for bit
+                again = run(ops.bn_train, xs, ss, ds, [rm.clone(), rv.clone(), rm.clone(), rv.clone()])
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"bn_train: two runs at {shape} mode {sc_mode} differ")
+                reruns_equal += 1
+                del again
             del got, want, xs, ss, ds, same
         xb, sb, db = x.bfloat16(), None if sc is None else sc.bfloat16(), dy.bfloat16()
         del x, sc, dy
@@ -440,16 +491,19 @@ def check_bn_train(dev, gen, k5_calls, groups):
             return f
 
         inputs = [xb] + ([sb] if sb is not None else [])
+        plan = ops.bn_train_plan(shape, groups, torch.bfloat16, sc_mode, relu)
         fwd, bwd = time_fwd_bwd(call(ops.bn_train), inputs, db)
         pfwd, pbwd = time_fwd_bwd(call(ops.bn_train_reference), inputs, db)
         n_in = 2 if sb is not None else 1
-        # forward: read x (and s) once, write y; backward: read x, y (relu),
-        # dy (and s), write dx (and ds); ~8 and ~12 fp32 operations an element
+        # forward: read x (and s) once, write y; backward: read x, dy (and s,
+        # or y for a raw shortcut under relu: the relu decision needs one of
+        # them), write dx (and ds); ~8 and ~12 fp32 operations an element
         nbytes_f = 2 * xb.numel() * (n_in + 1)
-        nbytes_b = 2 * xb.numel() * (2 + int(relu) + (1 if sc_mode == 2 else 0) + (2 if sc_mode else 1))
+        nbytes_b = 2 * xb.numel() * (2 + (1 if sc_mode == 2 or (sc_mode == 1 and relu) else 0)
+                                     + (2 if sc_mode else 1))
         bms, by = bound_ms(nbytes_f + nbytes_b, 20.0 * xb.numel() * n_in, torch.float32)
         row = dict(shape=list(shape), relu=relu, shortcut_mode=sc_mode, calls_per_microbatch=count,
-                   errors=errs_by_dtype,
+                   errors=errs_by_dtype, plan=plan,
                    ms_fwd_bf16=fwd, ms_bwd_bf16=bwd, plain_ms_fwd_bf16=pfwd, plain_ms_bwd_bf16=pbwd,
                    bound_ms=bms, bound_by=by)
         detail.append(row)
@@ -470,11 +524,12 @@ def check_bn_train(dev, gen, k5_calls, groups):
         lambda x: F.batch_norm(x, rm, rv, training=True, momentum=1 - ops.BN_MOMENTUM,
                                eps=ops.BN_EPSILON), [xb], db)
     library = dict(shape=list(shape), ms_fwd_bf16=kfwd, ms_bwd_bf16=kbwd,
-                   library_ms_fwd_bf16=lfwd, library_ms_bwd_bf16=lbwd)
+                   library_ms_fwd_bf16=lfwd, library_ms_bwd_bf16=lbwd,
+                   kernel_design=ops.bn_train_plan(shape, 1, torch.bfloat16, 0, False)["design"])
     del xb, db
     torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "bn_train", "shapes": detail, "library": library,
-          "max_relu_flips_per_shape": flips})
+          "max_relu_flips_per_shape": flips, "reruns_bit_equal": reruns_equal})
     if err32 > TOL_FP32 or err32_grad > TOL_K5_GRAD_FP32 or err16 > TOL_TRAIN_BF16:
         fail(f"bn_train: rel err fp32 {err32} (gradients {err32_grad}) bf16 {err16}")
     return dict(name="bn_train", route="cuda",
@@ -483,6 +538,7 @@ def check_bn_train(dev, gen, k5_calls, groups):
                          "(_GroupedBN + relu/residual, XLA, forward and backward)",
                 max_abs_err=err16, max_rel_err_fp32=err32, max_rel_err_fp32_grad=err32_grad,
                 tolerance=TOL_TRAIN_BF16, max_relu_flips_per_shape=flips,
+                reruns_bit_equal=reruns_equal,
                 dtype="bfloat16", per=f"training step, B={TRAIN_BATCH} x A={TRAIN_ACCUM} x "
                 f"{TRAIN_FRAMES} frames (forward + backward)",
                 **{k: TRAIN_ACCUM * v for k, v in tot.items()},
@@ -509,6 +565,7 @@ def check_stats_pool_bwd(dev, gen, head_shape):
     _, ms = time_fwd_bwd(ops.stats_pool, [xb], db)
     _, plain = time_fwd_bwd(ops.stats_pool_reference, [xb], db)
     bms, by = bound_ms(2 * 2 * xb.numel() + 2 * db.numel(), 3.0 * xb.numel(), torch.float32)
+    lib = var_mean_ms(xb, backward=True)
     if errs[torch.float32] > TOL_FP32 or errs[torch.bfloat16] > TOL_BF16["stats_pool"]:
         fail(f"stats_pool_bwd: rel err {errs}")
     return dict(name="stats_pool_bwd", route="cuda",
@@ -520,7 +577,8 @@ def check_stats_pool_bwd(dev, gen, head_shape):
                 per=f"training step (A={TRAIN_ACCUM} calls of (B, C, T, F)="
                     f"{(TRAIN_BATCH, c, t, f)})",
                 ms=TRAIN_ACCUM * ms, plain_ms=TRAIN_ACCUM * plain, bound_ms=TRAIN_ACCUM * bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=TRAIN_ACCUM * lib,
+                library_call="autograd backward of torch.var_mean over T")
 
 
 def check_margin_ce(dev, gen, num_centers, num_classes):
@@ -554,7 +612,9 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
                 max_abs_err=err, max_rel_err_fp32=err, tolerance=TOL_FP32, dtype="float32",
                 per=f"training step (A={TRAIN_ACCUM} calls on cos_all {shape}, forward + backward)",
                 ms=TRAIN_ACCUM * (fwd + bwd), plain_ms=TRAIN_ACCUM * (pfwd + pbwd),
-                bound_ms=TRAIN_ACCUM * bms, bound_by=by, library_ms=None)
+                bound_ms=TRAIN_ACCUM * bms, bound_by=by, library_ms=None,
+                library_note="none: no single PyTorch call does max over centers, "
+                             "margin and cross-entropy")
 
 
 # ----------------------------------------------------------------------
@@ -606,7 +666,8 @@ def train_phase(dev, per_microbatch, smi):
     for fn, n in per_microbatch.items():
         if counts[fn] != steps * n:
             fail(f"train: {fn} launched {counts[fn]} times, expected {steps} x {n}")
-    for fn in ("split_conv.split_group", "split_conv.split_group_mma", "bn_act.bn_act"):
+    for fn in ("split_conv.split_group", "split_conv.split_group_mma",
+               "split_conv.split_group_pipe", "split_conv.split_chain_fused", "bn_act.bn_act"):
         if counts[fn]:
             fail(f"train: eval kernel {fn} launched {counts[fn]} times")
     step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
@@ -883,20 +944,27 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = RES2NET_CONFIGS[MODEL]
     k2, k3, head = forward_shapes(cfg)
-    with torch.inference_mode():
-        rows = [check_fbank(dev, gen), check_split(dev, gen, k2, cfg.split),
-                check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head)]
-    per_forward = {"split_conv": sum(k2.values()) * (cfg.split - 1),
-                   "bn_act": sum(k3.values()), "stats_pool": 1}
-
     tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
     k5, train_head = train_shapes(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
+    with torch.inference_mode():
+        rows = [check_fbank(dev, gen), check_split(dev, gen, k2, cfg.split),
+                check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head, train_head)]
+    per_forward = {"split_conv": split_launches(k2, cfg.split),
+                   "bn_act": sum(k3.values()), "stats_pool": 1}
+
     train_rows = [check_stats_pool_bwd(dev, gen, train_head),
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
                   check_margin_ce(dev, gen, 2, 5994)]
     torch.cuda.empty_cache()
-    per_microbatch = {"bn_train.bn_train_fwd": sum(k5.values()),
-                      "bn_train.bn_train_bwd": sum(k5.values()),
+    from voxsrc2020_speaker_verification_tpu_torch.ops.nn import bn_train_plan
+    # K5's one-launch cluster design takes the 4-D calls, the multi-kernel
+    # design the 2-D head calls (bn_train_plan)
+    n_cluster = sum(n for (shape, relu, mode), n in k5.items()
+                    if bn_train_plan(shape, TRAIN_GROUPS, torch.bfloat16, mode, relu)["design"]
+                    == "cluster")
+    n_multi = sum(k5.values()) - n_cluster
+    per_microbatch = {"bn_train.bn_cluster_fwd": n_cluster, "bn_train.bn_cluster_bwd": n_cluster,
+                      "bn_train.bn_train_fwd": n_multi, "bn_train.bn_train_bwd": n_multi,
                       "margin_ce.margin_ce_fwd": 1, "margin_ce.margin_ce_bwd": 1,
                       "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
 

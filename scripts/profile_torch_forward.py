@@ -9,7 +9,8 @@ compute, and runs the embed at a full bucket batch with a mask (a quarter of
 the rows half padded). Prints one JSON line: the median forward time by CUDA
 events, the card's name and power limit, and the device time per kernel
 name (and calls per forward) from ``torch.profiler`` over ``--reps``
-forwards, and the share of the profiled window the device was idle.
+forwards, K2's device time by variant, and the share of the profiled
+window the device was idle.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -88,6 +90,13 @@ def main() -> int:
     window_us = (max(ev.time_range.end for ev in span) - min(ev.time_range.start for ev in span)
                  if span else 0.0)
     top = {k: [v, calls[k]] for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:30]}
+    # K2, the split chain, by variant (csrc/split_conv.cu's device kernels)
+    k2 = {}
+    for k, v in kernels.items():
+        m = re.search(r"::(split_\w+_kernel)<", k)
+        if m:
+            ms, n = k2.get(m.group(1), (0.0, 0))
+            k2[m.group(1)] = (ms + v, n + calls[k])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(json.dumps({
@@ -96,7 +105,8 @@ def main() -> int:
         "audio_s_per_s": args.batch * args.frames / 100.0 / (statistics.median(times) / 1e3),
         "device_ms_per_forward": busy_us / args.reps / 1e3,
         "device_idle_share": (1.0 - busy_us / window_us) if window_us else None,
-        "device_ms_and_calls_by_kernel": top, "nvidia_smi": smi,
+        "device_ms_and_calls_by_kernel": top, "k2_device_ms_and_calls": k2,
+        "nvidia_smi": smi,
     }))
     return 0
 

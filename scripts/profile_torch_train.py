@@ -3,14 +3,24 @@
 
     python3 scripts/profile_torch_train.py [--model res2net50_w8_s6_c16]
         [--batch 256] [--accum 4] [--frames 200] [--bn-groups 8] [--steps 3]
+        [--fit-steps 0] [--host-calls 0]
 
 Builds the training state (``training.trainer.create_train_state``, seeded
 weights, bf16 compute) and runs ``make_train_step`` on one resident batch
 of synthetic features (no feeder: the device work alone). Prints one JSON
 line: the median step time by CUDA events, the card's name and power limit,
 peak device memory, the device time per kernel name (and calls per step)
-from ``torch.profiler`` over ``--steps`` steps, and the share of the
-profiled window the device was idle.
+from ``torch.profiler`` over ``--steps`` steps, the share of the profiled
+window the device was idle, and K5's launches per step beside the device
+kernels they ran (its cluster design must run one kernel per call).
+
+``--fit-steps N`` also trains N steps through ``training.loop.fit`` with
+the CLI's synthetic feeder (the entry point users run, host-bound) and
+reports its step times by the host clock, the first step left out.
+``--host-calls N`` also times N forward + backward calls of the training
+BN (``ops.nn.bn_train``) on a tiny input (8 groups of (1, 64, 4, 4), bf16,
+relu) by the host clock, synchronizing once at the end: the device work
+per call is a few microseconds, so this is the host cost of one call.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -26,9 +37,17 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from voxsrc2020_speaker_verification_tpu_torch import kernels  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (  # noqa: E402
     create_train_state, make_train_step)
+
+
+# the device kernels of csrc/bn_train.cu: the cluster design's two, the
+# multi-kernel design's six
+K5_DEVICE_KERNELS = ("cluster_fwd_kernel", "cluster_bwd_kernel", "stats_kernel",
+                     "finalize_fwd_kernel", "normalize_kernel", "reduce_bwd_kernel",
+                     "finalize_bwd_kernel", "grad_kernel")
 
 
 def main() -> int:
@@ -40,6 +59,8 @@ def main() -> int:
     p.add_argument("--frames", type=int, default=200)
     p.add_argument("--bn-groups", type=int, default=8)
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--fit-steps", type=int, default=0)
+    p.add_argument("--host-calls", type=int, default=0)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -73,23 +94,44 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
             step(state, feats, labels)
         torch.cuda.synchronize()
-    kernels, calls = {}, {}
+    launches = {k: v // args.steps for k, v in kernels.function_launch_counts().items() if v}
+    by_kernel, calls = {}, {}
     busy_us = 0.0
     for e in prof.key_averages():
         if e.device_type.name != "CUDA" or e.key.startswith("Command Buffer"):
             continue
-        kernels[e.key] = e.device_time_total / args.steps / 1e3
+        by_kernel[e.key] = e.device_time_total / args.steps / 1e3
         calls[e.key] = e.count // args.steps
         busy_us += e.device_time_total
     span = [ev for ev in prof.events()
             if ev.device_type.name == "CUDA" and not ev.name.startswith("Command Buffer")]
     window_us = (max(ev.time_range.end for ev in span) - min(ev.time_range.start for ev in span)
                  if span else 0.0)
-    top = {k: [v, calls[k]] for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:40]}
+    top = {k: [v, calls[k]] for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:40]}
+    # K5: its C entry points' launches per step beside the device kernels
+    # they ran; the cluster design is one device kernel per call
+    k5 = {}
+    for k, v in by_kernel.items():
+        m = re.search(r"::(\w+)[<(]", k)
+        name = m.group(1) if m else k
+        if name in K5_DEVICE_KERNELS:
+            ms, n = k5.get(name, (0.0, 0))
+            k5[name] = (ms + v, n + calls[k])
+    one_launch = all(k5.get(f"cluster_{d}_kernel", (0, 0))[1] == launches.get(f"bn_train.bn_cluster_{d}", 0)
+                     for d in ("fwd", "bwd"))
+    extra = {}
+    if args.host_calls:
+        extra["k5_host_us_per_call"] = host_us_per_bn_call(args.host_calls)
+    if args.fit_steps:
+        del state, step, feats, labels
+        torch.cuda.empty_cache()
+        extra["fit_step_ms"] = fit_step_ms(config, args.bn_groups, args.fit_steps)
+        extra["fit_step_ms_median"] = statistics.median(extra["fit_step_ms"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     med = statistics.median(times)
@@ -101,9 +143,59 @@ def main() -> int:
         "peak_memory_bytes": peak,
         "device_ms_per_step": busy_us / args.steps / 1e3,
         "device_idle_share": (1.0 - busy_us / window_us) if window_us else None,
-        "device_ms_and_calls_by_kernel": top, "nvidia_smi": smi,
+        "device_ms_and_calls_by_kernel": top, "launches_per_step": launches,
+        "k5_device_ms_and_calls": k5, "k5_cluster_calls_one_kernel_each": one_launch,
+        **extra, "nvidia_smi": smi,
     }))
     return 0
+
+
+def host_us_per_bn_call(n: int) -> float:
+    """Host microseconds per forward + backward call of the training BN on
+    a tiny input, the device queue never the limit."""
+    import time
+
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, dy = (torch.randn(8, 64, 4, 4, generator=g, device="cuda").bfloat16()
+             .contiguous(memory_format=torch.channels_last) for _ in range(2))
+    rm, rv = torch.zeros(64, device="cuda"), torch.ones(64, device="cuda")
+
+    def call():
+        xi = x.detach().requires_grad_(True)
+        ops.bn_train(xi, rm, rv, groups=8, relu=True).backward(dy)
+
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def fit_step_ms(config, bn_groups: int, steps: int) -> list:
+    """Host-clock ms of each step after the first of ``steps`` steps of
+    ``training.loop.fit`` fed by the synthetic feeder, as the CLI runs it."""
+    from voxsrc2020_speaker_verification_tpu_torch.data.dataset import (
+        BatchFeeder, SyntheticDataset)
+    from voxsrc2020_speaker_verification_tpu_torch.training.loop import fit
+
+    state = create_train_state(config, "cuda")
+    for m in state.net.modules():
+        if hasattr(m, "groups") and hasattr(m, "running_mean"):
+            m.groups = bn_groups
+    feeder = BatchFeeder([SyntheticDataset(config.feat_dim, config.feat_length,
+                                           config.num_classes, seed=i) for i in range(4)],
+                         config.batch_size, config.num_accumulation_steps).start()
+    try:
+        hist = fit(config, feeder, log_every=1, log_fn=lambda line: None, max_steps=steps,
+                   checkpoint=False, device="cuda", state=state).history
+    finally:
+        feeder.stop()
+    return [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])]
 
 
 if __name__ == "__main__":

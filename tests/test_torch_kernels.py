@@ -6,7 +6,8 @@ no JAX, so it also runs on a GPU machine without it:
 
 Tolerances: float32 1e-4 (fbank 1e-3 abs in log-mel); bfloat16 kernels
 against the float32 plain version on the same bf16 inputs 2e-2 (K3, K4) and
-5e-2 relative to the output's largest magnitude (K2, a three-group chain).
+5e-2 relative to the output's largest magnitude (K2, a chain of three or
+five groups).
 The training kernels (K4b, K5, K6) against the autograd of their plain
 versions: float32 1e-4 relative to each output's largest magnitude; K5 in
 bfloat16 against the plain version in bfloat16 on the same inputs, 2e-2.
@@ -96,22 +97,41 @@ def test_bn_act_and_stats_pool_kernels_match_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,width", [(torch.float32, 24), (torch.bfloat16, 24),
-                                         (torch.bfloat16, 48), (torch.bfloat16, 12)])
-def test_split_chain_kernel_matches_plain(cuda, dtype, width):
-    """K2 (tensor-core variant for bf16 at widths of 8k, CUDA-core variant
-    otherwise) against the plain chain in float32 on the same inputs."""
+@pytest.mark.parametrize("dtype,width,t,f,split", [
+    (torch.float32, 24, 37, 11, 4), (torch.bfloat16, 24, 37, 11, 4),
+    (torch.bfloat16, 48, 37, 11, 4), (torch.bfloat16, 12, 37, 11, 4),
+    (torch.bfloat16, 96, 37, 11, 4), (torch.bfloat16, 192, 37, 11, 4),
+    (torch.bfloat16, 24, 53, 80, 4), (torch.bfloat16, 96, 41, 20, 4),
+    (torch.bfloat16, 192, 125, 10, 4), (torch.bfloat16, 8, 37, 11, 6),
+    (torch.bfloat16, 16, 41, 20, 6), (torch.bfloat16, 32, 23, 10, 6)])
+def test_split_chain_kernel_matches_plain(cuda, dtype, width, t, f, split):
+    """K2 against the plain chain in float32 on the same inputs, with masks
+    and ragged patch tails: the fused chain (bf16, w = 24 at split 4, w = 8
+    and 16 at split 6: one launch), the pipelined variant (w = 48; w = 32 at
+    split 6), the first tensor-core variant (w = 96, 192) and the CUDA-core
+    variant (float32, w = 12), each launched as split_plan names it."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import split_plan
+
     g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(3, 4 * width, 37, 11, generator=g, device=cuda).to(dtype).contiguous(
+    x = torch.randn(3, split * width, t, f, generator=g, device=cuda).to(dtype).contiguous(
         memory_format=torch.channels_last)
-    w = (torch.randn(3 * width, width, 3, 3, generator=g, device=cuda) / (9 * width) ** 0.5).to(dtype)
-    means = [torch.randn(width, device=cuda) * 0.1 for _ in range(3)]
-    var = [torch.rand(width, device=cuda) + 0.5 for _ in range(3)]
-    mask = (torch.arange(37, device=cuda)[None] < torch.tensor([37, 20, 1], device=cuda)[:, None]).float()
+    w = (torch.randn((split - 1) * width, width, 3, 3, generator=g, device=cuda)
+         / (9 * width) ** 0.5).to(dtype)
+    means = [torch.randn(width, device=cuda) * 0.1 for _ in range(split - 1)]
+    var = [torch.rand(width, device=cuda) + 0.5 for _ in range(split - 1)]
+    mask = (torch.arange(t, device=cuda)[None] < torch.tensor([t, 20, 1], device=cuda)[:, None]).float()
+    before = dict(kernels.SPLIT_CONV.fn_launches)
     got = split_chain(x, w, means, var, mask).float()
     want = split_chain_reference(x.float(), w.float(), means, var, mask)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     assert (got - want).abs().max() <= tol * want.abs().max()
+    variant = split_plan(width, t, f, dtype, split)["variant"]
+    fn = {"fused": "split_chain_fused", "pipe": "split_group_pipe", "mma": "split_group_mma",
+          "fma": "split_group"}[variant]
+    assert kernels.SPLIT_CONV.fn_launches[fn] - before[fn] == (
+        1 if variant == "fused" else split - 1)
+    if dtype == torch.bfloat16 and width in (8, 16, 24, 32, 48):
+        assert variant == ("fused" if width * split <= 96 else "pipe")
 
 
 def rel(got, want):
@@ -128,14 +148,28 @@ def bn_case(cuda, shape, dtype, seed):
     return x, stats
 
 
+# Relu decisions in which K5 and its plain version differ, at most, on the
+# inputs below (H100: one, float32 with a normalized shortcut, groups 8): at
+# the largest shape a pre-relu value within rounding of zero may fall on
+# either side, since the two sum the moments in other orders, and one such
+# element moves dx there by |dy| * rstd. Every other shape is compared at
+# every element.
+RELU_FLIPS = {(64, 16, 200, 80): 1}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", [((16, 24, 9, 5), 1), ((16, 24, 9, 5), 8),
-                                          ((64, 40), 1), ((64, 40), 8)])
+                                          ((64, 40), 1), ((64, 40), 8),
+                                          ((32, 64, 25, 10), 8), ((64, 16, 200, 80), 8),
+                                          ((64, 16, 200, 80), 1)])
 @pytest.mark.parametrize("mode", ["plain", "relu", "raw_shortcut", "bn_shortcut"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_train_kernel_matches_plain(cuda, shape, groups, mode, dtype):
     """K5 forward (output, both running updates) and backward (x and
-    shortcut gradients) against autograd of the plain version."""
+    shortcut gradients) against autograd of the plain version: the cluster
+    design on 4-D inputs (with one cluster a group and with several behind
+    the group barrier; slabs kept in shared memory and streamed twice), the
+    multi-kernel design on 2-D ones."""
     x, (rm, rv) = bn_case(cuda, shape, dtype, 3)
     s, (srm, srv) = bn_case(cuda, shape, dtype, 4)
     dy = bn_case(cuda, shape, dtype, 5)[0]
@@ -153,9 +187,13 @@ def test_bn_train_kernel_matches_plain(cuda, shape, groups, mode, dtype):
         outs.append((y.detach(), xi.grad, si.grad, st))
     (y, dx, ds, st), (yr, dxr, dsr, str_) = outs
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    assert rel(y, yr) <= tol and rel(dx, dxr) <= tol
+    # gradients where both versions take the same relu decision (RELU_FLIPS)
+    flips = RELU_FLIPS.get(shape, 0) if mode != "plain" else 0
+    same = (y > 0) == (yr > 0) if flips else torch.ones_like(y, dtype=torch.bool)
+    assert int((~same).sum()) <= flips
+    assert rel(y, yr) <= tol and rel(dx * same, dxr * same) <= tol
     if mode in ("raw_shortcut", "bn_shortcut"):
-        assert rel(ds, dsr) <= tol
+        assert rel(ds * same, dsr * same) <= tol
     for a, b in zip(st, str_):
         assert rel(a, b) <= 1e-4
 
@@ -194,3 +232,87 @@ def test_margin_ce_kernel_matches_plain(cuda):
         outs.append((loss.detach(), correct, ci.grad))
     (l, c, d), (lr_, cr, dr) = outs
     assert rel(l, lr_) <= 1e-4 and torch.equal(c, cr) and rel(d, dr) <= 1e-4
+
+
+def bn_run(cuda, shape, groups, mode, dtype):
+    """One K5 forward and backward under relu: ([y, dx, (ds,) running
+    statistics], the tensors autograd saved for the backward)."""
+    x, s, dy = (bn_case(cuda, shape, dtype, seed)[0] for seed in (3, 4, 5))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rm, srm = (torch.randn(shape[1], generator=g, device=cuda) * 0.1 for _ in range(2))
+    rv, srv = (torch.rand(shape[1], generator=g, device=cuda) + 0.5 for _ in range(2))
+    xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    kw = dict(groups=groups, relu=True)
+    if mode:
+        kw["shortcut"] = si
+    if mode == 2:
+        kw.update(shortcut_running_mean=srm, shortcut_running_var=srv)
+    y = tops.bn_train(xi, rm, rv, **kw)
+    saved = [t for t in y.grad_fn.saved_tensors if t is not None]
+    y.backward(dy)
+    return [y.detach(), xi.grad] + ([si.grad] if mode else []) + [rm, rv, srm, srv], saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((32, 64, 25, 10), 8), ((64, 16, 200, 80), 8),
+                                          ((64, 16, 200, 80), 1), ((64, 40), 8)])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bn_train_kernel_reruns_bit_for_bit(cuda, shape, groups, mode):
+    """Two K5 runs on the same inputs agree bit for bit: outputs, gradients
+    and running statistics (no float atomics; the cluster design's sums
+    across CTAs, clusters and groups are added in a fixed order)."""
+    a, _ = bn_run(cuda, shape, groups, mode, torch.bfloat16)
+    b, _ = bn_run(cuda, shape, groups, mode, torch.bfloat16)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bn_train_cluster_saves_no_output(cuda, mode):
+    """The cluster design recomputes the relu decision from x (and a
+    normalized shortcut), so autograd keeps the forward output only for a
+    raw shortcut; each direction is one launch."""
+    before = dict(kernels.BN_TRAIN.fn_launches)
+    outs, saved = bn_run(cuda, (32, 64, 25, 10), 8, mode, torch.bfloat16)
+    after = kernels.BN_TRAIN.fn_launches
+    assert after["bn_cluster_fwd"] - before["bn_cluster_fwd"] == 1
+    assert after["bn_cluster_bwd"] - before["bn_cluster_bwd"] == 1
+    y = outs[0]
+    holds_y = any(t.data_ptr() == y.data_ptr() for t in saved)
+    assert holds_y == (mode == 1)
+
+
+@pytest.mark.cuda
+def test_bn_train_cluster_on_two_streams(cuda):
+    """Two K5 cluster launches in flight at once on two streams (each its
+    own sync words and scratch; a cooperative launch starts its grid only
+    when every CTA can be resident) give what they give one after the
+    other, bit for bit."""
+    cases = [((64, 16, 200, 80), 8, 2), ((64, 16, 200, 80), 8, 0)]
+    want = [bn_run(cuda, shape, groups, mode, torch.bfloat16)[0] for shape, groups, mode in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    got = []
+    for stream, (shape, groups, mode) in zip(streams, cases):
+        with torch.cuda.stream(stream):
+            got.append(bn_run(cuda, shape, groups, mode, torch.bfloat16)[0])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_split_chain_refuses_a_plan_of_another_layout(cuda, monkeypatch):
+    """The fused K2 chain checks the plan's shared-memory size against its
+    own layout's: a plan copied wrong is refused, never launched."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net
+
+    x = torch.randn(2, 96, 9, 5, device=cuda).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(72, 24, 3, 3, device=cuda).bfloat16()
+    stats = [torch.zeros(24, device=cuda)] * 3, [torch.ones(24, device=cuda)] * 3
+    split_chain(x, w, *stats)
+    size = res2net._fused_smem
+    monkeypatch.setattr(res2net, "_fused_smem", lambda *a: size(*a) - 16)
+    with pytest.raises(kernels.KernelError, match="plan"):
+        split_chain(x, w, *stats)

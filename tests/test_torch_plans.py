@@ -1,0 +1,133 @@
+"""PyTorch port: the launch plans of K2 (``models/res2net.py:split_plan``)
+and K5 (``ops/nn.py:bn_train_plan``), checked on the CPU for every call
+shape that ``chip_smoke.py``'s serving forward (``forward_shapes``, at each
+serving bucket) and training step (``train_shapes``) give the kernels. The
+kernels themselves run only on the card (tests/test_torch_kernels.py)."""
+
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS  # noqa: E402
+from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn  # noqa: E402
+from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops  # noqa: E402
+
+SMEM = 232448  # the most shared memory one block can take on the H100
+MODELS = ("res2net50_w24_s4_c32", "res2net50_w8_s6_c16")
+
+
+def k2_calls(model, frames, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "FRAMES", frames)
+    return chip_smoke.forward_shapes(RES2NET_CONFIGS[model])[0]
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("frames", [256, 512, 1000])
+def test_split_plan_fits_every_serving_call(model, frames, monkeypatch):
+    """Every stride-1 stage of the serving forward gets a K2 plan: the fused
+    chain where s * w <= 96 (its weights and two full-width patch stages with
+    an (s-1)-position halo in one block's shared memory, 128 patch positions
+    or 64), the pipelined variant at the other widths up to 48 (two CTAs'
+    shared memory per SM, its patch rows within its m tiles), the first
+    tensor-core variant at w = 64, 96 and 192 (weights too large to stage
+    twice per SM); F cut into even tiles of at most 16."""
+    calls = k2_calls(model, frames, monkeypatch)
+    split = RES2NET_CONFIGS[model].split
+    assert calls
+    for (w, t, f) in calls:
+        plan = rn.split_plan(w, t, f, torch.bfloat16, split)
+        if w * split <= 96:
+            assert plan["variant"] == "fused", (w, t, f)
+            tt, tf = plan["tt"], plan["tf"]
+            assert plan["smem"] == rn._fused_smem(w, split - 1, tt, tf) <= SMEM
+            assert tt * tf <= 128 and (tt * tf > 64 or tt == t)
+        elif w <= 48:
+            assert plan["variant"] == "pipe", (w, t, f)
+            tt, tf, mt = plan["tt"], plan["tf"], plan["mt"]
+            assert plan["smem"] == rn._pipe_smem(w, tt, tf) <= SMEM // 2 - 1024
+            assert 64 * (mt - 1) < tt * tf <= 64 * mt and mt in (1, 2)
+            assert (w // 8) in rn._PIPE_NT
+        else:
+            assert plan["variant"] == "mma", (w, t, f)
+            continue
+        assert tf <= 16 and -(-f // tf) == -(-f // 16) and 1 <= tt <= t
+
+
+def test_split_plan_ragged_stage4_and_other_variants():
+    """The ragged stage-4 grid (T = 125, F = 10) at every width, per group
+    and fused; float32 and widths off the 8-grid take the CUDA-core
+    variant; the staged rows' strides are odd in 16-byte units."""
+    for w in (8, 16, 24, 32, 48):
+        plan = rn.split_plan(w, 125, 10, torch.bfloat16)
+        assert plan["variant"] == "pipe" and plan["smem"] <= SMEM // 2 and plan["tf"] == 10
+    for w, split in ((8, 4), (16, 4), (24, 4), (8, 6), (16, 6)):
+        plan = rn.split_plan(w, 125, 10, torch.bfloat16, split)
+        assert plan["variant"] == "fused" and plan["smem"] <= SMEM and plan["tf"] == 10
+    for w in (64, 96, 192):
+        assert rn.split_plan(w, 125, 10, torch.bfloat16, 4)["variant"] == "mma"
+    assert rn.split_plan(24, 125, 10, torch.float32, 4)["variant"] == "fma"
+    assert rn.split_plan(12, 125, 10, torch.bfloat16, 4)["variant"] == "fma"
+    # conflict-free ldmatrix rows: odd strides in 16-byte units
+    for w in (8, 16, 24, 32, 48, 64, 96):
+        assert (rn._halo_stride(w) // 8) % 2 == 1 and rn._halo_stride(w) >= w
+    for c in (32, 48, 64, 96, 128, 192):
+        assert (rn._chain_stride(c) // 8) % 2 == 1 and rn._chain_stride(c) >= c
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [8, 1])
+def test_bn_train_plan_every_training_call(dtype, groups):
+    """Every K5 call of the bench training step (B = 256, in 8 BN groups or
+    one): the 4-D calls take the one-launch cluster design with a valid
+    geometry (threads = ct_v * rpb <= 512 covering the full row, rpb a power
+    of two, ring chunks of whole row-lane rounds, four or more chunks in
+    flight for the most tensors a pass streams, shared memory within one
+    block), the 2-D head calls the multi-kernel design; a second call with
+    the same signature gets the same (cached) plan."""
+    k5, _ = chip_smoke.train_shapes(RES2NET_CONFIGS["res2net50_w8_s6_c16"], 256, 200, 80)
+    vec = 16 // dtype.itemsize
+    resident = 0
+    for (shape, relu, mode) in k5:
+        plan = tops.bn_train_plan(shape, groups, dtype, mode, relu)
+        assert tops.bn_train_plan(torch.Size(shape), groups, dtype, mode, relu) is plan
+        if len(shape) == 2:
+            assert plan["design"] == "multi"
+            continue
+        assert plan["design"] == "cluster", shape
+        c, row = shape[1], shape[1] * dtype.itemsize
+        ct_v, rpb = plan["ct_v"], plan["rpb"]
+        assert plan["threads"] == ct_v * rpb <= 512 and rpb & (rpb - 1) == 0
+        assert ct_v * vec == c and 2 * ct_v * rpb > 512
+        assert plan["rows"] == 256 // groups * shape[2] * shape[3]
+        for d, streamed in (("fwd", 2 if mode else 1),
+                            ("bwd", 2 + int(mode == 2 or (mode == 1 and relu)))):
+            rr, ring = plan[f"{d}_ring_rows"], plan[f"{d}_ring_bytes"]
+            # whole rounds of the row lanes, about four chunks in flight
+            assert rr % rpb == 0 and plan[f"{d}_stages"] == ring // (streamed * rr * row)
+            assert 4 <= plan[f"{d}_stages"] <= 16 and (rr == rpb or plan[f"{d}_stages"] < 8)
+            assert plan[f"{d}_smem"] <= SMEM - 1024 and ring % 16 == 0
+        # on the H100's 128 CTAs (one an SM, 128 // groups a group) a
+        # forward slab that fits its ring is read from HBM once
+        slab = -(-plan["rows"] // (128 // groups))
+        resident += mode != 1 and slab <= plan["fwd_stages"] * plan["fwd_ring_rows"]
+    # the stage-3 and stage-4 split groups (C = 32 at 50 x 20, 64 at 25 x 10)
+    # in bf16, the stage-4 ones in float32
+    assert resident >= (2 if dtype == torch.bfloat16 else 1)
+
+
+def test_bn_train_plan_other_calls():
+    """One BN group takes the cluster design too (the kernel spreads the
+    group over the card); channels that do not fill 16-byte vectors, rows
+    wider than 512 vectors and 2-D inputs take the multi-kernel design."""
+    plan = tops.bn_train_plan((256, 96, 200, 80), 1, torch.bfloat16, 0, False)
+    assert plan["design"] == "cluster" and plan["rows"] == 256 * 200 * 80
+    assert tops.bn_train_plan((16, 12, 9, 5), 8, torch.bfloat16, 0, True)["design"] == "multi"
+    assert tops.bn_train_plan((16, 12, 9, 5), 8, torch.float32, 0, True)["design"] == "cluster"
+    assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.bfloat16, 0, True)["design"] == "cluster"
+    assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.float32, 0, True)["design"] == "multi"
+    assert tops.bn_train_plan((256, 10240), 8, torch.bfloat16, 0, False)["design"] == "multi"

@@ -156,8 +156,10 @@ def test_converted_state_gives_the_same_logits(jax_run):
     js = states[0]
     feats, labels = next(batches(1, seed=3))
     net = jax_net(JaxConfig(**CFG))
-    want_emb, want = net.apply({"params": js.params, "batch_stats": js.batch_stats},
-                               jnp.asarray(feats[0]), jnp.asarray(labels[0]), 32.0, 0.1, False)
+    # jitted: op-by-op dispatch of the JAX net costs seconds of CPU
+    apply = jax.jit(lambda v, f, y: net.apply(v, f, y, 32.0, 0.1, False))
+    want_emb, want = apply({"params": js.params, "batch_stats": js.batch_stats},
+                           jnp.asarray(feats[0]), jnp.asarray(labels[0]))
     state = port_state(js)
     with torch.no_grad():
         emb, got = state.net(torch.from_numpy(feats[0]), torch.from_numpy(labels[0]), 32.0, 0.1,

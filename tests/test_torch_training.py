@@ -269,8 +269,14 @@ def test_thin_res2net_training_forward_backward_matches_jax():
             return model.apply({"params": p, "batch_stats": stats}, jnp.asarray(x), True,
                                mutable=["batch_stats"])
 
-    emb, vjp, mut = jax.vjp(f, params, has_aux=True)
-    grads = vjp(jnp.asarray(cot))[0]
+    # one jitted program: op-by-op dispatch of the whole backward took ~30 s
+    # of CPU beside the JAX package's multi-device tests
+    @jax.jit
+    def forward_backward(p):
+        emb, vjp, mut = jax.vjp(f, p, has_aux=True)
+        return emb, vjp(jnp.asarray(cot))[0], mut
+
+    emb, grads, mut = forward_backward(params)
 
     port = get_model(THIN, feat_dim=16)
     port.set_bn_groups(2)

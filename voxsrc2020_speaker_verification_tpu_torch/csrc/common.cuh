@@ -48,8 +48,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
+// Returned, beside the CUDA codes, where the caller's launch plan gives a
+// shared-memory size other than the kernel's own layout needs.
+constexpr int kPlanMismatch = 10001;
+
 }  // namespace vsv
 
 extern "C" const char* vsv_error_string(int code) {
+  if (code == vsv::kPlanMismatch)
+    return "the launch plan's shared memory differs from the kernel's layout";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,45 +1,71 @@
-// K2: one group of the stride-1 Res2Net split chain, eval mode.
+// K2: the stride-1 Res2Net split chain, eval mode.
 //
 // Replaces: voxsrc2020_speaker_verification_tpu/models/res2net.py
 // Res2NetSplitConv, stride-1 branch (lines 82-107), which XLA ran as s-1
 // convs each followed by BN and relu.
 //
-// One launch per group i < s-1 computes, for every position (b, t, f),
+// For every position (b, t, f) and group i < s-1:
 //   in_i  = x_i + mask * y_{i-1}          (i > 0; rounded to the dtype)
 //   y_i   = relu((conv3x3_same(in_i) - mean_i) * rsqrt(var_i + eps))
-// and writes y_i into channel slice i of the stage output, so no concat is
-// needed; the launch of group 0 also copies the pass-through last group.
-// Padded frames of y_{i-1} are zeroed by the mask before the add, so padding
-// garbage never enters the conv's receptive field.
+// with y_i written into channel slice i of the stage output, so no concat is
+// needed, and the last group passed through. Padded frames of y_{i-1} are
+// zeroed by the mask before the add, so padding garbage never enters the
+// conv's receptive field.
 //
 // The conv is an implicit GEMM: M = B*T*F positions, N = w output channels,
 // K = 9 * w (tap-major, then input channel), with the A tile gathered from
-// the shifted input (and the masked add) while it is staged in shared
-// memory. Layout: channels-last (B, T, F, C) for input and output.
+// the shifted input staged in shared memory. Layout: channels-last
+// (B, T, F, C) for input and output.
 //
-// Bound on the card: at the serving widths (w 24..192) the bf16 chain moves
-// x_i, y_{i-1} and y_i (6 B per position-channel) for 18 w flops each:
-// below Hopper's ridge (~295 flop/B) at w <= 48, so HBM bounds those
-// stages; the tensor cores bound w = 96 and 192. Two variants:
+// Bound on the card: at the serving widths (w 24..192) the bf16 chain needs
+// one read of x and one write of the output (4 B per position-channel) for
+// 18 w (s-1)/s flops each: below Hopper's ridge (~295 flop/B) at w <= 48,
+// so HBM bounds those stages; the tensor cores bound w = 96 and 192. Four
+// variants; the wrapper's plan (models/res2net.py:split_plan) picks one:
 //
-// * split_group_mma (bfloat16, w % 8 == 0): mma.sync m16n8k16 bf16 with
-//   fp32 accumulation. A block owns a patch of up to 128 (t, f) positions of
-//   one utterance and stages it once in shared memory with a one-position
-//   halo (coalesced 16-byte loads, the masked add applied while staging);
-//   all nine taps then read from shared memory, so each input is read from
-//   HBM about (TT+2)(TF+2)/(TT*TF) ~ 1.4 times per group. Four warps each
-//   own 32 positions x 8*NT output channels; B fragments come straight from
-//   the weights in (w_out, 9 * w) layout (L1-resident). Epilogue: round the
-//   conv output to bf16, eval BN, relu, 4-byte pair stores.
+// * split_chain_fused (bfloat16, w = 8, 16, 24, 32 with s = 4 or 6, where
+//   the weights and two full-width patch stages fit one block: the serving
+//   model's w = 24 stage). What bounded the per-group variants there: s-1
+//   launches, each reading x_i and y_{i-1} and writing y_i as 48-byte
+//   pieces of 192-byte rows (w = 24), against a bound of one read of x and
+//   one write of the output. This variant runs the whole chain in one
+//   launch: each patch is staged once at full width with an (s-1)-position
+//   halo (cp.async on mbarriers, two stages, the next patch in flight
+//   during this one's compute), the groups are computed on shrinking rings
+//   in shared memory, and every output row is written by one CTA. What
+//   bounds it now: neither HBM (~1.2 ms of traffic a stage call at the
+//   serving shape) nor the tensor cores -- the per-position work (the
+//   epilogue's round, BN, relu and masked add, the ring's ~1.4x extra rows)
+//   on mma.sync with sixteen warps an SM, the one CTA its shared memory
+//   allows; wgmma and a lighter epilogue are the next steps.
+// * split_group_pipe (bfloat16, w = 8 * nt where the group's weights fit in
+//   half an SM's shared memory: the w = 48 stage). What bounded the first
+//   tensor-core variant (split_group_mma, below): it staged each halo patch
+//   with synchronous loads, then computed, with nothing in flight
+//   meanwhile; A fragments were scalar 32-bit shared loads; B fragments
+//   came from global memory at every k step in every warp; and a grid.y of
+//   w / (8 NT) blocks staged the same patch once per N tile. This variant
+//   keeps the group's weights in shared memory (once per CTA), runs
+//   persistent CTAs over the patches with a two-stage cp.async ring
+//   completing on mbarriers, applies the masked add in shared memory, takes
+//   A and B fragments with ldmatrix, and covers all w output channels in
+//   one CTA, so each patch is staged once per group. What bounds it now:
+//   mma.sync issue rate and the per-group traffic.
+// * split_group_mma (bfloat16, w % 8 == 0; the w = 96 and 192 groups, whose
+//   weights do not fit twice per SM): mma.sync m16n8k16 with fp32
+//   accumulation over a patch of up to 128 (t, f) positions staged with a
+//   one-position halo; B fragments straight from the (w_out, 9 * w) weights
+//   (L2-resident). wgmma (Hopper's warpgroup MMA, B from shared memory) is
+//   its redesign, still to come.
 // * split_group (float32, or bf16 at other widths): the same GEMM as fp32
 //   FMA on CUDA cores, weights in their JAX layout (3, 3, w, w * (s-1)) with
 //   row stride ldw = w * (s-1), group i reading columns [woff, woff + w)
 //   (models/res2net.py:83). float32 stays off the tensor cores: TF32 would
 //   cost 13 mantissa bits the plain version keeps.
 //
-// Neither variant double-buffers its tiles yet (cp.async / TMA, wgmma come
-// later); the chain fuses the add, the BN and the relu so that each
-// activation is read and written once per group.
+// All variants fuse the add, the BN and the relu; the epilogue rounds the
+// conv output to the dtype before the BN, as the JAX package does.
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -243,7 +269,7 @@ __device__ __forceinline__ uint4 pack8(const float* v) {
 // Row stride (bf16) of a staged position: w plus a pad that makes the stride
 // in 32-bit words an odd multiple of 4, so the 8 rows of an mma fragment
 // load fall in 8 distinct 4-bank groups; rows stay 16-byte aligned.
-__host__ __device__ __forceinline__ int halo_stride(int width) {
+__host__ __device__ constexpr int halo_stride(int width) {
   return width + 2 * ((4 - (width / 2) % 8 + 8) % 8);
 }
 
@@ -410,7 +436,555 @@ int launch_mma(const void* x, const void* prev, const float* mask, const void* w
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// pipelined tensor-core variant (bfloat16, w = 8 * NT, the group's weights
+// resident in shared memory)
+// ---------------------------------------------------------------------------
+
+constexpr int PIPE_THREADS = 128;  // four warps, 16 * MT patch rows each
+constexpr int kSmemMax = 232448;   // 227 KB, the most a block can take
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
+// conv's "same" padding)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// this thread's arrival on `bar`, triggered when all its cp.async so far land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// Row stride (bf16) of the staged weights: K = 9w rounded up to 16, plus 8,
+// so the stride in 16-byte units is odd (conflict-free ldmatrix) and the
+// zero pad covers the dead half of the last k step.
+__host__ __device__ constexpr int weight_stride(int width) {
+  return (9 * width + 15) / 16 * 16 + 8;
+}
+
+// Shared memory: the weights (w rows), two halo-patch stages of x_i, one of
+// y_{i-1}, two mbarriers, and each halo position's (row, column).
+__host__ __device__ constexpr size_t pipe_smem(int width, int tt_n, int tf_n) {
+  return sizeof(__nv_bfloat16) *
+             (static_cast<size_t>(width) * weight_stride(width) +
+              3 * static_cast<size_t>(tt_n + 2) * (tf_n + 2) * halo_stride(width)) +
+         2 * sizeof(uint64_t) + sizeof(int) * static_cast<size_t>(tt_n + 2) * (tf_n + 2);
+}
+
+// Persistent CTAs walk the TT x TF patches of the (B, T, F) grid. A patch
+// with its one-position halo (all w channels of x_i and of y_{i-1}) is
+// copied into shared memory with cp.async, zero-filled outside the
+// utterance, and the copies complete on the stage's mbarrier; the next
+// patch's copies are issued before this patch's MMAs, so loads overlap
+// compute. The masked add x_i + mask * y_{i-1} (rounded to bf16) is applied
+// in shared memory. The implicit GEMM (M = the patch, N = w, K = 9w) runs on
+// mma.sync m16n8k16 with A and B fragments from ldmatrix: every patch is
+// staged once per group, for all output channels.
+template <int NT, int MT>
+__global__ void __launch_bounds__(PIPE_THREADS) split_group_pipe_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* prev,
+    const float* __restrict__ mask, const __nv_bfloat16* __restrict__ wt, int woff,
+    const float* __restrict__ mean, const float* __restrict__ var, __nv_bfloat16* out,
+    int batch, int tlen, int flen, int tt_n, int tf_n, int cin, int x_off, int cout,
+    int prev_off, int out_off, int tail_src, int tail_dst, int tail_width, float eps) {
+  constexpr int W = 8 * NT, C8 = NT, HS = halo_stride(W), K = 9 * W;
+  constexpr int WS = weight_stride(W), CHUNKS = 9 * C8, KSTEPS = (CHUNKS + 1) / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int hw = tf_n + 2, hpos = (tt_n + 2) * hw, hbuf = hpos * HS;
+  __nv_bfloat16* xs0 = ws + W * WS;
+  __nv_bfloat16* ps = xs0 + 2 * hbuf;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ps + hbuf);
+  int* hq = reinterpret_cast<int*>(bar + 2);  // halo position q -> (q / hw) << 16 | q % hw
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int tiles_f = (flen + tf_n - 1) / tf_n, tiles_t = (tlen + tt_n - 1) / tt_n;
+  const int ntiles = batch * tiles_t * tiles_f;
+  const int rows = tt_n * tf_n;
+  if (tid == 0) {
+    mbar_init(&bar[0], PIPE_THREADS);
+    mbar_init(&bar[1], PIPE_THREADS);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int q = tid; q < hpos; q += PIPE_THREADS) hq[q] = (q / hw) << 16 | (q % hw);
+  __syncthreads();
+
+  // the group's weights: row n = output channel n, K taps x input channels,
+  // zero-padded to WS
+  for (int i = tid; i < W * (K / 8); i += PIPE_THREADS) {
+    const int n = i / (K / 8), k8 = (i % (K / 8)) * 8;
+    cp_async16(smem_u32(ws + n * WS + k8), wt + static_cast<long long>(woff + n) * K + k8, true);
+  }
+  for (int i = tid; i < W * (WS - K); i += PIPE_THREADS)
+    ws[(i / (WS - K)) * WS + K + i % (WS - K)] = __float2bfloat16(0.f);
+
+  auto issue = [&](int tile, int stage) {
+    const int b = tile / (tiles_t * tiles_f);
+    const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
+    __nv_bfloat16* xs = xs0 + stage * hbuf;
+    for (int i = tid; i < hpos * C8; i += PIPE_THREADS) {
+      const int q = i / C8, c0 = (i % C8) * 8, qq = hq[q];
+      const int t = t0 - 1 + (qq >> 16), f = f0 - 1 + (qq & 0xffff);
+      const bool valid = t >= 0 && t < tlen && f >= 0 && f < flen;
+      const long long p = valid ? (static_cast<long long>(b) * tlen + t) * flen + f : 0;
+      cp_async16(smem_u32(xs + q * HS + c0), x + p * cin + x_off + c0, valid);
+      if (prev != nullptr)
+        cp_async16(smem_u32(ps + q * HS + c0), prev + p * cout + prev_off + c0, valid);
+    }
+    cp_async_arrive(&bar[stage]);
+  };
+
+  // ldmatrix addressing: A rows lane % 16 of each m tile (tap (1, 1) halo
+  // position), k half lane / 16; B rows n = nt * 8 + lane % 8, k half
+  // (lane / 8) % 2
+  int arow[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = min(warp * 16 * MT + mt * 16 + lane % 16, rows - 1);
+    arow[mt] = ((r / tf_n + 1) * hw + r % tf_n + 1) * HS;
+  }
+  const int ahalf = lane / 16;
+  const uint32_t wbase = smem_u32(ws + (lane % 8) * WS + ((lane / 8) % 2) * 8);
+  // this thread's output channels' eval BN, once per CTA
+  float bn_mu[NT][2], bn_inv[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = nt * 8 + 2 * tg + e;
+      bn_mu[nt][e] = mean[co];
+      bn_inv[nt][e] = 1.f / sqrtf(var[co] + eps);
+    }
+
+  if (blockIdx.x < ntiles) issue(blockIdx.x, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int stage = it & 1;
+    __nv_bfloat16* xs = xs0 + stage * hbuf;
+    const int b = tile / (tiles_t * tiles_f);
+    const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
+    mbar_wait(&bar[stage], (it >> 1) & 1);
+    if (prev != nullptr) {
+      for (int i = tid; i < hpos * C8; i += PIPE_THREADS) {
+        const int q = i / C8, c0 = (i % C8) * 8;
+        const int t = t0 - 1 + (hq[q] >> 16);
+        const float mk = mask == nullptr ? 1.f
+                         : (t >= 0 && t < tlen ? mask[static_cast<long long>(b) * tlen + t] : 0.f);
+        float v[8], y[8];
+        load8(xs + q * HS + c0, v);
+        load8(ps + q * HS + c0, y);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = vsv::round_to<__nv_bfloat16>(v[j] + y[j] * mk);
+        *reinterpret_cast<uint4*>(xs + q * HS + c0) = pack8(v);
+      }
+    }
+    __syncthreads();  // the patch is complete; the y_{i-1} stage is free
+    if (tile + gridDim.x < ntiles) issue(tile + gridDim.x, stage ^ 1);
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+    const uint32_t xbase = smem_u32(xs);
+#pragma unroll 2
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      // this lane's 8-channel chunk; the dead half of an odd last step reads
+      // chunk 2 ks again (finite data, multiplied by the zero weight pad)
+      int ch = 2 * ks + ahalf;
+      if (ch >= CHUNKS) ch = 2 * ks;
+      const int tap = ch / C8;
+      const int off = ((tap / 3 - 1) * hw + tap % 3 - 1) * HS + (ch % C8) * 8;
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(af[mt], xbase + 2 * (arow[mt] + off));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bf[2];
+        ldmatrix_x2(bf, wbase + 2 * (nt * 8 * WS + 16 * ks));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(acc[mt][nt], af[mt], bf);
+      }
+    }
+
+    // epilogue: round the conv output to bf16, eval BN, relu, store pairs
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 * MT + mt * 16 + g + 8 * h;
+        const int t = t0 + r / tf_n, f = f0 + r % tf_n;
+        if (r >= rows || t >= tlen || f >= flen) continue;
+        __nv_bfloat16* o =
+            out + ((static_cast<long long>(b) * tlen + t) * flen + f) * cout + out_off;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int co = nt * 8 + 2 * tg;
+          const float v0 = vsv::round_to<__nv_bfloat16>(acc[mt][nt][2 * h]);
+          const float v1 = vsv::round_to<__nv_bfloat16>(acc[mt][nt][2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(o + co) = __floats2bfloat162_rn(
+              fmaxf((v0 - bn_mu[nt][0]) * bn_inv[nt][0], 0.f),
+              fmaxf((v1 - bn_mu[nt][1]) * bn_inv[nt][1], 0.f));
+        }
+      }
+    // the pass-through last group, for the patch's positions
+    if (tail_width > 0) {
+      const int vecs = tail_width / 8;
+      for (int i = tid; i < rows * vecs; i += PIPE_THREADS) {
+        const int r = i / vecs, c = (i % vecs) * 8;
+        const int t = t0 + r / tf_n, f = f0 + r % tf_n;
+        if (t < tlen && f < flen) {
+          const long long p = (static_cast<long long>(b) * tlen + t) * flen + f;
+          *reinterpret_cast<uint4*>(out + p * cout + tail_dst + c) =
+              *reinterpret_cast<const uint4*>(x + p * cin + tail_src + c);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read out before the next issue reuses it
+  }
+}
+
+template <int NT, int MT>
+int launch_pipe(const void* x, const void* prev, const float* mask, const void* wt, int woff,
+                const float* mean, const float* var, void* out, int batch, int tlen, int flen,
+                int tt_n, int tf_n, int cin, int x_off, int cout, int prev_off, int out_off,
+                int tail_src, int tail_dst, int tail_width, float eps, long long plan_smem,
+                int num_sms, cudaStream_t stream) {
+  const size_t smem = pipe_smem(8 * NT, tt_n, tf_n);
+  if (tt_n * tf_n > 64 * MT || tt_n * tf_n <= 64 * MT - 64 || smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(smem) != plan_smem) return vsv::kPlanMismatch;
+  auto kernel = split_group_pipe_kernel<NT, MT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PIPE_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long tiles = static_cast<long long>(batch) * ((tlen + tt_n - 1) / tt_n) *
+                          ((flen + tf_n - 1) / tf_n);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = std::min<long long>(tiles, static_cast<long long>(per_sm) * num_sms);
+  kernel<<<static_cast<unsigned>(grid), PIPE_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(prev), mask,
+      static_cast<const __nv_bfloat16*>(wt), woff, mean, var, static_cast<__nv_bfloat16*>(out),
+      batch, tlen, flen, tt_n, tf_n, cin, x_off, cout, prev_off, out_off, tail_src, tail_dst,
+      tail_width, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// fused-chain variant (bfloat16, w = 8 * NT, G = s - 1 groups): the whole
+// stride-1 chain in one launch
+// ---------------------------------------------------------------------------
+
+constexpr int FUSED_THREADS = 512;  // sixteen warps, one 16-row m tile each at a time
+
+// Row stride (bf16) of a staged full-width position: C plus 8 where C / 8
+// is even, so the stride in 16-byte units is odd (conflict-free ldmatrix).
+__host__ __device__ constexpr int chain_stride(int channels) {
+  return channels + ((channels / 8) % 2 == 0 ? 8 : 0);
+}
+
+// Shared memory: the G groups' weights, two stages of the full-width patch
+// with a G-position halo, two mbarriers, the halo table (padded to an even
+// count), the groups' eval BN (mean, 1 / std) per channel.
+__host__ __device__ constexpr size_t fused_smem(int width, int groups, int tt_n, int tf_n) {
+  return sizeof(__nv_bfloat16) *
+             (static_cast<size_t>(groups) * width * weight_stride(width) +
+              2 * static_cast<size_t>(tt_n + 2 * groups) * (tf_n + 2 * groups) *
+                  chain_stride((groups + 1) * width)) +
+         2 * sizeof(uint64_t) +
+         sizeof(int) * ((static_cast<size_t>(tt_n + 2 * groups) * (tf_n + 2 * groups) + 1) / 2 * 2) +
+         sizeof(float2) * static_cast<size_t>(groups) * width;
+}
+
+// Persistent CTAs walk the TT x TF patches. A patch is staged once, at full
+// width (all s*w channels of x: one contiguous row a position) with a
+// G-position halo, by cp.async on the stage's mbarrier; the next patch's
+// copies are issued as soon as this one has landed, so they overlap all of
+// this patch's compute. Group g's conv is an implicit GEMM (M = the patch
+// grown by G-1-g positions a side, N = w, K = 9w) on mma.sync with
+// ldmatrix fragments, one 16-row m tile per warp at a time (sixteen warps:
+// the shrinking rings keep most of them busy); its epilogue (round, eval
+// BN, relu) writes y_g on the patch to the output and, inside the
+// utterance, x_{g+1} + mask * y_g into the staged x_{g+1} slice in place --
+// the next group's input on a ring one position narrower. Positions
+// outside the utterance keep their zero fill (the next conv's "same"
+// padding). The ring is recomputed by the neighbouring patches: flops, not
+// bytes. Every element takes the per-group chain's arithmetic, x is read
+// from HBM about once, and each output row is written by one CTA.
+template <int NT, int G>
+__global__ void __launch_bounds__(FUSED_THREADS) split_chain_fused_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ mask,
+    const __nv_bfloat16* __restrict__ wt, const float* __restrict__ mean,
+    const float* __restrict__ var, __nv_bfloat16* __restrict__ out, int batch, int tlen,
+    int flen, int tt_n, int tf_n, float eps) {
+  constexpr int W = 8 * NT, C = (G + 1) * W, C8 = C / 8, CS = chain_stride(C), K = 9 * W;
+  constexpr int WS = weight_stride(W), CHUNKS = 9 * NT, KSTEPS = (CHUNKS + 1) / 2;
+  constexpr int WARPS = FUSED_THREADS / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int xw = tf_n + 2 * G, xpos = (tt_n + 2 * G) * xw, xbuf = xpos * CS;
+  __nv_bfloat16* xs0 = ws + G * W * WS;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs0 + 2 * xbuf);
+  int* hq = reinterpret_cast<int*>(bar + 2);  // staged position q -> (q / xw) << 16 | q % xw
+  float2* bnp = reinterpret_cast<float2*>(hq + xpos + (xpos & 1));
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, tg = lane % 4;
+  const int tiles_f = (flen + tf_n - 1) / tf_n, tiles_t = (tlen + tt_n - 1) / tt_n;
+  const int ntiles = batch * tiles_t * tiles_f;
+  if (tid == 0) {
+    mbar_init(&bar[0], FUSED_THREADS);
+    mbar_init(&bar[1], FUSED_THREADS);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int q = tid; q < xpos; q += FUSED_THREADS) hq[q] = (q / xw) << 16 | (q % xw);
+  for (int i = tid; i < G * W; i += FUSED_THREADS)
+    bnp[i] = make_float2(mean[i], 1.f / sqrtf(var[i] + eps));
+  // the groups' weights: row n = output channel n (group n / W), K taps x
+  // input channels, zero-padded to WS; they land with the first patch
+  for (int i = tid; i < G * W * (K / 8); i += FUSED_THREADS) {
+    const int n = i / (K / 8), k8 = (i % (K / 8)) * 8;
+    cp_async16(smem_u32(ws + n * WS + k8), wt + static_cast<long long>(n) * K + k8, true);
+  }
+  for (int i = tid; i < G * W * (WS - K); i += FUSED_THREADS)
+    ws[(i / (WS - K)) * WS + K + i % (WS - K)] = __float2bfloat16(0.f);
+  __syncthreads();
+
+  auto issue = [&](int tile, int stage) {
+    const int b = tile / (tiles_t * tiles_f);
+    const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
+    __nv_bfloat16* xs = xs0 + stage * xbuf;
+    for (int i = tid; i < xpos * C8; i += FUSED_THREADS) {
+      const int q = i / C8, c0 = (i % C8) * 8, qq = hq[q];
+      const int t = t0 - G + (qq >> 16), f = f0 - G + (qq & 0xffff);
+      const bool valid = t >= 0 && t < tlen && f >= 0 && f < flen;
+      const long long p = valid ? (static_cast<long long>(b) * tlen + t) * flen + f : 0;
+      cp_async16(smem_u32(xs + q * CS + c0), x + p * C + c0, valid);
+    }
+    cp_async_arrive(&bar[stage]);
+  };
+
+  const int ahalf = lane / 16;
+  if (blockIdx.x < ntiles) issue(blockIdx.x, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int stage = it & 1;
+    __nv_bfloat16* xs = xs0 + stage * xbuf;
+    const int b = tile / (tiles_t * tiles_f);
+    const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
+    mbar_wait(&bar[stage], (it >> 1) & 1);
+    // the other stage was released by the barrier that ended the last patch
+    if (tile + gridDim.x < ntiles) issue(tile + gridDim.x, stage ^ 1);
+
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      const int ring = G - 1 - g;  // y_g is computed on the patch grown by `ring`
+      const int rw = tf_n + 2 * ring, rows = (tt_n + 2 * ring) * rw;
+      const int mtiles = (rows + 15) / 16;
+      const uint32_t xbase = smem_u32(xs + g * W);
+      const uint32_t wbase = smem_u32(ws + (g * W + lane % 8) * WS + ((lane / 8) % 2) * 8);
+      for (int mt = warp; mt < mtiles; mt += WARPS) {
+        // ldmatrix rows: position lane % 16 of the m tile, at tap (1, 1)
+        const int ra = min(mt * 16 + lane % 16, rows - 1);
+        const int arow = ((ra / rw + g + 1) * xw + ra % rw + g + 1) * CS;
+        float acc[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll 3
+        for (int ks = 0; ks < KSTEPS; ++ks) {
+          int ch = 2 * ks + ahalf;
+          if (ch >= CHUNKS) ch = 2 * ks;  // the dead half meets the zero weight pad
+          const int tap = ch / NT;
+          const int off = ((tap / 3 - 1) * xw + tap % 3 - 1) * CS + (ch % NT) * 8;
+          uint32_t af[4];
+          ldmatrix_x4(af, xbase + 2 * (arow + off));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t bf[2];
+            ldmatrix_x2(bf, wbase + 2 * (nt * 8 * WS + 16 * ks));
+            mma_bf16_16816(acc[nt], af, bf);
+          }
+        }
+        // epilogue: round the conv output to bf16, eval BN, relu; y_g on
+        // the patch to the output, x_{g+1} + mask * y_g into the stage
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g8 + 8 * h;
+          if (r >= rows) continue;
+          const int rt = r / rw, rf = r % rw;
+          const int t = t0 - ring + rt, f = f0 - ring + rf;
+          if (t < 0 || t >= tlen || f < 0 || f >= flen) continue;
+          const bool on_patch = rt >= ring && rt < ring + tt_n && rf >= ring && rf < ring + tf_n;
+          const long long p = (static_cast<long long>(b) * tlen + t) * flen + f;
+          const float mk = mask == nullptr ? 1.f : mask[static_cast<long long>(b) * tlen + t];
+          __nv_bfloat16* nxt = xs + ((rt + g + 1) * xw + rf + g + 1) * CS + (g + 1) * W;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int co = nt * 8 + 2 * tg;
+            const float2 p0 = bnp[g * W + co], p1 = bnp[g * W + co + 1];
+            const float v0 = vsv::round_to<__nv_bfloat16>(acc[nt][2 * h]);
+            const float v1 = vsv::round_to<__nv_bfloat16>(acc[nt][2 * h + 1]);
+            const __nv_bfloat162 y = __floats2bfloat162_rn(fmaxf((v0 - p0.x) * p0.y, 0.f),
+                                                           fmaxf((v1 - p1.x) * p1.y, 0.f));
+            if (on_patch) *reinterpret_cast<__nv_bfloat162*>(out + p * C + g * W + co) = y;
+            if (g + 1 < G) {
+              const float2 yf = __bfloat1622float2(y);
+              const float2 xf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(nxt + co));
+              *reinterpret_cast<__nv_bfloat162*>(nxt + co) =
+                  __floats2bfloat162_rn(xf.x + yf.x * mk, xf.y + yf.y * mk);
+            }
+          }
+        }
+      }
+      __syncthreads();  // group g+1 reads what group g wrote
+    }
+    // the pass-through last group, for the patch's positions
+    for (int i = tid; i < tt_n * tf_n * NT; i += FUSED_THREADS) {
+      const int r = i / NT, c = (i % NT) * 8;
+      const int t = t0 + r / tf_n, f = f0 + r % tf_n;
+      if (t < tlen && f < flen) {
+        const long long p = (static_cast<long long>(b) * tlen + t) * flen + f;
+        *reinterpret_cast<uint4*>(out + p * C + G * W + c) = *reinterpret_cast<const uint4*>(
+            xs + ((r / tf_n + G) * xw + r % tf_n + G) * CS + G * W + c);
+      }
+    }
+    __syncthreads();  // this stage is read out before the next issue reuses it
+  }
+}
+
+template <int NT, int G>
+int launch_fused(const void* x, const float* mask, const void* wt, const float* mean,
+                 const float* var, void* out, int batch, int tlen, int flen, int tt_n, int tf_n,
+                 float eps, long long plan_smem, int num_sms, cudaStream_t stream) {
+  const size_t smem = fused_smem(8 * NT, G, tt_n, tf_n);
+  if (tt_n < 1 || tf_n < 1 || smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(smem) != plan_smem) return vsv::kPlanMismatch;
+  auto kernel = split_chain_fused_kernel<NT, G>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FUSED_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long tiles = static_cast<long long>(batch) * ((tlen + tt_n - 1) / tt_n) *
+                          ((flen + tf_n - 1) / tf_n);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = std::min<long long>(tiles, static_cast<long long>(per_sm) * num_sms);
+  kernel<<<static_cast<unsigned>(grid), FUSED_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), mask, static_cast<const __nv_bfloat16*>(wt), mean,
+      var, static_cast<__nv_bfloat16*>(out), batch, tlen, flen, tt_n, tf_n, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Fused-chain variant: bfloat16, x (B, T, F, s*w) channels-last with
+// w = 8 * nt (nt 1..4) and groups = s - 1 (3 or 5); wt as split_group_mma's
+// (rows [i*w, (i+1)*w) for group i); mean/var: (groups, w) fp32. One launch
+// computes the whole chain and writes every channel of out. The patch
+// tt_n x tf_n must fit fused_smem(w, groups, tt_n, tf_n) <= 227 KB; the
+// caller's plan (models/res2net.py:split_plan) passes that size as
+// plan_smem, and a plan whose size differs from this layout's is refused
+// (vsv::kPlanMismatch).
+extern "C" int split_chain_fused(int nt, int groups, const void* x, const float* mask,
+                                 const void* wt, const float* mean, const float* var, void* out,
+                                 int batch, int tlen, int flen, int tt_n, int tf_n, float eps,
+                                 long long plan_smem, int num_sms, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VSV_FUSED_CASE(N, GG)                                                                  \
+  if (nt == N && groups == GG)                                                                 \
+    return launch_fused<N, GG>(x, mask, wt, mean, var, out, batch, tlen, flen, tt_n, tf_n, eps, \
+                               plan_smem, num_sms, s);
+  VSV_FUSED_CASE(1, 3) VSV_FUSED_CASE(2, 3) VSV_FUSED_CASE(3, 3) VSV_FUSED_CASE(4, 3)
+  VSV_FUSED_CASE(1, 5) VSV_FUSED_CASE(2, 5) VSV_FUSED_CASE(3, 5) VSV_FUSED_CASE(4, 5)
+#undef VSV_FUSED_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Pipelined variant: bfloat16, width = 8 * nt with nt one of 1, 2, 3, 4, 6,
+// 8, 12; mt (1 or 2) m tiles of 16 patch rows per warp, the patch tt_n x
+// tf_n positions with 64 * (mt - 1) < tt_n * tf_n <= 64 * mt. Shared memory
+// pipe_smem(width, tt_n, tf_n) <= 227 KB, passed as plan_smem by the plan
+// (models/res2net.py:split_plan) and refused where it differs from this
+// layout's (vsv::kPlanMismatch). Other arguments as split_group_mma.
+extern "C" int split_group_pipe(int nt, int mt, const void* x, const void* prev,
+                                const float* mask, const void* wt, int woff,
+                                const float* mean, const float* var, void* out, int batch,
+                                int tlen, int flen, int tt_n, int tf_n, int cin, int x_off,
+                                int cout, int prev_off, int out_off, int tail_src,
+                                int tail_dst, int tail_width, float eps, long long plan_smem,
+                                int num_sms, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tail_width % 8 != 0 || (mt != 1 && mt != 2)) return static_cast<int>(cudaErrorInvalidValue);
+#define VSV_PIPE_CASE(N)                                                                      \
+  case N:                                                                                     \
+    return (mt == 2 ? launch_pipe<N, 2> : launch_pipe<N, 1>)(                                 \
+        x, prev, mask, wt, woff, mean, var, out, batch, tlen, flen, tt_n, tf_n, cin, x_off,   \
+        cout, prev_off, out_off, tail_src, tail_dst, tail_width, eps, plan_smem, num_sms, s);
+  switch (nt) {
+    VSV_PIPE_CASE(1)
+    VSV_PIPE_CASE(2)
+    VSV_PIPE_CASE(3)
+    VSV_PIPE_CASE(4)
+    VSV_PIPE_CASE(6)
+    VSV_PIPE_CASE(8)
+    VSV_PIPE_CASE(12)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VSV_PIPE_CASE
+}
 
 // bfloat16 only; width, every channel offset and tail_width multiples of 8,
 // pointers 16-byte aligned. wt: (w * (s-1), 9 * w) bfloat16, row n holding

@@ -142,6 +142,10 @@ SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "split_group_mma": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "split_group_pipe": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _L, _I, _P],
+    "split_chain_fused": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _I,
+                          _P],
 })
 BN_ACT = CudaKernel("bn_act", "bn_epilogue.cu", {
     "bn_act": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,
@@ -158,6 +162,10 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                      _P, _P, _F, _F, _F, _F, _P, _P, _I, _P],
     "bn_train_bwd": [_I, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P, _P, _I, _P],
+    "bn_cluster_fwd": [_I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _P, _P],
+    "bn_cluster_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
 })
 MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],

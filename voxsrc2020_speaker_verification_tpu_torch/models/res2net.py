@@ -28,11 +28,91 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import SPLIT_CONV, KernelError, check_cuda, dtype_code, ptr
+from ..kernels import SPLIT_CONV, KernelError, check_cuda, dtype_code, num_sms, ptr
 from ..ops import nn as ops
 
 CHANNELS_LAST = torch.channels_last
 _SPLIT_TN = (12, 8, 6, 4, 3, 2, 1)  # output channels per thread in K2
+_PIPE_NT = (1, 2, 3, 4, 6, 8, 12)   # K2 pipelined widths, w = 8 * nt
+_FUSED_NT, _FUSED_GROUPS = (1, 2, 3, 4), (3, 5)  # K2 fused-chain widths and s - 1
+_SMEM_BYTES = 232448                # the most shared memory one block can take
+# the pipelined variant keeps two CTAs on an SM (a lone 4-warp CTA cannot
+# hide its latencies): at most half an SM's shared memory each
+_PIPE_SMEM_MAX = _SMEM_BYTES // 2 - 1024
+
+
+# The shared-memory layouts below mirror csrc/split_conv.cu (halo_stride,
+# weight_stride, chain_stride, pipe_smem, fused_smem) so that the plan can
+# be chosen, and checked on the CPU, without the card; each launch passes
+# the plan's size and the kernel refuses one that differs from its own.
+
+
+def _halo_stride(width: int) -> int:
+    """bf16 row stride of a staged position (csrc/split_conv.cu:halo_stride)."""
+    return width + 2 * ((4 - (width // 2) % 8 + 8) % 8)
+
+
+def _pipe_smem(width: int, tt: int, tf: int) -> int:
+    """Shared memory of K2's pipelined variant (csrc/split_conv.cu:pipe_smem):
+    the weights, three halo-patch stages, two mbarriers, the halo table."""
+    wstride = -(-9 * width // 16) * 16 + 8
+    hpos = (tt + 2) * (tf + 2)
+    return 2 * (width * wstride + 3 * hpos * _halo_stride(width)) + 16 + 4 * hpos
+
+
+def _weight_stride(width: int) -> int:
+    """bf16 row stride of the staged weights (csrc/split_conv.cu:weight_stride)."""
+    return -(-9 * width // 16) * 16 + 8
+
+
+def _chain_stride(channels: int) -> int:
+    """bf16 row stride of a staged full-width position (csrc/split_conv.cu:chain_stride)."""
+    return channels + (8 if (channels // 8) % 2 == 0 else 0)
+
+
+def _fused_smem(width: int, groups: int, tt: int, tf: int) -> int:
+    """Shared memory of K2's fused-chain variant (csrc/split_conv.cu:fused_smem):
+    the groups' weights, two full-width patch stages with a ``groups``-position
+    halo, two mbarriers, the halo table, the groups' eval BN."""
+    xpos = (tt + 2 * groups) * (tf + 2 * groups)
+    return (2 * (groups * width * _weight_stride(width)
+                 + 2 * xpos * _chain_stride((groups + 1) * width))
+            + 16 + 4 * (xpos + xpos % 2) + 8 * groups * width)
+
+
+def split_plan(width: int, tlen: int, flen: int, dtype: torch.dtype, split: int = 0) -> dict:
+    """K2's launch plan for a split chain of ``split`` groups of width
+    ``width`` on a (T, F) grid (``split`` 0: one group's plan).
+
+    Patches are ``tt`` x ``tf`` positions, F cut evenly into tiles of at most
+    16, about 128 positions (64 where 128 do not fit). ``"fused"`` (bf16,
+    w = 8, 16, 24, 32 with s = 4 or 6, where the groups' weights and two
+    full-width patch stages with an (s-1)-position halo fit one block's
+    shared memory): the whole chain in one launch. ``"pipe"`` (bf16, w = 8 *
+    nt, the group's weights resident in shared memory): one launch per
+    group, ``mt`` 16-row m tiles per warp, in half an SM's shared memory.
+    ``"mma"`` (bf16 at other widths of 8k, and where that does not fit: w =
+    96, 192) and ``"fma"`` (float32, other widths) are the earlier
+    variants."""
+    if dtype != torch.bfloat16 or width % 8:
+        return {"variant": "fma"}
+    nt = width // 8
+    ft = -(-flen // 16)
+    tf = -(-flen // ft)
+    if nt in _FUSED_NT and split - 1 in _FUSED_GROUPS:
+        for rows in (128, 64):
+            tt = max(1, min(rows // tf, tlen))
+            smem = _fused_smem(width, split - 1, tt, tf)
+            if smem <= _SMEM_BYTES:
+                return {"variant": "fused", "nt": nt, "tt": tt, "tf": tf, "smem": smem}
+    if nt in _PIPE_NT:
+        for rows in (128, 64):
+            tt = max(1, min(rows // tf, tlen))
+            smem = _pipe_smem(width, tt, tf)
+            if smem <= _PIPE_SMEM_MAX:
+                return {"variant": "pipe", "nt": nt, "mt": -(-tt * tf // 64), "tt": tt,
+                        "tf": tf, "smem": smem}
+    return {"variant": "mma"}
 
 
 def split_chain_reference(x, weight, means, variances, mask=None,
@@ -65,7 +145,8 @@ def split_chain(x: torch.Tensor, weight: torch.Tensor,
     x: (B, s*w, T, F) channels_last; weight: (w*(s-1), w, 3, 3) OIHW in x's
     dtype, group i owning output rows [i*w, (i+1)*w); means/variances: s-1
     float32 (w,) running statistics; mask: (B, T') 0/1 with T' >= T.
-    One launch per group writes y_i into its channel slice of the output.
+    The plan (:func:`split_plan`) runs the chain in one launch, or in one
+    launch per group writing y_i into its channel slice of the output.
     """
     s = len(means) + 1
     b, c, t, f = x.shape
@@ -92,16 +173,32 @@ def split_chain(x: torch.Tensor, weight: torch.Tensor,
     if x.numel() == 0:
         return out
     tn = next(n for n in _SPLIT_TN if w % (8 * n) == 0 or n == 1)
-    # bf16 at widths of 8k runs on the tensor cores, with the weights as
-    # (w*(s-1), 9*w) rows (tap-major, then input channel); otherwise the
-    # CUDA-core variant reads the JAX layout (3, 3, w, w*(s-1))
-    mma = x.dtype == torch.bfloat16 and w % 8 == 0 and x.data_ptr() % 16 == 0
+    # the tensor-core variants move 16-byte vectors
+    plan = split_plan(w, t, f, x.dtype, s) if x.data_ptr() % 16 == 0 else {"variant": "fma"}
+    # the tensor-core variants take the weights as (w*(s-1), 9*w) rows
+    # (tap-major, then input channel); the CUDA-core variant reads the JAX
+    # layout (3, 3, w, w*(s-1))
+    mma = plan["variant"] != "fma"
     wk = (weight.permute(0, 2, 3, 1) if mma else weight.permute(2, 3, 1, 0)).contiguous()
+    sms = num_sms(x.device) if plan["variant"] in ("pipe", "fused") else 0
+    if plan["variant"] == "fused":
+        # (s-1, w) statistics, held until the launch is queued
+        bn_mean, bn_var = torch.stack(list(means)), torch.stack(list(variances))
+        SPLIT_CONV.launch("split_chain_fused", x.device, plan["nt"], s - 1, ptr(x), ptr(m),
+                          ptr(wk), ptr(bn_mean), ptr(bn_var), ptr(out), b, t, f, plan["tt"],
+                          plan["tf"], eps, plan["smem"], sms)
+        return out
     for i in range(s - 1):
         prev = ptr(out) if i > 0 else None
         shape = (b * t * f, t, f, c, i * w, c, (i - 1) * w, i * w, w,
                  (s - 1) * w, (s - 1) * w, w if i == 0 else 0, eps)
-        if mma:
+        if plan["variant"] == "pipe":
+            SPLIT_CONV.launch("split_group_pipe", x.device, plan["nt"], plan["mt"], ptr(x),
+                              prev, ptr(m), ptr(wk), i * w, ptr(means[i]),
+                              ptr(variances[i]), ptr(out), b, t, f, plan["tt"], plan["tf"],
+                              c, i * w, c, (i - 1) * w, i * w, (s - 1) * w, (s - 1) * w,
+                              w if i == 0 else 0, eps, plan["smem"], sms)
+        elif mma:
             SPLIT_CONV.launch("split_group_mma", x.device, tn, ptr(x), prev, ptr(m),
                               ptr(wk), i * w, ptr(means[i]), ptr(variances[i]),
                               ptr(out), b, *shape[1:])

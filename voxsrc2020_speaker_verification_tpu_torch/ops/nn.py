@@ -21,6 +21,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -257,9 +258,90 @@ def _bn_chunks(channels: int, n: int, groups: int, sms: int) -> int:
     return max(1, min(want, -(-n // rpb), 4096))
 
 
+_BN_CLUSTER_THREADS = 512  # at most, per CTA of K5's cluster design
+_SMEM_BYTES = 232448       # the most shared memory one block can take (227 KB)
+_BN_SMEM_SLACK = 1024      # left for the kernels' static shared memory
+_BN_RING_STAGES = 4        # chunks in flight in the bulk-copy ring (at most 16)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_train_plan(shape, groups: int, dtype: torch.dtype, sc_mode: int, relu: bool) -> dict:
+    """K5's launch design for one call: ``"cluster"`` (one launch per
+    direction) for a 4-D input whose channels fill 16-byte vectors, at most
+    512 of them a row; else ``"multi"`` (statistics, finalize and
+    elementwise launches: the 2-D head calls). For the cluster design also
+    its geometry: CTAs of ``ct_v * rpb`` threads, ``ct_v`` 16-byte channel
+    vectors (the full row) by ``rpb`` row lanes (a power of two), one CTA an
+    SM, and for each direction its ring of bulk copies: ``*_ring_bytes`` of
+    shared memory in ``*_stages`` chunks of ``*_ring_rows`` rows of each
+    tensor a pass streams (at most), and its shared memory in all. The
+    kernel sets the cluster size and the clusters per group itself: as many
+    as the card holds at once. Plans are cached per call signature and
+    shared: callers read them and do not modify them."""
+    vec = 16 // dtype.itemsize
+    c = shape[1]
+    if len(shape) != 4 or c % vec or c // vec > _BN_CLUSTER_THREADS:
+        return {"design": "multi"}
+    ct_v = c // vec
+    rpb = 1 << ((_BN_CLUSTER_THREADS // ct_v).bit_length() - 1)
+    row = c * dtype.itemsize
+    plan = {"design": "cluster", "ct_v": ct_v, "rpb": rpb, "threads": ct_v * rpb,
+            "rows": (shape[0] // groups) * math.prod(shape[2:])}
+    bwd_operands = 2 + int(sc_mode == 2 or (sc_mode == 1 and relu))
+    for name, ns, streamed in (("fwd", 4 if sc_mode == 2 else 2, 2 if sc_mode else 1),
+                               ("bwd", 3 if sc_mode == 2 else 2, bwd_operands)):
+        fixed = 4 * (plan["threads"] * vec + (2 * ns + 4) * c)
+        ring = (_SMEM_BYTES - _BN_SMEM_SLACK - fixed) // 16 * 16
+        # large chunks: each one costs the CTA a barrier and a refill
+        rows = max(1, ring // (_BN_RING_STAGES * streamed * row * rpb)) * rpb
+        plan[f"{name}_ring_bytes"] = ring
+        plan[f"{name}_ring_rows"] = rows
+        plan[f"{name}_stages"] = min(16, ring // (streamed * rows * row))
+        plan[f"{name}_smem"] = fixed + ring
+    return plan
+
+
+# (device, stream, groups) -> the int32 barrier and ticket words of K5's
+# cluster design; (device, stream) -> its float32 scratch
+_SYNC = {}
+_SCRATCH = {}
+
+
+def _cluster_scratch(device: torch.device, groups: int, floats: int) -> Tuple[int, int]:
+    """Pointers to the cluster design's scratch on the current stream: its
+    2 * groups + 1 sync ints (arrivals and generation per group, the
+    running update's ticket; zero when made, and every launch leaves them
+    ready for the next one; their layout depends on the group count, so
+    each count has its own) and at least ``floats`` floats (the groups'
+    variances, the clusters' sums). Launches on one stream run in order, so
+    each stream keeps one of each."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    sync = _SYNC.get((device, stream, groups))
+    if sync is None:
+        sync = _SYNC[(device, stream, groups)] = torch.zeros(
+            2 * groups + 1, dtype=torch.int32, device=device)
+    buf = _SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < floats:
+        buf = _SCRATCH[(device, stream)] = torch.empty(floats, dtype=torch.float32,
+                                                       device=device)
+    return sync.data_ptr(), buf.data_ptr()
+
+
+def _cluster_floats(x: torch.Tensor, groups: int, ns: int) -> Tuple[int, int]:
+    """(floats of the groups' variances, floats of the clusters' sums):
+    2 * groups * C, and ``ns`` sums of C channels for as many clusters as
+    the card holds (at most one CTA per SM)."""
+    c = x.shape[1]
+    return 2 * groups * c, num_sms(x.device) * ns * c
+
+
 class _BNTrainFn(torch.autograd.Function):
-    """K5 forward and backward. The running statistics are updated in place
-    by the forward launch; they take no gradient."""
+    """K5 forward and backward, in the design :func:`bn_train_plan` picks.
+    The running statistics are updated in place by the forward launch; they
+    take no gradient. The cluster design's backward recomputes the relu
+    decision from x (and a normalized shortcut), so it saves the forward
+    output only for a raw shortcut under relu; the multi-kernel design
+    saves it under relu."""
 
     @staticmethod
     def forward(ctx, x, shortcut, running_mean, running_var, sc_running_mean,
@@ -267,42 +349,71 @@ class _BNTrainFn(torch.autograd.Function):
         sc_mode = 0 if shortcut is None else (2 if sc_running_mean is not None else 1)
         c = x.shape[1]
         n, upd_mean, upd_var = _update_factors(x, groups)
-        sms = num_sms(x.device)
-        chunks = _bn_chunks(c, n, groups, sms)
+        plan = bn_train_plan(x.shape, groups, x.dtype, sc_mode, relu)
+        if plan["design"] == "cluster" and any(
+                t is not None and t.data_ptr() % 16 for t in (x, shortcut)):
+            plan = {"design": "multi"}  # the bulk copies move 16-byte aligned rows
         f32 = dict(dtype=torch.float32, device=x.device)
         stats = torch.empty((4 if sc_mode == 2 else 2, groups, c), **f32)
-        part = torch.empty(2 * groups * chunks * c, **f32)
         out = torch.empty_like(x)
         mean, rstd = stats[0], stats[1]
         sc_mean, sc_rstd = (stats[2], stats[3]) if sc_mode == 2 else (None, None)
-        BN_TRAIN.launch(
-            "bn_train_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
-            sc_mode, int(relu), n, groups, c, chunks, ptr(mean), ptr(rstd),
-            ptr(running_mean), ptr(running_var), ptr(sc_mean), ptr(sc_rstd),
-            ptr(sc_running_mean), ptr(sc_running_var), BN_MOMENTUM, upd_mean,
-            upd_var, eps, ptr(part), ptr(out), sms)
-        ctx.save_for_backward(x, out if relu else None,
+        chunks = 0
+        if plan["design"] == "cluster":
+            nvar, floats = _cluster_floats(x, groups, 4 if sc_mode == 2 else 2)
+            sync, var = _cluster_scratch(x.device, groups, nvar + floats)
+            BN_TRAIN.launch(
+                "bn_cluster_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
+                sc_mode, int(relu), n, groups, c, plan["ct_v"], plan["rpb"],
+                plan["fwd_ring_rows"], plan["fwd_ring_bytes"], ptr(mean), ptr(rstd),
+                ptr(running_mean), ptr(running_var), ptr(sc_mean), ptr(sc_rstd),
+                ptr(sc_running_mean), ptr(sc_running_var), var, var + 4 * nvar, floats,
+                sync, BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out))
+            save_y = relu and sc_mode == 1
+        else:
+            sms = num_sms(x.device)
+            chunks = _bn_chunks(c, n, groups, sms)
+            part = torch.empty(2 * groups * chunks * c, **f32)
+            BN_TRAIN.launch(
+                "bn_train_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
+                sc_mode, int(relu), n, groups, c, chunks, ptr(mean), ptr(rstd),
+                ptr(running_mean), ptr(running_var), ptr(sc_mean), ptr(sc_rstd),
+                ptr(sc_running_mean), ptr(sc_running_var), BN_MOMENTUM, upd_mean,
+                upd_var, eps, ptr(part), ptr(out), sms)
+            save_y = relu
+        ctx.save_for_backward(x, out if save_y else None,
                               shortcut if sc_mode == 2 else None, stats)
-        ctx.config = (groups, sc_mode, n, chunks, sms)
+        ctx.config = (groups, sc_mode, relu, n, plan, chunks)
         return out
 
     @staticmethod
     def backward(ctx, dy):
         x, y, shortcut, stats = ctx.saved_tensors
-        groups, sc_mode, n, chunks, sms = ctx.config
+        groups, sc_mode, relu, n, plan, chunks = ctx.config
         dy = _kernel_layout(dy)
         c = x.shape[1]
-        f32 = dict(dtype=torch.float32, device=x.device)
-        part = torch.empty(3 * groups * chunks * c, **f32)
-        coef = torch.empty(3 * groups * c, **f32)
         dx = torch.empty_like(x)
         dsc = torch.empty_like(x) if sc_mode else None
-        BN_TRAIN.launch(
-            "bn_train_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(y), ptr(dy),
-            ptr(shortcut), sc_mode, n, groups, c, chunks, ptr(stats[0]),
-            ptr(stats[1]), ptr(stats[2]) if sc_mode == 2 else None,
-            ptr(stats[3]) if sc_mode == 2 else None, ptr(part), ptr(coef),
-            ptr(dx), ptr(dsc), sms)
+        sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
+        if plan["design"] == "cluster":
+            if dy.data_ptr() % 16:
+                dy = dy.clone(memory_format=CHANNELS_LAST)  # the bulk copies need 16 B
+            _, floats = _cluster_floats(x, groups, 3 if sc_mode == 2 else 2)
+            sync, gpart = _cluster_scratch(x.device, groups, floats)
+            BN_TRAIN.launch(
+                "bn_cluster_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(y), ptr(dy),
+                ptr(shortcut), sc_mode, int(relu), n, groups, c, plan["ct_v"], plan["rpb"],
+                plan["bwd_ring_rows"], plan["bwd_ring_bytes"], ptr(stats[0]),
+                ptr(stats[1]), *sc_stats, gpart, floats, sync, ptr(dx), ptr(dsc))
+        else:
+            f32 = dict(dtype=torch.float32, device=x.device)
+            part = torch.empty(3 * groups * chunks * c, **f32)
+            coef = torch.empty(3 * groups * c, **f32)
+            BN_TRAIN.launch(
+                "bn_train_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(y), ptr(dy),
+                ptr(shortcut), sc_mode, n, groups, c, chunks, ptr(stats[0]),
+                ptr(stats[1]), *sc_stats, ptr(part), ptr(coef), ptr(dx), ptr(dsc),
+                num_sms(x.device))
         return dx, dsc, None, None, None, None, None, None, None
 
 
