@@ -11,7 +11,10 @@ Phases, one JSON line each:
    float32 (TF32 off) and in bfloat16, with timings: K1-K4 at the shapes
    the serving forward gives them (res2net50_w24_s4_c32, B=128, 1000
    frames), K4b, K5 and K6 (forward and backward, against autograd of the
-   plain versions) at the shapes of the training step below;
+   plain versions) at the shapes of the training step below. ``ms`` is a
+   call's time by CUDA events, host included; ``device_ms`` (K1, K4, K4b,
+   K6 and K4's library yardsticks) the kernel's own time by torch.profiler,
+   the time of record for calls under ~0.3 ms;
 4. serve   -- res2net50_w24_s4_c32 at full width, bf16, random weights from
    a seed, served over TCP by ``cli.serve.make_server``; feature, wave and
    score requests from four client threads; served embeddings checked
@@ -109,6 +112,39 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, name=None, reps: int = 20) -> float:
+    """Device milliseconds of one call of ``fn``: torch.profiler (CUPTI) over
+    ``reps`` calls after a warm-up, the device kernels whose name holds
+    ``name`` (every device activity if None), divided by ``reps``. The time
+    of record for calls under ~0.3 ms, where ``time_ms`` measures the host.
+    Where the profiler reports no device time twice (it once dropped a
+    window on the card), the calls are timed back to back by CUDA events
+    instead, and a ``device_ms`` line says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")
+                 and (name is None or name in e.key))
+        if us > 0:
+            return us / reps / 1e3
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    emit({"phase": "device_ms", "call": name or "library call", "source": "cuda_events",
+          "note": "the profiler reported no device time"})
+    return a.elapsed_time(b) / reps
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     tb, to = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
@@ -192,13 +228,14 @@ def check_fbank(dev, gen):
     nbytes = 4 * (wave.numel() + 2 * a.size + a.shape[1] * FEAT_DIM + t * FEAT_DIM)
     bms, by = bound_ms(nbytes, flops, torch.float32)
     ms = time_ms(lambda: fb.fbank(wave, cfg), reps=20)
+    dev_ms = device_ms(lambda: fb.fbank(wave, cfg), "fbank_kernel")
     plain = time_ms(lambda: fb.fbank_reference(wave, cfg), reps=20)
     return dict(name="fbank", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/pallas/fbank.py:85 "
                          "(fbank_fused, retired in 912d3e9; = ops/fbank.py:191 fbank)",
                 max_abs_err=err, tolerance=TOL_FBANK, dtype="float32",
-                per="one 8 s wave request", ms=ms, plain_ms=plain, bound_ms=bms,
+                per="one 8 s wave request", ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call computes Kaldi FBANK "
                              "(the card has no torchaudio)")
@@ -331,16 +368,15 @@ def check_bn_act(dev, gen, k3_calls):
                              "flag-free pass alone: its time is in the bn_act phase line")
 
 
-def var_mean_ms(x, backward: bool, reps=20):
+def var_mean_call(x, backward: bool):
     """The library yardstick of K4 (forward) and K4b (autograd backward): one
     ``torch.var_mean`` over T, the pooled axis (no mask)."""
     if not backward:
-        return time_ms(lambda: torch.var_mean(x, dim=2, keepdim=True, correction=0), reps=reps)
+        return lambda: torch.var_mean(x, dim=2, keepdim=True, correction=0)
     xi = x.detach().requires_grad_(True)
     v, m = torch.var_mean(xi, dim=2, keepdim=True, correction=0)
     dv, dm = torch.randn_like(v), torch.randn_like(m)
-    return time_ms(lambda: torch.autograd.grad((v, m), [xi], (dv, dm), retain_graph=True),
-                   reps=reps)
+    return lambda: torch.autograd.grad((v, m), [xi], (dv, dm), retain_graph=True)
 
 
 def check_stats_pool(dev, gen, head_shape, train_head):
@@ -353,25 +389,38 @@ def check_stats_pool(dev, gen, head_shape, train_head):
     e32 = rel_err(ops.stats_pool(x, mask), ops.stats_pool_reference(x, mask))
     xb = x.bfloat16()
     e16 = rel_err(ops.stats_pool(xb, mask), ops.stats_pool_reference(xb.float(), mask))
+    again = ops.stats_pool(xb, mask)
+    if not torch.equal(again, ops.stats_pool(xb, mask)):
+        fail("stats_pool: two runs on the same inputs differ")
     nbytes = 2 * xb.numel() + 4 * BATCH * t + 2 * BATCH * 2 * c * f
     bms, by = bound_ms(nbytes, 3.0 * xb.numel(), torch.bfloat16)
     ms = time_ms(lambda: ops.stats_pool(xb, mask), reps=20)
+    dev_ms = device_ms(lambda: ops.stats_pool(xb, mask), "stats_pool_kernel")
     plain = time_ms(lambda: ops.stats_pool_reference(xb, mask), reps=20)
     if e32 > TOL_FP32 or e16 > TOL_BF16["stats_pool"]:
         fail(f"stats_pool: rel err fp32 {e32} bf16 {e16}")
     # the library yardstick has no mask: both at the unmasked training shape
     c, t, f = train_head
     xt = _layout(torch.randn((TRAIN_BATCH, c, t, f), generator=gen, device=dev) * 2 + 1).bfloat16()
-    lib = var_mean_ms(xt, backward=False)
-    kernel_unmasked = time_ms(lambda: ops.stats_pool(xt), reps=20)
+    e_train = rel_err(ops.stats_pool(xt), ops.stats_pool_reference(xt.float()))
+    if e_train > TOL_BF16["stats_pool"]:
+        fail(f"stats_pool: rel err bf16 {e_train} at the training shape")
+    lib = var_mean_call(xt, backward=False)
     return dict(name="stats_pool", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/stats_pool.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:487 (stats_pool, XLA)",
-                max_abs_err=e16, max_rel_err_fp32=e32, tolerance=TOL_BF16["stats_pool"],
+                max_abs_err=e16, max_rel_err_fp32=e32, max_abs_err_train_shape=e_train,
+                tolerance=TOL_BF16["stats_pool"],
                 dtype="bfloat16", per=f"B={BATCH} head, (C, T, F)={head_shape}",
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=time_ms(lib, reps=20), library_device_ms=device_ms(lib),
                 library_call="torch.var_mean over T, no mask",
-                library_shape=[TRAIN_BATCH, c, t, f], library_vs_kernel_ms=kernel_unmasked)
+                library_shape=[TRAIN_BATCH, c, t, f],
+                library_vs_kernel_ms=time_ms(lambda: ops.stats_pool(xt), reps=20),
+                library_vs_kernel_device_ms=device_ms(lambda: ops.stats_pool(xt),
+                                                      "stats_pool_kernel"),
+                library_shape_bound_ms=bound_ms(2 * xt.numel() + 2 * TRAIN_BATCH * 2 * c * f,
+                                                3.0 * xt.numel(), torch.bfloat16)[0])
 
 
 def train_shapes(cfg, batch, frames, feat_dim):
@@ -556,16 +605,23 @@ def check_stats_pool_bwd(dev, gen, head_shape):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         grads = []
-        for fn in (ops.stats_pool, ops.stats_pool_reference):
+        for fn in (ops.stats_pool, ops.stats_pool_reference, ops.stats_pool):
             xi = x.detach().to(dtype).requires_grad_(True)
             fn(xi, None).backward(dout.to(dtype))
             grads.append(xi.grad)
-        errs[dtype] = rel_err(*grads)
+        errs[dtype] = rel_err(*grads[:2])
+        if not torch.equal(grads[0], grads[2]):
+            fail(f"stats_pool_bwd: two runs on the same {dtype} inputs differ")
     xb, db = x.bfloat16(), dout.bfloat16()
     _, ms = time_fwd_bwd(ops.stats_pool, [xb], db)
     _, plain = time_fwd_bwd(ops.stats_pool_reference, [xb], db)
+    xi = xb.detach().requires_grad_(True)
+    y = ops.stats_pool(xi)
+    dev_ms = device_ms(lambda: torch.autograd.grad(y, [xi], db, retain_graph=True),
+                       "stats_pool_bwd_kernel")
+    del y, xi
     bms, by = bound_ms(2 * 2 * xb.numel() + 2 * db.numel(), 3.0 * xb.numel(), torch.float32)
-    lib = var_mean_ms(xb, backward=True)
+    lib = var_mean_call(xb, backward=True)
     if errs[torch.float32] > TOL_FP32 or errs[torch.bfloat16] > TOL_BF16["stats_pool"]:
         fail(f"stats_pool_bwd: rel err {errs}")
     return dict(name="stats_pool_bwd", route="cuda",
@@ -576,9 +632,12 @@ def check_stats_pool_bwd(dev, gen, head_shape):
                 tolerance=TOL_BF16["stats_pool"], dtype="bfloat16",
                 per=f"training step (A={TRAIN_ACCUM} calls of (B, C, T, F)="
                     f"{(TRAIN_BATCH, c, t, f)})",
-                ms=TRAIN_ACCUM * ms, plain_ms=TRAIN_ACCUM * plain, bound_ms=TRAIN_ACCUM * bms,
-                bound_by=by, library_ms=TRAIN_ACCUM * lib,
-                library_call="autograd backward of torch.var_mean over T")
+                ms=TRAIN_ACCUM * ms, device_ms=TRAIN_ACCUM * dev_ms, plain_ms=TRAIN_ACCUM * plain,
+                bound_ms=TRAIN_ACCUM * bms, bound_by=by,
+                library_ms=TRAIN_ACCUM * time_ms(lib, reps=20),
+                library_device_ms=TRAIN_ACCUM * device_ms(lib),
+                library_call="autograd backward of torch.var_mean over T",
+                reruns_bit_equal=True)
 
 
 def check_margin_ce(dev, gen, num_centers, num_classes):
@@ -601,6 +660,12 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
         fail(f"margin_ce: rel err {err}, correct flags equal {torch.equal(c, cr)}")
     fwd, bwd = time_fwd_bwd(lambda x: margin_ce(x, labels, 32.0, 0.2)[0], [cos], dloss)
     pfwd, pbwd = time_fwd_bwd(lambda x: margin_ce_reference(x, labels, 32.0, 0.2)[0], [cos], dloss)
+    ci = cos.detach().requires_grad_(True)
+    loss = margin_ce(ci, labels, 32.0, 0.2)[0]
+    dev_fwd = device_ms(lambda: margin_ce(cos, labels, 32.0, 0.2), "margin_ce_fwd_kernel")
+    dev_bwd = device_ms(lambda: torch.autograd.grad(loss, [ci], dloss, retain_graph=True),
+                        "margin_ce_bwd_kernel")
+    del loss, ci
     # forward reads cos_all once; backward reads it and writes dcos_all
     bms, by = bound_ms(3 * 4 * cos.numel(), 30.0 * cos.numel(), torch.float32)
     emit({"phase": "kernel", "name": "margin_ce", "shape": list(shape), "ms_fwd": fwd,
@@ -611,7 +676,8 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
                          "(sc_cm_linear + CE of training/trainer.py:152, XLA, forward and backward)",
                 max_abs_err=err, max_rel_err_fp32=err, tolerance=TOL_FP32, dtype="float32",
                 per=f"training step (A={TRAIN_ACCUM} calls on cos_all {shape}, forward + backward)",
-                ms=TRAIN_ACCUM * (fwd + bwd), plain_ms=TRAIN_ACCUM * (pfwd + pbwd),
+                ms=TRAIN_ACCUM * (fwd + bwd), device_ms=TRAIN_ACCUM * (dev_fwd + dev_bwd),
+                plain_ms=TRAIN_ACCUM * (pfwd + pbwd),
                 bound_ms=TRAIN_ACCUM * bms, bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call does max over centers, "
                              "margin and cross-entropy")

@@ -9,7 +9,7 @@ compute, and runs the embed at a full bucket batch with a mask (a quarter of
 the rows half padded). Prints one JSON line: the median forward time by CUDA
 events, the card's name and power limit, and the device time per kernel
 name (and calls per forward) from ``torch.profiler`` over ``--reps``
-forwards, K2's device time by variant, and the share of the profiled
+forwards, K2's device time by variant, K4's, and the share of the profiled
 window the device was idle.
 """
 
@@ -106,6 +106,9 @@ def main() -> int:
         "device_ms_per_forward": busy_us / args.reps / 1e3,
         "device_idle_share": (1.0 - busy_us / window_us) if window_us else None,
         "device_ms_and_calls_by_kernel": top, "k2_device_ms_and_calls": k2,
+        # K4 (csrc/stats_pool.cu) by device kernel name, under the top list's cut
+        "k4_device_ms_and_calls": {k: [v, calls[k]] for k, v in kernels.items()
+                                   if "stats_pool" in k},
         "nvidia_smi": smi,
     }))
     return 0

@@ -198,22 +198,101 @@ def test_bn_train_kernel_matches_plain(cuda, shape, groups, mode, dtype):
         assert rel(a, b) <= 1e-4
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("masked", [False, True])
-def test_stats_pool_backward_kernel_matches_plain(cuda, masked):
-    g = torch.Generator(device=cuda).manual_seed(6)
-    x = (torch.randn(4, 32, 25, 10, generator=g, device=cuda) * 2 + 1).contiguous(
-        memory_format=torch.channels_last)
+def pool_case(cuda, shape, mask_kind, dtype, misaligned=False, seed=6):
+    """x (B, C, T, F) in channels-last memory, a (B, T) mask and dout. The
+    masks: "lengths" (rows of T, T/3, 1 and 0 valid frames), "interior"
+    (random zeros inside the rows, row 1 fully masked), "weights" (uniform
+    in [0, 1)). `misaligned`: x starts one element past a 16-byte boundary."""
+    b, c, t, f = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(b, t, f, c, generator=g, device=cuda) * 2 + 1).to(dtype)
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(x.flatten())
+        x = buf[1:].view(b, t, f, c)
+    x = x.permute(0, 3, 1, 2)
     mask = None
-    if masked:
-        mask = (torch.arange(25, device=cuda)[None] < torch.tensor([25, 9, 1, 0], device=cuda)[:, None]).float()
-    dout = torch.randn(4, 64, 1, 10, generator=g, device=cuda)
-    grads = []
-    for fn in (tops.stats_pool, tops.stats_pool_reference):
-        xi = x.clone().requires_grad_(True)
-        fn(xi, mask).backward(dout)
-        grads.append(xi.grad)
-    assert rel(*grads) <= 1e-4
+    if mask_kind == "lengths":
+        lens = torch.tensor([t, t // 3, 1, 0], device=cuda).repeat(b)[:b]
+        mask = (torch.arange(t, device=cuda)[None] < lens[:, None]).float()
+    elif mask_kind == "interior":
+        mask = (torch.rand(b, t, generator=g, device=cuda) > 0.3).float()
+        mask[1] = 0.0
+    elif mask_kind == "weights":
+        mask = torch.rand(b, t, generator=g, device=cuda)
+    dout = torch.randn(b, 2 * c, 1, f, generator=g, device=cuda).to(dtype)
+    return x, mask, dout
+
+
+def pool_run(fn, x, mask, dout):
+    """(output, input gradient) of the stats pool ``fn``."""
+    xi = x.detach().requires_grad_(True)  # a view: keeps x's alignment
+    y = fn(xi, mask)
+    y.backward(dout)
+    return y.detach(), xi.grad
+
+
+# (B, C, T, F), mask, dtype, x misaligned: the serving head's tile and T
+# (masked, bf16), the training head's (unmasked), T past the slab budget (the
+# chunked path), ragged C (20; 300 = two full fp32 tiles and a ragged third),
+# interior zeros with a fully masked row, weights, a misaligned x
+POOL_CASES = [
+    ((4, 32, 25, 10), None, torch.float32, False),
+    ((4, 32, 25, 10), "lengths", torch.float32, False),
+    ((3, 256, 125, 10), "lengths", torch.bfloat16, False),
+    ((3, 256, 125, 10), "interior", torch.float32, False),
+    ((4, 512, 25, 10), None, torch.bfloat16, False),
+    ((2, 64, 1200, 3), "lengths", torch.float32, False),
+    ((2, 64, 1200, 3), "interior", torch.bfloat16, False),
+    ((3, 20, 37, 5), "interior", torch.float32, False),
+    ((3, 20, 37, 5), "weights", torch.bfloat16, False),
+    ((2, 300, 50, 4), "interior", torch.float32, False),
+    ((2, 264, 50, 4), "lengths", torch.bfloat16, False),
+    ((2, 64, 30, 3), "lengths", torch.float32, True),
+    ((2, 64, 30, 3), "weights", torch.bfloat16, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mask_kind,dtype,misaligned", POOL_CASES)
+def test_stats_pool_backward_kernel_matches_plain(cuda, shape, mask_kind, dtype, misaligned):
+    """K4 (output) and K4b (input gradient) against the plain version and
+    its autograd on the same inputs, one launch each: float32 within 1e-4,
+    bfloat16 within 2e-2 of each output's largest magnitude."""
+    x, mask, dout = pool_case(cuda, shape, mask_kind, dtype, misaligned)
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    before = (kernels.STATS_POOL.launches, kernels.STATS_POOL_BWD.launches)
+    y, dx = pool_run(tops.stats_pool, x, mask, dout)
+    assert (kernels.STATS_POOL.launches - before[0], kernels.STATS_POOL_BWD.launches - before[1]) == (1, 1)
+    yr, dxr = pool_run(tops.stats_pool_reference, x, mask, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert y.dtype == dx.dtype == dtype
+    assert rel(y, yr) <= tol and rel(dx, dxr) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mask_kind", [((3, 256, 125, 10), "lengths"),
+                                             ((4, 512, 25, 10), None),
+                                             ((2, 64, 1200, 3), "interior")])
+def test_stats_pool_kernels_rerun_bit_for_bit(cuda, shape, mask_kind):
+    """Two runs of K4 and K4b on the same inputs agree bit for bit (each
+    lane adds its rows in time order, the warps' sums in warp order)."""
+    x, mask, dout = pool_case(cuda, shape, mask_kind, torch.bfloat16)
+    a, b = (pool_run(tops.stats_pool, x, mask, dout) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_stats_pool_kernel_multiplies_masked_rows(cuda):
+    """A masked row is multiplied by its 0, as the plain version does, not
+    skipped: an inf there makes the same NaNs in the output."""
+    x, mask, _ = pool_case(cuda, (4, 32, 25, 10), "lengths", torch.float32)
+    x = x.clone()
+    x[1, :5, 20] = float("inf")  # row 1 holds 8 valid frames
+    got, want = tops.stats_pool(x, mask), tops.stats_pool_reference(x, mask)
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, equal_nan=True)
 
 
 @pytest.mark.cuda

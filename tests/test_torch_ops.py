@@ -112,14 +112,40 @@ def test_sliding_cmn_matches_jax():
         np.testing.assert_array_equal(port_cmn(f, 300), jax_cmn(f, 300))
 
 
-@pytest.mark.parametrize("masked", [False, True])
+def pool_mask(rng, kind, b, t):
+    """A (B, T) stats-pool mask: "interior" has random zeros inside the rows
+    and row 1 fully masked; "weights" is uniform in [0, 1); else lengths."""
+    if kind == "interior":
+        mask = (rng.rand(b, t) > 0.3).astype(np.float32)
+        mask[1] = 0.0
+        return mask
+    if kind == "weights":
+        return rng.rand(b, t).astype(np.float32)
+    return lengths_mask(rng, b, t)
+
+
+# masked: False (no mask) or the mask kind; NHWC (B, T, W, C): long T is the
+# kernel's chunked path (T past its slab), ragged C a channel count that is
+# no multiple of its 16-byte vectors
+POOL_CASES = {False: ((3, 13, 5, 8), None), True: ((3, 13, 5, 8), "lengths"),
+              "interior_zeros": ((4, 13, 5, 8), "interior"),
+              "weights": ((3, 13, 5, 8), "weights"),
+              "long_t": ((2, 1200, 3, 8), "lengths"),
+              "ragged_c": ((3, 37, 5, 20), "interior")}
+
+
+@pytest.mark.parametrize("masked", list(POOL_CASES))
 def test_stats_pool_matches_jax(masked):
+    """The stats pool's plain version against the JAX package: the spec the
+    kernel (K4) is held to on the card."""
+    shape, kind = POOL_CASES[masked]
+    b, t, w, c = shape
     rng = np.random.RandomState(4)
-    x = rng.randn(3, 13, 5, 8).astype(np.float32) * 2 + 1
-    mask = lengths_mask(rng, 3, 13) if masked else None
+    x = rng.randn(*shape).astype(np.float32) * 2 + 1
+    mask = pool_mask(rng, kind, b, t) if kind else None
     want = np.asarray(jops.stats_pool(jnp.asarray(x), None if mask is None else jnp.asarray(mask)))
     got = tops.stats_pool(to_port(x), None if mask is None else torch.from_numpy(mask))
-    assert got.shape == (3, 16, 1, 5) and got.is_contiguous(memory_format=torch.channels_last)
+    assert got.shape == (b, 2 * c, 1, w) and got.is_contiguous(memory_format=torch.channels_last)
     np.testing.assert_allclose(to_nhwc(got), want, **TOL)
 
 

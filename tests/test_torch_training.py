@@ -150,16 +150,35 @@ def test_training_bn_epilogue_matches_jax(mode):
                                    np.asarray(mut["batch_stats"]["bn"]["var"]), **TOL)
 
 
-@pytest.mark.parametrize("masked", [False, True])
+# masked: False (no mask), True (lengths 13, 6, 0: one row fully masked) or
+# the case: NHWC (B, T, W, C) and the mask kind; long T is the kernel's
+# chunked path, ragged C no multiple of its 16-byte vectors
+POOL_CASES = {False: ((3, 13, 5, 8), None), True: ((3, 13, 5, 8), "lengths"),
+              "interior_zeros": ((4, 13, 5, 8), "interior"),
+              "weights": ((3, 13, 5, 8), "weights"),
+              "long_t": ((2, 1200, 3, 8), "lengths"),
+              "ragged_c": ((3, 37, 5, 20), "interior")}
+
+
+@pytest.mark.parametrize("masked", list(POOL_CASES))
 def test_stats_pool_backward_matches_jax(masked):
     """K4b's plain version (autograd of the plain stats pool) against
-    jax.vjp(stats_pool), with and without a mask (one row fully masked)."""
+    jax.vjp(stats_pool), without a mask, with lengths (one row fully
+    masked), interior zeros (one row fully masked), weights, long T and
+    ragged C."""
+    (b, t, w, c), kind = POOL_CASES[masked]
     rng = np.random.RandomState(11)
-    x = (rng.randn(3, 13, 5, 8) * 2 + 1).astype(np.float32)
+    x = (rng.randn(b, t, w, c) * 2 + 1).astype(np.float32)
     mask = None
-    if masked:
-        mask = (np.arange(13)[None] < np.array([13, 6, 0])[:, None]).astype(np.float32)
-    cot = rng.randn(3, 1, 5, 16).astype(np.float32)
+    if kind == "lengths":
+        lens = np.array([t, t // 2, 0])[:b]
+        mask = (np.arange(t)[None] < lens[:, None]).astype(np.float32)
+    elif kind == "interior":
+        mask = (rng.rand(b, t) > 0.3).astype(np.float32)
+        mask[1] = 0.0
+    elif kind == "weights":
+        mask = rng.rand(b, t).astype(np.float32)
+    cot = rng.randn(b, 1, w, 2 * c).astype(np.float32)
     want_y, vjp = jax.vjp(lambda x: jops.stats_pool(x, None if mask is None else jnp.asarray(mask)),
                           jnp.asarray(x))
     want = np.asarray(vjp(jnp.asarray(cot))[0])

@@ -10,76 +10,69 @@
 //   dx[t] = mask[t] * (dmean / D + dstd * (x[t] - mean) / (D * std))
 //
 // The moments are recomputed here in fp32 from x (not taken from the
-// dtype-rounded pooled output). Input and gradient are channels-last
-// (B, T, F, C); dout is (B, F, 2C), the channels-last memory of the pooled
-// (B, 2C, 1, F) tensor's gradient; dx has x's dtype.
+// dtype-rounded pooled output), by the device function K4 uses
+// (stats_pool.cuh: moments), so they are K4's bit for bit. Input and gradient
+// are channels-last (B, T, F, C); dout is (B, F, 2C), the channels-last memory
+// of the pooled (B, 2C, 1, F) tensor's gradient; dx has x's dtype.
 //
-// Bound on the card: bytes (read x once, write dx once). One thread owns one
-// (b, f, c) and walks T three times (sum, squared deviations, gradient);
-// neighbouring threads own neighbouring channels, so each step of a walk is
-// one coalesced row, and the re-reads come mostly from L2.
-#include "common.cuh"
+// Bound on the card: bytes (x read once, dx written once, dout's 2C values a
+// (b, f) read once). Each (b, f, channel tile) has its T rows staged into
+// shared memory by 16-byte cp.async; the two passes of the moments and the
+// gradient pass all read the slab, and dx leaves in 16-byte stores, so x and
+// dx each cross HBM once where T <= kRingRows. Persistent CTAs keep two
+// tiles' copies in flight while they work on a third (stats_pool.cuh).
+#include "stats_pool.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void stats_pool_bwd_kernel(const T* __restrict__ x,
-                                      const float* __restrict__ mask,
-                                      const T* __restrict__ dout,
-                                      T* __restrict__ dx, int batch, int tlen,
-                                      int flen, int channels, float eps) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long total = static_cast<long long>(batch) * flen * channels;
-  if (idx >= total) return;
-  const int c = static_cast<int>(idx % channels);
-  const long long bf = idx / channels;  // b * F + f
-  const int f = static_cast<int>(bf % flen);
-  const long long b = bf / flen;
-  const long long off = (b * tlen * flen + f) * channels + c;
-  const long long step = static_cast<long long>(flen) * channels;
-  const float* mp = mask != nullptr ? mask + b * tlen : nullptr;
+using vsv::pool::Lane;
 
-  float msum = 0.f, sum = 0.f;
-  for (int t = 0; t < tlen; ++t) {
-    const float m = mp != nullptr ? mp[t] : 1.f;
-    msum += m;
-    sum += vsv::to_f(x[off + t * step]) * m;
-  }
-  const float denom = fmaxf(msum, 1.f);
-  const float mean = sum / denom;
-  float sq = 0.f;
-  for (int t = 0; t < tlen; ++t) {
-    const float m = mp != nullptr ? mp[t] : 1.f;
-    const float d = vsv::to_f(x[off + t * step]) - mean;
-    sq += d * d * m;
-  }
-  const float stdev = sqrtf(sq / denom + eps);
-  const T* g = dout + bf * 2 * channels;
-  const float gm = vsv::to_f(g[c]) / denom;
-  const float gs = vsv::to_f(g[channels + c]) / (denom * stdev);
-  for (int t = 0; t < tlen; ++t) {
-    const float m = mp != nullptr ? mp[t] : 1.f;
-    const float v = m * (gm + gs * (vsv::to_f(x[off + t * step]) - mean));
-    dx[off + t * step] = vsv::from_f<T>(v);
-  }
+template <typename T>
+__global__ void __launch_bounds__(vsv::pool::kThreads)
+    stats_pool_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask,
+                          const T* __restrict__ dout, T* __restrict__ dx, float eps, int batch,
+                          int tlen, int flen, int channels) {
+  constexpr int V = Lane<T>::V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  vsv::pool::for_each_tile(
+      x, mask, batch, tlen, flen, channels, smem,
+      [&](const vsv::pool::Column& c, const vsv::pool::Smem& s) {
+        float gm[V], gs[V];  // issued first: they land while the moments run
+        const T* g = dout + c.bf * 2 * channels + c.c0;
+        const bool vec_g = c.full && vsv::pool::aligned16(dout);
+        vsv::pool::load_lane(g, gm, c.valid, vec_g);
+        vsv::pool::load_lane(g + channels, gs, c.valid, vec_g);
+        float mean[V], var[V], denom;
+        vsv::pool::moments(x, c, tlen, s, mean, var, denom);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          gm[j] = gm[j] / denom;
+          gs[j] = gs[j] / (denom * sqrtf(var[j] + eps));
+        }
+        // the gradient pass, from the slab on the ring
+        T* d = dx + c.offset;
+        const bool vec_d = c.full && vsv::pool::aligned16(dx);
+        vsv::pool::sweep(x, c, tlen, s, [&](int t, float m, const float* v) {
+          float o[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) o[j] = m * (gm[j] + gs[j] * (v[j] - mean[j]));
+          vsv::pool::store_lane(d + t * c.step, o, c.valid, vec_d);
+        });
+      });
 }
 
 template <typename T>
 int launch(const void* x, const float* mask, const void* dout, void* dx,
            int batch, int tlen, int flen, int channels, float eps,
            cudaStream_t stream) {
-  constexpr int threads = 256;
-  const long long n = static_cast<long long>(batch) * flen * channels;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  stats_pool_bwd_kernel<T><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), mask, static_cast<const T*>(dout),
-      static_cast<T*>(dx), batch, tlen, flen, channels, eps);
-  return static_cast<int>(cudaGetLastError());
+  return vsv::pool::launch_persistent<T>(stats_pool_bwd_kernel<T>, batch, tlen, flen, channels,
+                                         stream, static_cast<const T*>(x), mask,
+                                         static_cast<const T*>(dout), static_cast<T*>(dx), eps);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. mask may be null.
+// dtype: 0 = float32, 1 = bfloat16. mask may be null. One launch.
 extern "C" int stats_pool_bwd(int dtype, const void* x, const float* mask,
                               const void* dout, void* dx, int batch, int tlen,
                               int flen, int channels, float eps, void* stream) {
