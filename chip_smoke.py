@@ -11,10 +11,12 @@ Phases, one JSON line each:
    float32 (TF32 off) and in bfloat16, with timings: K1-K4 at the shapes
    the serving forward gives them (res2net50_w24_s4_c32, B=128, 1000
    frames), K4b, K5 and K6 (forward and backward, against autograd of the
-   plain versions) at the shapes of the training step below. ``ms`` is a
-   call's time by CUDA events, host included; ``device_ms`` (K1, K4, K4b,
-   K6 and K4's library yardsticks) the kernel's own time by torch.profiler,
-   the time of record for calls under ~0.3 ms;
+   plain versions) at the shapes of the training step below; K1 also at
+   wave requests of 2 s and 128 s and a batch of 3, and K1, K4, K4b, K5
+   and K6 rerun bit for bit. ``ms`` is a call's time by CUDA events, host
+   included; ``device_ms`` (K1, K4, K4b, K6 and K4's library yardsticks)
+   the kernel's own time by torch.profiler, the time of record for calls
+   under ~0.3 ms;
 4. serve   -- res2net50_w24_s4_c32 at full width, bf16, random weights from
    a seed, served over TCP by ``cli.serve.make_server``; feature, wave and
    score requests from four client threads; served embeddings checked
@@ -208,18 +210,22 @@ def check_fbank(dev, gen):
     from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
 
     cfg = fb.FbankConfig(num_bins=FEAT_DIM, dither=0.0)
-    err = 0.0
+    err, rerun_equal = 0.0, True
     rng = np.random.RandomState(SEED)
-    for _ in range(8):
-        n = int(rng.randint(2 * 16000, 8 * 16000 + 1))
-        wave = torch.from_numpy(fb.pcm16(rng.randn(n) * 3000).astype(np.float32)).to(dev)
-        got, want = fb.fbank(wave[None], cfg), fb.fbank_reference(wave[None], cfg)
+    # 8 wave requests of 2-8 s, one each of 2 s, 8 s and 128 s (the longest
+    # serving takes), and a batch of 3; each run twice (bit for bit)
+    shapes = [(1, int(rng.randint(2 * 16000, 8 * 16000 + 1))) for _ in range(8)]
+    shapes += [(1, 2 * 16000), (1, 8 * 16000), (1, 128 * 16000), (3, 5 * 16000 + 123)]
+    for batch, n in shapes:
+        wave = torch.from_numpy(fb.pcm16(rng.randn(batch, n) * 3000).astype(np.float32)).to(dev)
+        got, want = fb.fbank(wave, cfg), fb.fbank_reference(wave, cfg)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"fbank: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
         err = max(err, abs_err(got, want))
-    if err > TOL_FBANK:
-        fail(f"fbank: max |kernel - plain| {err} > {TOL_FBANK}")
+        rerun_equal &= torch.equal(got, fb.fbank(wave, cfg))
+    if err > TOL_FBANK or not rerun_equal:
+        fail(f"fbank: max |kernel - plain| {err} > {TOL_FBANK} or reruns differ ({rerun_equal})")
     # timing at one 8 s wave request
     wave = torch.from_numpy(fb.pcm16(rng.randn(8 * 16000) * 3000).astype(np.float32)).to(dev)[None]
     t = fb.num_frames(wave.shape[1], cfg)
@@ -230,12 +236,20 @@ def check_fbank(dev, gen):
     ms = time_ms(lambda: fb.fbank(wave, cfg), reps=20)
     dev_ms = device_ms(lambda: fb.fbank(wave, cfg), "fbank_kernel")
     plain = time_ms(lambda: fb.fbank_reference(wave, cfg), reps=20)
+    plain_dev = device_ms(lambda: fb.fbank_reference(wave, cfg))
+    by_length = {}
+    for sec in (2, 128):
+        w = torch.from_numpy(fb.pcm16(rng.randn(1, sec * 16000) * 3000).astype(np.float32)).to(dev)
+        by_length[f"{sec}s"] = device_ms(lambda: fb.fbank(w, cfg), "fbank_kernel")
     return dict(name="fbank", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/pallas/fbank.py:85 "
                          "(fbank_fused, retired in 912d3e9; = ops/fbank.py:191 fbank)",
                 max_abs_err=err, tolerance=TOL_FBANK, dtype="float32",
-                per="one 8 s wave request", ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bms,
+                per="one 8 s wave request", ms=ms, device_ms=dev_ms, plain_ms=plain,
+                plain_device_ms=plain_dev, device_ms_by_length=by_length,
+                checked_shapes=shapes, reruns_bit_equal=rerun_equal,
+                launch_plan=fb.kernel_plan(cfg, dev), bound_ms=bms,
                 bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call computes Kaldi FBANK "
                              "(the card has no torchaudio)")
@@ -656,8 +670,14 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
         outs.append((loss.detach(), correct, ci.grad))
     (l, c, d), (lr_, cr, dr) = outs
     err = max(rel_err(l, lr_), rel_err(d, dr))
-    if err > TOL_FP32 or not torch.equal(c, cr):
-        fail(f"margin_ce: rel err {err}, correct flags equal {torch.equal(c, cr)}")
+    ci = cos.clone().requires_grad_(True)
+    loss, correct = margin_ce(ci, labels, 32.0, 0.2)
+    loss.backward(dloss)
+    rerun_equal = torch.equal(loss.detach(), l) and torch.equal(correct, c) and torch.equal(ci.grad, d)
+    del ci, loss, correct
+    if err > TOL_FP32 or not torch.equal(c, cr) or not rerun_equal:
+        fail(f"margin_ce: rel err {err}, correct flags equal {torch.equal(c, cr)}, "
+             f"reruns equal {rerun_equal}")
     fwd, bwd = time_fwd_bwd(lambda x: margin_ce(x, labels, 32.0, 0.2)[0], [cos], dloss)
     pfwd, pbwd = time_fwd_bwd(lambda x: margin_ce_reference(x, labels, 32.0, 0.2)[0], [cos], dloss)
     ci = cos.detach().requires_grad_(True)
@@ -678,9 +698,10 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
                 per=f"training step (A={TRAIN_ACCUM} calls on cos_all {shape}, forward + backward)",
                 ms=TRAIN_ACCUM * (fwd + bwd), device_ms=TRAIN_ACCUM * (dev_fwd + dev_bwd),
                 plain_ms=TRAIN_ACCUM * (pfwd + pbwd),
+                device_ms_fwd=dev_fwd, device_ms_bwd=dev_bwd,
                 bound_ms=TRAIN_ACCUM * bms, bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call does max over centers, "
-                             "margin and cross-entropy")
+                             "margin and cross-entropy", reruns_bit_equal=rerun_equal)
 
 
 # ----------------------------------------------------------------------

@@ -59,6 +59,24 @@ def test_kernel_sources_and_library_names():
         assert k.library_path().startswith(kernels.BUILD_DIR)
 
 
+@pytest.mark.parametrize("num_bins", [40, 80, 128])
+def test_fbank_mel_columns_rebuild_the_mel_matrix(num_bins):
+    """K1 reads M by columns: each column's run from its first to its last
+    nonzero, packed in column order. The runs rebuild M exactly."""
+    m = tfb.analysis_matrices(tfb.FbankConfig(num_bins=num_bins))[2]
+    starts, offsets, weights = tfb.mel_columns(m)
+    assert starts.shape == (num_bins,) and offsets.shape == (num_bins + 1,)
+    assert offsets[-1] == weights.size
+    rebuilt = np.zeros_like(m)
+    for c in range(num_bins):
+        run = weights[offsets[c]:offsets[c + 1]]
+        rebuilt[starts[c]:starts[c] + run.size, c] = run
+    np.testing.assert_array_equal(rebuilt, m)
+    # an all-zero column has an empty run
+    starts, offsets, _ = tfb.mel_columns(np.zeros((8, 2), np.float32))
+    assert list(offsets) == [0, 0, 0]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -395,3 +413,154 @@ def test_split_chain_refuses_a_plan_of_another_layout(cuda, monkeypatch):
     monkeypatch.setattr(res2net, "_fused_smem", lambda *a: size(*a) - 16)
     with pytest.raises(kernels.KernelError, match="plan"):
         split_chain(x, w, *stats)
+
+
+# K1 at the shapes its cluster design must get right: one frame, a partial
+# last tile, the serving waves (3 s, 8 s, 128 s), a batch walking several
+# utterances, every mel width it takes, and both flags off.
+FBANK_CASES = [  # (batch, samples, num_bins, use_power, use_log)
+    (1, 400, 80, True, True),
+    (1, 401, 80, True, True),
+    (1, 48000, 80, True, True),
+    (1, 128000, 80, True, True),
+    (1, 400 + 53 * 160 + 7, 80, True, True),  # 54 frames: 3 tiles and 6 frames
+    (1, 2048000, 80, True, True),
+    (3, 33333, 80, True, True),
+    (2, 48000, 40, True, True),
+    (1, 48000, 128, True, True),
+    (1, 48000, 80, False, True),
+    (1, 48000, 80, True, False),
+]
+
+
+def fbank_case(cuda, batch, samples, num_bins, use_power=True, use_log=True, seed=0):
+    cfg = tfb.FbankConfig(num_bins=num_bins, dither=0.0, use_power=use_power,
+                          use_log_fbank=use_log)
+    w = tfb.pcm16(np.random.RandomState(seed).randn(batch, samples) * 3000)
+    return torch.from_numpy(w.astype(np.float32)).to(cuda), cfg
+
+
+# The GPU-only cases of K1 and K6 run as loops inside a few tests, each
+# failure naming its case, to keep the count of collected tests down: the
+# suite runs under pytest-xdist (`-n 6 --dist load`), which first hands
+# each worker N / 6 / 4 consecutive collected tests, and
+# tests/test_export_eval.py::TestExtractScoreCLI passes only when its
+# tests share a worker (ROADMAP.md §3).
+@pytest.mark.cuda
+def test_fbank_kernel_matches_plain_at_every_shape(cuda):
+    """K1 against its plain version, one launch a call: within 1e-3 in
+    log-mel, and within 1e-4 of the largest value without the log."""
+    for case in FBANK_CASES:
+        batch, samples, num_bins, use_power, use_log = case
+        w, cfg = fbank_case(cuda, batch, samples, num_bins, use_power, use_log)
+        before = kernels.FBANK.launches
+        got = tfb.fbank(w, cfg)
+        assert kernels.FBANK.launches - before == 1, case
+        want = tfb.fbank_reference(w, cfg)
+        assert got.shape == want.shape == (batch, tfb.num_frames(samples, cfg), num_bins), case
+        if use_log:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-3, msg=lambda m: f"{case}: {m}")
+        else:
+            assert rel(got, want) <= 1e-4, case
+
+
+@pytest.mark.cuda
+def test_fbank_kernel_reruns_bit_for_bit(cuda):
+    """Each mel column is summed in bin order from the warps' sums in warp
+    order: two runs on the same wave agree bit for bit."""
+    for batch, samples in [(1, 128000), (3, 33333), (1, 2048000)]:
+        w, cfg = fbank_case(cuda, batch, samples, 80, seed=1)
+        assert torch.equal(tfb.fbank(w, cfg), tfb.fbank(w, cfg)), (batch, samples)
+
+
+@pytest.mark.cuda
+def test_fbank_kernel_refuses_more_than_128_mel_bins(cuda):
+    w, cfg = fbank_case(cuda, 1, 4000, 129)
+    with pytest.raises(kernels.KernelError, match="128"):
+        tfb.fbank(w, cfg)
+
+
+# K6 at the shapes its slab design must get right. A row of center k starts
+# at (k * B + b) * C floats: with C = 5994 and B odd the rows of center 1
+# alternate between 16- and 8-byte alignment; "offset" stores cos_all 4
+# bytes past a 16-byte boundary, so every row is misaligned and dcos_all
+# (a fresh tensor) has another alignment than its input.
+MARGIN_CASES = [  # (K, B, C, offset)
+    (2, 256, 5994, False),
+    (2, 255, 5994, False),
+    (2, 7, 5994, True),
+    (2, 37, 1001, False),
+    (2, 9, 100, False),
+    (2, 4, 3, True),
+    (1, 6, 5994, False),
+    (3, 6, 5994, True),
+    (2, 1, 5994, False),
+]
+
+
+def margin_case(cuda, k, b, c, offset, seed=7):
+    """cos_all with ties between centers (at row 0's label and elsewhere),
+    a clipped maximum at row 1's label and at a column of row 2, labels at 0
+    and C - 1; and the per-row gradient of the loss."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    vals = (torch.rand(k, b, c, generator=g, device=cuda) * 2 - 1) * 0.998
+    labels = torch.randint(0, c, (b,), generator=g, device=cuda)
+    labels[0] = 0
+    labels[-1] = c - 1
+    clipped = torch.zeros(k, b, c, dtype=torch.bool, device=cuda)
+    if k > 1:
+        vals[1:, 0, labels[0]] = vals[0, 0, labels[0]]
+        vals[1:, :, : min(c, 40)] = vals[0, :, : min(c, 40)]
+    if b > 1:
+        vals[0, 1, labels[1]] = 1.03
+        clipped[:, 1, labels[1]] = True
+    if b > 2:
+        j = (int(labels[2]) + 1) % c
+        vals[:, 2, j] = -1.04
+        clipped[:, 2, j] = True
+    dloss = torch.rand(b, generator=g, device=cuda) + 0.5
+    if offset:
+        buf = torch.empty(vals.numel() + 1, device=cuda)
+        cos = buf[1:].view(k, b, c)
+        cos.copy_(vals)
+        assert cos.data_ptr() % 16 != 0
+    else:
+        cos = vals
+    return cos, labels, dloss, clipped
+
+
+def margin_run(fn, cos, labels, dloss):
+    ci = cos.detach().clone() if fn is margin_ce_reference else cos.detach()
+    ci.requires_grad_(True)
+    loss, correct = fn(ci, labels, 32.0, 0.2)
+    loss.backward(dloss)
+    return loss.detach(), correct, ci.grad
+
+
+@pytest.mark.cuda
+def test_margin_ce_kernel_matches_plain_at_every_shape(cuda):
+    """K6 forward and backward against autograd of the plain version, one
+    launch each: loss and dcos_all within 1e-4 of their largest magnitude,
+    correct flags equal, ties split evenly, and an exactly zero gradient
+    where the clip is active."""
+    for case in MARGIN_CASES:
+        k, b, c, offset = case
+        cos, labels, dloss, clipped = margin_case(cuda, k, b, c, offset)
+        before = dict(kernels.MARGIN_CE.fn_launches)
+        l, cr, d = margin_run(margin_ce, cos, labels, dloss)
+        assert {f: n - before[f] for f, n in kernels.MARGIN_CE.fn_launches.items()} == {
+            "margin_ce_fwd": 1, "margin_ce_bwd": 1}, case
+        lr_, crr, dr = margin_run(margin_ce_reference, cos, labels, dloss)
+        assert rel(l, lr_) <= 1e-4 and torch.equal(cr, crr) and rel(d, dr) <= 1e-4, case
+        assert torch.all(d[clipped] == 0), case
+        if k > 1:  # the tie at row 0's label: each center takes half
+            assert d[0, 0, labels[0]] == d[1, 0, labels[0]] != 0, case
+
+
+@pytest.mark.cuda
+def test_margin_ce_kernel_reruns_bit_for_bit(cuda):
+    """Each row's sums run in a fixed order: two runs agree bit for bit."""
+    for case in [(2, 256, 5994, False), (3, 6, 5994, True)]:
+        cos, labels, dloss, _ = margin_case(cuda, *case, seed=8)
+        a, bb = (margin_run(margin_ce, cos, labels, dloss) for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(a, bb)), case

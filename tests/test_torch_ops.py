@@ -76,18 +76,22 @@ print("ok", len([m for m in sys.modules if m.startswith(pkg.__name__)]))
     assert int(out.stdout.split()[1]) >= 15  # every module of the slice
 
 
-@pytest.mark.parametrize("num_bins", [80, 40])
-def test_fbank_matches_jax(num_bins):
-    rng = np.random.RandomState(num_bins)
-    waves = jfb.pcm16(rng.randn(2, 21040) * 3000).astype(np.float32)
+# a batch of two short waves at both mel widths, and one wave request of
+# 3 s and of 8 s (the serving shapes)
+@pytest.mark.parametrize("num_bins,batch,samples", [
+    pytest.param(80, 2, 21040, id="80"), pytest.param(40, 2, 21040, id="40"),
+    pytest.param(80, 1, 3 * 16000, id="80-3s"), pytest.param(80, 1, 8 * 16000, id="80-8s")])
+def test_fbank_matches_jax(num_bins, batch, samples):
+    rng = np.random.RandomState(num_bins if batch == 2 else num_bins + samples)
+    waves = jfb.pcm16(rng.randn(batch, samples) * 3000).astype(np.float32)
     want = np.asarray(jfb.fbank(jnp.asarray(waves), jfb.FbankConfig(num_bins=num_bins, dither=0.0)))
     cfg = tfb.FbankConfig(num_bins=num_bins, dither=0.0)
     got = tfb.fbank(torch.from_numpy(waves), cfg).numpy()
-    assert got.shape == want.shape == (2, tfb.num_frames(21040, cfg), num_bins)
+    assert got.shape == want.shape == (batch, tfb.num_frames(samples, cfg), num_bins)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
     # a 1-D wave is one utterance
-    one = tfb.fbank(torch.from_numpy(waves[1]), cfg).numpy()
-    np.testing.assert_allclose(one, got[1], rtol=0, atol=1e-6)
+    one = tfb.fbank(torch.from_numpy(waves[-1]), cfg).numpy()
+    np.testing.assert_allclose(one, got[-1], rtol=0, atol=1e-6)
 
 
 def test_fbank_constants_match_jax():

@@ -243,6 +243,59 @@ def test_margin_ce_plain_path_is_the_reference_on_cpu():
         assert torch.equal(x, y)
 
 
+def test_margin_ce_matches_jax_at_the_training_width():
+    """margin_ce (K6's plain version on the CPU) against the JAX package's
+    sc_cm_linear head + softmax CE and their gradients, at K = 2 centers,
+    B = 8 and the training head's 5994 classes, with a tie between the
+    centers at row 0's label and a cosine that rounds above 1 (the clip
+    active) in row 1: loss and accuracy, and every gradient within 1e-4
+    where JAX's is finite. At the clipped cosine JAX's gradient is NaN (its
+    sqrt(1 - cos^2) branch, masked out by the one-hot, still gives 0 * inf)
+    on the clipped row's embedding and in the column's kernel; the port's is
+    finite there (margin_ce gives a clipped element a zero gradient). The
+    JAX side is jitted, as the trainer runs it."""
+    rng = np.random.RandomState(11)
+    b, d, c = 8, 16, 5994
+    emb = rng.randn(b, d).astype(np.float32)
+    labels = rng.randint(0, c, b).astype(np.int32)
+    jproj = JaxProjection(num_classes=c, kind="sc_cm_linear", num_centers=2)
+    kernel = rng.randn(2, d, c).astype(np.float32)
+    kernel[1, :, labels[0]] = kernel[0, :, labels[0]]
+    c0 = (labels[1] + 1) % c
+    emb[1] = np.random.RandomState(6).randn(d).astype(np.float32)
+    kernel[0, :, c0] = emb[1] * 0.5
+    kernel[1, :, c0] = -emb[1]
+    params = {"params": {"kernel": jnp.asarray(kernel)}}
+    port = MarginProjection(d, c, "sc_cm_linear", 2)
+    port.kernel.data.copy_(torch.from_numpy(kernel))
+    cos_all = port._cos(torch.from_numpy(emb), False).detach()
+    assert cos_all[0, 0, labels[0]] == cos_all[1, 0, labels[0]] and cos_all[0, 1, c0] > 1
+
+    def loss_fn(p, e):
+        logits = jproj.apply(p, e, jnp.asarray(labels), 32.0, 0.2)
+        ce = optax.softmax_cross_entropy_with_integer_labels(logits, jnp.asarray(labels))
+        return ce.mean(), logits
+
+    (want, logits), (gp, ge) = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))(
+        params, jnp.asarray(emb))
+    assert float(logits[1, c0]) == 32.0  # JAX clips it too
+    et = torch.from_numpy(emb).requires_grad_(True)
+    rows, correct = port.cross_entropy(et, torch.from_numpy(labels), 32.0, 0.2)
+    rows.mean().backward()
+    np.testing.assert_allclose(float(rows.mean().detach()), float(want), **TOL)
+    want_acc = np.mean(np.argmax(np.asarray(logits), -1) == labels)
+    assert float(correct.mean()) == float(want_acc)
+    ge, gk = np.asarray(ge), np.asarray(gp["params"]["kernel"])
+    got_e, got_k = et.grad.numpy(), port.kernel.grad.numpy()
+    near_e, near_k = np.zeros(ge.shape, bool), np.zeros(gk.shape, bool)
+    near_e[1], near_k[:, :, c0] = True, True
+    nan_e, nan_k = np.isnan(ge), np.isnan(gk)
+    assert nan_e.any() and not (nan_e & ~near_e).any() and not (nan_k & ~near_k).any()
+    assert np.isfinite(got_e).all() and np.isfinite(got_k).all()
+    np.testing.assert_allclose(got_e[~nan_e], ge[~nan_e], **TOL)
+    np.testing.assert_allclose(got_k[~nan_k], gk[~nan_k], **TOL)
+
+
 def schedule_steps(bounds):
     return sorted({max(0, s) for b in bounds for s in (b - 1, b, b + 1)} | {0, 5})
 

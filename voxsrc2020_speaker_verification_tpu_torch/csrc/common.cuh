@@ -51,11 +51,16 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 // Returned, beside the CUDA codes, where the caller's launch plan gives a
 // shared-memory size other than the kernel's own layout needs.
 constexpr int kPlanMismatch = 10001;
+// Returned where a kernel does not take the shape it was given (its C entry
+// point says which shapes it takes).
+constexpr int kShapeUnsupported = 10002;
 
 }  // namespace vsv
 
 extern "C" const char* vsv_error_string(int code) {
   if (code == vsv::kPlanMismatch)
     return "the launch plan's shared memory differs from the kernel's layout";
+  if (code == vsv::kShapeUnsupported)
+    return "the kernel does not take this shape (see its C entry point)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -21,14 +21,38 @@
 // of jnp.max).
 //
 // Bound on the card: bytes. (K, B, C) fp32 is read once forward and read and
-// written once backward, at ~10 flops and one exp per class. One block per
-// row walks C with an online max and sum (logsumexp in one pass); threads
-// read consecutive classes, so every center's row streams coalesced.
+// written once backward, at ~10 flops and one exp per class.
+//
+// Design: one CTA of 16 warps a row b. Thread 0 stages the row's K center
+// rows (K x C fp32, 48 KB at the training shape) into a shared-memory slab
+// with one bulk asynchronous copy per center (the Tensor Memory
+// Accelerator's 1-D form) completing on one mbarrier, so each row leaves
+// HBM once per direction and a whole row's bytes are in flight at once
+// (two CTAs an SM at the training shape: ~96 KB in flight per SM). A center
+// row starts 16-byte aligned only when (k * B + b) * C is a multiple of 4,
+// so each copy starts at the 16-byte boundary at or below the row and ends
+// at the one at or above its end (both inside the 16-byte granules that
+// hold the row's first and last bytes, so inside mapped memory); the
+// kernels index the slab past that shift. Every pass then reads the slab:
+//   forward: pass 1 takes the max over centers, the logit (stored over the
+//     slab) and the first-index argmax; pass 2 the sum of exp(logit - max),
+//     with no per-element rescale branch;
+//   backward: one pass turns each center's value into its gradient in place
+//     (the max, tie count and routing all from the slab), then the slab is
+//     written out with 16-byte stores wherever the output row's alignment
+//     allows (4-byte stores at its ragged ends).
+// Reductions: a thread visits its classes in increasing order, warps reduce
+// by shuffles, and warp 0 reduces the warps' values in warp order, so
+// reruns agree bit for bit.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCenters = 8;
 
 struct Margin {
   float scale, cos_m, sin_m, m1;
@@ -43,85 +67,187 @@ __device__ __forceinline__ float clip1(float v) {
   return fminf(fmaxf(v, -1.f), 1.f);
 }
 
-__global__ void margin_ce_fwd_kernel(const float* __restrict__ cos_all,
-                                     const long long* __restrict__ labels,
-                                     int centers, int batch, int classes,
-                                     Margin mg, float* __restrict__ loss,
-                                     float* __restrict__ correct,
-                                     float* __restrict__ lse_out) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// floats from the 16-byte boundary at or below p to p
+__device__ __forceinline__ int shift_of(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) >> 2);
+}
+
+// Floats of one center's slab: room for a shift of up to 3 floats, a
+// multiple of 4 so every slab starts 16-byte aligned.
+__host__ __device__ __forceinline__ int slab_stride(int classes) {
+  return (classes + 3 + 3) & ~3;
+}
+
+// Stage row b of every center into the slab; on return base[k] is the slab
+// index of cos_all[k, b, 0]. Every thread waits for the copies.
+__device__ __forceinline__ void stage_row(const float* __restrict__ cos_all, int centers,
+                                          int batch, int classes, float* slab, int* base,
+                                          uint64_t* bar) {
+  const int b = blockIdx.x, stride = slab_stride(classes);
+  if (threadIdx.x < centers) {
+    const float* row = cos_all + (static_cast<long long>(threadIdx.x) * batch + b) * classes;
+    base[threadIdx.x] = threadIdx.x * stride + shift_of(row);
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    uint32_t total = 0;
+    for (int k = 0; k < centers; ++k) {
+      const float* row = cos_all + (static_cast<long long>(k) * batch + b) * classes;
+      total += static_cast<uint32_t>((shift_of(row) + classes + 3) & ~3) * 4u;
+    }
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(total)
+                 : "memory");
+    for (int k = 0; k < centers; ++k) {
+      const float* row = cos_all + (static_cast<long long>(k) * batch + b) * classes;
+      const int sh = shift_of(row);
+      const uint32_t bytes = static_cast<uint32_t>((sh + classes + 3) & ~3) * 4u;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_u32(slab + k * stride)),
+          "l"(row - sh), "r"(bytes), "r"(smem_u32(bar))
+          : "memory");
+    }
+  }
+  __syncthreads();  // the mbarrier is initialized, base[] written
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(0u)
+        : "memory");
+}
+
+// Max over centers of class c, read from the slab.
+__device__ __forceinline__ float center_max(const float* slab, const int* base, int centers,
+                                            int c) {
+  float v = slab[base[0] + c];
+  for (int k = 1; k < centers; ++k) v = fmaxf(v, slab[base[k] + c]);
+  return v;
+}
+
+// Block-wide (value, index) max, the smallest index among equal values; the
+// result is returned to every thread. red_* hold kWarps entries.
+__device__ __forceinline__ void block_argmax(float& v, int& i, float* red_v, int* red_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_i[warp] = i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? red_v[lane] : -INFINITY;
+    i = lane < kWarps ? red_i[lane] : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+      if (ov > v || (ov == v && oi < i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    if (lane == 0) {
+      red_v[0] = v;
+      red_i[0] = i;
+    }
+  }
+  __syncthreads();
+  v = red_v[0];
+  i = red_i[0];
+}
+
+// Block-wide sum in a fixed order (shuffle tree, then the warps' sums in
+// warp order by the same tree); returned to thread 0 only.
+__device__ __forceinline__ float block_sum(float s, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  __syncthreads();  // red may still be read by the caller's last use
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < kWarps ? red[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads) margin_ce_fwd_kernel(
+    const float* __restrict__ cos_all, const long long* __restrict__ labels, int centers,
+    int batch, int classes, Margin mg, float* __restrict__ loss, float* __restrict__ correct,
+    float* __restrict__ lse_out) {
+  extern __shared__ __align__(16) float slab[];
+  __shared__ uint64_t bar;
+  __shared__ int base[kMaxCenters];
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+  stage_row(cos_all, centers, batch, classes, slab, base, &bar);
+
   const int b = blockIdx.x;
   const int y = static_cast<int>(labels[b]);
-  const long long kstride = static_cast<long long>(batch) * classes;
-  const float* row = cos_all + static_cast<long long>(b) * classes;
-  float m = -INFINITY, s = 0.f, best = -INFINITY;
-  int best_c = classes;
-  for (int c = threadIdx.x; c < classes; c += blockDim.x) {
-    float v = row[c];
-    for (int k = 1; k < centers; ++k) v = fmaxf(v, row[k * kstride + c]);
-    v = clip1(v);
+  // pass 1: logits (over center 0's slab), their max and first argmax
+  float best = -INFINITY;
+  int best_c = 0x7fffffff;
+  for (int c = threadIdx.x; c < classes; c += kThreads) {
+    const float v = clip1(center_max(slab, base, centers, c));
     const float l = c == y ? target_logit(v, mg) : mg.scale * v;
-    if (l > m) {
-      s = s * expf(m - l) + 1.f;
-      m = l;
-    } else {
-      s += expf(l - m);
-    }
+    slab[base[0] + c] = l;
     if (l > best) {
       best = l;
       best_c = c;
     }
   }
-  __shared__ float sh_m[kThreads], sh_s[kThreads], sh_b[kThreads];
-  __shared__ int sh_c[kThreads];
-  sh_m[threadIdx.x] = m;
-  sh_s[threadIdx.x] = s;
-  sh_b[threadIdx.x] = best;
-  sh_c[threadIdx.x] = best_c;
-  __syncthreads();
-  for (int half = blockDim.x / 2; half > 0; half /= 2) {
-    if (threadIdx.x < half) {
-      const int o = threadIdx.x + half;
-      const float m0 = sh_m[threadIdx.x], m1 = sh_m[o];
-      const float mm = fmaxf(m0, m1);
-      float ss = 0.f;
-      if (m0 > -INFINITY) ss += sh_s[threadIdx.x] * expf(m0 - mm);
-      if (m1 > -INFINITY) ss += sh_s[o] * expf(m1 - mm);
-      sh_m[threadIdx.x] = mm;
-      sh_s[threadIdx.x] = ss;
-      const float b0 = sh_b[threadIdx.x], b1 = sh_b[o];
-      if (b1 > b0 || (b1 == b0 && sh_c[o] < sh_c[threadIdx.x])) {
-        sh_b[threadIdx.x] = b1;
-        sh_c[threadIdx.x] = sh_c[o];
-      }
-    }
-    __syncthreads();
-  }
+  block_argmax(best, best_c, red_v, red_i);  // its barriers publish the logits
+  // pass 2: sum of exp(logit - max), no rescale
+  float s = 0.f;
+  for (int c = threadIdx.x; c < classes; c += kThreads) s += expf(slab[base[0] + c] - best);
+  s = block_sum(s, red_v);
   if (threadIdx.x == 0) {
-    float v = row[y];
-    for (int k = 1; k < centers; ++k) v = fmaxf(v, row[k * kstride + y]);
-    const float lse = sh_m[0] + logf(sh_s[0]);
-    loss[b] = lse - target_logit(clip1(v), mg);
-    correct[b] = sh_c[0] == y ? 1.f : 0.f;
+    const float lse = best + logf(s);
+    loss[b] = lse - slab[base[0] + y];
+    correct[b] = best_c == y ? 1.f : 0.f;
     lse_out[b] = lse;
   }
 }
 
-__global__ void margin_ce_bwd_kernel(const float* __restrict__ cos_all,
-                                     const long long* __restrict__ labels,
-                                     const float* __restrict__ lse,
-                                     const float* __restrict__ dloss,
-                                     int centers, int batch, int classes,
-                                     Margin mg, float* __restrict__ dcos_all) {
+__global__ void __launch_bounds__(kThreads) margin_ce_bwd_kernel(
+    const float* __restrict__ cos_all, const long long* __restrict__ labels,
+    const float* __restrict__ lse, const float* __restrict__ dloss, int centers, int batch,
+    int classes, Margin mg, float* __restrict__ dcos_all) {
+  extern __shared__ __align__(16) float slab[];
+  __shared__ uint64_t bar;
+  __shared__ int base[kMaxCenters];
+  stage_row(cos_all, centers, batch, classes, slab, base, &bar);
+
   const int b = blockIdx.x;
   const int y = static_cast<int>(labels[b]);
-  const long long kstride = static_cast<long long>(batch) * classes;
-  const long long roff = static_cast<long long>(b) * classes;
   const float l0 = lse[b], g0 = dloss[b];
-  for (int c = threadIdx.x; c < classes; c += blockDim.x) {
-    float v = cos_all[roff + c];
-    for (int k = 1; k < centers; ++k) v = fmaxf(v, cos_all[k * kstride + roff + c]);
+  // each center's value becomes its gradient, in place
+  for (int c = threadIdx.x; c < classes; c += kThreads) {
+    const float v = center_max(slab, base, centers, c);
     int ties = 0;
-    for (int k = 0; k < centers; ++k) ties += cos_all[k * kstride + roff + c] == v;
+    for (int k = 0; k < centers; ++k) ties += slab[base[k] + c] == v;
     const float vc = clip1(v);
     float dv;
     if (c == y) {
@@ -134,22 +260,57 @@ __global__ void margin_ce_bwd_kernel(const float* __restrict__ cos_all,
     if (v < -1.f || v > 1.f) dv = 0.f;
     dv /= static_cast<float>(ties);
     for (int k = 0; k < centers; ++k) {
-      const long long e = k * kstride + roff + c;
-      dcos_all[e] = cos_all[e] == v ? dv : 0.f;
+      float* e = slab + base[k] + c;
+      *e = *e == v ? dv : 0.f;
     }
   }
+  __syncthreads();
+  // write out: 16-byte stores from the output row's first 16-byte boundary
+  for (int k = 0; k < centers; ++k) {
+    float* out = dcos_all + (static_cast<long long>(k) * batch + b) * classes;
+    const float* src = slab + base[k];
+    const int head = min((4 - shift_of(out)) & 3, classes);
+    const int groups = (classes - head) >> 2;
+    const bool aligned = ((base[k] + head) & 3) == 0;
+    for (int c = threadIdx.x; c < head; c += kThreads) out[c] = src[c];
+    for (int g = threadIdx.x; g < groups; g += kThreads) {
+      const int c = head + 4 * g;
+      const float4 q = aligned ? *reinterpret_cast<const float4*>(src + c)
+                               : make_float4(src[c], src[c + 1], src[c + 2], src[c + 3]);
+      *reinterpret_cast<float4*>(out + c) = q;
+    }
+    for (int c = head + 4 * groups + threadIdx.x; c < classes; c += kThreads) out[c] = src[c];
+  }
+}
+
+// Dynamic shared memory of a row's slab, or 0 if it does not fit a CTA.
+size_t slab_bytes(int centers, int classes) {
+  if (centers < 1 || centers > kMaxCenters || classes < 1) return 0;
+  const size_t bytes = sizeof(float) * static_cast<size_t>(centers) * slab_stride(classes);
+  return bytes <= 200 * 1024 ? bytes : 0;
+}
+
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  if (smem == 0) return vsv::kShapeUnsupported;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // cos_all: (centers, batch, classes) fp32; labels: (batch,) int64. Writes
-// loss, correct (0/1) and lse, each (batch,) fp32.
+// loss, correct (0/1) and lse, each (batch,) fp32. One CTA a row; the row
+// (centers x classes floats) must fit one CTA's shared memory.
 extern "C" int margin_ce_fwd(const float* cos_all, const long long* labels,
                              int centers, int batch, int classes, float scale,
                              float cos_m, float sin_m, float m1, float* loss,
                              float* correct, float* lse, void* stream) {
+  const size_t smem = slab_bytes(centers, classes);
+  if (const int err = prepare(margin_ce_fwd_kernel, smem)) return err;
   const Margin mg{scale, cos_m, sin_m, m1};
-  margin_ce_fwd_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  margin_ce_fwd_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       cos_all, labels, centers, batch, classes, mg, loss, correct, lse);
   return static_cast<int>(cudaGetLastError());
 }
@@ -161,8 +322,10 @@ extern "C" int margin_ce_bwd(const float* cos_all, const long long* labels,
                              int batch, int classes, float scale, float cos_m,
                              float sin_m, float m1, float* dcos_all,
                              void* stream) {
+  const size_t smem = slab_bytes(centers, classes);
+  if (const int err = prepare(margin_ce_bwd_kernel, smem)) return err;
   const Margin mg{scale, cos_m, sin_m, m1};
-  margin_ce_bwd_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  margin_ce_bwd_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       cos_all, labels, lse, dloss, centers, batch, classes, mg, dcos_all);
   return static_cast<int>(cudaGetLastError());
 }

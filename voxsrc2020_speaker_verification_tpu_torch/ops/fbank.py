@@ -17,6 +17,7 @@ Waveforms are float32 in int16 scale (-32768..32767), as Kaldi reads PCM.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from functools import lru_cache
@@ -159,6 +160,29 @@ def _device_matrices(cfg: FbankConfig, device: torch.device):
     return tuple(torch.from_numpy(x).to(device) for x in analysis_matrices(cfg))
 
 
+def mel_columns(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The mel matrix (num_fft_bins, num_bins) by columns, as K1 reads it:
+    column c's weights over the run of FFT bins from its first to its last
+    nonzero, ``weights[offsets[c]:offsets[c + 1]]`` for bins ``starts[c]``
+    on (an all-zero column has an empty run)."""
+    starts, runs = [], []
+    for col in m.T:
+        nz = np.flatnonzero(col)
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        starts.append(lo)
+        runs.append(col[lo:hi])
+    offsets = np.cumsum([0] + [len(r) for r in runs])
+    weights = np.concatenate(runs) if runs else np.zeros(0)
+    return (np.asarray(starts, np.int32), offsets.astype(np.int32),
+            weights.astype(np.float32))
+
+
+@lru_cache(maxsize=8)
+def _device_mel_columns(cfg: FbankConfig, device: torch.device):
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in mel_columns(analysis_matrices(cfg)[2]))
+
+
 def pcm16(w: np.ndarray) -> np.ndarray:
     """Quantize float samples to the int16 grid (round half to even, clip)."""
     return np.clip(np.rint(w), -32768, 32767)
@@ -187,8 +211,9 @@ def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0)) -> to
     """Batched log-mel FBANK, dither off: (B, S) or (S,) float32 int16-scale
     -> (B, T, num_bins) or (T, num_bins).
 
-    On a CUDA tensor this launches K1 (``csrc/fbank.cu``); on a CPU tensor it
-    runs :func:`fbank_reference`. Padded samples past an utterance's end give
+    On a CUDA tensor this launches K1 (``csrc/fbank.cu``), which reads the
+    mel matrix by columns (:func:`mel_columns`); on a CPU tensor it runs
+    :func:`fbank_reference`. Padded samples past an utterance's end give
     frames to be masked downstream.
     """
     if cfg.dither != 0.0:
@@ -208,9 +233,28 @@ def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0)) -> to
         return out
     if cfg.num_bins > 128:
         raise KernelError(f"fbank kernel takes at most 128 mel bins, got {cfg.num_bins}")
-    a, b, m = _device_matrices(cfg, waves.device)
+    a, b, _ = _device_matrices(cfg, waves.device)
+    starts, offsets, weights = _device_mel_columns(cfg, waves.device)
     FBANK.launch(
-        "fbank_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(m), ptr(out),
-        batch, num_samples, t, cfg.frame_length, cfg.frame_shift, a.shape[1],
-        cfg.num_bins, int(cfg.use_power), int(cfg.use_log_fbank), FLT_EPSILON)
+        "fbank_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(starts), ptr(offsets),
+        ptr(weights), ptr(out), batch, num_samples, t, cfg.frame_length, cfg.frame_shift,
+        a.shape[1], cfg.num_bins, weights.numel(), int(cfg.use_power),
+        int(cfg.use_log_fbank), FLT_EPSILON)
     return out
+
+
+def kernel_plan(cfg: FbankConfig = FbankConfig(dither=0.0), device=None) -> dict:
+    """K1's launch plan on the card, as its C source decides it: the
+    persistent clusters the card holds at once (each walks 32-frame tiles)
+    and the shared memory a CTA takes. For reports; a launch needs none of
+    it."""
+    device = torch.device("cuda" if device is None else device)
+    lib = FBANK.load()
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.fbank_plan(cfg.frame_length, cfg.frame_shift, ctypes.byref(clusters),
+                              ctypes.byref(smem))
+    if code != 0:
+        raise KernelError(f"fbank.fbank_plan: CUDA error {code} "
+                          f"({lib.vsv_error_string(code).decode()})")
+    return {"clusters": clusters.value, "smem_bytes": smem.value}
