@@ -12,8 +12,9 @@ Phases, one JSON line each:
    the serving forward gives them (res2net50_w24_s4_c32, B=128, 1000
    frames), K4b, K5 and K6 (forward and backward, against autograd of the
    plain versions) at the shapes of the training step below; K1 also at
-   wave requests of 2 s and 128 s and a batch of 3, and K1, K4, K4b, K5
-   and K6 rerun bit for bit. ``ms`` is a call's time by CUDA events, host
+   wave requests of 2 s and 128 s and a batch of 3, and at 160 mel bins
+   (two 128-column passes); K6 also on its streaming path (K = 2 at C =
+   30000, K = 10), and K1, K4, K4b, K5 and K6 rerun bit for bit. ``ms`` is a call's time by CUDA events, host
    included; ``device_ms`` (K1, K4, K4b, K6 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
    under ~0.3 ms;
@@ -31,7 +32,18 @@ Phases, one JSON line each:
    B=16, A=1, bn_groups=2 on the card and through the plain path on the CPU
    from the same weights: loss, gradient norm, parameter update and BN
    statistics within the stated tolerances;
-7. export  -- the trained state saved as an inference artifact and one batch
+7. lmft    -- the LMFT leg (``res2net_finetune_vox2_dev``, 600-frame crops,
+   margin 0.4) at bench.py's shape (B=256 x A=4, bn_groups=16, stages 0-2
+   rematerialized) through ``cli.train.main``: a CM-compressed Kaldi
+   feature store written by the port's kaldi_io, the native C++ feeder,
+   and a resume from phase 5's trained state saved as the last checkpoint
+   of the pretrain experiment dir; one warm-up and two timed steps with
+   finite loss, schedule-exact lr and margin, no decode errors and launch
+   counts of K4, K4b, K5 (its forward again inside the recomputed blocks)
+   and K6 as expected; and, from one state and one B=64 f600 batch, a
+   rematerialized and a plain step: BN statistics bit-equal, loss and
+   gradient norm within TOL_PARITY, lower peak memory with remat;
+8. export  -- the trained state saved as an inference artifact and one batch
    embedded through the eval path (K2-K4), against the CPU plain path.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -73,6 +85,16 @@ TOL_CPU_COS = 0.99        # bf16 GPU forward vs fp32 CPU plain forward
 TRAIN_MODEL, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_FRAMES, TRAIN_GROUPS = (
     "res2net50_w8_s6_c16", 256, 4, 200, 8)
 TRAIN_STEPS = 4           # one warm-up + three timed
+# the LMFT leg (bench.py:224-233): f600, B=256 x A=4, bn_groups=16, stages
+# 0-2 rematerialized; the feature store it reads, and the B=64 comparison
+LMFT_FRAMES, LMFT_GROUPS, LMFT_STAGES, LMFT_STEPS = 600, 16, (0, 1, 2), 3
+LMFT_UTTS, LMFT_SHARDS, LMFT_LENGTHS = 512, 4, (600, 1201)
+LMFT_CHECK_BATCH, LMFT_CHECK_GROUPS = 64, 4
+# K6 on both training paths: one launch a direction on the slab path, none
+# on the streaming path (the 5994-class head fits the slab)
+K6_SLAB_PER_MICROBATCH = {"margin_ce.margin_ce_fwd:slab": 1, "margin_ce.margin_ce_bwd:slab": 1,
+                          "margin_ce.margin_ce_fwd:stream": 0,
+                          "margin_ce.margin_ce_bwd:stream": 0}
 # K4b/K5/K6 vs autograd of the plain version: fp32 relative to the output's
 # largest magnitude; K5 bf16 against the plain version run in bf16; K5's
 # input gradients where both versions take the same relu decision, in fp32
@@ -241,6 +263,29 @@ def check_fbank(dev, gen):
     for sec in (2, 128):
         w = torch.from_numpy(fb.pcm16(rng.randn(1, sec * 16000) * 3000).astype(np.float32)).to(dev)
         by_length[f"{sec}s"] = device_ms(lambda: fb.fbank(w, cfg), "fbank_kernel")
+    # 160 mel bins: more than one launch's 128 columns, so two passes; an 8 s
+    # wave and a batch of 3
+    cfg160 = fb.FbankConfig(num_bins=160, dither=0.0)
+    err160 = 0.0
+    for batch, n in ((1, 8 * 16000), (3, 5 * 16000 + 123)):
+        w = torch.from_numpy(fb.pcm16(rng.randn(batch, n) * 3000).astype(np.float32)).to(dev)
+        got, want = fb.fbank(w, cfg160), fb.fbank_reference(w, cfg160)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"fbank 160 bins: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+        err160 = max(err160, abs_err(got, want))
+    if err160 > TOL_FBANK:
+        fail(f"fbank 160 bins: max |kernel - plain| {err160} > {TOL_FBANK}")
+    bms160, by160 = bound_ms(nbytes + 4 * a.shape[1] * 80 + 4 * t * 80,
+                             flops + 2 * t * a.shape[1] * 80, torch.float32)
+    bins160 = dict(max_abs_err=err160, per="one 8 s wave request",
+                   ms=time_ms(lambda: fb.fbank(wave, cfg160), reps=20),
+                   device_ms=device_ms(lambda: fb.fbank(wave, cfg160), "fbank_kernel"),
+                   plain_ms=time_ms(lambda: fb.fbank_reference(wave, cfg160), reps=20),
+                   plain_device_ms=device_ms(lambda: fb.fbank_reference(wave, cfg160)),
+                   bound_ms=bms160, bound_by=by160,
+                   note="two passes of at most 128 mel columns, each recomputing the "
+                        "power spectrum")
     return dict(name="fbank", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/pallas/fbank.py:85 "
@@ -248,7 +293,7 @@ def check_fbank(dev, gen):
                 max_abs_err=err, tolerance=TOL_FBANK, dtype="float32",
                 per="one 8 s wave request", ms=ms, device_ms=dev_ms, plain_ms=plain,
                 plain_device_ms=plain_dev, device_ms_by_length=by_length,
-                checked_shapes=shapes, reruns_bit_equal=rerun_equal,
+                checked_shapes=shapes, reruns_bit_equal=rerun_equal, mel_bins_160=bins160,
                 launch_plan=fb.kernel_plan(cfg, dev), bound_ms=bms,
                 bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call computes Kaldi FBANK "
@@ -437,35 +482,38 @@ def check_stats_pool(dev, gen, head_shape, train_head):
                                                 3.0 * xt.numel(), torch.bfloat16)[0])
 
 
-def train_shapes(cfg, batch, frames, feat_dim):
+def train_shapes(cfg, batch, frames, feat_dim, stages=None):
     """The training forward's K5 calls per microbatch at batch x frames, as
     ((B, C, T, F) or (B, C), relu, shortcut mode) with multiplicities, and
-    the stats pool's input (C, T, F)."""
+    the stats pool's input (C, T, F). With ``stages``, only the calls inside
+    the blocks of those stages (what a rematerialized stage runs again)."""
     from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
 
     t, f = frames, feat_dim
     k5 = {}
 
-    def add(key):
-        k5[key] = k5.get(key, 0) + 1
+    def add(key, counted=True):
+        if counted:
+            k5[key] = k5.get(key, 0) + 1
 
-    add(((batch, cfg.num_filters[0], t, f), True, 0))               # initial_bn
+    add(((batch, cfg.num_filters[0], t, f), True, 0), stages is None)   # initial_bn
     for i, n in enumerate(cfg.block_sizes):
         w, s, out_c = cfg.width[i], cfg.block_strides[i], cfg.num_filters[i] * 4
+        inside = stages is None or i in stages
         for j in range(n):
             stride = s if j == 0 else 1
-            add(((batch, cfg.split * w, t, f), True, 0))            # bn1
+            add(((batch, cfg.split * w, t, f), True, 0), inside)        # bn1
             t2, f2 = _strided(t, stride), _strided(f, stride)
             if stride == 1:
-                for _ in range(cfg.split - 1):                      # one per group
-                    add(((batch, w, t, f), True, 0))
-            else:                                                   # all groups at once
-                add(((batch, w * (cfg.split - 1), t2, f2), True, 0))
-            add(((batch, out_c, t2, f2), True, 2 if j == 0 else 1))  # bn3 + shortcut
+                for _ in range(cfg.split - 1):                          # one per group
+                    add(((batch, w, t, f), True, 0), inside)
+            else:                                                       # all groups at once
+                add(((batch, w * (cfg.split - 1), t2, f2), True, 0), inside)
+            add(((batch, out_c, t2, f2), True, 2 if j == 0 else 1), inside)  # bn3 + shortcut
             t, f = t2, f2
     channels = cfg.num_filters[-1] * 4
-    add(((batch, f * 2 * channels), False, 0))                      # head pre_bn
-    add(((batch, cfg.output_dim), False, 0))                        # head post_bn
+    add(((batch, f * 2 * channels), False, 0), stages is None)          # head pre_bn
+    add(((batch, cfg.output_dim), False, 0), stages is None)            # head post_bn
     return k5, (channels, t, f)
 
 
@@ -688,8 +736,9 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
     del loss, ci
     # forward reads cos_all once; backward reads it and writes dcos_all
     bms, by = bound_ms(3 * 4 * cos.numel(), 30.0 * cos.numel(), torch.float32)
+    stream = check_margin_ce_stream(dev, gen)
     emit({"phase": "kernel", "name": "margin_ce", "shape": list(shape), "ms_fwd": fwd,
-          "ms_bwd": bwd, "plain_ms_fwd": pfwd, "plain_ms_bwd": pbwd})
+          "ms_bwd": bwd, "plain_ms_fwd": pfwd, "plain_ms_bwd": pbwd, "stream": stream})
     return dict(name="margin_ce", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/margin_ce.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/losses/projections.py:96 "
@@ -701,7 +750,64 @@ def check_margin_ce(dev, gen, num_centers, num_classes):
                 device_ms_fwd=dev_fwd, device_ms_bwd=dev_bwd,
                 bound_ms=TRAIN_ACCUM * bms, bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call does max over centers, "
-                             "margin and cross-entropy", reruns_bit_equal=rerun_equal)
+                             "margin and cross-entropy", reruns_bit_equal=rerun_equal,
+                paths={"slab": {"shape": list(shape), "note": "the training shape"},
+                       "stream": stream})
+
+
+def check_margin_ce_stream(dev, gen):
+    """K6's streaming path, which takes the rows its slab path refuses: at
+    K = 2, C = 30000 (B = 256; a 240 KB row) timed and against autograd of
+    the plain version, and at K = 10, C = 5994 checked; one launch a
+    direction on the streaming path, reruns bit for bit."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
+        margin_ce, margin_ce_plan, margin_ce_reference)
+
+    errs = {}
+    for k, b, c in ((10, 64, 5994), (2, TRAIN_BATCH, 30000)):
+        if margin_ce_plan(k, c)[0] != "stream":
+            fail(f"margin_ce: ({k}, {c}) is not on the streaming path")
+        cos = (torch.rand((k, b, c), generator=gen, device=dev) * 2 - 1) * 0.998
+        cos[1, :, :40] = cos[0, :, :40]  # ties between centers
+        cos[0, 0, 7] = 1.0               # a cosine of exactly 1 at a non-label column
+        labels = torch.randint(0, c, (b,), generator=gen, device=dev)
+        dloss = torch.rand(b, generator=gen, device=dev) / b
+        outs = []
+        for fn in (margin_ce, margin_ce_reference, margin_ce):
+            ci = cos.clone().requires_grad_(True)
+            before = dict(kernels.MARGIN_CE.fn_launches)
+            loss, correct = fn(ci, labels, 32.0, 0.2)
+            loss.backward(dloss)
+            launched = {f: n - before[f] for f, n in kernels.MARGIN_CE.fn_launches.items()
+                        if n != before[f]}
+            if fn is margin_ce and launched != {"margin_ce_fwd:stream": 1,
+                                                "margin_ce_bwd:stream": 1}:
+                fail(f"margin_ce ({k}, {b}, {c}): launched {launched}")
+            outs.append((loss.detach(), correct, ci.grad))
+        (l, cr, d), (lr_, crr, dr), again = outs
+        err = max(rel_err(l, lr_), rel_err(d, dr))
+        if (err > TOL_FP32 or not torch.equal(cr, crr) or not torch.isfinite(d).all()
+                or not all(torch.equal(x, y) for x, y in zip((l, cr, d), again))):
+            fail(f"margin_ce stream ({k}, {b}, {c}): rel err {err}, flags equal "
+                 f"{torch.equal(cr, crr)}, or reruns differ")
+        errs[f"K{k}_C{c}"] = err
+        del outs, again, d, dr
+    shape = (2, TRAIN_BATCH, 30000)
+    fwd, bwd = time_fwd_bwd(lambda x: margin_ce(x, labels, 32.0, 0.2)[0], [cos], dloss)
+    pfwd, pbwd = time_fwd_bwd(lambda x: margin_ce_reference(x, labels, 32.0, 0.2)[0], [cos], dloss)
+    ci = cos.detach().requires_grad_(True)
+    loss = margin_ce(ci, labels, 32.0, 0.2)[0]
+    dev_fwd = device_ms(lambda: margin_ce(cos, labels, 32.0, 0.2), "margin_ce_stream_fwd_kernel")
+    dev_bwd = device_ms(lambda: torch.autograd.grad(loss, [ci], dloss, retain_graph=True),
+                        "margin_ce_stream_bwd_kernel")
+    del loss, ci
+    bms, by = bound_ms(3 * 4 * cos.numel(), 30.0 * cos.numel(), torch.float32)
+    return dict(kernels="margin_ce_stream_fwd_kernel / margin_ce_stream_bwd_kernel",
+                shape=list(shape), max_rel_err_fp32=errs, tolerance=TOL_FP32,
+                per="one forward + backward", ms=fwd + bwd, device_ms=dev_fwd + dev_bwd,
+                device_ms_fwd=dev_fwd, device_ms_bwd=dev_bwd, plain_ms=pfwd + pbwd,
+                bound_ms=bms, bound_by=by, reruns_bit_equal=True)
 
 
 # ----------------------------------------------------------------------
@@ -828,6 +934,220 @@ def train_parity_phase(dev):
             bad[f"{k}_vs_float64"] = e
     if bad:
         fail(f"train_parity: GPU vs CPU beyond tolerance: {bad}")
+
+
+def k5_launches(k5, groups):
+    """(cluster-design, multi-kernel-design) K5 calls among ``k5``'s
+    (bn_train_plan picks the design by shape)."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops.nn import bn_train_plan
+
+    cluster = sum(n for (shape, relu, mode), n in k5.items()
+                  if bn_train_plan(shape, groups, torch.bfloat16, mode, relu)["design"]
+                  == "cluster")
+    return cluster, sum(k5.values()) - cluster
+
+
+def write_feature_store(root, dataset, seed):
+    """The LMFT leg's data dir: LMFT_UTTS utterances of 600-1200 frames x
+    80 bins with speakers over the recipe's 5994 classes, CM-compressed
+    by the port's kaldi_io into one ark + scp, sharded into LMFT_SHARDS
+    scps, and utt2id.pkl. Returns the seconds it took."""
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+    from voxsrc2020_speaker_verification_tpu_torch.utils import datadir
+
+    t0 = time.perf_counter()
+    data_dir = os.path.join(root, dataset)
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(seed)
+    speakers = [f"id{i:05d}" for i in range(5994)]
+    utt2spk = {}
+    scp = os.path.join(data_dir, "feats.scp")
+    with kaldi_io.ArkScpWriter(os.path.join(data_dir, "feats.ark"), scp, compress=True) as w:
+        for i in range(LMFT_UTTS):
+            spk = speakers[rng.randint(len(speakers))]
+            utt = f"{spk}-{i:05d}"
+            t = int(rng.randint(*LMFT_LENGTHS))
+            # log-mel-like: a per-utterance spectral envelope plus noise
+            feats = rng.randn(1, FEAT_DIM) * 2 + 8 + rng.randn(t, FEAT_DIM)
+            w.write(utt, feats.astype(np.float32))
+            utt2spk[utt] = spk
+    datadir.save_utt2id(os.path.join(data_dir, "utt2id.pkl"),
+                        datadir.build_utt2id(utt2spk, speakers))
+    datadir.shard_scp(scp, LMFT_SHARDS)
+    return time.perf_counter() - t0
+
+
+def lmft_phase(dev, state, smi, workdir):
+    """The LMFT leg through the train CLI from a feature store and the
+    native feeder, resumed from phase 5's state; then remat vs no remat from
+    one state and one batch (see the module docstring)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
+    from voxsrc2020_speaker_verification_tpu_torch.losses import schedules
+    from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+    from voxsrc2020_speaker_verification_tpu_torch.training.checkpoint import CheckpointManager
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        create_train_state, make_train_step, schedule_values)
+
+    root, exp_root = os.path.join(workdir, "data"), os.path.join(workdir, "exp")
+    overrides = dict(batch_size=TRAIN_BATCH, num_accumulation_steps=TRAIN_ACCUM,
+                     bn_groups=LMFT_GROUPS, remat=True, remat_stages=LMFT_STAGES,
+                     exp_root=exp_root, seed=SEED)
+    config, resume_from = get_recipe("res2net_finetune_vox2_dev", model=TRAIN_MODEL, **overrides)
+    if (config.feat_length, config.margin, config.num_classes) != (LMFT_FRAMES, 0.4, 5994):
+        fail(f"lmft config is not the LMFT leg: {config}")
+    store_s = write_feature_store(root, config.dataset, SEED + 21)
+    # phase 5's trained state as the last checkpoint of the pretrain run:
+    # its step is the end of pretraining, where the LMFT schedule starts
+    pretrain, _ = get_recipe("res2net_vox2_dev_aug", model=TRAIN_MODEL, exp_root=exp_root)
+    trained_step, resumed = state.step, pretrain.total_steps
+    state.step = resumed
+    CheckpointManager(pretrain.exp_dir).save(state)
+    state.step = trained_step
+
+    argv = ["--recipe", "res2net_finetune_vox2_dev", "--model", TRAIN_MODEL,
+            "--data-root", root, "--exp-root", exp_root,
+            "--batch-size", str(TRAIN_BATCH), "--num-accumulation-steps", str(TRAIN_ACCUM),
+            "--bn-groups", str(LMFT_GROUPS), "--remat",
+            "--remat-stages", *map(str, LMFT_STAGES), "--num-shards", str(LMFT_SHARDS),
+            "--num-workers", "4", "--max-steps", str(LMFT_STEPS), "--log-every", "1",
+            "--seed", str(SEED)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.function_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.result.history
+    if run.feeder != "native" or run.decode_errors != 0:
+        fail(f"lmft: feeder {run.feeder}, {run.decode_errors} decode errors")
+    if [h["step"] for h in hist] != [resumed + i + 1 for i in range(LMFT_STEPS)]:
+        fail(f"lmft: steps {[h['step'] for h in hist]}, not a resume from step {resumed}")
+    for h in hist:
+        lr, margin = schedule_values(config, h["step"] - 1)
+        total = float(schedules.total_margin(config.projection, margin))
+        if not math.isfinite(h["loss"]) or margin != np.float32(0.4):
+            fail(f"lmft: step {h['step']} loss {h['loss']}, scheduled margin {margin}")
+        if h["learning_rate"] != lr or h["margin"] != total:
+            fail(f"lmft: step {h['step']} lr {h['learning_rate']} margin {h['margin']}, "
+                 f"schedules say {lr}, {total}")
+    tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
+    k5, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM)
+    k5_remat, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES)
+    cluster, multi = k5_launches(k5, LMFT_GROUPS)
+    cluster_again, multi_again = k5_launches(k5_remat, LMFT_GROUPS)
+    per_microbatch = {"bn_train.bn_cluster_fwd": cluster + cluster_again,
+                      "bn_train.bn_cluster_bwd": cluster,
+                      "bn_train.bn_train_fwd": multi + multi_again,
+                      "bn_train.bn_train_bwd": multi,
+                      **K6_SLAB_PER_MICROBATCH,
+                      "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
+    microbatches = LMFT_STEPS * config.num_accumulation_steps
+    for fn, n in per_microbatch.items():
+        if counts[fn] != microbatches * n:
+            fail(f"lmft: {fn} launched {counts[fn]} times, expected {microbatches} x {n}")
+    step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
+    med = statistics.median(step_s)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat vs no remat: one state, the same two B=64 f600 batches (A=1);
+    # the second step is timed (the first grows the allocator's pool), a
+    # third reads the device time under the profiler
+    rng = np.random.RandomState(SEED + 23)
+    batches = [(torch.from_numpy(rng.randn(1, LMFT_CHECK_BATCH, LMFT_FRAMES, FEAT_DIM)
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(rng.randint(0, 5994, (1, LMFT_CHECK_BATCH))).to(dev))
+               for _ in range(2)]
+    compare = {}
+    for name, remat in (("remat", True), ("plain", False)):
+        cfg = get_recipe("res2net_finetune_vox2_dev", model=TRAIN_MODEL,
+                         batch_size=LMFT_CHECK_BATCH, num_accumulation_steps=1,
+                         bn_groups=LMFT_CHECK_GROUPS, remat=remat,
+                         remat_stages=LMFT_STAGES if remat else None, seed=SEED)[0]
+        st = create_train_state(cfg, dev, seed=SEED + 5)
+        st.step = resumed
+        step = make_train_step(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st, m = step(st, *batches[0])
+        first = {k: float(m[k]) for k in ("loss", "gradient_norm")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, *batches[1])
+        torch.cuda.synchronize()
+        compare[name] = dict(step_ms=1e3 * (time.perf_counter() - t0),
+                             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                             loss=[first["loss"], float(m["loss"])],
+                             gradient_norm=[first["gradient_norm"], float(m["gradient_norm"])],
+                             stats={k: v.detach().clone() for k, v in st.batch_stats.items()})
+        compare[name].update(step_device_time(step, st, batches[1], compare[name]["step_ms"]))
+        del st, step, m
+    stats_equal = all(torch.equal(v, compare["plain"]["stats"][k])
+                      for k, v in compare["remat"]["stats"].items())
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(compare["remat"][k], compare["plain"][k]))
+           for k in ("loss", "gradient_norm")}
+    check_audio_s = LMFT_CHECK_BATCH * LMFT_FRAMES / 100.0
+    for v in compare.values():
+        del v["stats"]
+        v["audio_s_per_s"] = check_audio_s / (v["step_ms"] / 1e3)
+    emit({"phase": "lmft", "model": TRAIN_MODEL, "recipe": "res2net_finetune_vox2_dev",
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "accumulation": TRAIN_ACCUM,
+          "frames": LMFT_FRAMES, "bn_groups": LMFT_GROUPS, "remat_stages": list(LMFT_STAGES),
+          "feeder": "native", "store": {"utterances": LMFT_UTTS, "frames": list(LMFT_LENGTHS),
+                                        "shards": LMFT_SHARDS, "write_s": store_s},
+          "resumed_from_step": resumed, "steps": LMFT_STEPS, "timed_steps": len(step_s),
+          "step_ms": [1e3 * x for x in step_s], "step_ms_median": 1e3 * med,
+          "audio_s_per_s": config.effective_batch * config.feat_length / 100.0 / med,
+          "peak_memory_bytes": peak, "losses": [h["loss"] for h in hist],
+          "learning_rates": [h["learning_rate"] for h in hist],
+          "margins": [h["margin"] for h in hist], "launches": counts,
+          "launches_per_microbatch": per_microbatch,
+          "remat_vs_plain": {"batch": LMFT_CHECK_BATCH, "accumulation": 1,
+                             "bn_groups": LMFT_CHECK_GROUPS, "steps": 3, "timed": "the second",
+                             "profiled": "the third (batch 2 again)",
+                             **compare,
+                             "batch_stats_bit_equal": stats_equal, "rel_err": rel,
+                             "tolerance": {k: TOL_PARITY[k] for k in rel}},
+          "card": smi})
+    if not stats_equal:
+        fail("lmft: BN statistics after a rematerialized step differ from the plain step's")
+    bad = {k: v for k, v in rel.items() if not v <= TOL_PARITY[k]}
+    if bad:
+        fail(f"lmft: remat vs plain step beyond tolerance: {bad}")
+    if not compare["remat"]["peak_memory_bytes"] < compare["plain"]["peak_memory_bytes"]:
+        fail(f"lmft: remat peak memory {compare['remat']['peak_memory_bytes']} is not below "
+             f"the plain step's {compare['plain']['peak_memory_bytes']}")
+    return counts, per_microbatch
+
+
+def step_device_time(step, state, batch, step_ms):
+    """One more step under torch.profiler (device activity only): the wall
+    time of that step, the device time of its kernels and copies (one
+    stream, so their sum is the busy time), and the idle share of the
+    unprofiled step, 1 - busy / ``step_ms``. None where the profiler saw
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")) / 1e3
+    if busy <= 0:
+        return {"profiled_step_ms": wall, "device_busy_ms": None, "device_idle_share": None}
+    return {"profiled_step_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / step_ms}
 
 
 def export_phase(dev, state, config, workdir):
@@ -1043,16 +1363,12 @@ def main() -> int:
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
                   check_margin_ce(dev, gen, 2, 5994)]
     torch.cuda.empty_cache()
-    from voxsrc2020_speaker_verification_tpu_torch.ops.nn import bn_train_plan
     # K5's one-launch cluster design takes the 4-D calls, the multi-kernel
     # design the 2-D head calls (bn_train_plan)
-    n_cluster = sum(n for (shape, relu, mode), n in k5.items()
-                    if bn_train_plan(shape, TRAIN_GROUPS, torch.bfloat16, mode, relu)["design"]
-                    == "cluster")
-    n_multi = sum(k5.values()) - n_cluster
+    n_cluster, n_multi = k5_launches(k5, TRAIN_GROUPS)
     per_microbatch = {"bn_train.bn_cluster_fwd": n_cluster, "bn_train.bn_cluster_bwd": n_cluster,
                       "bn_train.bn_train_fwd": n_multi, "bn_train.bn_train_bwd": n_multi,
-                      "margin_ce.margin_ce_fwd": 1, "margin_ce.margin_ce_bwd": 1,
+                      **K6_SLAB_PER_MICROBATCH,
                       "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -1061,6 +1377,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         state, train_cfg, train_counts = train_phase(dev, per_microbatch, smi)
         train_parity_phase(dev)
+        lmft_counts, lmft_per_microbatch = lmft_phase(dev, state, smi, workdir)
         export_phase(dev, state, train_cfg, workdir)
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -1070,7 +1387,16 @@ def main() -> int:
         fns = {k: v for k, v in train_counts.items() if k.split(".")[0] == row["name"]}
         row["launches"] = sum(fns.values())
         row["launches_by_function"] = fns
-        row["launches_per_step"] = {k: TRAIN_ACCUM * per_microbatch[k] for k in fns}
+        row["launches_per_step"] = {k: TRAIN_ACCUM * per_microbatch.get(k, 0) for k in fns}
+        row["launches_lmft"] = {k: v for k, v in lmft_counts.items()
+                                if k.split(".")[0] == row["name"]}
+        row["launches_per_step_lmft"] = {k: TRAIN_ACCUM * lmft_per_microbatch.get(k, 0)
+                                         for k in fns}
+        for path, info in row.get("paths", {}).items():
+            info["launches_on_main_path"] = {
+                phase: sum(v for k, v in c.items() if k.startswith("margin_ce.") and
+                           k.endswith(f":{path}"))
+                for phase, c in (("train", train_counts), ("lmft", lmft_counts))}
     emit({"kernels": rows + train_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,7 +19,7 @@ import torch
 
 from voxsrc2020_speaker_verification_tpu_torch import kernels
 from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
-    margin_ce, margin_ce_reference)
+    margin_ce, margin_ce_plan, margin_ce_reference)
 from voxsrc2020_speaker_verification_tpu_torch.models.res2net import (
     split_chain, split_chain_reference)
 from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
@@ -474,10 +474,16 @@ def test_fbank_kernel_reruns_bit_for_bit(cuda):
 
 
 @pytest.mark.cuda
-def test_fbank_kernel_refuses_more_than_128_mel_bins(cuda):
-    w, cfg = fbank_case(cuda, 1, 4000, 129)
-    with pytest.raises(kernels.KernelError, match="128"):
-        tfb.fbank(w, cfg)
+def test_fbank_kernel_takes_more_than_128_mel_bins(cuda):
+    """A bank wider than 128 columns runs in 128-column passes, one C call:
+    160 bins within 1e-3 in log-mel of the plain version."""
+    w, cfg = fbank_case(cuda, 2, 48000, 160)
+    before = kernels.FBANK.launches
+    got = tfb.fbank(w, cfg)
+    assert kernels.FBANK.launches - before == 1
+    want = tfb.fbank_reference(w, cfg)
+    assert got.shape == want.shape == (2, tfb.num_frames(48000, cfg), 160)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 
 
 # K6 at the shapes its slab design must get right. A row of center k starts
@@ -548,8 +554,8 @@ def test_margin_ce_kernel_matches_plain_at_every_shape(cuda):
         cos, labels, dloss, clipped = margin_case(cuda, k, b, c, offset)
         before = dict(kernels.MARGIN_CE.fn_launches)
         l, cr, d = margin_run(margin_ce, cos, labels, dloss)
-        assert {f: n - before[f] for f, n in kernels.MARGIN_CE.fn_launches.items()} == {
-            "margin_ce_fwd": 1, "margin_ce_bwd": 1}, case
+        assert {f: n - before[f] for f, n in kernels.MARGIN_CE.fn_launches.items()
+                if n != before[f]} == {"margin_ce_fwd:slab": 1, "margin_ce_bwd:slab": 1}, case
         lr_, crr, dr = margin_run(margin_ce_reference, cos, labels, dloss)
         assert rel(l, lr_) <= 1e-4 and torch.equal(cr, crr) and rel(d, dr) <= 1e-4, case
         assert torch.all(d[clipped] == 0), case
@@ -564,3 +570,101 @@ def test_margin_ce_kernel_reruns_bit_for_bit(cuda):
         cos, labels, dloss, _ = margin_case(cuda, *case, seed=8)
         a, bb = (margin_run(margin_ce, cos, labels, dloss) for _ in range(2))
         assert all(torch.equal(x, y) for x, y in zip(a, bb)), case
+
+
+@pytest.mark.cuda
+def test_margin_ce_plan_by_shape(cuda):
+    """K6's slab path takes at most 8 centers and a 200 KB row; every other
+    shape takes the streaming path. The C source decides; the plan reports
+    it."""
+    assert margin_ce_plan(2, 5994) == ("slab", 4 * 2 * 6000)
+    assert margin_ce_plan(8, 5994)[0] == "slab"
+    assert margin_ce_plan(2, 25597) == ("slab", 200 * 1024)
+    assert margin_ce_plan(2, 25598) == ("stream", 0)
+    assert margin_ce_plan(2, 30000) == ("stream", 0)
+    assert margin_ce_plan(9, 100) == ("stream", 0)
+    assert margin_ce_plan(10, 5994) == ("stream", 0)
+    with pytest.raises(kernels.KernelError):
+        margin_ce_plan(0, 5994)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,c", [(2, 37, 30000), (10, 16, 5994), (9, 7, 3)])
+def test_margin_ce_streaming_path_matches_plain(cuda, k, b, c):
+    """The shapes the slab path refuses (K = 2 at C = 30000, K = 10) run on
+    the streaming path, one launch a direction, within 1e-4 of autograd of
+    the plain version, ties split evenly, zero gradient under the clip; and
+    they rerun bit for bit."""
+    cos, labels, dloss, clipped = margin_case(cuda, k, b, c, offset=True)
+    before = dict(kernels.MARGIN_CE.fn_launches)
+    l, cr, d = margin_run(margin_ce, cos, labels, dloss)
+    assert {f: n - before[f] for f, n in kernels.MARGIN_CE.fn_launches.items() if n != before[f]} == {
+        "margin_ce_fwd:stream": 1, "margin_ce_bwd:stream": 1}
+    lr_, crr, dr = margin_run(margin_ce_reference, cos, labels, dloss)
+    assert rel(l, lr_) <= 1e-4 and torch.equal(cr, crr) and rel(d, dr) <= 1e-4
+    assert torch.all(d[clipped] == 0)
+    assert d[0, 0, labels[0]] == d[1, 0, labels[0]] != 0
+    again = margin_run(margin_ce, cos, labels, dloss)
+    assert all(torch.equal(x, y) for x, y in zip((l, cr, d), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c", [(2, 5994), (2, 30000)])
+def test_margin_ce_kernel_at_unit_cosines(cuda, k, c):
+    """Cosines of exactly +1 and -1 at a label and at a non-label column, on
+    both paths: K6 equals the plain version (finite everywhere, zero
+    gradient at a label whose |v| = 1)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    cos = (torch.rand(k, 4, c, generator=g, device=cuda) * 2 - 1) * 0.9
+    labels = torch.tensor([3, 5, 7, 9], device=cuda)
+    cos[0, 0, 3] = 1.0    # label, +1
+    cos[:, 1, 5] = -1.0   # label, -1 (every center)
+    cos[1, 2, 8] = 1.0    # non-label, +1
+    cos[:, 3, 2] = -1.0   # non-label, -1
+    dloss = torch.rand(4, generator=g, device=cuda) + 0.5
+    l, cr, d = margin_run(margin_ce, cos, labels, dloss)
+    lr_, crr, dr = margin_run(margin_ce_reference, cos, labels, dloss)
+    for t in (l, d, lr_, dr):
+        assert torch.isfinite(t).all()
+    assert rel(l, lr_) <= 1e-4 and torch.equal(cr, crr) and rel(d, dr) <= 1e-4
+    assert d[0, 0, 3] == 0 and torch.all(d[:, 1, 5] == 0)
+    assert d[1, 2, 8] != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "dots_saveable"])
+def test_remat_step_on_the_card_updates_bn_once(cuda, policy):
+    """A training step of a small Res2Net on the card with every block
+    rematerialized against the plain step from the same state: K5 runs its
+    forward again for each call inside the blocks (its backward once), and
+    the recomputed forward leaves the BN running statistics alone, so they
+    are bit-equal to the plain step's; loss within 1e-5."""
+    from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig
+    from voxsrc2020_speaker_verification_tpu_torch.models import register_res2net_variant
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+
+    register_res2net_variant("res2net_remat_card", num_filters=(8, 16), block_sizes=(2, 1),
+                             block_strides=(1, 2), width=(8, 16), split=4, output_dim=16)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    feats = torch.randn(1, 16, 48, 40, generator=g, device=cuda)
+    labels = torch.randint(0, 32, (1, 16), generator=g, device=cuda)
+    runs = []
+    for remat in (False, True):
+        cfg = TrainConfig(model="res2net_remat_card", num_classes=32, dataset_length=160,
+                          feat_dim=40, feat_length=48, batch_size=16, num_accumulation_steps=1,
+                          bn_groups=2, bf16=True, remat=remat, remat_policy=policy if remat else None)
+        state = create_train_state(cfg, cuda, seed=2)
+        state.step = 40
+        kernels.reset_launch_counts()
+        state, m = make_train_step(cfg)(state, feats, labels)
+        torch.cuda.synchronize()
+        runs.append((state, float(m["loss"]), kernels.function_launch_counts()))
+    (plain, lp, cp), (remat, lr_, cr) = runs
+    # per block: bn1, split - 1 = 3 group BNs (stride 1) or 1 (stride 2), bn3
+    again = 5 + 5 + 3
+    assert cr["bn_train.bn_cluster_fwd"] == cp["bn_train.bn_cluster_fwd"] + again
+    assert cr["bn_train.bn_cluster_bwd"] == cp["bn_train.bn_cluster_bwd"]
+    for k, v in plain.batch_stats.items():
+        assert torch.equal(remat.batch_stats[k], v), k
+    assert abs(lr_ - lp) <= 1e-5 * abs(lp)

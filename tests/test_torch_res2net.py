@@ -195,9 +195,11 @@ def test_init_weights_is_seeded_and_non_trivial():
 
 
 def test_unported_paths_raise():
-    # training mode is ported; rematerialization is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(THIN, feat_dim=40, remat=True)
+    # rematerialization is ported, with the policies the port can map
+    # (models/res2net.py:REMAT_POLICIES); another policy name raises
+    assert get_model(THIN, feat_dim=40, remat=True, remat_policy="dots_saveable").blocks[0][2]
+    with pytest.raises(ValueError, match="dots_saveable"):
+        get_model(THIN, feat_dim=40, remat=True, remat_policy="save_anything_except_these_names")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model("tdnn")
     with pytest.raises(NotImplementedError, match="att_stats"):

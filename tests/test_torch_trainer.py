@@ -180,11 +180,88 @@ def test_train_cli_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("step 1/2 loss ") and "audio-s/s" in out[0]
     assert out[-1].startswith("done: 2 steps")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu"])
+    # raw-audio training is not ported; rematerialization is
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu",
-                        "--synthetic", "--remat", "--batch-size", "4", "--max-steps", "1"])
+                        "--raw"])
+    train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu",
+                    "--synthetic", "--remat-stages", "0", "--remat-policy", "dots_saveable",
+                    "--batch-size", "4", "--feat-length", "24", "--max-steps", "1",
+                    "--no-checkpoint"])
+    assert capsys.readouterr().out.splitlines()[-1].startswith("done: 1 steps")
+
+
+@pytest.mark.parametrize("flags", [["--num-processes", "2"], ["--process-id", "1"]])
+def test_train_cli_refuses_more_than_one_process(flags):
+    """One process only: a second process, or a non-zero process id (which
+    would only shift the seed and name shards that do not exist), raises
+    before any data is read."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
+        train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu",
+                        "--data-root", "/nonexistent", *flags])
+
+
+REMAT_CASES = {
+    "every_block": dict(remat=True),
+    "stage0": dict(remat=True, remat_stages=(0,)),
+    "stages01_keep00": dict(remat=True, remat_stages=(0, 1), remat_keep_blocks=((0, 0),)),
+    "dots_saveable": dict(remat=True, remat_policy="dots_saveable"),
+}
+
+
+def one_step(cfg, js, feats, labels):
+    state = train_state_from_flax(int(js.step), js.params, js.batch_stats, js.momentum,
+                                  config=cfg, device="cpu")
+    step = make_train_step(cfg)
+    return step(state, torch.from_numpy(feats), torch.from_numpy(labels).long())
+
+
+@pytest.mark.parametrize("case", list(REMAT_CASES))
+def test_remat_step_equals_the_plain_step(jax_run, case):
+    """A rematerialized step against the plain step from the same state: the
+    BN running statistics bit-equal (the recomputed forward does not update
+    them again), loss, gradient norm, momentum (the clipped gradient, from
+    a zero trace) and parameters within 1e-6 of each tensor's largest
+    magnitude."""
+    states, _ = jax_run
+    feats, labels = next(batches(1))
+    plain, pm = one_step(TrainConfig(**CFG), states[0], feats, labels)
+    remat, rm = one_step(TrainConfig(**CFG, **REMAT_CASES[case]), states[0], feats, labels)
+    assert remat.net.encoder.blocks[0][2] == ((0, 0) not in (REMAT_CASES[case].get(
+        "remat_keep_blocks") or ()))
+    for k, v in plain.batch_stats.items():
+        assert torch.equal(remat.batch_stats[k], v), k
+    for k in ("loss", "gradient_norm", "accuracy"):
+        assert_rel(float(rm[k]), float(pm[k]), 1e-6, k)
+    for group in ("momentum", "params"):
+        got, want = getattr(remat, group), getattr(plain, group)
+        for k, v in want.items():
+            assert_rel(got[k].detach().numpy(), v.detach().numpy(), 1e-6, f"{group} {k}")
+
+
+@pytest.mark.parametrize("case", list(REMAT_CASES))
+def test_remat_step_matches_jax(jax_run, case):
+    """The port's rematerialized step against the JAX package's step with
+    the same remat options (jitted), from the same converted state, at the
+    tolerances of test_three_train_steps_match_jax."""
+    states, _ = jax_run
+    feats, labels = next(batches(1))
+    jcfg = JaxConfig(**CFG, **REMAT_CASES[case])
+    jstate, jm = jax.jit(jax_step(jcfg))(jax.device_get(states[0]), jnp.asarray(feats),
+                                          jnp.asarray(labels), jax.random.PRNGKey(1))
+    want = jax.device_get(jstate)
+    state, m = one_step(TrainConfig(**CFG, **REMAT_CASES[case]), states[0], feats, labels)
+    for k, v in jm.items():
+        assert_rel(float(m[k]), float(v), 20 * TOL if k == "gradient_norm" else TOL, k)
+    for group, tree, got in (("params", want.params, state.params),
+                             ("batch_stats", want.batch_stats, state.batch_stats),
+                             ("momentum", want.momentum, state.momentum)):
+        flat = from_flax({"params": tree} if group != "batch_stats" else {"batch_stats": tree},
+                         projection=True)
+        for k, v in flat.items():
+            assert_rel(got[k].detach().numpy(), v.numpy(),
+                       {"momentum": 500 * TOL, "params": 10 * TOL}.get(group, TOL),
+                       f"{group} {k}")
 
 
 def test_train_cli_needs_a_gpu_by_default():

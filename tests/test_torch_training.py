@@ -296,6 +296,97 @@ def test_margin_ce_matches_jax_at_the_training_width():
     np.testing.assert_allclose(got_k[~nan_k], gk[~nan_k], **TOL)
 
 
+def margin_formula64(cos_all, labels, scale, margin):
+    """The sub-center margin CE as the JAX package writes it (sqrt(1 - v^2)
+    on every column, the one-hot picking the label's), in float64."""
+    m = torch.tensor(margin, dtype=torch.float64)
+    v = torch.clamp(torch.amax(cos_all, dim=0), -1.0, 1.0)
+    onehot = torch.nn.functional.one_hot(labels.long(), v.shape[1]).double()
+    sin = torch.sqrt(torch.clamp(1.0 - v * v, min=0.0))
+    phi = v * torch.cos(m) - sin * torch.sin(m) - 0.5 * m * m
+    logits = scale * (phi * onehot + v * (1.0 - onehot))
+    return torch.logsumexp(logits, 1) - logits.gather(1, labels.long()[:, None])[:, 0]
+
+
+@pytest.mark.parametrize("at_label", [True, False], ids=["label", "non_label"])
+@pytest.mark.parametrize("value", [1.0, -1.0], ids=["plus1", "minus1"])
+def test_margin_ce_reference_at_unit_cosines(at_label, value):
+    """A cosine of exactly +1 or -1 (every center) at a label or a non-label
+    column: the loss and dcos_all are finite, and equal float64 autograd of
+    the JAX package's formula wherever that is finite (1e-4). The sqrt is
+    taken at the label column only, so a non-label column keeps its softmax
+    gradient; at a label with |v| = 1 the gradient is zero by rule."""
+    rng = np.random.RandomState(12)
+    cos = rng.uniform(-0.9, 0.9, (2, 4, 13)).astype(np.float32)
+    labels = np.array([3, 5, 7, 9])
+    col = labels[1] if at_label else (labels[1] + 1) % 13
+    cos[:, 1, col] = value
+    dloss = rng.uniform(0.5, 1.5, 4).astype(np.float32)
+    ci = torch.from_numpy(cos).requires_grad_(True)
+    loss, _ = margin_ce_reference(ci, torch.from_numpy(labels), 32.0, 0.2)
+    loss.backward(torch.from_numpy(dloss))
+    c64 = torch.from_numpy(cos).double().requires_grad_(True)
+    want = margin_formula64(c64, torch.from_numpy(labels), 32.0, 0.2)
+    want.backward(torch.from_numpy(dloss).double())
+    got_d, want_d = ci.grad.numpy(), c64.grad.numpy()
+    assert np.isfinite(loss.detach().numpy()).all() and np.isfinite(got_d).all()
+    np.testing.assert_allclose(loss.detach().numpy(), want.detach().numpy(), **TOL)
+    ok = np.isfinite(want_d)
+    assert ok[:, 0].all() and ok[:, 2:].all()  # the other rows are finite in float64
+    np.testing.assert_allclose(got_d[ok], want_d[ok], **TOL)
+    if at_label:
+        assert (got_d[:, 1, col] == 0).all()
+    else:
+        assert not ok[:, 1, col].any() and (got_d[:, 1, col] != 0).all()
+
+
+@pytest.mark.parametrize("kind", ["sc_cm_linear", "cm_linear"])
+def test_projection_at_unit_cosines_matches_jax(kind):
+    """Embeddings and kernel columns built so that the normalized products
+    are exactly +1 and -1, at a label (rows 0 and 1) and at a non-label
+    column (rows 2 and 3): the port's loss equals the JAX head + CE (1e-4),
+    its embedding and kernel gradients are finite everywhere and equal
+    JAX's at 1e-4 wherever JAX's are finite (JAX is NaN on those rows and
+    columns, ROADMAP.md §3)."""
+    b, d, c = 4, 8, 11
+    rng = np.random.RandomState(13)
+    emb = np.eye(d, dtype=np.float32)[:b] * np.array([[2.0], [1.5], [3.0], [0.5]], np.float32)
+    labels = np.array([0, 1, 2, 3], np.int32)
+    sub = kind.startswith("sc_")
+    kernel = rng.randn(*((2, d, c) if sub else (d, c))).astype(np.float32) * 0.1
+    kernel[..., 4:, :] = rng.randn(*kernel[..., 4:, :].shape).astype(np.float32)
+    units = {(0, 0): 2.0, (1, 1): -3.0, (2, 5): 4.0, (3, 6): -0.5}  # (row, column): scale
+    for (row, col), k in units.items():
+        kernel[..., :, col] = 0.0
+        kernel[..., row, col] = k
+        if sub and k > 0:
+            kernel[1, :, col] = rng.randn(d) * 0.1  # center 1 below center 0's +1
+            kernel[1, row, col] = 0.0
+    jproj = JaxProjection(num_classes=c, kind=kind, num_centers=2)
+    port = MarginProjection(d, c, kind, 2)
+    port.kernel.data.copy_(torch.from_numpy(kernel))
+    cos = port._cos(torch.from_numpy(emb), True).detach().numpy()
+    for (row, col), k in units.items():
+        assert cos[row, col] == np.sign(k), (row, col, cos[row, col])
+
+    def loss_fn(p, e):
+        logits = jproj.apply(p, e, jnp.asarray(labels), 32.0, 0.2)
+        return optax.softmax_cross_entropy_with_integer_labels(logits, jnp.asarray(labels)).mean()
+
+    want, (gp, ge) = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(
+        {"params": {"kernel": jnp.asarray(kernel)}}, jnp.asarray(emb))
+    et = torch.from_numpy(emb).requires_grad_(True)
+    rows, _ = port.cross_entropy(et, torch.from_numpy(labels), 32.0, 0.2)
+    rows.mean().backward()
+    np.testing.assert_allclose(float(rows.mean().detach()), float(want), **TOL)
+    got_e, got_k = et.grad.numpy(), port.kernel.grad.numpy()
+    ge, gk = np.asarray(ge), np.asarray(gp["params"]["kernel"])
+    assert np.isfinite(got_e).all() and np.isfinite(got_k).all()
+    assert not np.isfinite(ge).all()
+    np.testing.assert_allclose(got_e[np.isfinite(ge)], ge[np.isfinite(ge)], **TOL)
+    np.testing.assert_allclose(got_k[np.isfinite(gk)], gk[np.isfinite(gk)], **TOL)
+
+
 def schedule_steps(bounds):
     return sorted({max(0, s) for b in bounds for s in (b - 1, b, b + 1)} | {0, 5})
 

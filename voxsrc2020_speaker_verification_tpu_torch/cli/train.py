@@ -1,26 +1,53 @@
 """Train a speaker-embedding model with the PyTorch port (feature-fed).
 
-    # throughput run without data, on the GPU (the default device):
+    # pretrain from a Kaldi feature store, on the GPU (the default device):
     python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
         --recipe res2net_vox2_dev_aug --model res2net50_w8_s6_c16 \\
-        --synthetic --max-steps 50 --no-checkpoint
+        --data-root data
+
+    # LMFT finetune (resumes from the pretrain experiment dir), 600-frame
+    # crops with stages 0-2 rematerialized:
+    python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
+        --recipe res2net_finetune_vox2_dev --model res2net50_w8_s6_c16 \\
+        --data-root data --batch-size 256 --num-accumulation-steps 4 \\
+        --bn-groups 16 --remat-stages 0 1 2
+
+    # throughput run without data:
+    python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
+        --recipe res2net_vox2_dev_aug --synthetic --max-steps 50 --no-checkpoint
 
     # the plain PyTorch path on the CPU (small shapes):
     python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
-        --recipe res2net_vox2_dev_aug --synthetic --device cpu \\
+        --recipe res2net_vox2_dev_aug --data-root data --device cpu \\
         --batch-size 4 --num-accumulation-steps 2 --feat-length 32 \\
         --max-steps 2 --no-checkpoint
 
-Only the ``--synthetic`` feed is ported. Kaldi feature shards, the native
-C++ feeder and raw-audio training raise and are listed in ROADMAP.md.
+The feature store is ``<data-root>/<dataset>/``: ``utt2id.pkl`` and the
+``{N}-split/feats.{i}.scp`` shards of CM-compressed arks. The C++ feeder
+(``data/native.py``, built from ``native/``) reads it unless
+``--no-native-feeder`` or the library cannot be built; the Python feeder
+(``FeatureShardDataset`` + ``BatchFeeder``) then does. The CLI prints which
+feeder ran. Raw-audio training and more than one process are not ported
+(ROADMAP.md §1 items 6 and 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+from typing import Optional
 
 from ..recipes import RECIPES, get_recipe
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What ``main`` ran: the fit result, the feeder (``"native"``,
+    ``"python"`` or ``"synthetic"``) and its decode errors at the end."""
+    result: object
+    feeder: str
+    decode_errors: int
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,21 +55,33 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--recipe", required=True, choices=sorted(RECIPES))
     p.add_argument("--model", default=None, help="model id override")
+    p.add_argument("--data-root", default="data")
     p.add_argument("--exp-root", default="exp")
+    p.add_argument("--num-shards", type=int, default=32,
+                   help="which {N}-split scp sharding to read")
     p.add_argument("--synthetic", action="store_true",
                    help="random data, no IO (throughput runs)")
     p.add_argument("--raw", action="store_true",
                    help="raw-audio mode (not ported yet)")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="feeder threads; default min(4, host cores)")
+    p.add_argument("--no-native-feeder", action="store_true",
+                   help="the Python feeder even where the C++ one builds")
+    p.add_argument("--cmvn-pkl", default=None,
+                   help="global CMVN (mean, std) pickle applied after sliding CMN")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--no-checkpoint", action="store_true")
-    p.add_argument("--save-every-steps", type=int, default=None)
+    p.add_argument("--save-every-steps", type=int, default=None,
+                   help="mid-epoch checkpoint cadence (per-epoch checkpoints always happen)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     # config overrides
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--num-accumulation-steps", type=int, default=None)
+    p.add_argument("--bn-groups", type=int, default=None,
+                   help="training-BN batch groups (per-replica statistics)")
     p.add_argument("--total-epochs", type=int, default=None)
     p.add_argument("--margin", type=float, default=None)
     p.add_argument("--scale", type=float, default=None)
@@ -52,22 +91,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-classes", type=int, default=None)
     p.add_argument("--dataset-length", type=int, default=None)
     p.add_argument("--remat", action="store_true", default=None,
-                   help="per-block rematerialization (not ported yet)")
+                   help="per-block rematerialization")
+    p.add_argument("--remat-stages", type=int, nargs="+", default=None,
+                   help="rematerialize only these 0-based stages (implies --remat)")
+    p.add_argument("--remat-policy", default=None,
+                   help="what a checkpoint keeps, by jax.checkpoint_policies name "
+                        "(implies --remat; models/res2net.py:REMAT_POLICIES)")
+    # multi-process (not ported: ROADMAP.md §1 item 8)
+    p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--num-processes", type=int, default=1)
     return p
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+def main(argv=None) -> Optional[TrainRun]:
+    p = build_parser()
+    args = p.parse_args(argv)
     from .. import resolve_device
     device = resolve_device(args.device)
-    if args.raw or not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic training is ported; feature shards, the native "
-            "feeder and raw audio are queued in ROADMAP.md")
+    if args.raw:
+        raise NotImplementedError("raw-audio training is not ported yet (ROADMAP.md §1 "
+                                  "item 6); train from a feature store (--data-root)")
+    if args.num_processes != 1 or args.process_id != 0:
+        raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md §1 "
+                                  "item 8: torch.distributed, DDP); run one process with "
+                                  "--process-id 0 --num-processes 1")
+    if args.cmvn_pkl and args.synthetic:
+        p.error("--cmvn-pkl applies to the feature-store path only")
+    from ..utils import resolve_num_workers
+    num_workers = resolve_num_workers(args.num_workers)
+    if num_workers < 1:
+        p.error("--num-workers must be >= 1")
 
+    remat = args.remat or args.remat_stages is not None or args.remat_policy is not None
     overrides = {k: v for k, v in {
         "batch_size": args.batch_size,
         "num_accumulation_steps": args.num_accumulation_steps,
+        "bn_groups": args.bn_groups,
         "total_epochs": args.total_epochs,
         "margin": args.margin,
         "scale": args.scale,
@@ -76,29 +135,67 @@ def main(argv=None) -> None:
         "dataset": args.dataset,
         "num_classes": args.num_classes,
         "dataset_length": args.dataset_length,
-        "remat": args.remat,
+        # --remat-stages / --remat-policy imply --remat: the model checkpoints
+        # only with remat set, so a bare --remat-stages would do nothing
+        "remat": remat or None,
+        "remat_stages": None if args.remat_stages is None else tuple(args.remat_stages),
+        "remat_policy": args.remat_policy,
     }.items() if v is not None}
     overrides.update(exp_root=args.exp_root, seed=args.seed)
     config, resume_from = get_recipe(args.recipe, model=args.model, **overrides)
     if resume_from is not None and resume_from.startswith("exp/"):
         resume_from = os.path.join(args.exp_root, *resume_from.split("/")[1:])
 
-    from ..data.dataset import BatchFeeder, SyntheticDataset
+    from ..data import native
+    from ..data.dataset import (BatchFeeder, FeatureShardDataset, SyntheticDataset,
+                                shard_paths_for_host)
     from ..training.loop import fit
+    from ..utils.datadir import load_utt2id
 
-    sources = [SyntheticDataset(config.feat_dim, config.feat_length,
-                                config.num_classes, seed=args.seed + i)
-               for i in range(4)]
-    feeder = BatchFeeder(sources, config.batch_size, config.num_accumulation_steps).start()
+    seed = args.seed + 1000 * args.process_id
+    if args.synthetic:
+        kind = "synthetic"
+        feeder = BatchFeeder([SyntheticDataset(config.feat_dim, config.feat_length,
+                                               config.num_classes, seed=args.seed + i)
+                              for i in range(4)],
+                             config.batch_size, config.num_accumulation_steps).start()
+    else:
+        data_dir = os.path.join(args.data_root, config.dataset)
+        utt2id = load_utt2id(os.path.join(data_dir, "utt2id.pkl"))
+        paths = shard_paths_for_host(data_dir, args.num_shards, args.process_id,
+                                     args.num_processes)
+        if not args.no_native_feeder and native.available():
+            # the whole hot loop (ark decode, CMN, crop, assembly, bf16 wire)
+            # in the C++ thread pool, one ctypes call per optimizer step
+            kind = "native"
+            feeder = native.NativeBatchFeeder(
+                paths, utt2id, config.feat_dim, config.feat_length, config.batch_size,
+                config.num_accumulation_steps, num_threads=num_workers, seed=seed,
+                wire_bf16=config.bf16, cmvn_pkl=args.cmvn_pkl).start()
+        else:
+            kind = "python"
+            feeder = BatchFeeder(
+                [FeatureShardDataset(path, utt2id, config.feat_dim, config.feat_length,
+                                     cmvn_pkl=args.cmvn_pkl, seed=seed + i)
+                 for i, path in enumerate(paths)],
+                config.batch_size, config.num_accumulation_steps,
+                # bf16 compute: the bf16 wire is lossless and halves the copy
+                wire_bf16=config.bf16).start()
+        workers = (f"{num_workers} threads" if kind == "native"
+                   else f"{len(paths)} sources")
+        print(f"feeder: {kind} ({len(paths)} shards of {data_dir}, {workers})", flush=True)
     try:
-        result = fit(config, feeder, resume_from=resume_from,
-                     log_every=args.log_every, max_steps=args.max_steps,
-                     checkpoint=not args.no_checkpoint,
+        result = fit(config, feeder, resume_from=resume_from, log_every=args.log_every,
+                     max_steps=args.max_steps, checkpoint=not args.no_checkpoint,
                      save_every_steps=args.save_every_steps, device=device)
+        errors = feeder.decode_errors() if hasattr(feeder, "decode_errors") else 0
+        if result.preempted:
+            print(f"preempted at step {result.state.step} (checkpoint saved)")
         print(f"done: {result.steps_run} steps, "
               f"{result.audio_seconds_per_second:.0f} audio-s/s")
     finally:
         feeder.stop()
+    return TrainRun(result=result, feeder=kind, decode_errors=errors)
 
 
 if __name__ == "__main__":

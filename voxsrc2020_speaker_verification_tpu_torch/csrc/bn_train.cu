@@ -16,7 +16,9 @@
 //   y = relu?(round((x - mean) * rstd) [+ round((s - mean_s) * rstd_s) | + s])
 //
 // (upd_var carries the Bessel factor n/(n-1) on 4-D inputs only; the caller
-// folds it in.) Backward, with d = dy * (y > 0) under relu:
+// folds it in. Null running-statistic pointers skip the update: a
+// rematerialized block's recomputed forward must not apply it twice.)
+// Backward, with d = dy * (y > 0) under relu:
 //
 //   dx = rstd * (d - sum(d)/n - xhat * sum(d * xhat)/n)
 //   ds = rstd_s * (d - sum(d)/n - shat * sum(d * shat)/n)   (normalized shortcut)
@@ -190,7 +192,7 @@ __global__ void finalize_fwd_kernel(const float* __restrict__ part, int groups,
     }
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x != 0 || run_mean == nullptr) return;  // null: no running update
   float msum = 0.f, vsum = 0.f;
   for (int g = 0; g < groups; ++g) {
     msum += moments[2 * g];
@@ -804,8 +806,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_fwd_kernel(Cluster
   __threadfence();  // published before the ticket below
   __syncthreads();
 
-  // the running update, by the last group to publish (an integer ticket)
-  if (s.p == 0) {
+  // the running update, by the last group to publish (an integer ticket);
+  // none with null running statistics (a recomputed forward)
+  if (s.p == 0 && a.run_mean != nullptr) {
     int* ticket = a.sync + 2 * a.groups;
     if (tid == 0) {
       __threadfence();

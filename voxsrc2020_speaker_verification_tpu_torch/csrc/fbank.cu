@@ -62,7 +62,7 @@ constexpr int kFrames = 32;   // frames a tile
 constexpr int kWarps = 8;     // each a share of the frame's samples
 constexpr int kThreads = 32 * kWarps;
 constexpr int kVals = 64;     // accumulators a lane: 8 frames x 4 bins, re and im
-constexpr int kMaxMel = 128;
+constexpr int kMaxMel = 128;  // mel columns a launch: wider banks run in chunks of 128
 constexpr int kMelCap = 1024;  // packed M in shared memory: a Kaldi bank has <= 2 per FFT bin
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kRowFloats = 2 * kBins;  // an A/B row of the slice: A | B
@@ -140,6 +140,7 @@ struct Args {
   const float* mel_w;    // (mel_nnz,) the runs
   float* out;
   int num_samples, num_frames, frame_length, frame_shift, num_fft_bins, num_bins, mel_nnz;
+  int col0, ncols;  // this launch's chunk of mel columns: col0 .. col0 + ncols - 1
   int use_power, use_log, tiles, work;  // work = batch * tiles
   float floor_value;
 };
@@ -173,10 +174,11 @@ __device__ __forceinline__ void stage_samples(const Args& g, float* seg, int j) 
 }
 
 // The owner's frames of tile j from its power buffer pw (kFramesPerRank x
-// 256): each mel column over its run of bins, in bin order, then the log.
+// 256): each mel column of the chunk over its run of bins, in bin order,
+// then the log.
 __device__ __forceinline__ void mel_out(const Args& g, const float* pw, const float* wts,
                                         const int* mstart, const int* moff, int j, int rank) {
-  const int nb = g.num_bins;
+  const int nb = g.ncols;
   const int bb = j / g.tiles, t0 = (j % g.tiles) * kFrames + rank * kFramesPerRank;
   for (int o = threadIdx.x; o < kFramesPerRank * nb; o += kThreads) {
     const int fl = o / nb, c = o % nb;
@@ -188,7 +190,7 @@ __device__ __forceinline__ void mel_out(const Args& g, const float* pw, const fl
     float v = 0.f;
     for (int k = 0; k < len; ++k) v = fmaf(p[k], w[k], v);
     if (g.use_log) v = logf(fmaxf(v, g.floor_value));
-    g.out[(static_cast<long long>(bb) * g.num_frames + t) * nb + c] = v;
+    g.out[(static_cast<long long>(bb) * g.num_frames + t) * g.num_bins + g.col0 + c] = v;
   }
 }
 
@@ -201,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
   float* red = smem + L.red;
   float* rcv = smem + L.rcv;
   const float* wts = smem + L.wts;
-  const int nb = g.num_bins, sh = g.frame_shift;
+  const int nb = g.ncols, sh = g.frame_shift;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = static_cast<int>(cluster.block_rank());
   const int bin0 = rank * kBins;
@@ -210,11 +212,11 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
   const int segf = seg_floats(g.frame_length, sh);
   constexpr int kRcv = kFramesPerRank * kSplit * kBins;  // one power buffer
 
-  // once: the packed M, this warp's rows of the A/B slice, the first
-  // tile's samples
+  // once: the packed M (all of it; the chunk's column table), this warp's
+  // rows of the A/B slice, the first tile's samples
   for (int i = tid; i <= nb; i += kThreads) {
-    if (i < nb) cp_async4(mstart + i, g.mel_start + i, true);
-    cp_async4(moff + i, g.mel_off + i, true);
+    if (i < nb) cp_async4(mstart + i, g.mel_start + g.col0 + i, true);
+    cp_async4(moff + i, g.mel_off + g.col0 + i, true);
   }
   for (int i = tid; i < g.mel_nnz; i += kThreads) cp_async4(smem + L.wts + i, g.mel_w + i, true);
   for (int i = lane; i < rpw * 16; i += 32) {
@@ -366,10 +368,11 @@ extern "C" int fbank_plan(int frame_length, int frame_shift, int* clusters, int*
 
 // waves (batch, num_samples) fp32; a, b (frame_length, num_fft_bins); M by
 // columns (mel_start, mel_off, mel_w as in Args); out (batch, num_frames,
-// num_bins). Takes num_fft_bins <= 256 and a multiple of 4, num_bins <=
-// 128, at most kMelCap weights of M, and a frame whose A/B slice and
-// samples fit one CTA's shared memory (400 samples, a 160-sample shift:
-// 219 KB).
+// num_bins). Takes num_fft_bins <= 256 and a multiple of 4, at most
+// kMelCap weights of M, and a frame whose A/B slice and samples fit one
+// CTA's shared memory (400 samples, a 160-sample shift: 219 KB). More than
+// kMaxMel mel columns run as one launch per chunk of kMaxMel columns (each
+// recomputes the power spectrum).
 extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
                          const int* mel_start, const int* mel_off, const float* mel_w,
                          float* out, int batch, int num_samples, int num_frames,
@@ -377,7 +380,7 @@ extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
                          int mel_nnz, int use_power, int use_log, float floor_value,
                          void* stream) {
   if (num_fft_bins > kSplit * kBins || num_fft_bins % 4 != 0 || num_bins < 1 ||
-      num_bins > kMaxMel || frame_length < 1 || frame_length > 4096 || frame_shift < 1 ||
+      frame_length < 1 || frame_length > 4096 || frame_shift < 1 ||
       frame_shift > 4096 || batch < 1 || mel_nnz < 0 || mel_nnz > kMelCap)
     return vsv::kShapeUnsupported;
   const size_t smem = smem_bytes(frame_length, frame_shift);
@@ -388,10 +391,10 @@ extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
   cudaError_t err = cluster_capacity(smem, &clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const Args args{waves, a, b, mel_start, mel_off, mel_w, out, num_samples, num_frames,
-                  frame_length, frame_shift, num_fft_bins, num_bins, mel_nnz, use_power,
-                  use_log, (num_frames + kFrames - 1) / kFrames, static_cast<int>(work),
-                  floor_value};
+  Args args{waves, a, b, mel_start, mel_off, mel_w, out, num_samples, num_frames,
+            frame_length, frame_shift, num_fft_bins, num_bins, mel_nnz, 0, 0, use_power,
+            use_log, (num_frames + kFrames - 1) / kFrames, static_cast<int>(work),
+            floor_value};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(kSplit * std::min<long long>(clusters, work)));
   cfg.blockDim = dim3(kThreads);
@@ -404,6 +407,12 @@ extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fbank_kernel, args);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  for (int c0 = 0; c0 < num_bins; c0 += kMaxMel) {
+    args.col0 = c0;
+    args.ncols = std::min(kMaxMel, num_bins - c0);
+    err = cudaLaunchKernelEx(&cfg, fbank_kernel, args);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -17,8 +17,8 @@
 // (first-index argmax, as jnp.argmax.) The backward recomputes the row and
 // writes dcos_all: (softmax - onehot) * scale * dloss, times
 // cos m + sin m * v / sin(theta) at the target, zero where the clip is
-// active, routed to the maximal center(s), ties split evenly (the gradient
-// of jnp.max).
+// active and, by rule, at the target where |v| = 1 (class_grad), routed to
+// the maximal center(s), ties split evenly (the gradient of jnp.max).
 //
 // Bound on the card: bytes. (K, B, C) fp32 is read once forward and read and
 // written once backward, at ~10 flops and one exp per class.
@@ -43,7 +43,10 @@
 //     allows (4-byte stores at its ragged ends).
 // Reductions: a thread visits its classes in increasing order, warps reduce
 // by shuffles, and warp 0 reduces the warps' values in warp order, so
-// reruns agree bit for bit.
+// reruns agree bit for bit. A row whose slab does not fit (more than 8
+// centers, or over 200 KB) takes the streaming kernels instead: the same
+// passes read from global memory. The entry points pick the path by shape
+// (slab_bytes), never on failure; margin_ce_plan reports the choice.
 #include <cstdint>
 
 #include "common.cuh"
@@ -65,6 +68,28 @@ __device__ __forceinline__ float target_logit(float v, const Margin& mg) {
 
 __device__ __forceinline__ float clip1(float v) {
   return fminf(fmaxf(v, -1.f), 1.f);
+}
+
+// The gradient of the row's loss with respect to the center maximum v of a
+// class (before the tie split): (softmax - onehot) * scale * dloss, times
+// cos m + sin m * v / sin(theta) at the target. Zero where the clip holds
+// v, and, by rule, at the target where |v| = 1 (sin theta = 0: the
+// derivative of the sqrt is unbounded there); the plain version applies the
+// same rule (losses/projections.py:target_phi).
+__device__ __forceinline__ float class_grad(float v, bool target, float lse, float dloss,
+                                            const Margin& mg) {
+  const float vc = clip1(v);
+  bool zero = v < -1.f || v > 1.f;
+  float dv;
+  if (target) {
+    const float st = sqrtf(fmaxf(1.f - vc * vc, 0.f));
+    zero = zero || st == 0.f;
+    const float p = expf(target_logit(vc, mg) - lse);
+    dv = (p - 1.f) * dloss * mg.scale * (mg.cos_m + mg.sin_m * vc / st);
+  } else {
+    dv = expf(mg.scale * vc - lse) * dloss * mg.scale;
+  }
+  return zero ? 0.f : dv;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -248,17 +273,7 @@ __global__ void __launch_bounds__(kThreads) margin_ce_bwd_kernel(
     const float v = center_max(slab, base, centers, c);
     int ties = 0;
     for (int k = 0; k < centers; ++k) ties += slab[base[k] + c] == v;
-    const float vc = clip1(v);
-    float dv;
-    if (c == y) {
-      const float st = sqrtf(fmaxf(1.f - vc * vc, 0.f));
-      const float p = expf(target_logit(vc, mg) - l0);
-      dv = (p - 1.f) * g0 * mg.scale * (mg.cos_m + mg.sin_m * vc / st);
-    } else {
-      dv = expf(mg.scale * vc - l0) * g0 * mg.scale;
-    }
-    if (v < -1.f || v > 1.f) dv = 0.f;
-    dv /= static_cast<float>(ties);
+    const float dv = class_grad(v, c == y, l0, g0, mg) / static_cast<float>(ties);
     for (int k = 0; k < centers; ++k) {
       float* e = slab + base[k] + c;
       *e = *e == v ? dv : 0.f;
@@ -283,6 +298,72 @@ __global__ void __launch_bounds__(kThreads) margin_ce_bwd_kernel(
   }
 }
 
+// The streaming path, for rows whose slab does not fit shared memory (more
+// than kMaxCenters centers, or a slab over 200 KB: e.g. K = 2 at C > 25,597).
+// The same CTA a row, the same per-thread class order and the same
+// reductions, but every pass reads the row from global memory (L2 holds it
+// between passes at these sizes): the forward reads it twice (max and
+// argmax, then the sum of exp), the backward once, and writes dcos_all
+// directly. So it returns what the slab path would, bit for bit.
+__global__ void __launch_bounds__(kThreads) margin_ce_stream_fwd_kernel(
+    const float* __restrict__ cos_all, const long long* __restrict__ labels, int centers,
+    int batch, int classes, Margin mg, float* __restrict__ loss, float* __restrict__ correct,
+    float* __restrict__ lse_out) {
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+  const int b = blockIdx.x;
+  const int y = static_cast<int>(labels[b]);
+  const long long kstride = static_cast<long long>(batch) * classes;
+  const float* row = cos_all + static_cast<long long>(b) * classes;
+  auto logit = [&](int c) {
+    float v = row[c];
+    for (int k = 1; k < centers; ++k) v = fmaxf(v, row[k * kstride + c]);
+    v = clip1(v);
+    return c == y ? target_logit(v, mg) : mg.scale * v;
+  };
+  float best = -INFINITY;
+  int best_c = 0x7fffffff;
+  for (int c = threadIdx.x; c < classes; c += kThreads) {
+    const float l = logit(c);
+    if (l > best) {
+      best = l;
+      best_c = c;
+    }
+  }
+  block_argmax(best, best_c, red_v, red_i);
+  float s = 0.f;
+  for (int c = threadIdx.x; c < classes; c += kThreads) s += expf(logit(c) - best);
+  s = block_sum(s, red_v);
+  if (threadIdx.x == 0) {
+    const float lse = best + logf(s);
+    loss[b] = lse - logit(y);
+    correct[b] = best_c == y ? 1.f : 0.f;
+    lse_out[b] = lse;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) margin_ce_stream_bwd_kernel(
+    const float* __restrict__ cos_all, const long long* __restrict__ labels,
+    const float* __restrict__ lse, const float* __restrict__ dloss, int centers, int batch,
+    int classes, Margin mg, float* __restrict__ dcos_all) {
+  const int b = blockIdx.x;
+  const int y = static_cast<int>(labels[b]);
+  const long long kstride = static_cast<long long>(batch) * classes;
+  const long long roff = static_cast<long long>(b) * classes;
+  const float l0 = lse[b], g0 = dloss[b];
+  for (int c = threadIdx.x; c < classes; c += kThreads) {
+    float v = cos_all[roff + c];
+    for (int k = 1; k < centers; ++k) v = fmaxf(v, cos_all[k * kstride + roff + c]);
+    int ties = 0;
+    for (int k = 0; k < centers; ++k) ties += cos_all[k * kstride + roff + c] == v;
+    const float dv = class_grad(v, c == y, l0, g0, mg) / static_cast<float>(ties);
+    for (int k = 0; k < centers; ++k) {
+      const long long e = k * kstride + roff + c;
+      dcos_all[e] = cos_all[e] == v ? dv : 0.f;
+    }
+  }
+}
+
 // Dynamic shared memory of a row's slab, or 0 if it does not fit a CTA.
 size_t slab_bytes(int centers, int classes) {
   if (centers < 1 || centers > kMaxCenters || classes < 1) return 0;
@@ -292,7 +373,6 @@ size_t slab_bytes(int centers, int classes) {
 
 template <typename K>
 int prepare(K kernel, size_t smem) {
-  if (smem == 0) return vsv::kShapeUnsupported;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   return static_cast<int>(err);
@@ -300,32 +380,56 @@ int prepare(K kernel, size_t smem) {
 
 }  // namespace
 
+// The path margin_ce_fwd / margin_ce_bwd take for (centers, classes):
+// *slab_bytes_out is a row's shared-memory slab, or 0 for the streaming
+// kernels. For reports and launch counts; a launch needs none of it.
+extern "C" int margin_ce_plan(int centers, int classes, int* slab_bytes_out) {
+  if (centers < 1 || classes < 1) return vsv::kShapeUnsupported;
+  *slab_bytes_out = static_cast<int>(slab_bytes(centers, classes));
+  return 0;
+}
+
 // cos_all: (centers, batch, classes) fp32; labels: (batch,) int64. Writes
 // loss, correct (0/1) and lse, each (batch,) fp32. One CTA a row; the row
-// (centers x classes floats) must fit one CTA's shared memory.
+// is staged in shared memory when its slab fits (at most 8 centers and a
+// 200 KB slab), else every pass streams it from global memory.
 extern "C" int margin_ce_fwd(const float* cos_all, const long long* labels,
                              int centers, int batch, int classes, float scale,
                              float cos_m, float sin_m, float m1, float* loss,
                              float* correct, float* lse, void* stream) {
+  if (centers < 1 || classes < 1) return vsv::kShapeUnsupported;
   const size_t smem = slab_bytes(centers, classes);
-  if (const int err = prepare(margin_ce_fwd_kernel, smem)) return err;
   const Margin mg{scale, cos_m, sin_m, m1};
-  margin_ce_fwd_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cos_all, labels, centers, batch, classes, mg, loss, correct, lse);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem == 0) {
+    margin_ce_stream_fwd_kernel<<<batch, kThreads, 0, st>>>(
+        cos_all, labels, centers, batch, classes, mg, loss, correct, lse);
+  } else {
+    if (const int err = prepare(margin_ce_fwd_kernel, smem)) return err;
+    margin_ce_fwd_kernel<<<batch, kThreads, smem, st>>>(
+        cos_all, labels, centers, batch, classes, mg, loss, correct, lse);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // dloss: (batch,) fp32, the gradient of the per-row loss. Writes every
-// element of dcos_all (centers, batch, classes).
+// element of dcos_all (centers, batch, classes), on the forward's path.
 extern "C" int margin_ce_bwd(const float* cos_all, const long long* labels,
                              const float* lse, const float* dloss, int centers,
                              int batch, int classes, float scale, float cos_m,
                              float sin_m, float m1, float* dcos_all,
                              void* stream) {
+  if (centers < 1 || classes < 1) return vsv::kShapeUnsupported;
   const size_t smem = slab_bytes(centers, classes);
-  if (const int err = prepare(margin_ce_bwd_kernel, smem)) return err;
   const Margin mg{scale, cos_m, sin_m, m1};
-  margin_ce_bwd_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cos_all, labels, lse, dloss, centers, batch, classes, mg, dcos_all);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem == 0) {
+    margin_ce_stream_bwd_kernel<<<batch, kThreads, 0, st>>>(
+        cos_all, labels, lse, dloss, centers, batch, classes, mg, dcos_all);
+  } else {
+    if (const int err = prepare(margin_ce_bwd_kernel, smem)) return err;
+    margin_ce_bwd_kernel<<<batch, kThreads, smem, st>>>(
+        cos_all, labels, lse, dloss, centers, batch, classes, mg, dcos_all);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,28 @@
-"""Host-side data: feature normalization for extraction and serving, and
-the synthetic training feed.
+"""Host-side data: feature normalization for extraction and serving, the
+feature-shard training dataset and the synthetic training feed.
 
-``BatchFeeder`` drains sample iterators into whole optimizer-step batches
-((A, B, T, F) features, (A, B) labels) on background threads. Its bf16 wire
-is a ``torch.bfloat16`` tensor (the JAX package's is ``ml_dtypes``, which the
-port does not use).
+``FeatureShardDataset`` streams (feature crop, label) samples from one scp
+shard of a Kaldi feature store with the reference's semantics (the JAX
+package's ``data/dataset.py``): an endless pass with a random ~10% skip on
+every pass, sliding CMN over the whole utterance, optional global CMVN,
+then a random crop (or a randomly shifted zero pad). ``BatchFeeder`` drains
+sample iterators into whole optimizer-step batches ((A, B, T, F) features,
+(A, B) labels) on background threads. Its bf16 wire is a ``torch.bfloat16``
+tensor (the JAX package's is ``ml_dtypes``, which the port does not use).
+``data/native.py:NativeBatchFeeder`` does the same work in C++.
 """
 
 from __future__ import annotations
 
+import pickle
 import queue
 import threading
-from typing import Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import kaldi_io
 
 
 def sliding_cmn_np(feat: np.ndarray, window: int = 300) -> np.ndarray:
@@ -29,6 +37,76 @@ def sliding_cmn_np(feat: np.ndarray, window: int = 300) -> np.ndarray:
     end = np.minimum(start + window, t)
     mean = (csum[end] - csum[start]) / (end - start)[:, None]
     return (feat - mean).astype(np.float32)
+
+
+class FeatureCropper:
+    """The reference's crop policy: a random ``feat_length`` window of a
+    long utterance, or a short one zero-padded at a random shift."""
+
+    def __init__(self, feat_length: int, feat_dim: int, rng: np.random.RandomState):
+        self.feat_length = feat_length
+        self.feat_dim = feat_dim
+        self.rng = rng
+
+    def __call__(self, feat: np.ndarray) -> np.ndarray:
+        t = self.feat_length
+        if feat.shape[0] < t:
+            out = np.zeros((t, self.feat_dim), np.float32)
+            shift = self.rng.randint(t - feat.shape[0] + 1)
+            out[shift: shift + feat.shape[0]] = feat
+            return out
+        shift = self.rng.randint(feat.shape[0] - t + 1)
+        return np.ascontiguousarray(feat[shift: shift + t], dtype=np.float32)
+
+
+class FeatureShardDataset:
+    """Endless (feature, label) stream over one scp shard of precomputed
+    features. Training mode skips ~``skip_percent``% of the utterances at
+    random on every pass (the reference's reshuffle) and crops; eval mode
+    makes one pass and yields whole utterances. The RNG (skips and crops) is
+    ``np.random.RandomState(seed)``, as in the JAX package, so both give the
+    same samples from the same seed."""
+
+    def __init__(self, scp_path: str, utt2id: Dict[str, int], feat_dim: int,
+                 feat_length: int, cmvn_pkl: Optional[str] = None, training: bool = True,
+                 skip_percent: int = 10, seed: int = 0, sliding_cmn: bool = True,
+                 cmn_window: int = 300):
+        self.scp_path = scp_path
+        self.utt2id = utt2id
+        self.feat_dim = feat_dim
+        self.feat_length = feat_length
+        self.training = training
+        self.skip_percent = skip_percent
+        self.sliding_cmn = sliding_cmn
+        self.cmn_window = cmn_window
+        self.rng = np.random.RandomState(seed)
+        self.mean, self.std = (None, None)
+        if cmvn_pkl:
+            with open(cmvn_pkl, "rb") as f:
+                self.mean, self.std = pickle.load(f)
+        self.cropper = FeatureCropper(feat_length, feat_dim, self.rng)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.int32]]:
+        gen = kaldi_io.read_mat_scp(self.scp_path)
+        while True:
+            try:
+                utt, feat = next(gen)
+                if self.training and self.rng.randint(0, 100) >= 100 - self.skip_percent:
+                    continue
+            except StopIteration:
+                if not self.training:
+                    return
+                gen = kaldi_io.read_mat_scp(self.scp_path)
+                utt, feat = next(gen)
+            if self.sliding_cmn:
+                # over the whole utterance, before the crop, as the
+                # reference's apply-cmvn-sliding feeder pipe
+                feat = sliding_cmn_np(feat, self.cmn_window)
+            if self.mean is not None:
+                feat = (feat - self.mean) / self.std
+            if self.training:
+                feat = self.cropper(feat)
+            yield feat, (np.int32(self.utt2id[utt]) if self.utt2id else utt)
 
 
 class SyntheticDataset:
@@ -123,3 +201,14 @@ class BatchFeeder:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=5)
+
+
+def shard_paths_for_host(data_dir: str, total_shards: int, host_index: int,
+                         num_hosts: int) -> list:
+    """The ``{N}-split/feats.{i}.scp`` shards a host owns: a contiguous
+    block of ``total_shards / num_hosts`` (the reference's per-rank split)."""
+    if total_shards % num_hosts:
+        raise ValueError(f"{total_shards} shards do not split over {num_hosts} hosts")
+    per_host = total_shards // num_hosts
+    return [f"{data_dir}/{total_shards}-split/feats.{i + 1}.scp"
+            for i in range(per_host * host_index, per_host * (host_index + 1))]

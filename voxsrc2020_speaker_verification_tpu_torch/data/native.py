@@ -1,0 +1,286 @@
+"""ctypes bindings of the native IO library (``native/vox_io.cc``,
+``native/vox_feeder.cc``), the port's counterpart of the JAX package's
+``data/native.py``.
+
+The feature-shard training feeder's whole hot loop -- seek into an ark,
+decode an FM/CM matrix, sliding CMN, crop or pad, batch assembly and the
+bf16 wire -- runs in a C++ thread pool with the GIL released; one ctypes
+call fills an optimizer step's batch. ``kaldi_io`` and
+``dataset.FeatureShardDataset`` are the Python versions of the same work.
+
+The library is built on first use by ``make -C native`` into
+``native/libvox_io.so`` (under the lock file ``native/.build.lock``, so
+processes that start together build it once) and loaded from there. The
+raw-audio feeder of the same library is not bound here yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import subprocess
+import threading
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libvox_io.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _build() -> bool:
+    """``make -C native`` (a no-op when the library is newer than its
+    sources), serialized across processes by a lock file."""
+    try:
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-C", _NATIVE_DIR, "-s"], check=True,
+                           capture_output=True, timeout=120)
+        return os.path.exists(_LIB_PATH)
+    except Exception as e:
+        if os.path.exists(_LIB_PATH):  # a stale library beats none, but say so
+            warnings.warn(f"native build failed ({e!r}); loading the existing "
+                          "libvox_io.so, which may predate the current sources")
+            return True
+        return False
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The native library (built if needed), or None where it cannot be
+    built. ``make`` always runs first, so a library older than its sources
+    is rebuilt rather than loaded with an old C ABI."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not _build():
+            return None
+        lib = ctypes.CDLL(_LIB_PATH)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.vox_read_mat.restype = ctypes.c_int
+        lib.vox_read_mat.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                     ctypes.POINTER(f32p), i32p, i32p]
+        lib.vox_read_vec.restype = ctypes.c_int
+        lib.vox_read_vec.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                     ctypes.POINTER(f32p), i32p]
+        lib.vox_free.restype = None
+        lib.vox_free.argtypes = [ctypes.c_void_p]
+        lib.vox_feeder_create.restype = ctypes.c_void_p
+        lib.vox_feeder_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64), i32p,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+            f32p,  # cmvn_mean (nullable)
+            f32p,  # cmvn_std (nullable)
+        ]
+        lib.vox_feeder_next.restype = ctypes.c_int
+        lib.vox_feeder_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i32p]
+        lib.vox_feeder_errors.restype = ctypes.c_int64
+        lib.vox_feeder_errors.argtypes = [ctypes.c_void_p]
+        lib.vox_feeder_dead_workers.restype = ctypes.c_int32
+        lib.vox_feeder_dead_workers.argtypes = [ctypes.c_void_p]
+        for fn in ("vox_feeder_stop", "vox_feeder_destroy"):
+            getattr(lib, fn).restype = None
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+def _take(lib, ptr, shape) -> np.ndarray:
+    """Copy a malloc'd C buffer into numpy and free it."""
+    n = int(np.prod(shape))
+    arr = np.ctypeslib.as_array(ptr, shape=(n,)).reshape(shape).copy()
+    lib.vox_free(ptr)
+    return arr
+
+
+def _lib_or_raise() -> ctypes.CDLL:
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable (make -C native failed)")
+    return lib
+
+
+def read_mat(path: str, offset: int = 0) -> np.ndarray:
+    """Binary FM/DM/CM matrix at an ark byte offset -> (rows, cols) float32."""
+    lib = _lib_or_raise()
+    out = ctypes.POINTER(ctypes.c_float)()
+    rows, cols = ctypes.c_int32(), ctypes.c_int32()
+    rc = lib.vox_read_mat(path.encode(), offset, ctypes.byref(out), ctypes.byref(rows),
+                          ctypes.byref(cols))
+    if rc != 0:
+        raise IOError(f"vox_read_mat({path}:{offset}) failed: {rc}")
+    return _take(lib, out, (rows.value, cols.value))
+
+
+def read_vec(path: str, offset: int = 0) -> np.ndarray:
+    """Binary float vector at an ark byte offset -> (n,) float32."""
+    lib = _lib_or_raise()
+    out = ctypes.POINTER(ctypes.c_float)()
+    n = ctypes.c_int32()
+    rc = lib.vox_read_vec(path.encode(), offset, ctypes.byref(out), ctypes.byref(n))
+    if rc != 0:
+        raise IOError(f"vox_read_vec({path}:{offset}) failed: {rc}")
+    return _take(lib, out, (n.value,))
+
+
+def _cmvn_rows(cmvn_pkl: str, feat_dim: int):
+    """(mean, std) float32 rows of feat_dim from a global-CMVN pickle that
+    holds (F,), (1, F) or scalar values, as the Python path broadcasts
+    ``(feat - mean) / std``."""
+    import pickle
+
+    with open(cmvn_pkl, "rb") as f:
+        mean, std = pickle.load(f)
+
+    def row(x, what):
+        x = np.asarray(x, np.float32).reshape(-1)
+        if x.size == 1:
+            x = np.full(feat_dim, x[0], np.float32)
+        if x.size != feat_dim:
+            raise ValueError(f"cmvn {what} has {x.size} dims, features have {feat_dim}")
+        return np.ascontiguousarray(x)
+
+    return row(mean, "mean"), row(std, "std")
+
+
+class NativeBatchFeeder:
+    """Feature-shard training feeder in C++ (``native/vox_feeder.cc``): the
+    native counterpart of ``BatchFeeder`` over ``FeatureShardDataset``
+    sources. Each ``get()`` is one ctypes call (GIL released) that returns
+    an optimizer step's batch: features (A, B, T, F), a float32 numpy array
+    or, on the bf16 wire, a ``torch.bfloat16`` tensor (the library writes
+    bf16 bit patterns, read as int16 and viewed as bfloat16), and int32
+    labels (A, B). Each of ``num_threads`` workers owns a contiguous block
+    of the scp entries; with one thread the batches are a function of the
+    seed.
+
+    Health: ``decode_errors()`` counts utterances that failed to decode;
+    ``dead_shards()`` counts workers whose block decoded nothing over a
+    full pass (``training.loop.fit`` raises on it); ``get()`` raises
+    IOError once every block is dead."""
+
+    def __init__(self, scp_paths, utt2id, feat_dim: int, feat_length: int,
+                 batch_size: int, num_accumulation_steps: int = 1,
+                 num_threads: Optional[int] = None, seed: int = 0,
+                 sliding_cmn: bool = True, cmn_window: int = 300,
+                 skip_percent: int = 10, wire_bf16: bool = False,
+                 cmvn_pkl: Optional[str] = None):
+        from ..utils import resolve_num_workers
+        from . import kaldi_io
+
+        self._handle = None
+        lib = _lib_or_raise()
+        if isinstance(scp_paths, str):
+            scp_paths = [scp_paths]
+        paths, offsets, labels = [], [], []
+        for scp in scp_paths:
+            for key, rxfile in kaldi_io._iter_scp(scp):
+                split = kaldi_io._split_rxfile(rxfile)
+                if split is None:
+                    raise ValueError(f"the native feeder takes plain path:offset scp entries, "
+                                     f"got {rxfile!r} (use BatchFeeder for piped rspecs)")
+                paths.append(split[0].encode())
+                offsets.append(split[1])
+                labels.append(int(utt2id[key]) if utt2id else 0)
+        n = len(paths)
+        if n == 0:
+            raise ValueError(f"empty scp: {scp_paths}")
+        self.a, self.b, self.t, self.f = num_accumulation_steps, batch_size, feat_length, feat_dim
+        self.wire_bf16 = wire_bf16
+        c_mean = c_std = None
+        if cmvn_pkl:
+            self._cmvn = _cmvn_rows(cmvn_pkl, feat_dim)  # alive past create
+            c_mean, c_std = (x.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+                             for x in self._cmvn)
+        handle = lib.vox_feeder_create(
+            (ctypes.c_char_p * n)(*paths), (ctypes.c_int64 * n)(*offsets),
+            (ctypes.c_int32 * n)(*labels), n, feat_dim, feat_length, batch_size,
+            num_accumulation_steps, resolve_num_workers(num_threads), seed,
+            cmn_window if sliding_cmn else 0, skip_percent, int(wire_bf16), c_mean, c_std)
+        if not handle:
+            raise ValueError("vox_feeder_create refused its arguments")
+        self._lib, self._handle = lib, handle
+        # serializes get() against close(): destroy must not free the C++
+        # object while a prefetch thread is blocked inside vox_feeder_next
+        self._io_lock = threading.Lock()
+
+    def start(self) -> "NativeBatchFeeder":
+        return self  # the workers start in vox_feeder_create
+
+    def get(self, timeout=None):
+        # fresh buffers per batch: the device prefetch may still hold the last
+        shape = (self.a, self.b, self.t, self.f)
+        feats = np.empty(shape, np.int16 if self.wire_bf16 else np.float32)
+        labels = np.empty((self.a, self.b), np.int32)
+        with self._io_lock:
+            if self._handle is None:
+                raise StopIteration
+            rc = self._lib.vox_feeder_next(
+                self._handle, feats.ctypes.data_as(ctypes.c_void_p),
+                labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            if rc == -2:
+                raise IOError(f"native feeder: every shard failed to decode "
+                              f"({self.decode_errors()} errors): feat_dim mismatch or "
+                              f"corrupt arks?")
+        if rc != 0:
+            raise StopIteration
+        if self.wire_bf16:
+            return torch.from_numpy(feats).view(torch.bfloat16), labels
+        return feats, labels
+
+    def __iter__(self):
+        while True:
+            try:
+                yield self.get()
+            except StopIteration:
+                return
+
+    def decode_errors(self) -> int:
+        if self._handle is None:
+            return 0
+        return int(self._lib.vox_feeder_errors(self._handle))
+
+    def dead_shards(self) -> int:
+        """Workers whose block of the scp decoded nothing over a full pass:
+        that share of the data is missing from training."""
+        if self._handle is None:
+            return 0
+        return int(self._lib.vox_feeder_dead_workers(self._handle))
+
+    def stop(self) -> None:
+        """Stop the workers; the health getters still answer until close()."""
+        if self._handle:
+            self._lib.vox_feeder_stop(self._handle)
+
+    def close(self) -> None:
+        if self._handle:
+            # stop outside the lock: it unblocks a get() waiting in the C
+            # call, which then releases the lock
+            self._lib.vox_feeder_stop(self._handle)
+            with self._io_lock:
+                if self._handle:
+                    self._lib.vox_feeder_destroy(self._handle)
+                    self._handle = None
+
+    def __del__(self):
+        # finalization only: modules may be gone at interpreter teardown
+        try:
+            self.close()
+        except Exception:
+            pass

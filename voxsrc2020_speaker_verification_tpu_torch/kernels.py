@@ -10,7 +10,9 @@ this module needs no ``nvcc`` and no GPU.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises on a non-zero code
 and only then adds one to the kernel's launch count (and to the count of
-that C function: a kernel with a forward and a backward entry counts each).
+that C function: a kernel with a forward and a backward entry counts each;
+an entry whose C code picks between kernels by shape is counted by the path
+its wrapper was told it takes, ``"<function>:<path>"``).
 The counts are what ``chip_smoke.py`` reads to show that the serving and
 training paths went through the kernels.
 """
@@ -58,14 +60,21 @@ class CudaKernel:
     """One ``csrc`` source: its library, its C functions and its launch count."""
 
     def __init__(self, name: str, source: str,
-                 functions: Dict[str, Sequence[type]]):
+                 functions: Dict[str, Sequence[type]],
+                 paths: Optional[Dict[str, Sequence[str]]] = None):
         self.name = name
         self.source = source
         self.functions = dict(functions)
+        self.paths = dict(paths or {})
         self.launches = 0
-        self.fn_launches = {fn: 0 for fn in self.functions}
+        self.fn_launches = self.zero_counts()
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+
+    def zero_counts(self) -> Dict[str, int]:
+        """One count per C function, or per path of a function with paths."""
+        return {key: 0 for fn in self.functions
+                for key in ([f"{fn}:{p}" for p in self.paths[fn]] if fn in self.paths else [fn])}
 
     @property
     def source_path(self) -> str:
@@ -118,9 +127,13 @@ class CudaKernel:
                 self._lib = lib
             return self._lib
 
-    def launch(self, fn: str, device: torch.device, *args) -> None:
+    def launch(self, fn: str, device: torch.device, *args, path: Optional[str] = None) -> None:
         """Call C function ``fn`` on ``device``'s current stream (appended as
-        the last argument); raise if the launch was refused."""
+        the last argument); raise if the launch was refused. ``path`` names
+        the kernel the C function picks, for a function declared with paths."""
+        key = fn if path is None else f"{fn}:{path}"
+        if key not in self.fn_launches:
+            raise KernelError(f"{self.name}.{fn}: no launch count {key!r}")
         lib = self.load()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -130,7 +143,7 @@ class CudaKernel:
             raise KernelError(f"{self.name}.{fn}: CUDA error {code} ({msg})")
         with self._lock:
             self.launches += 1
-            self.fn_launches[fn] += 1
+            self.fn_launches[key] += 1
 
 
 FBANK = CudaKernel("fbank", "fbank.cu", {
@@ -171,7 +184,8 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
 MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
     "margin_ce_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
-})
+    "margin_ce_plan": [_I, _I, ctypes.POINTER(_I)],
+}, paths={"margin_ce_fwd": ("slab", "stream"), "margin_ce_bwd": ("slab", "stream")})
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
            MARGIN_CE)
 
@@ -192,7 +206,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         with k._lock:
             k.launches = 0
-            k.fn_launches = {fn: 0 for fn in k.functions}
+            k.fn_launches = k.zero_counts()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -200,7 +214,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def function_launch_counts() -> Dict[str, int]:
-    """Launches per C entry point, keyed ``"<kernel>.<function>"``."""
+    """Launches per C entry point, keyed ``"<kernel>.<function>"`` (or
+    ``"<kernel>.<function>:<path>"`` for an entry with paths)."""
     return {f"{k.name}.{fn}": n for k in KERNELS for fn, n in k.fn_launches.items()}
 
 

@@ -16,6 +16,8 @@ x^2, 1e-5)) (TF's l2_normalize), not ``F.normalize``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -45,34 +47,73 @@ def margin_constants(margin: float) -> Tuple[float, float, float]:
     return float(np.cos(m)), float(np.sin(m)), float(np.float32(0.5) * m * m)
 
 
+def target_phi(cos: torch.Tensor, label: torch.Tensor, cos_m: float, sin_m: float,
+               m1: float) -> torch.Tensor:
+    """cos(theta + m) - m1 = v cos m - sqrt(1 - v^2) sin m - m1 at each row's
+    label column only: (B, 1) from the clipped cosines ``cos`` (B, C) and
+    ``label`` (B, 1). The sqrt is taken at the label column alone, so a
+    non-label cosine of exactly +-1 keeps the finite gradient of ``v``.
+
+    The rule at the label column where |v| = 1 (sin theta = 0, where the
+    derivative of the sqrt is unbounded): the gradient is zero, as at an
+    element the clip holds. K6 applies the same rule. The value is the
+    formula's, v cos m - m1."""
+    v = cos.gather(1, label)
+    st2 = 1.0 - v * v
+    inside = st2 > 0
+    sin = torch.where(inside, torch.sqrt(torch.where(inside, st2, torch.ones_like(st2))),
+                      torch.zeros_like(st2))
+    phi = v * cos_m - sin * sin_m - m1
+    return torch.where(inside, phi, phi.detach())
+
+
 def margin_ce_reference(cos_all: torch.Tensor, labels: torch.Tensor, scale: float,
                         margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`margin_ce`, differentiable by autograd
-    (``amax`` splits the gradient among tied centers, as ``jnp.max`` does)."""
-    cos_m, sin_m, m1 = margin_constants(margin)
+    (``amax`` splits the gradient among tied centers, as ``jnp.max`` does;
+    the label column follows :func:`target_phi`'s rule at |v| = 1)."""
     cos = torch.clamp(torch.amax(cos_all, dim=0), -1.0, 1.0)
-    onehot = F.one_hot(labels.long(), cos.shape[1]).to(cos.dtype)
-    sin = torch.sqrt(torch.clamp(1.0 - cos * cos, min=0.0))
-    phi = cos * cos_m - sin * sin_m - m1
-    logits = scale * (phi * onehot + cos * (1.0 - onehot))
+    label = labels.long()[:, None]
+    logits = scale * cos.scatter(1, label, target_phi(cos, label, *margin_constants(margin)))
     lse = torch.logsumexp(logits, dim=1)
-    loss = lse - logits.gather(1, labels.long()[:, None])[:, 0]
+    loss = lse - logits.gather(1, label)[:, 0]
     correct = (logits.argmax(dim=1) == labels).float()
     return loss, correct
 
 
+@functools.lru_cache(maxsize=None)
+def margin_ce_plan(centers: int, classes: int) -> Tuple[str, int]:
+    """K6's path for a (K, B, C) input, as csrc/margin_ce.cu picks it by
+    shape: ``("slab", bytes)`` (each row staged into shared memory once; at
+    most 8 centers and a 200 KB slab) or ``("stream", 0)`` (every pass reads
+    the row from global memory). Asks the C side, so it needs the built
+    library but no card."""
+    slab = ctypes.c_int(0)
+    lib = MARGIN_CE.load()
+    code = lib.margin_ce_plan(centers, classes, ctypes.byref(slab))
+    if code != 0:
+        raise KernelError(f"margin_ce.margin_ce_plan({centers}, {classes}): error {code} "
+                          f"({lib.vsv_error_string(code).decode()})")
+    return ("slab" if slab.value else "stream"), slab.value
+
+
 class _MarginCEFn(torch.autograd.Function):
-    """K6 forward and backward; the gradient flows to ``cos_all`` only."""
+    """K6 forward and backward (the C entry points pick the path by shape,
+    :func:`margin_ce_plan` names it for the launch count); the gradient
+    flows to ``cos_all`` only."""
 
     @staticmethod
     def forward(ctx, cos_all, labels, scale, margin):
         k, b, c = cos_all.shape
         consts = margin_constants(margin)
+        path = margin_ce_plan(k, c)[0]
         out = torch.empty((3, b), dtype=torch.float32, device=cos_all.device)
         MARGIN_CE.launch("margin_ce_fwd", cos_all.device, ptr(cos_all), ptr(labels),
-                         k, b, c, scale, *consts, ptr(out[0]), ptr(out[1]), ptr(out[2]))
+                         k, b, c, scale, *consts, ptr(out[0]), ptr(out[1]), ptr(out[2]),
+                         path=path)
         ctx.save_for_backward(cos_all, labels, out[2])
         ctx.constants = (scale, *consts)
+        ctx.path = path
         ctx.mark_non_differentiable(out[1])
         return out[0], out[1]
 
@@ -83,7 +124,8 @@ class _MarginCEFn(torch.autograd.Function):
         dloss = dloss.float().contiguous()
         dcos = torch.empty_like(cos_all)
         MARGIN_CE.launch("margin_ce_bwd", cos_all.device, ptr(cos_all), ptr(labels),
-                         ptr(lse), ptr(dloss), k, b, c, *ctx.constants, ptr(dcos))
+                         ptr(lse), ptr(dloss), k, b, c, *ctx.constants, ptr(dcos),
+                         path=ctx.path)
         return dcos, None, None, None
 
 
@@ -96,7 +138,8 @@ def margin_ce(cos_all: torch.Tensor, labels: torch.Tensor, scale: float,
 
     cos_all: (K, B, C) float32; labels: (B,) integers. Returns the per-row
     loss (differentiable in cos_all) and the per-row 0/1 flag argmax ==
-    label, both (B,) float32."""
+    label, both (B,) float32. Every shape runs on the card: K6 picks its
+    slab or streaming path by shape (:func:`margin_ce_plan`)."""
     if cos_all.ndim != 3 or labels.shape != cos_all.shape[1:2]:
         raise ValueError(f"cos_all {tuple(cos_all.shape)}, labels {tuple(labels.shape)}")
     if cos_all.device.type == "cpu":
@@ -145,6 +188,7 @@ class MarginProjection(nn.Module):
         if self.kind == "linear":
             return embeddings.to(self.kernel.dtype) @ self.kernel
         cos = torch.clamp(self._cos(embeddings, True), -1.0, 1.0)
+        label = labels.long()[:, None]
         onehot = F.one_hot(labels.long(), cos.shape[1]).to(torch.float32)
         m = np.float32(margin)
         if self.kind in ("am_linear", "sc_am_linear"):
@@ -161,15 +205,14 @@ class MarginProjection(nn.Module):
                 m1 = m / np.float32(2.0)
             else:  # hcm_linear: fixed additive term
                 m1 = np.float32(self.hcm_additive_margin)
-            sin = torch.sqrt(torch.clamp(1.0 - cos * cos, min=0.0))
-            phi = cos * float(np.cos(m)) - sin * float(np.sin(m)) - float(m1)
+            # the sqrt at the label column only (target_phi, with its rule
+            # at |v| = 1)
+            phi = target_phi(cos, label, float(np.cos(m)), float(np.sin(m)), float(m1))
             if self.kind == "hcm_linear":
-                target_phi = torch.sum(phi * onehot, dim=1, keepdim=True)
-                hard = (cos > target_phi).float()
-                neg = cos + self.hard_margin * hard
-                logits = phi * onehot + neg * (1.0 - onehot)
+                hard = (cos > phi).float()
+                logits = (cos + self.hard_margin * hard).scatter(1, label, phi)
             else:
-                logits = phi * onehot + cos * (1.0 - onehot)
+                logits = cos.scatter(1, label, phi)
         return float(scale) * logits
 
     def cross_entropy(self, embeddings: torch.Tensor, labels: torch.Tensor,

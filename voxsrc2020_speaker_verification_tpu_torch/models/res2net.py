@@ -15,18 +15,26 @@ is, per group, ``F.conv2d`` -> K5 (training BN + relu, ``ops.bn_train``) ->
 the add into the next group; the stride-2 stage is one grouped conv, one K5
 launch over all s-1 groups (statistics are per channel, so this is exact)
 and the average-pool tail. K2 stays the eval path, since its BN uses running
-statistics. Rematerialization (``remat*``) is not ported: a recomputed
-forward would apply K5's running-statistics update twice.
+statistics.
+
+Rematerialization (``remat``, ``remat_stages``, ``remat_keep_blocks``,
+``remat_policy``, the JAX package's options) checkpoints whole bottleneck
+blocks in training: the block's activations are dropped after the forward
+and recomputed in the backward (:func:`remat_block`). The recomputed
+forward runs K5 again without its running-statistics update, so the
+statistics are updated once, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..kernels import SPLIT_CONV, KernelError, check_cuda, dtype_code, num_sms, ptr
 from ..ops import nn as ops
@@ -246,10 +254,11 @@ class Res2NetSplitConv(nn.Module):
         if training:
             y = ops.bn_train(y, mean, var, groups=bns[0].groups, relu=True,
                              eps=bns[0].eps)
-            with torch.no_grad():  # the update ran on the concatenated copy
-                for i, bn in enumerate(bns):
-                    bn.running_mean.copy_(mean[i * w: (i + 1) * w])
-                    bn.running_var.copy_(var[i * w: (i + 1) * w])
+            if ops.running_update_enabled():
+                with torch.no_grad():  # the update ran on the concatenated copy
+                    for i, bn in enumerate(bns):
+                        bn.running_mean.copy_(mean[i * w: (i + 1) * w])
+                        bn.running_var.copy_(var[i * w: (i + 1) * w])
         else:
             y = ops.bn_act(y, mean, var, relu=True, eps=bns[0].eps)
         tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], self.strides)
@@ -304,6 +313,52 @@ class BottleneckBlockV1(nn.Module):
                         mask=out_mask)
 
 
+# Rematerialization policies, by their jax.checkpoint_policies names: None
+# and "nothing_saveable" recompute the whole block; "dots_saveable" and
+# "checkpoint_dots" keep the outputs of the convolutions and matmuls (JAX's
+# dots_saveable keeps dot_general and conv_general_dilated outputs) and
+# recompute the rest; "everything_saveable" keeps everything, i.e. no remat.
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "checkpoint_dots",
+                  "everything_saveable")
+_SAVED_BY_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+                  torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def remat_context(policy: Optional[str]):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a policy name (None for
+    a plain checkpoint); raises on a name the port does not take."""
+    if policy not in (None, *REMAT_POLICIES):
+        raise ValueError(f"remat_policy {policy!r} is not ported; the port takes "
+                         f"{REMAT_POLICIES}")
+    if policy in ("dots_saveable", "checkpoint_dots"):
+        return functools.partial(create_selective_checkpoint_contexts, list(_SAVED_BY_DOTS))
+    return None
+
+
+def remat_block(block: nn.Module, x: torch.Tensor, training: bool,
+                mask: Optional[torch.Tensor], out_mask: Optional[torch.Tensor],
+                context_fn=None) -> torch.Tensor:
+    """``block(x, training, mask, out_mask)`` under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are freed
+    after the forward and recomputed in the backward, one checkpoint per
+    block as the JAX package's ``nn.remat`` of ``BottleneckBlockV1``. The
+    first call updates the BN running statistics; the recompute runs with
+    ``ops.running_update(False)``, so K5 and its plain version leave them
+    alone and the recomputed activations equal the first ones (K5 reruns bit
+    for bit)."""
+    calls = 0
+
+    def run(inp):
+        nonlocal calls
+        first = calls == 0
+        calls += 1
+        with ops.running_update(first):
+            return block(inp, training, mask, out_mask)
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class Res2NetConfig:
     """Static architecture config (same fields as the JAX package's)."""
@@ -330,13 +385,26 @@ class Res2Net(nn.Module):
 
     ``dtype`` is the compute dtype (None keeps the input's, bfloat16 for a
     bf16 model); parameters stay float32. ``feat_dim`` fixes the head's dense
-    width, which the JAX package infers from the first input."""
+    width, which the JAX package infers from the first input.
+
+    ``remat`` checkpoints every bottleneck block in training
+    (:func:`remat_block`); ``remat_stages`` (0-based) limits it to those
+    stages, ``remat_keep_blocks`` keeps the (stage, block) pairs listed
+    resident, and ``remat_policy`` names what a checkpoint keeps
+    (:data:`REMAT_POLICIES`)."""
 
     def __init__(self, config: Res2NetConfig, feat_dim: int = 80,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False,
+                 remat_policy: Optional[str] = None,
+                 remat_stages: Optional[Sequence[int]] = None,
+                 remat_keep_blocks: Optional[Sequence[Tuple[int, int]]] = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
+        self.remat_context = remat_context(remat_policy)
+        keep = frozenset(tuple(p) for p in (remat_keep_blocks or ()))
+        stages = None if remat_stages is None else frozenset(remat_stages)
+        remat = remat and remat_policy != "everything_saveable"
         self.initial_conv = ops.ConvFixedPadding(
             1, cfg.num_filters[0], cfg.kernel_size, cfg.conv_stride)
         self.initial_bn = ops.BatchNorm(cfg.num_filters[0])
@@ -350,7 +418,8 @@ class Res2Net(nn.Module):
                     channels, cfg.num_filters[i], strides, use_projection=(j == 0),
                     split=cfg.split, width=cfg.width[i])
                 self.add_module(name, block)
-                self.blocks.append((block, strides))
+                rematted = remat and (stages is None or i in stages) and (i, j) not in keep
+                self.blocks.append((block, strides, rematted))
                 channels = cfg.num_filters[i] * 4
                 freq = _strided(freq, strides)
         self.head = ops.EmbeddingHead(channels, freq, cfg.output_dim, cfg.pool)
@@ -375,11 +444,15 @@ class Res2Net(nn.Module):
         if mask is not None:
             mask = ops.downsample_mask(mask.float(), cfg.conv_stride, x.shape[2])
         x = self.initial_bn(x, training, relu=True, mask=mask)
-        for block, strides in self.blocks:
+        checkpointing = training and torch.is_grad_enabled()
+        for block, strides, rematted in self.blocks:
             out_mask = None
             if mask is not None:
                 out_mask = ops.downsample_mask(mask, strides, _strided(x.shape[2], strides))
-            x = block(x, training, mask, out_mask)
+            if rematted and checkpointing:
+                x = remat_block(block, x, training, mask, out_mask, self.remat_context)
+            else:
+                x = block(x, training, mask, out_mask)
             mask = out_mask
         return self.head(x, training, mask)
 

@@ -21,9 +21,11 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional, Tuple, Union
+import threading
+from typing import Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -209,10 +211,35 @@ def _update_factors(x: torch.Tensor, groups: int):
     return n, 1.0 - BN_MOMENTUM, (1.0 - BN_MOMENTUM) * bessel
 
 
-def _group_normalize(x, running_mean, running_var, groups, eps):
+_UPDATE = threading.local()
+
+
+@contextlib.contextmanager
+def running_update(enabled: bool) -> Iterator[None]:
+    """Whether training BN (:func:`bn_train`, K5 and its plain version)
+    updates the running statistics in this thread, inside the block. A
+    rematerialized block's recomputed forward runs with ``False``: its batch
+    statistics are those of the first forward, which already applied the
+    update (``models/res2net.py:remat_block``). The flag is per thread
+    because autograd runs the recompute on its own thread for CUDA
+    tensors."""
+    before = getattr(_UPDATE, "off", False)
+    _UPDATE.off = not enabled
+    try:
+        yield
+    finally:
+        _UPDATE.off = before
+
+
+def running_update_enabled() -> bool:
+    return not getattr(_UPDATE, "off", False)
+
+
+def _group_normalize(x, running_mean, running_var, groups, eps, update=True):
     """Plain grouped training BN of one input: float32 moments per (group,
     channel), E[x^2] - mean^2; running statistics updated in place with the
-    mean over groups; the output cast to x's dtype."""
+    mean over groups (unless ``update`` is False); the output cast to x's
+    dtype."""
     b, c = x.shape[:2]
     if b % groups:
         raise ValueError(f"batch {b} not divisible into {groups} BN groups")
@@ -222,25 +249,27 @@ def _group_normalize(x, running_mean, running_var, groups, eps):
     xg = rows.float().reshape(groups, -1, c)
     mean = xg.mean(dim=1)
     var = torch.square(xg).mean(dim=1) - torch.square(mean)
-    _, upd_mean, upd_var = _update_factors(x, groups)
-    with torch.no_grad():
-        running_mean.copy_(BN_MOMENTUM * running_mean + upd_mean * mean.detach().mean(0))
-        running_var.copy_(BN_MOMENTUM * running_var + upd_var * var.detach().mean(0))
+    if update:
+        _, upd_mean, upd_var = _update_factors(x, groups)
+        with torch.no_grad():
+            running_mean.copy_(BN_MOMENTUM * running_mean + upd_mean * mean.detach().mean(0))
+            running_var.copy_(BN_MOMENTUM * running_var + upd_var * var.detach().mean(0))
     y = (xg - mean[:, None]) * torch.rsqrt(var[:, None] + eps)
     return y.reshape(rows.shape).movedim(-1, 1).to(x.dtype)
 
 
 def bn_train_reference(x, running_mean, running_var, *, groups=1, relu=False,
                        shortcut=None, shortcut_running_mean=None,
-                       shortcut_running_var=None, eps=BN_EPSILON) -> torch.Tensor:
+                       shortcut_running_var=None, eps=BN_EPSILON,
+                       update=True) -> torch.Tensor:
     """Plain version of :func:`bn_train`, differentiable by autograd; each
     normalized term is cast to the dtype before the add, as in the JAX
-    package."""
-    y = _group_normalize(x, running_mean, running_var, groups, eps)
+    package. ``update=False`` leaves the running statistics as they are."""
+    y = _group_normalize(x, running_mean, running_var, groups, eps, update)
     if shortcut is not None:
         if shortcut_running_mean is not None:
             shortcut = _group_normalize(shortcut, shortcut_running_mean,
-                                        shortcut_running_var, groups, eps)
+                                        shortcut_running_var, groups, eps, update)
         y = y + shortcut
     if relu:
         y = torch.relu(y)
@@ -337,16 +366,19 @@ def _cluster_floats(x: torch.Tensor, groups: int, ns: int) -> Tuple[int, int]:
 
 class _BNTrainFn(torch.autograd.Function):
     """K5 forward and backward, in the design :func:`bn_train_plan` picks.
-    The running statistics are updated in place by the forward launch; they
-    take no gradient. The cluster design's backward recomputes the relu
-    decision from x (and a normalized shortcut), so it saves the forward
-    output only for a raw shortcut under relu; the multi-kernel design
-    saves it under relu."""
+    The running statistics are updated in place by the forward launch
+    (unless ``update`` is False: the kernel then gets null running-statistic
+    pointers and leaves them alone); they take no gradient. The cluster
+    design's backward recomputes the relu decision from x (and a normalized
+    shortcut), so it saves the forward output only for a raw shortcut under
+    relu; the multi-kernel design saves it under relu."""
 
     @staticmethod
     def forward(ctx, x, shortcut, running_mean, running_var, sc_running_mean,
-                sc_running_var, groups, relu, eps):
+                sc_running_var, groups, relu, eps, update):
         sc_mode = 0 if shortcut is None else (2 if sc_running_mean is not None else 1)
+        if not update:  # null pointers: the kernels skip the running update
+            running_mean = running_var = sc_running_mean = sc_running_var = None
         c = x.shape[1]
         n, upd_mean, upd_var = _update_factors(x, groups)
         plan = bn_train_plan(x.shape, groups, x.dtype, sc_mode, relu)
@@ -414,7 +446,7 @@ class _BNTrainFn(torch.autograd.Function):
                 ptr(shortcut), sc_mode, n, groups, c, chunks, ptr(stats[0]),
                 ptr(stats[1]), *sc_stats, ptr(part), ptr(coef), ptr(dx), ptr(dsc),
                 num_sms(x.device))
-        return dx, dsc, None, None, None, None, None, None, None
+        return dx, dsc, None, None, None, None, None, None, None, None
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -440,8 +472,11 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
     with its own batch statistics and its own running update.
 
     x, shortcut: (B, C, T, F) channels_last or (B, C); running statistics:
-    (C,) float32, updated in place. Differentiable in x and the shortcut.
+    (C,) float32, updated in place, except inside ``running_update(False)``
+    (a rematerialized block's recompute). Differentiable in x and the
+    shortcut.
     """
+    update = running_update_enabled()
     if shortcut is not None and shortcut.shape != x.shape:
         raise ValueError(f"shortcut {tuple(shortcut.shape)} != x {tuple(x.shape)}")
     if (shortcut_running_mean is None) != (shortcut_running_var is None) or (
@@ -453,7 +488,7 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
         return bn_train_reference(
             x, running_mean, running_var, groups=groups, relu=relu,
             shortcut=shortcut, shortcut_running_mean=shortcut_running_mean,
-            shortcut_running_var=shortcut_running_var, eps=eps)
+            shortcut_running_var=shortcut_running_var, eps=eps, update=update)
 
     fmt = CHANNELS_LAST if x.ndim == 4 else torch.contiguous_format
     if x.ndim not in (2, 4):
@@ -477,7 +512,7 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
         raise KernelError("bn_train: empty batch")
     return _BNTrainFn.apply(x, shortcut, running_mean, running_var,
                             shortcut_running_mean, shortcut_running_var, groups,
-                            relu, eps)
+                            relu, eps, update)
 
 
 class BatchNorm(nn.Module):

@@ -19,9 +19,11 @@ from .models import get_model
 
 class SpeakerNet(nn.Module):
     def __init__(self, model_name: str = "res2net50_w24_s4_c32",
-                 feat_dim: int = 80, dtype: Optional[torch.dtype] = None):
+                 feat_dim: int = 80, dtype: Optional[torch.dtype] = None, **remat):
+        """``remat``: the model's rematerialization options (``remat``,
+        ``remat_policy``, ``remat_stages``, ``remat_keep_blocks``)."""
         super().__init__()
-        self.encoder = get_model(model_name, dtype=dtype, feat_dim=feat_dim)
+        self.encoder = get_model(model_name, dtype=dtype, feat_dim=feat_dim, **remat)
 
     def embed(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Inference-mode embeddings (B, D), float32."""

@@ -3,8 +3,11 @@ per-epoch checkpoints, single process.
 
 The JAX package's ``training/loop.py:fit`` on one device: the same log line
 every ``log_every`` optimizer steps (loss, ce, reg, accuracy, lr, margin,
-gnorm, audio-s/s), ``metrics.jsonl`` and checkpoints in the experiment dir,
-and the LMFT resume through ``resume_from``.
+gnorm, audio-s/s, and the feeder's decode errors when there are any),
+``metrics.jsonl`` and checkpoints in the experiment dir, the LMFT resume
+through ``resume_from``, the feeder health checks (a shard that decodes
+nothing over a full pass raises IOError) and SIGTERM preemption (a final
+checkpoint and ``FitResult.preempted``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import queue
+import signal
 import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Union
@@ -31,6 +35,7 @@ class FitResult:
     steps_run: int
     audio_seconds_per_second: float
     history: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    preempted: bool = False
 
 
 class _PrefetchError:
@@ -109,13 +114,22 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
         log_fn: Callable[[str], None] = print, max_steps: Optional[int] = None,
         checkpoint: bool = True, save_every_steps: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
-        state: Optional[TrainState] = None) -> FitResult:
+        state: Optional[TrainState] = None,
+        handle_preemption: bool = True) -> FitResult:
     """Train until ``config.total_steps`` (or ``max_steps`` more steps).
 
     batches: iterable of (features (A, B, T, F), labels (A, B)) -- e.g. a
-    started BatchFeeder. ``device`` defaults to ``cuda``; ``state`` (default:
-    ``create_train_state``) is trained in place. ``FitResult.history`` holds
-    every logged step's metrics, with its audio-s/s and host time.
+    started BatchFeeder or NativeBatchFeeder. ``device`` defaults to
+    ``cuda``; ``state`` (default: ``create_train_state``) is trained in
+    place. ``FitResult.history`` holds every logged step's metrics, with its
+    audio-s/s and host time.
+
+    A feeder with ``decode_errors()`` has them logged; one with
+    ``dead_shards()`` is checked every ``log_every`` steps (100 when logging
+    is off), and a dead shard raises IOError. With checkpointing on, on the
+    main thread and ``handle_preemption``, SIGTERM ends the run after the
+    current step with a checkpoint and ``FitResult.preempted``; the previous
+    SIGTERM handler is restored on return.
     """
     dev = resolve_device(device)
     exp_dir = exp_dir or config.exp_dir
@@ -144,13 +158,19 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
     epoch_size = config.epoch_size
     audio_s_per_step = config.effective_batch * config.feat_length / 100.0
 
+    preempt = threading.Event()
+    trap_sigterm = (handle_preemption and mgr is not None
+                    and threading.current_thread() is threading.main_thread())
+    prev_handler = (signal.signal(signal.SIGTERM, lambda _sig, _frame: preempt.set())
+                    if trap_sigterm else None)
+
     it = device_prefetch(iter(batches), dev, depth=2)
     history: List[Dict[str, float]] = []
     t_log = t_start = time.perf_counter()
     steps_run = 0
     cur = start_step
     try:
-        while cur < stop_step:
+        while cur < stop_step and not preempt.is_set():
             feats, labels = next(it)
             state, metrics = step_fn(state, feats, labels)
             cur += 1
@@ -161,29 +181,47 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
                 done = log_every if cur % log_every == 0 else cur % log_every
                 rate = done / (now - t_log) * audio_s_per_step
                 t_log = now
+                errs = batches.decode_errors() if hasattr(batches, "decode_errors") else 0
                 log_fn(
                     f"step {cur}/{stop_step} loss {m['loss']:.4f} "
                     f"(ce {m['classification_loss']:.4f} reg {m['regularization_loss']:.4f}) "
                     f"acc {m['accuracy']:.4f} lr {m['learning_rate']:.6f} "
                     f"margin {m['margin']:.4f} gnorm {m['gradient_norm']:.2f} "
-                    f"audio-s/s {rate:.0f}")
+                    f"audio-s/s {rate:.0f}" + (f" decode-errors {errs}" if errs else ""))
                 history.append({"step": cur, **m, "audio_s_per_s": rate, "time": now})
                 if metrics_writer is not None:
-                    metrics_writer.write(cur, m, audio_s_per_s=rate)
+                    metrics_writer.write(cur, m, audio_s_per_s=rate,
+                                         **({"decode_errors": errs} if errs else {}))
+            # the dead-shard check on its own cadence: it must fire with
+            # logging off too, or a corrupt shard would silently shrink the
+            # training set
+            if cur % (log_every or 100) == 0 and hasattr(batches, "dead_shards"):
+                dead = batches.dead_shards()
+                if dead:
+                    errs = batches.decode_errors() if hasattr(batches, "decode_errors") else 0
+                    raise IOError(
+                        f"{dead} feeder shard(s) decoded nothing over a full pass ({errs} "
+                        f"decode errors): part of the dataset is missing (corrupt ark or "
+                        f"feat-dim mismatch); refusing to keep training")
             if mgr is not None and (cur % epoch_size == 0
                                     or (save_every_steps and cur % save_every_steps == 0)):
                 mgr.save(state, step=cur)
     finally:
         it.close()
+        # the previous SIGTERM disposition comes back even on an exception
+        if trap_sigterm:
+            signal.signal(signal.SIGTERM, prev_handler)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t_start
+    if preempt.is_set():
+        log_fn(f"SIGTERM at step {cur}: checkpointing and exiting")
     if mgr is not None:
-        if steps_run and cur % epoch_size != 0:
+        if steps_run and (cur % epoch_size != 0 or preempt.is_set()):
             mgr.save(state, step=cur)
     if metrics_writer is not None:
         metrics_writer.close()
     return FitResult(state=state, steps_run=steps_run,
                      audio_seconds_per_second=steps_run * audio_s_per_step / max(elapsed, 1e-9),
-                     history=history)
+                     history=history, preempted=preempt.is_set())

@@ -4,7 +4,8 @@ It extends the serving ``SpeakerNet`` (``speaker_net.py``) with
 ``projection.kernel``, so the state_dict is the serving one plus that key:
 the encoder entries of a trained net load into the serving net with
 ``strict=True``. ``bn_groups`` > 1 computes training BN statistics over that
-many equal batch groups (the reference's per-replica BN).
+many equal batch groups (the reference's per-replica BN); ``remat``
+keywords go to the encoder (``models.get_model``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ class SpeakerNet(EmbeddingNet):
     def __init__(self, model_name: str = "res2net50_w24_s4_c32",
                  projection_id: str = "sc_cm_linear", num_classes: int = 5994,
                  num_centers: int = 2, feat_dim: int = 80,
-                 dtype: Optional[torch.dtype] = None, bn_groups: int = 1):
-        super().__init__(model_name, feat_dim, dtype)
+                 dtype: Optional[torch.dtype] = None, bn_groups: int = 1, **remat):
+        super().__init__(model_name, feat_dim, dtype, **remat)
         self.encoder.set_bn_groups(bn_groups)
         self.projection = MarginProjection(
             self.encoder.config.output_dim, num_classes, projection_id, num_centers)

@@ -50,19 +50,18 @@ class TrainState:
 def build_speaker_net(config: TrainConfig,
                       device: Optional[Union[str, torch.device]] = None) -> SpeakerNet:
     """The config's training net on ``device`` (default ``cuda``), bfloat16
-    compute when ``config.bf16``. Raises on the options the port lacks."""
+    compute when ``config.bf16``, with the config's rematerialization
+    options. Raises on the options the port lacks."""
     if config.raw_audio or config.specaug:
         raise NotImplementedError(
             "raw-audio training and SpecAugment are not ported yet (ROADMAP.md)")
-    if config.remat or config.remat_stages or config.remat_policy or config.remat_keep_blocks:
-        raise NotImplementedError(
-            "remat / remat_stages / remat_keep_blocks are not ported yet "
-            "(ROADMAP.md): a recomputed forward would update the BN running "
-            "statistics twice")
     dev = resolve_device(device)
     net = SpeakerNet(config.model, config.projection, config.num_classes,
                      config.num_centers, config.feat_dim,
-                     torch.bfloat16 if config.bf16 else None, config.bn_groups)
+                     torch.bfloat16 if config.bf16 else None, config.bn_groups,
+                     remat=config.remat, remat_policy=config.remat_policy,
+                     remat_stages=config.remat_stages,
+                     remat_keep_blocks=config.remat_keep_blocks)
     return net.to(dev)
 
 
@@ -126,7 +125,7 @@ def make_train_step(config: TrainConfig):
             ce = loss_rows.mean()
             ce.backward()
             ces.append(ce.detach())
-            accs.append(correct.mean())
+            accs.append(correct.detach().mean())
 
         with torch.no_grad():
             grads = [p.grad for p in params]
