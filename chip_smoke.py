@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device  -- the card's name and power limit (``nvidia-smi``);
-2. build   -- nvcc builds the seven kernels from ``csrc/`` (in parallel);
+2. build   -- nvcc builds the eight kernels from ``csrc/`` (in parallel);
 3. kernels -- each kernel against its plain PyTorch version on the card, in
    float32 (TF32 off) and in bfloat16, with timings: K1-K4 at the shapes
    the serving forward gives them (res2net50_w24_s4_c32, B=128, 1000
@@ -14,8 +14,11 @@ Phases, one JSON line each:
    plain versions) at the shapes of the training step below; K1 also at
    wave requests of 2 s and 128 s and a batch of 3, and at 160 mel bins
    (two 128-column passes); K6 also on its streaming path (K = 2 at C =
-   30000, K = 10), and K1, K4, K4b, K5 and K6 rerun bit for bit. ``ms`` is a call's time by CUDA events, host
-   included; ``device_ms`` (K1, K4, K4b, K6 and K4's library yardsticks)
+   30000, K = 10), and K1, K4, K4b, K5 and K6 rerun bit for bit; K7
+   (sliding CMVN) at cli/extract.py's buckets (8 x 500-16000 frames, padded
+   rows) and one 60,000-frame utterance against float64, rerun bit for bit.
+   ``ms`` is a call's time by CUDA events, host included; ``device_ms``
+   (K1, K4, K4b, K6, K7 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
    under ~0.3 ms;
 4. serve   -- res2net50_w24_s4_c32 at full width, bf16, random weights from
@@ -44,7 +47,23 @@ Phases, one JSON line each:
    rematerialized and a plain step: BN statistics bit-equal, loss and
    gradient norm within TOL_PARITY, lower peak memory with remat;
 8. export  -- the trained state saved as an inference artifact and one batch
-   embedded through the eval path (K2-K4), against the CPU plain path.
+   embedded through the eval path (K2-K4), against the CPU plain path;
+9. evaluate -- the recipe's last leg on the LMFT run of phase 7, through the
+   CLIs a user calls: a test set shaped like VoxCeleb1-O (synthetic 16 kHz
+   wavs, EVAL_* below; its full 37,720 trials) featurized on the card by
+   ``data/features.py`` (K1) into a plain store; a CM-compressed cohort
+   store of 600 utterances; ``cli.export`` of the LMFT exp dir;
+   ``cli.extract`` of the test set with host and with device CMVN (K7) in
+   turns; ``cli.evaluate`` twice into one out dir (the cohort set's speaker
+   means, then the 11,988 projection rows, reusing the xvectors);
+   ``cli.score`` cosine and asnorm (top-400), its printed EER and minDCF
+   against eval/metrics of its scores file, and the cohort statistics on
+   the card against float64; a 256-utterance subset (one wav.scp entry a
+   JSON augmentation spec) from its own store, on the bf16 wire and with
+   ``--raw`` (K1); 16 utterances through the float32 plain path on the CPU.
+   ``cli.evaluate`` and the subset's extractions run the default CMVN,
+   which is K7's. Each leg's launches are read from counts set to 0 just
+   before it.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line. Without a CUDA
@@ -53,10 +72,13 @@ device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,9 +93,9 @@ SEED = 0
 BATCH, FRAMES, FEAT_DIM = 128, 1000, 80
 MODEL = "res2net50_w24_s4_c32"
 # peaks of one H100 SXM (dense): HBM bytes/s, and FLOP/s by operand type
-# (float32 on the CUDA cores, bfloat16 on the tensor cores)
+# (float32 and float64 on the CUDA cores, bfloat16 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
 # stated tolerances: fp32 kernel vs fp32 plain (relative to the output's
 # largest magnitude), bf16 kernel vs fp32 plain on the same bf16 inputs
 TOL_FBANK = 1e-3          # absolute, log-mel
@@ -111,6 +133,25 @@ TOL_K5_GRAD_FP32 = 1e-3
 # values must be no further from the CPU's float64 step than twice the CPU's
 # fp32 values are, plus 1e-3; their distance to the CPU fp32 step is reported
 TOL_PARITY = {"loss": 1e-4, "gradient_norm": 1e-3, "update": 1e-3, "batch_stats": 1e-3}
+# K7 (sliding CMVN) at cli/extract.py's buckets and one longer utterance,
+# against float64 (absolute, on features of 12 +- 3)
+CMVN_BATCH, CMVN_BUCKETS, CMVN_LONG = 8, (500, 1000, 2000, 4000, 8000, 16000), 60000
+TOL_CMVN = 1e-5
+# the evaluation leg: a test set shaped like VoxCeleb1-O (whose test
+# side has 4,874 utterances of 40 speakers and 37,720 trials, half targets),
+# cut to EVAL_SPEAKERS x EVAL_UTTS synthetic utterances of 4-20 s plus one of
+# 60-145 s for each of the first EVAL_LONG speakers; the full trial count; a
+# cohort set of COHORT_SPEAKERS x COHORT_UTTS feature matrices; and the
+# trained head's 2 x 5994 projection rows. Subsets: EVAL_SUBSET utterances
+# for the device-CMVN, bf16-wire and raw-audio extractions, EVAL_CPU_UTTS
+# for the CPU plain path.
+EVAL_SPEAKERS, EVAL_UTTS, EVAL_SECONDS, EVAL_LONG, EVAL_LONG_SECONDS = (
+    40, 30, (4.0, 20.0), 4, (60.0, 145.0))
+VOX1_O_UTTS, EVAL_TRIALS, EVAL_TOPK = 4874, 37720, 400
+COHORT_SPEAKERS, COHORT_UTTS, COHORT_FRAMES = 200, 3, (300, 1200)
+EVAL_SUBSET, EVAL_CPU_UTTS = 256, 16
+TOL_EXTRACT_COS = 0.9999  # host vs device CMVN, bf16 vs float32 wire, raw vs store
+TOL_COHORT_STATS = 1e-5   # asnorm top-k mean / std on the card vs float64 numpy
 
 
 def emit(obj) -> None:
@@ -810,6 +851,62 @@ def check_margin_ce_stream(dev, gen):
                 bound_ms=bms, bound_by=by, reruns_bit_equal=True)
 
 
+def check_sliding_cmvn(dev):
+    """K7 at the shapes ``cli.extract --cmvn device`` gives it: a batch of
+    CMVN_BATCH at every bucket with padded rows, and one utterance beyond
+    the largest bucket at its exact length (60,000 frames); against the host's
+    float64 ``sliding_cmn_np`` on every valid frame and against the float64
+    plain version on every frame; reruns bit for bit; timed at the largest
+    bucket."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.data.dataset import sliding_cmn_np
+    from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn
+
+    rng = np.random.RandomState(SEED + 31)
+    err_host = err_plain = 0.0
+    shapes = [(CMVN_BATCH, t) for t in CMVN_BUCKETS] + [(1, CMVN_LONG)]
+    for b, t in shapes:
+        x = (rng.randn(b, t, FEAT_DIM) * 3 + 12).astype(np.float32)
+        n = np.array([t] + list(rng.randint(1, t + 1, b - 1)), np.int32)
+        xs, ns = torch.from_numpy(x).to(dev), torch.from_numpy(n).to(dev)
+        before = kernels.SLIDING_CMVN.launches
+        got = cmvn.sliding_cmvn(xs, ns)
+        if kernels.SLIDING_CMVN.launches - before != 1:
+            fail(f"sliding_cmvn at {(b, t)}: {kernels.SLIDING_CMVN.launches - before} "
+                 "K7 launches, expected 1")
+        err_plain = max(err_plain, abs_err(got, cmvn.sliding_cmvn_reference(xs, ns)))
+        if not torch.equal(got, cmvn.sliding_cmvn(xs, ns)):
+            fail(f"sliding_cmvn: two runs at {(b, t)} differ")
+        got = got.cpu().numpy()
+        err_host = max(err_host, max(float(np.abs(got[i, :n[i]] - sliding_cmn_np(x[i, :n[i]])).max())
+                                     for i in range(b)))
+    if max(err_host, err_plain) > TOL_CMVN:
+        fail(f"sliding_cmvn: max |kernel - float64| {err_host} (host), {err_plain} (plain) "
+             f"> {TOL_CMVN}")
+    b, t = CMVN_BATCH, CMVN_BUCKETS[-1]
+    x = torch.from_numpy((rng.randn(b, t, FEAT_DIM) * 3 + 12).astype(np.float32)).to(dev)
+    n = torch.from_numpy(rng.randint(t // 2, t + 1, b).astype(np.int32)).to(dev)
+    # bytes: x read once, y written once, the counts read; ~8 float64
+    # operations a frame and bin (the slid sums, the mean, the difference)
+    bms, by = bound_ms(2 * 4 * x.numel() + 4 * b, 8.0 * x.numel(), torch.float64)
+    return dict(name="sliding_cmvn", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/sliding_cmvn.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/cmvn.py:29 "
+                         "(sliding_cmvn, XLA)",
+                max_abs_err=max(err_host, err_plain), max_abs_err_vs_host_float64=err_host,
+                max_abs_err_vs_plain_float64=err_plain, tolerance=TOL_CMVN, dtype="float32",
+                checked_shapes=[[b_, t_, FEAT_DIM] for b_, t_ in shapes],
+                reruns_bit_equal=True, per=f"one ({b}, {t}, {FEAT_DIM}) batch, centred, "
+                                           "window 300",
+                ms=time_ms(lambda: cmvn.sliding_cmvn(x, n), reps=20),
+                device_ms=device_ms(lambda: cmvn.sliding_cmvn(x, n), "sliding_cmvn_kernel"),
+                plain_ms=time_ms(lambda: cmvn.sliding_cmvn_reference(x, n), reps=20),
+                plain_device_ms=device_ms(lambda: cmvn.sliding_cmvn_reference(x, n)),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                library_note="none: no single PyTorch call computes a sliding-window "
+                             "mean over time")
+
+
 # ----------------------------------------------------------------------
 # phases 5-7: the training step, its CPU parity, and serving what it trained
 # ----------------------------------------------------------------------
@@ -1125,7 +1222,7 @@ def lmft_phase(dev, state, smi, workdir):
     if not compare["remat"]["peak_memory_bytes"] < compare["plain"]["peak_memory_bytes"]:
         fail(f"lmft: remat peak memory {compare['remat']['peak_memory_bytes']} is not below "
              f"the plain step's {compare['plain']['peak_memory_bytes']}")
-    return counts, per_microbatch
+    return counts, per_microbatch, config.exp_dir
 
 
 def step_device_time(step, state, batch, step_ms):
@@ -1153,13 +1250,9 @@ def step_device_time(step, state, batch, step_ms):
 def export_phase(dev, state, config, workdir):
     from voxsrc2020_speaker_verification_tpu_torch import kernels
     from voxsrc2020_speaker_verification_tpu_torch.eval.export import (
-        load_inference_artifact, save_inference_artifact)
+        export_inference_artifact, load_inference_artifact)
 
-    sd = {k: v for k, v in state.net.state_dict().items() if k.startswith("encoder.")}
-    kernel = state.net.projection.kernel.detach().float().cpu().numpy()
-    artifact = save_inference_artifact(config, sd, os.path.join(workdir, "trained"),
-                                       projection_params={"projection": {"kernel": kernel}},
-                                       step=state.step)
+    artifact = export_inference_artifact(config, state, os.path.join(workdir, "trained"))
     rng = np.random.RandomState(SEED + 11)
     feats = rng.randn(8, 300, FEAT_DIM).astype(np.float32)
     mask = np.ones((8, 300), np.float32)
@@ -1185,6 +1278,344 @@ def export_phase(dev, state, config, workdir):
 def config_output_dim(config):
     from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS
     return RES2NET_CONFIGS[config.model].output_dim
+
+
+def speaker_bank(rng, units: int = 64) -> np.ndarray:
+    """One synthetic speaker: ``units`` 100 ms sounds (16 kHz, int16 scale),
+    each a mix of noise through the speaker's own 24-tap filter and a voiced
+    harmonic stack at the speaker's f0."""
+    taps = rng.randn(24) * np.exp(-np.arange(24) / 6.0)
+    noise = rng.randn(units, 1600 + 23)
+    breath = np.stack([np.convolve(n, taps, "valid") for n in noise])
+    t = np.arange(1600) / 16000.0
+    f0 = rng.uniform(90.0, 250.0)
+    voiced = sum(np.sin(2 * np.pi * f0 * k * t + rng.rand()) / k for k in range(1, 6))
+    mix = rng.uniform(0.0, 1.0, (units, 1))
+    return (2000.0 * (breath / breath.std() * (1 - mix) + voiced * mix)).astype(np.float32)
+
+
+def write_eval_data(root, seed):
+    """The evaluate phase's data (see EVAL_*): a test dir of wavs (wav.scp,
+    utt2spk, spk2utt) with its trial list, and a cohort dir of CM-compressed
+    features (feats.scp, spk2utt). Returns (test dir, trials, cohort dir,
+    audio seconds, seconds taken)."""
+    import concurrent.futures as cf
+
+    from voxsrc2020_speaker_verification_tpu_torch.data import audio, kaldi_io
+    from voxsrc2020_speaker_verification_tpu_torch.utils import datadir
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    test = os.path.join(root, "voxceleb1_o_cut")
+    os.makedirs(os.path.join(test, "wav"))
+    jobs, banks = [], []
+    for s in range(EVAL_SPEAKERS):
+        banks.append(speaker_bank(rng))
+        for i in range(EVAL_UTTS + (1 if s < EVAL_LONG else 0)):
+            sec = rng.uniform(*(EVAL_LONG_SECONDS if i == EVAL_UTTS else EVAL_SECONDS))
+            jobs.append((f"id1{s:04d}-{i:05d}", s, sec, rng.randint(2 ** 31)))
+
+    def write(job):
+        utt, s, sec, useed = job
+        r = np.random.RandomState(useed)
+        n = int(sec * 10)
+        units = banks[s][r.randint(len(banks[s]), size=n)] * r.uniform(0.3, 1.0, (n, 1))
+        path = os.path.join(test, "wav", f"{utt}.wav")
+        audio.write_wav(path, units.reshape(-1).astype(np.float32))
+        return utt, path, n / 10.0
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        written = list(pool.map(write, jobs))
+    wav = {utt: path for utt, path, _ in written}
+    utt2spk = {utt: utt.split("-")[0] for utt in wav}
+    datadir.write_two_column(os.path.join(test, "wav.scp"), wav)
+    datadir.write_two_column(os.path.join(test, "utt2spk"), utt2spk)
+    by_spk = {}
+    for utt in sorted(wav):
+        by_spk.setdefault(utt2spk[utt], []).append(utt)
+    datadir.write_spk2utt(os.path.join(test, "spk2utt"), by_spk)
+    # the trial count of VoxCeleb1-O, half targets (ordered pairs of two
+    # utterances of one speaker), half non-targets
+    spks, utts = sorted(by_spk), sorted(wav)
+    trials = os.path.join(root, "list_test_O.txt")
+    with open(trials, "w") as f:
+        for k in range(EVAL_TRIALS):
+            if k % 2 == 0:
+                a, b = rng.choice(by_spk[spks[rng.randint(len(spks))]], 2, replace=False)
+            else:
+                a, b = utts[rng.randint(len(utts))], utts[rng.randint(len(utts))]
+                while utt2spk[a] == utt2spk[b]:
+                    b = utts[rng.randint(len(utts))]
+            f.write(f"{int(k % 2 == 0)} {a} {b}\n")
+    # the cohort: log-mel-like features, a spectral envelope per speaker
+    cohort = os.path.join(root, "voxceleb2_cohort")
+    os.makedirs(cohort)
+    spk2utt = {}
+    with kaldi_io.ArkScpWriter(os.path.join(cohort, f"fbank{FEAT_DIM}.ark"),
+                               os.path.join(cohort, f"fbank{FEAT_DIM}.scp"), compress=True) as w:
+        for s in range(COHORT_SPEAKERS):
+            env = rng.randn(1, FEAT_DIM) * 2 + 8
+            for i in range(COHORT_UTTS):
+                utt = f"id0{s:04d}-{i:03d}"
+                t = int(rng.randint(*COHORT_FRAMES))
+                w.write(utt, (env + rng.randn(t, FEAT_DIM)).astype(np.float32))
+                spk2utt.setdefault(f"id0{s:04d}", []).append(utt)
+    datadir.write_spk2utt(os.path.join(cohort, "spk2utt"), spk2utt)
+    return test, trials, cohort, sum(sec for *_, sec in written), time.perf_counter() - t0
+
+
+def subset_dir(src, dst, utts, extra_wav=None):
+    """A data dir of ``utts`` of ``src``: wav.scp (with ``extra_wav``
+    entries replacing or adding values), utt2spk and spk2utt."""
+    from voxsrc2020_speaker_verification_tpu_torch.utils import datadir
+
+    os.makedirs(dst)
+    wav = datadir.read_two_column(os.path.join(src, "wav.scp"))
+    wav = {u: wav[u] for u in utts}
+    wav.update(extra_wav or {})
+    utt2spk = {u: u.split("-")[0] for u in wav}
+    datadir.write_two_column(os.path.join(dst, "wav.scp"), wav)
+    datadir.write_two_column(os.path.join(dst, "utt2spk"), utt2spk)
+    spk2utt = {}
+    for u in sorted(wav):
+        spk2utt.setdefault(utt2spk[u], []).append(u)
+    datadir.write_spk2utt(os.path.join(dst, "spk2utt"), spk2utt)
+    return dst
+
+
+def quiet(fn, *args):
+    """(fn(*args), what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def timed_leg(fn, *args):
+    """Run one leg with every launch count at 0: (result, printed text,
+    seconds, per-kernel launches)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, text = quiet(fn, *args)
+    torch.cuda.synchronize()
+    return out, text, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def min_cos(a, b, utts=None):
+    utts = sorted(a) if utts is None else utts
+    if sorted(utts) != sorted(set(utts) & set(b)):
+        fail(f"evaluate: vectors missing: {sorted(set(utts) - set(b))[:5]}")
+    return min(cos(a[u], b[u]) for u in utts)
+
+
+def evaluate_phase(dev, exp_dir, workdir, smi, k7):
+    """The evaluation leg through the port's CLIs (see the module docstring).
+    ``k7`` is K7's row of the kernels line, repeated in the phase's last
+    line. Returns the first device-CMVN leg's launch counts (K7's main
+    path)."""
+    import pickle
+
+    from voxsrc2020_speaker_verification_tpu_torch.cli import evaluate as evaluate_cli
+    from voxsrc2020_speaker_verification_tpu_torch.cli import export as export_cli
+    from voxsrc2020_speaker_verification_tpu_torch.cli import extract as extract_cli
+    from voxsrc2020_speaker_verification_tpu_torch.cli import score as score_cli
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+    from voxsrc2020_speaker_verification_tpu_torch.data.audio import write_wav
+    from voxsrc2020_speaker_verification_tpu_torch.data.features import compute_features_for_dir
+    from voxsrc2020_speaker_verification_tpu_torch.eval.metrics import evaluate_trials
+    from voxsrc2020_speaker_verification_tpu_torch.eval.scoring import (
+        _trial_index, cohort_stats, l2norm, read_trials)
+    from voxsrc2020_speaker_verification_tpu_torch.utils import datadir
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "eval")
+    test, trials_path, cohort, audio_s, write_s = write_eval_data(root, SEED + 41)
+    n_test = sum(1 for _ in open(os.path.join(test, "wav.scp")))
+    emit({"phase": "evaluate_data", "test_utterances": n_test, "trials": EVAL_TRIALS,
+          "cohort_utterances": COHORT_SPEAKERS * COHORT_UTTS, "audio_s": audio_s,
+          "write_s": write_s, "cut": f"{n_test} of VoxCeleb1's {VOX1_O_UTTS} test utterances "
+                                     f"({EVAL_SPEAKERS} speakers x {EVAL_UTTS} of 4-20 s + "
+                                     f"{EVAL_LONG} of 60-145 s), synthetic audio", "card": smi})
+
+    # featurize the test set on the card (K1), plain (uncompressed) store
+    scp, _, feat_s, counts = timed_leg(
+        lambda: compute_features_for_dir(test, FEAT_DIM, compress=False, device=dev))
+    if counts["fbank"] == 0:
+        fail(f"evaluate: featurization launched no K1: {counts}")
+    frames = {u: int(n) for u, n in datadir.read_two_column(
+        os.path.join(test, "utt2num_frames")).items()}
+    store_audio_s = sum(frames.values()) / 100.0
+    emit({"phase": "evaluate_featurize", "utterances": len(frames), "audio_s": store_audio_s,
+          "seconds": feat_s, "audio_s_per_s": store_audio_s / feat_s, "launches": counts,
+          "card": smi})
+
+    # 1. export the LMFT run's final checkpoint
+    artifact, text, export_s, _ = timed_leg(export_cli.main, ["--exp-dir", exp_dir])
+    with open(os.path.join(artifact, "projection_weight.pkl"), "rb") as f:
+        rows = pickle.load(f)
+    if rows.shape != (2 * 5994, 192):
+        fail(f"evaluate: projection rows {rows.shape}, expected (11988, 192)")
+
+    # the test set with host and with device CMVN (K7), full size, in turns
+    # (host, device, device, host): the first extraction of the phase also
+    # pays the allocator's and the kernels' first calls at these shapes
+    xv = os.path.join(root, "xv")
+    legs = {"host": [], "device": []}
+    for i, mode in enumerate(("host", "device", "device", "host")):
+        scp_, _, sec, counts = timed_leg(extract_cli.main, [
+            "--artifact", artifact, "--data-dir", test, "--out", f"{xv}_{mode}{i}",
+            "--cmvn", mode])
+        legs[mode].append(dict(vectors=dict(kaldi_io.read_vec_flt_scp(scp_)), seconds=sec,
+                               counts=counts, audio_s_per_s=store_audio_s / sec))
+        need = ("split_conv", "bn_act", "stats_pool") + (("sliding_cmvn",) if mode == "device" else ())
+        if any(counts[k] == 0 for k in need) or (mode == "host" and counts["sliding_cmvn"]):
+            fail(f"evaluate: extract --cmvn {mode} launches {counts}")
+    host = legs["host"][0]["vectors"]
+    bad = [u for u, v in host.items() if v.shape != (192,) or not np.isfinite(v).all()]
+    if len(host) != n_test or bad:
+        fail(f"evaluate: {len(host)} embeddings of {n_test}, bad shape or non-finite: {bad[:5]}")
+    cos_cmvn = min(min_cos(host, leg["vectors"]) for leg in legs["device"])
+    extract_rate = {m: statistics.median(leg["audio_s_per_s"] for leg in runs_)
+                    for m, runs_ in legs.items()}
+    emit({"phase": "evaluate_extract", "utterances": n_test, "audio_s": store_audio_s,
+          "order": "host, device, device, host",
+          **{f"{m}_cmvn": [{k: v for k, v in leg.items() if k != "vectors"} for leg in runs_]
+             for m, runs_ in legs.items()},
+          "audio_s_per_s_median": extract_rate,
+          "min_cos_device_vs_host_cmvn": cos_cmvn, "tolerance": TOL_EXTRACT_COS,
+          "note": "each call loads the artifact and builds the model", "card": smi})
+    if cos_cmvn < TOL_EXTRACT_COS:
+        fail(f"evaluate: --cmvn device vs host, min cosine {cos_cmvn}")
+
+    # 2. evaluate twice into one --out-dir: the cohort set's speaker means,
+    # then the projection rows (the test xvectors are reused)
+    out_dir = os.path.join(root, "out")
+    common = ["--test-dir", test, "--trials", f"O={trials_path}", "--out-dir", out_dir]
+    res_dir, text_dir, eval_s, counts_eval = timed_leg(evaluate_cli.main, [
+        "--exp-dir", exp_dir, "--cohort-dir", cohort] + common)
+    res_w, text_w, eval_w_s, _ = timed_leg(evaluate_cli.main, [
+        "--artifact", artifact, "--cohort-weights",
+        os.path.join(artifact, "projection_weight.pkl")] + common)
+    if "exporting" in text_dir or text_w.count("extracting") != 0:
+        fail(f"evaluate: the artifact or the test xvectors were not reused:\n{text_dir}{text_w}")
+    # the default --cmvn (device) runs K7
+    if any(counts_eval[k] == 0 for k in ("split_conv", "bn_act", "stats_pool", "sliding_cmvn")):
+        fail(f"evaluate: cli.evaluate launches {counts_eval}")
+    for res in (res_dir, res_w):
+        if not all(math.isfinite(x) for pair in res["O"].values() for x in pair):
+            fail(f"evaluate: non-finite EER/minDCF {res}")
+
+    # cli.score: cosine alone and asnorm against the 11,988 rows, top-400;
+    # the printed EER and minDCF equal eval/metrics of the --out file
+    test_scp = os.path.join(out_dir, f"xvector_{os.path.basename(test)}.scp")
+    score_s, printed = {}, {}
+    for name, extra in (("cosine", []), ("asnorm", [
+            "--cohort-weights", os.path.join(artifact, "projection_weight.pkl"),
+            "--topk", str(EVAL_TOPK)])):
+        out = os.path.join(root, f"scores_{name}.txt")
+        (mode, eer, dcf), text, score_s[name], _ = timed_leg(score_cli.main, [
+            "--trials", trials_path, "--xvectors", test_scp, "--out", out] + extra)
+        got = np.loadtxt(out, dtype=str)
+        trials = read_trials(trials_path)
+        if len(got) != EVAL_TRIALS or [tuple(r[:2]) for r in got] != [t[1:] for t in trials]:
+            fail(f"evaluate: {out} does not list the {EVAL_TRIALS} trials in order")
+        eer2, dcf2 = evaluate_trials(trials, got[:, 2].astype(np.float64))
+        want = f"{mode}: EER {eer2:.4f}%  minDCF(p=0.01) {dcf2:.4f}"
+        if text.strip() != want:
+            fail(f"evaluate: cli.score printed {text.strip()!r}, its scores give {want!r}")
+        printed[name] = text.strip()
+
+    # the asnorm cohort statistics on the card against float64 numpy
+    xvec = {u: l2norm(v) for u, v in kaldi_io.read_vec_flt_scp(test_scp)}
+    tmat, _, _ = _trial_index(xvec, read_trials(trials_path))
+    mean, std = cohort_stats(tmat, rows, topk=EVAL_TOPK, device=dev)
+    scores64 = tmat.astype(np.float64) @ rows.astype(np.float64).T
+    top = -np.partition(-scores64, EVAL_TOPK - 1, axis=1)[:, :EVAL_TOPK]
+    err_stats = max(float(np.abs(mean - top.mean(1)).max()), float(np.abs(std - top.std(1)).max()))
+    if err_stats > TOL_COHORT_STATS:
+        fail(f"evaluate: cohort top-{EVAL_TOPK} statistics on the card vs float64: {err_stats}")
+    emit({"phase": "evaluate_score", "trials": EVAL_TRIALS, "cohort_rows": len(rows),
+          "topk": EVAL_TOPK, "score_s": score_s, "printed": printed,
+          "evaluate_s": {"cohort_dir": eval_s, "cohort_weights": eval_w_s},
+          "evaluate": {"cohort_dir": res_dir["O"], "cohort_weights": res_w["O"]},
+          "evaluate_printed": [text_dir.strip().splitlines()[-1], text_w.strip().splitlines()[-1]],
+          "max_abs_err_cohort_stats_vs_float64": err_stats, "tolerance": TOL_COHORT_STATS,
+          "note": "synthetic audio and a model trained for a few steps on random "
+                  "features: the EER checks the plumbing only", "card": smi})
+
+    # 3. a subset through cli.extract: its own plain store, then the bf16
+    # wire and --raw straight from wav.scp, one entry a JSON augmentation spec
+    utts = sorted(host)[:EVAL_SUBSET]
+    spec_utt = utts[1]
+    spec = {"source": os.path.join(test, "wav", f"{spec_utt}.wav"),
+            "rir": os.path.join(root, "rir.wav"),
+            "noises": [{"path": os.path.join(test, "wav", f"{utts[-1]}.wav"), "snr": 10,
+                        "start": 0, "extend": True}]}
+    rir_rng = np.random.RandomState(SEED + 43)
+    rir = rir_rng.randn(4800) * np.exp(-np.arange(4800) / 640.0)
+    rir[40] = 3.0
+    write_wav(os.path.join(root, "rir.wav"), (rir * 8000).astype(np.float32))
+    sub = subset_dir(test, os.path.join(root, "subset"), utts,
+                     {spec_utt: json.dumps(spec, separators=(",", ":"))})
+    compute_features_for_dir(sub, FEAT_DIM, compress=False, device=dev)
+    sub_frames = sum(int(n) for n in datadir.read_two_column(
+        os.path.join(sub, "utt2num_frames")).values())
+    runs = {}
+    for name, extra in (("store", []), ("bf16", ["--wire", "bfloat16"]), ("raw", ["--raw"])):
+        scp_, text, sec, counts = timed_leg(extract_cli.main, [
+            "--artifact", artifact, "--data-dir", sub, "--out", os.path.join(root, f"sub_{name}"),
+            *extra])
+        runs[name] = dict(vectors=dict(kaldi_io.read_vec_flt_scp(scp_)), seconds=sec,
+                          counts=counts, printed=text.strip().splitlines()[0])
+    if runs["raw"]["counts"]["fbank"] == 0:
+        fail(f"evaluate: extract --raw launched no K1: {runs['raw']['counts']}")
+    for name, r in runs.items():  # the default --cmvn (device) runs K7
+        if r["counts"]["sliding_cmvn"] == 0:
+            fail(f"evaluate: default extract ({name}) launched no K7: {r['counts']}")
+    cos_bf16 = min_cos(runs["store"]["vectors"], runs["bf16"]["vectors"])
+    cos_raw = min_cos(runs["store"]["vectors"], runs["raw"]["vectors"])
+    cos_spec_changed = cos(runs["store"]["vectors"][spec_utt], host[spec_utt])
+
+    # the CPU plain path (float32) on the 16 shortest utterances
+    short = sorted(host, key=lambda u: frames[u])[:EVAL_CPU_UTTS]
+    cpu_dir = subset_dir(test, os.path.join(root, "cpu"), short)
+    with kaldi_io.ArkScpWriter(os.path.join(cpu_dir, "fbank80.ark"),
+                               os.path.join(cpu_dir, "fbank80.scp")) as w:
+        for u, m in kaldi_io.read_mat_scp(os.path.join(test, "fbank80.scp")):
+            if u in short:
+                w.write(u, m)
+    fp32 = os.path.join(root, "artifact_fp32")
+    shutil.copytree(artifact, fp32)
+    with open(os.path.join(fp32, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(fp32, "config.json"), "w") as f:
+        json.dump({**cfg, "bf16": False}, f)
+    t0 = time.perf_counter()
+    cpu_scp, _ = quiet(extract_cli.main, [
+        "--artifact", fp32, "--data-dir", cpu_dir, "--out", os.path.join(root, "cpu_xv"),
+        "--batch-size", str(EVAL_CPU_UTTS), "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    cos_cpu = min_cos(dict(kaldi_io.read_vec_flt_scp(cpu_scp)), host, short)
+    emit({"phase": "evaluate_subset", "utterances": len(utts), "audio_s": sub_frames / 100.0,
+          "spec_utterance": spec_utt, "renderer": runs["raw"]["printed"],
+          **{name: {k: v for k, v in r.items() if k not in ("vectors", "printed")}
+             for name, r in runs.items()},
+          "min_cos_bf16_vs_float32_wire": cos_bf16, "min_cos_raw_vs_store": cos_raw,
+          "cos_spec_vs_plain_wav": cos_spec_changed, "cpu_utterances": len(short),
+          "cpu_s": cpu_s, "min_cos_gpu_bf16_vs_cpu_fp32": cos_cpu,
+          "tolerance": {"wire_raw": TOL_EXTRACT_COS, "cpu": TOL_CPU_COS}, "card": smi})
+    if cos_bf16 < TOL_EXTRACT_COS or cos_raw < TOL_EXTRACT_COS or cos_cpu < TOL_CPU_COS:
+        fail(f"evaluate: bf16 wire {cos_bf16}, raw {cos_raw}, GPU vs CPU {cos_cpu}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "evaluate", "seconds": seconds, "export_s": export_s,
+          "featurize_audio_s_per_s": store_audio_s / feat_s,
+          "extract_audio_s_per_s_median": extract_rate, "score_s": score_s,
+          "k7": {k: k7[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                                    "plain_device_ms", "per")}, "card": smi})
+    return legs["device"][0]["counts"]
 
 
 # ----------------------------------------------------------------------
@@ -1356,6 +1787,7 @@ def main() -> int:
     with torch.inference_mode():
         rows = [check_fbank(dev, gen), check_split(dev, gen, k2, cfg.split),
                 check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head, train_head)]
+        cmvn_row = check_sliding_cmvn(dev)
     per_forward = {"split_conv": split_launches(k2, cfg.split),
                    "bn_act": sum(k3.values()), "stats_pool": 1}
 
@@ -1377,8 +1809,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         state, train_cfg, train_counts = train_phase(dev, per_microbatch, smi)
         train_parity_phase(dev)
-        lmft_counts, lmft_per_microbatch = lmft_phase(dev, state, smi, workdir)
+        lmft_counts, lmft_per_microbatch, lmft_exp = lmft_phase(dev, state, smi, workdir)
         export_phase(dev, state, train_cfg, workdir)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        eval_counts = evaluate_phase(dev, lmft_exp, workdir, smi, cmvn_row)
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["name"] in per_forward:
@@ -1397,7 +1833,10 @@ def main() -> int:
                 phase: sum(v for k, v in c.items() if k.startswith("margin_ce.") and
                            k.endswith(f":{path}"))
                 for phase, c in (("train", train_counts), ("lmft", lmft_counts))}
-    emit({"kernels": rows + train_rows})
+    # K7's main path: cli.extract --cmvn device over the evaluate phase's test set
+    cmvn_row["launches"] = eval_counts["sliding_cmvn"]
+    cmvn_row["launches_on"] = "evaluate phase, cli.extract --cmvn device over the test set"
+    emit({"kernels": rows + train_rows + [cmvn_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

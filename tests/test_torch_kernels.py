@@ -22,6 +22,7 @@ from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
     margin_ce, margin_ce_plan, margin_ce_reference)
 from voxsrc2020_speaker_verification_tpu_torch.models.res2net import (
     split_chain, split_chain_reference)
+from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn as tcmvn
 from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops
 
@@ -43,6 +44,7 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     (y.sum() + tops.stats_pool(xg).sum()).backward()
     cos = torch.rand(2, 3, 7, requires_grad=True)
     margin_ce(cos, torch.tensor([0, 3, 6]), 32.0, 0.2)[0].sum().backward()
+    tcmvn.sliding_cmvn(torch.randn(2, 40, 5), torch.tensor([40, 17]), window=9, norm_vars=True)
     assert kernels.launch_counts() == before
     assert {k.name for k in kernels.KERNELS} == set(before)
 
@@ -668,3 +670,98 @@ def test_remat_step_on_the_card_updates_bn_once(cuda, policy):
     for k, v in plain.batch_stats.items():
         assert torch.equal(remat.batch_stats[k], v), k
     assert abs(lr_ - lp) <= 1e-5 * abs(lp)
+
+
+def cmvn_loop_float64(x: np.ndarray, n: int, window: int, center: bool, norm_vars: bool,
+                      min_window: int) -> np.ndarray:
+    """Sliding CMVN of one (T, F) utterance with n valid frames, frame by
+    frame in float64 (the window rule of ops/cmvn.py's docstring)."""
+    t_len = x.shape[0]
+    out = np.empty_like(x)
+    xd = x.astype(np.float64)
+    for t in range(t_len):
+        if center:
+            s = min(max(t - window // 2, 0), max(0, n - window))
+            e = min(s + window, n)
+        else:
+            e = min(max(t + 1, min(min_window, n)), n)
+            s = min(max(t - window + 1, 0), max(e - window, 0))
+        w = xd[s:e]
+        mean = w.sum(0) / max(e - s, 1)
+        y = xd[t] - mean
+        if norm_vars:
+            y = y / np.sqrt(np.maximum((w * w).sum(0) / max(e - s, 1) - mean * mean, 1e-10))
+        out[t] = y
+    return out.astype(np.float32)
+
+
+# K7 at the shapes cli/extract.py --cmvn device gives it: batches of 8 at
+# every bucket (500-16000 frames, padded rows), and one utterance beyond
+# the largest bucket alone at its exact length (60,000 frames)
+CMVN_CASES = [(8, t) for t in (500, 1000, 2000, 4000, 8000, 16000)] + [(1, 60000)]
+
+
+@pytest.mark.cuda
+def test_sliding_cmvn_kernel_matches_plain_at_every_shape(cuda):
+    """K7 against the float64 plain version within 1e-5 absolute, one
+    launch a call, centred at every extraction shape; every flag (trailing,
+    norm_vars, min_window, no num_valid) at two of them."""
+    from voxsrc2020_speaker_verification_tpu_torch.data.dataset import sliding_cmn_np
+
+    rng = np.random.RandomState(0)
+    flags = [dict(center=True, norm_vars=False)]
+    for b, t in CMVN_CASES:
+        x = (rng.randn(b, t, 80) * 3 + 12).astype(np.float32)
+        n = np.array([t] + list(rng.randint(1, t + 1, b - 1)), np.int32)
+        xs, ns = torch.from_numpy(x).to(cuda), torch.from_numpy(n).to(cuda)
+        cases = flags if t not in (2000, 60000) else flags + [
+            dict(center=False, norm_vars=False), dict(center=True, norm_vars=True),
+            dict(center=False, norm_vars=True, min_window=50), dict(window=301)]
+        for kw in cases:
+            before = kernels.SLIDING_CMVN.launches
+            got = tcmvn.sliding_cmvn(xs, ns, **kw)
+            assert kernels.SLIDING_CMVN.launches - before == 1, (b, t, kw)
+            want = tcmvn.sliding_cmvn_reference(xs, ns, **kw)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
+                                       msg=lambda m: f"{(b, t, kw)}: {m}")
+        # the host's float64 CMN of each utterance, on its valid frames
+        got = tcmvn.sliding_cmvn(xs, ns).cpu().numpy()
+        for i in range(b):
+            np.testing.assert_allclose(got[i, :n[i]], sliding_cmn_np(x[i, :n[i]]),
+                                       rtol=0, atol=1e-5, err_msg=str((b, t, i)))
+        del xs, ns
+    # all frames valid, and a frame-by-frame float64 loop at a short length
+    x = (rng.randn(2, 700, 80) * 3 + 12).astype(np.float32)
+    for kw in (dict(center=True, norm_vars=True), dict(center=False, norm_vars=False)):
+        got = tcmvn.sliding_cmvn(torch.from_numpy(x).to(cuda), **kw).cpu().numpy()
+        for i in range(2):
+            want = cmvn_loop_float64(x[i], 700, 300, min_window=100, **kw)
+            np.testing.assert_allclose(got[i], want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sliding_cmvn_kernel_reruns_bit_for_bit(cuda):
+    """Each output's sums run in one order: two runs agree bit for bit."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy((rng.randn(8, 4000, 80) * 3 + 12).astype(np.float32)).to(cuda)
+    n = torch.from_numpy(rng.randint(1, 4001, 8).astype(np.int32)).to(cuda)
+    for kw in (dict(), dict(center=False, norm_vars=True)):
+        assert torch.equal(tcmvn.sliding_cmvn(x, n, **kw), tcmvn.sliding_cmvn(x, n, **kw))
+
+
+@pytest.mark.cuda
+def test_sliding_cmvn_kernel_never_takes_the_plain_path(cuda, monkeypatch):
+    """On a CUDA tensor every flag goes to K7: the plain version is never
+    called, and a dtype K7 does not take raises."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(tcmvn, "sliding_cmvn_reference", plain)
+    x = torch.randn(3, 900, 80, device=cuda) + 5
+    n = torch.tensor([900, 400, 3], device=cuda)
+    for kw in (dict(), dict(center=False), dict(norm_vars=True), dict(min_window=10),
+               dict(window=17, center=False, norm_vars=True)):
+        assert torch.isfinite(tcmvn.sliding_cmvn(x, n, **kw)).all()
+        assert torch.isfinite(tcmvn.sliding_cmvn(x[0], **kw)).all()
+    with pytest.raises(kernels.KernelError):
+        tcmvn.sliding_cmvn(x.bfloat16(), n)

@@ -3,10 +3,11 @@ NVIDIA H100 (Hopper, ``sm_90a``).
 
 The JAX package beside this one is the reference and is imported nowhere
 here. This package serves Res2Net embeddings and verification scores
-(``eval/serving.py``, ``cli/serve.py``) and trains the Res2Net family on
-features (``training/``, ``cli/train.py``); its device work goes through
-seven hand-written CUDA kernels (``csrc/``, built at first use by
-``kernels.py``).
+(``eval/serving.py``, ``cli/serve.py``), trains the Res2Net family on
+features (``training/``, ``cli/train.py``) and evaluates what it trained
+(``cli/export.py``, ``cli/extract.py``, ``cli/score.py``,
+``cli/evaluate.py``); its device work goes through eight hand-written CUDA
+kernels (``csrc/``, built at first use by ``kernels.py``).
 
 Entry points run on the GPU unless the caller asks for the CPU: ``device=None``
 means ``"cuda"``, and with no CUDA device they raise. On a CPU tensor every

@@ -10,8 +10,13 @@ call fills an optimizer step's batch. ``kaldi_io`` and
 
 The library is built on first use by ``make -C native`` into
 ``native/libvox_io.so`` (under the lock file ``native/.build.lock``, so
-processes that start together build it once) and loaded from there. The
-raw-audio feeder of the same library is not bound here yet (ROADMAP.md).
+processes that start together build it once) and loaded from there.
+``read_wav`` and ``render_spec`` bind the library's wav reader
+(``native/vox_io.cc``) and augmentation-spec renderer
+(``native/vox_raw.cc``), the C++ versions of
+``data/audio.py:read_wav`` (16-bit PCM only) and
+``data/augment.py:load_utterance``. The raw-audio feeder of the same library
+is not bound here yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import os
 import subprocess
 import threading
 import warnings
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +78,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.vox_read_vec.restype = ctypes.c_int
         lib.vox_read_vec.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                      ctypes.POINTER(f32p), i32p]
+        for fn in ("vox_read_wav", "vox_render_spec"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = [ctypes.c_char_p, ctypes.POINTER(f32p),
+                                         ctypes.POINTER(ctypes.c_int64), i32p]
         lib.vox_free.restype = None
         lib.vox_free.argtypes = [ctypes.c_void_p]
         lib.vox_feeder_create.restype = ctypes.c_void_p
@@ -137,6 +146,29 @@ def read_vec(path: str, offset: int = 0) -> np.ndarray:
     if rc != 0:
         raise IOError(f"vox_read_vec({path}:{offset}) failed: {rc}")
     return _take(lib, out, (n.value,))
+
+
+def _wave_call(fn: str, arg: str) -> Tuple[np.ndarray, int]:
+    lib = _lib_or_raise()
+    out = ctypes.POINTER(ctypes.c_float)()
+    n, sr = ctypes.c_int64(), ctypes.c_int32()
+    rc = getattr(lib, fn)(arg.encode(), ctypes.byref(out), ctypes.byref(n), ctypes.byref(sr))
+    if rc != 0:
+        raise IOError(f"{fn}({arg[:120]!r}) failed: {rc}")
+    return _take(lib, out, (n.value,)), sr.value
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    """16-bit PCM wav -> (float32 samples in int16 scale, sample_rate);
+    channels averaged to mono. Other sample widths raise IOError."""
+    return _wave_call("vox_read_wav", path)
+
+
+def render_spec(rxwav: str) -> Tuple[np.ndarray, int]:
+    """One wav.scp value (a wav path or a JSON augmentation spec) ->
+    (samples, sample_rate), rendered in C++ as
+    ``data/augment.py:load_utterance`` renders it in Python."""
+    return _wave_call("vox_render_spec", rxwav)
 
 
 def _cmvn_rows(cmvn_pkl: str, feat_dim: int):

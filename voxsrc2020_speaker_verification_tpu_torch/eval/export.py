@@ -9,7 +9,10 @@ An artifact directory holds:
   classifier kernel [K, emb, C] -> swapaxes(-1, -2) -> (K*C, emb) ->
   row-l2norm.
 
-A JAX artifact's variables convert with ``convert.from_flax``.
+``export_inference_artifact`` writes one from a training state, always with
+``projection_weight.pkl``. A JAX artifact (orbax ``variables/``) converts
+with ``scripts/jax_artifact_to_torch.py``, which runs where JAX is installed
+(``convert.from_flax``).
 """
 
 from __future__ import annotations
@@ -60,6 +63,21 @@ def save_inference_artifact(
         export_projection_weights(
             projection_params, os.path.join(out_dir, "projection_weight.pkl"))
     return out_dir
+
+
+def export_inference_artifact(config: TrainConfig, state, out_dir: str) -> str:
+    """Write the artifact of a training ``TrainState``
+    (``training/trainer.py``): the encoder's weights, the config with the
+    state's step, and the projection rows as ``projection_weight.pkl``.
+
+    The JAX package's version can also serialize StableHLO embed functions
+    per bucket shape (``stablehlo_buckets``); the port has no counterpart
+    (ROADMAP.md)."""
+    sd = {k: v for k, v in state.net.state_dict().items() if k.startswith("encoder.")}
+    kernel = state.net.projection.kernel.detach().float().cpu().numpy()
+    return save_inference_artifact(config, sd, out_dir,
+                                   projection_params={"projection": {"kernel": kernel}},
+                                   step=state.step)
 
 
 def load_inference_artifact(

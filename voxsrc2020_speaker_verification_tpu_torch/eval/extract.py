@@ -67,20 +67,29 @@ def select_bucket(buckets: Sequence[int], length: int,
 def pack_chunk_batch(chunks, bucket: int, feat_dim: int,
                      wire_dtype: Optional[torch.dtype] = None):
     """Zero-pad chunk rows into one (B, bucket, F) feats + (B, bucket) mask
-    pair of CPU tensors. ``chunks`` iterates (length, (length, F) feats).
+    pair. ``chunks`` iterates (length, (length, F) feats): numpy rows pack
+    into CPU tensors, tensor rows (features already on the device) pack
+    where they lie.
 
     ``wire_dtype=torch.bfloat16`` packs the features in bf16 (round to
-    nearest even), halving the host->device copy; the embed fn upcasts to
-    float32 on the device, so for a bf16-compute model this equals the fp32
-    wire."""
+    nearest even), halving the host->device copy of numpy rows; the embed
+    fn upcasts to float32 on the device, so for a bf16-compute model this
+    equals the fp32 wire."""
     chunks = list(chunks)
-    f = np.zeros((len(chunks), bucket, feat_dim), np.float32)
     m = np.zeros((len(chunks), bucket), np.float32)
-    for i, (length, feats) in enumerate(chunks):
-        f[i, :length] = feats
+    for i, (length, _) in enumerate(chunks):
         m[i, :length] = 1.0
-    f = torch.from_numpy(f)
-    return (f if wire_dtype is None else f.to(wire_dtype)), torch.from_numpy(m)
+    if chunks and isinstance(chunks[0][1], torch.Tensor):
+        f = torch.zeros((len(chunks), bucket, feat_dim), device=chunks[0][1].device)
+        for i, (length, feats) in enumerate(chunks):
+            f[i, :length] = feats
+        m = torch.from_numpy(m).to(f.device)
+    else:
+        f = np.zeros((len(chunks), bucket, feat_dim), np.float32)
+        for i, (length, feats) in enumerate(chunks):
+            f[i, :length] = feats
+        f, m = torch.from_numpy(f), torch.from_numpy(m)
+    return (f if wire_dtype is None else f.to(wire_dtype)), m
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -100,7 +109,8 @@ def extract_embeddings(
     """Extract one embedding per utterance.
 
     embed_fn(feats (B, T, F), mask (B, T)) -> (B, D).
-    features: iterable of (utt, (T, F) CMVN'd features).
+    features: iterable of (utt, (T, F) CMVN'd features), numpy arrays or
+    tensors on the embed fn's device.
     """
     buckets = sorted(set(list(buckets) + [max_frames]))
 

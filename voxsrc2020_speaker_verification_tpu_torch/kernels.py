@@ -13,8 +13,8 @@ and only then adds one to the kernel's launch count (and to the count of
 that C function: a kernel with a forward and a backward entry counts each;
 an entry whose C code picks between kernels by shape is counted by the path
 its wrapper was told it takes, ``"<function>:<path>"``).
-The counts are what ``chip_smoke.py`` reads to show that the serving and
-training paths went through the kernels.
+The counts are what ``chip_smoke.py`` reads to show that the serving,
+training and evaluation paths went through the kernels.
 """
 
 from __future__ import annotations
@@ -186,8 +186,11 @@ MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "margin_ce_plan": [_I, _I, ctypes.POINTER(_I)],
 }, paths={"margin_ce_fwd": ("slab", "stream"), "margin_ce_bwd": ("slab", "stream")})
+SLIDING_CMVN = CudaKernel("sliding_cmvn", "sliding_cmvn.cu", {
+    "sliding_cmvn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+})
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
-           MARGIN_CE)
+           MARGIN_CE, SLIDING_CMVN)
 
 
 def build_all(kernels: Sequence[CudaKernel] = KERNELS) -> float:
