@@ -136,6 +136,8 @@ TOL_PARITY = {"loss": 1e-4, "gradient_norm": 1e-3, "update": 1e-3, "batch_stats"
 # K7 (sliding CMVN) at cli/extract.py's buckets and one longer utterance,
 # against float64 (absolute, on features of 12 +- 3)
 CMVN_BATCH, CMVN_BUCKETS, CMVN_LONG = 8, (500, 1000, 2000, 4000, 8000, 16000), 60000
+CMVN_PAST_N = 8001  # a row of the largest bucket: its tile at 15,000 reads rows 7,701-8,000
+CMVN_FLAGS = [dict(), dict(center=False), dict(norm_vars=True), dict(center=False, norm_vars=True)]
 TOL_CMVN = 1e-5
 # the evaluation leg: a test set shaped like VoxCeleb1-O (whose test
 # side has 4,874 utterances of 40 speakers and 37,720 trials, half targets),
@@ -853,11 +855,15 @@ def check_margin_ce_stream(dev, gen):
 
 def check_sliding_cmvn(dev):
     """K7 at the shapes ``cli.extract --cmvn device`` gives it: a batch of
-    CMVN_BATCH at every bucket with padded rows, and one utterance beyond
-    the largest bucket at its exact length (60,000 frames); against the host's
-    float64 ``sliding_cmn_np`` on every valid frame and against the float64
-    plain version on every frame; reruns bit for bit; timed at the largest
-    bucket."""
+    CMVN_BATCH at every bucket with padded rows (at the largest bucket one
+    row of CMVN_PAST_N frames, whose tiles past n read the last window far
+    to their left), and one utterance beyond the largest bucket at its exact
+    length (60,000 frames); centred and trailing, with and without
+    norm_vars, against the float64 plain version on every frame, and the
+    centred CMN against the host's float64 ``sliding_cmn_np`` on every valid
+    frame; one launch a call; reruns bit for bit. Device time of the kernel
+    and of the plain version at every shape (centred CMN, the extraction's
+    flags), and the kernel with norm_vars at the largest bucket."""
     from voxsrc2020_speaker_verification_tpu_torch import kernels
     from voxsrc2020_speaker_verification_tpu_torch.data.dataset import sliding_cmn_np
     from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn
@@ -868,41 +874,58 @@ def check_sliding_cmvn(dev):
     for b, t in shapes:
         x = (rng.randn(b, t, FEAT_DIM) * 3 + 12).astype(np.float32)
         n = np.array([t] + list(rng.randint(1, t + 1, b - 1)), np.int32)
+        if t == CMVN_BUCKETS[-1]:
+            n[1] = CMVN_PAST_N
         xs, ns = torch.from_numpy(x).to(dev), torch.from_numpy(n).to(dev)
-        before = kernels.SLIDING_CMVN.launches
-        got = cmvn.sliding_cmvn(xs, ns)
-        if kernels.SLIDING_CMVN.launches - before != 1:
-            fail(f"sliding_cmvn at {(b, t)}: {kernels.SLIDING_CMVN.launches - before} "
-                 "K7 launches, expected 1")
-        err_plain = max(err_plain, abs_err(got, cmvn.sliding_cmvn_reference(xs, ns)))
-        if not torch.equal(got, cmvn.sliding_cmvn(xs, ns)):
-            fail(f"sliding_cmvn: two runs at {(b, t)} differ")
-        got = got.cpu().numpy()
+        for kw in CMVN_FLAGS:
+            before = kernels.SLIDING_CMVN.launches
+            got = cmvn.sliding_cmvn(xs, ns, **kw)
+            if kernels.SLIDING_CMVN.launches - before != 1:
+                fail(f"sliding_cmvn at {(b, t, kw)}: {kernels.SLIDING_CMVN.launches - before} "
+                     "K7 launches, expected 1")
+            err_plain = max(err_plain, abs_err(got, cmvn.sliding_cmvn_reference(xs, ns, **kw)))
+            if not torch.equal(got, cmvn.sliding_cmvn(xs, ns, **kw)):
+                fail(f"sliding_cmvn: two runs at {(b, t, kw)} differ")
+        got = cmvn.sliding_cmvn(xs, ns).cpu().numpy()
         err_host = max(err_host, max(float(np.abs(got[i, :n[i]] - sliding_cmn_np(x[i, :n[i]])).max())
                                      for i in range(b)))
     if max(err_host, err_plain) > TOL_CMVN:
         fail(f"sliding_cmvn: max |kernel - float64| {err_host} (host), {err_plain} (plain) "
              f"> {TOL_CMVN}")
+    by_shape = {}
+    for b, t in shapes:
+        x = torch.from_numpy((rng.randn(b, t, FEAT_DIM) * 3 + 12).astype(np.float32)).to(dev)
+        n = torch.from_numpy(rng.randint(t // 2, t + 1, b).astype(np.int32)).to(dev)
+        # bytes: x read once, y written once, the counts read; ~8 float64
+        # operations a frame and bin (the prefixes, the mean, the difference)
+        bms, by = bound_ms(2 * 4 * x.numel() + 4 * b, 8.0 * x.numel(), torch.float64)
+        row = dict(device_ms=device_ms(lambda: cmvn.sliding_cmvn(x, n), "sliding_cmvn_kernel"),
+                   plain_device_ms=device_ms(lambda: cmvn.sliding_cmvn_reference(x, n)),
+                   bound_ms=bms, bound_by=by,
+                   plan={k: v for k, v in cmvn.sliding_cmvn_plan(
+                       b, t, FEAT_DIM, 300, True, False, 100, kernels.num_sms(dev)).items()
+                         if k in ("tt", "fb", "grid", "smem")})
+        if (b, t) == (CMVN_BATCH, CMVN_BUCKETS[-1]):
+            timed = dict(row, ms=time_ms(lambda: cmvn.sliding_cmvn(x, n), reps=20),
+                         plain_ms=time_ms(lambda: cmvn.sliding_cmvn_reference(x, n), reps=20),
+                         device_ms_norm_vars=device_ms(
+                             lambda: cmvn.sliding_cmvn(x, n, norm_vars=True),
+                             "sliding_cmvn_kernel"))
+        by_shape[f"{b}x{t}"] = row
     b, t = CMVN_BATCH, CMVN_BUCKETS[-1]
-    x = torch.from_numpy((rng.randn(b, t, FEAT_DIM) * 3 + 12).astype(np.float32)).to(dev)
-    n = torch.from_numpy(rng.randint(t // 2, t + 1, b).astype(np.int32)).to(dev)
-    # bytes: x read once, y written once, the counts read; ~8 float64
-    # operations a frame and bin (the slid sums, the mean, the difference)
-    bms, by = bound_ms(2 * 4 * x.numel() + 4 * b, 8.0 * x.numel(), torch.float64)
     return dict(name="sliding_cmvn", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/sliding_cmvn.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/cmvn.py:29 "
                          "(sliding_cmvn, XLA)",
                 max_abs_err=max(err_host, err_plain), max_abs_err_vs_host_float64=err_host,
                 max_abs_err_vs_plain_float64=err_plain, tolerance=TOL_CMVN, dtype="float32",
-                checked_shapes=[[b_, t_, FEAT_DIM] for b_, t_ in shapes],
-                reruns_bit_equal=True, per=f"one ({b}, {t}, {FEAT_DIM}) batch, centred, "
-                                           "window 300",
-                ms=time_ms(lambda: cmvn.sliding_cmvn(x, n), reps=20),
-                device_ms=device_ms(lambda: cmvn.sliding_cmvn(x, n), "sliding_cmvn_kernel"),
-                plain_ms=time_ms(lambda: cmvn.sliding_cmvn_reference(x, n), reps=20),
-                plain_device_ms=device_ms(lambda: cmvn.sliding_cmvn_reference(x, n)),
-                bound_ms=bms, bound_by=by, library_ms=None,
+                checked_shapes=[[b_, t_, FEAT_DIM] for b_, t_ in shapes], checked_flags=CMVN_FLAGS,
+                past_n=CMVN_PAST_N, reruns_bit_equal=True,
+                per=f"one ({b}, {t}, {FEAT_DIM}) batch, centred, window 300",
+                ms=timed["ms"], device_ms=timed["device_ms"], plain_ms=timed["plain_ms"],
+                plain_device_ms=timed["plain_device_ms"], bound_ms=timed["bound_ms"],
+                bound_by=timed["bound_by"], device_ms_norm_vars=timed["device_ms_norm_vars"],
+                by_shape=by_shape, library_ms=None,
                 library_note="none: no single PyTorch call computes a sliding-window "
                              "mean over time")
 
@@ -1478,6 +1501,14 @@ def evaluate_phase(dev, exp_dir, workdir, smi, k7):
     if len(host) != n_test or bad:
         fail(f"evaluate: {len(host)} embeddings of {n_test}, bad shape or non-finite: {bad[:5]}")
     cos_cmvn = min(min_cos(host, leg["vectors"]) for leg in legs["device"])
+    # K7's launches by shape, from the lengths written, must be the counted
+    # ones; with K7's device time at each shape they give its sum over the leg
+    mix = {f"{b}x{t}": c for (b, t), c in extract_cli.cmvn_launch_mix(frames.values()).items()}
+    if sum(mix.values()) != legs["device"][0]["counts"]["sliding_cmvn"]:
+        fail(f"evaluate: K7 launches by shape {mix} vs counted {legs['device'][0]['counts']}")
+    timed = all(k in k7["by_shape"] for k in mix)
+    k7_sum, k7_bound = ((sum(c * k7["by_shape"][k][m] for k, c in mix.items())
+                         for m in ("device_ms", "bound_ms")) if timed else (None, None))
     extract_rate = {m: statistics.median(leg["audio_s_per_s"] for leg in runs_)
                     for m, runs_ in legs.items()}
     emit({"phase": "evaluate_extract", "utterances": n_test, "audio_s": store_audio_s,
@@ -1486,7 +1517,10 @@ def evaluate_phase(dev, exp_dir, workdir, smi, k7):
              for m, runs_ in legs.items()},
           "audio_s_per_s_median": extract_rate,
           "min_cos_device_vs_host_cmvn": cos_cmvn, "tolerance": TOL_EXTRACT_COS,
-          "note": "each call loads the artifact and builds the model", "card": smi})
+          "k7_launches_by_shape": mix, "k7_device_ms_sum": k7_sum, "k7_bound_ms_sum": k7_bound,
+          "note": "each call loads the artifact and builds the model; k7_*_sum is the "
+                  "launches at each shape times K7's device ms (bound) there (kernels line)",
+          "card": smi})
     if cos_cmvn < TOL_EXTRACT_COS:
         fail(f"evaluate: --cmvn device vs host, min cosine {cos_cmvn}")
 
@@ -1614,7 +1648,9 @@ def evaluate_phase(dev, exp_dir, workdir, smi, k7):
           "featurize_audio_s_per_s": store_audio_s / feat_s,
           "extract_audio_s_per_s_median": extract_rate, "score_s": score_s,
           "k7": {k: k7[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
-                                    "plain_device_ms", "per")}, "card": smi})
+                                    "plain_device_ms", "per")},
+          "k7_launches_by_shape": mix, "k7_device_ms_sum": k7_sum, "k7_bound_ms_sum": k7_bound,
+          "card": smi})
     return legs["device"][0]["counts"]
 
 

@@ -100,3 +100,40 @@ def test_sliding_cmvn_refuses_bad_arguments():
         tcmvn.sliding_cmvn(x, torch.tensor([10, 9, 8]))
     with pytest.raises(ValueError):
         tcmvn.sliding_cmvn(torch.zeros(10))
+
+
+@pytest.mark.parametrize("center", [True, False], ids=["centred", "trailing"])
+def test_window_at_is_window_bounds_frame_by_frame(center):
+    """K7's scalar window rule (``window_at``, as csrc/sliding_cmvn.cu
+    computes it) is the plain version's ``window_bounds`` at every frame."""
+    t, ns = 700, [0, 1, 99, 150, 299, 300, 301, 450, 699, 700]
+    for mw in (100, 450):
+        start, end = tcmvn.window_bounds(t, torch.tensor(ns), 300, center, mw)
+        for i, n in enumerate(ns):
+            got = [tcmvn.window_at(f, n, 300, center, mw) for f in range(t)]
+            assert got == list(zip(start[i].tolist(), end[i].tolist())), (n, mw)
+
+
+def test_cmvn_launch_mix_is_the_streams_launches(monkeypatch):
+    """``cli.extract.cmvn_launch_mix`` gives the (rows, T) of every
+    sliding_cmvn call that ``cmvn_full_stream`` makes: bucket batches of 8
+    (tails padded) and an utterance beyond the largest bucket alone."""
+    from collections import Counter
+
+    from voxsrc2020_speaker_verification_tpu_torch.cli import extract
+
+    calls = Counter()
+    plain = tcmvn.sliding_cmvn
+
+    def record(feats_, num_valid=None, **kw):
+        calls[tuple(feats_.shape[:2])] += 1
+        return plain(feats_, num_valid, **kw)
+
+    monkeypatch.setattr(tcmvn, "sliding_cmvn", record)
+    rng = np.random.RandomState(5)
+    lengths = list(rng.randint(20, 400, 30)) + [401, 900, 950]
+    buckets = (100, 200, 400)
+    stream = ((str(i), np.zeros((n, 4), np.float32)) for i, n in enumerate(lengths))
+    out = list(extract.cmvn_full_stream(stream, window=9, bucket_frames=buckets, device="cpu"))
+    assert [u for u, _ in out] != [] and sorted(int(u) for u, _ in out) == list(range(len(lengths)))
+    assert extract.cmvn_launch_mix(lengths, bucket_frames=buckets) == dict(calls)

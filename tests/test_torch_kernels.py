@@ -765,3 +765,110 @@ def test_sliding_cmvn_kernel_never_takes_the_plain_path(cuda, monkeypatch):
         assert torch.isfinite(tcmvn.sliding_cmvn(x[0], **kw)).all()
     with pytest.raises(kernels.KernelError):
         tcmvn.sliding_cmvn(x.bfloat16(), n)
+
+
+# K7's tile design (ops/cmvn.py:sliding_cmvn_plan): each CTA stages the rows
+# its tile's windows cover, from the utterance's own n. Absolute tolerance
+# against float64 on features of 12 +- 3.
+TOL_CMVN = 1e-5
+
+
+def cmvn_case(cuda, x, n, loop_rows=(), **kw):
+    """One K7 call against the float64 plain version on every frame and the
+    frame-by-frame float64 loop on ``loop_rows``; one launch, and a rerun
+    bit for bit. Where norm_vars floors the variance (n <= 1), y is (x -
+    mean) * 1e5, whose float32 spacing is 0.125: TOL_CMVN plus one float32
+    rounding of y (rtol 2**-23), since the two float64 references already
+    round such y apart (one multiplies by rsqrt, one divides by sqrt)."""
+    xs = torch.from_numpy(x).to(cuda)
+    ns = None if n is None else torch.from_numpy(np.asarray(n, np.int32)).to(cuda)
+    before = kernels.SLIDING_CMVN.launches
+    got = tcmvn.sliding_cmvn(xs, ns, **kw)
+    assert kernels.SLIDING_CMVN.launches - before == 1, kw
+    assert torch.equal(got, tcmvn.sliding_cmvn(xs, ns, **kw)), kw
+    floored = kw.get("norm_vars", False) and n is not None and min(n) <= 1
+    rtol = 2.0 ** -23 if floored else 0.0
+    torch.testing.assert_close(got, tcmvn.sliding_cmvn_reference(xs, ns, **kw), rtol=rtol,
+                               atol=TOL_CMVN, msg=lambda m: f"{x.shape} n={n} {kw}: {m}")
+    got = got.cpu().numpy()
+    args = dict(window=300, center=True, norm_vars=False, min_window=100)
+    args.update(kw)
+    for i in loop_rows:
+        ni = x.shape[1] if n is None else min(max(int(n[i]), 0), x.shape[1])
+        np.testing.assert_allclose(got[i], cmvn_loop_float64(x[i], ni, **args), rtol=rtol,
+                                   atol=TOL_CMVN, err_msg=f"{x.shape} row {i} n={ni} {kw}")
+
+
+def cmvn_feats(seed, b, t, f=80):
+    return (np.random.RandomState(seed).randn(b, t, f) * 3 + 12).astype(np.float32)
+
+
+K7_FLAGS = [dict(center=c, norm_vars=v) for c in (True, False) for v in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", K7_FLAGS,
+                         ids=lambda kw: f"center{kw['center']:d}-vars{kw['norm_vars']:d}")
+def test_sliding_cmvn_kernel_at_tile_edges_and_past_n(cuda, kw):
+    """Valid counts at the plan's tile edges +- 1, at w - 1, w, w + 1, 0, 1
+    and T, at lengths of one frame, around w and around the tile size (both
+    plans: 256 frames x 16 bins, 512 x 8); and an 8001-frame row in the
+    16,000 bucket, whose tiles past n (8,192 on) stage the last window, rows
+    7,701-8,000, up to 7,800 rows to their left."""
+    for b, t in ((9, 1), (9, 299), (9, 300), (9, 301), (9, 255), (9, 257), (9, 1023),
+                 (9, 1025), (40, 513)):
+        tt = tcmvn.sliding_cmvn_plan(b, t, 80, 300, kw["center"], kw["norm_vars"])["tt"]
+        n = [0, 1, 299, 300, 301, tt - 1, tt, tt + 1, t] + list(range(t, t - b + 9, -1))
+        cmvn_case(cuda, cmvn_feats(t, b, t), n, loop_rows=range(9), **kw)
+    t = 16000
+    tt = tcmvn.sliding_cmvn_plan(8, t, 80, 300, kw["center"], kw["norm_vars"])["tt"]
+    n = [t, 8001, 30 * tt - 1, 30 * tt + 1, tt - 1, tt + 1, 301, 0]
+    cmvn_case(cuda, cmvn_feats(7, 8, t), n, loop_rows=(1,), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm_vars", [False, True])
+@pytest.mark.parametrize("min_window", [100, 250, 450])
+def test_sliding_cmvn_kernel_trailing_min_window_above_n(cuda, norm_vars, min_window):
+    """The trailing rule where n < min_window (every window is [0, n)), at
+    min_window below and above w (then one window holds up to min_window
+    rows, and the tile's extent reach grows with it)."""
+    n = [50, 99, 249, 449, 700, 0, 1, 300]
+    cmvn_case(cuda, cmvn_feats(min_window, 8, 700), n, loop_rows=range(8), center=False,
+              norm_vars=norm_vars, min_window=min_window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", CMVN_CASES)
+def test_sliding_cmvn_kernel_norm_vars_at_every_bucket(cuda, b, t):
+    """norm_vars, centred and trailing, at every extraction shape."""
+    rng = np.random.RandomState(t)
+    n = [t] + list(rng.randint(2, t + 1, b - 1))
+    x = cmvn_feats(t + 1, b, t)
+    for center in (True, False):
+        cmvn_case(cuda, x, n, loop_rows=(1,) if t <= 2000 else (), center=center,
+                  norm_vars=True)
+
+
+@pytest.mark.cuda
+def test_sliding_cmvn_kernel_no_valid_frames(cuda):
+    """n = 0 in every row: the window is empty (count 1, sums 0), so y = x,
+    or x * 1e5 under the floored variance."""
+    x = cmvn_feats(3, 3, 500)
+    for kw in K7_FLAGS:
+        cmvn_case(cuda, x, [0, 0, 0], loop_rows=range(3), **kw)
+
+
+@pytest.mark.cuda
+def test_sliding_cmvn_kernel_other_widths_and_long_windows(cuda):
+    """Bin counts that are not a multiple of 16 (30: a group of 14) or of 4
+    (5: 4-byte copies), and windows whose extent does not fit shared memory
+    (the plan's unstaged path, rows read from global memory)."""
+    for f, kw in ((30, dict()), (5, dict(center=False, norm_vars=True)), (30, dict(window=9))):
+        cmvn_case(cuda, cmvn_feats(f, 3, 400, f), [400, 123, 7], loop_rows=range(3), **kw)
+    for kw in (dict(window=6000), dict(window=4500, center=False, norm_vars=True),
+               dict(window=300, center=False, min_window=5200)):
+        plan = tcmvn.sliding_cmvn_plan(2, 5000, 80, kw["window"], kw.get("center", True),
+                                       kw.get("norm_vars", False), kw.get("min_window", 100))
+        assert not plan["staged"] and plan["seg"] % 2 == 1, plan
+        cmvn_case(cuda, cmvn_feats(11, 2, 5000), [5000, 3001], loop_rows=(1,), **kw)

@@ -1,8 +1,10 @@
 """PyTorch port: the launch plans of K2 (``models/res2net.py:split_plan``)
 and K5 (``ops/nn.py:bn_train_plan``), checked on the CPU for every call
 shape that ``chip_smoke.py``'s serving forward (``forward_shapes``, at each
-serving bucket) and training step (``train_shapes``) give the kernels. The
-kernels themselves run only on the card (tests/test_torch_kernels.py)."""
+serving bucket) and training step (``train_shapes``) give the kernels, and
+K7's (``ops/cmvn.py:sliding_cmvn_plan``) at every extraction bucket with the
+tile extent rule that the kernel computes on the card. The kernels
+themselves run only on the card (tests/test_torch_kernels.py)."""
 
 import os
 import sys
@@ -15,6 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn  # noqa: E402
+from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops  # noqa: E402
 
 SMEM = 232448  # the most shared memory one block can take on the H100
@@ -131,3 +134,72 @@ def test_bn_train_plan_other_calls():
     assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.bfloat16, 0, True)["design"] == "cluster"
     assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.float32, 0, True)["design"] == "multi"
     assert tops.bn_train_plan((256, 10240), 8, torch.bfloat16, 0, False)["design"] == "multi"
+
+
+# K7: every extraction bucket (a batch of 8), one frame, lengths around the
+# window (299-301) and around the tile size, and a 60,000-frame utterance
+K7_LENGTHS = [(8, t) for t in chip_smoke.CMVN_BUCKETS] + [
+    (8, 1), (8, 299), (8, 300), (8, 301), (8, 255), (8, 257), (40, 511), (40, 513),
+    (1, 60000)]
+
+
+def k7_valid_counts(t, tt, w):
+    """n in {0, 1, w - 1, w, w + 1, every tile edge +- 1, T}, within [0, T]."""
+    edges = {e + d for e in range(tt, t + 1, tt) for d in (-1, 0, 1)}
+    return sorted(n for n in {0, 1, w - 1, w, w + 1, t} | edges if 0 <= n <= t)
+
+
+@pytest.mark.parametrize("b,t", K7_LENGTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("norm_vars", [False, True])
+def test_sliding_cmvn_plan_covers_every_window(b, t, center, norm_vars):
+    """K7's plan at every extraction shape: for every valid count n, every
+    frame's window (``window_bounds``, the plain version's rule) lies inside
+    the extent that the kernel stages for its tile (``tile_extent``), and so
+    does every valid frame; an extent holds at most TT + w rows and at most
+    the plan's ``rows``; the shared memory fits one block."""
+    w = 300
+    plan = cmvn.sliding_cmvn_plan(b, t, 80, w, center, norm_vars, 100)
+    tt = plan["tt"]
+    assert plan["staged"] and plan["smem"] <= SMEM and plan["seg"] % 2 == 1
+    assert plan["smem"] == cmvn._k7_smem(plan["rows"], plan["fb"], plan["seg"], True, norm_vars)
+    assert plan["rows"] <= tt + w and plan["tiles"] * tt >= t > (plan["tiles"] - 1) * tt
+    assert plan["groups"] * plan["fb"] >= 80 and plan["grid"] == b * plan["tiles"] * plan["groups"]
+    ns = k7_valid_counts(t, tt, w)
+    start, end = cmvn.window_bounds(t, torch.tensor(ns), w, center, 100)
+    for i, n in enumerate(ns):
+        for t0 in range(0, t, tt):
+            t1 = min(t0 + tt, t)
+            r0, r1 = cmvn.tile_extent(t0, t1, n, w, center, 100)
+            assert 0 <= r0 <= r1 <= n and r1 - r0 <= plan["rows"], (n, t0, r0, r1)
+            assert int(start[i, t0:t1].min()) >= r0 and int(end[i, t0:t1].max()) <= r1, (n, t0)
+            if t0 < n:  # the tile's valid frames read x from the staged rows
+                assert r0 <= t0 and min(t1, n) <= r1, (n, t0, r0, r1)
+
+
+def test_sliding_cmvn_plan_past_n_and_long_windows():
+    """A tile past n stages the last window, far to its left (an 8001-frame
+    row of the 16,000 bucket: rows 7,701-8,000 for the tile at 15,360); the
+    trailing rule's min_window above w widens the extent; a window whose
+    extent does not fit shared memory takes the unstaged plan, its segment
+    (odd) grown until the prefixes fit; a second call returns the cached plan."""
+    plan = cmvn.sliding_cmvn_plan(8, 16000, 80, 300)
+    assert (plan["tt"], plan["fb"], plan["grid"]) == (512, 8, 8 * 32 * 10)
+    assert cmvn.sliding_cmvn_plan(8, 1000, 80, 300)["grid"] == 8 * 4 * 5  # tt 256, fb 16
+    assert cmvn.tile_extent(15360, 16000, 8001, 300, True, 100) == (7701, 8001)
+    assert cmvn.tile_extent(15360, 16000, 8001, 300, False, 100) == (7701, 8001)
+    assert cmvn.sliding_cmvn_plan(8, 16000, 80, 300) is plan
+    for mw in (450, 5000):
+        p = cmvn.sliding_cmvn_plan(8, 2000, 80, 300, False, False, mw)
+        assert p["rows"] == min(2000, p["tt"] - 1 + min(mw, 2000))
+        for n in (0, 299, 449, 450, 1999, 2000):
+            for t0 in range(0, 2000, p["tt"]):
+                r0, r1 = cmvn.tile_extent(t0, min(t0 + p["tt"], 2000), n, 300, False, mw)
+                assert r1 - r0 <= p["rows"]
+    for w, norm_vars in ((6000, False), (40000, True)):
+        p = cmvn.sliding_cmvn_plan(1, 60000, 80, w, True, norm_vars)
+        assert not p["staged"] and p["seg"] % 2 == 1 and p["seg"] >= cmvn.K7_SEG
+        assert p["smem"] == cmvn._k7_smem(p["rows"], p["fb"], p["seg"], False, norm_vars) <= SMEM
+    # bins: groups of 8 or 16, fewer rounded up to a multiple of 4
+    assert cmvn.sliding_cmvn_plan(2, 400, 30, 300)["groups"] == 2
+    assert cmvn.sliding_cmvn_plan(2, 400, 5, 300)["fb"] == 8

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,6 +79,20 @@ def cmvn_full_stream(stream, window: int = 300, batch_size: int = 8,
             pending[bucket] = []
     for b, batch in pending.items():
         yield from flush(b, batch)
+
+
+def cmvn_launch_mix(lengths, batch_size: int = 8,
+                    bucket_frames=CMVN_BUCKETS) -> Dict[Tuple[int, int], int]:
+    """K7 launches of :func:`cmvn_full_stream` over utterances of these frame
+    counts, keyed by each launch's (rows, T): a bucket's utterances in
+    batches of ``batch_size`` (the tail batch padded), an utterance beyond
+    the largest bucket alone at its own length."""
+    per = {}
+    for n in lengths:
+        bucket = next((b for b in bucket_frames if n <= b), None)
+        key = (batch_size, bucket) if bucket is not None else (1, n)
+        per[key] = per.get(key, 0) + 1
+    return {k: (c if k[0] == 1 else -(-c // batch_size)) for k, c in sorted(per.items())}
 
 
 def wave_feature_stream(wav_scp: str, feat_dim: int, *, batch_size: int = 16,

@@ -187,7 +187,7 @@ MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_plan": [_I, _I, ctypes.POINTER(_I)],
 }, paths={"margin_ce_fwd": ("slab", "stream"), "margin_ce_bwd": ("slab", "stream")})
 SLIDING_CMVN = CudaKernel("sliding_cmvn", "sliding_cmvn.cu", {
-    "sliding_cmvn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sliding_cmvn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
 })
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
            MARGIN_CE, SLIDING_CMVN)
