@@ -35,7 +35,22 @@ Phases, one JSON line each:
    B=16, A=1, bn_groups=2 on the card and through the plain path on the CPU
    from the same weights: loss, gradient norm, parameter update and BN
    statistics within the stated tolerances;
-7. lmft    -- the LMFT leg (``res2net_finetune_vox2_dev``, 600-frame crops,
+7. raw     -- raw-audio training (slice 9) through ``cli.train.main --raw``
+   at the train phase's shape (res2net50_w8_s6_c16, B=256 x A=4, 200
+   frames, context 150, dither 1.0, bn_groups 8, bf16, 5994 classes): a
+   wav.scp of 600 synthetic utterances of 1-12 s (a quarter JSON reverb +
+   noise specs over synthetic RIR and noise wavs) and utt2id.pkl written
+   at run time, the native raw feeder, one warm-up and two timed steps;
+   finite loss, schedule-exact lr and margin, no decode errors or dead
+   workers, K1's dithered variant and K7 A launches a step, K4-K6 as in
+   phase 5; the feeder's own rate with no step behind it (6 threads); on
+   one microbatch (of a one-thread feeder: a function of the seed) and a
+   fixed draw, the front end and K1 dithered on the card against their
+   plain versions and float64 (see TOL_FBANK), bit-equal on a rerun, and
+   K1 with framed per-sample draws bit-equal to K1 on the dithered wave;
+   each front-end part's device time; one resident step under
+   torch.profiler;
+8. lmft    -- the LMFT leg (``res2net_finetune_vox2_dev``, 600-frame crops,
    margin 0.4) at bench.py's shape (B=256 x A=4, bn_groups=16, stages 0-2
    rematerialized) through ``cli.train.main``: a CM-compressed Kaldi
    feature store written by the port's kaldi_io, the native C++ feeder,
@@ -46,9 +61,9 @@ Phases, one JSON line each:
    and K6 as expected; and, from one state and one B=64 f600 batch, a
    rematerialized and a plain step: BN statistics bit-equal, loss and
    gradient norm within TOL_PARITY, lower peak memory with remat;
-8. export  -- the trained state saved as an inference artifact and one batch
+9. export  -- the trained state saved as an inference artifact and one batch
    embedded through the eval path (K2-K4), against the CPU plain path;
-9. evaluate -- the recipe's last leg on the LMFT run of phase 7, through the
+10. evaluate -- the recipe's last leg on the LMFT run of phase 8, through the
    CLIs a user calls: a test set shaped like VoxCeleb1-O (synthetic 16 kHz
    wavs, EVAL_* below; its full 37,720 trials) featurized on the card by
    ``data/features.py`` (K1) into a plain store; a CM-compressed cohort
@@ -73,6 +88,7 @@ device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -99,6 +115,15 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12
 # stated tolerances: fp32 kernel vs fp32 plain (relative to the output's
 # largest magnitude), bf16 kernel vs fp32 plain on the same bf16 inputs
 TOL_FBANK = 1e-3          # absolute, log-mel
+# the raw phase's speech-like crops have quiet low mel bands, where any
+# float32 analysis cancels: over 8 microbatches K1 strayed up to 5.9e-3
+# log-mel from a float64 run there and its plain version up to 8.6e-3,
+# either one the worse (scripts/k1_accuracy.py, PERF.md §6). On those
+# crops (one batch of a one-thread feeder: a function of the seed) K1 and
+# the front end are held against float64, within twice the plain version's
+# own distance to it or TOL_FBANK where that is larger; on white-noise
+# crops of the same lengths against the plain version within TOL_FBANK;
+# and K1's draws exactly (check_fbank_dither)
 TOL_FP32 = 1e-4
 TOL_BF16 = {"split_conv": 5e-2, "bn_act": 2e-2, "stats_pool": 1e-2}
 TOL_SERVED_COS = 0.9999   # served vs offline / wave vs feature embeddings
@@ -112,6 +137,13 @@ TRAIN_STEPS = 4           # one warm-up + three timed
 LMFT_FRAMES, LMFT_GROUPS, LMFT_STAGES, LMFT_STEPS = 600, 16, (0, 1, 2), 3
 LMFT_UTTS, LMFT_SHARDS, LMFT_LENGTHS = 512, 4, (600, 1201)
 LMFT_CHECK_BATCH, LMFT_CHECK_GROUPS = 64, 4
+# the raw-audio leg (slice 9): the bench shape from a wav.scp through the
+# native raw feeder (RAW_WORKERS threads), K1 dithered and K7 in the step;
+# one warm-up and two timed steps; the data: RAW_UTTS utterances of
+# RAW_SECONDS from RAW_BANKS synthetic speakers, every RAW_SPEC_EVERY-th a
+# reverb + noise spec; the feeder alone times RAW_FEEDER_BATCHES batches
+RAW_STEPS, RAW_WORKERS, RAW_FEEDER_BATCHES = 3, 6, 3
+RAW_UTTS, RAW_SECONDS, RAW_BANKS, RAW_SPEC_EVERY = 600, (1.0, 12.0), 40, 4
 # K6 on both training paths: one launch a direction on the slab path, none
 # on the streaming path (the 5994-class head fits the slab)
 K6_SLAB_PER_MICROBATCH = {"margin_ce.margin_ce_fwd:slab": 1, "margin_ce.margin_ce_bwd:slab": 1,
@@ -1248,10 +1280,11 @@ def lmft_phase(dev, state, smi, workdir):
     return counts, per_microbatch, config.exp_dir
 
 
-def step_device_time(step, state, batch, step_ms):
+def step_device_time(step, state, batch, step_ms, names=()):
     """One more step under torch.profiler (device activity only): the wall
     time of that step, the device time of its kernels and copies (one
-    stream, so their sum is the busy time), and the idle share of the
+    stream, so their sum is the busy time), the device time of the kernels
+    whose name holds each of ``names``, and the idle share of the
     unprofiled step, 1 - busy / ``step_ms``. None where the profiler saw
     no device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1262,12 +1295,375 @@ def step_device_time(step, state, batch, step_ms):
         step(state, *batch)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    busy = sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")) / 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")]
+    busy = sum(e.device_time_total for e in events) / 1e3
     if busy <= 0:
         return {"profiled_step_ms": wall, "device_busy_ms": None, "device_idle_share": None}
+    by_name = {n: sum(e.device_time_total for e in events if n in e.key) / 1e3 for n in names}
     return {"profiled_step_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / step_ms}
+            "device_idle_share": 1.0 - busy / step_ms,
+            **({"device_ms_by_kernel": by_name} if names else {})}
+
+
+def write_raw_data(root, seed):
+    """The raw phase's data dir: RAW_UTTS synthetic 16 kHz utterances of
+    RAW_SECONDS (speech-like units of EVAL-style speaker banks), every
+    RAW_SPEC_EVERY-th wav.scp entry a JSON spec (reverb by a synthetic RIR,
+    background noise looped at 5-15 dB SNR) over wavs written beside them,
+    and utt2id.pkl over the recipe's 5994 classes. Returns (data dir,
+    audio seconds, spec entries, seconds taken)."""
+    import concurrent.futures as cf
+
+    from voxsrc2020_speaker_verification_tpu_torch.data import audio
+    from voxsrc2020_speaker_verification_tpu_torch.utils import datadir
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "wav"))
+    rng = np.random.RandomState(seed)
+    banks = [speaker_bank(rng) for _ in range(RAW_BANKS)]
+    t = np.arange(int(0.4 * 16000))
+    rir = rng.randn(t.size) * np.exp(-t / (0.05 * 16000))
+    rir[int(0.002 * 16000)] = 8.0  # direct path 2 ms in
+    rir_path, noise_path = os.path.join(root, "rir.wav"), os.path.join(root, "noise.wav")
+    audio.write_wav(rir_path, (rir * 3000).astype(np.float32))
+    audio.write_wav(noise_path, (rng.randn(5 * 16000) * 1500).astype(np.float32))
+    speakers = [f"id{i:05d}" for i in range(5994)]
+    jobs = [(f"{speakers[rng.randint(len(speakers))]}-{i:05d}", rng.randint(RAW_BANKS),
+             rng.uniform(*RAW_SECONDS), rng.randint(2 ** 31)) for i in range(RAW_UTTS)]
+
+    def write(job):
+        utt, bank, sec, useed = job
+        r = np.random.RandomState(useed)
+        n = int(sec * 10)
+        units = banks[bank][r.randint(len(banks[bank]), size=n)] * r.uniform(0.3, 1.0, (n, 1))
+        path = os.path.join(root, "wav", f"{utt}.wav")
+        audio.write_wav(path, units.reshape(-1).astype(np.float32))
+        return utt, path, n / 10.0
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        written = list(pool.map(write, jobs))
+    wav, utt2spk, specs = {}, {}, 0
+    for i, (utt, path, _) in enumerate(written):
+        wav[utt] = path
+        if i % RAW_SPEC_EVERY == 0:
+            wav[utt] = json.dumps({"source": path, "rir": rir_path, "noises": [
+                {"path": noise_path, "snr": float(rng.uniform(5, 15)), "start": 0,
+                 "extend": True}]}, separators=(",", ":"))
+            specs += 1
+        utt2spk[utt] = utt.split("-")[0]
+    datadir.write_two_column(os.path.join(root, "wav.scp"), wav)
+    datadir.save_utt2id(os.path.join(root, "utt2id.pkl"), datadir.build_utt2id(utt2spk, speakers))
+    return root, sum(sec for *_, sec in written), specs, time.perf_counter() - t0
+
+
+def raw_front_end_parts(dev, config, fields, noise):
+    """Device ms of each part of one microbatch's front end at the step's
+    shapes, each alone by torch.profiler: the dither draw, the int16 cast,
+    K1 (dithered), K7, the crop gather, and the whole front end with its
+    draw."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn, pipeline
+    from voxsrc2020_speaker_verification_tpu_torch.ops.fbank import FbankConfig, draw_noise, fbank
+
+    cfg = FbankConfig(num_bins=config.feat_dim, dither=config.dither)
+    waves, ns, off, shift = fields
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draw = lambda: draw_noise(*waves.shape, cfg, gen, dev)
+    x = waves.float()
+    feats = fbank(x, cfg, noise)
+    valid = pipeline.num_frames_batch(ns, cfg)
+    normed = cmvn.sliding_cmvn(feats, valid)
+
+    def front_end():
+        return pipeline.waveform_to_features(waves, ns, off, shift, cfg, config.feat_length,
+                                             window=config.cmn_window, noise=draw())
+
+    return {"noise_draw": device_ms(draw),
+            "cast": device_ms(lambda: waves.float()),
+            "fbank_dither": device_ms(lambda: fbank(x, cfg, noise), "fbank_kernel"),
+            "sliding_cmvn": device_ms(lambda: cmvn.sliding_cmvn(feats, valid),
+                                      "sliding_cmvn_kernel"),
+            "gather": device_ms(lambda: pipeline.crop_gather(normed, valid, off, shift,
+                                                             config.feat_length)),
+            "front_end": device_ms(front_end)}
+
+
+def fbank_float64(waves, cfg, noise=None):
+    """K1's function in float64 on the card: fbank_reference's framing and
+    analysis matrices, every product and sum in float64."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
+
+    a, b, m = (torch.from_numpy(x).to(waves.device).double() for x in fb.analysis_matrices(cfg))
+    frames = waves.double().unfold(1, cfg.frame_length, cfg.frame_shift)
+    frames = frames[:, :fb.num_frames(waves.shape[1], cfg)]
+    if noise is not None:
+        frames = frames + cfg.dither * noise.double()
+    re, im = frames @ a, frames @ b
+    return torch.log(torch.clamp((re * re + im * im) @ m, min=fb.FLT_EPSILON))
+
+
+def front_end_float64(fields, cfg, feat_length, window, noise):
+    """ops/pipeline.py's front end in float64: fbank_float64, the float64
+    plain sliding CMN, the same gather."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn, pipeline
+
+    waves, ns, off, shift = fields
+    valid = pipeline.num_frames_batch(ns, cfg)
+    feats = cmvn.sliding_cmvn_reference(fbank_float64(waves.float(), cfg, noise), valid,
+                                        window=window)
+    return pipeline.crop_gather(feats, valid, off, shift, feat_length)
+
+
+def hold_fp32(what, data, got, plain, exact):
+    """A float32 result of the card against its plain version and a float64
+    run (see TOL_FBANK): white-noise crops within TOL_FBANK of the plain
+    version, the raw crops within twice the plain version's distance to
+    float64 (at least TOL_FBANK). Returns the three distances."""
+    e = {"vs_plain": abs_err(got, plain), "vs_float64": abs_err(got, exact),
+         "plain_vs_float64": abs_err(plain, exact)}
+    ok = (e["vs_plain"] <= TOL_FBANK if data == "white"
+          else e["vs_float64"] <= 2 * max(TOL_FBANK, e["plain_vs_float64"]))
+    if got.shape != plain.shape or not torch.isfinite(got).all() or not ok:
+        fail(f"{what} on {data} crops: shape {tuple(got.shape)} vs {tuple(plain.shape)}, "
+             f"errors {e} (TOL_FBANK {TOL_FBANK})")
+    return e
+
+
+def check_fbank_dither(dev, cfg, crops, noise):
+    """K1's dithered variant at the raw step's microbatch shape, on
+    ``crops`` {"white": waves, "crops": waves} with the same draws: held by
+    hold_fp32, rerun bit for bit, and bit-equal to the dither-off kernel on
+    the dithered wave for framed per-sample draws; times and bound on the
+    raw crops."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
+
+    errors = {}
+    for data, waves in crops.items():
+        got = fb.fbank(waves, cfg, noise)
+        errors[data] = hold_fp32("fbank dither", data, got, fb.fbank_reference(waves, cfg, noise),
+                                 fbank_float64(waves, cfg, noise))
+        if not torch.equal(got, fb.fbank(waves, cfg, noise)):
+            fail(f"fbank dither: reruns on {data} crops differ")
+    # the draws reach the right (frame, sample): with one draw a sample,
+    # framed, the dithered variant is bit-equal to the dither-off one on
+    # the dithered wave, whatever the conditioning of the bands
+    waves = crops["crops"]
+    u = torch.randn(waves.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 57),
+                    device=dev)
+    framed = u.unfold(1, cfg.frame_length, cfg.frame_shift)[:, :noise.shape[1]].contiguous()
+    off = fb.FbankConfig(num_bins=cfg.num_bins, dither=0.0)
+    framed_equal = torch.equal(fb.fbank(waves, dataclasses.replace(cfg, dither=1.0), framed),
+                               fb.fbank(waves + u, off))
+    if not framed_equal:
+        fail("fbank dither: framed per-sample draws differ from the dither-off kernel on the "
+             "dithered wave")
+    b, t, length = noise.shape
+    a, _, _ = fb.analysis_matrices(cfg)
+    nfft, bins = a.shape[1], cfg.num_bins
+    # per frame: the two analysis products, the dither's multiply-add on
+    # each sample, the mel product
+    flops = b * t * (2 * 2 * length * nfft + 2 * length + 2 * nfft * bins)
+    nbytes = 4 * (waves.numel() + noise.numel() + 2 * a.size + nfft * bins + b * t * bins)
+    bms, by = bound_ms(nbytes, flops, torch.float32)
+    return dict(name="fbank:dither", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/fbank.py:210 (fbank with "
+                         "dither_key: frames + dither * normal(key, (B, T, frame_length)))",
+                max_abs_err=max(e["vs_plain"] for e in errors.values()), errors=errors,
+                tolerance=TOL_FBANK, tolerance_rule="white-noise crops: |kernel - plain| <= "
+                "TOL_FBANK; raw crops: |kernel - float64| <= 2 max(TOL_FBANK, |plain - float64|)",
+                dtype="float32", per=f"one raw-training microbatch ({b}, {waves.shape[1]}) "
+                                     f"samples, {t} frames, dither {cfg.dither}",
+                ms=time_ms(lambda: fb.fbank(waves, cfg, noise)),
+                device_ms=device_ms(lambda: fb.fbank(waves, cfg, noise), "fbank_kernel"),
+                plain_ms=time_ms(lambda: fb.fbank_reference(waves, cfg, noise)),
+                plain_device_ms=device_ms(lambda: fb.fbank_reference(waves, cfg, noise)),
+                device_ms_dither_off=device_ms(
+                    lambda: fb.fbank(waves, off), "fbank_kernel"),
+                framed_draws_bit_equal_to_dithered_wave=framed_equal, reruns_bit_equal=True, bound_ms=bms, bound_by=by, library_ms=None,
+                library_note="none: no single PyTorch call computes Kaldi FBANK")
+
+
+def raw_phase(dev, per_microbatch, smi, workdir):
+    """Raw-audio training through ``cli.train.main --raw`` (see the module
+    docstring). Returns (the K1 dithered row of the kernels line, the
+    phase's launch counts, K7's device ms at the step's shape)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
+    from voxsrc2020_speaker_verification_tpu_torch.data.native import NativeRawBatchFeeder
+    from voxsrc2020_speaker_verification_tpu_torch.losses import schedules
+    from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn, pipeline
+    from voxsrc2020_speaker_verification_tpu_torch.ops.fbank import (
+        FbankConfig, draw_noise, num_frames, pcm16)
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        dither_generator, make_train_step, schedule_values)
+    from voxsrc2020_speaker_verification_tpu_torch.utils.datadir import load_utt2id
+
+    config, _ = get_recipe("res2net_vox2_dev_aug", model=TRAIN_MODEL, batch_size=TRAIN_BATCH,
+                           num_accumulation_steps=TRAIN_ACCUM, feat_length=TRAIN_FRAMES,
+                           seed=SEED, raw_audio=True)
+    if ((config.bn_groups, config.bf16, config.num_classes, config.dither, config.cmn_context,
+         config.cmn_window) != (TRAIN_GROUPS, True, 5994, 1.0, 150, 300)):
+        fail(f"raw config is not the bench shape: {config}")
+    root = os.path.join(workdir, "raw")
+    data_dir, audio_s, specs, write_s = write_raw_data(os.path.join(root, config.dataset),
+                                                       SEED + 51)
+    cfg = FbankConfig(num_bins=config.feat_dim)
+
+    # the feeder alone: batches a second with no step behind it; then the
+    # first batch of one worker thread, a function of the seed, for the
+    # checks and the resident step (RAW_WORKERS threads interleave utterances
+    # in no fixed order)
+    def raw_feeder(threads):
+        return NativeRawBatchFeeder(os.path.join(data_dir, "wav.scp"),
+                                    load_utt2id(os.path.join(data_dir, "utt2id.pkl")),
+                                    config.feat_length, config.batch_size,
+                                    config.num_accumulation_steps, cfg=cfg,
+                                    context=config.cmn_context, num_threads=threads,
+                                    seed=SEED + 1)
+
+    feeder = raw_feeder(RAW_WORKERS)
+    try:
+        feeder.get()  # the queue fills while the workers start
+        t0 = time.perf_counter()
+        for _ in range(RAW_FEEDER_BATCHES):
+            feeder.get()
+        feeder_s = time.perf_counter() - t0
+        feeder_errors, feeder_dead = feeder.decode_errors(), feeder.dead_shards()
+    finally:
+        feeder.close()
+    if feeder_errors or feeder_dead:
+        fail(f"raw: the feeder alone had {feeder_errors} decode errors, {feeder_dead} dead")
+    feeder = raw_feeder(1)
+    try:
+        (waves, ns, off, shift), labels = feeder.get()
+    finally:
+        feeder.close()
+    smax = pipeline.max_crop_samples(config.feat_length, config.cmn_context, cfg)
+    if waves.shape != (config.num_accumulation_steps, config.batch_size, smax):
+        fail(f"raw: feeder waves {waves.shape}, expected (A, B, {smax})")
+    short = int(sum(num_frames(int(n), cfg) < config.feat_length for n in ns.reshape(-1)))
+
+    argv = ["--recipe", "res2net_vox2_dev_aug", "--model", TRAIN_MODEL, "--raw",
+            "--data-root", root, "--batch-size", str(TRAIN_BATCH),
+            "--num-accumulation-steps", str(TRAIN_ACCUM), "--feat-length", str(TRAIN_FRAMES),
+            "--num-workers", str(RAW_WORKERS), "--max-steps", str(RAW_STEPS),
+            "--log-every", "1", "--no-checkpoint", "--seed", str(SEED)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run, text = quiet(train_cli.main, argv)
+    torch.cuda.synchronize()
+    counts = kernels.function_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.result.history
+    if run.feeder != "native" or run.decode_errors != 0 or not text.startswith("feeder: native"):
+        fail(f"raw: feeder {run.feeder}, {run.decode_errors} decode errors: {text[:200]!r}")
+    if [h["step"] for h in hist] != list(range(1, RAW_STEPS + 1)):
+        fail(f"raw: steps {[h['step'] for h in hist]}")
+    for h in hist:
+        lr, margin = schedule_values(config, h["step"] - 1)
+        total = float(schedules.total_margin(config.projection, margin))
+        if not math.isfinite(h["loss"]):
+            fail(f"raw: non-finite loss at step {h['step']}")
+        if h["learning_rate"] != lr or h["margin"] != total:
+            fail(f"raw: step {h['step']} lr {h['learning_rate']} margin {h['margin']}, "
+                 f"schedules say {lr}, {total}")
+    microbatches = RAW_STEPS * config.num_accumulation_steps
+    expected = {**{k: microbatches * n for k, n in per_microbatch.items()},
+                "fbank.fbank_f32:dither": microbatches, "fbank.fbank_f32:plain": 0,
+                "sliding_cmvn.sliding_cmvn": microbatches}
+    for fn, n in expected.items():
+        if counts[fn] != n:
+            fail(f"raw: {fn} launched {counts[fn]} times, expected {n}")
+    for fn in ("split_conv.split_group", "split_conv.split_group_mma",
+               "split_conv.split_group_pipe", "split_conv.split_chain_fused", "bn_act.bn_act"):
+        if counts[fn]:
+            fail(f"raw: eval kernel {fn} launched {counts[fn]} times")
+    step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
+    med = statistics.median(step_s)
+    trained_audio = config.effective_batch * config.feat_length / 100.0
+    state = run.result.state
+    del run
+
+    # one microbatch's front end on the card against its plain version and
+    # float64, on one fixed draw, and on white-noise crops of its lengths
+    # (hold_fp32); reruns bit for bit
+    fields = [torch.from_numpy(x[0]).to(dev) for x in (waves, ns, off, shift)]
+    dcfg = FbankConfig(num_bins=config.feat_dim, dither=config.dither)
+    noise = draw_noise(config.batch_size, smax, dcfg, dither_generator(config, 0, 0, dev), dev)
+    kw = dict(window=config.cmn_window, context=config.cmn_context, noise=noise)
+    white = torch.from_numpy(pcm16(np.random.RandomState(SEED + 55).randn(*fields[0].shape)
+                                   * 3000).astype(np.float32)).to(dev)
+    white *= torch.arange(smax, device=dev)[None, :] < fields[1][:, None]
+    crops = {"white": white, "crops": fields[0].float()}
+    pipe = {}
+    for data, w in crops.items():
+        f = [w, *fields[1:]]
+        got = pipeline.waveform_to_features(*f, dcfg, config.feat_length, **kw)
+        want = pipeline.waveform_to_features_reference(*f, dcfg, config.feat_length, **kw)
+        pipe[data] = hold_fp32("raw pipeline", data, got, want, front_end_float64(
+            f, dcfg, config.feat_length, config.cmn_window, noise))
+        if not torch.equal((got == 0).all(-1), (want == 0).all(-1)):
+            fail(f"raw pipeline on {data} crops: zero rows differ from the plain version's")
+        if not torch.equal(got, pipeline.waveform_to_features(*f, dcfg, config.feat_length, **kw)):
+            fail(f"raw pipeline on {data} crops: a rerun differs")
+    if got.shape != (config.batch_size, config.feat_length, config.feat_dim):
+        fail(f"raw pipeline: features {tuple(got.shape)}")
+    k1 = check_fbank_dither(dev, dcfg, crops, noise)
+    parts = raw_front_end_parts(dev, config, fields, noise)
+    valid = pipeline.num_frames_batch(fields[1], cfg)
+    k7_feats = torch.from_numpy(np.random.RandomState(SEED + 53).randn(
+        config.batch_size, num_frames(smax, cfg), config.feat_dim).astype(np.float32) * 3
+                                + 12).to(dev)
+    k7_plan = cmvn.sliding_cmvn_plan(config.batch_size, k7_feats.shape[1], config.feat_dim, 300,
+                                     True, False, 100, kernels.num_sms(dev))
+
+    # the step alone from a resident batch: its time, then under the profiler
+    step = make_train_step(config)
+    resident = (tuple(torch.from_numpy(x).to(dev) for x in (waves, ns, off, shift)),
+                torch.from_numpy(labels).long().to(dev))
+    step(state, *resident)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, *resident)
+    torch.cuda.synchronize()
+    resident_ms = 1e3 * (time.perf_counter() - t0)
+    profiled = step_device_time(step, state, resident, resident_ms,
+                                names=("fbank_kernel", "sliding_cmvn_kernel"))
+    emit({"phase": "raw", "model": TRAIN_MODEL, "recipe": "res2net_vox2_dev_aug",
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "accumulation": TRAIN_ACCUM,
+          "frames": TRAIN_FRAMES, "context": config.cmn_context, "dither": config.dither,
+          "bn_groups": config.bn_groups, "crop_samples": smax, "feeder": "native",
+          "data": {"utterances": RAW_UTTS, "seconds": list(RAW_SECONDS), "audio_s": audio_s,
+                   "spec_entries": specs, "write_s": write_s},
+          "feeder_alone": {"workers": RAW_WORKERS, "batches": RAW_FEEDER_BATCHES,
+                           "seconds": feeder_s,
+                           "batches_per_s": RAW_FEEDER_BATCHES / feeder_s,
+                           "trained_audio_s_per_s": RAW_FEEDER_BATCHES * trained_audio / feeder_s,
+                           "short_utterances_in_checked_batch": short},
+          "steps": RAW_STEPS, "timed_steps": len(step_s), "step_ms": [1e3 * x for x in step_s],
+          "step_ms_median": 1e3 * med, "audio_s_per_s": trained_audio / med,
+          "peak_memory_bytes": peak, "losses": [h["loss"] for h in hist],
+          "learning_rates": [h["learning_rate"] for h in hist],
+          "margins": [h["margin"] for h in hist], "launches": counts,
+          "launches_expected": expected, "pipeline_errors": pipe,
+          "pipeline_rerun_bit_equal": True, "tolerance": TOL_FBANK,
+          "tolerance_rule": k1["tolerance_rule"],
+          "front_end_device_ms": parts, "resident_step_ms": resident_ms, **profiled, "card": smi})
+    k7 = {"device_ms": device_ms(lambda: cmvn.sliding_cmvn(k7_feats, valid),
+                                 "sliding_cmvn_kernel"),
+          "plain_device_ms": device_ms(lambda: cmvn.sliding_cmvn_reference(k7_feats, valid)),
+          "plan": {k: k7_plan[k] for k in ("tt", "fb", "grid", "smem")},
+          "frames": k7_feats.shape[1], "per": "the raw step's microbatch, its num_valid"}
+    k7["bound_ms"], k7["bound_by"] = bound_ms(2 * 4 * k7_feats.numel() + 4 * len(valid),
+                                              8.0 * k7_feats.numel(), torch.float64)
+    k1["launches"] = counts["fbank.fbank_f32:dither"]
+    k1["launches_on"] = "raw phase, cli.train --raw, A per step"
+    return k1, counts, k7
 
 
 def export_phase(dev, state, config, workdir):
@@ -1845,6 +2241,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         state, train_cfg, train_counts = train_phase(dev, per_microbatch, smi)
         train_parity_phase(dev)
+        k1_dither, raw_counts, k7_raw = raw_phase(dev, per_microbatch, smi, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
         lmft_counts, lmft_per_microbatch, lmft_exp = lmft_phase(dev, state, smi, workdir)
         export_phase(dev, state, train_cfg, workdir)
         del state
@@ -1872,7 +2271,13 @@ def main() -> int:
     # K7's main path: cli.extract --cmvn device over the evaluate phase's test set
     cmvn_row["launches"] = eval_counts["sliding_cmvn"]
     cmvn_row["launches_on"] = "evaluate phase, cli.extract --cmvn device over the test set"
-    emit({"kernels": rows + train_rows + [cmvn_row]})
+    # and the raw phase's train step, A launches a step at its shape
+    cmvn_row["launches_raw"] = raw_counts["sliding_cmvn.sliding_cmvn"]
+    cmvn_row["by_shape"][f"{TRAIN_BATCH}x{k7_raw['frames']}"] = k7_raw
+    for row in train_rows:
+        row["launches_raw"] = {k: v for k, v in raw_counts.items()
+                               if k.split(".")[0] == row["name"]}
+    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -303,9 +303,24 @@ class TestFeatures:
             quantum = (x.max() - x.min()) / 255 * 2
             np.testing.assert_allclose(packed[utt], x, rtol=0, atol=quantum, err_msg=utt)
 
-    def test_dither_is_refused(self, tmp_path):
-        with pytest.raises(NotImplementedError):
-            tfeatures.compute_features_for_dir(str(tmp_path), dither_seed=1, device="cpu")
+    def test_dither_is_refused(self, stores, tmp_path):
+        """FBANK refuses a nonzero dither without its draws; featurization
+        with a ``dither_seed`` draws them (dither 1.0) and writes a store of
+        the undithered store's shapes, finite and not equal to it."""
+        from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
+
+        with pytest.raises(ValueError, match="dither"):
+            tfb.fbank(torch.zeros(1, 1600), tfb.FbankConfig(dither=1.0))
+        d = str(tmp_path / "dithered")
+        shutil.copytree(stores["port", False][0], d)
+        scp = tfeatures.compute_features_for_dir(d, CFG.feat_dim, compress=False,
+                                                 out_name="dithered", batch_size=2,
+                                                 dither_seed=1, device="cpu")
+        got, plain = dict(kaldi_io.read_mat_scp(scp)), stores["port", False][1]
+        assert sorted(got) == sorted(plain)
+        for utt, x in plain.items():
+            assert got[utt].shape == x.shape and np.isfinite(got[utt]).all(), utt
+        assert any(not np.array_equal(got[u], x) for u, x in plain.items())
 
     def test_finalize_dataset_matches_jax(self, stores, tmp_path):
         dirs = {}

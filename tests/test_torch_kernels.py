@@ -25,6 +25,7 @@ from voxsrc2020_speaker_verification_tpu_torch.models.res2net import (
 from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn as tcmvn
 from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops
+from voxsrc2020_speaker_verification_tpu_torch.ops import pipeline as tpipe
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
@@ -45,6 +46,9 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     cos = torch.rand(2, 3, 7, requires_grad=True)
     margin_ce(cos, torch.tensor([0, 3, 6]), 32.0, 0.2)[0].sum().backward()
     tcmvn.sliding_cmvn(torch.randn(2, 40, 5), torch.tensor([40, 17]), window=9, norm_vars=True)
+    tpipe.waveform_to_features(torch.zeros(2, 4000, dtype=torch.int16), torch.tensor([4000, 900]),
+                               torch.tensor([2, 0]), torch.tensor([0, 3]), tfb.FbankConfig(),
+                               8, window=9, noise=torch.randn(2, 23, 400))
     assert kernels.launch_counts() == before
     assert {k.name for k in kernels.KERNELS} == set(before)
 
@@ -486,6 +490,87 @@ def test_fbank_kernel_takes_more_than_128_mel_bins(cuda):
     want = tfb.fbank_reference(w, cfg)
     assert got.shape == want.shape == (2, tfb.num_frames(48000, cfg), 160)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+def raw_crops(cuda, batch, feat_length=200, context=150, seed=2):
+    """A raw-training microbatch on the card: int16 crops of max_crop_samples
+    with ragged valid lengths (zero tails; some shorter than feat_length
+    frames), their target offsets and pad shifts, and dither draws."""
+    cfg = tfb.FbankConfig(dither=1.0)
+    smax = tpipe.max_crop_samples(feat_length, context, cfg)
+    rng = np.random.RandomState(seed)
+    ns = np.minimum(smax, rng.randint(3000, 2 * smax, batch)).astype(np.int32)
+    waves = np.zeros((batch, smax), np.int16)
+    off, shift = np.zeros(batch, np.int32), np.zeros(batch, np.int32)
+    for i, n in enumerate(ns):
+        waves[i, :n] = tfb.pcm16(rng.randn(n) * 3000)
+        frames = tfb.num_frames(int(n), cfg)
+        if frames >= feat_length:
+            off[i] = rng.randint(0, min(context, frames - feat_length) + 1)
+        else:
+            shift[i] = rng.randint(0, feat_length - frames + 1)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    noise = tfb.draw_noise(batch, smax, cfg, g, cuda)
+    fields = [torch.from_numpy(x).to(cuda) for x in (waves, ns, off, shift)]
+    return cfg, fields, noise
+
+
+@pytest.mark.cuda
+def test_fbank_dither_kernel_matches_plain(cuda):
+    """K1's dithered variant against its plain version on the same draws,
+    one launch a call on the dither path: crops with zero tails (the
+    training shape's 80,240 samples, 500 frames) and ragged batches whose
+    frame counts are no multiple of 32; within 1e-3 in log-mel, reruns bit
+    for bit, the dither-off launch unchanged beside it; framed per-sample
+    draws give the dither-off kernel on the dithered wave bit for bit; draws
+    that are not contiguous are refused."""
+    for batch, samples in [(6, None), (3, 33333), (1, 4000)]:
+        if samples is None:
+            cfg, (waves_i16, *_), noise = raw_crops(cuda, batch)
+            waves = waves_i16.float()
+        else:
+            waves, _ = fbank_case(cuda, batch, samples, 80, seed=4)
+            cfg = tfb.FbankConfig(dither=1.0)
+            noise = tfb.draw_noise(batch, samples, cfg, torch.Generator(device=cuda), cuda)
+        before = kernels.function_launch_counts()
+        got = tfb.fbank(waves, cfg, noise)
+        after = kernels.function_launch_counts()
+        assert after["fbank.fbank_f32:dither"] - before["fbank.fbank_f32:dither"] == 1
+        assert after["fbank.fbank_f32:plain"] == before["fbank.fbank_f32:plain"]
+        torch.testing.assert_close(got, tfb.fbank_reference(waves, cfg, noise), rtol=0,
+                                   atol=1e-3, msg=lambda m: f"{(batch, samples)}: {m}")
+        assert torch.equal(got, tfb.fbank(waves, cfg, noise)), (batch, samples)
+        off = tfb.FbankConfig(dither=0.0)
+        torch.testing.assert_close(tfb.fbank(waves, off), tfb.fbank_reference(waves, off),
+                                   rtol=0, atol=1e-3)
+    # one draw a sample, framed: the dithered kernel is the dither-off
+    # kernel on the dithered wave, bit for bit (each draw reaches its frame
+    # and sample; the dither scale is 1)
+    u = torch.randn(waves.shape, device=cuda)
+    framed = u.unfold(1, cfg.frame_length, cfg.frame_shift)[:, :noise.shape[1]].contiguous()
+    assert torch.equal(tfb.fbank(waves, cfg, framed), tfb.fbank(waves + u, off))
+    with pytest.raises(kernels.KernelError, match="contiguous"):
+        tfb.fbank(waves, cfg, noise.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_raw_pipeline_matches_plain_on_the_card(cuda):
+    """ops/pipeline.py at the training shape (a microbatch of 16 crops):
+    K1 (dithered) and K7 once each, the result within 1e-3 of the plain
+    pipeline on the same draws, zero rows where the plain one has them,
+    and a rerun bit-equal."""
+    cfg, fields, noise = raw_crops(cuda, 16, seed=5)
+    before = kernels.launch_counts()
+    got = tpipe.waveform_to_features(*fields, cfg, 200, window=300, noise=noise)
+    after = kernels.launch_counts()
+    assert (after["fbank"] - before["fbank"], after["sliding_cmvn"] - before["sliding_cmvn"]) \
+        == (1, 1)
+    want = tpipe.waveform_to_features_reference(*fields, cfg, 200, window=300, noise=noise)
+    assert got.shape == want.shape == (16, 200, 80)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    assert torch.equal((got == 0).all(-1), (want == 0).all(-1))  # the zero-padded rows
+    assert torch.equal(got, tpipe.waveform_to_features(*fields, cfg, 200, window=300,
+                                                       noise=noise))
 
 
 # K6 at the shapes its slab design must get right. A row of center k starts

@@ -180,10 +180,11 @@ def test_train_cli_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("step 1/2 loss ") and "audio-s/s" in out[0]
     assert out[-1].startswith("done: 2 steps")
-    # raw-audio training is not ported; rematerialization is
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # raw-audio training reads <data-root>/<dataset>/utt2id.pkl and wav.scp
+    # (tests/test_torch_raw.py trains from them); rematerialization is ported
+    with pytest.raises(FileNotFoundError, match="utt2id.pkl"):
         train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu",
-                        "--raw"])
+                        "--raw", "--data-root", "/nonexistent"])
     train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu",
                     "--synthetic", "--remat-stages", "0", "--remat-policy", "dots_saveable",
                     "--batch-size", "4", "--feat-length", "24", "--max-steps", "1",

@@ -16,6 +16,13 @@
     python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
         --recipe res2net_vox2_dev_aug --synthetic --max-steps 50 --no-checkpoint
 
+    # raw-audio training from <data-root>/<dataset>/wav.scp (plain wavs or
+    # JSON augmentation specs) and utt2id.pkl: FBANK (K1, dithered) and
+    # sliding CMN (K7) inside the train step
+    python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
+        --recipe res2net_vox2_dev_aug --model res2net50_w8_s6_c16 \\
+        --data-root data --raw
+
     # the plain PyTorch path on the CPU (small shapes):
     python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
         --recipe res2net_vox2_dev_aug --data-root data --device cpu \\
@@ -26,9 +33,11 @@ The feature store is ``<data-root>/<dataset>/``: ``utt2id.pkl`` and the
 ``{N}-split/feats.{i}.scp`` shards of CM-compressed arks. The C++ feeder
 (``data/native.py``, built from ``native/``) reads it unless
 ``--no-native-feeder`` or the library cannot be built; the Python feeder
-(``FeatureShardDataset`` + ``BatchFeeder``) then does. The CLI prints which
-feeder ran. Raw-audio training and more than one process are not ported
-(ROADMAP.md §1 items 6 and 8).
+(``FeatureShardDataset`` + ``BatchFeeder``) then does. With ``--raw`` the
+data is ``<data-root>/<dataset>/wav.scp`` and ``utt2id.pkl``, read by the
+C++ raw feeder (``NativeRawBatchFeeder``) or the Python one
+(``RawAudioShardDataset`` + ``BatchFeeder``). The CLI prints which feeder
+ran. More than one process is not ported (ROADMAP.md §1 item 8).
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="random data, no IO (throughput runs)")
     p.add_argument("--raw", action="store_true",
-                   help="raw-audio mode (not ported yet)")
+                   help="raw-audio mode: wav.scp crops, FBANK + CMN in the train step")
     p.add_argument("--num-workers", type=int, default=None,
                    help="feeder threads; default min(4, host cores)")
     p.add_argument("--no-native-feeder", action="store_true",
@@ -108,15 +117,13 @@ def main(argv=None) -> Optional[TrainRun]:
     args = p.parse_args(argv)
     from .. import resolve_device
     device = resolve_device(args.device)
-    if args.raw:
-        raise NotImplementedError("raw-audio training is not ported yet (ROADMAP.md §1 "
-                                  "item 6); train from a feature store (--data-root)")
     if args.num_processes != 1 or args.process_id != 0:
         raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md §1 "
                                   "item 8: torch.distributed, DDP); run one process with "
                                   "--process-id 0 --num-processes 1")
-    if args.cmvn_pkl and args.synthetic:
-        p.error("--cmvn-pkl applies to the feature-store path only")
+    if args.cmvn_pkl and (args.raw or args.synthetic):
+        p.error("--cmvn-pkl applies to the feature-store path only (not --raw or "
+                "--synthetic)")
     from ..utils import resolve_num_workers
     num_workers = resolve_num_workers(args.num_workers)
     if num_workers < 1:
@@ -141,7 +148,7 @@ def main(argv=None) -> Optional[TrainRun]:
         "remat_stages": None if args.remat_stages is None else tuple(args.remat_stages),
         "remat_policy": args.remat_policy,
     }.items() if v is not None}
-    overrides.update(exp_root=args.exp_root, seed=args.seed)
+    overrides.update(exp_root=args.exp_root, seed=args.seed, raw_audio=args.raw)
     config, resume_from = get_recipe(args.recipe, model=args.model, **overrides)
     if resume_from is not None and resume_from.startswith("exp/"):
         resume_from = os.path.join(args.exp_root, *resume_from.split("/")[1:])
@@ -153,18 +160,45 @@ def main(argv=None) -> Optional[TrainRun]:
     from ..utils.datadir import load_utt2id
 
     seed = args.seed + 1000 * args.process_id
+    use_native = not args.no_native_feeder and native.available()
     if args.synthetic:
         kind = "synthetic"
         feeder = BatchFeeder([SyntheticDataset(config.feat_dim, config.feat_length,
                                                config.num_classes, seed=args.seed + i)
                               for i in range(4)],
                              config.batch_size, config.num_accumulation_steps).start()
+    elif args.raw:
+        from ..data.raw_dataset import RawAudioShardDataset
+        from ..ops.fbank import FbankConfig
+
+        data_dir = os.path.join(args.data_root, config.dataset)
+        utt2id = load_utt2id(os.path.join(data_dir, "utt2id.pkl"))
+        wav_scp = os.path.join(data_dir, "wav.scp")
+        cfg = FbankConfig(num_bins=config.feat_dim)
+        if use_native:
+            # wav decode, spec rendering, int16 crop and assembly in the C++
+            # thread pool, one ctypes call per optimizer step
+            kind = "native"
+            feeder = native.NativeRawBatchFeeder(
+                wav_scp, utt2id, config.feat_length, config.batch_size,
+                config.num_accumulation_steps, cfg=cfg, context=config.cmn_context,
+                num_threads=num_workers, seed=seed).start()
+        else:
+            kind = "python"
+            feeder = BatchFeeder(
+                [RawAudioShardDataset(wav_scp, utt2id, config.feat_length, cfg=cfg,
+                                      context=config.cmn_context, shard_index=i,
+                                      num_shards=num_workers, seed=seed + i)
+                 for i in range(num_workers)],
+                config.batch_size, config.num_accumulation_steps).start()
+        workers = f"{num_workers} {'threads' if kind == 'native' else 'sources'}"
+        print(f"feeder: {kind} (raw, {wav_scp}, {workers})", flush=True)
     else:
         data_dir = os.path.join(args.data_root, config.dataset)
         utt2id = load_utt2id(os.path.join(data_dir, "utt2id.pkl"))
         paths = shard_paths_for_host(data_dir, args.num_shards, args.process_id,
                                      args.num_processes)
-        if not args.no_native_feeder and native.available():
+        if use_native:
             # the whole hot loop (ark decode, CMN, crop, assembly, bf16 wire)
             # in the C++ thread pool, one ctypes call per optimizer step
             kind = "native"

@@ -1,4 +1,4 @@
-// K1: Kaldi log-mel FBANK, waveform -> (T, num_bins), dither off.
+// K1: Kaldi log-mel FBANK, waveform -> (T, num_bins), with or without dither.
 //
 // Replaces: voxsrc2020_speaker_verification_tpu/ops/fbank.py:fbank (the
 // retired Pallas kernel ops/pallas/fbank.py:fbank_fused computed exactly it).
@@ -42,8 +42,21 @@
 //   double-buffered); the first wait pairs with an arrival on start-up, so
 //   no CTA writes to another before it runs. No atomics: reruns agree bit
 //   for bit.
-// All launch decisions (cluster, tile, warps, grid) are made here; the
-// wrapper passes shapes and the packed M.
+// Dither (raw-audio training): Kaldi adds dither * N(0, 1) to every framed
+// sample before remove-DC, so each (frame, sample) pair has its own draw and
+// the frames cannot share one staged run of samples. The caller passes the
+// draws as a contiguous fp32 tensor (batch, num_frames, frame_length); the
+// dithered variant (kDither, picked by a non-null noise pointer) adds
+// dither * noise[b, t, r] to each sample in the FMA loop, read through the
+// read-only path: per sample a lane adds 8 loads (its 8 frames) to 64 FMA,
+// and the 8 lanes that share a frame read one address; a lane's 32-byte
+// sector of a frame serves its next 7 samples from L1. A 32-frame noise
+// tile (51 KB) does not fit beside the 219 KB layout, so all 8 CTAs of the
+// cluster read it through L1/L2; from HBM once (205 MB at the training
+// shape, 256 x 500 frames: 0.06 ms against 0.78 ms of fp32 FMA). The
+// dither-off variant is the same code without those lines.
+// All launch decisions (cluster, tile, warps, grid, variant) are made here;
+// the wrapper passes shapes, the packed M and the noise.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -143,6 +156,8 @@ struct Args {
   int col0, ncols;  // this launch's chunk of mel columns: col0 .. col0 + ncols - 1
   int use_power, use_log, tiles, work;  // work = batch * tiles
   float floor_value;
+  const float* noise;  // (batch, num_frames, frame_length), or null: no dither
+  float dither;
 };
 
 // Work item j's samples into a padded buffer: sample o of the tile at
@@ -194,6 +209,7 @@ __device__ __forceinline__ void mel_out(const Args& g, const float* pw, const fl
   }
 }
 
+template <bool kDither>
 __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int mstart[kMaxMel], moff[kMaxMel + 1];
@@ -248,11 +264,27 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
     const float* x0 = seg + fg * (sh + kPad);
     const int xstep = 4 * (sh + kPad);
     int rp = r0 + kPad * (r0 / sh), rr = r0 % sh;  // padded position of row r
+    // dither: the noise rows of this lane's frames (a frame past the end
+    // reads the last frame's: its output is not written)
+    const float* nz[8];
+    if constexpr (kDither) {
+      const long long row0 = static_cast<long long>(j / g.tiles) * g.num_frames;
+      const int t0 = (j % g.tiles) * kFrames + fg;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        nz[i] = g.noise + (row0 + min(t0 + 4 * i, g.num_frames - 1)) * g.frame_length;
+    }
 #pragma unroll 2
     for (int r = r0; r < r0 + rpw; ++r) {
       float xs[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) xs[i] = x0[rp + i * xstep];
+      if constexpr (kDither) {
+        // rows past the frame (A/B zero there) read the frame's last draw
+        const int rn = min(r, g.frame_length - 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) xs[i] += g.dither * __ldg(nz[i] + rn);
+      }
       const float4 av = *reinterpret_cast<const float4*>(ab + r * kRowFloats + 4 * bg);
       const float4 bv = *reinterpret_cast<const float4*>(ab + r * kRowFloats + kBins + 4 * bg);
       const float as[4] = {av.x, av.y, av.z, av.w};
@@ -314,7 +346,9 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
 }
 
 // Clusters of kSplit CTAs the current card holds at once, cached per
-// (device, shared memory); the kernel's shared-memory limit is set first.
+// (variant, device, shared memory); the kernel's shared-memory limit is set
+// first.
+template <bool kDither>
 cudaError_t cluster_capacity(size_t smem, int* clusters) {
   struct Entry {
     int device, clusters;
@@ -326,7 +360,7 @@ cudaError_t cluster_capacity(size_t smem, int* clusters) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fbank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(fbank_kernel<kDither>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> guard(lock);
@@ -346,7 +380,7 @@ cudaError_t cluster_capacity(size_t smem, int* clusters) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(clusters, fbank_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(clusters, fbank_kernel<kDither>, &cfg);
   if (err != cudaSuccess) return err;
   if (used < 16) cache[used++] = {device, *clusters, smem};
   return cudaSuccess;
@@ -356,47 +390,16 @@ size_t smem_bytes(int frame_length, int frame_shift) {
   return sizeof(float) * static_cast<size_t>(Layout(frame_length, frame_shift).total);
 }
 
-}  // namespace
-
-// The launch plan of a call: the clusters the card holds at once and the
-// dynamic shared memory a CTA takes (reported by the callers' timing tools).
-extern "C" int fbank_plan(int frame_length, int frame_shift, int* clusters, int* smem_bytes_out) {
-  const size_t smem = smem_bytes(frame_length, frame_shift);
-  *smem_bytes_out = static_cast<int>(smem);
-  return static_cast<int>(cluster_capacity(smem, clusters));
-}
-
-// waves (batch, num_samples) fp32; a, b (frame_length, num_fft_bins); M by
-// columns (mel_start, mel_off, mel_w as in Args); out (batch, num_frames,
-// num_bins). Takes num_fft_bins <= 256 and a multiple of 4, at most
-// kMelCap weights of M, and a frame whose A/B slice and samples fit one
-// CTA's shared memory (400 samples, a 160-sample shift: 219 KB). More than
-// kMaxMel mel columns run as one launch per chunk of kMaxMel columns (each
-// recomputes the power spectrum).
-extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
-                         const int* mel_start, const int* mel_off, const float* mel_w,
-                         float* out, int batch, int num_samples, int num_frames,
-                         int frame_length, int frame_shift, int num_fft_bins, int num_bins,
-                         int mel_nnz, int use_power, int use_log, float floor_value,
-                         void* stream) {
-  if (num_fft_bins > kSplit * kBins || num_fft_bins % 4 != 0 || num_bins < 1 ||
-      frame_length < 1 || frame_length > 4096 || frame_shift < 1 ||
-      frame_shift > 4096 || batch < 1 || mel_nnz < 0 || mel_nnz > kMelCap)
-    return vsv::kShapeUnsupported;
-  const size_t smem = smem_bytes(frame_length, frame_shift);
-  const long long work = static_cast<long long>(batch) * ((num_frames + kFrames - 1) / kFrames);
-  if (smem > static_cast<size_t>(kSmemMax) - 2048 || work > (1LL << 30))
-    return vsv::kShapeUnsupported;
+// One launch a chunk of kMaxMel mel columns, on as many clusters as the card
+// holds at once (at most one a work item).
+template <bool kDither>
+int launch(Args args, size_t smem, int num_bins, void* stream) {
   int clusters = 0;
-  cudaError_t err = cluster_capacity(smem, &clusters);
+  cudaError_t err = cluster_capacity<kDither>(smem, &clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  Args args{waves, a, b, mel_start, mel_off, mel_w, out, num_samples, num_frames,
-            frame_length, frame_shift, num_fft_bins, num_bins, mel_nnz, 0, 0, use_power,
-            use_log, (num_frames + kFrames - 1) / kFrames, static_cast<int>(work),
-            floor_value};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(kSplit * std::min<long long>(clusters, work)));
+  cfg.gridDim = dim3(static_cast<unsigned>(kSplit * std::min(clusters, args.work)));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -410,9 +413,50 @@ extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
   for (int c0 = 0; c0 < num_bins; c0 += kMaxMel) {
     args.col0 = c0;
     args.ncols = std::min(kMaxMel, num_bins - c0);
-    err = cudaLaunchKernelEx(&cfg, fbank_kernel, args);
+    err = cudaLaunchKernelEx(&cfg, fbank_kernel<kDither>, args);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+}  // namespace
+
+// The launch plan of a call: the clusters the card holds at once and the
+// dynamic shared memory a CTA takes (reported by the callers' timing tools).
+extern "C" int fbank_plan(int frame_length, int frame_shift, int* clusters, int* smem_bytes_out) {
+  const size_t smem = smem_bytes(frame_length, frame_shift);
+  *smem_bytes_out = static_cast<int>(smem);
+  return static_cast<int>(cluster_capacity<false>(smem, clusters));
+}
+
+// waves (batch, num_samples) fp32; a, b (frame_length, num_fft_bins); M by
+// columns (mel_start, mel_off, mel_w as in Args); out (batch, num_frames,
+// num_bins); noise null (no dither) or (batch, num_frames, frame_length)
+// fp32 draws, added to the framed samples times `dither` (the dithered
+// variant). Takes num_fft_bins <= 256 and a multiple of 4, at most
+// kMelCap weights of M, and a frame whose A/B slice and samples fit one
+// CTA's shared memory (400 samples, a 160-sample shift: 219 KB). More than
+// kMaxMel mel columns run as one launch per chunk of kMaxMel columns (each
+// recomputes the power spectrum).
+extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
+                         const int* mel_start, const int* mel_off, const float* mel_w,
+                         float* out, int batch, int num_samples, int num_frames,
+                         int frame_length, int frame_shift, int num_fft_bins, int num_bins,
+                         int mel_nnz, int use_power, int use_log, float floor_value,
+                         const float* noise, float dither, void* stream) {
+  if (num_fft_bins > kSplit * kBins || num_fft_bins % 4 != 0 || num_bins < 1 ||
+      frame_length < 1 || frame_length > 4096 || frame_shift < 1 ||
+      frame_shift > 4096 || batch < 1 || mel_nnz < 0 || mel_nnz > kMelCap)
+    return vsv::kShapeUnsupported;
+  const size_t smem = smem_bytes(frame_length, frame_shift);
+  const long long work = static_cast<long long>(batch) * ((num_frames + kFrames - 1) / kFrames);
+  if (smem > static_cast<size_t>(kSmemMax) - 2048 || work > (1LL << 30))
+    return vsv::kShapeUnsupported;
+  Args args{waves, a, b, mel_start, mel_off, mel_w, out, num_samples, num_frames,
+            frame_length, frame_shift, num_fft_bins, num_bins, mel_nnz, 0, 0, use_power,
+            use_log, (num_frames + kFrames - 1) / kFrames, static_cast<int>(work),
+            floor_value, noise, dither};
+  return noise != nullptr ? launch<true>(args, smem, num_bins, stream)
+                          : launch<false>(args, smem, num_bins, stream);
 }

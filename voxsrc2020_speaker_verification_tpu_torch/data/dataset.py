@@ -7,8 +7,9 @@ package's ``data/dataset.py``): an endless pass with a random ~10% skip on
 every pass, sliding CMN over the whole utterance, optional global CMVN,
 then a random crop (or a randomly shifted zero pad). ``BatchFeeder`` drains
 sample iterators into whole optimizer-step batches ((A, B, T, F) features,
-(A, B) labels) on background threads. Its bf16 wire is a ``torch.bfloat16``
-tensor (the JAX package's is ``ml_dtypes``, which the port does not use).
+(A, B) labels, or raw-audio tuples) on background threads. Its bf16 wire
+is a ``torch.bfloat16`` tensor (the JAX package's is ``ml_dtypes``, which
+the port does not use).
 ``data/native.py:NativeBatchFeeder`` does the same work in C++.
 """
 
@@ -130,10 +131,14 @@ class SyntheticDataset:
 class BatchFeeder:
     """Background feeder: one thread per source pushes samples into a
     bounded queue; one thread assembles (A, B, T, F) / (A, B) batches.
+    Raw-audio samples (``data/raw_dataset.py``: a tuple of wave int16,
+    num_samples, target_offset and pad_shift) assemble field by field into
+    a tuple of (A, B, ...) arrays.
 
     ``wire_bf16`` ships the features as a ``torch.bfloat16`` tensor, half
     the host->device bytes; with bf16 compute it is lossless, since the
-    first conv casts its input to bf16 anyway."""
+    first conv casts its input to bf16 anyway. Raw batches have no bf16
+    wire (their waves are int16 already)."""
 
     def __init__(self, sources: Sequence, batch_size: int,
                  num_accumulation_steps: int = 1, queue_depth: int = 2,
@@ -178,9 +183,14 @@ class BatchFeeder:
                 labels.append(l)
             if self._stop.is_set():
                 return
-            fb = np.stack(feats).reshape(a, b, *feats[0].shape)
-            if self.wire_bf16:
-                fb = torch.from_numpy(fb).to(torch.bfloat16)
+            if isinstance(feats[0], tuple):
+                # raw-audio samples: one (A, B, ...) array a field
+                fb = tuple(np.stack([f[k] for f in feats]).reshape(a, b, *np.shape(feats[0][k]))
+                           for k in range(len(feats[0])))
+            else:
+                fb = np.stack(feats).reshape(a, b, *feats[0].shape)
+                if self.wire_bf16:
+                    fb = torch.from_numpy(fb).to(torch.bfloat16)
             self._put(self.batch_queue, (fb, np.asarray(labels, np.int32).reshape(a, b)))
 
     def start(self) -> "BatchFeeder":

@@ -13,7 +13,11 @@ The JAX package's ``data/features.py``: the reference's ``compute-fbank-feats
 ``cli/extract.py --raw`` takes the same batches (:func:`wave_feature_batches`)
 and keeps them on the device.
 
-Dither is not ported yet (``dither_seed`` raises, ROADMAP.md).
+Dither (``dither_seed``) runs K1's dithered variant: Kaldi's dither 1.0
+with draws from a ``torch.Generator`` seeded by ``dither_seed``, one
+(B, T, frame_length) draw a batch. The JAX package draws from threefry keys
+split from the same seed: the distribution is the same, the numbers are
+not.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.fbank import FbankConfig, fbank, num_frames, pcm16
+from ..ops.fbank import FbankConfig, draw_noise, fbank, num_frames, pcm16
 from ..utils import datadir
 from . import kaldi_io
 from .augment import load_utterance
@@ -41,12 +45,15 @@ def _bucket_for(n_samples: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def fbank_int16(waves: np.ndarray, cfg: FbankConfig, device: torch.device) -> torch.Tensor:
+def fbank_int16(waves: np.ndarray, cfg: FbankConfig, device: torch.device,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """(B, S) int16 samples -> (B, T, num_bins) float32 on ``device``: the
     int16 wire (half the bytes of float32), widened on the device, then K1
-    (the plain version on the CPU)."""
+    (the plain version on the CPU); dithered with draws from ``generator``
+    where one is given."""
     w = torch.from_numpy(np.ascontiguousarray(waves, np.int16)).to(device).float()
-    return fbank(w, cfg)
+    noise = None if generator is None else draw_noise(*w.shape, cfg, generator, device)
+    return fbank(w, cfg, noise)
 
 
 def utterance_loader():
@@ -69,15 +76,19 @@ def wave_feature_batches(
     sample_rate: int = 16000,
     io_threads: int = 8,
     device: Optional[Union[str, torch.device]] = None,
+    dither_seed: Optional[int] = None,
 ) -> Iterator[Tuple[torch.Tensor, List[Tuple[str, int]]]]:
     """FBANK straight from a wav.scp: yields (features (B, frames, F) on
     ``device`` (default ``cuda``), [(utt, valid frames), ...]) batch by
     batch, K1 over an int16 wire in audio-length buckets. A host thread pool
     renders the wav.scp values with :func:`utterance_loader` (it prints
     which). Utterances longer than the largest bucket are truncated to it
-    (128 s covers every VoxCeleb utterance)."""
+    (128 s covers every VoxCeleb utterance). ``dither_seed`` turns on
+    dither 1.0, its draws from a generator of that seed."""
     dev = resolve_device(device)
-    cfg = FbankConfig(num_bins=feat_dim, dither=0.0)
+    cfg = FbankConfig(num_bins=feat_dim, dither=0.0 if dither_seed is None else 1.0)
+    gen = (None if dither_seed is None
+           else torch.Generator(device=dev).manual_seed(dither_seed))
     load, renderer = utterance_loader()
     print(f"renderer: {renderer}", flush=True)
     wav = datadir.read_two_column(wav_scp)
@@ -90,7 +101,8 @@ def wave_feature_batches(
         waves = np.zeros((len(batch), bucket), np.int16)
         for i, (_, n, w) in enumerate(batch):
             waves[i, :n] = pcm16(w[:n])
-        return fbank_int16(waves, cfg, dev), [(utt, num_frames(n, cfg)) for utt, n, _ in batch]
+        return (fbank_int16(waves, cfg, dev, gen),
+                [(utt, num_frames(n, cfg)) for utt, n, _ in batch])
 
     with cf.ThreadPoolExecutor(max_workers=io_threads) as pool:
         for utt, (samples, sr) in zip(keys, pool.map(lambda u: load(wav[u]), keys)):
@@ -122,10 +134,8 @@ def compute_features_for_dir(
 ) -> str:
     """Compute ``<out_name>.ark/.scp`` (default ``fbank<feat_dim>``) and
     ``utt2num_frames`` for a data dir on ``device`` (default ``cuda``)
-    through :func:`wave_feature_batches`. Returns the scp path."""
-    if dither_seed is not None:
-        raise NotImplementedError("dither is not ported yet (ROADMAP.md §1 item 6); "
-                                  "features are computed with dither off")
+    through :func:`wave_feature_batches` (dithered with ``dither_seed``).
+    Returns the scp path."""
     out_name = out_name or f"fbank{feat_dim}"
     ark = os.path.join(data_dir, out_name + ".ark")
     scp = os.path.join(data_dir, out_name + ".scp")
@@ -133,7 +143,7 @@ def compute_features_for_dir(
     batches = wave_feature_batches(
         os.path.join(data_dir, "wav.scp"), feat_dim, batch_size=batch_size,
         bucket_seconds=bucket_seconds, sample_rate=sample_rate, io_threads=io_threads,
-        device=device)
+        device=device, dither_seed=dither_seed)
     with kaldi_io.ArkScpWriter(ark, scp, compress=compress) as writer:
         for feats, rows in batches:
             feats = feats.cpu().numpy()

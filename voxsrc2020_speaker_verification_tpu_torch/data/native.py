@@ -1,6 +1,6 @@
 """ctypes bindings of the native IO library (``native/vox_io.cc``,
-``native/vox_feeder.cc``), the port's counterpart of the JAX package's
-``data/native.py``.
+``native/vox_feeder.cc``, ``native/vox_raw.cc``), the port's counterpart of
+the JAX package's ``data/native.py``.
 
 The feature-shard training feeder's whole hot loop -- seek into an ark,
 decode an FM/CM matrix, sliding CMN, crop or pad, batch assembly and the
@@ -15,8 +15,10 @@ processes that start together build it once) and loaded from there.
 (``native/vox_io.cc``) and augmentation-spec renderer
 (``native/vox_raw.cc``), the C++ versions of
 ``data/audio.py:read_wav`` (16-bit PCM only) and
-``data/augment.py:load_utterance``. The raw-audio feeder of the same library
-is not bound here yet (ROADMAP.md).
+``data/augment.py:load_utterance``. ``NativeRawBatchFeeder`` binds the
+raw-audio training feeder of ``native/vox_raw.cc`` (wav decode, spec
+rendering, int16 crop with CMN context, batch assembly), the C++ version of
+``BatchFeeder`` over ``data/raw_dataset.py:RawAudioShardDataset`` sources.
 """
 
 from __future__ import annotations
@@ -95,13 +97,21 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ]
         lib.vox_feeder_next.restype = ctypes.c_int
         lib.vox_feeder_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i32p]
-        lib.vox_feeder_errors.restype = ctypes.c_int64
-        lib.vox_feeder_errors.argtypes = [ctypes.c_void_p]
-        lib.vox_feeder_dead_workers.restype = ctypes.c_int32
-        lib.vox_feeder_dead_workers.argtypes = [ctypes.c_void_p]
-        for fn in ("vox_feeder_stop", "vox_feeder_destroy"):
-            getattr(lib, fn).restype = None
-            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+        lib.vox_raw_feeder_create.restype = ctypes.c_void_p
+        lib.vox_raw_feeder_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), i32p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32]
+        lib.vox_raw_feeder_next.restype = ctypes.c_int
+        lib.vox_raw_feeder_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i32p, i32p,
+                                            i32p, i32p]
+        for prefix in ("vox_feeder", "vox_raw_feeder"):
+            getattr(lib, f"{prefix}_errors").restype = ctypes.c_int64
+            getattr(lib, f"{prefix}_dead_workers").restype = ctypes.c_int32
+            for fn in ("errors", "dead_workers", "stop", "destroy"):
+                getattr(lib, f"{prefix}_{fn}").argtypes = [ctypes.c_void_p]
+            for fn in ("stop", "destroy"):
+                getattr(lib, f"{prefix}_{fn}").restype = None
         _lib = lib
         return _lib
 
@@ -191,7 +201,91 @@ def _cmvn_rows(cmvn_pkl: str, feat_dim: int):
     return row(mean, "mean"), row(std, "std")
 
 
-class NativeBatchFeeder:
+class _NativeFeeder:
+    """The lifecycle the C feeders share (``native/feeder_core.h``): one
+    ctypes call a batch (``<prefix>_next``, GIL released) into fresh numpy
+    buffers from ``_alloc``, ``get()`` serialized against ``close()``, and
+    the health getters. ``get()`` raises IOError once every worker's block
+    of the scp is dead."""
+
+    _prefix = ""
+    _dead_hint = ""
+
+    def _init_handle(self, lib, handle) -> None:
+        if not handle:
+            raise ValueError(f"{self._prefix}_create refused its arguments")
+        self._lib, self._handle = lib, handle
+        # serializes get() against close(): destroy must not free the C++
+        # object while a prefetch thread is blocked inside <prefix>_next
+        self._io_lock = threading.Lock()
+
+    def _fn(self, name: str):
+        return getattr(self._lib, f"{self._prefix}_{name}")
+
+    def _alloc(self):
+        """(C arguments after the handle, the batch they fill)."""
+        raise NotImplementedError
+
+    def start(self):
+        return self  # the workers start in <prefix>_create
+
+    def get(self, timeout=None):
+        # fresh buffers per batch: the device prefetch may still hold the last
+        c_args, batch = self._alloc()
+        with self._io_lock:
+            if self._handle is None:
+                raise StopIteration
+            rc = self._fn("next")(self._handle, *c_args)
+            if rc == -2:
+                raise IOError(f"native feeder: every shard failed to decode "
+                              f"({self.decode_errors()} errors): {self._dead_hint}")
+        if rc != 0:
+            raise StopIteration
+        return batch
+
+    def __iter__(self):
+        while True:
+            try:
+                yield self.get()
+            except StopIteration:
+                return
+
+    def decode_errors(self) -> int:
+        if self._handle is None:
+            return 0
+        return int(self._fn("errors")(self._handle))
+
+    def dead_shards(self) -> int:
+        """Workers whose block of the scp decoded nothing over a full pass:
+        that share of the data is missing from training."""
+        if self._handle is None:
+            return 0
+        return int(self._fn("dead_workers")(self._handle))
+
+    def stop(self) -> None:
+        """Stop the workers; the health getters still answer until close()."""
+        if self._handle:
+            self._fn("stop")(self._handle)
+
+    def close(self) -> None:
+        if self._handle:
+            # stop outside the lock: it unblocks a get() waiting in the C
+            # call, which then releases the lock
+            self._fn("stop")(self._handle)
+            with self._io_lock:
+                if self._handle:
+                    self._fn("destroy")(self._handle)
+                    self._handle = None
+
+    def __del__(self):
+        # finalization only: modules may be gone at interpreter teardown
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeBatchFeeder(_NativeFeeder):
     """Feature-shard training feeder in C++ (``native/vox_feeder.cc``): the
     native counterpart of ``BatchFeeder`` over ``FeatureShardDataset``
     sources. Each ``get()`` is one ctypes call (GIL released) that returns
@@ -206,6 +300,9 @@ class NativeBatchFeeder:
     ``dead_shards()`` counts workers whose block decoded nothing over a
     full pass (``training.loop.fit`` raises on it); ``get()`` raises
     IOError once every block is dead."""
+
+    _prefix = "vox_feeder"
+    _dead_hint = "feat_dim mismatch or corrupt arks?"
 
     def __init__(self, scp_paths, utt2id, feat_dim: int, feat_length: int,
                  batch_size: int, num_accumulation_steps: int = 1,
@@ -240,79 +337,64 @@ class NativeBatchFeeder:
             self._cmvn = _cmvn_rows(cmvn_pkl, feat_dim)  # alive past create
             c_mean, c_std = (x.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
                              for x in self._cmvn)
-        handle = lib.vox_feeder_create(
+        self._init_handle(lib, lib.vox_feeder_create(
             (ctypes.c_char_p * n)(*paths), (ctypes.c_int64 * n)(*offsets),
             (ctypes.c_int32 * n)(*labels), n, feat_dim, feat_length, batch_size,
             num_accumulation_steps, resolve_num_workers(num_threads), seed,
-            cmn_window if sliding_cmn else 0, skip_percent, int(wire_bf16), c_mean, c_std)
-        if not handle:
-            raise ValueError("vox_feeder_create refused its arguments")
-        self._lib, self._handle = lib, handle
-        # serializes get() against close(): destroy must not free the C++
-        # object while a prefetch thread is blocked inside vox_feeder_next
-        self._io_lock = threading.Lock()
+            cmn_window if sliding_cmn else 0, skip_percent, int(wire_bf16), c_mean, c_std))
 
-    def start(self) -> "NativeBatchFeeder":
-        return self  # the workers start in vox_feeder_create
-
-    def get(self, timeout=None):
-        # fresh buffers per batch: the device prefetch may still hold the last
+    def _alloc(self):
         shape = (self.a, self.b, self.t, self.f)
         feats = np.empty(shape, np.int16 if self.wire_bf16 else np.float32)
         labels = np.empty((self.a, self.b), np.int32)
-        with self._io_lock:
-            if self._handle is None:
-                raise StopIteration
-            rc = self._lib.vox_feeder_next(
-                self._handle, feats.ctypes.data_as(ctypes.c_void_p),
-                labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-            if rc == -2:
-                raise IOError(f"native feeder: every shard failed to decode "
-                              f"({self.decode_errors()} errors): feat_dim mismatch or "
-                              f"corrupt arks?")
-        if rc != 0:
-            raise StopIteration
-        if self.wire_bf16:
-            return torch.from_numpy(feats).view(torch.bfloat16), labels
-        return feats, labels
+        batch = (torch.from_numpy(feats).view(torch.bfloat16) if self.wire_bf16 else feats,
+                 labels)
+        return (feats.ctypes.data_as(ctypes.c_void_p),
+                labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))), batch
 
-    def __iter__(self):
-        while True:
-            try:
-                yield self.get()
-            except StopIteration:
-                return
 
-    def decode_errors(self) -> int:
-        if self._handle is None:
-            return 0
-        return int(self._lib.vox_feeder_errors(self._handle))
+class NativeRawBatchFeeder(_NativeFeeder):
+    """Raw-audio training feeder in C++ (``native/vox_raw.cc``): wav decode,
+    augmentation-spec rendering (FFT reverb, SNR mixing), the int16 crop
+    with CMN context and batch assembly in a thread pool, one ctypes call
+    an optimizer step. The native counterpart of ``BatchFeeder`` over
+    ``RawAudioShardDataset`` sources, with the JAX package's signature:
+    ``get()`` returns ((waves (A, B, Smax) int16, num_samples, target_offset,
+    pad_shift each (A, B) int32), labels (A, B) int32), the tuple
+    ``ops/pipeline.py:waveform_to_features`` takes. Health as
+    :class:`NativeBatchFeeder`'s."""
 
-    def dead_shards(self) -> int:
-        """Workers whose block of the scp decoded nothing over a full pass:
-        that share of the data is missing from training."""
-        if self._handle is None:
-            return 0
-        return int(self._lib.vox_feeder_dead_workers(self._handle))
+    _prefix = "vox_raw_feeder"
+    _dead_hint = "bad wav paths or malformed specs?"
 
-    def stop(self) -> None:
-        """Stop the workers; the health getters still answer until close()."""
-        if self._handle:
-            self._lib.vox_feeder_stop(self._handle)
+    def __init__(self, wav_scp, utt2id, feat_length: int, batch_size: int,
+                 num_accumulation_steps: int = 1, *, cfg=None, context: int = 150,
+                 num_threads: Optional[int] = None, seed: int = 0, skip_percent: int = 10,
+                 shard_index: int = 0, num_shards: int = 1):
+        from ..ops.fbank import FbankConfig
+        from ..ops.pipeline import max_crop_samples
+        from ..utils import datadir, resolve_num_workers
 
-    def close(self) -> None:
-        if self._handle:
-            # stop outside the lock: it unblocks a get() waiting in the C
-            # call, which then releases the lock
-            self._lib.vox_feeder_stop(self._handle)
-            with self._io_lock:
-                if self._handle:
-                    self._lib.vox_feeder_destroy(self._handle)
-                    self._handle = None
+        self._handle = None
+        lib = _lib_or_raise()
+        cfg = cfg or FbankConfig()
+        entries = list(datadir.read_two_column(wav_scp).items())[shard_index::num_shards]
+        if not entries:
+            raise ValueError(f"shard {shard_index} of {num_shards} of {wav_scp} is empty")
+        n = len(entries)
+        self.a, self.b = num_accumulation_steps, batch_size
+        self.max_samples = max_crop_samples(feat_length, context, cfg)
+        self._init_handle(lib, lib.vox_raw_feeder_create(
+            (ctypes.c_char_p * n)(*(v.encode() for _, v in entries)),
+            (ctypes.c_int32 * n)(*(int(utt2id[k]) if utt2id else 0 for k, _ in entries)),
+            n, feat_length, context, cfg.frame_shift, cfg.frame_length, batch_size,
+            num_accumulation_steps, resolve_num_workers(num_threads), seed, skip_percent))
 
-    def __del__(self):
-        # finalization only: modules may be gone at interpreter teardown
-        try:
-            self.close()
-        except Exception:
-            pass
+    def _alloc(self):
+        a, b = self.a, self.b
+        waves = np.empty((a, b, self.max_samples), np.int16)
+        ns, off, shift, labels = (np.empty((a, b), np.int32) for _ in range(4))
+        as_i32 = lambda x: x.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        return ((waves.ctypes.data_as(ctypes.c_void_p), as_i32(ns), as_i32(off),
+                 as_i32(shift), as_i32(labels)),
+                ((waves, ns, off, shift), labels))

@@ -148,9 +148,9 @@ class CudaKernel:
 
 FBANK = CudaKernel("fbank", "fbank.cu", {
     "fbank_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _I, _F, _P],
+                  _I, _F, _P, _F, _P],
     "fbank_plan": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
-})
+}, paths={"fbank_f32": ("plain", "dither")})
 SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
     "split_group": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],

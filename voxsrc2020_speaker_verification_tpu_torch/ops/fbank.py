@@ -4,7 +4,9 @@ and the CUDA kernel K1 (``csrc/fbank.cu``).
 Numerically this is Kaldi ``compute-fbank-feats`` with the reference configs
 (16 kHz, 25 ms window, 10 ms shift, preemphasis 0.97, remove-DC, Povey
 window, 512-point FFT, snip-edges, mel 20 Hz to Nyquist, log floored at
-FLT_EPSILON), dither off.
+FLT_EPSILON). Dither (Kaldi's ``dither * N(0, 1)`` added to every framed
+sample) takes the draws as an explicit tensor, so the kernel and its plain
+version see the same numbers.
 
 Every per-frame step before the power spectrum is linear in the frame, so it
 folds into two constant matrices A, B of shape (frame_length, num_fft_bins):
@@ -21,7 +23,7 @@ import ctypes
 import dataclasses
 import math
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,14 +190,40 @@ def pcm16(w: np.ndarray) -> np.ndarray:
     return np.clip(np.rint(w), -32768, 32767)
 
 
-def fbank_reference(waves: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
+def _check_noise(noise: torch.Tensor, waves: torch.Tensor, cfg: FbankConfig) -> None:
+    want = (waves.shape[0], num_frames(waves.shape[1], cfg), cfg.frame_length)
+    if tuple(noise.shape) != want or noise.dtype != torch.float32:
+        raise ValueError(f"dither noise must be float32 {want}, got {noise.dtype} "
+                         f"{tuple(noise.shape)}")
+    if noise.device != waves.device:
+        raise ValueError(f"dither noise on {noise.device}, waves on {waves.device}")
+    if cfg.dither == 0.0:
+        raise ValueError("dither noise given with cfg.dither == 0")
+
+
+def draw_noise(batch: int, num_samples: int, cfg: FbankConfig, generator: torch.Generator,
+               device) -> torch.Tensor:
+    """Dither draws for :func:`fbank`: N(0, 1) of shape (batch, T,
+    frame_length), T = num_frames(num_samples), from ``generator``."""
+    return torch.randn((batch, num_frames(num_samples, cfg), cfg.frame_length),
+                       generator=generator, device=device)
+
+
+def fbank_reference(waves: torch.Tensor, cfg: FbankConfig,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch FBANK: (B, S) float32 -> (B, T, num_bins), T =
-    num_frames(S). Frames by ``unfold`` and three float32 matmuls."""
+    num_frames(S). Frames by ``unfold`` and three float32 matmuls; with
+    ``noise`` (B, T, frame_length) float32, ``cfg.dither * noise`` is added
+    to the frames first (the JAX package's dither)."""
     a, b, m = _device_matrices(cfg, waves.device)
     t = num_frames(waves.shape[1], cfg)
+    if noise is not None:
+        _check_noise(noise, waves, cfg)
     if t == 0:
         return waves.new_zeros((waves.shape[0], 0, cfg.num_bins))
     frames = waves.float().unfold(1, cfg.frame_length, cfg.frame_shift)[:, :t]
+    if noise is not None:
+        frames = frames + cfg.dither * noise
     re = frames @ a
     im = frames @ b
     power = re * re + im * im
@@ -207,25 +235,36 @@ def fbank_reference(waves: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
     return mel
 
 
-def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0)) -> torch.Tensor:
-    """Batched log-mel FBANK, dither off: (B, S) or (S,) float32 int16-scale
-    -> (B, T, num_bins) or (T, num_bins).
+def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0),
+          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched log-mel FBANK: (B, S) or (S,) float32 int16-scale -> (B, T,
+    num_bins) or (T, num_bins).
 
-    On a CUDA tensor this launches K1 (``csrc/fbank.cu``), which reads the
-    mel matrix by columns (:func:`mel_columns`), 128 columns a pass (one
-    pass for the 40- and 80-bin banks); on a CPU tensor it runs
-    :func:`fbank_reference`. Padded samples past an utterance's end give
-    frames to be masked downstream.
+    Without ``noise`` dither is off and ``cfg.dither`` must be 0. With
+    ``noise``, float32 draws of shape (B, T, frame_length) (the caller's
+    ``torch.randn`` on its own generator; :func:`draw_noise` makes them),
+    ``cfg.dither`` must be nonzero and ``cfg.dither * noise`` is added to
+    the framed samples (K1 takes them contiguous).
+
+    On a CUDA tensor this launches K1 (``csrc/fbank.cu``; its dithered
+    variant with noise), which reads the mel matrix by columns
+    (:func:`mel_columns`), 128 columns a pass (one pass for the 40- and
+    80-bin banks); on a CPU tensor it runs :func:`fbank_reference`. Padded
+    samples past an utterance's end give frames to be masked downstream.
     """
-    if cfg.dither != 0.0:
-        raise ValueError("fbank runs with dither off (cfg.dither=0); dither "
-                         "is not on the serving path")
+    if noise is None and cfg.dither != 0.0:
+        raise ValueError("fbank without dither noise runs with cfg.dither=0; pass the "
+                         "draws as noise (B, T, frame_length) to dither")
     if waves.ndim == 1:
-        return fbank(waves[None], cfg)[0]
+        return fbank(waves[None], cfg, None if noise is None else noise[None])[0]
+    if noise is not None:
+        _check_noise(noise, waves, cfg)
     if waves.device.type == "cpu":
-        return fbank_reference(waves, cfg)
+        return fbank_reference(waves, cfg, noise)
 
     check_cuda("fbank", waves, (torch.float32,), 2)
+    if noise is not None:
+        check_cuda("fbank noise", noise, (torch.float32,), 3)
     batch, num_samples = waves.shape
     t = num_frames(num_samples, cfg)
     out = torch.empty((batch, t, cfg.num_bins), dtype=torch.float32,
@@ -238,7 +277,8 @@ def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0)) -> to
         "fbank_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(starts), ptr(offsets),
         ptr(weights), ptr(out), batch, num_samples, t, cfg.frame_length, cfg.frame_shift,
         a.shape[1], cfg.num_bins, weights.numel(), int(cfg.use_power),
-        int(cfg.use_log_fbank), FLT_EPSILON)
+        int(cfg.use_log_fbank), FLT_EPSILON, ptr(noise), float(cfg.dither),
+        path="plain" if noise is None else "dither")
     return out
 
 

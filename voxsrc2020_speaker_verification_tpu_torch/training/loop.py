@@ -44,7 +44,9 @@ class _PrefetchError:
 
 
 def device_prefetch(iterator: Iterable, device: torch.device, depth: int = 2):
-    """Double-buffered device feed of (features, labels) batches.
+    """Double-buffered device feed of (features, labels) batches, where
+    features is an array or, in raw-audio mode, a tuple of arrays (int16
+    waves and three int32 fields), each moved in its own dtype.
 
     On CUDA a background thread pins each batch and copies it on a side
     stream, up to ``depth`` batches ahead, so the copy overlaps the running
@@ -55,9 +57,17 @@ def device_prefetch(iterator: Iterable, device: torch.device, depth: int = 2):
     def as_tensor(a):
         return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
 
+    def fields(feats, labels):
+        parts = feats if isinstance(feats, tuple) else (feats,)
+        return [as_tensor(x) for x in parts] + [as_tensor(labels).long()]
+
+    def rebuild(tensors, raw):
+        feats = tuple(tensors[:-1]) if raw else tensors[0]
+        return feats, tensors[-1]
+
     if device.type != "cuda":
         for feats, labels in iterator:
-            yield as_tensor(feats), as_tensor(labels).long()
+            yield rebuild(fields(feats, labels), isinstance(feats, tuple))
         return
 
     stream = torch.cuda.Stream(device)
@@ -78,12 +88,12 @@ def device_prefetch(iterator: Iterable, device: torch.device, depth: int = 2):
             for feats, labels in iterator:
                 if stop.is_set():
                     return
-                host = [as_tensor(feats).pin_memory(), as_tensor(labels).long().pin_memory()]
+                host = [t.pin_memory() for t in fields(feats, labels)]
                 with torch.cuda.stream(stream):
                     dev = [t.to(device, non_blocking=True) for t in host]
                     event = torch.cuda.Event()
                     event.record(stream)
-                put((dev, event))
+                put((dev, isinstance(feats, tuple), event))
         except BaseException as e:  # surfaced in the consumer thread
             put(_PrefetchError(e))
             return
@@ -98,12 +108,12 @@ def device_prefetch(iterator: Iterable, device: torch.device, depth: int = 2):
                 return
             if isinstance(item, _PrefetchError):
                 raise item.exc
-            (feats, labels), event = item
+            tensors, raw, event = item
             current = torch.cuda.current_stream(device)
             current.wait_event(event)
-            feats.record_stream(current)
-            labels.record_stream(current)
-            yield feats, labels
+            for t in tensors:
+                t.record_stream(current)
+            yield rebuild(tensors, raw)
     finally:
         stop.set()
         thread.join(timeout=5)
@@ -119,7 +129,12 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
     """Train until ``config.total_steps`` (or ``max_steps`` more steps).
 
     batches: iterable of (features (A, B, T, F), labels (A, B)) -- e.g. a
-    started BatchFeeder or NativeBatchFeeder. ``device`` defaults to
+    started BatchFeeder or NativeBatchFeeder -- or, with
+    ``config.raw_audio``, of ((waves (A, B, S) int16, num_samples,
+    target_offset, pad_shift), labels) from a NativeRawBatchFeeder or a
+    BatchFeeder over RawAudioShardDataset sources; audio-s/s counts the
+    trained frames (effective batch x feat_length / 100) either way.
+    ``device`` defaults to
     ``cuda``; ``state`` (default: ``create_train_state``) is trained in
     place. ``FitResult.history`` holds every logged step's metrics, with its
     audio-s/s and host time.

@@ -11,7 +11,14 @@ The semantics of the JAX package's ``training/trainer.py``:
   ``min(1, clip / (gnorm + 1e-12))``;
 * trace-form SGD momentum, ``m = 0.9 m + g; p -= lr * m``;
 * learning rate and margin come from the schedules at the step before the
-  increment.
+  increment;
+* in raw-audio mode (``config.raw_audio``) each microbatch's waveform crops
+  become features on the device first (``ops/pipeline.py``: K1, dithered
+  when ``config.dither`` is nonzero, then K7 and the crop gather), outside
+  autograd, as no gradient flows into the JAX package's features either.
+  The dither draws come from a generator seeded by (config.seed, global
+  step, microbatch), so a resumed run draws the same noise; they are not
+  the JAX package's threefry draws, only of the same distribution.
 
 The update runs in place with ``torch._foreach_*`` (the JAX package builds
 new arrays). Parameters stay float32; the model casts each weight to the
@@ -23,12 +30,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..config import TrainConfig
 from ..convert import init_weights
 from ..losses import schedules
+from ..ops.fbank import FbankConfig, draw_noise
+from ..ops.pipeline import waveform_to_features
 from .speaker_net import SpeakerNet
 
 
@@ -52,9 +62,8 @@ def build_speaker_net(config: TrainConfig,
     """The config's training net on ``device`` (default ``cuda``), bfloat16
     compute when ``config.bf16``, with the config's rematerialization
     options. Raises on the options the port lacks."""
-    if config.raw_audio or config.specaug:
-        raise NotImplementedError(
-            "raw-audio training and SpecAugment are not ported yet (ROADMAP.md)")
+    if config.specaug:
+        raise NotImplementedError("SpecAugment is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     net = SpeakerNet(config.model, config.projection, config.num_classes,
                      config.num_centers, config.feat_dim,
@@ -98,30 +107,58 @@ def schedule_values(config: TrainConfig, step: int) -> Tuple[float, float]:
     return float(lr), float(margin)
 
 
+def dither_generator(config: TrainConfig, step: int, microbatch: int,
+                     device: torch.device) -> torch.Generator:
+    """The generator of one microbatch's dither draws: seeded by
+    (config.seed, global step, microbatch), so a resumed run draws what the
+    uninterrupted run drew."""
+    seed = np.random.SeedSequence([config.seed, step, microbatch]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def make_train_step(config: TrainConfig):
     """Returns step(state, features, labels) -> (state, metrics).
 
-    features: (A, B, T, F) float32 or bfloat16, labels: (A, B) integers, on
-    the state's device. The state is updated in place and returned with its
-    step incremented; the metrics are 0-d float32 tensors, on the device
-    except the host-side schedule values (no host sync)."""
+    features: (A, B, T, F) float32 or bfloat16, or in raw-audio mode the
+    tuple (waves (A, B, S) int16 or float32, num_samples, target_offset,
+    pad_shift each (A, B)); labels: (A, B) integers; all on the state's
+    device. The state is updated in place and returned with its step
+    incremented; the metrics are 0-d float32 tensors, on the device except
+    the host-side schedule values (no host sync)."""
+    if config.raw_audio:
+        fbank_cfg = FbankConfig(num_bins=config.feat_dim, dither=config.dither)
 
-    def step_fn(state: TrainState, features: torch.Tensor,
+    def microbatch_features(features, a: int, step: int) -> torch.Tensor:
+        if not config.raw_audio:
+            return features[a].float()
+        waves, num_samples, offset, shift = (x[a] for x in features)
+        noise = None
+        if config.dither:
+            noise = draw_noise(waves.shape[0], waves.shape[1], fbank_cfg,
+                               dither_generator(config, step, a, waves.device), waves.device)
+        with torch.no_grad():
+            return waveform_to_features(waves, num_samples, offset, shift, fbank_cfg,
+                                        config.feat_length, window=config.cmn_window,
+                                        context=config.cmn_context, noise=noise)
+
+    def step_fn(state: TrainState, features,
                 labels: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        if features.ndim != 4 or labels.ndim != 2:
-            raise ValueError(f"features (A, B, T, F) and labels (A, B), got "
-                             f"{tuple(features.shape)}, {tuple(labels.shape)}")
+        fields = features if isinstance(features, tuple) else (features,)
+        want = [3, 2, 2, 2] if config.raw_audio else [4]  # (A, B, S) and (A, B) / (A, B, T, F)
+        if [x.ndim for x in fields] != want or labels.ndim != 2:
+            raise ValueError(f"features of {want} dims and labels (A, B), got "
+                             f"{[tuple(x.shape) for x in fields]}, {tuple(labels.shape)}")
         lr, margin = schedule_values(config, state.step)
         net = state.net
         names = [k for k, _ in net.named_parameters()]
         params = [p for _, p in net.named_parameters()]
         for p in params:
             p.grad = None
-        num_accum = features.shape[0]
+        num_accum = labels.shape[0]
         ces, accs = [], []
         for a in range(num_accum):
-            loss_rows, correct = net.loss(features[a].float(), labels[a],
-                                          config.scale, margin)
+            loss_rows, correct = net.loss(microbatch_features(features, a, state.step),
+                                          labels[a], config.scale, margin)
             ce = loss_rows.mean()
             ce.backward()
             ces.append(ce.detach())
