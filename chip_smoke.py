@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device  -- the card's name and power limit (``nvidia-smi``);
-2. build   -- nvcc builds the eight kernels from ``csrc/`` (in parallel);
+2. build   -- nvcc builds the nine kernels from ``csrc/`` (in parallel);
 3. kernels -- each kernel against its plain PyTorch version on the card, in
    float32 (TF32 off) and in bfloat16, with timings: K1-K4 at the shapes
    the serving forward gives them (res2net50_w24_s4_c32, B=128, 1000
@@ -16,7 +16,12 @@ Phases, one JSON line each:
    (two 128-column passes); K6 also on its streaming path (K = 2 at C =
    30000, K = 10), and K1, K4, K4b, K5 and K6 rerun bit for bit; K7
    (sliding CMVN) at cli/extract.py's buckets (8 x 500-16000 frames, padded
-   rows) and one 60,000-frame utterance against float64, rerun bit for bit.
+   rows) and one 60,000-frame utterance against float64, rerun bit for bit;
+   K8 / K8b (attentive pooling) at res2net200_att's serving and training
+   heads, ECAPA-512's and a ragged shape (ATT_SHAPES), with a row masked
+   throughout, a constant row and reruns; K3 / K5 at channel counts that are
+   not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM); K4 at the W =
+   1 heads of TDNN and ECAPA.
    ``ms`` is a call's time by CUDA events, host included; ``device_ms``
    (K1, K4, K4b, K6, K7 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
@@ -78,7 +83,18 @@ Phases, one JSON line each:
    ``--raw`` (K1); 16 utterances through the float32 plain path on the CPU.
    ``cli.evaluate`` and the subset's extractions run the default CMVN,
    which is K7's. Each leg's launches are read from counts set to 0 just
-   before it.
+   before it;
+11. encoders -- the remaining encoder families at full width,
+   each through ``cli.train.main --synthetic`` with its recipe
+   (ENCODER_RUNS: res2net200_w24_s4_c32_att, dpn68, tdnn, ecapa_tdnn_512
+   with --specaug; effective batch 1024): finite loss, schedule-exact lr
+   and margin, launch counts of K4/K4b, K5, K6 and K8/K8b per microbatch;
+   step ms, trained audio-s/s and peak memory; then each exported artifact
+   extracts one 1000-frame bucket batch of mixed lengths in bf16 through
+   eval/extract.py (ms, audio-s/s, K8 once a forward for the attentive
+   families, padded vs exact-length rows, rows against the CPU float32
+   plain path); then a float32 step of a thin variant of each family on
+   the card against the CPU (TOL_PARITY).
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line. Without a CUDA
@@ -186,6 +202,36 @@ COHORT_SPEAKERS, COHORT_UTTS, COHORT_FRAMES = 200, 3, (300, 1200)
 EVAL_SUBSET, EVAL_CPU_UTTS = 256, 16
 TOL_EXTRACT_COS = 0.9999  # host vs device CMVN, bf16 vs float32 wire, raw vs store
 TOL_COHORT_STATS = 1e-5   # asnorm top-k mean / std on the card vs float64 numpy
+# the remaining encoders, each at full width through
+# cli.train.main --synthetic with its family's recipe: (model, recipe,
+# microbatch, accumulation steps, rematerialized stages, extra CLI flags).
+# The recipes' effective batch is 1024 rows (256 x 4; TDNN's 1024 x 1);
+# where the card does not hold the recipe's microbatch, a smaller one with
+# more accumulation keeps B x A = 1024. ENCODER_STEPS steps: one warm-up and
+# the rest timed. Extraction: one bucket batch (eval/extract.py's
+# default_batch_size) of ENCODER_EXTRACT_LENGTHS frames into the 1000-frame
+# bucket; its first rows' lengths are multiples of 8 (DPN's strided SAME
+# convs anchor outputs by the parity of T, in both packages, so only such
+# rows equal their exact-length forward); ENCODER_CPU_FRAMES-frame rows
+# against the float32 plain path on the CPU.
+ENCODER_RUNS = (
+    # the recipe's 256 rows run out of memory (84.1 GB); 128 without remat
+    # peaks at 70.5 GB in a fresh process, 22.1 GB with stages 1-2
+    # rematerialized (scripts/encoder_memory.py, NVIDIA H100 80GB HBM3)
+    ("res2net200_w24_s4_c32_att", "res2net_vox2_dev_aug", 128, 8, (1, 2), ()),
+    ("dpn68", "dpn_vox2_dev_aug", 256, 4, None, ()),
+    ("tdnn", "tdnn_voxsrc2020_vox2_dev_aug", 1024, 1, None, ()),
+    ("ecapa_tdnn_512", "ecapa_vox2_dev_aug", 256, 4, None, ("--specaug",)),
+)
+ENCODER_STEPS = 3
+# the thin variants' float32 card-vs-CPU step: 64 rows, 32 a BN group. At
+# 16 rows (8 a group) the thin ECAPA's step on an H100 strayed 1.70e-3 from the
+# float64 step where the CPU's strayed 5.3e-5, with every kernel of the port
+# swapped for its plain version alike (1.70e-3): PyTorch's own CUDA ops,
+# amplified by a step that ill-conditioned (PERF.md §6,
+# scripts/parity_attribution.py)
+THIN_PARITY_BATCH = 64
+ENCODER_EXTRACT_LENGTHS, ENCODER_EXACT_LENGTHS, ENCODER_CPU_FRAMES = (520, 1000), (1000, 808, 600, 520), 300
 
 
 def emit(obj) -> None:
@@ -461,7 +507,11 @@ def check_bn_act(dev, gen, k3_calls):
         xb = x.bfloat16()
         kwb = dict(kw, shortcut=None if sc is None else sc.bfloat16())
         kwf = dict(kw, shortcut=None if sc is None else kwb["shortcut"].float())
-        e16 = rel_err(ops.bn_act(xb, mean, var, **kwb), ops.bn_act_reference(xb.float(), mean, var, **kwf))
+        got16 = ops.bn_act(xb, mean, var, **kwb)
+        e16 = rel_err(got16, ops.bn_act_reference(xb.float(), mean, var, **kwf))
+        if not torch.equal(got16, ops.bn_act(xb, mean, var, **kwb)):
+            fail(f"bn_act: two runs at {(c, t, f, relu, sc_mode, masked)} differ")
+        del got16
         nbytes = 2 * 2 * x.numel() + (2 * x.numel() if sc is not None else 0) + (4 * BATCH * t if masked else 0)
         bms, by = bound_ms(nbytes, 0.0, torch.bfloat16)
         ms = time_ms(lambda: ops.bn_act(xb, mean, var, **kwb))
@@ -962,6 +1012,257 @@ def check_sliding_cmvn(dev):
                              "mean over time")
 
 
+# K8 / K8b (attentive pooling) at the attentive paths' shapes (B, C, T, W):
+# res2net200_att's serving head (B = 128 x 1000 frames, masked) and training
+# microbatch (the encoders phase's, 200 frames), ECAPA-512's training head
+# at W = 1, and a ragged case (C = 20, T = 1); stated tolerances as TOL_FP32
+# and TOL_TRAIN_BF16 (bf16 kernel vs the plain version on the same inputs)
+ATT_SHAPES = {"res2net200_att_serving": ((BATCH, 1024, 125, 10), True),
+              "res2net200_att_training": ((128, 1024, 25, 10), False),
+              "ecapa512_training": ((256, 1536, 200, 1), False),
+              "ragged_c20_t1": ((4, 20, 1, 3), False)}
+# K3 / K5 at channel counts that are not multiples of 4 (single-channel
+# paths), and at dpn68's stem shape (B = 256 x 200 frames x 80 bins, C = 10)
+ANY_C = (1, 3, 10)
+DPN_STEM = (256, 10, 200, 80)
+
+
+def att_inputs(gen, shape, masked, dtype, dev):
+    b, c, t, w = shape
+    x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+    s = torch.randn(shape, generator=gen, device=dev) * 3
+    mask = None
+    if masked:
+        mask = lengths_mask(gen, b, t, dev)
+        mask[-1] = 0.0  # a row masked throughout (extraction's padding rows)
+        x = x * mask[:, None, :, None]
+    return _layout(x.to(dtype)), _layout(s.to(dtype)), mask
+
+
+def check_att_pool(dev, gen):
+    """K8 and K8b at ATT_SHAPES in float32 (against autograd of the plain
+    version in float64: no further from it than twice the float32 plain
+    version, or TOL_FP32; where a column's weights peak on a few frames, q -
+    mean^2 cancels in any float32 computation) and bfloat16 (against the
+    plain version in float32, TOL_TRAIN_BF16); one launch a direction a call; reruns bit for bit; a
+    row masked throughout (the plain mean over T) and a row of constant x
+    and scores (q - mean^2 == 0: dx = dmean / T, ds = 0); device times of
+    both kernels and of the plain version, and bounds, at every shape.
+    Returns the K8 and K8b rows."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    def run(fn, x, s, mask, dout):
+        xi, si = x.detach().clone().requires_grad_(True), s.detach().clone().requires_grad_(True)
+        y = fn(xi, si, mask)
+        y.backward(dout)
+        return y.detach(), xi.grad, si.grad
+
+    errs = {"fwd": {}, "bwd": {}, "plain_fp32_vs_float64": {}}
+    by_shape = {}
+    for name, (shape, masked) in ATT_SHAPES.items():
+        b, c, t, w = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x, s, mask = att_inputs(gen, shape, masked, dtype, dev)
+            dout = _layout(torch.randn((b, 2 * c, 1, w), generator=gen, device=dev).to(dtype))
+            before = dict(kernels.ATT_POOL.fn_launches)
+            got = run(ops.att_pool, x, s, mask, dout)
+            launched = {f: n - before[f] for f, n in kernels.ATT_POOL.fn_launches.items()}
+            if launched != {"att_pool_fwd": 1, "att_pool_bwd": 1}:
+                fail(f"att_pool {name}: launched {launched}")
+            # float32 against the plain version in float64 (two float32
+            # computations of dx cancel differently where std is small
+            # against |mean|), bf16 against the float32 one
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            if dtype == torch.float32:
+                want = run(ops.att_pool_reference, x.double(), s.double(), mask, dout.double())
+                plain = [rel_err(a, r) for a, r in
+                         zip(run(ops.att_pool_reference, x, s, mask, dout), want)]
+                errs["plain_fp32_vs_float64"][name] = plain
+                tols = [max(TOL_FP32, 2 * e) for e in plain]
+            else:
+                want = run(ops.att_pool_reference, x, s, mask, dout)
+                tols = [TOL_TRAIN_BF16] * 3
+            e = [rel_err(a, r) for a, r in zip(got, want)]
+            errs["fwd"][key], errs["bwd"][key] = e[0], max(e[1:])
+            if any(a > t for a, t in zip(e, tols)):
+                fail(f"att_pool {key}: rel err (out, dx, ds) {e} against {tols}")
+            if not all(torch.equal(a, r) for a, r in zip(got, run(ops.att_pool, x, s, mask, dout))):
+                fail(f"att_pool {key}: two runs on the same inputs differ")
+            if masked and dtype == torch.float32:
+                if not torch.allclose(got[0][-1, :c, 0], x[-1].float().mean(dim=1), atol=1e-5) \
+                        or not torch.all(got[2][-1] == 0):
+                    fail(f"att_pool {name}: the row masked throughout is not the plain mean")
+            del got, want
+        xb, sb, mask = att_inputs(gen, shape, masked, torch.bfloat16, dev)
+        db = _layout(torch.randn((b, 2 * c, 1, w), generator=gen, device=dev).bfloat16())
+        xi, si = xb.detach().requires_grad_(True), sb.detach().requires_grad_(True)
+        y = ops.att_pool(xi, si, mask)
+        nel, out = xb.numel(), b * 2 * c * w
+        # forward: x and s read once, the pooled rows written (the mask,
+        # B x T floats, is noise); backward: x, s and dout read, dx and ds
+        # written; ~12 and ~16 float32 operations (one exp) an element
+        bfwd = bound_ms(2 * (2 * nel + out), 12.0 * nel, torch.float32)
+        bbwd = bound_ms(2 * (4 * nel + out), 16.0 * nel, torch.float32)
+        row = dict(shape=list(shape), masked=masked,
+                   device_ms=device_ms(lambda: ops.att_pool(xb, sb, mask), "att_pool_fwd_kernel"),
+                   device_ms_bwd=device_ms(lambda: torch.autograd.grad(y, [xi, si], db,
+                                                                       retain_graph=True),
+                                           "att_pool_bwd_kernel"),
+                   plain_device_ms=device_ms(lambda: ops.att_pool_reference(xb, sb, mask)),
+                   bound_ms=bfwd[0], bound_by=bfwd[1], bound_ms_bwd=bbwd[0],
+                   bound_by_bwd=bbwd[1])
+        fwd, bwd = time_fwd_bwd(lambda a, z: ops.att_pool(a, z, mask), [xb, sb], db)
+        pfwd, pbwd = time_fwd_bwd(lambda a, z: ops.att_pool_reference(a, z, mask), [xb, sb], db)
+        row.update(ms=fwd, ms_bwd=bwd, plain_ms=pfwd, plain_ms_bwd=pbwd)
+        xi2, si2 = xb.detach().requires_grad_(True), sb.detach().requires_grad_(True)
+        y2 = ops.att_pool_reference(xi2, si2, mask)
+        row["plain_device_ms_bwd"] = device_ms(lambda: torch.autograd.grad(
+            y2, [xi2, si2], db, retain_graph=True))
+        by_shape[name] = row
+        del xb, sb, db, xi, si, y, xi2, si2, y2
+        torch.cuda.empty_cache()
+    # a row of constant x and scores: q - mean^2 == 0 exactly
+    x, s, _ = att_inputs(gen, (2, 16, 8, 3), False, torch.float32, dev)
+    x[0], s[0] = 2.0, 0.75
+    dout = _layout(torch.randn((2, 32, 1, 3), generator=gen, device=dev))
+    _, dx, ds = run(ops.att_pool, x, s, None, dout)
+    if not torch.allclose(dx[0], (dout[0, :16] / 8).expand(16, 8, 3), atol=1e-6) \
+            or float(ds[0].abs().max()) > 1e-6:
+        fail("att_pool: the constant row's gradient is not dmean / T, ds 0")
+    emit({"phase": "kernel", "name": "att_pool", "errors": errs, "by_shape": by_shape})
+    common = dict(route="cuda", source="voxsrc2020_speaker_verification_tpu_torch/csrc/att_pool.cu",
+                  tolerance={"float32": "max(TOL_FP32, 2 x the float32 plain version's "
+                                        "distance to float64)", "bfloat16": TOL_TRAIN_BF16},
+                  reruns_bit_equal=True, dtype="bfloat16", library_ms=None,
+                  library_note="none: no single PyTorch call computes a masked softmax "
+                               "over time with the weighted mean and std",
+                  edges="a row masked throughout, a row of constant x (q - mean^2 == 0), "
+                        "T = 1, C = 20", by_shape=by_shape)
+    serve = by_shape["res2net200_att_serving"]
+    train = by_shape["res2net200_att_training"]
+    k8 = dict(name="att_pool", replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:530 "
+                                       "(AttStatsPool: masked softmax over T, weighted mean || "
+                                       "std, XLA)",
+              max_abs_err=max(errs["fwd"].values()), errors=errs["fwd"],
+              per=f"res2net200_att serving head {ATT_SHAPES['res2net200_att_serving'][0]}",
+              ms=serve["ms"], device_ms=serve["device_ms"], plain_ms=serve["plain_ms"],
+              plain_device_ms=serve["plain_device_ms"], bound_ms=serve["bound_ms"],
+              bound_by=serve["bound_by"], **common)
+    k8b = dict(name="att_pool_bwd", replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:530 "
+                                            "(AttStatsPool backward, JAX autodiff, XLA)",
+               max_abs_err=max(errs["bwd"].values()), errors=errs["bwd"],
+               per=f"res2net200_att training microbatch {ATT_SHAPES['res2net200_att_training'][0]}",
+               ms=train["ms_bwd"], device_ms=train["device_ms_bwd"], plain_ms=train["plain_ms_bwd"],
+               plain_device_ms=train["plain_device_ms_bwd"], bound_ms=train["bound_ms_bwd"],
+               bound_by=train["bound_by_bwd"], **common)
+    return k8, k8b
+
+
+def check_stats_pool_w1(dev, gen):
+    """K4 at the W = 1 heads of TDNN (B = 1024 x 320 frames) and ECAPA-512
+    (256 x 200; the attention's [mean; std] input), 1536 channels, bf16:
+    past its 128-row ring, so on its chunked path. Error against the plain
+    version, device time and bound."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    out = {}
+    for name, shape in (("tdnn", (1024, 1536, 320, 1)), ("ecapa512", (256, 1536, 200, 1))):
+        x = _layout(torch.randn(shape, generator=gen, device=dev) * 2 + 1).bfloat16()
+        e = rel_err(ops.stats_pool(x), ops.stats_pool_reference(x.float()))
+        if e > TOL_BF16["stats_pool"]:
+            fail(f"stats_pool at {shape}: rel err {e}")
+        b, c, _, w = shape
+        out[name] = dict(shape=list(shape), max_rel_err=e,
+                         device_ms=device_ms(lambda: ops.stats_pool(x), "stats_pool_kernel"),
+                         bound_ms=bound_ms(2 * x.numel() + 2 * b * 2 * c * w, 3.0 * x.numel(),
+                                           torch.bfloat16)[0],
+                         library_device_ms=device_ms(var_mean_call(x, backward=False)))
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "stats_pool_w1", **out})
+    return out
+
+
+def check_bn_any_c(dev, gen):
+    """K3 and K5 at ANY_C channels and at DPN_STEM (the single-channel
+    paths) against the plain versions in float32 and bfloat16: K3 with its
+    flags, K5 forward, running update and backward under relu, groups 1 and
+    8; reruns bit for bit; device time at the stem shape. Returns a dict for
+    the bn_act and bn_train rows."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    shapes = [(16, c, 9, 5) for c in ANY_C] + [(64, c, 25, 10) for c in ANY_C] + [DPN_STEM]
+    errs = {"bn_act": 0.0, "bn_train": 0.0, "bn_train_grad": 0.0}
+    flips = 0
+    for shape in shapes:
+        c, t = shape[1], shape[2]
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL_FP32 if dtype == torch.float32 else TOL_TRAIN_BF16
+            x = _layout((torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype))
+            sc = _layout(torch.randn(shape, generator=gen, device=dev).to(dtype))
+            dy = _layout(torch.randn(shape, generator=gen, device=dev).to(dtype))
+            m, v = 0.1 * torch.randn(c, generator=gen, device=dev), 0.5 + torch.rand(c, generator=gen, device=dev)
+            mask = lengths_mask(gen, shape[0], t, dev)
+            for kw in (dict(relu=True, mask=mask), dict(shortcut=sc),
+                       dict(relu=True, shortcut=sc, shortcut_mean=m, shortcut_var=v)):
+                got = ops.bn_act(x, m, v, **kw)
+                e = rel_err(got, ops.bn_act_reference(x, m, v, **kw))
+                errs["bn_act"] = max(errs["bn_act"], e)
+                if e > tol or not torch.equal(got, ops.bn_act(x, m, v, **kw)):
+                    fail(f"bn_act at {shape} {dtype}: rel err {e} or reruns differ")
+            for groups in (1, 8):
+                runs = []
+                for fn in (ops.bn_train, ops.bn_train_reference, ops.bn_train):
+                    xi, st = x.detach().clone().requires_grad_(True), [m.clone(), v.clone()]
+                    y = fn(xi, st[0], st[1], groups=groups, relu=True)
+                    y.backward(dy)
+                    runs.append((y.detach(), xi.grad, *st))
+                (y, dx, rm, rv), (yr, dxr, rmr, rvr), again = runs
+                same = (y > 0) == (yr > 0)
+                flips = max(flips, int((~same).sum()))
+                ey = max(rel_err(y, yr), rel_err(rm, rmr), rel_err(rv, rvr))
+                eg = rel_err(dx * same, dxr * same)
+                errs["bn_train"] = max(errs["bn_train"], ey)
+                errs["bn_train_grad"] = max(errs["bn_train_grad"], eg)
+                gtol = TOL_K5_GRAD_FP32 if dtype == torch.float32 else TOL_TRAIN_BF16
+                if ey > tol or eg > gtol or flips > 1:
+                    fail(f"bn_train at {shape} g{groups} {dtype}: rel err {ey}, grad {eg}, "
+                         f"relu flips {flips}")
+                if not all(torch.equal(a, b) for a, b in zip(runs[0], again)):
+                    fail(f"bn_train at {shape} g{groups} {dtype}: two runs differ")
+                del runs
+        del x, sc, dy
+        torch.cuda.empty_cache()
+    # device times at dpn68's stem (bf16): K3 with relu and mask (eval), K5
+    # forward + backward under relu, bn_groups 8
+    x = _layout(torch.randn(DPN_STEM, generator=gen, device=dev).bfloat16())
+    dy = _layout(torch.randn(DPN_STEM, generator=gen, device=dev).bfloat16())
+    m, v = torch.zeros(10, device=dev), torch.ones(10, device=dev)
+    mask = lengths_mask(gen, DPN_STEM[0], DPN_STEM[2], dev)
+    xi = x.detach().requires_grad_(True)
+    y = ops.bn_train(xi, m.clone(), v.clone(), groups=8, relu=True)
+    nel = x.numel()
+    stem = dict(shape=list(DPN_STEM),
+                bn_act_device_ms=device_ms(lambda: ops.bn_act(x, m, v, relu=True, mask=mask),
+                                           "bn_act_kernel"),
+                bn_act_plain_device_ms=device_ms(
+                    lambda: ops.bn_act_reference(x, m, v, relu=True, mask=mask)),
+                bn_act_bound_ms=bound_ms(2 * 2 * nel, 0.0, torch.bfloat16)[0],
+                bn_train_fwd_device_ms=device_ms(
+                    lambda: ops.bn_train(x, m.clone(), v.clone(), groups=8, relu=True)),
+                bn_train_bwd_device_ms=device_ms(
+                    lambda: torch.autograd.grad(y, [xi], dy, retain_graph=True)),
+                bn_train_bound_ms=bound_ms(2 * nel * (2 + 3), 20.0 * nel, torch.float32)[0],
+                bn_train_design=ops.bn_train_plan(DPN_STEM, 8, torch.bfloat16, 0, True)["design"])
+    del x, dy, xi, y
+    torch.cuda.empty_cache()
+    out = dict(channels=list(ANY_C), shapes=[list(sh) for sh in shapes], max_rel_err=errs,
+               max_relu_flips=flips, reruns_bit_equal=True, dpn_stem=stem)
+    emit({"phase": "kernel", "name": "bn_any_channel_count", **out})
+    return out
+
+
 # ----------------------------------------------------------------------
 # phases 5-7: the training step, its CPU parity, and serving what it trained
 # ----------------------------------------------------------------------
@@ -1029,18 +1330,18 @@ def train_phase(dev, per_microbatch, smi):
     return result.state, config, counts
 
 
-def train_parity_phase(dev):
+def train_parity_phase(dev, model=TRAIN_MODEL, batch=16):
     from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig
     from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
         create_train_state, make_train_step, schedule_values)
 
-    config = TrainConfig(model=TRAIN_MODEL, bf16=False, batch_size=16, num_accumulation_steps=1,
+    config = TrainConfig(model=model, bf16=False, batch_size=batch, num_accumulation_steps=1,
                          bn_groups=2, feat_length=TRAIN_FRAMES, seed=SEED)
     start = 4 * config.epoch_size  # constant LR, growing margin: both > 0
     lr, margin = schedule_values(config, start)
     rng = np.random.RandomState(SEED + 7)
-    feats = torch.from_numpy(rng.randn(1, 16, TRAIN_FRAMES, FEAT_DIM).astype(np.float32))
-    labels = torch.from_numpy(rng.randint(0, config.num_classes, (1, 16)))
+    feats = torch.from_numpy(rng.randn(1, batch, TRAIN_FRAMES, FEAT_DIM).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, config.num_classes, (1, batch)))
     runs = []
     for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
                           (torch.device("cpu"), torch.float64)):
@@ -1074,7 +1375,7 @@ def train_parity_phase(dev):
             "gradient_norm": {name: abs(m["gradient_norm"] - m64["gradient_norm"])
                               / m64["gradient_norm"] for name, m in (("gpu_fp32", mg),
                                                                      ("cpu_fp32", mc))}}
-    emit({"phase": "train_parity", "model": TRAIN_MODEL, "dtype": "float32", "batch": 16,
+    emit({"phase": "train_parity", "model": model, "dtype": "float32", "batch": batch,
           "bn_groups": 2, "step": start, "learning_rate": lr, "margin": margin,
           "gpu": mg, "cpu": mc, "rel_err": errs, "rel_err_vs_float64": vs64,
           "tolerance": TOL_PARITY, "gpu_s": tg, "cpu_s": tc, "cpu_float64_s": t64})
@@ -1085,7 +1386,7 @@ def train_parity_phase(dev):
         if not e["gpu_fp32"] <= 2 * e["cpu_fp32"] + TOL_PARITY[k]:
             bad[f"{k}_vs_float64"] = e
     if bad:
-        fail(f"train_parity: GPU vs CPU beyond tolerance: {bad}")
+        fail(f"train_parity {model}: GPU vs CPU beyond tolerance: {bad}")
 
 
 def k5_launches(k5, groups):
@@ -1695,8 +1996,10 @@ def export_phase(dev, state, config, workdir):
 
 
 def config_output_dim(config):
-    from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS
-    return RES2NET_CONFIGS[config.model].output_dim
+    from voxsrc2020_speaker_verification_tpu_torch.models import get_model
+
+    with torch.device("meta"):
+        return get_model(config.model, feat_dim=config.feat_dim).config.output_dim
 
 
 def speaker_bank(rng, units: int = 64) -> np.ndarray:
@@ -2058,6 +2361,242 @@ def cos(a, b) -> float:
     return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
 
 
+# ----------------------------------------------------------------------
+# phase 11: the remaining encoders
+# ----------------------------------------------------------------------
+
+def register_thin_variants():
+    """Thin variants of the four families for the float32 card-vs-CPU step
+    (the attention head on the thin Res2Net; DPN keeps its 10-channel stem)."""
+    from voxsrc2020_speaker_verification_tpu_torch import models
+    from voxsrc2020_speaker_verification_tpu_torch.models import dpn, ecapa
+
+    models.register_res2net_variant(
+        "res2net_att_thin_smoke", num_filters=(4, 8), block_sizes=(2, 1), block_strides=(1, 2),
+        width=(4, 8), split=4, output_dim=16, pool="att_stats")
+    dpn.DPN_CONFIGS["dpn_thin_smoke"] = dpn.DpnConfig(
+        name="dpn_thin_smoke", output_dim=16, bw=8, k_r=8, cardinality=4, k_sec=(2, 1, 2, 1),
+        inc_sec=(4, 4, 4, 8))
+    models.register_tdnn_variant("tdnn_thin_smoke", block_filters=(16, 16, 16, 16, 32),
+                                 output_dim=16)
+    ecapa.ECAPA_CONFIGS["ecapa_thin_smoke"] = ecapa.EcapaConfig(
+        name="ecapa_thin_smoke", channels=16, split=4, mfa_dim=24, att_dim=8, output_dim=16)
+    return ("res2net_att_thin_smoke", "dpn_thin_smoke", "tdnn_thin_smoke", "ecapa_thin_smoke")
+
+
+def k5_calls(config, remat_stages):
+    """K5's calls per microbatch of ``config``'s model, read off one
+    training forward and backward of the full-width model through the plain
+    path on the CPU (a small input: bn_groups rows of 24 frames): the
+    ``ops.bn_train`` calls of the forward and of the rematerialized
+    recompute in the backward, each by the design ``bn_train_plan`` gives it
+    at the card's shape, and how many take the single-channel path (C % 4
+    != 0). Returns the expected per-microbatch launch counts."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import get_model
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    calls, phase = [], ["fwd"]
+    orig = ops.bn_train
+
+    def record(x, *args, **kw):
+        calls.append((phase[0], x.ndim, x.shape[1]))
+        return orig(x, *args, **kw)
+
+    torch.manual_seed(SEED)
+    model = get_model(config.model, feat_dim=config.feat_dim, remat=bool(remat_stages),
+                      remat_stages=remat_stages)
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    model.set_bn_groups(config.bn_groups)
+    ops.bn_train = record
+    try:
+        y = model(torch.randn(config.bn_groups, 24, config.feat_dim), True)
+        phase[0] = "recompute"
+        y.square().sum().backward()
+    finally:
+        ops.bn_train = orig
+
+    def design(ndim, c):
+        shape = (config.batch_size, c, 1, 1) if ndim == 4 else (config.batch_size, c)
+        return ops.bn_train_plan(shape, config.bn_groups, torch.bfloat16, 0, False)["design"]
+
+    n = {(ph, d): 0 for ph in ("fwd", "recompute") for d in ("cluster", "multi")}
+    for ph, ndim, c in calls:
+        n[(ph, design(ndim, c))] += 1
+    return {"bn_train.bn_cluster_fwd": n[("fwd", "cluster")] + n[("recompute", "cluster")],
+            "bn_train.bn_cluster_bwd": n[("fwd", "cluster")],
+            "bn_train.bn_train_fwd": n[("fwd", "multi")] + n[("recompute", "multi")],
+            "bn_train.bn_train_bwd": n[("fwd", "multi")]}, sum(
+                1 for ph, _, c in calls if ph == "fwd" and c % 4)
+
+
+def encoder_train(dev, spec, workdir, smi):
+    """One family through ``cli.train.main --synthetic`` (ENCODER_RUNS)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
+    from voxsrc2020_speaker_verification_tpu_torch.losses import schedules
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import schedule_values
+
+    model, recipe, batch, accum, stages, extra = spec
+    exp_root = os.path.join(workdir, "exp_encoders")
+    argv = ["--recipe", recipe, "--model", model, "--synthetic", "--batch-size", str(batch),
+            "--num-accumulation-steps", str(accum), "--max-steps", str(ENCODER_STEPS),
+            "--log-every", "1", "--no-checkpoint", "--exp-root", exp_root, "--seed", str(SEED),
+            *extra] + (["--remat-stages", *map(str, stages)] if stages else [])
+    recipe_cfg, _ = get_recipe(recipe, model=model)
+    overrides = dict(batch_size=batch, num_accumulation_steps=accum, exp_root=exp_root, seed=SEED,
+                     raw_audio=False, specaug="--specaug" in extra)
+    if stages:
+        overrides.update(remat=True, remat_stages=tuple(stages))
+    config, _ = get_recipe(recipe, model=model, **overrides)
+    if config.effective_batch != recipe_cfg.effective_batch:
+        fail(f"encoders {model}: effective batch {config.effective_batch}, the recipe's "
+             f"{recipe_cfg.effective_batch}")
+    per_microbatch, single_channel = k5_calls(config, stages)
+    att = "_att" in model or model.startswith("ecapa")
+    per_microbatch.update({
+        "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1,
+        "att_pool.att_pool_fwd": int(att), "att_pool.att_pool_bwd": int(att),
+        **{k: (v if config.projection == "sc_cm_linear" else 0)
+           for k, v in K6_SLAB_PER_MICROBATCH.items()}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.function_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = run.result.history
+    if len(hist) != ENCODER_STEPS or run.feeder != "synthetic":
+        fail(f"encoders {model}: {len(hist)} logged steps, feeder {run.feeder}")
+    for h in hist:
+        lr, margin = schedule_values(config, h["step"] - 1)
+        total = float(schedules.total_margin(config.projection, margin))
+        if not math.isfinite(h["loss"]):
+            fail(f"encoders {model}: non-finite loss at step {h['step']}")
+        if h["learning_rate"] != lr or h["margin"] != total:
+            fail(f"encoders {model}: step {h['step']} lr {h['learning_rate']} margin "
+                 f"{h['margin']}, schedules say {lr}, {total}")
+    microbatches = ENCODER_STEPS * accum
+    for fn, n in per_microbatch.items():
+        if counts[fn] != microbatches * n:
+            fail(f"encoders {model}: {fn} launched {counts[fn]} times, expected "
+                 f"{microbatches} x {n}")
+    for fn in ("split_conv.split_group", "split_conv.split_group_mma",
+               "split_conv.split_group_pipe", "split_conv.split_chain_fused", "bn_act.bn_act"):
+        if counts[fn]:
+            fail(f"encoders {model}: eval kernel {fn} launched {counts[fn]} times")
+    step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
+    med = statistics.median(step_s)
+    emit({"phase": "encoders_train", "model": model, "recipe": recipe, "dtype": "bfloat16",
+          "microbatch": batch, "accumulation": accum, "effective_batch": config.effective_batch,
+          "recipe_microbatch": recipe_cfg.batch_size,
+          "recipe_accumulation": recipe_cfg.num_accumulation_steps,
+          "frames": config.feat_length, "feat_dim": config.feat_dim,
+          "bn_groups": config.bn_groups, "projection": config.projection,
+          "specaug": config.specaug, "remat_stages": list(stages) if stages else None,
+          "steps": ENCODER_STEPS, "timed_steps": len(step_s),
+          "step_ms": [1e3 * x for x in step_s], "step_ms_median": 1e3 * med,
+          "audio_s_per_s": config.effective_batch * config.feat_length / 100.0 / med,
+          "peak_memory_bytes": peak, "seconds": wall,
+          "losses": [h["loss"] for h in hist],
+          "learning_rates": [h["learning_rate"] for h in hist],
+          "margins": [h["margin"] for h in hist],
+          "launches_per_microbatch": per_microbatch,
+          "k5_single_channel_calls_per_microbatch": single_channel,
+          "launches": {k: v for k, v in counts.items() if v}, "card": smi})
+    state = run.result.state
+    del run
+    return state, config, counts
+
+
+def encoder_extract(dev, state, config, workdir):
+    """One family in eval mode through eval/extract.py's bucketed, masked
+    path from its exported artifact (see ENCODER_EXTRACT_LENGTHS)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import (
+        export_inference_artifact, load_inference_artifact)
+    from voxsrc2020_speaker_verification_tpu_torch.eval.extract import (
+        default_batch_size, extract_embeddings, make_bucketed_embed_fn, to_numpy)
+    from voxsrc2020_speaker_verification_tpu_torch.speaker_net import SpeakerNet
+
+    artifact = export_inference_artifact(config, state, os.path.join(workdir, f"art_{config.model}"))
+    cfg, embed = load_inference_artifact(artifact, dev)
+    if cfg.model != config.model or not cfg.bf16:
+        fail(f"encoders {config.model}: the artifact's config {cfg}")
+    batch = default_batch_size(cfg.model)
+    rng = np.random.RandomState(SEED + 41)
+    lengths = rng.randint(ENCODER_EXTRACT_LENGTHS[0], ENCODER_EXTRACT_LENGTHS[1] + 1, batch)
+    lengths[:len(ENCODER_EXACT_LENGTHS)] = ENCODER_EXACT_LENGTHS
+    feats = [(f"utt{i:03d}", (rng.randn(1, cfg.feat_dim) * 2
+                              + rng.randn(n, cfg.feat_dim)).astype(np.float32))
+             for i, n in enumerate(lengths)]
+    fn = make_bucketed_embed_fn(embed, batch)
+    extract_embeddings(fn, feats, batch_size=batch)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = extract_embeddings(fn, feats, batch_size=batch)
+    seconds = time.perf_counter() - t0
+    counts = kernels.function_launch_counts()
+    att = "_att" in cfg.model or cfg.model.startswith("ecapa")
+    if counts["att_pool.att_pool_fwd"] != int(att) or counts["stats_pool.stats_pool"] != 1 \
+            or counts["bn_act.bn_act"] == 0 or counts["att_pool.att_pool_bwd"]:
+        fail(f"encoders {cfg.model}: extraction launches {counts}")
+    emb = np.stack([out[u] for u, _ in feats])
+    if emb.shape != (batch, config_output_dim(cfg)) or not np.isfinite(emb).all():
+        fail(f"encoders {cfg.model}: embeddings {emb.shape} or non-finite")
+    exact = {}
+    for u, f in feats[:len(ENCODER_EXACT_LENGTHS)]:
+        e = to_numpy(embed(f[None], np.ones((1, len(f)), np.float32)))[0]
+        exact[u] = cos(out[u], e)
+    cpu_net = SpeakerNet(cfg.model, cfg.feat_dim)
+    cpu_net.load_state_dict(torch.load(os.path.join(artifact, "weights.pt"), weights_only=True))
+    cpu = {}
+    for i in range(2):
+        f = (rng.randn(ENCODER_CPU_FRAMES, cfg.feat_dim) * 2).astype(np.float32)
+        m = np.ones((1, len(f)), np.float32)
+        with torch.inference_mode():
+            want = cpu_net.embed(torch.from_numpy(f[None]), torch.from_numpy(m))[0].numpy()
+        cpu[f"cpu{i}"] = cos(to_numpy(embed(f[None], m))[0], want)
+    line = {"phase": "encoders_extract", "model": cfg.model, "dtype": "bfloat16",
+            "batch": batch, "bucket": 1000, "lengths": [int(v) for v in lengths],
+            "ms": 1e3 * seconds, "audio_s_per_s": float(lengths.sum()) / 100.0 / seconds,
+            "launches": {k: v for k, v in counts.items() if v},
+            "min_cos_padded_vs_exact": min(exact.values()),
+            "min_cos_gpu_bf16_vs_cpu_fp32": min(cpu.values()), "artifact_step": state.step}
+    emit(line)
+    if line["min_cos_padded_vs_exact"] < TOL_SERVED_COS:
+        fail(f"encoders {cfg.model}: padded vs exact-length cosines {exact}")
+    if line["min_cos_gpu_bf16_vs_cpu_fp32"] < TOL_CPU_COS:
+        fail(f"encoders {cfg.model}: card vs CPU cosines {cpu}")
+    return counts
+
+
+def encoders_phase(dev, workdir, smi):
+    """Phase 11: each family trained (ENCODER_RUNS), then extracted from its
+    artifact; a float32 step on the card against the CPU for a thin variant
+    of each. Returns the training and extraction launch counts by model."""
+    t0 = time.perf_counter()
+    train_counts, extract_counts = {}, {}
+    for spec in ENCODER_RUNS:
+        state, config, counts = encoder_train(dev, spec, workdir, smi)
+        train_counts[config.model] = counts
+        extract_counts[config.model] = encoder_extract(dev, state, config, workdir)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    for thin in register_thin_variants():
+        train_parity_phase(dev, thin, THIN_PARITY_BATCH)
+    emit({"phase": "encoders", "seconds": time.perf_counter() - t0})
+    return train_counts, extract_counts
+
+
 def serve_phase(dev, workdir, per_forward):
     from voxsrc2020_speaker_verification_tpu_torch import kernels
     from voxsrc2020_speaker_verification_tpu_torch.cli.serve import ServingClient, make_server
@@ -2226,6 +2765,10 @@ def main() -> int:
     train_rows = [check_stats_pool_bwd(dev, gen, train_head),
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
                   check_margin_ce(dev, gen, 2, 5994)]
+    att_rows = list(check_att_pool(dev, gen))
+    any_c = check_bn_any_c(dev, gen)
+    with torch.inference_mode():
+        k4_w1 = check_stats_pool_w1(dev, gen)
     torch.cuda.empty_cache()
     # K5's one-launch cluster design takes the 4-D calls, the multi-kernel
     # design the 2-D head calls (bn_train_plan)
@@ -2250,6 +2793,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         eval_counts = evaluate_phase(dev, lmft_exp, workdir, smi, cmvn_row)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enc_train, enc_extract = encoders_phase(dev, workdir, smi)
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["name"] in per_forward:
@@ -2277,7 +2823,25 @@ def main() -> int:
     for row in train_rows:
         row["launches_raw"] = {k: v for k, v in raw_counts.items()
                                if k.split(".")[0] == row["name"]}
-    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row]})
+    # the encoders phase: K8 / K8b on the attentive families' training and
+    # extraction; K3 / K5 (their single-channel paths at dpn68's stem) too
+    for row in att_rows:
+        fn = "att_pool.att_pool_fwd" if row["name"] == "att_pool" else "att_pool.att_pool_bwd"
+        row["launches"] = sum(c[fn] for c in enc_train.values()) + sum(
+            c[fn] for c in enc_extract.values())
+        row["launches_on"] = "encoders phase: training and extraction"
+        row["launches_by_model"] = {m: {"train": enc_train[m][fn], "extract": enc_extract[m][fn]}
+                                    for m in enc_train}
+    for row in rows + train_rows:
+        if row["name"] == "stats_pool":
+            row["w1_heads"] = k4_w1
+        if row["name"] in ("bn_act", "bn_train"):
+            row["any_channel_count"] = any_c
+            counts_by = enc_extract if row["name"] == "bn_act" else enc_train
+            row["launches_encoders"] = {m: {k: v for k, v in c.items()
+                                            if k.split(".")[0] == row["name"] and v}
+                                        for m, c in counts_by.items()}
+    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

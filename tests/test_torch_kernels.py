@@ -49,6 +49,11 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     tpipe.waveform_to_features(torch.zeros(2, 4000, dtype=torch.int16), torch.tensor([4000, 900]),
                                torch.tensor([2, 0]), torch.tensor([0, 3]), tfb.FbankConfig(),
                                8, window=9, noise=torch.randn(2, 23, 400))
+    xa = x.clone().requires_grad_(True)
+    tops.att_pool(xa, x * 0.5, mask).sum().backward()
+    x10 = torch.randn(2, 10, 9, 5).contiguous(memory_format=torch.channels_last)
+    tops.bn_act(x10, torch.zeros(10), torch.ones(10), relu=True, mask=mask)
+    tops.bn_train(x10.requires_grad_(True), torch.zeros(10), torch.ones(10), relu=True).sum().backward()
     assert kernels.launch_counts() == before
     assert {k.name for k in kernels.KERNELS} == set(before)
 
@@ -957,3 +962,144 @@ def test_sliding_cmvn_kernel_other_widths_and_long_windows(cuda):
                                        kw.get("norm_vars", False), kw.get("min_window", 100))
         assert not plan["staged"] and plan["seg"] % 2 == 1, plan
         cmvn_case(cuda, cmvn_feats(11, 2, 5000), [5000, 3001], loop_rows=(1,), **kw)
+
+
+# K8 / K8b at the shapes of the attentive-stats paths (B, C, T, W): the
+# res2net200_att serving head (masked) and training microbatch, ECAPA-512's
+# training head at W = 1, ECAPA serving at T = 1000, and ragged cases (C =
+# 20 and T = 1; C not a multiple of the 16-byte vector)
+ATT_SHAPES = [((128, 1024, 125, 10), True), ((128, 1024, 25, 10), False),
+              ((256, 1536, 200, 1), False), ((16, 1536, 1000, 1), True),
+              ((4, 20, 1, 3), False), ((5, 36, 7, 2), True)]
+
+
+def att_case(cuda, shape, masked, dtype, seed=11):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, c, t, w = shape
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5)
+    s = torch.randn(shape, generator=g, device=cuda) * 3
+    mask = None
+    if masked:
+        lens = torch.randint(1, t + 1, (b,), generator=g, device=cuda)
+        lens[-1] = 0  # a row masked throughout: uniform weights
+        mask = (torch.arange(t, device=cuda)[None] < lens[:, None]).float()
+        x = x * mask[:, None, :, None]
+    cl = torch.channels_last
+    return x.to(dtype).contiguous(memory_format=cl), s.to(dtype).contiguous(memory_format=cl), mask
+
+
+def att_run(fn, x, s, mask, dout):
+    xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    y = fn(xi, si, mask)
+    y.backward(dout)
+    return y.detach(), xi.grad, si.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_att_pool_kernel_matches_plain(cuda, dtype):
+    """K8 and K8b against autograd of the plain version on the same inputs,
+    relative to each output's largest magnitude: float32 against the plain
+    version in float64, no further from it than twice the float32 plain
+    version is, or 1e-4 (where a column's weights peak on a few frames, q -
+    mean^2 cancels in any float32 computation, the JAX package's included:
+    at the serving shape both stray ~1.2e-4 in dx on the H100); bfloat16
+    against the float32 plain version within 2e-2; one launch a direction,
+    reruns bit for bit."""
+    for shape, masked in ATT_SHAPES:
+        x, s, mask = att_case(cuda, shape, masked, dtype)
+        b, c, _, w = shape
+        dout = torch.randn((b, 2 * c, 1, w), device=cuda).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        before = dict(kernels.ATT_POOL.fn_launches)
+        got = att_run(tops.att_pool, x, s, mask, dout)
+        after = kernels.ATT_POOL.fn_launches
+        assert {f: after[f] - before[f] for f in after} == {"att_pool_fwd": 1, "att_pool_bwd": 1}
+        if dtype == torch.float32:
+            want = att_run(tops.att_pool_reference, x.double(), s.double(), mask, dout.double())
+            plain = att_run(tops.att_pool_reference, x, s, mask, dout)
+            tols = [max(1e-4, 2 * rel(p, r)) for p, r in zip(plain, want)]
+            del plain
+        else:
+            want = att_run(tops.att_pool_reference, x, s, mask, dout)
+            tols = [2e-2] * 3
+        for name, a, r, tol in zip(("out", "dx", "ds"), got, want, tols):
+            assert rel(a, r) <= tol, (shape, name, rel(a, r), tol)
+        again = att_run(tops.att_pool, x, s, mask, dout)
+        assert all(torch.equal(a, r) for a, r in zip(got, again)), shape
+        del x, s, got, want, again
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_att_pool_kernel_edges(cuda):
+    """A row masked throughout (the plain mean over all T, ds = 0), a row
+    of constant x and scores (q - mean^2 == 0 exactly: dx = dmean / T, ds =
+    0), a misaligned pointer (the single-channel path), and what the wrapper
+    refuses: mismatched scores, a non-channels_last x, scores or a mask on
+    the CPU beside CUDA x."""
+    shape = (2, 16, 8, 3)
+    x, s, _ = att_case(cuda, shape, False, torch.float32)
+    mask = torch.tensor([[1.0] * 8, [0.0] * 8], device=cuda)
+    x[0], s[0] = 2.0, 0.75
+    dout = torch.randn((2, 32, 1, 3), device=cuda).contiguous(memory_format=torch.channels_last)
+    y, dx, ds = att_run(tops.att_pool, x, s, mask, dout)
+    torch.testing.assert_close(y[1, :16, 0], x[1].mean(dim=1), rtol=1e-5, atol=1e-5)
+    assert torch.all(ds[1] == 0)
+    torch.testing.assert_close(dx[0], (dout[0, :16] / 8).expand(16, 8, 3), rtol=1e-6, atol=1e-6)
+    assert torch.all(ds[0].abs() <= 1e-6)
+    # a view one element into a larger buffer: not 16-byte aligned
+    buf = torch.randn(2 * 8 * 3 * 16 + 1, device=cuda)
+    xm = buf[1:].view(2, 8, 3, 16).permute(0, 3, 1, 2)
+    assert xm.is_contiguous(memory_format=torch.channels_last) and xm.data_ptr() % 16
+    for a, r in zip(att_run(tops.att_pool, xm, s, None, dout),
+                    att_run(tops.att_pool_reference, xm, s, None, dout)):
+        assert rel(a, r) <= 1e-4
+    with pytest.raises(ValueError):
+        tops.att_pool(x, s[:, :8], mask)
+    with pytest.raises(kernels.KernelError):
+        tops.att_pool(x.contiguous(), s.contiguous(), mask)
+    with pytest.raises(kernels.KernelError):  # scores on another device
+        tops.att_pool(x, s.cpu(), mask)
+    with pytest.raises(kernels.KernelError):  # a mask on the CPU
+        tops.att_pool(x, s, mask.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3, 10])
+def test_bn_kernels_take_any_channel_count(cuda, channels):
+    """K3 (relu, both shortcut modes, mask) and K5 (forward, running
+    update, backward, groups 1 and 8) at channel counts that are not
+    multiples of 4 (dpn68's 10-channel stem), against the plain versions on
+    the same inputs; dpn68's stem shape at C = 10; reruns bit for bit."""
+    shapes = [(16, channels, 9, 5), (64, channels, 25, 10)]
+    if channels == 10:
+        shapes.append((256, 10, 200, 80))
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            x, (m, v) = bn_case(cuda, shape, dtype, 3)
+            s, (sm, sv) = bn_case(cuda, shape, dtype, 4)
+            t = shape[2]
+            mask = (torch.arange(t, device=cuda)[None] < torch.randint(
+                1, t + 1, (shape[0],), device=cuda)[:, None]).float()
+            for kw in (dict(relu=True, mask=mask), dict(shortcut=s),
+                       dict(relu=True, shortcut=s, shortcut_mean=sm, shortcut_var=sv)):
+                got = tops.bn_act(x, m, v, **kw)
+                assert rel(got, tops.bn_act_reference(x, m, v, **kw)) <= tol, (shape, kw.keys())
+                assert torch.equal(got, tops.bn_act(x, m, v, **kw))
+            dy = bn_case(cuda, shape, dtype, 5)[0]
+            for groups in (1, 8):
+                runs = []
+                for fn in (tops.bn_train, tops.bn_train_reference, tops.bn_train):
+                    xi = x.clone().requires_grad_(True)
+                    st = [m.clone(), v.clone()]
+                    y = fn(xi, st[0], st[1], groups=groups, relu=True)
+                    y.backward(dy)
+                    runs.append((y.detach(), xi.grad, *st))
+                (y, dx, rm, rv), (yr, dxr, rmr, rvr), again = runs
+                same = (y > 0) == (yr > 0)
+                assert int((~same).sum()) <= 1
+                assert rel(y, yr) <= tol and rel(dx * same, dxr * same) <= tol, (shape, groups)
+                assert rel(rm, rmr) <= 1e-4 and rel(rv, rvr) <= 1e-4
+                assert all(torch.equal(a, b) for a, b in zip(runs[0], again))

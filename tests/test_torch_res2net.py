@@ -200,7 +200,8 @@ def test_unported_paths_raise():
     assert get_model(THIN, feat_dim=40, remat=True, remat_policy="dots_saveable").blocks[0][2]
     with pytest.raises(ValueError, match="dots_saveable"):
         get_model(THIN, feat_dim=40, remat=True, remat_policy="save_anything_except_these_names")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("tdnn")
-    with pytest.raises(NotImplementedError, match="att_stats"):
-        get_model("res2net101_w24_s4_c32_att")
+    # every model of the JAX package is ported; an unknown name raises
+    assert get_model("tdnn", feat_dim=40).config.output_dim == 256
+    assert get_model("res2net101_w24_s4_c32_att", feat_dim=40).config.pool == "att_stats"
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("res2net_not_a_model")

@@ -23,6 +23,10 @@
         --recipe res2net_vox2_dev_aug --model res2net50_w8_s6_c16 \\
         --data-root data --raw
 
+    # ECAPA-TDNN with SpecAugment:
+    python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
+        --recipe ecapa_vox2_dev_aug --data-root data --specaug
+
     # the plain PyTorch path on the CPU (small shapes):
     python -m voxsrc2020_speaker_verification_tpu_torch.cli.train \\
         --recipe res2net_vox2_dev_aug --data-root data --device cpu \\
@@ -103,6 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-block rematerialization")
     p.add_argument("--remat-stages", type=int, nargs="+", default=None,
                    help="rematerialize only these 0-based stages (implies --remat)")
+    p.add_argument("--specaug", action="store_true",
+                   help="SpecAugment: one time and one frequency mask per utterance")
     p.add_argument("--remat-policy", default=None,
                    help="what a checkpoint keeps, by jax.checkpoint_policies name "
                         "(implies --remat; models/res2net.py:REMAT_POLICIES)")
@@ -148,7 +154,9 @@ def main(argv=None) -> Optional[TrainRun]:
         "remat_stages": None if args.remat_stages is None else tuple(args.remat_stages),
         "remat_policy": args.remat_policy,
     }.items() if v is not None}
-    overrides.update(exp_root=args.exp_root, seed=args.seed, raw_audio=args.raw)
+    # as the JAX package's CLI: the flag decides, whatever the recipe says
+    overrides.update(exp_root=args.exp_root, seed=args.seed, raw_audio=args.raw,
+                     specaug=args.specaug)
     config, resume_from = get_recipe(args.recipe, model=args.model, **overrides)
     if resume_from is not None and resume_from.startswith("exp/"):
         resume_from = os.path.join(args.exp_root, *resume_from.split("/")[1:])

@@ -16,11 +16,16 @@
 // far below Hopper's ridge. The kernel reads each input once and writes the
 // output once with 16 B (fp32) or 8 B (bf16) vector accesses; the per-channel
 // scale and shift sit in shared memory.
+//
+// Any channel count: where C % 4 != 0 (dpn68's 10-channel stem) a thread
+// takes single elements instead of 4-channel vectors (V = 1), chosen by
+// shape in the C entry point; the arithmetic of an element is the same, so the
+// 4-channel path's outputs are those of the vector-only kernel, bit for bit.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int V>
 __global__ void bn_act_kernel(const T* __restrict__ x,
                               const float* __restrict__ mean,
                               const float* __restrict__ var,
@@ -48,15 +53,15 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
-    const long long e = v * 4;
+    const long long e = v * V;
     const int c = static_cast<int>(e % channels);
     // position (b * T + t) * F + f, so position / F indexes the (B, T) mask
     const float m = mask != nullptr ? mask[(e / channels) / flen] : 1.f;
-    float xv[4], sv[4], o[4];
-    vsv::load4(x + e, xv);
-    if (sc_mode != 0) vsv::load4(sc + e, sv);
+    float xv[V], sv[V], o[V];
+    vsv::load_v<V>(x + e, xv);
+    if (sc_mode != 0) vsv::load_v<V>(sc + e, sv);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       float y = vsv::round_to<T>((xv[j] - mu[c + j]) * inv[c + j]);
       if (sc_mode == 2)
         y = vsv::round_to<T>(y + vsv::round_to<T>((sv[j] - smu[c + j]) * sinv[c + j]));
@@ -66,36 +71,49 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
       if (mask != nullptr) y *= m;
       o[j] = y;
     }
-    vsv::store4(out + e, o);
+    vsv::store_v<V>(out + e, o);
   }
 }
 
-template <typename T>
+template <typename T, int V>
 int launch(const void* x, const float* mean, const float* var, const void* sc,
            const float* sc_mean, const float* sc_var, const float* mask,
            void* out, long long numel, int channels, int flen, int relu,
            int sc_mode, float eps, int num_sms, cudaStream_t stream) {
   constexpr int threads = 256;
-  const long long nvec = numel / 4;
+  const long long nvec = numel / V;
   long long blocks = (nvec + threads - 1) / threads;
   const long long cap = static_cast<long long>(num_sms) * 8;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   const size_t smem = sizeof(float) * channels * (sc_mode == 2 ? 4 : 2);
-  cudaFuncSetAttribute(bn_act_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(bn_act_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  bn_act_kernel<T><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+  bn_act_kernel<T, V><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
       static_cast<const T*>(x), mean, var, static_cast<const T*>(sc), sc_mean,
       sc_var, mask, static_cast<T*>(out), nvec, channels, flen, relu, sc_mode,
       eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_any(const void* x, const float* mean, const float* var, const void* sc,
+               const float* sc_mean, const float* sc_var, const float* mask, void* out,
+               long long numel, int channels, int flen, int relu, int sc_mode, float eps,
+               int num_sms, cudaStream_t stream) {
+  if (channels % 4 == 0)
+    return launch<T, 4>(x, mean, var, sc, sc_mean, sc_var, mask, out, numel, channels, flen,
+                        relu, sc_mode, eps, num_sms, stream);
+  return launch<T, 1>(x, mean, var, sc, sc_mean, sc_var, mask, out, numel, channels, flen,
+                      relu, sc_mode, eps, num_sms, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. sc_mode: 0 none, 1 add the shortcut as it
 // is, 2 add the shortcut normalized with (sc_mean, sc_var). mask may be null.
-// numel must be a multiple of 4 and channels a multiple of 4.
+// Any channel count: 4-channel vectors where channels % 4 == 0, single
+// elements otherwise.
 extern "C" int bn_act(int dtype, const void* x, const float* mean,
                       const float* var, const void* sc, const float* sc_mean,
                       const float* sc_var, const float* mask, void* out,
@@ -103,11 +121,11 @@ extern "C" int bn_act(int dtype, const void* x, const float* mean,
                       int sc_mode, float eps, int num_sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, mean, var, sc, sc_mean, sc_var, mask, out, numel,
-                         channels, flen, relu, sc_mode, eps, num_sms, s);
+    return launch_any<float>(x, mean, var, sc, sc_mean, sc_var, mask, out, numel,
+                             channels, flen, relu, sc_mode, eps, num_sms, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, mean, var, sc, sc_mean, sc_var, mask, out,
-                                 numel, channels, flen, relu, sc_mode, eps,
-                                 num_sms, s);
+    return launch_any<__nv_bfloat16>(x, mean, var, sc, sc_mean, sc_var, mask, out,
+                                     numel, channels, flen, relu, sc_mode, eps,
+                                     num_sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,7 +29,9 @@
 // read and dx written in the backward.
 //
 // What bounded the first design (kept below as the "multi-kernel" design,
-// which the 2-D head calls take):
+// which the 2-D head calls and channel counts that are not multiples of 4
+// take; the latter move single channels instead of 4-channel vectors, with
+// the same arithmetic an element):
 // three launches per direction -- per-block partial sums, a per-channel
 // finalize, an elementwise pass -- with the partials making a round trip
 // through HBM, x read twice in the forward, x, y and dy read twice in the
@@ -78,16 +80,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Reduction geometry: a block covers `cpb` channel vectors (4 channels each)
-// of `rpb` rows at a time; `tiles` blocks side by side cover the channels;
-// `chunks` blocks one after the other cover a group's rows.
+// Reduction geometry: a block covers `cpb` channel vectors (V channels
+// each: 4, or 1 where C % 4 != 0) of `rpb` rows at a time; `tiles` blocks
+// side by side cover the channels; `chunks` blocks one after the other
+// cover a group's rows.
 struct Geo {
   int cv, cpb, rpb, tiles, chunks;
 };
 
+template <int V>
 Geo make_geo(int channels, int chunks) {
   Geo g;
-  g.cv = channels / 4;
+  g.cv = channels / V;
   g.cpb = g.cv < kThreads ? g.cv : kThreads;
   g.rpb = kThreads / g.cpb;
   g.tiles = (g.cv + g.cpb - 1) / g.cpb;
@@ -95,22 +99,27 @@ Geo make_geo(int channels, int chunks) {
   return g;
 }
 
+template <int V = 4>
 __device__ __forceinline__ void load_stats(const float* p, float* v) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = __ldg(p);
+  }
 }
 
 // Sums of NS quantities per (group, channel) over one chunk of rows,
 // reduced across the block's row lanes and written to
 // part[((g * chunks + chunk) * NS + k) * C + c].
-template <int NS>
-__device__ __forceinline__ void write_partials(float (*acc)[4], const Geo& geo,
+template <int NS, int V>
+__device__ __forceinline__ void write_partials(float (*acc)[V], const Geo& geo,
                                                int channels, float* part) {
-  __shared__ float sh[NS][kThreads * 4];
+  __shared__ float sh[NS][kThreads * V];
 #pragma unroll
   for (int k = 0; k < NS; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sh[k][threadIdx.x * 4 + j] = acc[k][j];
+    for (int j = 0; j < V; ++j) sh[k][threadIdx.x * V + j] = acc[k][j];
   __syncthreads();
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
@@ -120,36 +129,38 @@ __device__ __forceinline__ void write_partials(float (*acc)[4], const Geo& geo,
 #pragma unroll
   for (int k = 0; k < NS; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       float s = 0.f;
-      for (int r = 0; r < geo.rpb; ++r) s += sh[k][(r * geo.cpb + lane_c) * 4 + j];
-      part[(base + k) * channels + cv * 4 + j] = s;
+      for (int r = 0; r < geo.rpb; ++r) s += sh[k][(r * geo.cpb + lane_c) * V + j];
+      part[(base + k) * channels + cv * V + j] = s;
     }
 }
 
 // Forward statistics pass: sum(x), sum(x^2). Grid (chunks, tiles, G).
-template <typename T>
+template <typename T, int V>
 __global__ void stats_kernel(const T* __restrict__ x, long long n, int channels,
                              Geo geo, float* __restrict__ part) {
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
   const int cv = blockIdx.y * geo.cpb + lane_c;
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float acc[2][V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
   if (lane_r < geo.rpb && cv < geo.cv) {
     const long long r0 = n * blockIdx.x / geo.chunks;
     const long long r1 = n * (blockIdx.x + 1) / geo.chunks;
-    const T* base = x + static_cast<long long>(blockIdx.z) * n * channels + cv * 4;
+    const T* base = x + static_cast<long long>(blockIdx.z) * n * channels + cv * V;
     for (long long r = r0 + lane_r; r < r1; r += geo.rpb) {
-      float v[4];
-      vsv::load4(base + r * channels, v);
+      float v[V];
+      vsv::load_v<V>(base + r * channels, v);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < V; ++j) {
         acc[0][j] += v[j];
         acc[1][j] += v[j] * v[j];
       }
     }
   }
-  write_partials<2>(acc, geo, channels, part);
+  write_partials<2, V>(acc, geo, channels, part);
 }
 
 // Sum of part[(g * chunks + p) * stride + off] over the chunks p by one
@@ -204,7 +215,7 @@ __global__ void finalize_fwd_kernel(const float* __restrict__ part, int groups,
 }
 
 // Forward normalize pass with the epilogue, K3's rounding order.
-template <typename T>
+template <typename T, int V>
 __global__ void normalize_kernel(const T* __restrict__ x,
                                  const float* __restrict__ mean,
                                  const float* __restrict__ rstd,
@@ -217,19 +228,19 @@ __global__ void normalize_kernel(const T* __restrict__ x,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
-    const long long e = v * 4;
+    const long long e = v * V;
     const long long s = (e / group_elems) * channels + e % channels;
-    float xv[4], mu[4], rs[4], sv[4], smu[4], srs[4], o[4];
-    vsv::load4(x + e, xv);
-    load_stats(mean + s, mu);
-    load_stats(rstd + s, rs);
-    if (sc_mode != 0) vsv::load4(sc + e, sv);
+    float xv[V], mu[V], rs[V], sv[V], smu[V], srs[V], o[V];
+    vsv::load_v<V>(x + e, xv);
+    load_stats<V>(mean + s, mu);
+    load_stats<V>(rstd + s, rs);
+    if (sc_mode != 0) vsv::load_v<V>(sc + e, sv);
     if (sc_mode == 2) {
-      load_stats(sc_mean + s, smu);
-      load_stats(sc_rstd + s, srs);
+      load_stats<V>(sc_mean + s, smu);
+      load_stats<V>(sc_rstd + s, srs);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       float y = vsv::round_to<T>((xv[j] - mu[j]) * rs[j]);
       if (sc_mode == 2)
         y = vsv::round_to<T>(y + vsv::round_to<T>((sv[j] - smu[j]) * srs[j]));
@@ -238,12 +249,12 @@ __global__ void normalize_kernel(const T* __restrict__ x,
       if (relu) y = fmaxf(y, 0.f);
       o[j] = y;
     }
-    vsv::store4(out + e, o);
+    vsv::store_v<V>(out + e, o);
   }
 }
 
 // Backward reduce pass: sum(d), sum(d * xhat) [, sum(d * shat)].
-template <typename T, int NS>
+template <typename T, int NS, int V>
 __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                   const T* __restrict__ dy,
                                   const T* __restrict__ sc,
@@ -256,32 +267,32 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
   const int cv = blockIdx.y * geo.cpb + lane_c;
-  float acc[NS][4];
+  float acc[NS][V];
 #pragma unroll
   for (int k = 0; k < NS; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
   if (lane_r < geo.rpb && cv < geo.cv) {
     const int g = blockIdx.z;
-    float mu[4], rs[4], smu[4], srs[4];
-    load_stats(mean + g * channels + cv * 4, mu);
-    load_stats(rstd + g * channels + cv * 4, rs);
+    float mu[V], rs[V], smu[V], srs[V];
+    load_stats<V>(mean + g * channels + cv * V, mu);
+    load_stats<V>(rstd + g * channels + cv * V, rs);
     if (NS == 3) {
-      load_stats(sc_mean + g * channels + cv * 4, smu);
-      load_stats(sc_rstd + g * channels + cv * 4, srs);
+      load_stats<V>(sc_mean + g * channels + cv * V, smu);
+      load_stats<V>(sc_rstd + g * channels + cv * V, srs);
     }
     const long long r0 = n * blockIdx.x / geo.chunks;
     const long long r1 = n * (blockIdx.x + 1) / geo.chunks;
-    const long long off = static_cast<long long>(g) * n * channels + cv * 4;
+    const long long off = static_cast<long long>(g) * n * channels + cv * V;
     for (long long r = r0 + lane_r; r < r1; r += geo.rpb) {
       const long long e = off + r * channels;
-      float xv[4], dv[4], yv[4], sv[4];
-      vsv::load4(x + e, xv);
-      vsv::load4(dy + e, dv);
-      if (y != nullptr) vsv::load4(y + e, yv);
-      if (NS == 3) vsv::load4(sc + e, sv);
+      float xv[V], dv[V], yv[V], sv[V];
+      vsv::load_v<V>(x + e, xv);
+      vsv::load_v<V>(dy + e, dv);
+      if (y != nullptr) vsv::load_v<V>(y + e, yv);
+      if (NS == 3) vsv::load_v<V>(sc + e, sv);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < V; ++j) {
         const float d = (y != nullptr && !(yv[j] > 0.f)) ? 0.f : dv[j];
         acc[0][j] += d;
         acc[1][j] += d * ((xv[j] - mu[j]) * rs[j]);
@@ -289,7 +300,7 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
       }
     }
   }
-  write_partials<NS>(acc, geo, channels, part);
+  write_partials<NS, V>(acc, geo, channels, part);
 }
 
 // Backward finalize: one block per channel, one warp per (group, sum);
@@ -310,7 +321,7 @@ __global__ void finalize_bwd_kernel(const float* __restrict__ part, int ns,
 }
 
 // Backward elementwise pass: dx and the shortcut's gradient.
-template <typename T>
+template <typename T, int V>
 __global__ void grad_kernel(const T* __restrict__ x, const T* __restrict__ y,
                             const T* __restrict__ dy, const T* __restrict__ sc,
                             const float* __restrict__ mean,
@@ -324,35 +335,35 @@ __global__ void grad_kernel(const T* __restrict__ x, const T* __restrict__ y,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
-    const long long e = v * 4;
+    const long long e = v * V;
     const long long s = (e / group_elems) * channels + e % channels;
-    float xv[4], dv[4], yv[4], mu[4], rs[4], a[4], b[4], o[4];
-    vsv::load4(x + e, xv);
-    vsv::load4(dy + e, dv);
-    if (y != nullptr) vsv::load4(y + e, yv);
-    load_stats(mean + s, mu);
-    load_stats(rstd + s, rs);
-    load_stats(coef + s, a);
-    load_stats(coef + gc + s, b);
-    float d[4];
+    float xv[V], dv[V], yv[V], mu[V], rs[V], a[V], b[V], o[V];
+    vsv::load_v<V>(x + e, xv);
+    vsv::load_v<V>(dy + e, dv);
+    if (y != nullptr) vsv::load_v<V>(y + e, yv);
+    load_stats<V>(mean + s, mu);
+    load_stats<V>(rstd + s, rs);
+    load_stats<V>(coef + s, a);
+    load_stats<V>(coef + gc + s, b);
+    float d[V];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       d[j] = (y != nullptr && !(yv[j] > 0.f)) ? 0.f : dv[j];
       o[j] = rs[j] * (d[j] - a[j] - ((xv[j] - mu[j]) * rs[j]) * b[j]);
     }
-    vsv::store4(dx + e, o);
+    vsv::store_v<V>(dx + e, o);
     if (sc_mode == 1) {
-      vsv::store4(dsc + e, d);
+      vsv::store_v<V>(dsc + e, d);
     } else if (sc_mode == 2) {
-      float sv[4], smu[4], srs[4], bs[4];
-      vsv::load4(sc + e, sv);
-      load_stats(sc_mean + s, smu);
-      load_stats(sc_rstd + s, srs);
-      load_stats(coef + 2 * gc + s, bs);
+      float sv[V], smu[V], srs[V], bs[V];
+      vsv::load_v<V>(sc + e, sv);
+      load_stats<V>(sc_mean + s, smu);
+      load_stats<V>(sc_rstd + s, srs);
+      load_stats<V>(coef + 2 * gc + s, bs);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < V; ++j)
         o[j] = srs[j] * (d[j] - a[j] - ((sv[j] - smu[j]) * srs[j]) * bs[j]);
-      vsv::store4(dsc + e, o);
+      vsv::store_v<V>(dsc + e, o);
     }
   }
 }
@@ -365,43 +376,43 @@ unsigned elementwise_blocks(long long nvec, int num_sms) {
   return static_cast<unsigned>(blocks);
 }
 
-template <typename T>
+template <typename T, int V>
 int forward(const void* x, const void* sc, int sc_mode, int relu, long long n,
             int groups, int channels, int chunks, float* mean, float* rstd,
             float* run_mean, float* run_var, float* sc_mean, float* sc_rstd,
             float* sc_run_mean, float* sc_run_var, float mom, float upd_mean,
             float upd_var, float eps, float* part, void* out, int num_sms,
             cudaStream_t stream) {
-  const Geo geo = make_geo(channels, chunks);
+  const Geo geo = make_geo<V>(channels, chunks);
   const dim3 grid(chunks, geo.tiles, groups);
   const size_t fin_smem = 2 * sizeof(float) * groups;
   const float inv_n = 1.f / static_cast<float>(n);
-  stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), n,
-                                                  channels, geo, part);
+  stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), n,
+                                                     channels, geo, part);
   finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
       part, groups, chunks, channels, inv_n, eps, mean, rstd, run_mean, run_var,
       mom, upd_mean, upd_var);
   if (sc_mode == 2) {
-    stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(sc), n,
-                                                    channels, geo, part);
+    stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(sc), n,
+                                                       channels, geo, part);
     finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
         part, groups, chunks, channels, inv_n, eps, sc_mean, sc_rstd,
         sc_run_mean, sc_run_var, mom, upd_mean, upd_var);
   }
-  const long long nvec = n * groups * channels / 4;
-  normalize_kernel<T><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
+  const long long nvec = n * groups * channels / V;
+  normalize_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
       static_cast<const T*>(x), mean, rstd, static_cast<const T*>(sc), sc_mean,
       sc_rstd, static_cast<T*>(out), nvec, channels, n * channels, relu, sc_mode);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int V>
 int backward(const void* x, const void* y, const void* dy, const void* sc,
              int sc_mode, long long n, int groups, int channels, int chunks,
              const float* mean, const float* rstd, const float* sc_mean,
              const float* sc_rstd, float* part, float* coef, void* dx, void* dsc,
              int num_sms, cudaStream_t stream) {
-  const Geo geo = make_geo(channels, chunks);
+  const Geo geo = make_geo<V>(channels, chunks);
   const dim3 grid(chunks, geo.tiles, groups);
   const float inv_n = 1.f / static_cast<float>(n);
   const T* xt = static_cast<const T*>(x);
@@ -411,16 +422,16 @@ int backward(const void* x, const void* y, const void* dy, const void* sc,
   int ns = 2;
   if (sc_mode == 2) {
     ns = 3;
-    reduce_bwd_kernel<T, 3><<<grid, kThreads, 0, stream>>>(
+    reduce_bwd_kernel<T, 3, V><<<grid, kThreads, 0, stream>>>(
         xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, n, channels, geo, part);
   } else {
-    reduce_bwd_kernel<T, 2><<<grid, kThreads, 0, stream>>>(
+    reduce_bwd_kernel<T, 2, V><<<grid, kThreads, 0, stream>>>(
         xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, n, channels, geo, part);
   }
   finalize_bwd_kernel<<<channels, kThreads, 0, stream>>>(
       part, ns, groups, chunks, channels, inv_n, coef);
-  const long long nvec = n * groups * channels / 4;
-  grad_kernel<T><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
+  const long long nvec = n * groups * channels / V;
+  grad_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
       xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, coef, static_cast<T*>(dx),
       static_cast<T*>(dsc), nvec, channels, groups, n * channels, sc_mode);
   return static_cast<int>(cudaGetLastError());
@@ -1151,9 +1162,10 @@ extern "C" int bn_cluster_bwd(int dtype, const void* x, const void* y, const voi
 
 // dtype: 0 = float32, 1 = bfloat16. sc_mode: 0 none, 1 raw shortcut, 2
 // shortcut normalized with its own batch statistics (sc_mean/sc_rstd written,
-// sc_run_mean/sc_run_var updated). n: rows per group; channels % 4 == 0.
-// mean/rstd (and sc_*): (groups, channels) fp32 outputs. part: scratch of
-// 2 * groups * chunks * channels floats.
+// sc_run_mean/sc_run_var updated). n: rows per group; any channel count
+// (4-channel vectors where channels % 4 == 0, single channels otherwise:
+// dpn68's 10-channel stem). mean/rstd (and sc_*): (groups, channels) fp32
+// outputs. part: scratch of 2 * groups * chunks * channels floats.
 extern "C" int bn_train_fwd(int dtype, const void* x, const void* sc,
                             int sc_mode, int relu, long long n, int groups,
                             int channels, int chunks, float* mean, float* rstd,
@@ -1163,22 +1175,24 @@ extern "C" int bn_train_fwd(int dtype, const void* x, const void* sc,
                             float upd_var, float eps, float* part, void* out,
                             int num_sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = channels % 4 == 0;
   if (dtype == 0)
-    return forward<float>(x, sc, sc_mode, relu, n, groups, channels, chunks,
-                          mean, rstd, run_mean, run_var, sc_mean, sc_rstd,
-                          sc_run_mean, sc_run_var, mom, upd_mean, upd_var, eps,
-                          part, out, num_sms, s);
+    return (vec ? forward<float, 4> : forward<float, 1>)(
+        x, sc, sc_mode, relu, n, groups, channels, chunks, mean, rstd, run_mean, run_var,
+        sc_mean, sc_rstd, sc_run_mean, sc_run_var, mom, upd_mean, upd_var, eps, part, out,
+        num_sms, s);
   if (dtype == 1)
-    return forward<__nv_bfloat16>(x, sc, sc_mode, relu, n, groups, channels,
-                                  chunks, mean, rstd, run_mean, run_var, sc_mean,
-                                  sc_rstd, sc_run_mean, sc_run_var, mom,
-                                  upd_mean, upd_var, eps, part, out, num_sms, s);
+    return (vec ? forward<__nv_bfloat16, 4> : forward<__nv_bfloat16, 1>)(
+        x, sc, sc_mode, relu, n, groups, channels, chunks, mean, rstd, run_mean, run_var,
+        sc_mean, sc_rstd, sc_run_mean, sc_run_var, mom, upd_mean, upd_var, eps, part, out,
+        num_sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // y: the forward output (null unless relu). part: scratch of
 // 3 * groups * chunks * channels floats; coef: 3 * groups * channels floats.
-// dsc: the shortcut's gradient (sc_mode 1 or 2), else null.
+// dsc: the shortcut's gradient (sc_mode 1 or 2), else null. Any channel
+// count, as bn_train_fwd.
 extern "C" int bn_train_bwd(int dtype, const void* x, const void* y,
                             const void* dy, const void* sc, int sc_mode,
                             long long n, int groups, int channels, int chunks,
@@ -1187,13 +1201,14 @@ extern "C" int bn_train_bwd(int dtype, const void* x, const void* y,
                             float* part, float* coef, void* dx, void* dsc,
                             int num_sms, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = channels % 4 == 0;
   if (dtype == 0)
-    return backward<float>(x, y, dy, sc, sc_mode, n, groups, channels, chunks,
-                           mean, rstd, sc_mean, sc_rstd, part, coef, dx, dsc,
-                           num_sms, s);
+    return (vec ? backward<float, 4> : backward<float, 1>)(
+        x, y, dy, sc, sc_mode, n, groups, channels, chunks, mean, rstd, sc_mean, sc_rstd,
+        part, coef, dx, dsc, num_sms, s);
   if (dtype == 1)
-    return backward<__nv_bfloat16>(x, y, dy, sc, sc_mode, n, groups, channels,
-                                   chunks, mean, rstd, sc_mean, sc_rstd, part,
-                                   coef, dx, dsc, num_sms, s);
+    return (vec ? backward<__nv_bfloat16, 4> : backward<__nv_bfloat16, 1>)(
+        x, y, dy, sc, sc_mode, n, groups, channels, chunks, mean, rstd, sc_mean, sc_rstd,
+        part, coef, dx, dsc, num_sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -48,6 +48,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
+// V consecutive elements: a 4-element vector access (V = 4) or one element
+// (V = 1, the kernels' path for channel counts that are not multiples of 4).
+template <int V, typename T>
+__device__ __forceinline__ void load_v(const T* p, float* v) {
+  if constexpr (V == 4) load4(p, v);
+  else v[0] = to_f(*p);
+}
+template <int V, typename T>
+__device__ __forceinline__ void store_v(T* p, const float* v) {
+  if constexpr (V == 4) store4(p, v);
+  else *p = from_f<T>(v[0]);
+}
+
 // Returned, beside the CUDA codes, where the caller's launch plan gives a
 // shared-memory size other than the kernel's own layout needs.
 constexpr int kPlanMismatch = 10001;

@@ -189,8 +189,12 @@ MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
 SLIDING_CMVN = CudaKernel("sliding_cmvn", "sliding_cmvn.cu", {
     "sliding_cmvn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
 })
+ATT_POOL = CudaKernel("att_pool", "att_pool.cu", {
+    "att_pool_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "att_pool_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+})
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
-           MARGIN_CE, SLIDING_CMVN)
+           MARGIN_CE, SLIDING_CMVN, ATT_POOL)
 
 
 def build_all(kernels: Sequence[CudaKernel] = KERNELS) -> float:

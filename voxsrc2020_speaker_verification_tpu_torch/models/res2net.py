@@ -335,28 +335,34 @@ def remat_context(policy: Optional[str]):
     return None
 
 
-def remat_block(block: nn.Module, x: torch.Tensor, training: bool,
-                mask: Optional[torch.Tensor], out_mask: Optional[torch.Tensor],
-                context_fn=None) -> torch.Tensor:
-    """``block(x, training, mask, out_mask)`` under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are freed
-    after the forward and recomputed in the backward, one checkpoint per
-    block as the JAX package's ``nn.remat`` of ``BottleneckBlockV1``. The
-    first call updates the BN running statistics; the recompute runs with
-    ``ops.running_update(False)``, so K5 and its plain version leave them
-    alone and the recomputed activations equal the first ones (K5 reruns bit
-    for bit)."""
+def remat_call(fn, *inputs: torch.Tensor, context_fn=None):
+    """``fn(*inputs)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are freed after the forward and recomputed in the backward.
+    The first call updates the BN running statistics; the recompute runs
+    with ``ops.running_update(False)``, so K5 and its plain version leave
+    them alone and the recomputed activations equal the first ones (K5
+    reruns bit for bit). ``fn`` may return a tensor or a tuple of them."""
     calls = 0
 
-    def run(inp):
+    def run(*args):
         nonlocal calls
         first = calls == 0
         calls += 1
         with ops.running_update(first):
-            return block(inp, training, mask, out_mask)
+            return fn(*args)
 
     kw = {} if context_fn is None else {"context_fn": context_fn}
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
+    return checkpoint(run, *inputs, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def remat_block(block: nn.Module, x: torch.Tensor, training: bool,
+                mask: Optional[torch.Tensor], out_mask: Optional[torch.Tensor],
+                context_fn=None) -> torch.Tensor:
+    """``block(x, training, mask, out_mask)`` under :func:`remat_call`, one
+    checkpoint per block as the JAX package's ``nn.remat`` of
+    ``BottleneckBlockV1``."""
+    return remat_call(lambda inp: block(inp, training, mask, out_mask), x,
+                      context_fn=context_fn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -427,9 +433,7 @@ class Res2Net(nn.Module):
     def set_bn_groups(self, groups: int) -> None:
         """Training BN statistics over ``groups`` equal batch groups in every
         BN of the model (the JAX package's ``bn_groups`` context)."""
-        for m in self.modules():
-            if isinstance(m, ops.BatchNorm):
-                m.groups = max(1, int(groups))
+        ops.set_bn_groups(self, groups)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,10 +1,10 @@
-"""NN primitives of the Res2Net family, eval and training mode.
+"""NN primitives of the model zoo, eval and training mode.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory, i.e.
 physically (B, T, F, C) like the JAX package's NHWC: H is time, W is
 frequency. Parameters are float32; the compute dtype is the activation's.
 
-Three of these primitives are CUDA kernels with a plain PyTorch version
+Four of these primitives are CUDA kernels with a plain PyTorch version
 beside them:
 
 * :func:`bn_act` -- K3 (``csrc/bn_epilogue.cu``): eval batch norm with its
@@ -13,7 +13,14 @@ beside them:
   statistics per batch group, the running-statistics update and K3's
   epilogue, forward and backward;
 * :func:`stats_pool` -- K4 (``csrc/stats_pool.cu``): masked mean ||
-  sqrt(var + eps) over time; its backward is K4b (``csrc/stats_pool_bwd.cu``).
+  sqrt(var + eps) over time; its backward is K4b (``csrc/stats_pool_bwd.cu``);
+* :func:`att_pool` -- K8 (``csrc/att_pool.cu``): the masked softmax over time
+  of attentive statistics pooling with its weighted mean || std; its
+  backward is K8b (same source).
+
+The rest (convolutions with SAME padding at any stride, dilation and
+cardinality, the squeeze-excitation block, the attention's 1x1 convs,
+gelu, mish and layer norm) is plain PyTorch.
 
 A wrapper takes the plain version only for a CPU tensor; on a CUDA tensor it
 launches the kernel or raises.
@@ -31,8 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import (BN_ACT, BN_TRAIN, STATS_POOL, STATS_POOL_BWD, KernelError,
-                       check_cuda, dtype_code, num_sms, ptr)
+from ..kernels import (ATT_POOL, BN_ACT, BN_TRAIN, STATS_POOL, STATS_POOL_BWD,
+                       KernelError, check_cuda, dtype_code, num_sms, ptr)
 
 BN_MOMENTUM = 0.997
 BN_EPSILON = 1e-5
@@ -60,29 +67,49 @@ def fixed_padding(x: torch.Tensor, kernel_size) -> torch.Tensor:
     return F.pad(x, (wb, we, hb, he)).contiguous(memory_format=CHANNELS_LAST)
 
 
+def same_pads(n: int, k: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis of length ``n``: ceil(n / stride)
+    outputs, ``total = max((out - 1) * stride + (k - 1) * dilation + 1 - n,
+    0)`` zeros, ``total // 2`` before and the rest after (asymmetric at
+    stride 2 and even n)."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
 class Conv2d(nn.Module):
-    """Bias-free conv; ``weight`` is OIHW (the JAX HWIO kernel transposed
-    (3, 2, 0, 1)). ``padding`` is ``"SAME"`` (stride 1, odd kernel) or
-    ``"VALID"``. Computed in the input's dtype."""
+    """Bias-free conv; ``weight`` is OIHW ``(out, in / cardinality, kh, kw)``,
+    the JAX HWIO kernel transposed (3, 2, 0, 1). ``padding`` is ``"SAME"``
+    (XLA's rule, :func:`same_pads`, at any stride and dilation) or
+    ``"VALID"``; ``cardinality`` is the group count (``F.conv2d(groups=)``;
+    autograd gives both gradients). Computed in the input's dtype."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=1,
-                 strides=1, padding: str = "SAME"):
+                 strides=1, padding: str = "SAME", dilation=1, cardinality: int = 1):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
+        if in_channels % cardinality or features % cardinality:
+            raise ValueError(f"{in_channels} -> {features} channels in {cardinality} groups")
         self.kernel_size = _pair(kernel_size)
         self.strides = _pair(strides)
-        if padding == "SAME":
-            if self.strides != (1, 1) or any(k % 2 == 0 for k in self.kernel_size):
-                raise ValueError("SAME padding is ported for stride 1, odd kernels")
-            self.padding = tuple(k // 2 for k in self.kernel_size)
-        elif padding == "VALID":
-            self.padding = (0, 0)
-        else:
-            raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
-        self.weight = nn.Parameter(torch.empty(features, in_channels, *self.kernel_size))
+        self.dilation = _pair(dilation)
+        self.padding = padding
+        self.cardinality = cardinality
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels // cardinality, *self.kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight.to(x.dtype), stride=self.strides,
-                     padding=self.padding)
+        pad = (0, 0)
+        if self.padding == "SAME":
+            (ht, hb), (wl, wr) = (same_pads(n, k, s, d) for n, k, s, d in zip(
+                x.shape[2:], self.kernel_size, self.strides, self.dilation))
+            if (ht, wl) == (hb, wr):
+                pad = (ht, wl)
+            else:
+                x = F.pad(x, (wl, wr, ht, hb))
+        y = F.conv2d(x, self.weight.to(x.dtype), stride=self.strides, padding=pad,
+                     dilation=self.dilation, groups=self.cardinality)
         return y.contiguous(memory_format=CHANNELS_LAST)
 
 
@@ -118,6 +145,27 @@ def mask_time(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         return x
     m = mask[:, : x.shape[2]].to(x.dtype)
     return x * m[:, None, :, None]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU in x's dtype, rounding where the JAX package does."""
+    return x * 0.5 * (1.0 + torch.erf(x / torch.tensor(math.sqrt(2.0), dtype=x.dtype)))
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
+def layer_norm(x: torch.Tensor) -> torch.Tensor:
+    """Parameterless layer norm over the channels (the JAX package's last
+    NHWC axis), float32, eps 1e-5, cast back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=1, keepdim=True)
+    var = torch.square(x32 - mean).mean(dim=1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + BN_EPSILON)).to(x.dtype)
+
+
+ACTIVATIONS = {"relu": torch.relu, "gelu": gelu, "mish": mish}
 
 
 def downsample_mask(mask: Optional[torch.Tensor], strides: int,
@@ -156,8 +204,9 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
         y = relu?((x - mean) * rsqrt(var + eps)
                   [+ (s - mean_s) * rsqrt(var_s + eps)  or  + s]) * mask?
 
-    x, shortcut: (B, C, T, F) channels_last; mean, var: (C,) float32 running
-    statistics; mask: (B, T') float 0/1 with T' >= T.
+    x, shortcut: (B, C, T, F) channels_last, any C (the kernel moves 4-channel
+    vectors where C % 4 == 0, single channels otherwise); mean, var: (C,)
+    float32 running statistics; mask: (B, T') float 0/1 with T' >= T.
     """
     if shortcut is not None and shortcut.shape != x.shape:
         raise ValueError(f"shortcut {tuple(shortcut.shape)} != x {tuple(x.shape)}")
@@ -172,8 +221,6 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
 
     check_cuda("bn_act", x, _KERNEL_DTYPES, 4, CHANNELS_LAST)
     b, c, t, f = x.shape
-    if c % 4:
-        raise KernelError(f"bn_act: channels must be a multiple of 4, got {c}")
     for name, s in (("mean", mean), ("var", var), ("shortcut_mean", shortcut_mean),
                     ("shortcut_var", shortcut_var)):
         if s is not None:
@@ -279,8 +326,9 @@ def bn_train_reference(x, running_mean, running_var, *, groups=1, relu=False,
 def _bn_chunks(channels: int, n: int, groups: int, sms: int) -> int:
     """Row chunks per group of K5's reductions: about four blocks per SM, at
     least one row lane per chunk (the C side derives the rest of the
-    geometry from the channel count alone)."""
-    cv = channels // 4
+    geometry from the channel count alone: 4-channel vectors where C % 4 ==
+    0, single channels otherwise)."""
+    cv = channels // 4 if channels % 4 == 0 else channels
     cpb = min(cv, 256)
     rpb, tiles = 256 // cpb, -(-cv // cpb)
     want = -(-4 * sms // (groups * tiles))
@@ -471,8 +519,9 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
     shortcut (``shortcut_running_mean``/``var`` given) is the projection BN
     with its own batch statistics and its own running update.
 
-    x, shortcut: (B, C, T, F) channels_last or (B, C); running statistics:
-    (C,) float32, updated in place, except inside ``running_update(False)``
+    x, shortcut: (B, C, T, F) channels_last or (B, C), any C (C % 4 != 0
+    takes the multi-kernel design on single channels, :func:`bn_train_plan`);
+    running statistics: (C,) float32, updated in place, except inside ``running_update(False)``
     (a rematerialized block's recompute). Differentiable in x and the
     shortcut.
     """
@@ -496,8 +545,6 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
     x = _kernel_layout(x)
     check_cuda("bn_train", x, _KERNEL_DTYPES, x.ndim, fmt)
     c = x.shape[1]
-    if c % 4:
-        raise KernelError(f"bn_train: channels must be a multiple of 4, got {c}")
     for name, s in (("running_mean", running_mean), ("running_var", running_var),
                     ("shortcut_running_mean", shortcut_running_mean),
                     ("shortcut_running_var", shortcut_running_var)):
@@ -553,6 +600,14 @@ class BatchNorm(nn.Module):
             shortcut_mean=None if shortcut_bn is None else shortcut_bn.running_mean,
             shortcut_var=None if shortcut_bn is None else shortcut_bn.running_var,
             mask=mask, eps=self.eps)
+
+
+def set_bn_groups(model: nn.Module, groups: int) -> None:
+    """Training BN statistics over ``groups`` equal batch groups in every
+    BN of ``model`` (the JAX package's ``bn_groups`` context)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.groups = max(1, int(groups))
 
 
 class Dense(nn.Module):
@@ -626,8 +681,134 @@ def stats_pool(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Te
     return _StatsPoolFn.apply(x, m)
 
 
+class SqueezeExcitation(nn.Module):
+    """Squeeze-and-excitation over (T, W): float32 mean (over the valid
+    frames where a (B, T) ``mask`` is given, denominator max(sum(mask), 1) *
+    W; x must be zero at masked frames), cast to x's dtype, then squeeze
+    1x1 conv -> relu -> excite 1x1 conv -> sigmoid, scaling x."""
+
+    def __init__(self, channels: int, ratio: int = 16):
+        super().__init__()
+        if channels % ratio:
+            raise ValueError(f"{channels} channels at squeeze ratio {ratio}")
+        self.squeeze = Conv2d(channels, channels // ratio, 1)
+        self.excite = Conv2d(channels // ratio, channels, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x32 = x.float()
+        if mask is None:
+            scale = x32.mean(dim=(2, 3), keepdim=True)
+        else:
+            m = mask[:, : x.shape[2]].float()
+            denom = torch.clamp(m.sum(dim=1), min=1.0) * x.shape[3]
+            scale = x32.sum(dim=(2, 3), keepdim=True) / denom[:, None, None, None]
+        scale = torch.relu(self.squeeze(scale.to(x.dtype)))
+        return torch.sigmoid(self.excite(scale)) * x
+
+
+def att_pool_reference(x: torch.Tensor, s: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`att_pool`, differentiable by autograd, step
+    for step as the JAX package's ``AttStatsPool`` after ``att_conv2``
+    (ops/nn.py:530-539): scores in float32, -1e30 at masked frames, softmax
+    over T, weighted mean and sqrt(max(E_p[x^2] - mean^2, 0) + eps), whose
+    ``torch.maximum`` passes half the gradient at a tie as ``jnp.maximum``
+    does. Float64 inputs are computed in float64 (a yardstick for the
+    kernel's float32 arithmetic)."""
+    work = torch.promote_types(x.dtype, torch.float32)
+    x32, s32 = x.to(work), s.to(work)
+    if mask is not None:
+        m = mask[:, : x.shape[2]].to(work)[:, None, :, None]
+        s32 = torch.where(m > 0, s32, torch.full_like(s32, -1e30))
+    w = torch.softmax(s32, dim=2)
+    mean = (x32 * w).sum(dim=2, keepdim=True)
+    sq = (x32 * x32 * w).sum(dim=2, keepdim=True)
+    std = torch.sqrt(torch.maximum(sq - mean * mean, torch.zeros_like(sq)) + POOL_EPSILON)
+    return torch.cat([mean, std], dim=1).to(x.dtype).contiguous(memory_format=CHANNELS_LAST)
+
+
+class _AttPoolFn(torch.autograd.Function):
+    """K8 forward (it saves each column's max, sum of exp, mean and E_p[x^2]
+    in float32), K8b backward from them: dx and ds in one pass over x and s."""
+
+    @staticmethod
+    def forward(ctx, x, s, m):
+        b, c, t, w = x.shape
+        out = torch.empty((b, 2 * c, 1, w), dtype=x.dtype, device=x.device,
+                          memory_format=CHANNELS_LAST)
+        stats = torch.empty((4, b, w, c), dtype=torch.float32, device=x.device)
+        if out.numel():
+            ATT_POOL.launch("att_pool_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(s),
+                            ptr(m), ptr(out), ptr(stats), b, t, w, c, POOL_EPSILON)
+        ctx.save_for_backward(x, s, m, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, s, m, stats = ctx.saved_tensors
+        b, c, t, w = x.shape
+        dout = dout.contiguous(memory_format=CHANNELS_LAST)
+        dx, ds = torch.empty_like(x), torch.empty_like(s)
+        if dx.numel():
+            ATT_POOL.launch("att_pool_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(s),
+                            ptr(m), ptr(stats), ptr(dout), ptr(dx), ptr(ds), b, t, w, c,
+                            POOL_EPSILON)
+        return dx, ds, None
+
+
+def att_pool(x: torch.Tensor, s: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attentive statistics pooling after the attention's scores, K8 on CUDA
+    (its backward K8b): x, s (B, C, T, W) channels_last, one dtype; per (b,
+    c, w), p = softmax over T of s (-1e30 at frames where the (B, T') mask is
+    0, so a row masked throughout weighs its T frames alike), and the output
+    (B, 2C, 1, W) channels_last is [sum p x || sqrt(max(sum p x^2 - mean^2, 0)
+    + eps)] in float32, cast to x's dtype. Differentiable in x and s."""
+    if s.shape != x.shape:
+        raise ValueError(f"scores {tuple(s.shape)} != x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return att_pool_reference(x, s, mask)
+    check_cuda("att_pool", x, _KERNEL_DTYPES, 4, CHANNELS_LAST)
+    check_cuda("att_pool scores", s, (x.dtype,), 4, CHANNELS_LAST)
+    b, _, t, _ = x.shape
+    m = None
+    if mask is not None:
+        m = mask[:, :t].float().contiguous()
+        if m.shape != (b, t) or m.device != x.device:
+            raise KernelError(f"att_pool: mask {tuple(mask.shape)} does not cover (B, T)=({b}, {t})")
+    return _AttPoolFn.apply(x, s, m)
+
+
+class AttStatsPool(nn.Module):
+    """Attentive statistics pooling (the JAX package's ``AttStatsPool``):
+    scores = att_conv2(tanh(att_conv1([x; mean; std]))), then :func:`att_pool`.
+
+    [mean; std] is K4's :func:`stats_pool` of x (exactly the JAX package's
+    masked moments, cast to x's dtype). The JAX package materializes the
+    concat (B, T, W, 3C); here att_conv1 is computed as W[:, :C] x +
+    W[:, C:] [mean; std], the second term once per (b, w) and broadcast over
+    T -- equal in exact arithmetic, on both devices (each product is rounded
+    to the compute dtype before the add). It spares a tensor three times the
+    size of x (983 MB at res2net200_att's serving batch)."""
+
+    def __init__(self, channels: int, att_dim: int = 128):
+        super().__init__()
+        self.channels = channels
+        self.att_conv1 = Conv2d(3 * channels, att_dim, 1)
+        self.att_conv2 = Conv2d(att_dim, channels, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        c = self.channels
+        w1 = self.att_conv1.weight.to(x.dtype)
+        h = F.conv2d(x, w1[:, :c]) + F.conv2d(stats_pool(x, mask), w1[:, c:])
+        scores = self.att_conv2(torch.tanh(h))
+        return att_pool(x, scores, mask)
+
+
 class EmbeddingHead(nn.Module):
-    """Stats pool -> flatten in NHWC order (W, 2C) -> BN -> dense -> BN.
+    """Pool (``"stats"``: :func:`stats_pool`; ``"att_stats"``:
+    :class:`AttStatsPool`) -> flatten in NHWC order (W, 2C) -> BN -> dense ->
+    BN.
 
     The flatten keeps the downsampled frequency axis, so the dense input is
     freq_out * 2 * channels, in the JAX package's order."""
@@ -635,9 +816,10 @@ class EmbeddingHead(nn.Module):
     def __init__(self, channels: int, freq: int, output_dim: int,
                  pool: str = "stats"):
         super().__init__()
-        if pool != "stats":
-            raise NotImplementedError(
-                f"pool {pool!r} is not ported yet (ROADMAP.md); only 'stats'")
+        if pool not in ("stats", "att_stats"):
+            raise ValueError(f"unknown pool {pool!r}")
+        if pool == "att_stats":
+            self.att_stats_pool = AttStatsPool(channels)
         in_features = freq * 2 * channels
         self.pre_bn = BatchNorm(in_features)
         self.embedding = Dense(in_features, output_dim)
@@ -645,7 +827,10 @@ class EmbeddingHead(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = stats_pool(x, mask)
+        if hasattr(self, "att_stats_pool"):
+            x = self.att_stats_pool(x, mask)
+        else:
+            x = stats_pool(x, mask)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = self.pre_bn(x, training)
         x = self.embedding(x)

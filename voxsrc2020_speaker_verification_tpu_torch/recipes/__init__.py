@@ -7,9 +7,8 @@ lands the LR in its 1/128 tail. Every reference-parity recipe sets
 reference's per-replica BN at world size 8. ``_apply`` falls back to the
 largest feasible group count when a smoke run overrides the batch below it.
 
-A recipe whose model the port lacks builds, and its model raises in
-``models.get_model``. The JAX package's single-chip shape table is TPU
-measurements and is not carried over.
+Every recipe's default model is ported. The JAX package's single-chip
+shape table is TPU measurements and is not carried over.
 """
 
 from __future__ import annotations

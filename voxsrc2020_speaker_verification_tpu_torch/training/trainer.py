@@ -18,7 +18,10 @@ The semantics of the JAX package's ``training/trainer.py``:
   autograd, as no gradient flows into the JAX package's features either.
   The dither draws come from a generator seeded by (config.seed, global
   step, microbatch), so a resumed run draws the same noise; they are not
-  the JAX package's threefry draws, only of the same distribution.
+  the JAX package's threefry draws, only of the same distribution;
+* with ``config.specaug`` each microbatch's features get one time and one
+  frequency mask per utterance (``ops/specaug.py``) before the forward,
+  drawn from a generator of their own seeded the same way.
 
 The update runs in place with ``torch._foreach_*`` (the JAX package builds
 new arrays). Parameters stay float32; the model casts each weight to the
@@ -38,6 +41,7 @@ from ..config import TrainConfig
 from ..convert import init_weights
 from ..losses import schedules
 from ..ops.fbank import FbankConfig, draw_noise
+from ..ops import specaug
 from ..ops.pipeline import waveform_to_features
 from .speaker_net import SpeakerNet
 
@@ -61,9 +65,7 @@ def build_speaker_net(config: TrainConfig,
                       device: Optional[Union[str, torch.device]] = None) -> SpeakerNet:
     """The config's training net on ``device`` (default ``cuda``), bfloat16
     compute when ``config.bf16``, with the config's rematerialization
-    options. Raises on the options the port lacks."""
-    if config.specaug:
-        raise NotImplementedError("SpecAugment is not ported yet (ROADMAP.md)")
+    options."""
     dev = resolve_device(device)
     net = SpeakerNet(config.model, config.projection, config.num_classes,
                      config.num_centers, config.feat_dim,
@@ -107,13 +109,25 @@ def schedule_values(config: TrainConfig, step: int) -> Tuple[float, float]:
     return float(lr), float(margin)
 
 
+def _seeded_generator(entropy, device: torch.device) -> torch.Generator:
+    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def dither_generator(config: TrainConfig, step: int, microbatch: int,
                      device: torch.device) -> torch.Generator:
     """The generator of one microbatch's dither draws: seeded by
     (config.seed, global step, microbatch), so a resumed run draws what the
     uninterrupted run drew."""
-    seed = np.random.SeedSequence([config.seed, step, microbatch]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
+    return _seeded_generator([config.seed, step, microbatch], device)
+
+
+def specaug_generator(config: TrainConfig, step: int, microbatch: int,
+                      device: torch.device) -> torch.Generator:
+    """The generator of one microbatch's SpecAugment draws: seeded by
+    (config.seed, global step, microbatch), a stream apart from the
+    dither's."""
+    return _seeded_generator([config.seed, step, microbatch, 1], device)
 
 
 def make_train_step(config: TrainConfig):
@@ -130,16 +144,23 @@ def make_train_step(config: TrainConfig):
 
     def microbatch_features(features, a: int, step: int) -> torch.Tensor:
         if not config.raw_audio:
-            return features[a].float()
-        waves, num_samples, offset, shift = (x[a] for x in features)
-        noise = None
-        if config.dither:
-            noise = draw_noise(waves.shape[0], waves.shape[1], fbank_cfg,
-                               dither_generator(config, step, a, waves.device), waves.device)
-        with torch.no_grad():
-            return waveform_to_features(waves, num_samples, offset, shift, fbank_cfg,
-                                        config.feat_length, window=config.cmn_window,
-                                        context=config.cmn_context, noise=noise)
+            feats = features[a].float()
+        else:
+            waves, num_samples, offset, shift = (x[a] for x in features)
+            noise = None
+            if config.dither:
+                noise = draw_noise(waves.shape[0], waves.shape[1], fbank_cfg,
+                                   dither_generator(config, step, a, waves.device),
+                                   waves.device)
+            with torch.no_grad():
+                feats = waveform_to_features(waves, num_samples, offset, shift, fbank_cfg,
+                                             config.feat_length, window=config.cmn_window,
+                                             context=config.cmn_context, noise=noise)
+        if config.specaug:
+            b, t, f = feats.shape
+            feats = specaug.spec_augment(feats, specaug.draw(
+                b, t, f, specaug_generator(config, step, a, feats.device), feats.device))
+        return feats
 
     def step_fn(state: TrainState, features,
                 labels: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
