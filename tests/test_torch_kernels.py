@@ -132,13 +132,15 @@ def test_bn_act_and_stats_pool_kernels_match_plain(cuda, dtype):
     (torch.bfloat16, 96, 37, 11, 4), (torch.bfloat16, 192, 37, 11, 4),
     (torch.bfloat16, 24, 53, 80, 4), (torch.bfloat16, 96, 41, 20, 4),
     (torch.bfloat16, 192, 125, 10, 4), (torch.bfloat16, 8, 37, 11, 6),
-    (torch.bfloat16, 16, 41, 20, 6), (torch.bfloat16, 32, 23, 10, 6)])
+    (torch.bfloat16, 16, 41, 20, 6), (torch.bfloat16, 32, 23, 10, 6),
+    (torch.bfloat16, 40, 37, 11, 4)])
 def test_split_chain_kernel_matches_plain(cuda, dtype, width, t, f, split):
     """K2 against the plain chain in float32 on the same inputs, with masks
     and ragged patch tails: the fused chain (bf16, w = 24 at split 4, w = 8
     and 16 at split 6: one launch), the pipelined variant (w = 48; w = 32 at
-    split 6), the first tensor-core variant (w = 96, 192) and the CUDA-core
-    variant (float32, w = 12), each launched as split_plan names it."""
+    split 6), the warpgroup-MMA variant (w = 96, 192), the first tensor-core
+    variant (w = 40) and the CUDA-core variant (float32, w = 12), each
+    launched as split_plan names it."""
     from voxsrc2020_speaker_verification_tpu_torch.models.res2net import split_plan
 
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -156,11 +158,61 @@ def test_split_chain_kernel_matches_plain(cuda, dtype, width, t, f, split):
     assert (got - want).abs().max() <= tol * want.abs().max()
     variant = split_plan(width, t, f, dtype, split)["variant"]
     fn = {"fused": "split_chain_fused", "pipe": "split_group_pipe", "mma": "split_group_mma",
-          "fma": "split_group"}[variant]
+          "wgmma": "split_group_wgmma", "fma": "split_group"}[variant]
     assert kernels.SPLIT_CONV.fn_launches[fn] - before[fn] == (
         1 if variant == "fused" else split - 1)
     if dtype == torch.bfloat16 and width in (8, 16, 24, 32, 48):
         assert variant == ("fused" if width * split <= 96 else "pipe")
+    if dtype == torch.bfloat16 and width in (96, 192):
+        assert variant == "wgmma"
+    if width == 40:
+        assert variant == "mma"
+
+
+# K2's warpgroup-MMA variant at the serving stages and its edges: (batch,
+# width, T, F, split, lengths) with lengths None for no mask and 0 for a row
+# masked throughout
+WGMMA_CASES = [
+    (2, 96, 250, 20, 4, (250, 177)),      # res2net50_w24's stage 3 at 1000 frames
+    (2, 192, 125, 10, 4, (125, 64)),      # its stage 4
+    (3, 96, 41, 13, 4, (41, 20, 7)),      # a ragged F: one 13-wide tile
+    (3, 192, 1, 10, 4, (1, 1, 1)),        # T = 1
+    (1, 192, 40, 10, 4, None),            # B = 1, no mask
+    (3, 96, 30, 20, 4, (30, 12, 0)),      # a row masked throughout
+    (2, 64, 125, 10, 6, (125, 90)),       # res2net50_w8_s6_c16's stage 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,width,t,f,split,lengths", WGMMA_CASES)
+def test_split_chain_wgmma_matches_plain(cuda, b, width, t, f, split, lengths):
+    """K2's warpgroup-MMA variant against the plain chain in float32 on the
+    same bf16 inputs (5e-2 relative to the output's largest magnitude, as
+    the other bf16 variants: a chain of three or five groups): one launch a
+    group, reruns bit for bit, finite, and the pass-through group equal to
+    its input."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import split_plan
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(b, split * width, t, f, generator=g, device=cuda)
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(t, device=cuda)[None] < torch.tensor(lengths, device=cuda)[:, None]).float()
+        x = x * mask[:, None, :, None]
+    x = x.bfloat16().contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((split - 1) * width, width, 3, 3, generator=g, device=cuda)
+         / (9 * width) ** 0.5).bfloat16()
+    means = [torch.randn(width, device=cuda) * 0.1 for _ in range(split - 1)]
+    var = [torch.rand(width, device=cuda) + 0.5 for _ in range(split - 1)]
+    assert split_plan(width, t, f, torch.bfloat16, split)["variant"] == "wgmma"
+    before = kernels.SPLIT_CONV.fn_launches["split_group_wgmma"]
+    got = split_chain(x, w, means, var, mask)
+    assert kernels.SPLIT_CONV.fn_launches["split_group_wgmma"] - before == split - 1
+    want = split_chain_reference(x.float(), w.float(), means, var, mask)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max() <= 5e-2 * want.abs().max()
+    assert torch.equal(got[:, (split - 1) * width:], x[:, (split - 1) * width:])
+    assert torch.equal(got, split_chain(x, w, means, var, mask))
 
 
 def rel(got, want):
@@ -410,18 +462,20 @@ def test_bn_train_cluster_on_two_streams(cuda):
 
 
 @pytest.mark.cuda
-def test_split_chain_refuses_a_plan_of_another_layout(cuda, monkeypatch):
-    """The fused K2 chain checks the plan's shared-memory size against its
-    own layout's: a plan copied wrong is refused, never launched."""
+@pytest.mark.parametrize("layout,width,f", [("_fused_smem", 24, 5), ("_wgmma_smem", 96, 10)])
+def test_split_chain_refuses_a_plan_of_another_layout(cuda, monkeypatch, layout, width, f):
+    """K2's fused chain and its warpgroup-MMA variant check the plan's
+    shared-memory size against their own layout's: a plan copied wrong is
+    refused, never launched."""
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net
 
-    x = torch.randn(2, 96, 9, 5, device=cuda).bfloat16().contiguous(
+    x = torch.randn(2, 4 * width, 9, f, device=cuda).bfloat16().contiguous(
         memory_format=torch.channels_last)
-    w = torch.randn(72, 24, 3, 3, device=cuda).bfloat16()
-    stats = [torch.zeros(24, device=cuda)] * 3, [torch.ones(24, device=cuda)] * 3
+    w = torch.randn(3 * width, width, 3, 3, device=cuda).bfloat16()
+    stats = [torch.zeros(width, device=cuda)] * 3, [torch.ones(width, device=cuda)] * 3
     split_chain(x, w, *stats)
-    size = res2net._fused_smem
-    monkeypatch.setattr(res2net, "_fused_smem", lambda *a: size(*a) - 16)
+    size = getattr(res2net, layout)
+    monkeypatch.setattr(res2net, layout, lambda *a: size(*a) - 16)
     with pytest.raises(kernels.KernelError, match="plan"):
         split_chain(x, w, *stats)
 
@@ -1028,6 +1082,57 @@ def test_att_pool_kernel_matches_plain(cuda, dtype):
         again = att_run(tops.att_pool, x, s, mask, dout)
         assert all(torch.equal(a, r) for a, r in zip(got, again)), shape
         del x, s, got, want, again
+        torch.cuda.empty_cache()
+
+
+# K8's forward at the three heads it serves: res2net200_att's serving and
+# training heads, ECAPA-512's (B, C, T, W, masked)
+ATT_HEADS = [((128, 1024, 125, 10), True), ((128, 1024, 25, 10), False),
+             ((256, 1536, 200, 1), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", ATT_HEADS)
+def test_att_pool_forward_at_the_heads(cuda, shape, masked):
+    """K8's forward (its rows split over thread groups, their sums merged in
+    a fixed order) at each head: float32 pooled rows no further from the
+    float64 plain version than twice the float32 plain version, or 1e-4;
+    bfloat16 within 2e-2 of the float32 plain version; the saved stats
+    (max, sum of exp, mean, E_p x^2) equal to the float64 plain softmax's
+    within 1e-4 of their largest magnitude; reruns bit for bit; a row masked
+    throughout is the plain mean over T."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops.nn import POOL_EPSILON
+
+    b, c, t, w = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s, mask = att_case(cuda, shape, masked, dtype, seed=5)
+        got = tops.att_pool(x, s, mask)
+        assert torch.equal(got, tops.att_pool(x, s, mask))
+        if dtype == torch.float32:
+            want = tops.att_pool_reference(x.double(), s.double(), mask)
+            plain = tops.att_pool_reference(x, s, mask)
+            assert rel(got, want) <= max(1e-4, 2 * rel(plain, want)), shape
+            if masked:
+                torch.testing.assert_close(got[-1, :c, 0], x[-1].mean(dim=1), rtol=1e-5, atol=1e-5)
+            # the saved stats K8b reads, against a float64 softmax
+            stats = torch.empty((4, b, w, c), device=cuda)
+            kernels.ATT_POOL.launch("att_pool_fwd", cuda, 0, x.data_ptr(), s.data_ptr(),
+                                    None if mask is None else mask.data_ptr(),
+                                    torch.empty_like(got).data_ptr(), stats.data_ptr(),
+                                    b, t, w, c, POOL_EPSILON)
+            sd = s.double().permute(0, 3, 1, 2)  # (B, W, C, T)
+            xd = x.double().permute(0, 3, 1, 2)
+            if mask is not None:
+                sd = torch.where(mask[:, None, None, :] > 0, sd, torch.full_like(sd, -1e30))
+            mx = sd.max(dim=-1).values
+            e = torch.exp(sd - mx[..., None])
+            ref = torch.stack([mx, e.sum(-1), (e * xd).sum(-1) / e.sum(-1),
+                               (e * xd * xd).sum(-1) / e.sum(-1)])
+            for k in range(4):
+                assert rel(stats[k], ref[k]) <= 1e-4, (shape, k)
+        else:
+            assert rel(got, tops.att_pool_reference(x, s, mask)) <= 2e-2, shape
+        del x, s, got
         torch.cuda.empty_cache()
 
 

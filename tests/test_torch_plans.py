@@ -21,7 +21,11 @@ from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops  # noqa: E402
 
 SMEM = 232448  # the most shared memory one block can take on the H100
-MODELS = ("res2net50_w24_s4_c32", "res2net50_w8_s6_c16")
+# every Res2Net the package registers (a fixed list: tests register thin
+# variants in the same dict while the suite is collected)
+RES2NETS = ("res2net50_w24_s4_c64", "res2net50_w24_s4_c32", "res2net50_w8_s6_c16",
+            "res2net101_w24_s4_c32_att", "res2net152_w24_s4_c32_att",
+            "res2net200_w24_s4_c32_att")
 
 
 def k2_calls(model, frames, monkeypatch):
@@ -29,16 +33,18 @@ def k2_calls(model, frames, monkeypatch):
     return chip_smoke.forward_shapes(RES2NET_CONFIGS[model])[0]
 
 
-@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("model", RES2NETS)
 @pytest.mark.parametrize("frames", [256, 512, 1000])
 def test_split_plan_fits_every_serving_call(model, frames, monkeypatch):
-    """Every stride-1 stage of the serving forward gets a K2 plan: the fused
-    chain where s * w <= 96 (its weights and two full-width patch stages with
-    an (s-1)-position halo in one block's shared memory, 128 patch positions
-    or 64), the pipelined variant at the other widths up to 48 (two CTAs'
-    shared memory per SM, its patch rows within its m tiles), the first
-    tensor-core variant at w = 64, 96 and 192 (weights too large to stage
-    twice per SM); F cut into even tiles of at most 16."""
+    """Every stride-1 stage of the serving forward of every registered
+    Res2Net gets a K2 plan: the fused chain where s * w <= 96 (its weights
+    and two full-width patch stages with an (s-1)-position halo in one
+    block's shared memory, 128 patch positions or 64), the pipelined variant
+    at the other widths up to 48 (two CTAs' shared memory per SM, its patch
+    rows within its m tiles), the warpgroup-MMA variant at w = 64, 96 and 192
+    (its weight ring and two patch stages within 227 KB, the patch within
+    its 256 or 128 rows, as many as fit); F cut into even tiles of at most
+    16."""
     calls = k2_calls(model, frames, monkeypatch)
     split = RES2NET_CONFIGS[model].split
     assert calls
@@ -56,8 +62,14 @@ def test_split_plan_fits_every_serving_call(model, frames, monkeypatch):
             assert 64 * (mt - 1) < tt * tf <= 64 * mt and mt in (1, 2)
             assert (w // 8) in rn._PIPE_NT
         else:
-            assert plan["variant"] == "mma", (w, t, f)
-            continue
+            assert w in (64, 96, 192)
+            assert plan["variant"] == "wgmma", (w, t, f)
+            tt, tf = plan["tt"], plan["tf"]
+            rows = rn._wgmma_rows(w)
+            assert plan["smem"] == rn._wgmma_smem(w, tt, tf) <= SMEM
+            assert rows == (256 if w <= 96 else 128)
+            assert tt * tf <= rows and (tt == t or (tt + 1) * tf > rows
+                                        or rn._wgmma_smem(w, tt + 1, tf) > SMEM)
         assert tf <= 16 and -(-f // tf) == -(-f // 16) and 1 <= tt <= t
 
 
@@ -72,14 +84,44 @@ def test_split_plan_ragged_stage4_and_other_variants():
         plan = rn.split_plan(w, 125, 10, torch.bfloat16, split)
         assert plan["variant"] == "fused" and plan["smem"] <= SMEM and plan["tf"] == 10
     for w in (64, 96, 192):
+        assert rn.split_plan(w, 125, 10, torch.bfloat16, 4)["variant"] == "wgmma"
+    # the first tensor-core variant keeps the other multiples of 8
+    for w in (40, 56, 200, 264):
         assert rn.split_plan(w, 125, 10, torch.bfloat16, 4)["variant"] == "mma"
     assert rn.split_plan(24, 125, 10, torch.float32, 4)["variant"] == "fma"
     assert rn.split_plan(12, 125, 10, torch.bfloat16, 4)["variant"] == "fma"
     # conflict-free ldmatrix rows: odd strides in 16-byte units
-    for w in (8, 16, 24, 32, 48, 64, 96):
+    for w in (8, 16, 24, 32, 48, 64, 96, 192):
         assert (rn._halo_stride(w) // 8) % 2 == 1 and rn._halo_stride(w) >= w
     for c in (32, 48, 64, 96, 128, 192):
         assert (rn._chain_stride(c) // 8) % 2 == 1 and rn._chain_stride(c) >= c
+
+
+def test_wgmma_plan_at_every_width_and_grid():
+    """The warpgroup-MMA plan at every width it takes (multiples of 16 from
+    64 to 192) on grids from one frame to the serving stages: within 227 KB,
+    the patch within the variant's rows, tt as large as the rows and the
+    shared memory allow; the weight slices cut K = 9w evenly into k steps of
+    16 that never cross a tap; a plan whose shared memory cannot fit even one
+    frame row falls back to the first tensor-core variant."""
+    for w in range(64, 193, 16):
+        rows = rn._wgmma_rows(w)
+        kslice = 32 if rows == 256 else 48
+        assert (9 * w) % kslice == 0 and w % 16 == 0
+        for t, f in ((1, 10), (1, 1), (7, 13), (125, 10), (250, 20), (500, 40), (1000, 80),
+                     (300, 16), (300, 17)):
+            plan = rn.split_plan(w, t, f, torch.bfloat16, 4)
+            if plan["variant"] == "pipe":
+                continue
+            assert plan["variant"] == "wgmma", (w, t, f)
+            tt, tf = plan["tt"], plan["tf"]
+            assert plan["smem"] == rn._wgmma_smem(w, tt, tf) <= SMEM
+            assert 1 <= tt <= t and tt * tf <= rows
+            assert tt == min(rows // tf, t) or rn._wgmma_smem(w, tt + 1, tf) > SMEM
+    # the shared memory grows with the patch: two stages of (tt + 2)(tf + 2)
+    # halo positions at the padded stride
+    assert (rn._wgmma_smem(96, 11, 10) - rn._wgmma_smem(96, 10, 10)
+            == 2 * 2 * 12 * rn._halo_stride(96))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

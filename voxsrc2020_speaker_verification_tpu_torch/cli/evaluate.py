@@ -94,6 +94,8 @@ def resolve_trials(entry: str, data_root: str):
 def main(argv=None):
     """Prints one line per trial set; returns {name: {"cosine": (EER %,
     minDCF), "asnorm": (EER %, minDCF) with a cohort}}."""
+    from .. import set_float32_precision
+    set_float32_precision()
     args = build_parser().parse_args(argv)
 
     from .. import resolve_device

@@ -42,6 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     """Returns the artifact dir."""
+    from .. import set_float32_precision
+    set_float32_precision()
     args = build_parser().parse_args(argv)
     if args.stablehlo:
         sys.exit("cli.export: --stablehlo is not ported: the port's artifact is "

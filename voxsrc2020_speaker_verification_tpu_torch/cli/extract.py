@@ -209,6 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     """Returns the xvector scp path."""
+    from .. import set_float32_precision
+    set_float32_precision()
     args = build_parser().parse_args(argv)
     scp = extract_dataset(
         args.artifact, args.data_dir, args.out,

@@ -61,6 +61,8 @@ def load_cohort(weights: str = None, xvectors: str = None, spk2utt: str = None):
 def main(argv=None):
     """Prints and returns (mode, EER %, minDCF); EER and minDCF are None
     for trials without labels."""
+    from .. import set_float32_precision
+    set_float32_precision()
     args = build_parser().parse_args(argv)
     if args.cohort_xvectors and not args.cohort_spk2utt:
         sys.exit("cli.score: --cohort-spk2utt required with --cohort-xvectors")

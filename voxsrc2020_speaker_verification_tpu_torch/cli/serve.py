@@ -263,6 +263,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    from .. import set_float32_precision
+    set_float32_precision()
     args = build_parser().parse_args(argv)
     server = make_server(
         args.artifact, args.host, args.port,

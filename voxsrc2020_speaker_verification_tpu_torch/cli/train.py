@@ -119,9 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> Optional[TrainRun]:
+    from .. import resolve_device, set_float32_precision
+    set_float32_precision()
     p = build_parser()
     args = p.parse_args(argv)
-    from .. import resolve_device
     device = resolve_device(args.device)
     if args.num_processes != 1 or args.process_id != 0:
         raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md §1 "

@@ -33,13 +33,25 @@
 // pooled rows; the backward reads x and s and writes dx and ds; a few dozen
 // fp32 operations (one exp) an element, far below Hopper's ridge.
 //
-// Design (a first, simple kernel): one thread a column vector, i.e. a (b, w)
-// and V channels (16 bytes of x: 8 bf16 or 4 fp32), walking T; neighbouring
-// threads take neighbouring vectors of one row, so each warp reads 512
-// contiguous bytes a row of x and of s, and four rows are loaded ahead of
-// their use. Where C is not a multiple of V, or a pointer is not 16-byte
-// aligned, every thread takes one channel (V = 1), chosen by shape here.
-// No atomics, a fixed order along T: reruns agree bit for bit.
+// Forward design (redesigned for Hopper): what bounded the first forward,
+// one thread a 16-byte column vector walking all of T with four rows loaded
+// into registers ahead, was too few bytes in flight: four rows a thread,
+// held in registers, and at ECAPA's (256, 1536, 200, 1) head only 49,152
+// threads; it ran at 1.8x its bound there and 3.1x at the 25-frame
+// training head. Now each thread
+// stages its rows in shared memory by 16-byte cp.async, kRing rows ahead of
+// the one it folds in (K4's cp.async staging, here a ring a thread), so the
+// bytes in flight cost no registers and four CTAs share an SM; and T is
+// split too: a CTA takes VT consecutive column vectors and NS groups of its
+// threads walk interleaved rows of them (NS picked in C so that the launch
+// gives the card two waves of resident threads), their sums merged through
+// shared memory in a fixed order.
+// Backward: one thread a column vector, walking T with four rows loaded
+// ahead (it writes dx and ds, twice the forward's traffic, and fills the
+// card at every head shape).
+// Where C is not a multiple of V, or a pointer is not 16-byte aligned,
+// every thread takes one channel (V = 1), chosen by shape here. No atomics,
+// a fixed order along T and across the groups: reruns agree bit for bit.
 #include <cstdint>
 
 #include "common.cuh"
@@ -117,71 +129,177 @@ __device__ __forceinline__ Col column(long long idx, int tlen, int wlen, int cha
   return col;
 }
 
-template <typename T, int V>
+// The forward's running sums of one column: the max of the scores so far,
+// and sum exp(s - max), sum exp(s - max) x, sum exp(s - max) x^2.
+struct Partial {
+  float m, l, a, q;
+};
+
+// Folds partial o into p (p's rows first): both rescaled to the larger max.
+// p.m is finite wherever o holds rows, since a split's first rows come first.
+__device__ __forceinline__ void merge(Partial& p, const Partial& o) {
+  const float mn = fmaxf(p.m, o.m);
+  const float rp = expf(p.m - mn), ro = expf(o.m - mn);
+  p.l = p.l * rp + o.l * ro;
+  p.a = p.a * rp + o.a * ro;
+  p.q = p.q * rp + o.q * ro;
+  p.m = mn;
+}
+
+// Folds one row of a column vector into its running sums: an online max,
+// a new maximum rescaling the sums (the first forward's arithmetic).
+template <int V>
+__device__ __forceinline__ void fold_row(Partial (&p)[V], const float* xv, const float* sv,
+                                         float mk) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float sc = mk > 0.f ? sv[j] : kMasked;
+    if (sc > p[j].m) {
+      const float r = expf(p[j].m - sc);
+      p[j].l = p[j].l * r + 1.f;
+      p[j].a = p[j].a * r + xv[j];
+      p[j].q = p[j].q * r + xv[j] * xv[j];
+      p[j].m = sc;
+    } else {
+      const float e = expf(sc - p[j].m);
+      p[j].l += e;
+      p[j].a += e * xv[j];
+      p[j].q += e * (xv[j] * xv[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+constexpr int kRing = 5;  // rows a thread has in flight (x, s and the mask value)
+
+// The shared memory of a forward CTA: each thread's ring of kRing rows
+// (x and s, 16 bytes each, and the row's mask value), reused after the
+// walk for the groups' partial sums.
+template <int V, int NS> struct FwdSmem {
+  static constexpr int VT = kThreads / NS;
+  static constexpr int RING_BYTES = kRing * kThreads * (2 * 16 + 4);
+  static constexpr int PART_BYTES = (NS > 1 ? NS - 1 : 1) * VT * V * sizeof(Partial);
+  static constexpr int BYTES = RING_BYTES > PART_BYTES ? RING_BYTES : PART_BYTES;
+};
+
+// One CTA a tile of VT = kThreads / NS consecutive column vectors (16 bytes
+// of x a (b, w), V channels; the tile may run over several (b, w)), its T
+// rows split over NS thread groups: group k takes rows k, k + NS, .... Each
+// thread stages its own rows into its ring in shared memory by cp.async
+// (x and s 16 bytes each, the mask value 4), kRing rows ahead of the one it
+// folds in, so many rows are in flight without holding registers; it reads
+// only its own slots, so the walk needs no barrier. (The single-channel
+// path, V = 1, loads its rows straight into registers, four ahead.) Groups
+// k > 0 leave their partial sums in shared memory and group 0's partials
+// are folded with them in the order k = 1 .. NS-1: a fixed order, so reruns
+// agree bit for bit. Then each column's mean, E_p x^2 and std, and the
+// saved stats.
+template <typename T, int V, int NS>
 __global__ void __launch_bounds__(kThreads)
     att_pool_fwd_kernel(const T* __restrict__ x, const T* __restrict__ s,
                         const float* __restrict__ mask, T* __restrict__ out,
                         float* __restrict__ stats, int batch, int tlen, int wlen,
                         int channels, float eps) {
   using P = Pack<T, V>;
+  using M = FwdSmem<V, NS>;
+  constexpr int VT = M::VT;
+  __shared__ __align__(16) unsigned char smem[M::BYTES];
+  const int tid = threadIdx.x, k = tid / VT, v = tid % VT;
   const long long total = static_cast<long long>(batch) * wlen * (channels / V);
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const Col col = column<V>(idx, tlen, wlen, channels);
-  float mx[V], l[V], a[V], q[V];
+  const long long idx = static_cast<long long>(blockIdx.x) * VT + v;
+  const bool live = idx < total;
+  const Col col = column<V>(live ? idx : 0, tlen, wlen, channels);
+  Partial p[V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    mx[j] = -INFINITY;
-    l[j] = a[j] = q[j] = 0.f;
-  }
+  for (int j = 0; j < V; ++j) p[j] = Partial{-INFINITY, 0.f, 0.f, 0.f};
   const float* mrow = mask != nullptr ? mask + static_cast<long long>(col.b) * tlen : nullptr;
-  for (int t0 = 0; t0 < tlen; t0 += kAhead) {
-    typename P::U xu[kAhead], su[kAhead];
-    float mk[kAhead];
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      if (t0 + k < tlen) {
-        const long long e = col.base + static_cast<long long>(t0 + k) * col.row;
-        P::load(x + e, xu[k]);
-        P::load(s + e, su[k]);
-        mk[k] = mrow != nullptr ? mrow[t0 + k] : 1.f;
+  const int rows = live && k < tlen ? (tlen - k + NS - 1) / NS : 0;
+  if constexpr (V > 1) {
+    uint4* xr = reinterpret_cast<uint4*>(smem);   // [kRing][kThreads]
+    uint4* sr = xr + kRing * kThreads;            // [kRing][kThreads]
+    float* mr = reinterpret_cast<float*>(sr + kRing * kThreads);
+    auto issue = [&](int j) {  // row k + NS j into slot j % kRing
+      if (j < rows) {
+        const int t = k + NS * j, slot = (j % kRing) * kThreads + tid;
+        const long long e = col.base + static_cast<long long>(t) * col.row;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(xr + slot)),
+                     "l"(x + e)
+                     : "memory");
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(sr + slot)),
+                     "l"(s + e)
+                     : "memory");
+        if (mrow != nullptr)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(mr + slot)),
+                       "l"(mrow + t)
+                       : "memory");
       }
-    }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      if (t0 + k >= tlen) break;
+    for (int j = 0; j < kRing; ++j) issue(j);
+    for (int j = 0; j < rows; ++j) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
+      const int slot = (j % kRing) * kThreads + tid;
       float xv[V], sv[V];
-      P::unpack(xu[k], xv);
-      P::unpack(su[k], sv);
+      P::unpack(xr[slot], xv);
+      P::unpack(sr[slot], sv);
+      const float mk = mrow != nullptr ? mr[slot] : 1.f;
+      issue(j + kRing);  // the slot is read: refill it
+      fold_row<V>(p, xv, sv, mk);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    for (int j0 = 0; j0 < rows; j0 += kAhead) {
+      typename P::U xu[kAhead], su[kAhead];
+      float mk[kAhead];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float sc = mk[k] > 0.f ? sv[j] : kMasked;
-        if (sc > mx[j]) {
-          const float r = expf(mx[j] - sc);
-          l[j] = l[j] * r + 1.f;
-          a[j] = a[j] * r + xv[j];
-          q[j] = q[j] * r + xv[j] * xv[j];
-          mx[j] = sc;
-        } else {
-          const float e = expf(sc - mx[j]);
-          l[j] += e;
-          a[j] += e * xv[j];
-          q[j] += e * (xv[j] * xv[j]);
+      for (int u = 0; u < kAhead; ++u) {
+        if (j0 + u < rows) {
+          const int t = k + NS * (j0 + u);
+          const long long e = col.base + static_cast<long long>(t) * col.row;
+          P::load(x + e, xu[u]);
+          P::load(s + e, su[u]);
+          mk[u] = mrow != nullptr ? mrow[t] : 1.f;
         }
       }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (j0 + u >= rows) break;
+        float xv[V], sv[V];
+        P::unpack(xu[u], xv);
+        P::unpack(su[u], sv);
+        fold_row<V>(p, xv, sv, mk[u]);
+      }
     }
   }
+  if constexpr (NS > 1) {
+    Partial* part = reinterpret_cast<Partial*>(smem);  // [NS - 1][VT * V]
+    __syncthreads();  // every ring is read out
+    if (k > 0) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) part[(k - 1) * VT * V + v * V + j] = p[j];
+    }
+    __syncthreads();
+    if (k > 0) return;
+    for (int kk = 0; kk < NS - 1; ++kk)
+#pragma unroll
+      for (int j = 0; j < V; ++j) merge(p[j], part[kk * VT * V + v * V + j]);
+  }
+  if (!live) return;
   float mean[V], sd[V];
   const long long n = static_cast<long long>(batch) * wlen * channels;
   const long long si = (static_cast<long long>(col.b) * wlen + col.w) * channels + col.c0;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    const float inv = 1.f / l[j];
-    mean[j] = a[j] * inv;
-    const float qq = q[j] * inv;
+    const float inv = 1.f / p[j].l;
+    mean[j] = p[j].a * inv;
+    const float qq = p[j].q * inv;
     sd[j] = sqrtf(fmaxf(variance(qq, mean[j]), 0.f) + eps);
-    stats[si + j] = mx[j];
-    stats[n + si + j] = l[j];
+    stats[si + j] = p[j].m;
+    stats[n + si + j] = p[j].l;
     stats[2 * n + si + j] = mean[j];
     stats[3 * n + si + j] = qq;
   }
@@ -264,6 +382,39 @@ unsigned blocks_for(long long threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
+// T-split of the forward: the fewest groups (a power of two up to 16) that
+// give the card two waves of resident threads (four CTAs an SM), while each
+// group keeps at least two rings of rows.
+int fwd_splits(long long vectors, int tlen) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = 2LL * sms * 4 * kThreads;
+  int ns = 1;
+  while (ns < 16 && vectors * ns < want && tlen >= 2 * kRing * 2 * ns) ns *= 2;
+  return ns;
+}
+
+template <typename T, int V>
+void forward_split(int ns, const T* x, const T* s, const float* mask, T* out, float* stats,
+                   int batch, int tlen, int wlen, int channels, float eps, cudaStream_t stream) {
+  const long long vectors = static_cast<long long>(batch) * wlen * (channels / V);
+#define VSV_FWD_CASE(N)                                                                  \
+  case N:                                                                                \
+    att_pool_fwd_kernel<T, V, N>                                                         \
+        <<<static_cast<unsigned>((vectors + kThreads / N - 1) / (kThreads / N)), kThreads, 0, \
+           stream>>>(x, s, mask, out, stats, batch, tlen, wlen, channels, eps);          \
+    break;
+  switch (ns) {
+    VSV_FWD_CASE(1)
+    VSV_FWD_CASE(2)
+    VSV_FWD_CASE(4)
+    VSV_FWD_CASE(8)
+    VSV_FWD_CASE(16)
+  }
+#undef VSV_FWD_CASE
+}
+
 template <typename T>
 int forward(const void* x, const void* s, const float* mask, void* out, float* stats,
             int batch, int tlen, int wlen, int channels, float eps, cudaStream_t stream) {
@@ -273,11 +424,13 @@ int forward(const void* x, const void* s, const float* mask, void* out, float* s
   const T* st = static_cast<const T*>(s);
   T* ot = static_cast<T*>(out);
   if (channels % V == 0 && aligned16(x) && aligned16(s) && aligned16(out)) {
-    att_pool_fwd_kernel<T, V><<<blocks_for(cols * (channels / V)), kThreads, 0, stream>>>(
-        xt, st, mask, ot, stats, batch, tlen, wlen, channels, eps);
+    const long long vectors = cols * (channels / V);
+    forward_split<T, V>(fwd_splits(vectors, tlen), xt, st, mask, ot, stats, batch, tlen, wlen,
+                        channels, eps, stream);
   } else {
-    att_pool_fwd_kernel<T, 1><<<blocks_for(cols * channels), kThreads, 0, stream>>>(
-        xt, st, mask, ot, stats, batch, tlen, wlen, channels, eps);
+    const long long vectors = cols * channels;
+    forward_split<T, 1>(fwd_splits(vectors, tlen), xt, st, mask, ot, stats, batch, tlen, wlen,
+                        channels, eps, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,7 @@
 // Bound on the card: at the serving widths (w 24..192) the bf16 chain needs
 // one read of x and one write of the output (4 B per position-channel) for
 // 18 w (s-1)/s flops each: below Hopper's ridge (~295 flop/B) at w <= 48,
-// so HBM bounds those stages; the tensor cores bound w = 96 and 192. Four
+// so HBM bounds those stages; the tensor cores bound w = 96 and 192. Five
 // variants; the wrapper's plan (models/res2net.py:split_plan) picks one:
 //
 // * split_chain_fused (bfloat16, w = 8, 16, 24, 32 with s = 4 or 6, where
@@ -51,12 +51,28 @@
 //   A and B fragments with ldmatrix, and covers all w output channels in
 //   one CTA, so each patch is staged once per group. What bounds it now:
 //   mma.sync issue rate and the per-group traffic.
-// * split_group_mma (bfloat16, w % 8 == 0; the w = 96 and 192 groups, whose
-//   weights do not fit twice per SM): mma.sync m16n8k16 with fp32
-//   accumulation over a patch of up to 128 (t, f) positions staged with a
-//   one-position halo; B fragments straight from the (w_out, 9 * w) weights
-//   (L2-resident). wgmma (Hopper's warpgroup MMA, B from shared memory) is
-//   its redesign, still to come.
+// * split_group_wgmma (bfloat16, w % 16 == 0, 64 <= w <= 192: the w = 64,
+//   96 and 192 groups, whose weights do not fit beside two patch stages).
+//   What bounded split_group_mma (below) there: a grid.y of w / 96 N tiles
+//   staged each patch twice at w = 192; every warp fetched its B fragments
+//   from L2 at every k step; the patch was staged with synchronous loads,
+//   nothing in flight during the compute; mma.sync with four warps, a block
+//   ending with its patch. This variant runs persistent CTAs of a producer
+//   warpgroup and two consumer warpgroups: the producer streams the
+//   group's weights through a ring of bulk copies (the TMA's 1-D form) and
+//   the next halo patch by cp.async, both on mbarriers; the consumers run
+//   wgmma m64nWk16 (N = w in one CTA, so each patch is staged once per
+//   group) with A from registers (ldmatrix: a tap's rows of the patch are
+//   no strided block) and B from the ring by descriptor, and write their
+//   outputs out of shared memory in 16-byte rows. Group i + 1's input
+//   x_{i+1} + mask * y_i is written by group i's epilogue, so a patch is one
+//   tensor's copies. What bounds it now: the consumer warpgroups work the
+//   same tile in lockstep, so the tensor cores idle while both load
+//   fragments, wait on the weight ring or write out (PERF.md §6).
+// * split_group_mma (bfloat16, the other widths of 8k): mma.sync m16n8k16
+//   with fp32 accumulation over a patch of up to 128 (t, f) positions
+//   staged with a one-position halo; B fragments straight from the (w_out,
+//   9 * w) weights (L2-resident).
 // * split_group (float32, or bf16 at other widths): the same GEMM as fp32
 //   FMA on CUDA cores, weights in their JAX layout (3, 3, w, w * (s-1)) with
 //   row stride ldw = w * (s-1), group i reading columns [woff, woff + w)
@@ -69,6 +85,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -927,6 +944,415 @@ int launch_fused(const void* x, const float* mask, const void* wt, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// warpgroup-MMA variant (bfloat16, w % 16 == 0, 64 <= w <= 192): one launch
+// per group, wgmma with N = w
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 384;       // a producer warpgroup and two consumer warpgroups
+constexpr int WG_PATCH_THREADS = 96;  // producer warps 1-3 stage the patches
+constexpr int WG_DRAIN = 4;           // output chunks a consumer thread has in flight (8:
+                                      // 168 registers, and a third slower)
+#ifdef VSV_WG_PROF
+// Built with -DVSV_WG_PROF (scripts/profile_k2_wgmma.py), one thread of each
+// role adds its phases' clock64 cycles here, 16 slots a CTA: [0] patch wait,
+// [1] ldmatrix, [2] weight-slice wait, [3] wgmma to its wait, [4] epilogue and
+// write-out, [5] tiles, [6] producer's stage wait, [7] producer's copies,
+// [8] weight thread's ring wait. Consumer slots sum both warpgroups.
+__device__ unsigned long long g_wg_prof[1024 * 16];
+#define WG_T0(v) const long long v = clock64();
+#define WG_ADD(slot, v) if (prof_on) atomicAdd(&g_wg_prof[blockIdx.x * 16 + (slot)], (unsigned long long)(clock64() - (v)));
+#else
+#define WG_T0(v)
+#define WG_ADD(slot, v)
+#endif
+
+// Per width: MT 64-row m tiles per consumer warpgroup (two where w is a
+// multiple of 32 up to 96, so a tile has 256 rows and the weights, streamed
+// from L2 once per tile, are read half as often; one above, where N = w
+// alone fills 96 accumulator registers), KPS k steps per weight slice, RING
+// slices in flight (as many as fit beside the patch stages: with the MMAs
+// and the patches taken away, the weight stream ran at the ring's bytes in
+// flight over L2's latency).
+template <int W> struct WgShape {
+  static constexpr int MT = (W % 32 == 0 && W <= 96) ? 2 : 1;
+  static constexpr int ROWS = 2 * 64 * MT;
+  static constexpr int KPS = MT == 2 ? 2 : 3;
+  static constexpr int RING = MT == 2 ? 12 : 5;
+  static constexpr int KSTEPS = 9 * W / 16;
+  static constexpr int SLICES = KSTEPS / KPS;
+  static constexpr int SLICE_BYTES = KPS * 16 * W * 2;
+  static_assert(W % 16 == 0 && KSTEPS % KPS == 0, "width");
+};
+
+__host__ __device__ constexpr int wgmma_rows(int width) {
+  return (width % 32 == 0 && width <= 96) ? 256 : 128;
+}
+
+// Shared memory: the weight ring (RING slices of K = 16 * KPS rows, laid out
+// [k / 8][n][k % 8]), two halo-patch stages, the group's eval BN (mean,
+// 1 / std) per channel, 4 + 2 * RING mbarriers.
+__host__ __device__ constexpr size_t wgmma_smem(int width, int tt_n, int tf_n) {
+  return static_cast<size_t>(wgmma_rows(width) == 256 ? 12 * 2 : 5 * 3) * 16 * width * 2 +
+         2 * sizeof(__nv_bfloat16) * static_cast<size_t>(tt_n + 2) * (tf_n + 2) *
+             halo_stride(width) +
+         sizeof(float2) * width + sizeof(uint64_t) * (4 + 2 * (wgmma_rows(width) == 256 ? 12 : 5));
+}
+
+// A wait on a stage that lasts this long means a role stopped feeding it:
+// trap (a launch error) rather than hang the card
+constexpr unsigned long long kWaitTimeoutNs = 10000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  unsigned long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = global_ns();
+    else if (global_ns() - t0 > kWaitTimeoutNs) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One weight slice of a consumer warpgroup's patch: KPS k steps of 16 input
+// channels (each inside one tap): the A fragments by ldmatrix from the
+// staged patch, then, once the slice has landed, its wgmmas; the slice's
+// stage is released when they are done. `n` counts the slices taken (the
+// ring's position and phase).
+template <int W>
+__device__ __forceinline__ void wgmma_slice(float (&acc)[WgShape<W>::MT][W / 2],
+                                            uint32_t (&a)[WgShape<W>::KPS][WgShape<W>::MT][4],
+                                            int sl, int& n, uint32_t xbase,
+                                            const int (&arow)[WgShape<W>::MT], int hw,
+                                            uint64_t* wfull, uint64_t* wempty,
+                                            const unsigned char* wring) {
+  using S = WgShape<W>;
+  constexpr int HS = halo_stride(W), MT = S::MT;
+#ifdef VSV_WG_PROF
+  const bool prof_on = (threadIdx.x % 128) == 0;
+#endif
+  WG_T0(c0)
+#pragma unroll
+  for (int kk = 0; kk < S::KPS; ++kk) {
+    const int ks = sl * S::KPS + kk, tap = ks / (W / 16);
+    const int off = ((tap / 3 - 1) * hw + tap % 3 - 1) * HS + (ks % (W / 16)) * 16;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[kk][mt], xbase + 2 * (arow[mt] + off));
+  }
+  const int st = n % S::RING;
+  WG_ADD(1, c0)
+  WG_T0(c1)
+  mbar_wait_bounded(&wfull[st], (n / S::RING) & 1);
+  WG_ADD(2, c1)
+  WG_T0(c2)
+  const uint32_t wb = smem_u32(wring + st * S::SLICE_BYTES);
+  uint64_t desc[S::KPS];
+#pragma unroll
+  for (int kk = 0; kk < S::KPS; ++kk) desc[kk] = vsv::wgmma_desc(wb + kk * 2 * 16 * W, 16 * W, 128);
+  const int accumulate = sl > 0 ? 1 : 0;
+#pragma unroll
+  for (int kk = 0; kk < S::KPS; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(a[kk][mt]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(acc[mt]);
+  vsv::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < S::KPS; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      vsv::WgmmaRS<W>::mma(acc[mt], a[kk][mt], desc[kk], kk > 0 ? 1 : accumulate);
+  vsv::wgmma_commit();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(acc[mt]);
+  vsv::wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < S::KPS; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(a[kk][mt]);
+  mbar_arrive(&wempty[st]);  // the slice's MMAs are done: free its stage
+  WG_ADD(3, c2)
+  ++n;
+}
+
+// Persistent CTAs, about one an SM, walk the TT x TF patches of the (B, T, F)
+// grid. Warp 0 of the producer warpgroup streams the group's weights (wt:
+// (9w / 8, w, 8), [k / 8][output channel][k % 8]) into a ring of RING
+// slices, one bulk copy (the TMA's 1-D form) a slice on the slice's
+// mbarrier, in the same order for every patch. Warps 1-3 stage the next
+// patch of the group's input with its one-position halo into the other of
+// two stages by cp.async, zero-filled outside the utterance, the whole
+// patch in flight at once, landing on the stage's mbarrier. The input is
+// x_i for group 0 and otherwise in_i = x_i + mask * y_{i-1} (rounded to
+// bf16), which the previous group's epilogue wrote beside y_{i-1}: so a
+// patch is one tensor's copies, with no arithmetic on the way. The two
+// consumer warpgroups split the patch's rows (MT 64-row m tiles each) and
+// run the implicit GEMM (M = the patch, N = w, K = 9w, tap-major) with
+// wgmma m64nWk16: A (the tap's shifted patch rows, not one strided block)
+// from registers by ldmatrix, B from the weight ring by descriptor, KPS k
+// steps a slice. Their epilogue rounds the conv output to bf16, applies
+// eval BN and relu, leaves y_i in the patch's (read-out) stage, and then
+// both warpgroups write the stage out in 16-byte row chunks: y_i into
+// channel slice i of out and, where a next group follows, in_{i+1} =
+// x_{i+1} + mask * y_i into next_in. (Written straight from the MMA
+// fragments, 4-byte pieces of eight rows a warp store, the outputs took two
+// fifths of the consumers' time.)
+template <int W>
+__global__ void __launch_bounds__(WG_THREADS, 1) split_group_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ src, int src_stride,
+    int src_off, const float* __restrict__ mask, const __nv_bfloat16* __restrict__ wt,
+    const float* __restrict__ mean, const float* __restrict__ var, __nv_bfloat16* out,
+    __nv_bfloat16* __restrict__ next_in, int batch, int tlen, int flen, int tt_n, int tf_n,
+    int cin, int next_off, int cout, int out_off, int tail_src, int tail_dst, int tail_width,
+    float eps) {
+  using S = WgShape<W>;
+  constexpr int HS = halo_stride(W), C8 = W / 8, MT = S::MT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* wring = smem_raw;
+  __nv_bfloat16* patch0 = reinterpret_cast<__nv_bfloat16*>(smem_raw + S::RING * S::SLICE_BYTES);
+  const int hw = tf_n + 2, hpos = (tt_n + 2) * hw, hbuf = hpos * HS;
+  float2* bnp = reinterpret_cast<float2*>(patch0 + 2 * hbuf);
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(bnp + W);
+  uint64_t* pempty = pfull + 2;
+  uint64_t* wfull = pfull + 4;
+  uint64_t* wempty = wfull + S::RING;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int tiles_f = (flen + tf_n - 1) / tf_n, tiles_t = (tlen + tt_n - 1) / tt_n;
+  const int ntiles = batch * tiles_t * tiles_f, rows = tt_n * tf_n;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&pfull[s], WG_PATCH_THREADS);
+      mbar_init(&pempty[s], 256);
+    }
+    for (int s = 0; s < S::RING; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], 256);
+    }
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int i = tid; i < W; i += WG_THREADS) bnp[i] = make_float2(mean[i], 1.f / sqrtf(var[i] + eps));
+  __syncthreads();  // the last block-wide barrier: the roles part here
+
+  if (wg == 0) {
+    if (tid == 0) {
+      // the weight ring: every patch takes the slices 0 .. SLICES-1 in order
+      int n = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+        for (int sl = 0; sl < S::SLICES; ++sl, ++n) {
+          const int st = n % S::RING;
+#ifdef VSV_WG_PROF
+          const bool prof_on = true;
+#endif
+          WG_T0(c8)
+          mbar_wait_bounded(&wempty[st], ((n / S::RING) & 1) ^ 1);
+          WG_ADD(8, c8)
+          const uint32_t bar = smem_u32(&wfull[st]);
+          asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                       "r"(S::SLICE_BYTES)
+                       : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+              "%2, [%3];\n" ::"r"(smem_u32(wring + st * S::SLICE_BYTES)),
+              "l"(reinterpret_cast<const unsigned char*>(wt) +
+                  static_cast<long long>(sl) * S::SLICE_BYTES),
+              "r"(S::SLICE_BYTES), "r"(bar)
+              : "memory");
+        }
+    } else if (tid >= 32) {
+      const int pt = tid - 32;
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+        const int ps = it & 1;
+        const int b = tile / (tiles_t * tiles_f);
+        const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
+#ifdef VSV_WG_PROF
+        const bool prof_on = pt == 0;
+#endif
+        WG_T0(c6)
+        mbar_wait_bounded(&pempty[ps], ((it >> 1) & 1) ^ 1);
+        WG_ADD(6, c6)
+        WG_T0(c7)
+        __nv_bfloat16* xs = patch0 + ps * hbuf;
+        for (int i = pt; i < hpos * C8; i += WG_PATCH_THREADS) {
+          const int q = i / C8, c0 = (i % C8) * 8;
+          const int t = t0 - 1 + q / hw, f = f0 - 1 + q % hw;
+          const bool valid = t >= 0 && t < tlen && f >= 0 && f < flen;
+          const long long p = valid ? (static_cast<long long>(b) * tlen + t) * flen + f : 0;
+          cp_async16(smem_u32(xs + q * HS + c0), src + p * src_stride + src_off + c0, valid);
+        }
+        cp_async_arrive(&pfull[ps]);  // arrives when this thread's copies land
+        WG_ADD(7, c7)
+        // the pass-through last group, for the patch's positions
+        if (tail_width > 0) {
+          const int vecs = tail_width / 8;
+          for (int i = pt; i < rows * vecs; i += WG_PATCH_THREADS) {
+            const int r = i / vecs, c = (i % vecs) * 8;
+            const int t = t0 + r / tf_n, f = f0 + r % tf_n;
+            if (t < tlen && f < flen) {
+              const long long p = (static_cast<long long>(b) * tlen + t) * flen + f;
+              *reinterpret_cast<uint4*>(out + p * cout + tail_dst + c) =
+                  __ldg(reinterpret_cast<const uint4*>(x + p * cin + tail_src + c));
+            }
+          }
+        }
+      }
+      // copies that arrive on an mbarrier must land before the CTA exits
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    return;
+  }
+
+  // consumer warpgroup cw: patch rows [cw * 64 * MT, (cw + 1) * 64 * MT)
+  const int cw = wg - 1, wtid = tid % 128, wi = wtid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  // ldmatrix rows: lane % 16 of the warp's 16 rows of each m tile, at tap
+  // (1, 1); rows past the patch read a valid position and are never stored
+  int arow[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = min(cw * 64 * MT + mt * 64 + wi * 16 + lane % 16, rows - 1);
+    arow[mt] = ((r / tf_n + 1) * hw + r % tf_n + 1) * HS + (lane / 16) * 8;
+  }
+  float acc[MT][W / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) acc[mt][i] = 0.f;
+
+  int n = 0;  // weight slices taken so far
+  for (int tile = blockIdx.x, it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+#ifdef VSV_WG_PROF
+    const bool prof_on = wtid == 0;
+#endif
+    WG_T0(c0)
+    mbar_wait_bounded(&pfull[it & 1], (it >> 1) & 1);
+    WG_ADD(0, c0)
+    const uint32_t xbase = smem_u32(patch0 + (it & 1) * hbuf);
+    uint32_t a0[S::KPS][MT][4];
+    for (int sl = 0; sl < S::SLICES; ++sl)
+      wgmma_slice<W>(acc, a0, sl, n, xbase, arow, hw, wfull, wempty, wring);
+
+    WG_T0(c4)
+    // epilogue: round the conv output to bf16, eval BN, relu, and leave
+    // y_i in the patch's stage (row r at r * HS) once both warpgroups have
+    // read the patch
+    asm volatile("bar.sync 2, 256;\n" ::: "memory");
+    __nv_bfloat16* ob = patch0 + (it & 1) * hbuf;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = cw * 64 * MT + mt * 64 + wi * 16 + g + 8 * h;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          const int co = 8 * j + 2 * tg;
+          const float2 p0 = bnp[co], p1 = bnp[co + 1];
+          const float v0 = vsv::round_to<__nv_bfloat16>(acc[mt][4 * j + 2 * h]);
+          const float v1 = vsv::round_to<__nv_bfloat16>(acc[mt][4 * j + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(ob + r * HS + co) = __floats2bfloat162_rn(
+              fmaxf((v0 - p0.x) * p0.y, 0.f), fmaxf((v1 - p1.x) * p1.y, 0.f));
+        }
+      }
+    // then both warpgroups write the stage out: y_i to out and in_{i+1} =
+    // x_{i+1} + mask * y_i to next_in, 16-byte row chunks, WG_DRAIN in
+    // flight a thread
+    asm volatile("bar.sync 2, 256;\n" ::: "memory");
+    {
+      const int b = tile / (tiles_t * tiles_f);
+      const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
+      const int ct = tid - 128, total = rows * C8;
+      for (int base = ct; base < total; base += 256 * WG_DRAIN) {
+        uint4 xv[WG_DRAIN];
+        float mk[WG_DRAIN];
+#pragma unroll
+        for (int u = 0; u < WG_DRAIN; ++u) {
+          const int i = base + u * 256;
+          const int r = i / C8, c0 = (i % C8) * 8;
+          const int t = t0 + r / tf_n, f = f0 + r % tf_n;
+          if (next_in != nullptr && i < total && t < tlen && f < flen) {
+            const long long bt = static_cast<long long>(b) * tlen + t;
+            xv[u] = __ldg(reinterpret_cast<const uint4*>(x + (bt * flen + f) * cin + next_off + c0));
+            mk[u] = mask != nullptr ? mask[bt] : 1.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < WG_DRAIN; ++u) {
+          const int i = base + u * 256;
+          const int r = i / C8, c0 = (i % C8) * 8;
+          const int t = t0 + r / tf_n, f = f0 + r % tf_n;
+          if (i >= total || t >= tlen || f >= flen) continue;
+          const long long p = (static_cast<long long>(b) * tlen + t) * flen + f;
+          const uint4 y = *reinterpret_cast<const uint4*>(ob + r * HS + c0);
+          *reinterpret_cast<uint4*>(out + p * cout + out_off + c0) = y;
+          if (next_in != nullptr) {
+            float a[8], yf[8];
+            load8(reinterpret_cast<const __nv_bfloat16*>(&xv[u]), a);
+            load8(reinterpret_cast<const __nv_bfloat16*>(&y), yf);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) a[j] += yf[j] * mk[u];
+            *reinterpret_cast<uint4*>(next_in + p * W + c0) = pack8(a);
+          }
+        }
+      }
+    }
+    mbar_arrive(&pempty[it & 1]);  // the stage is free for the next patch
+    WG_ADD(4, c4)
+#ifdef VSV_WG_PROF
+    if (prof_on) atomicAdd(&g_wg_prof[blockIdx.x * 16 + 5], 1ull);
+#endif
+  }
+}
+
+template <int W>
+int launch_wgmma(const void* x, const void* src, int src_stride, int src_off, const float* mask,
+                 const void* wt, const float* mean, const float* var, void* out, void* next_in,
+                 int batch, int tlen, int flen, int tt_n, int tf_n, int cin, int next_off,
+                 int cout, int out_off, int tail_src, int tail_dst, int tail_width, float eps,
+                 long long plan_smem, int num_sms, cudaStream_t stream) {
+  const size_t smem = wgmma_smem(W, tt_n, tf_n);
+  if (tt_n < 1 || tf_n < 1 || tt_n * tf_n > WgShape<W>::ROWS || smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(smem) != plan_smem) return vsv::kPlanMismatch;
+  auto kernel = split_group_wgmma_kernel<W>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long tiles = static_cast<long long>(batch) * ((tlen + tt_n - 1) / tt_n) *
+                          ((flen + tf_n - 1) / tf_n);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = std::min<long long>(tiles, static_cast<long long>(per_sm) * num_sms);
+  kernel<<<static_cast<unsigned>(grid), WG_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(src), src_stride,
+      src_off, mask, static_cast<const __nv_bfloat16*>(wt), mean, var,
+      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(next_in), batch, tlen, flen,
+      tt_n, tf_n, cin, next_off, cout, out_off, tail_src, tail_dst, tail_width, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Fused-chain variant: bfloat16, x (B, T, F, s*w) channels-last with
@@ -951,6 +1377,61 @@ extern "C" int split_chain_fused(int nt, int groups, const void* x, const float*
 #undef VSV_FUSED_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Warpgroup-MMA variant, one group: bfloat16, width a multiple of 16 from
+// 64 to 192. The group's input is read from src (channel stride src_stride,
+// offset src_off): x's slice i for group 0, else the in_i that the previous
+// group wrote. wt: this group's weights as (9 * width / 8, width, 8)
+// bfloat16, [k / 8][output channel][k % 8] with k = tap * width + input
+// channel (tap-major), 16-byte aligned. y_i goes to out's channels [out_off,
+// out_off + width); where next_in is not null, in_{i+1} = x's slice at
+// next_off + mask * y_i goes to next_in (B, T, F, width). The patch tt_n x
+// tf_n positions with tt_n * tf_n <= wgmma_rows(width). Shared memory
+// wgmma_smem(width, tt_n, tf_n) <= 227 KB, passed as plan_smem by the plan
+// (models/res2net.py:split_plan) and refused where it differs from this
+// layout's (vsv::kPlanMismatch). Every offset and width a multiple of 8,
+// pointers 16-byte aligned; the other arguments as split_group_mma's.
+extern "C" int split_group_wgmma(int width, const void* x, const void* src, int src_stride,
+                                 int src_off, const float* mask, const void* wt,
+                                 const float* mean, const float* var, void* out, void* next_in,
+                                 int batch, int tlen, int flen, int tt_n, int tf_n, int cin,
+                                 int next_off, int cout, int out_off, int tail_src, int tail_dst,
+                                 int tail_width, float eps, long long plan_smem, int num_sms,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tail_width % 8 != 0 || src_stride % 8 != 0 || src_off % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define VSV_WGMMA_CASE(N)                                                                      \
+  case N:                                                                                      \
+    return launch_wgmma<N>(x, src, src_stride, src_off, mask, wt, mean, var, out, next_in,     \
+                           batch, tlen, flen, tt_n, tf_n, cin, next_off, cout, out_off,        \
+                           tail_src, tail_dst, tail_width, eps, plan_smem, num_sms, s);
+  switch (width) {
+    VSV_WGMMA_CASE(64)
+    VSV_WGMMA_CASE(80)
+    VSV_WGMMA_CASE(96)
+    VSV_WGMMA_CASE(112)
+    VSV_WGMMA_CASE(128)
+    VSV_WGMMA_CASE(144)
+    VSV_WGMMA_CASE(160)
+    VSV_WGMMA_CASE(176)
+    VSV_WGMMA_CASE(192)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VSV_WGMMA_CASE
+}
+
+#ifdef VSV_WG_PROF
+extern "C" int split_wgmma_prof(unsigned long long* host, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_wg_prof, sizeof(unsigned long long) * 1024 * 16);
+  if (reset) {
+    static unsigned long long zeros[1024 * 16];
+    cudaMemcpyToSymbol(g_wg_prof, zeros, sizeof(zeros));
+  }
+  return static_cast<int>(e);
+}
+#endif
 
 // Pipelined variant: bfloat16, width = 8 * nt with nt one of 1, 2, 3, 4, 6,
 // 8, 12; mt (1 or 2) m tiles of 16 patch rows per warp, the patch tt_n x

@@ -160,6 +160,8 @@ SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _L, _I, _P],
     "split_chain_fused": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _I,
                           _P],
+    "split_group_wgmma": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _F, _L, _I, _P],
 })
 BN_ACT = CudaKernel("bn_act", "bn_epilogue.cu", {
     "bn_act": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,

@@ -43,6 +43,7 @@ CHANNELS_LAST = torch.channels_last
 _SPLIT_TN = (12, 8, 6, 4, 3, 2, 1)  # output channels per thread in K2
 _PIPE_NT = (1, 2, 3, 4, 6, 8, 12)   # K2 pipelined widths, w = 8 * nt
 _FUSED_NT, _FUSED_GROUPS = (1, 2, 3, 4), (3, 5)  # K2 fused-chain widths and s - 1
+_WGMMA_W = tuple(range(64, 193, 16))  # K2 warpgroup-MMA widths: N = w of one wgmma
 _SMEM_BYTES = 232448                # the most shared memory one block can take
 # the pipelined variant keeps two CTAs on an SM (a lone 4-warp CTA cannot
 # hide its latencies): at most half an SM's shared memory each
@@ -50,7 +51,7 @@ _PIPE_SMEM_MAX = _SMEM_BYTES // 2 - 1024
 
 
 # The shared-memory layouts below mirror csrc/split_conv.cu (halo_stride,
-# weight_stride, chain_stride, pipe_smem, fused_smem) so that the plan can
+# weight_stride, chain_stride, pipe_smem, fused_smem, wgmma_rows, wgmma_smem) so that the plan can
 # be chosen, and checked on the CPU, without the card; each launch passes
 # the plan's size and the kernel refuses one that differs from its own.
 
@@ -88,6 +89,22 @@ def _fused_smem(width: int, groups: int, tt: int, tf: int) -> int:
             + 16 + 4 * (xpos + xpos % 2) + 8 * groups * width)
 
 
+def _wgmma_rows(width: int) -> int:
+    """Patch rows of K2's warpgroup-MMA variant (csrc/split_conv.cu:wgmma_rows):
+    two consumer warpgroups of two 64-row m tiles where w is a multiple of 32
+    up to 96, of one above (N = w fills 96 accumulator registers)."""
+    return 256 if width % 32 == 0 and width <= 96 else 128
+
+
+def _wgmma_smem(width: int, tt: int, tf: int) -> int:
+    """Shared memory of K2's warpgroup-MMA variant (csrc/split_conv.cu:wgmma_smem):
+    the weight ring (12 slices of 32 K rows at 256 patch rows, 5 of 48 at
+    128), two halo-patch stages, the group's eval BN, the mbarriers."""
+    ring, kslice = (12, 32) if _wgmma_rows(width) == 256 else (5, 48)
+    return (ring * kslice * width * 2 + 2 * 2 * (tt + 2) * (tf + 2) * _halo_stride(width)
+            + 8 * width + 8 * (4 + 2 * ring))
+
+
 def split_plan(width: int, tlen: int, flen: int, dtype: torch.dtype, split: int = 0) -> dict:
     """K2's launch plan for a split chain of ``split`` groups of width
     ``width`` on a (T, F) grid (``split`` 0: one group's plan).
@@ -99,9 +116,13 @@ def split_plan(width: int, tlen: int, flen: int, dtype: torch.dtype, split: int 
     shared memory): the whole chain in one launch. ``"pipe"`` (bf16, w = 8 *
     nt, the group's weights resident in shared memory): one launch per
     group, ``mt`` 16-row m tiles per warp, in half an SM's shared memory.
-    ``"mma"`` (bf16 at other widths of 8k, and where that does not fit: w =
-    96, 192) and ``"fma"`` (float32, other widths) are the earlier
-    variants."""
+    ``"wgmma"`` (bf16, w a multiple of 16 from 64 to 192, where the weights do
+    not fit beside the pipelined variant's stages: the w = 64, 96 and 192
+    stages): one launch per group on Hopper's warpgroup MMA, N = w, the
+    weights streamed through a ring; ``tt`` x ``tf`` <= ``_wgmma_rows(w)``
+    positions, ``tt`` cut where the patch stages would not fit. ``"mma"``
+    (bf16 at the other widths of 8k) and ``"fma"`` (float32, other widths)
+    are the earlier variants."""
     if dtype != torch.bfloat16 or width % 8:
         return {"variant": "fma"}
     nt = width // 8
@@ -120,6 +141,11 @@ def split_plan(width: int, tlen: int, flen: int, dtype: torch.dtype, split: int 
             if smem <= _PIPE_SMEM_MAX:
                 return {"variant": "pipe", "nt": nt, "mt": -(-tt * tf // 64), "tt": tt,
                         "tf": tf, "smem": smem}
+    if width in _WGMMA_W:
+        for tt in range(max(1, min(_wgmma_rows(width) // tf, tlen)), 0, -1):
+            smem = _wgmma_smem(width, tt, tf)
+            if smem <= _SMEM_BYTES:
+                return {"variant": "wgmma", "tt": tt, "tf": tf, "smem": smem}
     return {"variant": "mma"}
 
 
@@ -183,7 +209,9 @@ def split_chain(x: torch.Tensor, weight: torch.Tensor,
     tn = next(n for n in _SPLIT_TN if w % (8 * n) == 0 or n == 1)
     # the tensor-core variants move 16-byte vectors
     plan = split_plan(w, t, f, x.dtype, s) if x.data_ptr() % 16 == 0 else {"variant": "fma"}
-    # the tensor-core variants take the weights as (w*(s-1), 9*w) rows
+    if plan["variant"] == "wgmma":
+        return _split_chain_wgmma(x, weight, means, variances, m, out, plan, eps)
+    # the other tensor-core variants take the weights as (w*(s-1), 9*w) rows
     # (tap-major, then input channel); the CUDA-core variant reads the JAX
     # layout (3, 3, w, w*(s-1))
     mma = plan["variant"] != "fma"
@@ -214,6 +242,33 @@ def split_chain(x: torch.Tensor, weight: torch.Tensor,
             SPLIT_CONV.launch("split_group", x.device, dtype_code(x.dtype), tn, ptr(x),
                               prev, ptr(m), ptr(wk), w * (s - 1), i * w, ptr(means[i]),
                               ptr(variances[i]), ptr(out), *shape)
+    return out
+
+
+def _split_chain_wgmma(x, weight, means, variances, m, out, plan, eps) -> torch.Tensor:
+    """K2's warpgroup-MMA variant, one launch per group: group i stages its
+    input from x (i = 0) or from the in_i = x_i + mask * y_{i-1} that group
+    i-1's epilogue wrote into one of two scratch tensors (B, T, F, w), and
+    writes y_i into out and, but for the last group, in_{i+1} into the
+    other. Each group's weights go as (9*w/8, w, 8): [k / 8][output
+    channel][k % 8] with k = tap * w + input channel, the K-major core
+    matrices of wgmma's B operand."""
+    s = len(means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    wk = (weight.view(s - 1, w, w, 3, 3).permute(0, 3, 4, 2, 1)
+          .reshape(s - 1, 9 * w // 8, 8, w).permute(0, 1, 3, 2).contiguous())
+    sms = num_sms(x.device)
+    scratch = [torch.empty((b, t, f, w), dtype=x.dtype, device=x.device)
+               for _ in range(min(2, s - 2))]
+    for i in range(s - 1):
+        src, stride, off = (x, c, 0) if i == 0 else (scratch[(i - 1) % 2], w, 0)
+        nxt = scratch[i % 2] if i < s - 2 else None
+        SPLIT_CONV.launch("split_group_wgmma", x.device, w, ptr(x), ptr(src), stride, off,
+                          ptr(m), ptr(wk) + i * 9 * w * w * wk.element_size(), ptr(means[i]),
+                          ptr(variances[i]), ptr(out), ptr(nxt), b, t, f, plan["tt"],
+                          plan["tf"], c, (i + 1) * w, c, i * w, (s - 1) * w, (s - 1) * w,
+                          w if i == 0 else 0, eps, plan["smem"], sms)
     return out
 
 
