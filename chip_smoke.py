@@ -100,7 +100,29 @@ Phases, one JSON line each:
    families, padded vs exact-length rows, rows against the CPU float32
    plain path); then a float32 step of a thin variant of each family on
    the card against the CPU (TOL_PARITY), and the thin ECAPA's at 16 rows
-   printed (THIN_PARITY_PRINTED_BATCH).
+   printed (THIN_PARITY_PRINTED_BATCH);
+12. single_chip -- ``cli.train.main --single-chip`` with res2net200_w24_s4_c32_att
+   and its recipe (which runs out of memory at the recipe's microbatch): the
+   shape must be recipes.SINGLE_CHIP_SHAPES's; its peak memory and step ms;
+13. launch -- ``cli.launch --num-processes 2`` on the one card (gloo: the
+   processes share it), res2net50_w8_s6_c16 at full width, float32, B=32 x
+   A=2, one step, the synthetic rows of one source: data 2 at bn_groups 1
+   (every group spans both ranks: K5's spanning mode) and model 2 (the
+   head's classes split: K6's class-sharded mode); each run's metrics.jsonl
+   (``load_metrics``) and checkpoint against ``cli.train`` in one process on
+   the same rows (loss and BN statistics within TOL_PARITY; the update and
+   the gradient norm within twice the one-process step's own float32 noise
+   plus TOL_PARITY, as in phase 6); each rank's launches of the spanning
+   and class-sharded kernels; then a one-rank launch, which takes NCCL;
+14. trace -- two bench-shape steps under ``utils.observability.trace``: the
+   Chrome trace under ``<exp>/profile`` must name K5's and K6's kernels.
+
+The kernels phase also holds the multi-process kernel modes: K1's general path
+(32 kHz, and a 64 ms frame at 16 kHz) against its plain version and
+float64; K5's spanning mode on two halves of (256, 96, 200, 80) against
+whole-batch K5, with an NCCL all-reduce of its sums timed (world size 1);
+K6's class-sharded mode on two class ranges of (2, 256, 5994) against whole
+K6.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line. Without a CUDA
@@ -2835,6 +2857,505 @@ def serve_phase(dev, workdir, per_forward, split_per_forward):
         server.server_close()
 
 
+# ----------------------------------------------------------------------
+# K1's general path, K5's spanning mode, K6's class-sharded mode;
+# --single-chip, cli.launch and observability.trace
+# ----------------------------------------------------------------------
+
+# K1's general path: (config, seconds of one wave): 32 kHz with 25 ms frames
+# (513 FFT bins) and a 64 ms frame at 16 kHz; GENERAL_FBANK_BATCH 32 kHz waves
+# of GENERAL_FBANK_SECONDS through ops.fbank.fbank for the launch count
+GENERAL_FBANK = ((dict(sample_rate=32000), 8.0), (dict(frame_length_ms=64.0), 8.0))
+GENERAL_FBANK_BATCH, GENERAL_FBANK_SECONDS = 8, 4.0
+# K5's spanning mode: one activation of SPAN_SHAPE split over two ranks,
+# BN groups SPAN_GROUPS (every group spans both halves)
+SPAN_SHAPE, SPAN_GROUPS, SPAN_RANKS = (256, 96, 200, 80), 1, 2
+# K6's class-sharded mode: cos_all of MARGIN_SPLIT over two class ranges
+MARGIN_SPLIT = (2, 256, 5994)
+# --single-chip: the reference's best system through cli.train on one card
+SINGLE_CHIP_MODEL, SINGLE_CHIP_STEPS = "res2net200_w24_s4_c32_att", 2
+# cli.launch on the card: two processes (gloo: they share the card), full
+# width, float32, B x A rows, one step; its exp dirs held to one process
+LAUNCH_MODEL, LAUNCH_BATCH, LAUNCH_ACCUM, LAUNCH_GROUPS = "res2net50_w8_s6_c16", 32, 2, 1
+LAUNCH_TIMEOUT_S = 300
+TRACE_STEPS = 2
+
+
+def check_fbank_general(dev):
+    """K1's general path (fbank_general_f32) at GENERAL_FBANK: against the
+    plain version (TOL_FBANK) and float64, reruns bit for bit, times and
+    bound; the dithered variant at the first config; then its launches
+    through ops.fbank.fbank on a batch of 32 kHz waves, counted from 0."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
+
+    rng = np.random.RandomState(SEED + 12)
+    shapes = []
+    for kw, seconds in GENERAL_FBANK:
+        cfg = fb.FbankConfig(num_bins=FEAT_DIM, dither=0.0, **kw)
+        if fb.kernel_route(cfg) != "general":
+            fail(f"fbank general: {kw} routes to {fb.kernel_route(cfg)}")
+        n = int(seconds * cfg.sample_rate)
+        wave = torch.from_numpy(fb.pcm16(rng.randn(1, n) * 3000).astype(np.float32)).to(dev)
+        got = fb.fbank(wave, cfg)
+        e = hold_fp32(f"fbank general {kw}", "white", got, fb.fbank_reference(wave, cfg),
+                      fbank_float64(wave, cfg))
+        rerun = torch.equal(got, fb.fbank(wave, cfg))
+        if not rerun:
+            fail(f"fbank general {kw}: reruns differ")
+        t, nfft = fb.num_frames(n, cfg), cfg.padded_frame_length // 2
+        flops = 4 * t * cfg.frame_length * nfft + 2 * t * nfft * FEAT_DIM
+        nbytes = 4 * (n + 2 * cfg.frame_length * nfft + nfft * FEAT_DIM + t * FEAT_DIM)
+        bms, by = bound_ms(nbytes, flops, torch.float32)
+        shapes.append(dict(
+            config=kw, seconds=seconds, frames=t, fft_bins=nfft, errors=e, reruns_bit_equal=rerun,
+            ms=time_ms(lambda: fb.fbank(wave, cfg), reps=20),
+            device_ms=device_ms(lambda: fb.fbank(wave, cfg), "fbank_general_kernel"),
+            plain_ms=time_ms(lambda: fb.fbank_reference(wave, cfg), reps=20),
+            plain_device_ms=device_ms(lambda: fb.fbank_reference(wave, cfg)),
+            bound_ms=bms, bound_by=by))
+    # the dithered variant, with the plain version fed the same draws
+    kw, seconds = GENERAL_FBANK[0]
+    cfg = fb.FbankConfig(num_bins=FEAT_DIM, dither=1.0, **kw)
+    n = int(seconds * cfg.sample_rate)
+    wave = torch.from_numpy(fb.pcm16(rng.randn(2, n) * 3000).astype(np.float32)).to(dev)
+    noise = torch.from_numpy(rng.randn(2, fb.num_frames(n, cfg), cfg.frame_length)
+                             .astype(np.float32)).to(dev)
+    dither = hold_fp32("fbank general dithered", "white", fb.fbank(wave, cfg, noise),
+                       fb.fbank_reference(wave, cfg, noise), fbank_float64(wave, cfg, noise))
+    # the launches: a batch of 32 kHz waves through the library entry
+    cfg = fb.FbankConfig(num_bins=FEAT_DIM, dither=0.0, **GENERAL_FBANK[0][0])
+    waves = torch.from_numpy(fb.pcm16(rng.randn(GENERAL_FBANK_BATCH, int(
+        GENERAL_FBANK_SECONDS * cfg.sample_rate)) * 3000).astype(np.float32)).to(dev)
+    kernels.reset_launch_counts()
+    feats = fb.fbank(waves, cfg)
+    torch.cuda.synchronize()
+    counts = kernels.function_launch_counts()
+    launches = counts["fbank.fbank_general_f32:plain"]
+    if launches < 1 or counts["fbank.fbank_f32:plain"] or not torch.isfinite(feats).all():
+        fail(f"fbank general: launches {counts}")
+    first = shapes[0]
+    emit({"phase": "kernel", "name": "fbank_general", "shapes": shapes, "dithered": dither})
+    return dict(name="fbank_general", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/fbank.py:191 (fbank at the "
+                         "shapes the fast design refuses; = ops/pallas/fbank.py:85 @912d3e9^)",
+                launches=launches,
+                launches_on=f"ops.fbank.fbank, {GENERAL_FBANK_BATCH} waves of "
+                            f"{GENERAL_FBANK_SECONDS} s at 32 kHz (no CLI takes another rate)",
+                max_abs_err=max(s["errors"]["vs_plain"] for s in shapes),
+                tolerance=TOL_FBANK, dtype="float32",
+                per=f"one {first['seconds']} s wave at {first['config']}",
+                ms=first["ms"], device_ms=first["device_ms"], plain_ms=first["plain_ms"],
+                plain_device_ms=first["plain_device_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None,
+                library_note="none: no single PyTorch call computes Kaldi FBANK",
+                shapes=shapes, dithered=dither)
+
+
+def check_bn_span(dev, gen):
+    """K5's spanning mode at SPAN_SHAPE over SPAN_RANKS halves (relu, the
+    partial sums added in place of the all-reduce) against whole-batch K5
+    (its cluster design), float32 and bfloat16, forward, running update and
+    backward; bf16 times of a rank's calls beside the cluster design at the
+    rank's shape, and one NCCL all-reduce of the partial sums (world 1)."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    c, ranks = SPAN_SHAPE[1], SPAN_RANKS
+    b = SPAN_SHAPE[0] // ranks
+    x = _layout(torch.randn(SPAN_SHAPE, generator=gen, device=dev) * 1.5 + 0.3)
+    dy = _layout(torch.randn(SPAN_SHAPE, generator=gen, device=dev))
+    rm, rv = 0.1 * torch.randn(c, generator=gen, device=dev), 0.5 + torch.rand(c, generator=gen, device=dev)
+    layouts = [ops.SpanLayout.of(x[:b], SPAN_GROUPS, r, ranks) for r in range(ranks)]
+    blocks = [slice(r * b, (r + 1) * b) for r in range(ranks)]
+
+    def span(xs, dys):
+        sums = sum(ops.bn_span_partials(xs[i], lay) for i, lay in zip(blocks, layouts))
+        outs = [ops.bn_span_apply(xs[i], sums, st[0], st[1], lay, relu=True)
+                for i, lay, st in zip(blocks, layouts, stats)]
+        bsums = sum(ops.bn_span_bwd_partials(xs[i], y, dys[i], s, lay)
+                    for i, lay, (y, s) in zip(blocks, layouts, outs))
+        dx = [ops.bn_span_bwd_apply(xs[i], y, dys[i], s, bsums, lay)[0]
+              for i, lay, (y, s) in zip(blocks, layouts, outs)]
+        return torch.cat([o[0] for o in outs]), torch.cat(dx)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs, dys = x.to(dtype), dy.to(dtype)
+        stats = [[rm.clone(), rv.clone()] for _ in range(ranks)]
+        y, dx = span(xs, dys)
+        xi = xs.detach().requires_grad_(True)
+        whole = [rm.clone(), rv.clone()]
+        yw = ops.bn_train(xi, whole[0], whole[1], groups=SPAN_GROUPS, relu=True)
+        yw.backward(dys)
+        same = (y > 0) == (yw > 0)
+        errs[str(dtype).split(".")[-1]] = dict(
+            y=rel_err(y, yw), dx=rel_err(dx * same, xi.grad * same), relu_flips=int((~same).sum()),
+            running=max(rel_err(a, b_) for st in stats for a, b_ in zip(st, whole)))
+        del xs, dys, y, dx, xi, yw, same
+    e32, e16 = errs["float32"], errs["bfloat16"]
+    if (max(e32["y"], e32["running"]) > TOL_FP32 or e32["dx"] > TOL_K5_GRAD_FP32
+            or max(e16["y"], e16["dx"]) > TOL_TRAIN_BF16 or e16["running"] > TOL_FP32):
+        fail(f"bn_train spanning mode vs whole-batch K5: {errs}")
+    # a rank's calls in bf16 (the training dtype): its half, with its own sums
+    xh, dyh = x[:b].bfloat16(), dy[:b].bfloat16()
+    lay = layouts[0]
+    st = [rm.clone(), rv.clone()]
+    sums = ops.bn_span_partials(xh, lay)
+    y, s = ops.bn_span_apply(xh, sums, st[0], st[1], lay, relu=True)
+    bsums = ops.bn_span_bwd_partials(xh, y, dyh, s, lay)
+    fwd = time_ms(lambda: ops.bn_span_apply(xh, ops.bn_span_partials(xh, lay), st[0], st[1],
+                                            lay, relu=True))
+    bwd = time_ms(lambda: ops.bn_span_bwd_apply(
+        xh, y, dyh, s, ops.bn_span_bwd_partials(xh, y, dyh, s, lay), lay))
+    dev_ms = device_ms(lambda: (ops.bn_span_apply(xh, ops.bn_span_partials(xh, lay), st[0],
+                                                  st[1], lay, relu=True),
+                                ops.bn_span_bwd_apply(xh, y, dyh, s,
+                                                      ops.bn_span_bwd_partials(xh, y, dyh, s,
+                                                                               lay), lay)))
+    # the plain version of a rank's half (no group: its own sums)
+    plain = time_fwd_bwd(lambda t: ops.bn_span_reference(t, st[0], st[1], lay, None, relu=True),
+                         [xh], dyh)
+    # the cluster design at the rank's shape (its groups inside the rank)
+    cfwd, cbwd = time_fwd_bwd(lambda t: ops.bn_train(t, st[0], st[1], groups=SPAN_GROUPS,
+                                                     relu=True), [xh], dyh)
+    lfwd, lbwd = time_fwd_bwd(
+        lambda t: torch.relu(F.batch_norm(t, st[0].clone(), st[1].clone(), training=True,
+                                          momentum=1 - ops.BN_MOMENTUM, eps=ops.BN_EPSILON)),
+        [xh], dyh)
+    # one all-reduce of the forward's sums and one of the backward's, on NCCL
+    # at world size 1 (the card's machine has one GPU): the collective's
+    # launch and copy at these sizes, not a transfer between cards
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        ar = time_ms(lambda: (dist.all_reduce(sums), dist.all_reduce(bsums)), reps=20)
+    finally:
+        dist.destroy_process_group()
+    # bytes: forward reads x, writes y; backward reads x, y, dy, writes dx
+    n = xh.numel()
+    bms, by = bound_ms(2 * n * 2 + 2 * n * 4, 20.0 * n, torch.float32)
+    emit({"phase": "kernel", "name": "bn_train_span", "shape": list(SPAN_SHAPE), "ranks": ranks,
+          "groups": SPAN_GROUPS, "errors": errs, "rank_ms_fwd": fwd, "rank_ms_bwd": bwd,
+          "cluster_ms_fwd": cfwd, "cluster_ms_bwd": cbwd, "allreduce_ms": ar})
+    return dict(name="bn_train_span", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/bn_train.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:117 (_GroupedBN with "
+                         "bn_groups across the data axis of make_mesh, GSPMD, forward and "
+                         "backward)",
+                max_abs_err=max(e16["y"], e16["dx"]), errors=errs, tolerance=TOL_TRAIN_BF16,
+                dtype="bfloat16", per=f"one rank's half {[b, *SPAN_SHAPE[1:]]} of "
+                f"{list(SPAN_SHAPE)}, groups {SPAN_GROUPS}, relu, forward + backward",
+                ms=fwd + bwd, device_ms=dev_ms, plain_ms=sum(plain), bound_ms=bms,
+                bound_by=by, allreduce_ms=ar,
+                allreduce_note="two NCCL all-reduces a step (forward and backward sums), "
+                               "world size 1 on one card",
+                cluster_design_ms=cfwd + cbwd,
+                cluster_design_note="K5's cluster design at the rank's shape, its groups "
+                                    "inside the rank",
+                library_ms=lfwd + lbwd,
+                library_note="F.batch_norm (training) + relu at the rank's shape: the rank's "
+                             "own statistics, no collective")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_margin_partial(dev, gen):
+    """K6's class-sharded mode at MARGIN_SPLIT over two class ranges (the
+    partials combined as the all-reduce combines them) against whole-class
+    K6: loss, correct flags, lse and each range's dcos; a shard's times."""
+    from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
+        combine_partials, margin_ce, margin_ce_partial_grad, margin_ce_partials,
+        margin_ce_sharded_reference)
+
+    k, bsz, c = MARGIN_SPLIT
+    cut = c // 2
+    cos = (torch.rand(MARGIN_SPLIT, generator=gen, device=dev) * 2 - 1) * 0.998
+    labels = torch.randint(0, c, (bsz,), generator=gen, device=dev)
+    dloss = torch.rand(bsz, generator=gen, device=dev) / bsz
+    ci = cos.clone().requires_grad_(True)
+    loss, correct = margin_ce(ci, labels, 32.0, 0.2)
+    loss.backward(dloss)
+    shards = [(0, cos[:, :, :cut].contiguous()), (cut, cos[:, :, cut:].contiguous())]
+    parts = torch.stack([margin_ce_partials(x, labels, 32.0, 0.2, off) for off, x in shards])
+    ploss, pcorrect, lse = combine_partials(parts, labels)
+    dcos = torch.cat([margin_ce_partial_grad(x, labels, lse, dloss, 32.0, 0.2, off)
+                      for off, x in shards], dim=2)
+    err = max(rel_err(ploss, loss.detach()), rel_err(dcos, ci.grad))
+    if err > TOL_FP32 or not torch.equal(pcorrect, correct):
+        fail(f"margin_ce partial mode: rel err {err}, correct equal "
+             f"{torch.equal(pcorrect, correct)}")
+    off, shard = shards[1]
+    fwd = time_ms(lambda: margin_ce_partials(shard, labels, 32.0, 0.2, off))
+    bwd = time_ms(lambda: margin_ce_partial_grad(shard, labels, lse, dloss, 32.0, 0.2, off))
+    dev_fwd = device_ms(lambda: margin_ce_partials(shard, labels, 32.0, 0.2, off),
+                        "margin_ce_fwd_kernel")
+    dev_bwd = device_ms(lambda: margin_ce_partial_grad(shard, labels, lse, dloss, 32.0, 0.2,
+                                                       off), "margin_ce_bwd_kernel")
+    plain = time_fwd_bwd(
+        lambda t: margin_ce_sharded_reference(t, labels, 32.0, 0.2, off, None)[0], [shard], dloss)
+    bms, by = bound_ms(3 * 4 * shard.numel(), 30.0 * shard.numel(), torch.float32)
+    emit({"phase": "kernel", "name": "margin_ce_partial", "shape": list(MARGIN_SPLIT),
+          "shard": list(shard.shape), "ms_fwd": fwd, "ms_bwd": bwd})
+    return dict(name="margin_ce_partial", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/margin_ce.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/losses/projections.py:96 "
+                         "(sc_cm_linear + CE with the kernel sharded over the model axis, "
+                         "parallel/sharding.py:46, GSPMD)",
+                max_abs_err=err, tolerance=TOL_FP32, dtype="float32",
+                per=f"one class shard {list(shard.shape)} of {list(MARGIN_SPLIT)}, forward + "
+                    f"backward", ms=fwd + bwd, device_ms=dev_fwd + dev_bwd,
+                plain_ms=sum(plain), bound_ms=bms, bound_by=by, library_ms=None,
+                library_note="none: no single PyTorch call does max over centers, margin and "
+                             "a partial log-sum-exp")
+
+
+def single_chip_phase(dev, workdir, smi):
+    """cli.train --single-chip with the reference's best system: the shape
+    the table gives (fails otherwise), its peak memory and step time."""
+    from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe, single_chip_shape
+
+    want = single_chip_shape(SINGLE_CHIP_MODEL, TRAIN_FRAMES)
+    argv = ["--recipe", "res2net_vox2_dev_aug", "--model", SINGLE_CHIP_MODEL, "--single-chip",
+            "--synthetic", "--max-steps", str(SINGLE_CHIP_STEPS), "--log-every", "1",
+            "--no-checkpoint", "--exp-root", os.path.join(workdir, "single_chip"),
+            "--seed", str(SEED)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    printed = [line for line in out.getvalue().splitlines() if line.startswith("single-chip")]
+    hist = run.result.history
+    cfg = get_recipe("res2net_vox2_dev_aug", model=SINGLE_CHIP_MODEL, single_chip=True)[0]
+    got = dict(batch_size=cfg.batch_size, num_accumulation_steps=cfg.num_accumulation_steps,
+               remat=cfg.remat, remat_stages=cfg.remat_stages, bn_groups=cfg.bn_groups)
+    if not want or got != want or not printed or len(hist) != SINGLE_CHIP_STEPS:
+        fail(f"single_chip: shape {got} vs table {want}, printed {printed}, {len(hist)} steps")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail("single_chip: non-finite loss")
+    step_ms = 1e3 * (hist[-1]["time"] - hist[-2]["time"])
+    del run
+    emit({"phase": "single_chip", "model": SINGLE_CHIP_MODEL, "shape": got, "printed": printed,
+          "peak_memory_bytes": peak, "peak_gb": peak / 1e9, "step_ms": step_ms,
+          "audio_s_per_s": 1024 * TRAIN_FRAMES / 100.0 / (step_ms / 1e3),
+          "losses": [h["loss"] for h in hist], "card": smi})
+
+
+def _launch(workdir, name, nprocs, extra, timeout=LAUNCH_TIMEOUT_S):
+    """cli.launch of ``nprocs`` cli.train processes (one step of LAUNCH_*);
+    returns (exp dir, [each rank's output])."""
+    run_dir = os.path.join(workdir, name)
+    os.makedirs(run_dir, exist_ok=True)
+    exp_root = os.path.join(run_dir, "exp")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "voxsrc2020_speaker_verification_tpu_torch.cli.launch",
+           "--num-processes", str(nprocs), "--coordinator", f"localhost:{_free_port()}", "--",
+           *_launch_args(exp_root), "--print-kernel-launches", *extra]
+    proc = subprocess.run(cmd, cwd=run_dir, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    outs = [proc.stdout]
+    for i in range(1, nprocs):
+        with open(os.path.join(run_dir, f"launch_rank{i}.log")) as f:
+            outs.append(f.read())
+    if proc.returncode != 0:
+        fail(f"launch {name}: rc {proc.returncode}\n{proc.stderr[-3000:]}\n"
+             + "\n".join(o[-2000:] for o in outs))
+    exp = [d for d, _, files in os.walk(exp_root) if "metrics.jsonl" in files]
+    if len(exp) != 1:
+        fail(f"launch {name}: experiment dirs {exp}")
+    return exp[0], outs
+
+
+def _launch_args(exp_root):
+    return ["--recipe", "res2net_vox2_dev_aug", "--model", LAUNCH_MODEL, "--synthetic",
+            "--float32", "--batch-size", str(LAUNCH_BATCH), "--num-accumulation-steps",
+            str(LAUNCH_ACCUM), "--bn-groups", str(LAUNCH_GROUPS), "--max-steps", "1",
+            "--log-every", "1", "--num-workers", "1", "--seed", str(SEED),
+            "--exp-root", exp_root]
+
+
+def _run_state(exp):
+    from voxsrc2020_speaker_verification_tpu_torch.training.checkpoint import FILE
+
+    from voxsrc2020_speaker_verification_tpu_torch.utils.observability import load_metrics
+
+    steps = sorted(int(d) for d in os.listdir(exp) if d.isdigit())
+    saved = torch.load(os.path.join(exp, str(steps[-1]), FILE), map_location="cpu",
+                       weights_only=True)
+    return load_metrics(exp), saved
+
+
+def _l2(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every tensor of two name -> tensor maps."""
+    num = sum(float(torch.sum(torch.square(a[k].double() - v.double()))) for k, v in b.items())
+    return math.sqrt(num / sum(float(torch.sum(torch.square(v.double()))) for v in b.values()))
+
+
+def launch_noise_floor(dev, config, one, one_metrics):
+    """The float32 noise of the one-process step: the same step on the card
+    with the rows of each microbatch permuted (reversed, rolled by half,
+    evens then odds: the same function with LAUNCH_GROUPS = 1, one BN group
+    and a mean loss, in other summation orders), the largest distance of
+    the three to the CLI's one-process run. The step at step 0 has lr 0,
+    so its update is read off the momentum it leaves (the clipped gradient;
+    lr times it at a later step)."""
+    from voxsrc2020_speaker_verification_tpu_torch.data.dataset import (
+        BatchFeeder, SyntheticDataset)
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+
+    feeder = BatchFeeder([SyntheticDataset(config.feat_dim, config.feat_length,
+                                           config.num_classes, seed=SEED)],
+                         config.batch_size, config.num_accumulation_steps).start()
+    try:
+        feats, labels = next(iter(feeder))
+    finally:
+        feeder.stop()
+    if config.bn_groups != 1:
+        fail("launch: the noise floor permutes rows, which needs one BN group")
+    b = config.batch_size
+    floor = {"update": 0.0, "gradient_norm": 0.0}
+    for perm in (torch.arange(b - 1, -1, -1), torch.roll(torch.arange(b), b // 2),
+                 torch.cat([torch.arange(0, b, 2), torch.arange(1, b, 2)])):
+        state = create_train_state(config, dev)
+        state, m = make_train_step(config)(state, torch.from_numpy(feats)[:, perm].to(dev),
+                                           torch.from_numpy(labels)[:, perm].long().to(dev))
+        mom = {k: v.cpu() for k, v in state.momentum.items()}
+        floor["update"] = max(floor["update"], _l2(mom, one["momentum"]))
+        floor["gradient_norm"] = max(floor["gradient_norm"], abs(
+            float(m["gradient_norm"]) - one_metrics[-1]["gradient_norm"])
+            / one_metrics[-1]["gradient_norm"])
+        del state
+    return floor
+
+
+def launch_phase(dev, workdir, smi):
+    """cli.launch on the one card: data 2 (BN groups spanning the ranks) and
+    model 2 (the head's classes split), two gloo processes each, one
+    float32 step; each run's metrics.jsonl and checkpoint against one
+    process on the same rows: loss and BN statistics within TOL_PARITY, the
+    update (the momentum: lr is 0 at step 0) and the gradient norm no
+    further from it than twice the one-process step's own float32 noise
+    (launch_noise_floor) plus TOL_PARITY, as train_parity holds them; each
+    rank's launches of K5's spanning path and K6's partial path; then a
+    one-rank NCCL launch."""
+    from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
+    from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig
+
+    one_root = os.path.join(workdir, "launch_one", "exp")
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(_launch_args(one_root))
+    one_exp = [d for d, _, files in os.walk(one_root) if "metrics.jsonl" in files][0]
+    one_metrics, one = _run_state(one_exp)
+    config = TrainConfig.from_json(os.path.join(one_exp, "config.json"))
+    floor = launch_noise_floor(dev, config, one, one_metrics)
+    runs = {}
+    for name, extra, want_fns in (
+            ("data2", [], ("bn_train.bn_span_stats", "bn_train.bn_span_normalize",
+                           "bn_train.bn_span_bwd_reduce", "bn_train.bn_span_bwd_grad")),
+            ("model2", ["--num-model-shards", "2"], ("margin_ce.margin_ce_partial_fwd:slab",
+                                                     "margin_ce.margin_ce_partial_bwd:slab"))):
+        t0 = time.perf_counter()
+        exp, outs = _launch(workdir, name, 2, extra)
+        wall = time.perf_counter() - t0
+        metrics, saved = _run_state(exp)
+        backend = [line for line in outs[0].splitlines() if line.startswith("distributed:")]
+        launches = [json.loads(line.split(":", 1)[1]) for o in outs for line in o.splitlines()
+                    if line.startswith("kernel launches:")]
+        losses = [line.split("loss")[1].split()[0] for o in outs for line in o.splitlines()
+                  if line.startswith("step 1/")]
+        if (len(launches) != 2 or any(not all(rank.get(f, 0) for f in want_fns)
+                                      for rank in launches)
+                or not backend or "gloo" not in backend[0] or len(set(losses)) != 1):
+            fail(f"launch {name}: backend {backend}, losses {losses}, launches {launches}")
+        err = {k: abs(metrics[-1][k] - one_metrics[-1][k]) / max(abs(one_metrics[-1][k]), 1e-12)
+               for k in ("loss", "gradient_norm")}
+        err["update"] = _l2(saved["momentum"], one["momentum"])
+        err["batch_stats"] = max(float((saved["batch_stats"][k] - v).abs().max()
+                                       / v.abs().max().clamp(min=1e-3))
+                                 for k, v in one["batch_stats"].items())
+        bad = {k: err[k] for k in ("loss", "batch_stats") if not err[k] <= TOL_PARITY[k]}
+        bad.update({k: err[k] for k in ("update", "gradient_norm")
+                    if not err[k] <= 2 * floor[k] + TOL_PARITY[k]})
+        if bad:
+            fail(f"launch {name} vs one process: {err}, the one-process step's own float32 "
+                 f"noise {floor} (TOL_PARITY {TOL_PARITY})")
+        runs[name] = dict(backend=backend[0], errors_vs_one_process=err,
+                          one_process_fp32_noise=floor, seconds=wall,
+                          launches_by_rank=[{f: rank.get(f, 0) for f in want_fns}
+                                            for rank in launches],
+                          loss=metrics[-1]["loss"])
+    exp, outs = _launch(workdir, "nccl1", 1, [])
+    backend = [line for line in outs[0].splitlines() if line.startswith("distributed:")]
+    if not backend or "nccl" not in backend[0]:
+        fail(f"launch nccl1: backend {backend}")
+    runs["nccl1"] = dict(backend=backend[0])
+    emit({"phase": "launch", "model": LAUNCH_MODEL, "batch": LAUNCH_BATCH,
+          "accumulation": LAUNCH_ACCUM, "bn_groups": LAUNCH_GROUPS, "dtype": "float32",
+          "runs": runs, "tolerance": TOL_PARITY, "card": smi})
+    return runs
+
+
+def trace_phase(dev, config, workdir):
+    """Two resident steps of the train phase's config (a fresh state) under
+    observability.trace: the Chrome trace under <exp>/profile must name
+    K5's and K6's kernels; the same steps untraced beside them."""
+    from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+    from voxsrc2020_speaker_verification_tpu_torch.utils.observability import trace
+
+    exp = os.path.join(workdir, "trace_exp")
+    state = create_train_state(config, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    feats = torch.randn((TRAIN_ACCUM, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM), generator=g,
+                        device=dev)
+    labels = torch.randint(0, config.num_classes, (TRAIN_ACCUM, TRAIN_BATCH), generator=g,
+                           device=dev)
+    step = make_train_step(config)
+    state, _ = step(state, feats, labels)
+    t0 = time.perf_counter()
+    with trace(exp, name="train_steps") as prof:
+        for _ in range(TRACE_STEPS):
+            state, _ = step(state, feats, labels)
+    traced_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRACE_STEPS):
+        state, _ = step(state, feats, labels)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not prof.trace_path.startswith(os.path.join(exp, "profile")):
+        fail(f"trace: written to {prof.trace_path}")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in names if k in n)
+             for k in ("cluster_fwd_kernel", "cluster_bwd_kernel", "margin_ce_fwd_kernel",
+                       "margin_ce_bwd_kernel")}
+    if not all(found.values()):
+        fail(f"trace: kernels named {sorted(names)[:40]}")
+    emit({"phase": "trace", "path_under_exp": os.path.relpath(prof.trace_path, exp),
+          "bytes": os.path.getsize(prof.trace_path), "kernel_names": found,
+          "device_kernels": len([e for e in events if e.get("cat") == "kernel"]),
+          "traced_ms_per_step": 1e3 * traced_s / TRACE_STEPS,
+          "untraced_ms_per_step": 1e3 * plain_s / TRACE_STEPS})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -2871,6 +3392,10 @@ def main() -> int:
     train_rows = [check_stats_pool_bwd(dev, gen, train_head),
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
                   check_margin_ce(dev, gen, 2, 5994)]
+    # K1's general path, K5's spanning and K6's class-sharded modes
+    slice12_rows = [check_fbank_general(dev), check_bn_span(dev, gen),
+                    check_margin_partial(dev, gen)]
+    torch.cuda.empty_cache()
     att_rows = list(check_att_pool(dev, gen))
     any_c = check_bn_any_c(dev, gen)
     with torch.inference_mode():
@@ -2902,6 +3427,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         enc_train, enc_extract = encoders_phase(dev, workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_chip_phase(dev, workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launch_runs = launch_phase(dev, workdir, smi)
+        trace_phase(dev, train_cfg, workdir)
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["name"] in per_forward:
@@ -2951,7 +3483,15 @@ def main() -> int:
             row["launches_encoders"] = {m: {k: v for k, v in c.items()
                                             if k.split(".")[0] == row["name"] and v}
                                         for m, c in counts_by.items()}
-    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows})
+    # the launch phase's ranks: K5's spanning and K6's partial launches (each
+    # rank's, of its one step)
+    span_row, partial_row = slice12_rows[1], slice12_rows[2]
+    span_row["launches_by_rank"] = launch_runs["data2"]["launches_by_rank"]
+    partial_row["launches_by_rank"] = launch_runs["model2"]["launches_by_rank"]
+    for row, run in ((span_row, "data2"), (partial_row, "model2")):
+        row["launches"] = sum(sum(r.values()) for r in launch_runs[run]["launches_by_rank"])
+        row["launches_on"] = f"launch phase, cli.launch --num-processes 2 ({run}), one step"
+    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows + slice12_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

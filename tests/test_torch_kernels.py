@@ -1208,3 +1208,137 @@ def test_bn_kernels_take_any_channel_count(cuda, channels):
                 assert rel(y, yr) <= tol and rel(dx * same, dxr * same) <= tol, (shape, groups)
                 assert rel(rm, rmr) <= 1e-4 and rel(rv, rvr) <= 1e-4
                 assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+
+
+# ---------------------------------------------------------------------------
+# K1's general path, K5's spanning mode and K6's class-sharded mode
+# ---------------------------------------------------------------------------
+
+# configs the fast design refuses: 32 kHz (800-sample frame, 512 FFT bins),
+# a 64 ms frame at 16 kHz (1024 samples), a 32 ms frame (512 samples: its
+# layout exceeds a CTA's shared memory), 600 mel bins at 32 kHz
+GENERAL_FBANK = [dict(sample_rate=32000), dict(frame_length_ms=64.0),
+                 dict(frame_length_ms=32.0), dict(sample_rate=32000, num_bins=600)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", GENERAL_FBANK, ids=["32k", "64ms", "32ms", "32k-600"])
+@pytest.mark.parametrize("dither", [False, True])
+def test_fbank_general_path_matches_plain(cuda, kw, dither):
+    """K1's general path (fbank_general_f32), with and without dither,
+    against the plain version at 1e-3 log-mel, one launch a call, reruns
+    bit for bit."""
+    cfg = tfb.FbankConfig(dither=1.0 if dither else 0.0, **kw)
+    assert tfb.kernel_route(cfg) == "general"
+    rng = np.random.RandomState(11)
+    n = 3 * cfg.sample_rate + 123
+    waves = torch.from_numpy(tfb.pcm16(rng.randn(2, n) * 3000).astype(np.float32)).to(cuda)
+    noise = None
+    if dither:
+        noise = torch.from_numpy(rng.randn(2, tfb.num_frames(n, cfg), cfg.frame_length)
+                                 .astype(np.float32)).to(cuda)
+    key = f"fbank_general_f32:{'dither' if dither else 'plain'}"
+    before = kernels.FBANK.fn_launches[key]
+    got = tfb.fbank(waves, cfg, noise)
+    assert kernels.FBANK.fn_launches[key] == before + 1
+    want = tfb.fbank_reference(waves, cfg, noise)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got, tfb.fbank(waves, cfg, noise))
+
+
+def span_run(cuda, shape, groups, mode, dtype, ranks=2):
+    """K5's spanning mode over ``ranks`` blocks of one batch in one process
+    (the all-reduce replaced by a sum of the blocks' partials): [y, dx, (ds,)
+    running statistics of each block]."""
+    x, s, dy = (bn_case(cuda, shape, dtype, seed)[0] for seed in (3, 4, 5))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rm, srm = (torch.randn(shape[1], generator=g, device=cuda) * 0.1 for _ in range(2))
+    rv, srv = (torch.rand(shape[1], generator=g, device=cuda) + 0.5 for _ in range(2))
+    b = shape[0] // ranks
+    blocks = [slice(r * b, (r + 1) * b) for r in range(ranks)]
+    layouts = [tops.SpanLayout.of(x[i], groups, r, ranks) for r, i in enumerate(blocks)]
+    relu, sc = mode != "plain", mode in ("raw_shortcut", "bn_shortcut")
+    bn_sc = mode == "bn_shortcut"
+    sums = sum(tops.bn_span_partials(x[i], lay) for i, lay in zip(blocks, layouts))
+    ssums = sum(tops.bn_span_partials(s[i], lay) for i, lay in zip(blocks, layouts)) if bn_sc else None
+    fwd = []
+    for i, lay in zip(blocks, layouts):
+        st = [t.clone() for t in (rm, rv, srm, srv)]
+        y, stats = tops.bn_span_apply(
+            x[i], sums, st[0], st[1], lay, relu=relu, shortcut=s[i] if sc else None,
+            shortcut_sums=ssums, shortcut_running_mean=st[2] if bn_sc else None,
+            shortcut_running_var=st[3] if bn_sc else None)
+        fwd.append((y, stats, st))
+    sc_mode = 2 if bn_sc else (1 if sc else 0)
+    bsums = sum(tops.bn_span_bwd_partials(x[i], y if relu else None, dy[i], stats, lay,
+                                          s[i] if bn_sc else None)
+                for i, lay, (y, stats, _) in zip(blocks, layouts, fwd))
+    grads = [tops.bn_span_bwd_apply(x[i], y if relu else None, dy[i], stats, bsums, lay,
+                                    sc_mode, s[i] if bn_sc else None)
+             for i, lay, (y, stats, _) in zip(blocks, layouts, fwd)]
+    y = torch.cat([f[0] for f in fwd])
+    dx = torch.cat([gr[0] for gr in grads])
+    ds = torch.cat([gr[1] for gr in grads]) if sc else None
+    # the whole batch through K5 (autograd)
+    xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    st = [t.clone() for t in (rm, rv, srm, srv)]
+    kw = dict(groups=groups, relu=relu)
+    if sc:
+        kw["shortcut"] = si
+    if bn_sc:
+        kw.update(shortcut_running_mean=st[2], shortcut_running_var=st[3])
+    yw = tops.bn_train(xi, st[0], st[1], **kw)
+    yw.backward(dy)
+    return (y, dx, ds, [f[2] for f in fwd]), (yw.detach(), xi.grad, si.grad if sc else None, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((12, 24, 9, 5), 1), ((12, 24, 9, 5), 3),
+                                          ((12, 24, 9, 5), 2), ((12, 40), 1), ((12, 40), 3),
+                                          ((12, 10, 9, 5), 3)])
+@pytest.mark.parametrize("mode", ["plain", "relu", "raw_shortcut", "bn_shortcut"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_span_mode_matches_whole_batch(cuda, shape, groups, mode, dtype):
+    """K5's spanning mode on two halves of a batch (groups that span both,
+    misaligned ones at 3 groups, 4-D and 2-D, a channel count that is not
+    a multiple of 4) with their partial sums added, against whole-batch K5:
+    outputs, gradients and every half's running statistics."""
+    (y, dx, ds, sts), (yw, dxw, dsw, stw) = span_run(cuda, shape, groups, mode, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    same = (y > 0) == (yw > 0)
+    assert int((~same).sum()) == 0
+    assert rel(y, yw) <= tol and rel(dx, dxw) <= tol
+    if ds is not None:
+        assert rel(ds, dsw) <= tol
+    for st in sts:
+        for a, b in zip(st, stw):
+            assert rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,c,split", [(2, 37, 1001, 500), (2, 64, 5994, 2997),
+                                         (3, 6, 30000, 12345), (1, 9, 40, 7)])
+def test_margin_ce_partial_mode_matches_whole(cuda, k, b, c, split):
+    """K6's class-sharded mode on two class ranges (uneven, slab and
+    streaming paths) against whole-class K6: the combined loss, correct
+    flags (the first index among tied maxima across shards) and lse, and
+    each shard's dcos against the whole dcos's columns."""
+    from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
+        combine_partials, margin_ce_partial_grad, margin_ce_partials)
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    cos = (torch.rand(k, b, c, generator=g, device=cuda) * 2 - 1) * 0.998
+    labels = torch.randint(0, c, (b,), generator=g, device=cuda)
+    labels[0], labels[1] = split - 1, split  # labels at both sides of the cut
+    dloss = torch.linspace(0.5, 1.5, b, device=cuda)
+    ci = cos.clone().requires_grad_(True)
+    loss, correct = margin_ce(ci, labels, 32.0, 0.2)
+    loss.backward(dloss)
+    shards = [(0, cos[:, :, :split].contiguous()), (split, cos[:, :, split:].contiguous())]
+    parts = torch.stack([margin_ce_partials(x, labels, 32.0, 0.2, off) for off, x in shards])
+    ploss, pcorrect, lse = combine_partials(parts, labels)
+    assert rel(ploss, loss.detach()) <= 1e-4 and torch.equal(pcorrect, correct)
+    dcos = torch.cat([margin_ce_partial_grad(x, labels, lse, dloss, 32.0, 0.2, off)
+                      for off, x in shards], dim=2)
+    assert rel(dcos, ci.grad) <= 1e-4

@@ -73,7 +73,8 @@ print("ok", len([m for m in sys.modules if m.startswith(pkg.__name__)]))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 49  # every module of slices 1-10
+    # every module of the port, parallel, parallel.sharding and cli.launch included
+    assert int(out.stdout.split()[1]) >= 52
 
 
 # a batch of two short waves at both mel widths, and one wave request of
@@ -102,6 +103,45 @@ def test_fbank_constants_match_jax():
             np.testing.assert_array_equal(x, y)
     assert tfb.num_frames(399, tfb.FbankConfig()) == 0
     assert tfb.fbank(torch.zeros(300), tfb.FbankConfig(dither=0.0)).shape == (0, 80)
+
+
+# K1's general path takes what the fast design refuses; its plain version is
+# the same fbank_reference, held to JAX's ops/fbank.py at those shapes
+@pytest.mark.parametrize("kw,seconds", [
+    pytest.param(dict(sample_rate=32000), 2.5, id="32k-25ms"),
+    pytest.param(dict(frame_length_ms=64.0), 3.0, id="16k-64ms")])
+def test_fbank_general_shapes_match_jax(kw, seconds):
+    """32 kHz with 25 ms frames (800 samples padded to 1024: 513 FFT bins,
+    512 below Nyquist) and a 64 ms frame at 16 kHz, 80 mel bins, against
+    JAX at 1e-3 log-mel."""
+    rng = np.random.RandomState(5)
+    cfg = tfb.FbankConfig(num_bins=80, dither=0.0, **kw)
+    assert cfg.padded_frame_length == 1024 and tfb.kernel_route(cfg) == "general"
+    waves = jfb.pcm16(rng.randn(2, int(seconds * cfg.sample_rate)) * 3000).astype(np.float32)
+    want = np.asarray(jfb.fbank(jnp.asarray(waves), jfb.FbankConfig(num_bins=80, dither=0.0, **kw)))
+    got = tfb.fbank(torch.from_numpy(waves), cfg).numpy()
+    assert got.shape == want.shape == (2, tfb.num_frames(waves.shape[1], cfg), 80)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw,route", [
+    (dict(), "fast"), (dict(num_bins=40), "fast"), (dict(num_bins=160), "fast"),
+    (dict(sample_rate=8000), "fast"),
+    (dict(sample_rate=32000), "general"),            # 512 FFT bins
+    (dict(frame_length_ms=64.0), "general"),         # 512 FFT bins
+    (dict(frame_length_ms=32.0), "general"),         # 256 bins, layout over 225 KB
+    (dict(frame_length_ms=300.0, frame_shift_ms=300.0), "general"),  # frame, shift > 4096
+    (dict(sample_rate=48000, num_bins=400), "general")])
+def test_fbank_route(kw, route):
+    """K1's design by shape (ops/fbank.py:kernel_route): the fast design's
+    limits as csrc/fbank.cu's fbank_f32 checks them, and its shared-memory
+    layout (Layout) recomputed in Python."""
+    cfg = tfb.FbankConfig(dither=0.0, **kw)
+    assert tfb.kernel_route(cfg) == route
+    if route == "fast":
+        assert tfb.fast_smem_bytes(cfg.frame_length, cfg.frame_shift) <= 227 * 1024 - 2048
+    # the 16 kHz reference shape: 224,192 bytes (csrc/fbank.cu's 219 KB)
+    assert tfb.fast_smem_bytes(400, 160) == 224192
 
 
 def test_fbank_rejects_dither():

@@ -193,13 +193,17 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--num-processes", "2"], ["--process-id", "1"]])
-def test_train_cli_refuses_more_than_one_process(flags):
-    """One process only: a second process, or a non-zero process id (which
-    would only shift the seed and name shards that do not exist), raises
-    before any data is read."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
+def test_train_cli_refuses_more_than_one_process(flags, capsys):
+    """More than one process needs its bootstrap: a second process without
+    ``--coordinator``, or a process id outside the world (which would only
+    shift the seed and name shards that do not exist), exits before any data
+    is read. ``cli.launch`` passes the flags (tests/test_torch_parallel.py
+    trains two processes through it)."""
+    with pytest.raises(SystemExit) as exc:
         train_cli.main(["--recipe", "res2net_vox2_dev_aug", "--model", THIN, "--device", "cpu",
                         "--data-root", "/nonexistent", *flags])
+    said = f"{exc.value} {capsys.readouterr().err}"
+    assert ("--coordinator" if "--num-processes" in flags else "--process-id") in said
 
 
 REMAT_CASES = {

@@ -107,7 +107,7 @@ def main(argv=None):
 
     if args.num_devices > 1:
         raise NotImplementedError("evaluation over more than one device is not ported yet "
-                                  "(ROADMAP.md §1 item 8); use --num-devices 1")
+                                  "(ROADMAP.md §1 item 5); use --num-devices 1")
     device = resolve_device(args.device)
     artifact = resolve_artifact(args)
     test_dir = args.test_dir or os.path.join(args.data_root, "voxceleb1")

@@ -144,7 +144,7 @@ def extract_dataset(
 
     if num_devices > 1:
         raise NotImplementedError("extraction over more than one device is not ported "
-                                  "yet (ROADMAP.md §1 item 8); use --num-devices 1")
+                                  "yet (ROADMAP.md §1 item 5); use --num-devices 1")
     if cmvn not in ("host", "device"):
         raise ValueError(f"cmvn must be device|host, got {cmvn!r}")
     wire_dtype = resolve_wire_dtype(wire)

@@ -136,9 +136,25 @@ __device__ __forceinline__ void write_partials(float (*acc)[V], const Geo& geo,
     }
 }
 
-// Forward statistics pass: sum(x), sum(x^2). Grid (chunks, tiles, G).
+// The rows a reduction launch covers: the caller holds `nloc` rows that
+// start at global row `offset`, a BN group is `ngroup` consecutive global
+// rows, and grid z walks the groups from g0. The multi-kernel design holds
+// whole groups (offset 0, nloc = G * ngroup, g0 = 0); the spanning mode
+// (bn_span_*) a rank's rows of groups that other ranks share.
+struct Span {
+  long long nloc, offset, ngroup;
+  int g0;
+  // local rows [lo, hi) of grid z's group
+  __device__ __forceinline__ void range(int z, long long& lo, long long& hi) const {
+    const long long g = g0 + z, first = g * ngroup, last = first + ngroup;
+    lo = (first > offset ? first : offset) - offset;
+    hi = (last < offset + nloc ? last : offset + nloc) - offset;
+  }
+};
+
+// Forward statistics pass: sum(x), sum(x^2). Grid (chunks, tiles, groups of the span).
 template <typename T, int V>
-__global__ void stats_kernel(const T* __restrict__ x, long long n, int channels,
+__global__ void stats_kernel(const T* __restrict__ x, Span span, int channels,
                              Geo geo, float* __restrict__ part) {
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
@@ -147,9 +163,12 @@ __global__ void stats_kernel(const T* __restrict__ x, long long n, int channels,
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
   if (lane_r < geo.rpb && cv < geo.cv) {
+    long long lo, hi;
+    span.range(blockIdx.z, lo, hi);
+    const long long n = hi - lo;
     const long long r0 = n * blockIdx.x / geo.chunks;
     const long long r1 = n * (blockIdx.x + 1) / geo.chunks;
-    const T* base = x + static_cast<long long>(blockIdx.z) * n * channels + cv * V;
+    const T* base = x + lo * channels + cv * V;
     for (long long r = r0 + lane_r; r < r1; r += geo.rpb) {
       float v[V];
       vsv::load_v<V>(base + r * channels, v);
@@ -223,13 +242,13 @@ __global__ void normalize_kernel(const T* __restrict__ x,
                                  const float* __restrict__ sc_mean,
                                  const float* __restrict__ sc_rstd,
                                  T* __restrict__ out, long long nvec,
-                                 int channels, long long group_elems, int relu,
-                                 int sc_mode) {
+                                 int channels, long long group_elems,
+                                 long long elem_offset, int relu, int sc_mode) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
     const long long e = v * V;
-    const long long s = (e / group_elems) * channels + e % channels;
+    const long long s = ((e + elem_offset) / group_elems) * channels + e % channels;
     float xv[V], mu[V], rs[V], sv[V], smu[V], srs[V], o[V];
     vsv::load_v<V>(x + e, xv);
     load_stats<V>(mean + s, mu);
@@ -262,7 +281,7 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
                                   const float* __restrict__ rstd,
                                   const float* __restrict__ sc_mean,
                                   const float* __restrict__ sc_rstd,
-                                  long long n, int channels, Geo geo,
+                                  Span span, int channels, Geo geo,
                                   float* __restrict__ part) {
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
@@ -273,7 +292,7 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
   if (lane_r < geo.rpb && cv < geo.cv) {
-    const int g = blockIdx.z;
+    const int g = span.g0 + blockIdx.z;
     float mu[V], rs[V], smu[V], srs[V];
     load_stats<V>(mean + g * channels + cv * V, mu);
     load_stats<V>(rstd + g * channels + cv * V, rs);
@@ -281,9 +300,12 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
       load_stats<V>(sc_mean + g * channels + cv * V, smu);
       load_stats<V>(sc_rstd + g * channels + cv * V, srs);
     }
+    long long lo, hi;
+    span.range(blockIdx.z, lo, hi);
+    const long long n = hi - lo;
     const long long r0 = n * blockIdx.x / geo.chunks;
     const long long r1 = n * (blockIdx.x + 1) / geo.chunks;
-    const long long off = static_cast<long long>(g) * n * channels + cv * V;
+    const long long off = lo * channels + cv * V;
     for (long long r = r0 + lane_r; r < r1; r += geo.rpb) {
       const long long e = off + r * channels;
       float xv[V], dv[V], yv[V], sv[V];
@@ -330,13 +352,14 @@ __global__ void grad_kernel(const T* __restrict__ x, const T* __restrict__ y,
                             const float* __restrict__ sc_rstd,
                             const float* __restrict__ coef, T* __restrict__ dx,
                             T* __restrict__ dsc, long long nvec, int channels,
-                            int groups, long long group_elems, int sc_mode) {
+                            int groups, long long group_elems, long long elem_offset,
+                            int sc_mode) {
   const long long gc = static_cast<long long>(groups) * channels;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
     const long long e = v * V;
-    const long long s = (e / group_elems) * channels + e % channels;
+    const long long s = ((e + elem_offset) / group_elems) * channels + e % channels;
     float xv[V], dv[V], yv[V], mu[V], rs[V], a[V], b[V], o[V];
     vsv::load_v<V>(x + e, xv);
     vsv::load_v<V>(dy + e, dv);
@@ -385,15 +408,16 @@ int forward(const void* x, const void* sc, int sc_mode, int relu, long long n,
             cudaStream_t stream) {
   const Geo geo = make_geo<V>(channels, chunks);
   const dim3 grid(chunks, geo.tiles, groups);
+  const Span span{n * groups, 0, n, 0};
   const size_t fin_smem = 2 * sizeof(float) * groups;
   const float inv_n = 1.f / static_cast<float>(n);
-  stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), n,
+  stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), span,
                                                      channels, geo, part);
   finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
       part, groups, chunks, channels, inv_n, eps, mean, rstd, run_mean, run_var,
       mom, upd_mean, upd_var);
   if (sc_mode == 2) {
-    stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(sc), n,
+    stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(sc), span,
                                                        channels, geo, part);
     finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
         part, groups, chunks, channels, inv_n, eps, sc_mean, sc_rstd,
@@ -402,7 +426,7 @@ int forward(const void* x, const void* sc, int sc_mode, int relu, long long n,
   const long long nvec = n * groups * channels / V;
   normalize_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
       static_cast<const T*>(x), mean, rstd, static_cast<const T*>(sc), sc_mean,
-      sc_rstd, static_cast<T*>(out), nvec, channels, n * channels, relu, sc_mode);
+      sc_rstd, static_cast<T*>(out), nvec, channels, n * channels, 0, relu, sc_mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -414,6 +438,7 @@ int backward(const void* x, const void* y, const void* dy, const void* sc,
              int num_sms, cudaStream_t stream) {
   const Geo geo = make_geo<V>(channels, chunks);
   const dim3 grid(chunks, geo.tiles, groups);
+  const Span span{n * groups, 0, n, 0};
   const float inv_n = 1.f / static_cast<float>(n);
   const T* xt = static_cast<const T*>(x);
   const T* yt = static_cast<const T*>(y);
@@ -423,17 +448,130 @@ int backward(const void* x, const void* y, const void* dy, const void* sc,
   if (sc_mode == 2) {
     ns = 3;
     reduce_bwd_kernel<T, 3, V><<<grid, kThreads, 0, stream>>>(
-        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, n, channels, geo, part);
+        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
   } else {
     reduce_bwd_kernel<T, 2, V><<<grid, kThreads, 0, stream>>>(
-        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, n, channels, geo, part);
+        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
   }
   finalize_bwd_kernel<<<channels, kThreads, 0, stream>>>(
       part, ns, groups, chunks, channels, inv_n, coef);
   const long long nvec = n * groups * channels / V;
   grad_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
       xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, coef, static_cast<T*>(dx),
-      static_cast<T*>(dsc), nvec, channels, groups, n * channels, sc_mode);
+      static_cast<T*>(dsc), nvec, channels, groups, n * channels, 0, sc_mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// spanning mode: BN groups that span the data ranks of a process group
+// ---------------------------------------------------------------------------
+//
+// Each rank holds nloc consecutive global rows from `offset`; group g is
+// global rows [g * ngroup, (g + 1) * ngroup), whatever the alignment of
+// groups to ranks. The statistics pass of the multi-kernel design runs
+// over the groups the rank touches (Span), a collapse writes the rank's
+// partial sums per (group, sum, channel) for all G groups (zero where it
+// holds none of a group's rows), the caller all-reduces them over the data
+// ranks (torch.distributed), and the finalize and elementwise passes of
+// the multi-kernel design follow on the global sums: the statistics of
+// group g are those of its global rows on every rank. The backward does
+// the same for sum(d), sum(d * xhat) [, sum(d * shat)]. Sums over a rank's
+// chunks are in fixed order; the all-reduce's order is NCCL's.
+
+Span span_of(long long nloc, long long offset, long long ngroup, int* touched) {
+  const long long g0 = offset / ngroup, g1 = (offset + nloc - 1) / ngroup;
+  *touched = static_cast<int>(g1 - g0 + 1);
+  return Span{nloc, offset, ngroup, static_cast<int>(g0)};
+}
+
+// sums[(g * ns + k) * C + c] = the sum over the chunks of part for the
+// span's groups, 0 for the others. One block a channel, a warp a (g, k).
+__global__ void span_collapse_kernel(const float* __restrict__ part, int ns, int g0,
+                                     int touched, int groups, int chunks, int channels,
+                                     float* __restrict__ sums) {
+  const int c = blockIdx.x;
+  const long long stride = static_cast<long long>(ns) * channels;
+  for (int gk = threadIdx.x / 32; gk < groups * ns; gk += blockDim.x / 32) {
+    const int g = gk / ns, k = gk % ns, z = g - g0;
+    float s = 0.f;
+    if (z >= 0 && z < touched)
+      s = warp_chunk_sum(part, static_cast<long long>(z) * chunks * stride + k * channels + c,
+                         chunks, stride);
+    if (threadIdx.x % 32 == 0) sums[(static_cast<long long>(g) * ns + k) * channels + c] = s;
+  }
+}
+
+template <typename T, int V>
+int span_stats(const void* x, Span span, int touched, int groups, int channels, int chunks,
+               float* part, float* sums, cudaStream_t stream) {
+  const Geo geo = make_geo<V>(channels, chunks);
+  stats_kernel<T, V><<<dim3(chunks, geo.tiles, touched), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), span, channels, geo, part);
+  span_collapse_kernel<<<channels, kThreads, 0, stream>>>(part, 2, span.g0, touched, groups,
+                                                          chunks, channels, sums);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int span_normalize(const void* x, const void* sc, int sc_mode, int relu, Span span, int groups,
+                   int channels, const float* sums, const float* sc_sums, float* mean,
+                   float* rstd, float* run_mean, float* run_var, float* sc_mean, float* sc_rstd,
+                   float* sc_run_mean, float* sc_run_var, float mom, float upd_mean,
+                   float upd_var, float eps, void* out, int num_sms, cudaStream_t stream) {
+  const size_t fin_smem = 2 * sizeof(float) * groups;
+  const float inv_n = 1.f / static_cast<float>(span.ngroup);
+  finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
+      sums, groups, 1, channels, inv_n, eps, mean, rstd, run_mean, run_var, mom, upd_mean,
+      upd_var);
+  if (sc_mode == 2)
+    finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
+        sc_sums, groups, 1, channels, inv_n, eps, sc_mean, sc_rstd, sc_run_mean, sc_run_var,
+        mom, upd_mean, upd_var);
+  const long long nvec = span.nloc * channels / V;
+  normalize_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), mean, rstd, static_cast<const T*>(sc), sc_mean, sc_rstd,
+      static_cast<T*>(out), nvec, channels, span.ngroup * channels, span.offset * channels,
+      relu, sc_mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int span_bwd_reduce(const void* x, const void* y, const void* dy, const void* sc, int sc_mode,
+                    Span span, int touched, int groups, int channels, int chunks,
+                    const float* mean, const float* rstd, const float* sc_mean,
+                    const float* sc_rstd, float* part, float* sums, cudaStream_t stream) {
+  const Geo geo = make_geo<V>(channels, chunks);
+  const dim3 grid(chunks, geo.tiles, touched);
+  const T* xt = static_cast<const T*>(x);
+  const T* yt = static_cast<const T*>(y);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* st = static_cast<const T*>(sc);
+  const int ns = sc_mode == 2 ? 3 : 2;
+  if (ns == 3)
+    reduce_bwd_kernel<T, 3, V><<<grid, kThreads, 0, stream>>>(
+        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
+  else
+    reduce_bwd_kernel<T, 2, V><<<grid, kThreads, 0, stream>>>(
+        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
+  span_collapse_kernel<<<channels, kThreads, 0, stream>>>(part, ns, span.g0, touched, groups,
+                                                          chunks, channels, sums);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int span_bwd_grad(const void* x, const void* y, const void* dy, const void* sc, int sc_mode,
+                  Span span, int groups, int channels, const float* mean, const float* rstd,
+                  const float* sc_mean, const float* sc_rstd, const float* sums, float* coef,
+                  void* dx, void* dsc, int num_sms, cudaStream_t stream) {
+  const int ns = sc_mode == 2 ? 3 : 2;
+  finalize_bwd_kernel<<<channels, kThreads, 0, stream>>>(
+      sums, ns, groups, 1, channels, 1.f / static_cast<float>(span.ngroup), coef);
+  const long long nvec = span.nloc * channels / V;
+  grad_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(dy),
+      static_cast<const T*>(sc), mean, rstd, sc_mean, sc_rstd, coef, static_cast<T*>(dx),
+      static_cast<T*>(dsc), nvec, channels, groups, span.ngroup * channels,
+      span.offset * channels, sc_mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1211,4 +1349,86 @@ extern "C" int bn_train_bwd(int dtype, const void* x, const void* y,
         x, y, dy, sc, sc_mode, n, groups, channels, chunks, mean, rstd, sc_mean, sc_rstd,
         part, coef, dx, dsc, num_sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Spanning mode (see span_stats above). x: this rank's nloc rows (of C
+// channels, channels-last) from global row `offset`; a group is ngroup
+// rows, G groups in all. Writes the rank's partial sum(x), sum(x^2) per
+// (group, channel) into sums (G, 2, C); part takes touched * chunks * 2 * C
+// floats, touched = the groups the rank's rows meet.
+#define VSV_SPAN_DISPATCH(fn, ...)                                                   \
+  do {                                                                               \
+    const bool vec = channels % 4 == 0;                                              \
+    if (dtype == 0) return (vec ? fn<float, 4> : fn<float, 1>)(__VA_ARGS__);         \
+    if (dtype == 1)                                                                  \
+      return (vec ? fn<__nv_bfloat16, 4> : fn<__nv_bfloat16, 1>)(__VA_ARGS__);       \
+    return static_cast<int>(cudaErrorInvalidValue);                                  \
+  } while (0)
+
+extern "C" int bn_span_stats(int dtype, const void* x, long long nloc, long long offset,
+                             long long ngroup, int groups, int channels, int chunks,
+                             float* part, float* sums, void* stream) {
+  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
+    return vsv::kShapeUnsupported;
+  int touched = 0;
+  const Span span = span_of(nloc, offset, ngroup, &touched);
+  VSV_SPAN_DISPATCH(span_stats, x, span, touched, groups, channels, chunks, part, sums,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// After the all-reduce of bn_span_stats' sums over the data ranks: mean and
+// rstd per (group, channel), the running update (identical on every rank),
+// and the rank's rows normalized with the epilogue.
+extern "C" int bn_span_normalize(int dtype, const void* x, const void* sc, int sc_mode,
+                                 int relu, long long nloc, long long offset, long long ngroup,
+                                 int groups, int channels, const float* sums,
+                                 const float* sc_sums, float* mean, float* rstd,
+                                 float* run_mean, float* run_var, float* sc_mean,
+                                 float* sc_rstd, float* sc_run_mean, float* sc_run_var,
+                                 float mom, float upd_mean, float upd_var, float eps,
+                                 void* out, int num_sms, void* stream) {
+  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
+    return vsv::kShapeUnsupported;
+  int touched = 0;
+  const Span span = span_of(nloc, offset, ngroup, &touched);
+  VSV_SPAN_DISPATCH(span_normalize, x, sc, sc_mode, relu, span, groups, channels, sums,
+                    sc_sums, mean, rstd, run_mean, run_var, sc_mean, sc_rstd, sc_run_mean,
+                    sc_run_var, mom, upd_mean, upd_var, eps, out, num_sms,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The backward's partial sums per (group, sum, channel) into sums (G, ns,
+// C), ns = 3 with a normalized shortcut, else 2; y (under relu) as in
+// bn_train_bwd.
+extern "C" int bn_span_bwd_reduce(int dtype, const void* x, const void* y, const void* dy,
+                                  const void* sc, int sc_mode, long long nloc,
+                                  long long offset, long long ngroup, int groups,
+                                  int channels, int chunks, const float* mean,
+                                  const float* rstd, const float* sc_mean,
+                                  const float* sc_rstd, float* part, float* sums,
+                                  void* stream) {
+  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
+    return vsv::kShapeUnsupported;
+  int touched = 0;
+  const Span span = span_of(nloc, offset, ngroup, &touched);
+  VSV_SPAN_DISPATCH(span_bwd_reduce, x, y, dy, sc, sc_mode, span, touched, groups, channels,
+                    chunks, mean, rstd, sc_mean, sc_rstd, part, sums,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// After the all-reduce of bn_span_bwd_reduce's sums: dx (and the shortcut's
+// gradient) of the rank's rows; coef takes ns * G * C floats.
+extern "C" int bn_span_bwd_grad(int dtype, const void* x, const void* y, const void* dy,
+                                const void* sc, int sc_mode, long long nloc, long long offset,
+                                long long ngroup, int groups, int channels, const float* mean,
+                                const float* rstd, const float* sc_mean, const float* sc_rstd,
+                                const float* sums, float* coef, void* dx, void* dsc,
+                                int num_sms, void* stream) {
+  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
+    return vsv::kShapeUnsupported;
+  int touched = 0;
+  const Span span = span_of(nloc, offset, ngroup, &touched);
+  VSV_SPAN_DISPATCH(span_bwd_grad, x, y, dy, sc, sc_mode, span, groups, channels, mean, rstd,
+                    sc_mean, sc_rstd, sums, coef, dx, dsc, num_sms,
+                    static_cast<cudaStream_t>(stream));
 }

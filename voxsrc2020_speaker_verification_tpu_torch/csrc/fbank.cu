@@ -55,6 +55,22 @@
 // cluster read it through L1/L2; from HBM once (205 MB at the training
 // shape, 256 x 500 frames: 0.06 ms against 0.78 ms of fp32 FMA). The
 // dither-off variant is the same code without those lines.
+// General path (fbank_general_f32), for the shapes the design above does
+// not take: more than 256 FFT bins (a padded frame over 512 samples, as at
+// 32 kHz or with a 50 ms frame) or a count not a multiple of 4, more than
+// kMelCap packed mel weights, a frame length or shift over 4096, or a
+// layout over a CTA's shared memory. A simple kernel that is right: a CTA
+// of 256 threads takes kGenFrames frames of one utterance (one frame where
+// the mel accumulators of eight do not fit) and walks the FFT bins in tiles
+// of 256, a thread a bin. For each tile it stages the frames' samples in
+// chunks of kGenRows rows (with dither * noise added, the draw rule of the
+// design above), streams the A/B rows of its bin from global memory (L2:
+// 256 threads read 1 KB of each row together), forms the power of the tile
+// in shared memory, and adds the tile's share of every mel column (the
+// dense M, streamed from L2) into per-(frame, column) accumulators in
+// shared memory; after the last tile, the log. Every sum runs in a fixed
+// order: reruns agree bit for bit. Bound as above (operations); it reads
+// A/B again for every 8 frames, which the design above avoids.
 // All launch decisions (cluster, tile, warps, grid, variant) are made here;
 // the wrapper passes shapes, the packed M and the noise.
 #include <cooperative_groups.h>
@@ -420,6 +436,116 @@ int launch(Args args, size_t smem, int num_bins, void* stream) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// general path
+// ---------------------------------------------------------------------------
+
+constexpr int kGenThreads = 256;  // a thread a FFT bin of the tile
+constexpr int kGenRows = 256;     // samples a frame per staged chunk
+constexpr int kGenFrames = 8;     // frames a CTA (1 where 8 frames' mel sums do not fit)
+
+struct GenArgs {
+  const float* waves;
+  const float* a;
+  const float* b;
+  const float* m;  // (num_fft_bins, num_bins) dense
+  float* out;
+  int num_samples, num_frames, frame_length, frame_shift, num_fft_bins, num_bins;
+  int use_power, use_log;
+  float floor_value;
+  const float* noise;  // (batch, num_frames, frame_length), or null: no dither
+  float dither;
+};
+
+size_t gen_smem_bytes(int frames, int num_bins) {
+  return sizeof(float) * static_cast<size_t>(frames) * (kGenRows + kGenThreads + num_bins);
+}
+
+template <int F, bool kDither>
+__global__ void __launch_bounds__(kGenThreads) fbank_general_kernel(GenArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                   // F x kGenRows samples of the chunk
+  float* pw = xs + F * kGenRows;      // F x kGenThreads power of the tile
+  float* mel = pw + F * kGenThreads;  // F x num_bins accumulators
+  const int tid = threadIdx.x, nb = g.num_bins;
+  const int bb = blockIdx.y, t0 = blockIdx.x * F;
+  const float* wave = g.waves + static_cast<long long>(bb) * g.num_samples;
+  for (int i = tid; i < F * nb; i += kGenThreads) mel[i] = 0.f;
+  for (int k0 = 0; k0 < g.num_fft_bins; k0 += kGenThreads) {
+    const int k = k0 + tid;
+    float re[F], im[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) re[f] = im[f] = 0.f;
+    for (int r0 = 0; r0 < g.frame_length; r0 += kGenRows) {
+      const int rn = min(kGenRows, g.frame_length - r0);
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      for (int i = tid; i < F * kGenRows; i += kGenThreads) {
+        const int f = i / kGenRows, r = i % kGenRows, t = t0 + f;
+        float v = 0.f;
+        if (t < g.num_frames && r < rn) {
+          const long long s = static_cast<long long>(t) * g.frame_shift + r0 + r;
+          v = s < g.num_samples ? wave[s] : 0.f;
+          if constexpr (kDither)
+            v += g.dither *
+                 g.noise[(static_cast<long long>(bb) * g.num_frames + t) * g.frame_length + r0 + r];
+        }
+        xs[i] = v;
+      }
+      __syncthreads();
+      if (k < g.num_fft_bins) {
+        for (int r = 0; r < rn; ++r) {
+          const long long row = static_cast<long long>(r0 + r) * g.num_fft_bins + k;
+          const float av = __ldg(g.a + row), bv = __ldg(g.b + row);
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float x = xs[f * kGenRows + r];
+            re[f] = fmaf(x, av, re[f]);
+            im[f] = fmaf(x, bv, im[f]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      float p = re[f] * re[f] + im[f] * im[f];
+      if (!g.use_power) p = sqrtf(p);
+      pw[f * kGenThreads + tid] = p;
+    }
+    __syncthreads();
+    const int kn = min(kGenThreads, g.num_fft_bins - k0);
+    for (int i = tid; i < F * nb; i += kGenThreads) {
+      const int f = i / nb, c = i % nb;
+      const float* mc = g.m + static_cast<long long>(k0) * nb + c;
+      const float* pf = pw + f * kGenThreads;
+      float acc = mel[i];
+      for (int kk = 0; kk < kn; ++kk) acc = fmaf(pf[kk], __ldg(mc + static_cast<long long>(kk) * nb), acc);
+      mel[i] = acc;
+    }
+  }
+  // each accumulator is read by the thread that wrote it: no barrier needed
+  for (int i = tid; i < F * nb; i += kGenThreads) {
+    const int f = i / nb, c = i % nb, t = t0 + f;
+    if (t >= g.num_frames) continue;
+    float v = mel[i];
+    if (g.use_log) v = logf(fmaxf(v, g.floor_value));
+    g.out[(static_cast<long long>(bb) * g.num_frames + t) * nb + c] = v;
+  }
+}
+
+template <int F, bool kDither>
+int launch_general(const GenArgs& args, int batch, void* stream) {
+  const size_t smem = gen_smem_bytes(F, args.num_bins);
+  cudaError_t err = cudaFuncSetAttribute(fbank_general_kernel<F, kDither>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((args.num_frames + F - 1) / F),
+                  static_cast<unsigned>(batch));
+  fbank_general_kernel<F, kDither>
+      <<<grid, kGenThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The launch plan of a call: the clusters the card holds at once and the
@@ -459,4 +585,41 @@ extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
             floor_value, noise, dither};
   return noise != nullptr ? launch<true>(args, smem, num_bins, stream)
                           : launch<false>(args, smem, num_bins, stream);
+}
+
+// The general path's frames a CTA for num_bins mel columns (8, or 1 where
+// eight frames' accumulators do not fit), 0 if not even one frame's do.
+extern "C" int fbank_general_plan(int num_bins, int* frames_out, int* smem_bytes_out) {
+  const size_t limit = static_cast<size_t>(kSmemMax) - 2048;
+  int frames = 0;
+  if (num_bins >= 1) {
+    if (gen_smem_bytes(kGenFrames, num_bins) <= limit) frames = kGenFrames;
+    else if (gen_smem_bytes(1, num_bins) <= limit) frames = 1;
+  }
+  *frames_out = frames;
+  *smem_bytes_out = frames ? static_cast<int>(gen_smem_bytes(frames, num_bins)) : 0;
+  return frames ? 0 : vsv::kShapeUnsupported;
+}
+
+// The general path: the arguments of fbank_f32, with M dense (num_fft_bins,
+// num_bins) in place of its columns. Any frame length, shift and FFT bin
+// count; mel columns as long as one frame's accumulators fit a CTA
+// (fbank_general_plan).
+extern "C" int fbank_general_f32(const float* waves, const float* a, const float* b,
+                                 const float* m, float* out, int batch, int num_samples,
+                                 int num_frames, int frame_length, int frame_shift,
+                                 int num_fft_bins, int num_bins, int use_power, int use_log,
+                                 float floor_value, const float* noise, float dither,
+                                 void* stream) {
+  int frames = 0, smem = 0;
+  if (num_fft_bins < 1 || frame_length < 1 || frame_shift < 1 || batch < 1 ||
+      batch > 65535 || fbank_general_plan(num_bins, &frames, &smem) != 0)
+    return vsv::kShapeUnsupported;
+  const GenArgs args{waves, a, b, m, out, num_samples, num_frames, frame_length, frame_shift,
+                     num_fft_bins, num_bins, use_power, use_log, floor_value, noise, dither};
+  if (frames == kGenFrames)
+    return noise != nullptr ? launch_general<kGenFrames, true>(args, batch, stream)
+                            : launch_general<kGenFrames, false>(args, batch, stream);
+  return noise != nullptr ? launch_general<1, true>(args, batch, stream)
+                          : launch_general<1, false>(args, batch, stream);
 }

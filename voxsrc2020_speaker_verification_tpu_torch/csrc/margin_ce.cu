@@ -14,7 +14,16 @@
 //   logit[c] = scale * (c == y ? v cos m - sqrt(max(1 - v^2, 0)) sin m - m1 : v)
 //   loss[b]  = logsumexp(logit) - logit[y],  correct[b] = (argmax logit == y)
 //
-// (first-index argmax, as jnp.argmax.) The backward recomputes the row and
+// (first-index argmax, as jnp.argmax.) Class-sharded (partial) mode, for a
+// head whose classes are split over the ranks of a model group: cos_all
+// holds classes [class_offset, class_offset + C) of the row, the label is
+// global (its column is y - class_offset, or none here), and the forward
+// writes for each row the shard's running max of the logits, the sum of
+// exp(logit - max), the target logit (0 where the label lies in another
+// shard) and the first-index argmax (global index) instead of the loss:
+// the caller all-reduces these over the model group into the row's
+// log-sum-exp, loss and argmax (losses/projections.py), and the backward
+// takes that global log-sum-exp. The backward recomputes the row and
 // writes dcos_all: (softmax - onehot) * scale * dloss, times
 // cos m + sin m * v / sin(theta) at the target, zero where the clip is
 // active and, by rule, at the target where |v| = 1 (class_grad), routed to
@@ -218,10 +227,30 @@ __device__ __forceinline__ float block_sum(float s, float* red) {
   return s;
 }
 
+// Row outputs of the forward: loss, correct and lse (whole-class), or in
+// partial mode the shard's max, sum of exp(logit - max), target logit and
+// global argmax, each (batch,) at out[k * batch + b].
+template <bool kPartial>
+__device__ __forceinline__ void write_row(int b, int batch, int y, int classes, int offset,
+                                          float best, int best_c, float sumexp, float target,
+                                          float* __restrict__ out) {
+  if constexpr (kPartial) {
+    out[b] = best;
+    out[batch + b] = sumexp;
+    out[2 * batch + b] = (y >= 0 && y < classes) ? target : 0.f;
+    out[3 * batch + b] = static_cast<float>(best_c + offset);
+  } else {
+    const float lse = best + logf(sumexp);
+    out[b] = lse - target;
+    out[batch + b] = best_c == y ? 1.f : 0.f;
+    out[2 * batch + b] = lse;
+  }
+}
+
+template <bool kPartial>
 __global__ void __launch_bounds__(kThreads) margin_ce_fwd_kernel(
     const float* __restrict__ cos_all, const long long* __restrict__ labels, int centers,
-    int batch, int classes, Margin mg, float* __restrict__ loss, float* __restrict__ correct,
-    float* __restrict__ lse_out) {
+    int batch, int classes, int offset, Margin mg, float* __restrict__ out) {
   extern __shared__ __align__(16) float slab[];
   __shared__ uint64_t bar;
   __shared__ int base[kMaxCenters];
@@ -230,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) margin_ce_fwd_kernel(
   stage_row(cos_all, centers, batch, classes, slab, base, &bar);
 
   const int b = blockIdx.x;
-  const int y = static_cast<int>(labels[b]);
+  const int y = static_cast<int>(labels[b] - offset);
   // pass 1: logits (over center 0's slab), their max and first argmax
   float best = -INFINITY;
   int best_c = 0x7fffffff;
@@ -248,25 +277,22 @@ __global__ void __launch_bounds__(kThreads) margin_ce_fwd_kernel(
   float s = 0.f;
   for (int c = threadIdx.x; c < classes; c += kThreads) s += expf(slab[base[0] + c] - best);
   s = block_sum(s, red_v);
-  if (threadIdx.x == 0) {
-    const float lse = best + logf(s);
-    loss[b] = lse - slab[base[0] + y];
-    correct[b] = best_c == y ? 1.f : 0.f;
-    lse_out[b] = lse;
-  }
+  if (threadIdx.x == 0)
+    write_row<kPartial>(b, batch, y, classes, offset, best, best_c, s,
+                        (y >= 0 && y < classes) ? slab[base[0] + y] : 0.f, out);
 }
 
 __global__ void __launch_bounds__(kThreads) margin_ce_bwd_kernel(
     const float* __restrict__ cos_all, const long long* __restrict__ labels,
     const float* __restrict__ lse, const float* __restrict__ dloss, int centers, int batch,
-    int classes, Margin mg, float* __restrict__ dcos_all) {
+    int classes, int offset, Margin mg, float* __restrict__ dcos_all) {
   extern __shared__ __align__(16) float slab[];
   __shared__ uint64_t bar;
   __shared__ int base[kMaxCenters];
   stage_row(cos_all, centers, batch, classes, slab, base, &bar);
 
   const int b = blockIdx.x;
-  const int y = static_cast<int>(labels[b]);
+  const int y = static_cast<int>(labels[b] - offset);
   const float l0 = lse[b], g0 = dloss[b];
   // each center's value becomes its gradient, in place
   for (int c = threadIdx.x; c < classes; c += kThreads) {
@@ -305,14 +331,14 @@ __global__ void __launch_bounds__(kThreads) margin_ce_bwd_kernel(
 // between passes at these sizes): the forward reads it twice (max and
 // argmax, then the sum of exp), the backward once, and writes dcos_all
 // directly. So it returns what the slab path would, bit for bit.
+template <bool kPartial>
 __global__ void __launch_bounds__(kThreads) margin_ce_stream_fwd_kernel(
     const float* __restrict__ cos_all, const long long* __restrict__ labels, int centers,
-    int batch, int classes, Margin mg, float* __restrict__ loss, float* __restrict__ correct,
-    float* __restrict__ lse_out) {
+    int batch, int classes, int offset, Margin mg, float* __restrict__ out) {
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
   const int b = blockIdx.x;
-  const int y = static_cast<int>(labels[b]);
+  const int y = static_cast<int>(labels[b] - offset);
   const long long kstride = static_cast<long long>(batch) * classes;
   const float* row = cos_all + static_cast<long long>(b) * classes;
   auto logit = [&](int c) {
@@ -334,20 +360,17 @@ __global__ void __launch_bounds__(kThreads) margin_ce_stream_fwd_kernel(
   float s = 0.f;
   for (int c = threadIdx.x; c < classes; c += kThreads) s += expf(logit(c) - best);
   s = block_sum(s, red_v);
-  if (threadIdx.x == 0) {
-    const float lse = best + logf(s);
-    loss[b] = lse - logit(y);
-    correct[b] = best_c == y ? 1.f : 0.f;
-    lse_out[b] = lse;
-  }
+  if (threadIdx.x == 0)
+    write_row<kPartial>(b, batch, y, classes, offset, best, best_c, s,
+                        (y >= 0 && y < classes) ? logit(y) : 0.f, out);
 }
 
 __global__ void __launch_bounds__(kThreads) margin_ce_stream_bwd_kernel(
     const float* __restrict__ cos_all, const long long* __restrict__ labels,
     const float* __restrict__ lse, const float* __restrict__ dloss, int centers, int batch,
-    int classes, Margin mg, float* __restrict__ dcos_all) {
+    int classes, int offset, Margin mg, float* __restrict__ dcos_all) {
   const int b = blockIdx.x;
-  const int y = static_cast<int>(labels[b]);
+  const int y = static_cast<int>(labels[b] - offset);
   const long long kstride = static_cast<long long>(batch) * classes;
   const long long roff = static_cast<long long>(b) * classes;
   const float l0 = lse[b], g0 = dloss[b];
@@ -393,23 +416,62 @@ extern "C" int margin_ce_plan(int centers, int classes, int* slab_bytes_out) {
 // loss, correct (0/1) and lse, each (batch,) fp32. One CTA a row; the row
 // is staged in shared memory when its slab fits (at most 8 centers and a
 // 200 KB slab), else every pass streams it from global memory.
-extern "C" int margin_ce_fwd(const float* cos_all, const long long* labels,
-                             int centers, int batch, int classes, float scale,
-                             float cos_m, float sin_m, float m1, float* loss,
-                             float* correct, float* lse, void* stream) {
+namespace {
+
+template <bool kPartial>
+int forward(const float* cos_all, const long long* labels, int centers, int batch,
+            int classes, int offset, const Margin& mg, float* out, void* stream) {
   if (centers < 1 || classes < 1) return vsv::kShapeUnsupported;
   const size_t smem = slab_bytes(centers, classes);
-  const Margin mg{scale, cos_m, sin_m, m1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (smem == 0) {
-    margin_ce_stream_fwd_kernel<<<batch, kThreads, 0, st>>>(
-        cos_all, labels, centers, batch, classes, mg, loss, correct, lse);
+    margin_ce_stream_fwd_kernel<kPartial><<<batch, kThreads, 0, st>>>(
+        cos_all, labels, centers, batch, classes, offset, mg, out);
   } else {
-    if (const int err = prepare(margin_ce_fwd_kernel, smem)) return err;
-    margin_ce_fwd_kernel<<<batch, kThreads, smem, st>>>(
-        cos_all, labels, centers, batch, classes, mg, loss, correct, lse);
+    if (const int err = prepare(margin_ce_fwd_kernel<kPartial>, smem)) return err;
+    margin_ce_fwd_kernel<kPartial><<<batch, kThreads, smem, st>>>(
+        cos_all, labels, centers, batch, classes, offset, mg, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int backward(const float* cos_all, const long long* labels, const float* lse,
+             const float* dloss, int centers, int batch, int classes, int offset,
+             const Margin& mg, float* dcos_all, void* stream) {
+  if (centers < 1 || classes < 1) return vsv::kShapeUnsupported;
+  const size_t smem = slab_bytes(centers, classes);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem == 0) {
+    margin_ce_stream_bwd_kernel<<<batch, kThreads, 0, st>>>(
+        cos_all, labels, lse, dloss, centers, batch, classes, offset, mg, dcos_all);
+  } else {
+    if (const int err = prepare(margin_ce_bwd_kernel, smem)) return err;
+    margin_ce_bwd_kernel<<<batch, kThreads, smem, st>>>(
+        cos_all, labels, lse, dloss, centers, batch, classes, offset, mg, dcos_all);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out: (3, batch) fp32, rows loss, correct (0/1) and lse.
+extern "C" int margin_ce_fwd(const float* cos_all, const long long* labels,
+                             int centers, int batch, int classes, float scale,
+                             float cos_m, float sin_m, float m1, float* out, void* stream) {
+  return forward<false>(cos_all, labels, centers, batch, classes, 0,
+                        Margin{scale, cos_m, sin_m, m1}, out, stream);
+}
+
+// Class-sharded mode: cos_all holds classes [class_offset, class_offset +
+// classes) of a head; labels are global. out: (4, batch) fp32, rows the
+// shard's max logit, sum of exp(logit - max), target logit (0 where the
+// label is another shard's) and first-index argmax (a global class index).
+extern "C" int margin_ce_partial_fwd(const float* cos_all, const long long* labels,
+                                     int centers, int batch, int classes, int class_offset,
+                                     float scale, float cos_m, float sin_m, float m1,
+                                     float* out, void* stream) {
+  return forward<true>(cos_all, labels, centers, batch, classes, class_offset,
+                       Margin{scale, cos_m, sin_m, m1}, out, stream);
 }
 
 // dloss: (batch,) fp32, the gradient of the per-row loss. Writes every
@@ -419,17 +481,17 @@ extern "C" int margin_ce_bwd(const float* cos_all, const long long* labels,
                              int batch, int classes, float scale, float cos_m,
                              float sin_m, float m1, float* dcos_all,
                              void* stream) {
-  if (centers < 1 || classes < 1) return vsv::kShapeUnsupported;
-  const size_t smem = slab_bytes(centers, classes);
-  const Margin mg{scale, cos_m, sin_m, m1};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smem == 0) {
-    margin_ce_stream_bwd_kernel<<<batch, kThreads, 0, st>>>(
-        cos_all, labels, lse, dloss, centers, batch, classes, mg, dcos_all);
-  } else {
-    if (const int err = prepare(margin_ce_bwd_kernel, smem)) return err;
-    margin_ce_bwd_kernel<<<batch, kThreads, smem, st>>>(
-        cos_all, labels, lse, dloss, centers, batch, classes, mg, dcos_all);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return backward(cos_all, labels, lse, dloss, centers, batch, classes, 0,
+                  Margin{scale, cos_m, sin_m, m1}, dcos_all, stream);
+}
+
+// Class-sharded mode: lse is the row's global log-sum-exp (all-reduced from
+// margin_ce_partial_fwd's outputs); writes this shard's dcos_all.
+extern "C" int margin_ce_partial_bwd(const float* cos_all, const long long* labels,
+                                     const float* lse, const float* dloss, int centers,
+                                     int batch, int classes, int class_offset, float scale,
+                                     float cos_m, float sin_m, float m1, float* dcos_all,
+                                     void* stream) {
+  return backward(cos_all, labels, lse, dloss, centers, batch, classes, class_offset,
+                  Margin{scale, cos_m, sin_m, m1}, dcos_all, stream);
 }

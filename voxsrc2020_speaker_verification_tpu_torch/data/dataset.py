@@ -128,6 +128,27 @@ class SyntheticDataset:
             )
 
 
+class RowBlock:
+    """Rows [start, stop) of every microbatch of another feeder's (A, B, ...)
+    batches: one data rank's block of a global batch that every rank draws
+    alike (``cli/train.py --synthetic`` across processes)."""
+
+    def __init__(self, feeder, start: int, stop: int):
+        self.feeder, self.start, self.stop_row = feeder, start, stop
+
+    def __iter__(self):
+        rows = slice(self.start, self.stop_row)
+        for feats, labels in self.feeder:
+            if isinstance(feats, tuple):
+                yield (tuple(np.ascontiguousarray(x[:, rows]) for x in feats),
+                       np.ascontiguousarray(labels[:, rows]))
+            else:
+                yield np.ascontiguousarray(feats[:, rows]), np.ascontiguousarray(labels[:, rows])
+
+    def stop(self):
+        self.feeder.stop()
+
+
 class BatchFeeder:
     """Background feeder: one thread per source pushes samples into a
     bounded queue; one thread assembles (A, B, T, F) / (A, B) batches.

@@ -150,7 +150,10 @@ FBANK = CudaKernel("fbank", "fbank.cu", {
     "fbank_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _F, _P, _F, _P],
     "fbank_plan": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
-}, paths={"fbank_f32": ("plain", "dither")})
+    "fbank_general_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                          _F, _P],
+    "fbank_general_plan": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+}, paths={"fbank_f32": ("plain", "dither"), "fbank_general_f32": ("plain", "dither")})
 SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
     "split_group": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -182,12 +185,22 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                        _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _P, _P],
     "bn_cluster_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    "bn_span_stats": [_I, _P, _L, _L, _L, _I, _I, _I, _P, _P, _P],
+    "bn_span_normalize": [_I, _P, _P, _I, _I, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _F, _F, _F, _F, _P, _I, _P],
+    "bn_span_bwd_reduce": [_I, _P, _P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _P, _P, _P, _P,
+                           _P, _P, _P],
+    "bn_span_bwd_grad": [_I, _P, _P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _P],
 })
 MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
-    "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
+    "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "margin_ce_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "margin_ce_partial_fwd": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "margin_ce_partial_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "margin_ce_plan": [_I, _I, ctypes.POINTER(_I)],
-}, paths={"margin_ce_fwd": ("slab", "stream"), "margin_ce_bwd": ("slab", "stream")})
+}, paths={fn: ("slab", "stream") for fn in ("margin_ce_fwd", "margin_ce_bwd",
+                                            "margin_ce_partial_fwd", "margin_ce_partial_bwd")})
 SLIDING_CMVN = CudaKernel("sliding_cmvn", "sliding_cmvn.cu", {
     "sliding_cmvn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
 })

@@ -247,9 +247,11 @@ def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0),
     the framed samples (K1 takes them contiguous).
 
     On a CUDA tensor this launches K1 (``csrc/fbank.cu``; its dithered
-    variant with noise), which reads the mel matrix by columns
-    (:func:`mel_columns`), 128 columns a pass (one pass for the 40- and
-    80-bin banks); on a CPU tensor it runs :func:`fbank_reference`. Padded
+    variant with noise) in the design :func:`kernel_route` names: the fast
+    one reads the mel matrix by columns (:func:`mel_columns`), 128 columns a
+    pass (one pass for the 40- and 80-bin banks); the general one takes the
+    shapes the fast one does not. On a CPU tensor it runs
+    :func:`fbank_reference`. Padded
     samples past an utterance's end give frames to be masked downstream.
     """
     if noise is None and cfg.dither != 0.0:
@@ -271,15 +273,59 @@ def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0),
                       device=waves.device)
     if t == 0 or batch == 0:
         return out
-    a, b, _ = _device_matrices(cfg, waves.device)
+    a, b, m = _device_matrices(cfg, waves.device)
+    path = "plain" if noise is None else "dither"
+    if kernel_route(cfg) == "general":
+        FBANK.launch(
+            "fbank_general_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(m), ptr(out),
+            batch, num_samples, t, cfg.frame_length, cfg.frame_shift, a.shape[1],
+            cfg.num_bins, int(cfg.use_power), int(cfg.use_log_fbank), FLT_EPSILON,
+            ptr(noise), float(cfg.dither), path=path)
+        return out
     starts, offsets, weights = _device_mel_columns(cfg, waves.device)
     FBANK.launch(
         "fbank_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(starts), ptr(offsets),
         ptr(weights), ptr(out), batch, num_samples, t, cfg.frame_length, cfg.frame_shift,
         a.shape[1], cfg.num_bins, weights.numel(), int(cfg.use_power),
-        int(cfg.use_log_fbank), FLT_EPSILON, ptr(noise), float(cfg.dither),
-        path="plain" if noise is None else "dither")
+        int(cfg.use_log_fbank), FLT_EPSILON, ptr(noise), float(cfg.dither), path=path)
     return out
+
+
+# The fast design's limits (csrc/fbank.cu: fbank_f32 refuses the rest): FFT
+# bins (kSplit * kBins, a multiple of 4), packed mel weights (kMelCap), frame
+# length and shift, and its shared-memory layout (Layout) under the 227 KB a
+# CTA can take, less 2 KB for the static arrays.
+_FAST_BINS, _FAST_MEL_CAP, _FAST_FRAME_MAX = 256, 1024, 4096
+_FAST_SMEM_LIMIT = 227 * 1024 - 2048
+
+
+def fast_smem_bytes(frame_length: int, frame_shift: int) -> int:
+    """Shared memory of the fast design's CTA, csrc/fbank.cu's Layout: the
+    A/B slice (rows padded to 8 warps x 64 floats), two padded sample
+    buffers of a 32-frame tile, the warps' partial sums, two power buffers
+    and the packed mel weights."""
+    kpad = -(-frame_length // 8) * 8
+    n = 31 * frame_shift + kpad
+    seg = (n + 4 * -(-n // frame_shift) + 3) & ~3
+    return 4 * (kpad * 64 + 2 * seg + 8 * 64 * 32 + 2 * 4 * 256 + _FAST_MEL_CAP)
+
+
+@lru_cache(maxsize=32)
+def kernel_route(cfg: FbankConfig) -> str:
+    """K1's design for a config: ``"fast"`` (persistent clusters that keep
+    the analysis matrices on chip) where its limits hold, else
+    ``"general"`` (``fbank_general_f32``: frames staged, A/B and the dense mel
+    matrix streamed from L2), which takes every shape this module computes:
+    more than 256 FFT bins (a padded frame over 512 samples: 32 kHz, or a
+    frame over 32 ms at 16 kHz), more than 1024 packed mel weights, a frame
+    length or shift over 4096, or a layout over the fast design's shared
+    memory."""
+    nfft = cfg.padded_frame_length // 2
+    nnz = mel_columns(analysis_matrices(cfg)[2])[2].size
+    fast = (nfft <= _FAST_BINS and nfft % 4 == 0 and nnz <= _FAST_MEL_CAP
+            and cfg.frame_length <= _FAST_FRAME_MAX and cfg.frame_shift <= _FAST_FRAME_MAX
+            and fast_smem_bytes(cfg.frame_length, cfg.frame_shift) <= _FAST_SMEM_LIMIT)
+    return "fast" if fast else "general"
 
 
 def kernel_plan(cfg: FbankConfig = FbankConfig(dither=0.0), device=None) -> dict:

@@ -11,7 +11,8 @@ beside them:
   optional shortcut add, relu and time mask in one pass;
 * :func:`bn_train` -- K5 (``csrc/bn_train.cu``): training batch norm with
   statistics per batch group, the running-statistics update and K3's
-  epilogue, forward and backward;
+  epilogue, forward and backward; across data ranks (``parallel/``), groups
+  that span ranks all-reduce their sums (the spanning mode, :func:`bn_span`);
 * :func:`stats_pool` -- K4 (``csrc/stats_pool.cu``): masked mean ||
   sqrt(var + eps) over time; its backward is K4b (``csrc/stats_pool_bwd.cu``);
 * :func:`att_pool` -- K8 (``csrc/att_pool.cu``): the masked softmax over time
@@ -29,6 +30,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 import threading
@@ -40,6 +42,7 @@ from torch import nn
 
 from ..kernels import (ATT_POOL, BN_ACT, BN_TRAIN, STATS_POOL, STATS_POOL_BWD,
                        KernelError, check_cuda, dtype_code, num_sms, ptr)
+from ..parallel.sharding import active_mesh, all_reduce_, all_reduce_sum
 
 BN_MOMENTUM = 0.997
 BN_EPSILON = 1e-5
@@ -246,14 +249,16 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
     return out
 
 
-def _update_factors(x: torch.Tensor, groups: int):
+def _update_factors(x: torch.Tensor, groups: int, n: Optional[int] = None):
     """(rows per group, weight of the new mean, weight of the new variance)
     of the running update. The variance carries Bessel's n/(n-1) on 4-D
     inputs only: the reference's fused 4-D batch norm updates with the
     unbiased variance, its 2-D head BNs with the biased one
     (JAX ops/nn.py:156-169). The products are taken in double, as the JAX
-    package takes them, and rounded to float32 once."""
-    n = (x.shape[0] // groups) * math.prod(x.shape[2:])
+    package takes them, and rounded to float32 once. ``n`` overrides the
+    rows a group of x would hold (a group that spans ranks)."""
+    if n is None:
+        n = (x.shape[0] // groups) * math.prod(x.shape[2:])
     bessel = n / (n - 1) if (n > 1 and x.ndim >= 4) else 1.0
     return n, 1.0 - BN_MOMENTUM, (1.0 - BN_MOMENTUM) * bessel
 
@@ -502,6 +507,241 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous(memory_format=CHANNELS_LAST if t.ndim == 4 else torch.contiguous_format)
 
 
+# ---------------------------------------------------------------------------
+# K5's spanning mode: BN groups that span the data ranks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SpanLayout:
+    """Where one rank's rows lie among the BN groups of the global batch, in
+    rows of C channels (a batch row of a 4-D input is T * F of them): the
+    rank's ``nloc`` rows start at global row ``offset``; a group is
+    ``ngroup`` consecutive global rows, ``groups`` of them."""
+    nloc: int
+    offset: int
+    ngroup: int
+    groups: int
+
+    @property
+    def touched(self) -> int:
+        """The groups this rank's rows meet."""
+        return (self.offset + self.nloc - 1) // self.ngroup - self.offset // self.ngroup + 1
+
+    @staticmethod
+    def of(x: torch.Tensor, groups: int, rank: int, ranks: int) -> "SpanLayout":
+        """Data rank ``rank`` of ``ranks`` holding batch block ``x`` (every
+        rank an equal block, in rank order)."""
+        per = math.prod(x.shape[2:])
+        total = x.shape[0] * ranks
+        if total % groups:
+            raise ValueError(f"global batch {total} not divisible into {groups} BN groups")
+        return SpanLayout(x.shape[0] * per, rank * x.shape[0] * per, total // groups * per,
+                          groups)
+
+
+def _span_rows(x: torch.Tensor) -> torch.Tensor:
+    """(rows, C) float32 view of x in its channels-last row order."""
+    return x.movedim(1, -1).float().reshape(-1, x.shape[1])
+
+
+def _span_segments(layout: SpanLayout):
+    """(group, local rows [lo, hi)) of each group this rank's rows meet."""
+    g0 = layout.offset // layout.ngroup
+    for g in range(g0, g0 + layout.touched):
+        lo = max(g * layout.ngroup, layout.offset) - layout.offset
+        hi = min((g + 1) * layout.ngroup, layout.offset + layout.nloc) - layout.offset
+        yield g, lo, hi
+
+
+def bn_span_partials_reference(x: torch.Tensor, layout: SpanLayout) -> torch.Tensor:
+    """Plain version of the spanning mode's statistics launch: this rank's
+    float32 sum(x), sum(x^2) per (group, channel), (G, 2, C), zero for the
+    groups it holds no row of (``_group_normalize``'s moments, split by
+    rows); differentiable. Each group's rows are contiguous and summed by
+    one reduction (a row-by-row accumulation would stray ~n * eps)."""
+    rows = _span_rows(x)
+    g0, c = layout.offset // layout.ngroup, x.shape[1]
+    parts = [torch.stack([rows[lo:hi].sum(0), torch.square(rows[lo:hi]).sum(0)])
+             for _, lo, hi in _span_segments(layout)]
+    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=x.device)
+    return torch.cat([zeros((g0, 2, c)), torch.stack(parts),
+                      zeros((layout.groups - g0 - layout.touched, 2, c))])
+
+
+def _span_normalize_reference(x, sums, running_mean, running_var, layout, eps, update):
+    """Normalize this rank's rows with the global sums (G, 2, C), group by
+    group; the running update from the groups' moments, as
+    ``_group_normalize``."""
+    mean = sums[:, 0] / layout.ngroup
+    var = sums[:, 1] / layout.ngroup - torch.square(mean)
+    if update:
+        _, upd_mean, upd_var = _update_factors(x, layout.groups, layout.ngroup)
+        with torch.no_grad():
+            running_mean.copy_(BN_MOMENTUM * running_mean + upd_mean * mean.detach().mean(0))
+            running_var.copy_(BN_MOMENTUM * running_var + upd_var * var.detach().mean(0))
+    rows = _span_rows(x)
+    y = torch.cat([(rows[lo:hi] - mean[g]) * torch.rsqrt(var[g] + eps)
+                   for g, lo, hi in _span_segments(layout)])
+    return y.reshape(x.movedim(1, -1).shape).movedim(-1, 1).to(x.dtype)
+
+
+def bn_span_reference(x, running_mean, running_var, layout: SpanLayout, group, *,
+                      relu=False, shortcut=None, shortcut_running_mean=None,
+                      shortcut_running_var=None, eps=BN_EPSILON, update=True):
+    """Plain version of :func:`bn_span`: the partial sums of this rank's
+    rows, summed over ``group`` by a differentiable all-reduce, then
+    :func:`bn_train_reference`'s normalize and epilogue; differentiable by
+    autograd."""
+    sums = bn_span_partials_reference(x, layout)
+    if shortcut_running_mean is not None:
+        sums = torch.stack([sums, bn_span_partials_reference(shortcut, layout)])
+        sums = all_reduce_sum(sums, group)
+        shortcut = _span_normalize_reference(shortcut, sums[1], shortcut_running_mean,
+                                             shortcut_running_var, layout, eps, update)
+        sums = sums[0]
+    else:
+        sums = all_reduce_sum(sums, group)
+    y = _span_normalize_reference(x, sums, running_mean, running_var, layout, eps, update)
+    if shortcut is not None:
+        y = y + shortcut
+    if relu:
+        y = torch.relu(y)
+    return y.contiguous(memory_format=CHANNELS_LAST) if y.ndim == 4 else y
+
+
+def _span_chunks(x: torch.Tensor, layout: SpanLayout) -> int:
+    return _bn_chunks(x.shape[1], min(layout.ngroup, layout.nloc), layout.touched,
+                      num_sms(x.device))
+
+
+def bn_span_partials(x: torch.Tensor, layout: SpanLayout) -> torch.Tensor:
+    """K5's spanning statistics launch (``bn_span_stats``): this rank's
+    sum(x), sum(x^2) per (group, channel), (G, 2, C) float32, zero for the
+    groups it holds no row of. x in the kernel layout."""
+    c = x.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    chunks = _span_chunks(x, layout)
+    part = torch.empty(layout.touched * chunks * 2 * c, **f32)
+    sums = torch.empty((layout.groups, 2, c), **f32)
+    BN_TRAIN.launch("bn_span_stats", x.device, dtype_code(x.dtype), ptr(x), layout.nloc,
+                    layout.offset, layout.ngroup, layout.groups, c, chunks, ptr(part),
+                    ptr(sums))
+    return sums
+
+
+def bn_span_apply(x, sums, running_mean, running_var, layout: SpanLayout, *, relu=False,
+                  shortcut=None, shortcut_sums=None, shortcut_running_mean=None,
+                  shortcut_running_var=None, eps=BN_EPSILON, update=True):
+    """K5's spanning normalize launch (``bn_span_normalize``) on the global
+    sums: returns (out, stats), stats (2 or 4, G, C) the (mean, rstd) of x
+    [and of the normalized shortcut]. Null running statistics when
+    ``update`` is False."""
+    sc_mode = 0 if shortcut is None else (2 if shortcut_sums is not None else 1)
+    if not update:
+        running_mean = running_var = shortcut_running_mean = shortcut_running_var = None
+    c = x.shape[1]
+    _, upd_mean, upd_var = _update_factors(x, layout.groups, layout.ngroup)
+    stats = torch.empty((4 if sc_mode == 2 else 2, layout.groups, c), dtype=torch.float32,
+                        device=x.device)
+    sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
+    out = torch.empty_like(x)
+    BN_TRAIN.launch(
+        "bn_span_normalize", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut), sc_mode,
+        int(relu), layout.nloc, layout.offset, layout.ngroup, layout.groups, c, ptr(sums),
+        ptr(shortcut_sums), ptr(stats[0]), ptr(stats[1]), ptr(running_mean),
+        ptr(running_var), *sc_stats, ptr(shortcut_running_mean), ptr(shortcut_running_var),
+        BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out), num_sms(x.device))
+    return out, stats
+
+
+def bn_span_bwd_partials(x, y, dy, stats, layout: SpanLayout, shortcut=None) -> torch.Tensor:
+    """K5's spanning backward reduce (``bn_span_bwd_reduce``): this rank's
+    sum(d), sum(d * xhat) [, sum(d * shat)] per (group, channel), (G, ns, C);
+    ``y`` (the forward output) under relu, else None; ``shortcut`` the
+    normalized shortcut's input."""
+    c = x.shape[1]
+    ns = 3 if stats.shape[0] == 4 else 2
+    f32 = dict(dtype=torch.float32, device=x.device)
+    chunks = _span_chunks(x, layout)
+    part = torch.empty(layout.touched * chunks * ns * c, **f32)
+    sums = torch.empty((layout.groups, ns, c), **f32)
+    sc_stats = (ptr(stats[2]), ptr(stats[3])) if ns == 3 else (None, None)
+    BN_TRAIN.launch("bn_span_bwd_reduce", x.device, dtype_code(x.dtype), ptr(x), ptr(y),
+                    ptr(dy), ptr(shortcut), 2 if ns == 3 else 0, layout.nloc, layout.offset,
+                    layout.ngroup, layout.groups, c, chunks, ptr(stats[0]), ptr(stats[1]),
+                    *sc_stats, ptr(part), ptr(sums))
+    return sums
+
+
+def bn_span_bwd_apply(x, y, dy, stats, sums, layout: SpanLayout, sc_mode: int = 0,
+                      shortcut=None):
+    """K5's spanning backward elementwise launch (``bn_span_bwd_grad``) on the
+    global sums: (dx, the shortcut's gradient or None)."""
+    c = x.shape[1]
+    ns = sums.shape[1]
+    dx = torch.empty_like(x)
+    dsc = torch.empty_like(x) if sc_mode else None
+    coef = torch.empty(ns * layout.groups * c, dtype=torch.float32, device=x.device)
+    sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
+    BN_TRAIN.launch("bn_span_bwd_grad", x.device, dtype_code(x.dtype), ptr(x), ptr(y),
+                    ptr(dy), ptr(shortcut), sc_mode, layout.nloc, layout.offset,
+                    layout.ngroup, layout.groups, c, ptr(stats[0]), ptr(stats[1]), *sc_stats,
+                    ptr(sums), ptr(coef), ptr(dx), ptr(dsc), num_sms(x.device))
+    return dx, dsc
+
+
+class _BNSpanFn(torch.autograd.Function):
+    """K5's spanning mode, forward and backward: the statistics launch, one
+    all-reduce of the partial sums over the data ranks (x's and a normalized
+    shortcut's together), the normalize launch; the backward the same with
+    its sums. Saves the forward output under relu, as the multi-kernel
+    design does."""
+
+    @staticmethod
+    def forward(ctx, x, shortcut, running_mean, running_var, sc_running_mean,
+                sc_running_var, layout, relu, eps, update, group):
+        sc_mode = 0 if shortcut is None else (2 if sc_running_mean is not None else 1)
+        sums = bn_span_partials(x, layout)
+        if sc_mode == 2:
+            sums = torch.stack([sums, bn_span_partials(shortcut, layout)])
+        all_reduce_(sums, group)
+        out, stats = bn_span_apply(
+            x, sums[0] if sc_mode == 2 else sums, running_mean, running_var, layout,
+            relu=relu, shortcut=shortcut, shortcut_sums=sums[1] if sc_mode == 2 else None,
+            shortcut_running_mean=sc_running_mean, shortcut_running_var=sc_running_var,
+            eps=eps, update=update)
+        ctx.save_for_backward(x, out if relu else None, shortcut if sc_mode == 2 else None,
+                              stats)
+        ctx.config = (layout, sc_mode, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y, shortcut, stats = ctx.saved_tensors
+        layout, sc_mode, group = ctx.config
+        dy = _kernel_layout(dy)
+        sums = all_reduce_(bn_span_bwd_partials(x, y, dy, stats, layout, shortcut), group)
+        dx, dsc = bn_span_bwd_apply(x, y, dy, stats, sums, layout, sc_mode, shortcut)
+        return dx, dsc, None, None, None, None, None, None, None, None, None
+
+
+def bn_span(x, running_mean, running_var, layout: SpanLayout, group, *, relu=False,
+            shortcut=None, shortcut_running_mean=None, shortcut_running_var=None,
+            eps=BN_EPSILON, update=True):
+    """Training BN of one data rank's rows where BN groups span ranks
+    (``layout``): the statistics of group g are those of its global rows on
+    every rank, summed over ``group`` (the data ranks' process group). On a
+    CPU tensor :func:`bn_span_reference`; on CUDA K5's spanning mode. The
+    arguments are :func:`bn_train`'s, already checked."""
+    if x.device.type == "cpu":
+        return bn_span_reference(
+            x, running_mean, running_var, layout, group, relu=relu, shortcut=shortcut,
+            shortcut_running_mean=shortcut_running_mean,
+            shortcut_running_var=shortcut_running_var, eps=eps, update=update)
+    return _BNSpanFn.apply(x, shortcut, running_mean, running_var, shortcut_running_mean,
+                           shortcut_running_var, layout, relu, eps, update, group)
+
+
 def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
              *, groups: int = 1, relu: bool = False,
              shortcut: Optional[torch.Tensor] = None,
@@ -524,6 +764,12 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
     running statistics: (C,) float32, updated in place, except inside ``running_update(False)``
     (a rematerialized block's recompute). Differentiable in x and the
     shortcut.
+
+    Inside a step whose mesh has data ranks (``parallel.active``), x is
+    this rank's block of the global batch and ``groups`` counts the global
+    batch's groups: where they lie inside each rank (``groups`` a multiple
+    of the data ranks) each rank runs its own ``groups / ranks`` as above;
+    else :func:`bn_span` all-reduces the groups' sums.
     """
     update = running_update_enabled()
     if shortcut is not None and shortcut.shape != x.shape:
@@ -531,13 +777,21 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
     if (shortcut_running_mean is None) != (shortcut_running_var is None) or (
             shortcut_running_mean is not None and shortcut is None):
         raise ValueError("shortcut running mean/var come together, with a shortcut")
-    if x.shape[0] % groups:
+    mesh = active_mesh()
+    span = None
+    if mesh is not None and mesh.num_data > 1:
+        if groups % mesh.num_data == 0:
+            groups //= mesh.num_data  # every group inside this rank
+        else:
+            span = SpanLayout.of(x, groups, mesh.data_rank, mesh.num_data)
+    kw = dict(relu=relu, shortcut=shortcut, shortcut_running_mean=shortcut_running_mean,
+              shortcut_running_var=shortcut_running_var, eps=eps, update=update)
+    if span is None and x.shape[0] % groups:
         raise ValueError(f"batch {x.shape[0]} not divisible into {groups} BN groups")
     if x.device.type == "cpu":
-        return bn_train_reference(
-            x, running_mean, running_var, groups=groups, relu=relu,
-            shortcut=shortcut, shortcut_running_mean=shortcut_running_mean,
-            shortcut_running_var=shortcut_running_var, eps=eps, update=update)
+        if span is not None:
+            return bn_span(x, running_mean, running_var, span, mesh.data_group, **kw)
+        return bn_train_reference(x, running_mean, running_var, groups=groups, **kw)
 
     fmt = CHANNELS_LAST if x.ndim == 4 else torch.contiguous_format
     if x.ndim not in (2, 4):
@@ -557,6 +811,9 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
         check_cuda("bn_train shortcut", shortcut, (x.dtype,), x.ndim, fmt)
     if x.numel() == 0:
         raise KernelError("bn_train: empty batch")
+    if span is not None:
+        kw["shortcut"] = shortcut
+        return bn_span(x, running_mean, running_var, span, mesh.data_group, **kw)
     return _BNTrainFn.apply(x, shortcut, running_mean, running_var,
                             shortcut_running_mean, shortcut_running_var, groups,
                             relu, eps, update)

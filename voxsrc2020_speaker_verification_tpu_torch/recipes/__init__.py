@@ -7,8 +7,11 @@ lands the LR in its 1/128 tail. Every reference-parity recipe sets
 reference's per-replica BN at world size 8. ``_apply`` falls back to the
 largest feasible group count when a smoke run overrides the batch below it.
 
-Every recipe's default model is ported. The JAX package's single-chip
-shape table is TPU measurements and is not carried over.
+Every recipe's default model is ported. ``get_recipe(single_chip=True)``
+(``cli/train.py --single-chip``) applies the single-card shape of the
+recipe's model from :data:`SINGLE_CHIP_SHAPES`, measured on an H100 (the
+JAX package's table holds TPU v5e shapes; its keys and its override rule
+are kept).
 """
 
 from __future__ import annotations
@@ -140,6 +143,85 @@ def dpn_voxsrc2020_vox2_dev_aug(model: str = "dpn68", **overrides):
                        VOX2_DEV_SPEAKERS, **overrides)
 
 
-def get_recipe(name: str, model: Optional[str] = None, **overrides):
+# The fastest measured shape of each (model, frames) on one NVIDIA H100 80GB
+# HBM3 (700 W): the most rows per second, at an effective batch of 1024,
+# among the microbatches whose peak memory leaves 10% of the card free,
+# without rematerialization where one fits so (scripts/encoder_memory.py
+# --single-chip; its output, with every shape tried and its peak and step
+# time, is single_chip_h100.json beside this file). bn_groups keeps a BN
+# group at the JAX table's rows (recipes/__init__.py:161-170 there): 32 on
+# the f200 pretrain legs, 16 on the f600 LMFT legs, 128 for the TDNN.
+SINGLE_CHIP_SHAPES = {
+    ("res2net50_w8_s6_c16", 200): dict(
+        batch_size=512, num_accumulation_steps=2, remat=False, remat_stages=None,
+        bn_groups=16),  # 45.72 GB, 347.7 ms a microbatch
+    ("res2net50_w8_s6_c16", 600): dict(
+        batch_size=256, num_accumulation_steps=4, remat=False, remat_stages=None,
+        bn_groups=16),  # 68.41 GB, 511.6 ms a microbatch
+    ("res2net50_w24_s4_c64", 200): dict(
+        batch_size=256, num_accumulation_steps=4, remat=False, remat_stages=None,
+        bn_groups=8),  # 62.04 GB, 337.0 ms a microbatch
+    ("res2net50_w24_s4_c64", 600): dict(
+        batch_size=64, num_accumulation_steps=16, remat=False, remat_stages=None,
+        bn_groups=4),  # 46.63 GB, 255.5 ms a microbatch
+    ("res2net50_w24_s4_c32", 200): dict(
+        batch_size=256, num_accumulation_steps=4, remat=False, remat_stages=None,
+        bn_groups=8),  # 44.59 GB, 270.5 ms a microbatch
+    ("res2net50_w24_s4_c32", 600): dict(
+        batch_size=128, num_accumulation_steps=8, remat=False, remat_stages=None,
+        bn_groups=8),  # 66.68 GB, 397.2 ms a microbatch
+    ("res2net101_w24_s4_c32_att", 200): dict(
+        batch_size=256, num_accumulation_steps=4, remat=False, remat_stages=None,
+        bn_groups=8),  # 67.93 GB, 375.4 ms a microbatch
+    ("res2net101_w24_s4_c32_att", 600): dict(
+        batch_size=64, num_accumulation_steps=16, remat=False, remat_stages=None,
+        bn_groups=4),  # 51.07 GB, 288.4 ms a microbatch
+    ("res2net152_w24_s4_c32_att", 200): dict(
+        batch_size=128, num_accumulation_steps=8, remat=False, remat_stages=None,
+        bn_groups=4),  # 48.73 GB, 269.5 ms a microbatch
+    ("res2net152_w24_s4_c32_att", 600): dict(
+        batch_size=64, num_accumulation_steps=16, remat=False, remat_stages=None,
+        bn_groups=4),  # 72.67 GB, 386.1 ms a microbatch
+    ("res2net200_w24_s4_c32_att", 200): dict(
+        batch_size=128, num_accumulation_steps=8, remat=False, remat_stages=None,
+        bn_groups=4),  # 70.54 GB, 374.3 ms a microbatch
+    ("res2net200_w24_s4_c32_att", 600): dict(
+        batch_size=32, num_accumulation_steps=32, remat=False, remat_stages=None,
+        bn_groups=2),  # 53.05 GB, 298.0 ms a microbatch
+    ("dpn68", 200): dict(
+        batch_size=256, num_accumulation_steps=4, remat=False, remat_stages=None,
+        bn_groups=8),  # 61.59 GB, 349.4 ms a microbatch
+    ("dpn68", 600): dict(
+        batch_size=64, num_accumulation_steps=16, remat=False, remat_stages=None,
+        bn_groups=4),  # 46.29 GB, 263.9 ms a microbatch
+    ("tdnn", 320): dict(
+        batch_size=1024, num_accumulation_steps=1, remat=False, remat_stages=None,
+        bn_groups=8),  # 5.92 GB, 25.6 ms a microbatch
+}
+
+
+def single_chip_shape(model: str, feat_length: int) -> dict:
+    """The measured single-H100 overrides (batch, accumulation, remat,
+    bn_groups) of a model at a crop length, or {} where none was measured."""
+    return dict(SINGLE_CHIP_SHAPES.get((model, feat_length), {}))
+
+
+def get_recipe(name: str, model: Optional[str] = None, single_chip: bool = False,
+               **overrides):
+    """``(config, resume_from)`` of a recipe, with ``overrides``; with
+    ``single_chip`` the model's :func:`single_chip_shape` under them. The
+    JAX package's rule: explicit overrides win over the table, and
+    batch_size and num_accumulation_steps are one shape -- pinning either
+    drops both table keys, or a partial merge would change the effective
+    batch (and with it the step counts and the schedules)."""
     fn = RECIPES[name]
-    return fn(model, **overrides) if model else fn(**overrides)
+    config, resume = fn(model, **overrides) if model else fn(**overrides)
+    if single_chip:
+        shape = single_chip_shape(config.model, config.feat_length)
+        if {"batch_size", "num_accumulation_steps"} & set(overrides):
+            shape.pop("batch_size", None)
+            shape.pop("num_accumulation_steps", None)
+        shape = {k: v for k, v in shape.items() if k not in overrides}
+        if shape:
+            config = _apply(config, shape)
+    return config, resume

@@ -1,13 +1,20 @@
 """Training loop: feeder -> device prefetch -> train step -> logging and
-per-epoch checkpoints, single process.
+per-epoch checkpoints, in one process or as one rank of many.
 
-The JAX package's ``training/loop.py:fit`` on one device: the same log line
+The JAX package's ``training/loop.py:fit``: the same log line
 every ``log_every`` optimizer steps (loss, ce, reg, accuracy, lr, margin,
 gnorm, audio-s/s, and the feeder's decode errors when there are any),
 ``metrics.jsonl`` and checkpoints in the experiment dir, the LMFT resume
 through ``resume_from``, the feeder health checks (a shard that decodes
 nothing over a full pass raises IOError) and SIGTERM preemption (a final
 checkpoint and ``FitResult.preempted``).
+
+Across processes (``mesh``, ``parallel.make_mesh``) each rank feeds its
+block of the global batch; the ranks of one model group train on the same
+rows, which the group's first rank broadcasts (a feeder's order depends on
+its threads' timing); every rank logs the same, global, metrics line;
+process 0 alone writes ``config.json``, ``metrics.jsonl`` and the
+checkpoints (whose head every rank helps gather).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from .. import resolve_device
 from ..config import TrainConfig
+from ..parallel import sharding
 from .checkpoint import restore_or_init
 from .trainer import TrainState, create_train_state, make_train_step
 
@@ -125,7 +133,8 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
         checkpoint: bool = True, save_every_steps: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
         state: Optional[TrainState] = None,
-        handle_preemption: bool = True) -> FitResult:
+        handle_preemption: bool = True,
+        mesh: Optional[sharding.Mesh] = None) -> FitResult:
     """Train until ``config.total_steps`` (or ``max_steps`` more steps).
 
     batches: iterable of (features (A, B, T, F), labels (A, B)) -- e.g. a
@@ -145,18 +154,24 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
     main thread and ``handle_preemption``, SIGTERM ends the run after the
     current step with a checkpoint and ``FitResult.preempted``; the previous
     SIGTERM handler is restored on return.
+
+    ``mesh`` (default: the state's, else one process) lays the ranks out;
+    ``batches`` then yield this rank's block of each microbatch.
     """
     dev = resolve_device(device)
     exp_dir = exp_dir or config.exp_dir
     if state is None:
-        state = create_train_state(config, dev)
+        state = create_train_state(config, dev, mesh=mesh)
+    mesh = state.mesh
+    chief = mesh.rank == 0
 
     mgr = metrics_writer = None
     if checkpoint:
         from ..utils.observability import MetricsWriter
         os.makedirs(exp_dir, exist_ok=True)
-        config.to_json(os.path.join(exp_dir, "config.json"))
-        metrics_writer = MetricsWriter(exp_dir)
+        if chief:
+            config.to_json(os.path.join(exp_dir, "config.json"))
+            metrics_writer = MetricsWriter(exp_dir)
         state, mgr = restore_or_init(state, exp_dir, resume_from=resume_from,
                                      max_to_keep=config.total_epochs + 1)
     elif resume_from is not None:
@@ -187,6 +202,9 @@ def fit(config: TrainConfig, batches: Iterable, exp_dir: Optional[str] = None,
     try:
         while cur < stop_step and not preempt.is_set():
             feats, labels = next(it)
+            if mesh.num_model > 1:  # the model group's rows are its first rank's
+                for t in (*(feats if isinstance(feats, tuple) else (feats,)), labels):
+                    torch.distributed.broadcast(t, src=mesh.model_root, group=mesh.model_group)
             state, metrics = step_fn(state, feats, labels)
             cur += 1
             steps_run += 1
