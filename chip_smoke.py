@@ -115,7 +115,32 @@ Phases, one JSON line each:
    plus TOL_PARITY, as in phase 6); each rank's launches of the spanning
    and class-sharded kernels; then a one-rank launch, which takes NCCL;
 14. trace -- two bench-shape steps under ``utils.observability.trace``: the
-   Chrome trace under ``<exp>/profile`` must name K5's and K6's kernels.
+   Chrome trace under ``<exp>/profile`` must name K5's and K6's kernels;
+15. prepare -- ``cli.prepare_data.main`` stages 2, 4 and 5 on the card over
+   corpora written at run time (PREP_*): a wav tree of 128 utterances of
+   3-8 s over 16 speakers, a MUSAN tree (noise, annotated music with one
+   vocal track, speech) and ``simulated_rirs/{smallroom,mediumroom}`` with
+   ``rir_list`` metadata and RIRs of 200-400 samples; both data dirs
+   validate clean, K1 launches once a batch of each featurization (counted
+   against the buckets of the utterances' lengths), and on a subset of the
+   ``_aug`` dir K1 on the rendered waves is held as the raw phase holds it
+   (plain version and float64) and the CM store equals K1's features within
+   CM's step; stage 4's and 5's audio-s/s;
+16. import -- the reference checkpoint import at full width: a TF bundle of
+   res2net50_w24_s4_c32 with the sc_cm_linear 5994 x 2 head, every
+   ``/Momentum`` slot and ``global_step`` (scripts/tf_bundle_writer.py, from
+   ``init_weights`` through the inverse of the ported name map), read back
+   by ``utils/tf_bundle.py`` (its host MB/s), then ``cli.import_checkpoint``
+   -> ``cli.export`` -> ``cli.extract`` on the prepare phase's store: the
+   artifact's weights equal the original ones and its embeddings those of
+   an artifact saved from them (TOL_EXTRACT_COS); one resumed
+   ``cli.train`` step whose step is global_step + 1 and whose momentum
+   continues the slots (|m' - 0.9 m| within the clip norm);
+17. multi_device -- extraction over [cuda:0, cuda:0] (two replicas, each
+   bucket batch split in two) bit-equal to one device at the half batch and
+   to its own rerun, within TOL_EXTRACT_COS of one device at the whole
+   batch; ``cli.extract --num-devices`` beyond the cards present fails with
+   its error.
 
 The kernels phase also holds the multi-process kernel modes: K1's general path
 (32 kHz, and a 64 ms frame at 16 kHz) against its plain version and
@@ -3356,6 +3381,330 @@ def trace_phase(dev, config, workdir):
           "untraced_ms_per_step": 1e3 * plain_s / TRACE_STEPS})
 
 
+# slice 13: data preparation (cli.prepare_data stages 2, 4, 5 through K1),
+# the reference TF checkpoint import at full width, extraction over devices
+PREP_SPEAKERS, PREP_UTTS, PREP_SECONDS = 16, 8, (3.0, 8.0)
+PREP_RIR_SAMPLES, PREP_SUBSET = (200, 400), 8
+IMPORT_MODEL, IMPORT_STEP, IMPORT_RECIPE = "res2net50_w24_s4_c32", 122636, "res2net_vox2_dev_aug"
+IMPORT_TRAIN_BATCH = 64
+MULTI_BATCH = 128  # the w24 model's extraction bucket batch (eval/extract.py)
+
+
+def write_prepare_corpora(root, seed):
+    """The prepare phase's corpora (see the module docstring): a wav tree
+    (speaker/video/utterance.wav), a MUSAN tree and simulated RIRs with
+    rir_list metadata. Returns (wav root, musan root, rirs root, seconds of
+    the wav tree)."""
+    from voxsrc2020_speaker_verification_tpu_torch.data import audio
+
+    rng = np.random.RandomState(seed)
+    wav_root, musan, rirs = (os.path.join(root, d) for d in ("wav", "musan", "RIRS_NOISES"))
+    seconds = 0.0
+    for s in range(PREP_SPEAKERS):
+        bank = speaker_bank(rng)
+        for i in range(PREP_UTTS):
+            d = os.path.join(wav_root, f"id2{s:04d}", f"vid{i % 3}")
+            os.makedirs(d, exist_ok=True)
+            n = int(rng.uniform(*PREP_SECONDS) * 10)
+            units = bank[rng.randint(len(bank), size=n)] * rng.uniform(0.3, 1.0, (n, 1))
+            audio.write_wav(os.path.join(d, f"{i:05d}.wav"), units.reshape(-1))
+            seconds += n / 10.0
+    for sub, count in (("noise", 4), ("speech", 6), ("music", 3)):
+        d = os.path.join(musan, sub, "src")
+        os.makedirs(d)
+        for i in range(count):
+            n = int(rng.uniform(2.0, 6.0) * 16000)
+            if sub == "noise":
+                x = rng.randn(n) * 1500.0
+            elif sub == "speech":
+                b = speaker_bank(rng, 16)
+                x = (b[rng.randint(16, size=n // 1600)] * 0.8).reshape(-1)
+            else:
+                t = np.arange(n) / 16000.0
+                x = sum(np.sin(2 * np.pi * f * t) for f in rng.uniform(110, 880, 3)) * 1500.0
+            audio.write_wav(os.path.join(d, f"{sub}-{i:04d}.wav"), np.asarray(x, np.float32))
+    with open(os.path.join(musan, "music", "src", "ANNOTATIONS"), "w") as f:
+        f.write("".join(f"music-{i:04d} genre {'Y' if i == 2 else 'N'}\n" for i in range(3)))
+    for room in ("smallroom", "mediumroom"):
+        lines = []
+        for r in range(3):
+            d = os.path.join(rirs, "simulated_rirs", room, f"Room{r:03d}")
+            os.makedirs(d)
+            for k in range(2):
+                n = int(rng.randint(*PREP_RIR_SAMPLES))
+                rir = rng.randn(n) * np.exp(-np.arange(n) / (n / 6.0))
+                rir[rng.randint(5, 20)] = 4.0
+                path = os.path.join(d, f"{room}-{r}-{k}.wav")
+                audio.write_wav(path, (rir * 6000.0).astype(np.float32))
+                lines.append(f"--rir-id {room}-{r}-{k} --room-id {room}-{r} "
+                             f"RIRS_NOISES/simulated_rirs/{room}/Room{r:03d}/{room}-{r}-{k}.wav")
+        with open(os.path.join(rirs, "simulated_rirs", room, "rir_list"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return wav_root, musan, rirs, seconds
+
+
+def k1_batches(samples_by_utt, batch=16):
+    """K1's launches over a data dir (data/features.py:wave_feature_batches:
+    utterances by audio-length bucket, batches of ``batch``)."""
+    from voxsrc2020_speaker_verification_tpu_torch.data.features import DEFAULT_BUCKETS_S
+
+    per = {}
+    for n in samples_by_utt.values():
+        b = next((b for b in DEFAULT_BUCKETS_S if n <= b * 16000), DEFAULT_BUCKETS_S[-1])
+        per[b] = per.get(b, 0) + 1
+    return sum(-(-c // batch) for c in per.values())
+
+
+def cm_bound(feats):
+    """Kaldi CM compression's coarsest step over these matrices: the global
+    range over 65535 (header) plus over 255 (an 8-bit code)."""
+    lo = min(float(m.min()) for m in feats.values())
+    hi = max(float(m.max()) for m in feats.values())
+    return (hi - lo) / 65535.0 + (hi - lo) / 255.0
+
+
+def prepare_phase(dev, workdir, smi):
+    """cli.prepare_data stages 2, 4 and 5 on the card (see the module
+    docstring). Returns (the dev data dir, its audio seconds, K1's launches
+    in stages 4 and 5)."""
+    from voxsrc2020_speaker_verification_tpu_torch.cli import prepare_data as prep_cli
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+    from voxsrc2020_speaker_verification_tpu_torch.data.features import utterance_loader
+    from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
+    from voxsrc2020_speaker_verification_tpu_torch.utils import datadir
+
+    root = os.path.join(workdir, "prepare")
+    t0 = time.perf_counter()
+    wav_root, musan, rirs, dev_seconds = write_prepare_corpora(root, SEED + 51)
+    write_s = time.perf_counter() - t0
+    data_root = os.path.join(root, "data")
+    common = ["--data-root", data_root, "--dataset", "voxceleb2_dev", "--feat-dim",
+              str(FEAT_DIM), "--num-shards", "4", "8"]
+    legs = {}
+    for stage, extra in ((2, ["--wav-root", wav_root]), (4, []),
+                         (5, ["--musan-root", musan, "--rirs-root", rirs])):
+        out, text, sec, counts = timed_leg(prep_cli.main, ["--stage", str(stage), *common, *extra])
+        legs[stage] = dict(dir=out, seconds=sec, counts=counts, printed=text.strip()[-300:])
+    dev_dir, aug_dir = legs[2]["dir"], legs[5]["dir"]
+    problems = {d: datadir.validate_data_dir(d) for d in (dev_dir, aug_dir)}
+    # each utterance's samples from its wav header (a spec renders to its
+    # source's length)
+    import wave
+    samples = {}
+    for d in (dev_dir, aug_dir):
+        samples[d] = {}
+        for u, v in datadir.read_two_column(os.path.join(d, "wav.scp")).items():
+            path = json.loads(v)["source"] if v.startswith("{") else v
+            with wave.open(path) as w:
+                samples[d][u] = w.getnframes()
+    want_k1 = {4: k1_batches(samples[dev_dir]), 5: k1_batches(samples[aug_dir])}
+    got_k1 = {s: legs[s]["counts"]["fbank"] for s in (4, 5)}
+    aug_seconds = sum(samples[aug_dir].values()) / 16000.0
+    if any(problems.values()) or len(samples[aug_dir]) != 5 * len(samples[dev_dir]):
+        fail(f"prepare: data dir problems {problems}, {len(samples[aug_dir])} aug utterances")
+    if got_k1 != want_k1 or legs[2]["counts"]["fbank"]:
+        fail(f"prepare: K1 launches {got_k1}, expected {want_k1} (stage 2: "
+             f"{legs[2]['counts']['fbank']})")
+
+    # a subset of the _aug store: the waves rendered as stage 5 rendered
+    # them, K1 on the card against its plain version and float64 (the raw
+    # phase's rule), and the store against K1's features within CM's step
+    load, renderer = utterance_loader()
+    wav = datadir.read_two_column(os.path.join(aug_dir, "wav.scp"))
+    store = kaldi_io.read_all(kaldi_io.read_mat_scp(os.path.join(aug_dir, f"fbank{FEAT_DIM}.scp")))
+    cfg = fb.FbankConfig(num_bins=FEAT_DIM, dither=0.0)
+    subset = sorted(wav)[:PREP_SUBSET]
+    errs, store_err, k1_feats = [], 0.0, {}
+    with torch.inference_mode():
+        for u in subset:
+            x = torch.from_numpy(fb.pcm16(load(wav[u])[0]).astype(np.float32))[None].to(dev)
+            got = fb.fbank(x, cfg)
+            errs.append(hold_fp32(f"prepare K1 ({u})", "crops", got,
+                                  fb.fbank_reference(x, cfg), fbank_float64(x, cfg)))
+            k1_feats[u] = got[0].cpu().numpy()
+    bound = cm_bound(store)
+    for u in subset:
+        if store[u].shape != k1_feats[u].shape:
+            fail(f"prepare: store {u} {store[u].shape} vs K1 {k1_feats[u].shape}")
+        store_err = max(store_err, float(np.abs(store[u] - k1_feats[u]).max()))
+    if store_err > bound:
+        fail(f"prepare: store vs K1 {store_err} beyond CM's step {bound}")
+    emit({"phase": "prepare", "utterances": len(samples[dev_dir]),
+          "aug_utterances": len(samples[aug_dir]), "audio_s": dev_seconds,
+          "aug_audio_s": aug_seconds, "write_s": write_s, "renderer": renderer,
+          "stage_seconds": {s: legs[s]["seconds"] for s in legs},
+          "stage4_audio_s_per_s": dev_seconds / legs[4]["seconds"],
+          "stage5_audio_s_per_s": aug_seconds / legs[5]["seconds"],
+          "k1_launches": got_k1, "subset": subset,
+          "k1_vs_plain_max": max(e["vs_plain"] for e in errs),
+          "k1_vs_float64_max": max(e["vs_float64"] for e in errs),
+          "plain_vs_float64_max": max(e["plain_vs_float64"] for e in errs),
+          "store_vs_k1_max": store_err, "cm_step": bound, "tolerance": TOL_FBANK,
+          "note": "stage 5: MUSAN dirs, 5x specs, rendering and K1; audio_s_per_s is "
+                  "audio seconds over the stage's wall time", "card": smi})
+    return dev_dir, dev_seconds, {s: legs[s]["counts"] for s in (4, 5)}
+
+
+def import_phase(dev, workdir, smi, store_dir, store_seconds):
+    """The full-width import (see the module docstring). Returns (the
+    imported artifact, launches of its extraction)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import tf_bundle_writer
+
+    from voxsrc2020_speaker_verification_tpu_torch.cli import export as export_cli
+    from voxsrc2020_speaker_verification_tpu_torch.cli import extract as extract_cli
+    from voxsrc2020_speaker_verification_tpu_torch.cli import import_checkpoint as import_cli
+    from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
+    from voxsrc2020_speaker_verification_tpu_torch.convert import init_weights
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import save_inference_artifact
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+    from voxsrc2020_speaker_verification_tpu_torch.utils.tf_import import load_tf_checkpoint
+
+    root = os.path.join(workdir, "import")
+    exp_root = os.path.join(root, "exp")
+    config, _ = get_recipe(IMPORT_RECIPE, model=IMPORT_MODEL, exp_root=exp_root)
+    gen = torch.Generator().manual_seed(SEED + 61)
+    weights = init_weights(config, gen, projection=True)
+    momentum = {k: torch.randn(v.shape, generator=gen) * 0.01 for k, v in weights.items()
+                if not k.endswith(("running_mean", "running_var"))}
+    snap = tf_bundle_writer.reference_snapshot(weights, IMPORT_MODEL, momentum=momentum,
+                                               step=IMPORT_STEP)
+    prefix = os.path.join(root, "tf", f"model.ckpt-{IMPORT_STEP}")
+    t0 = time.perf_counter()
+    data_bytes = tf_bundle_writer.write_bundle(prefix, snap)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read = load_tf_checkpoint(prefix)
+    read_s = time.perf_counter() - t0
+    if read.keys() != snap.keys() or not all(np.array_equal(read[k], v) for k, v in snap.items()):
+        fail("import: the bundle reader's values differ from what was written")
+    del read
+
+    legs = {}
+    for name, fn, argv in (
+            ("import", import_cli.main, ["--ckpt", prefix, "--model", IMPORT_MODEL,
+                                         "--projection", "sc_cm_linear", "--num-classes", "5994",
+                                         "--recipe", IMPORT_RECIPE, "--exp-dir", config.exp_dir]),
+            ("export", export_cli.main, ["--exp-dir", config.exp_dir, "--batch-size", "32"]),
+            ("extract", extract_cli.main, None)):
+        if name == "extract":
+            argv = ["--artifact", legs["export"]["out"], "--data-dir", store_dir,
+                    "--out", os.path.join(root, "xv_imported")]
+        out, text, sec, counts = timed_leg(fn, argv)
+        legs[name] = dict(out=out, text=text.strip()[-400:], seconds=sec, counts=counts)
+    artifact = legs["export"]["out"]
+    imported = dict(kaldi_io.read_vec_flt_scp(legs["extract"]["out"]))
+    # the original weights, saved straight into an artifact, through the same CLI
+    direct = save_inference_artifact(
+        config, {k: v for k, v in weights.items() if k.startswith("encoder.")},
+        os.path.join(root, "direct"), step=IMPORT_STEP)
+    with contextlib.redirect_stdout(io.StringIO()):
+        direct_scp = extract_cli.main(["--artifact", direct, "--data-dir", store_dir,
+                                       "--out", os.path.join(root, "xv_direct")])
+    want = dict(kaldi_io.read_vec_flt_scp(direct_scp))
+    w_imp = torch.load(os.path.join(artifact, "weights.pt"), weights_only=True)
+    same_weights = all(torch.equal(w_imp[k], weights[k]) for k in w_imp) and len(w_imp) == len(
+        [k for k in weights if k.startswith("encoder.")])
+    cos_min = min_cos(want, imported)
+    max_abs = max(float(np.abs(imported[u] - want[u]).max()) for u in want)
+    if not same_weights or cos_min < TOL_EXTRACT_COS or legs["extract"]["counts"]["split_conv"] == 0:
+        fail(f"import: weights equal {same_weights}, imported vs direct min cosine {cos_min}, "
+             f"launches {legs['extract']['counts']}")
+
+    # one resumed step: its step is global_step + 1, its momentum the slots'
+    ckpt = os.path.join(config.exp_dir, str(IMPORT_STEP), "train_state.pt")
+    before = torch.load(ckpt, map_location="cpu", weights_only=True)["momentum"]
+    if not all(torch.equal(before[k], momentum[k]) for k in momentum):
+        fail("import: the checkpoint's momentum is not the imported slots")
+    argv = ["--recipe", IMPORT_RECIPE, "--model", IMPORT_MODEL, "--synthetic",
+            "--exp-root", exp_root, "--batch-size", str(IMPORT_TRAIN_BATCH),
+            "--num-accumulation-steps", "1", "--max-steps", "1", "--log-every", "1",
+            "--seed", str(SEED)]
+    run, _, train_s, train_counts = timed_leg(train_cli.main, argv)
+    hist = run.result.history
+    after_path = os.path.join(config.exp_dir, str(IMPORT_STEP + 1), "train_state.pt")
+    if [h["step"] for h in hist] != [IMPORT_STEP + 1] or not os.path.exists(after_path):
+        fail(f"import: resumed steps {[h['step'] for h in hist]}, expected {IMPORT_STEP + 1}")
+    after = torch.load(after_path, map_location="cpu", weights_only=True)["momentum"]
+    # trace-form momentum: m' = 0.9 m + g with |g| <= clip_norm after the clip
+    resid = math.sqrt(sum(float(((after[k] - config.momentum * before[k]).double() ** 2).sum())
+                          for k in before))
+    norm_before = math.sqrt(sum(float((v.double() ** 2).sum()) for v in before.values()))
+    if not math.isfinite(hist[0]["loss"]) or resid > config.clip_norm * (1 + 1e-3):
+        fail(f"import: resumed step loss {hist[0]['loss']}, |m' - 0.9 m| {resid} "
+             f"(|m| {norm_before}, clip {config.clip_norm})")
+    del run
+    mb = data_bytes / 1e6
+    reader_rate = [line for line in legs["import"]["text"].splitlines() if "MB/s" in line]
+    emit({"phase": "import", "model": IMPORT_MODEL, "classes": 5994, "centers": 2,
+          "variables": len(snap), "bundle_mb": mb, "index_bytes": os.path.getsize(prefix + ".index"),
+          "write_s": write_s, "read_s": read_s, "reader_mb_per_s_host": mb / read_s,
+          "cli_reader": reader_rate,
+          "leg_seconds": {k: v["seconds"] for k, v in legs.items()},
+          "import_export_extract_s": sum(v["seconds"] for v in legs.values()),
+          "extract_audio_s_per_s": store_seconds / legs["extract"]["seconds"],
+          "imported_vs_direct": {"min_cos": cos_min, "max_abs": max_abs,
+                                 "tolerance": TOL_EXTRACT_COS},
+          "resumed_step": hist[0]["step"], "resumed_loss": hist[0]["loss"],
+          "momentum_residual": resid, "momentum_norm_before": norm_before,
+          "train_s": train_s, "launches_extract": legs["extract"]["counts"],
+          "launches_train": {k: v for k, v in train_counts.items() if v},
+          "note": "reader MB/s is the host's (load_tf_checkpoint of the written bundle)",
+          "card": smi})
+    return artifact, legs["extract"]["counts"]
+
+
+def multi_device_phase(dev, workdir, smi, artifact, store_dir, store_seconds):
+    """Extraction over [cuda:0, cuda:0] (two replicas on the one card, each
+    bucket batch split in two) against one device at the half batch (bit
+    for bit) and at the whole batch (cosines); --num-devices beyond the
+    cards present must fail. Returns the launches of the sharded leg."""
+    from voxsrc2020_speaker_verification_tpu_torch.cli import extract as extract_cli
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+
+    root = os.path.join(workdir, "multi_device")
+    os.makedirs(root)
+    legs = {}
+    for name, devices, batch in (("two_replicas", [dev, dev], MULTI_BATCH),
+                                 ("one_half_batch", [dev], MULTI_BATCH // 2),
+                                 ("one_whole_batch", [dev], MULTI_BATCH),
+                                 ("two_replicas_again", [dev, dev], MULTI_BATCH)):
+        scp, _, sec, counts = timed_leg(lambda d=devices, b=batch, n=name: extract_cli.extract_dataset(
+            artifact, store_dir, os.path.join(root, n), batch_size=b, devices=d))
+        legs[name] = dict(vectors=dict(kaldi_io.read_vec_flt_scp(scp)), seconds=sec,
+                          counts=counts, audio_s_per_s=store_seconds / sec)
+    two, half, whole = (legs[k]["vectors"] for k in ("two_replicas", "one_half_batch",
+                                                     "one_whole_batch"))
+    bit_equal = sorted(two) == sorted(half) and all(np.array_equal(two[u], half[u]) for u in half)
+    rerun_equal = all(np.array_equal(two[u], legs["two_replicas_again"]["vectors"][u]) for u in two)
+    cos_whole = min_cos(whole, two)
+    present = torch.cuda.device_count()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            extract_cli.main(["--artifact", artifact, "--data-dir", store_dir,
+                              "--out", os.path.join(root, "refused"),
+                              "--num-devices", str(present + 1)])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if not bit_equal or not rerun_equal or cos_whole < TOL_EXTRACT_COS:
+        fail(f"multi_device: two replicas vs one device at the half batch bit-equal {bit_equal}, "
+             f"rerun {rerun_equal}, vs the whole batch min cosine {cos_whole}")
+    if not refused or "more cards than present" not in refused:
+        fail(f"multi_device: --num-devices {present + 1} on {present} card(s) gave {refused!r}")
+    emit({"phase": "multi_device", "devices": [str(dev), str(dev)], "batch": MULTI_BATCH,
+          "rows_a_device": MULTI_BATCH // 2, "utterances": len(two),
+          "bit_equal_to_one_device_at_half_batch": bit_equal, "rerun_bit_equal": rerun_equal,
+          "min_cos_vs_one_device_whole_batch": cos_whole,
+          "max_abs_vs_one_device_whole_batch": max(float(np.abs(two[u] - whole[u]).max())
+                                                   for u in whole),
+          "legs": {k: {kk: vv for kk, vv in v.items() if kk != "vectors"}
+                   for k, v in legs.items()},
+          "refused": refused, "card": smi})
+    return legs["two_replicas"]["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -3434,6 +3783,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         launch_runs = launch_phase(dev, workdir, smi)
         trace_phase(dev, train_cfg, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prep_dir, prep_seconds, prep_counts = prepare_phase(dev, workdir, smi)
+        imported, import_counts = import_phase(dev, workdir, smi, prep_dir, prep_seconds)
+        gc.collect()
+        torch.cuda.empty_cache()
+        multi_counts = multi_device_phase(dev, workdir, smi, imported, prep_dir, prep_seconds)
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["name"] in per_forward:
@@ -3491,6 +3847,14 @@ def main() -> int:
     for row, run in ((span_row, "data2"), (partial_row, "model2")):
         row["launches"] = sum(sum(r.values()) for r in launch_runs[run]["launches_by_rank"])
         row["launches_on"] = f"launch phase, cli.launch --num-processes 2 ({run}), one step"
+    # slice 13's paths: prepare_data stages 4 and 5 (K1), the imported
+    # model's extraction (K7, K2-K4) and the two-replica extraction
+    slice13 = {"prepare_stage4": prep_counts[4], "prepare_stage5": prep_counts[5],
+               "import_extract": import_counts, "multi_device_extract": multi_counts}
+    for row in rows + [cmvn_row]:
+        row["launches_slice13"] = {leg: c[row["name"]] for leg, c in slice13.items()}
+        if not any(row["launches_slice13"].values()):
+            fail(f"slice 13's paths launched no {row['name']}")
     emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows + slice12_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

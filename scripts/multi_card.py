@@ -1,11 +1,26 @@
 #!/usr/bin/env python3
 """Training across cards through ``cli.launch``: step time by layout, and
-each layout's losses against one process on the same rows.
+each layout's losses against one process on the same rows; or, with
+``--extract``, extraction from a feature store over 1, 2 and 4 cards.
 
     python3 scripts/multi_card.py [--layouts 1 2 2x2 4] [--steps 4] [--save OUT.json]
     # rehearsal on the CPU (gloo), at a small shape:
     python3 scripts/multi_card.py --device cpu --layouts 1 2x2 --batch-size 8 \\
         --feat-length 24 --steps 2 --train-args="--float32 --num-classes 10"
+    # extraction (one process, a model replica a card, each bucket batch's
+    # rows split over the cards: cli.extract --num-devices N):
+    python3 scripts/multi_card.py --extract [--num-devices 1 2 4] [--utterances 2048]
+    python3 scripts/multi_card.py --extract --device cpu --num-devices 1 3 \\
+        --utterances 12 --extract-model res2net50_w8_s6_c16   # CPU rehearsal
+
+Extraction mode: a plain float32 Kaldi store of ``--utterances`` random
+feature matrices of 2-20 s (200-2000 frames, 80-d) and an artifact of
+``--extract-model`` (default res2net50_w24_s4_c32, bf16, seeded random
+weights) are written at run time; for each N, ``extract_dataset`` with
+``num_devices=N`` runs twice (the first pays the model build and the first
+calls at each shape) and the second is timed: audio-s/s, the kernels'
+launches, and each embedding's largest absolute difference and smallest
+cosine against one card's.
 
 A layout is ``P`` (P data ranks) or ``DxM`` (D data x M model ranks, the
 sc_cm_linear head's classes split over M). Each one runs ``cli.launch
@@ -107,9 +122,110 @@ def run_layout(layout: str, args, workdir: str) -> dict:
                                           for rk in launches])
 
 
+def write_store(root: str, utterances: int, seed: int = 0):
+    """A plain Kaldi store (fbank80.ark/.scp) of random 2-20 s feature
+    matrices; returns (dir, audio seconds)."""
+    import numpy as np
+
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+
+    os.makedirs(root)
+    rng = np.random.RandomState(seed)
+    frames = 0
+    with kaldi_io.ArkScpWriter(os.path.join(root, "fbank80.ark"),
+                               os.path.join(root, "fbank80.scp")) as w:
+        for i in range(utterances):
+            t = int(rng.randint(200, 2001))
+            w.write(f"spk{i % 50:03d}-utt{i:05d}", (rng.randn(t, 80) * 2 + 8).astype(np.float32))
+            frames += t
+    return root, frames / 100.0
+
+
+def block_forward_ms(artifact: str, n: int, device: str, reps: int = 10) -> dict:
+    """One card's forward at its block of a 1000-frame bucket batch (the
+    model's default batch over ``n`` cards, rounded up): {rows, ms} by CUDA
+    events on the first card (host clock on the CPU), after a warm-up."""
+    import torch
+
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import load_inference_artifact
+    from voxsrc2020_speaker_verification_tpu_torch.eval.extract import (
+        default_batch_size, round_up_batch)
+
+    dev = torch.device("cpu" if device == "cpu" else "cuda:0")
+    config, embed = load_inference_artifact(artifact, dev)
+    rows = round_up_batch(default_batch_size(config.model), n) // n
+    feats = torch.randn(rows, 1000, config.feat_dim, device=dev)
+    mask = torch.ones(rows, 1000, device=dev)
+    embed(feats, mask)
+    if dev.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            embed(feats, mask)
+        end.record()
+        end.synchronize()
+        return {"rows": rows, "frames": 1000, "ms": start.elapsed_time(end) / reps}
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        embed(feats, mask)
+    return {"rows": rows, "frames": 1000, "ms": 1e3 * (time.perf_counter() - t0) / reps}
+
+
+def run_extract(args, workdir: str) -> list:
+    import numpy as np
+    import torch
+
+    from voxsrc2020_speaker_verification_tpu_torch import kernels, set_float32_precision
+    from voxsrc2020_speaker_verification_tpu_torch.cli.extract import extract_dataset
+    from voxsrc2020_speaker_verification_tpu_torch.convert import init_weights
+    from voxsrc2020_speaker_verification_tpu_torch.data import kaldi_io
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import save_inference_artifact
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+
+    set_float32_precision()
+    config, _ = get_recipe("res2net_vox2_dev_aug", model=args.extract_model)
+    weights = init_weights(config, torch.Generator().manual_seed(0))
+    artifact = save_inference_artifact(config, weights, os.path.join(workdir, "artifact"))
+    store, audio_s = write_store(os.path.join(workdir, "store"), args.utterances)
+    lines, first = [], None
+    for n in args.num_devices:
+        runs = []
+        for rep in range(2):
+            if args.device != "cpu":
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            scp = extract_dataset(artifact, store, os.path.join(workdir, f"xv{n}_{rep}"),
+                                  num_devices=n, device=args.device, progress_every=0)
+            if args.device != "cpu":
+                torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, kernels.launch_counts()))
+        vectors = dict(kaldi_io.read_vec_flt_scp(scp))
+        first = first or vectors
+        gap = max(float(np.abs(vectors[u] - first[u]).max()) for u in first)
+        cos = min(float(vectors[u] @ first[u] / (np.linalg.norm(vectors[u])
+                                                 * np.linalg.norm(first[u]))) for u in first)
+        line = dict(mode="extract", model=args.extract_model, num_devices=n,
+                    block_forward_ms=block_forward_ms(artifact, n, args.device),
+                    utterances=len(vectors), audio_s=audio_s,
+                    seconds=[r[0] for r in runs], audio_s_per_s=audio_s / runs[1][0],
+                    launches=runs[1][1], max_abs_vs_first=gap, min_cos_vs_first=cos,
+                    first=args.num_devices[0])
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        if not all(np.isfinite(v).all() for v in vectors.values()):
+            raise SystemExit(f"multi_card: non-finite embeddings at {n} devices")
+    return lines
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--extract", action="store_true",
+                   help="extraction over --num-devices cards instead of training layouts")
+    p.add_argument("--num-devices", type=int, nargs="+", default=[1, 2, 4])
+    p.add_argument("--utterances", type=int, default=2048)
+    p.add_argument("--extract-model", default="res2net50_w24_s4_c32")
     p.add_argument("--layouts", nargs="+", default=["1", "2", "2x2", "4"])
     p.add_argument("--recipe", default="res2net_vox2_dev_aug")
     p.add_argument("--model", default="res2net50_w8_s6_c16")
@@ -127,6 +243,18 @@ def main() -> int:
 
     sys.path.insert(0, REPO)
     from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+
+    if args.extract:
+        with tempfile.TemporaryDirectory() as workdir:
+            lines = run_extract(args, workdir)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip() if args.device != "cpu" else "cpu"
+        print(json.dumps({"card": smi}), flush=True)
+        if args.save:
+            with open(args.save, "w") as f:
+                json.dump({"card": smi, "extract": lines}, f, indent=1)
+        return 0
 
     overrides = {k: v for k, v in (("batch_size", args.batch_size),
                                    ("num_accumulation_steps", args.num_accumulation_steps),

@@ -562,11 +562,16 @@ class TestEvaluate:
         assert e.value.code != 0
 
 
-def test_more_than_one_device_is_refused(tmp_path):
+def test_more_than_one_device_is_refused(tmp_path, monkeypatch):
+    """--num-devices beyond the cards present is an error, never a quiet
+    fall back to fewer (here a one-card machine is pretended: the check
+    comes before any device work)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for main, argv in ((textract.main, ["--artifact", "a", "--data-dir", "d", "--out", "o"]),
                        (tevaluate.main, ["--artifact", "a", "--trials", "T"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(argv + ["--num-devices", "2", "--device", "cpu"])
+        with pytest.raises(ValueError, match="more cards than present"):
+            main(argv + ["--num-devices", "2"])
 
 
 def test_entry_points_default_to_the_card():

@@ -1342,3 +1342,81 @@ def test_margin_ce_partial_mode_matches_whole(cuda, k, b, c, split):
     dcos = torch.cat([margin_ce_partial_grad(x, labels, lse, dloss, 32.0, 0.2, off)
                       for off, x in shards], dim=2)
     assert rel(dcos, ci.grad) <= 1e-4
+
+
+def _thin_artifact(root):
+    """An artifact of a thin float32 Res2Net with seeded random weights."""
+    from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig
+    from voxsrc2020_speaker_verification_tpu_torch.convert import init_weights
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import save_inference_artifact
+    from voxsrc2020_speaker_verification_tpu_torch.models import register_res2net_variant
+
+    model = register_res2net_variant("res2net_thin_kernels_multi", num_filters=(8, 16),
+                                     block_sizes=(2, 1), block_strides=(1, 2), width=(8, 16),
+                                     split=4, output_dim=16)
+    config = TrainConfig(model=model, feat_dim=40, bf16=False)
+    weights = init_weights(config, torch.Generator().manual_seed(0))
+    return save_inference_artifact(config, weights, str(root / "artifact"))
+
+
+@pytest.mark.cuda
+def test_sharded_embed_two_replicas_on_one_card(cuda, tmp_path):
+    """Extraction over [cuda:0, cuda:0] (each bucket batch's rows split in
+    two, a replica each) equals one device at the half batch bit for bit,
+    and one device at the whole batch within 1e-5."""
+    from voxsrc2020_speaker_verification_tpu_torch.eval.export import (
+        load_sharded_inference_artifact)
+    from voxsrc2020_speaker_verification_tpu_torch.eval.extract import (
+        extract_embeddings, make_bucketed_embed_fn)
+
+    artifact = _thin_artifact(tmp_path)
+    rng = np.random.RandomState(0)
+    feats = [(f"u{i}", rng.randn(t, 40).astype(np.float32))
+             for i, t in enumerate([int(rng.randint(30, 900)) for _ in range(19)] + [1000, 1400])]
+
+    def run(devices, batch):
+        _, embed = load_sharded_inference_artifact(artifact, devices)
+        return extract_embeddings(make_bucketed_embed_fn(embed, batch), iter(feats),
+                                  batch_size=batch)
+
+    kernels.reset_launch_counts()
+    two = run([cuda, cuda], 32)
+    assert all(kernels.launch_counts()[k] > 0 for k in ("split_conv", "bn_act", "stats_pool"))
+    half, whole = run([cuda], 16), run([cuda], 32)
+    assert sorted(two) == sorted(half) == sorted(u for u, _ in feats)
+    for u in half:
+        np.testing.assert_array_equal(two[u], half[u], err_msg=u)
+        np.testing.assert_allclose(two[u], whole[u], rtol=0, atol=1e-5, err_msg=u)
+
+
+@pytest.mark.cuda
+def test_prepare_stage4_on_k1(cuda, tmp_path):
+    """cli.prepare_data stage 4 on the card: K1 launches, and its CM store
+    equals the CPU's plain-version store within one CM step (plus K1's
+    1e-3)."""
+    from voxsrc2020_speaker_verification_tpu_torch.cli import prepare_data
+    from voxsrc2020_speaker_verification_tpu_torch.data import audio, kaldi_io
+
+    rng = np.random.RandomState(1)
+    for spk in range(2):
+        for i in range(3):
+            d = tmp_path / "wav" / f"id{spk}" / "v"
+            d.mkdir(parents=True, exist_ok=True)
+            audio.write_wav(str(d / f"{i}.wav"), (rng.randn(int(rng.randint(8000, 60000)))
+                                                  * 2000).astype(np.float32))
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        common = ["--data-root", str(tmp_path / dev), "--dataset", "dev", "--feat-dim", "40",
+                  "--num-shards", "2", "--device", dev]
+        prepare_data.main(["--stage", "2", "--wav-root", str(tmp_path / "wav"), *common])
+        kernels.reset_launch_counts()
+        prepare_data.main(["--stage", "4", *common])
+        assert (kernels.launch_counts()["fbank"] > 0) == (dev == "cuda")
+        stores[dev] = kaldi_io.read_all(kaldi_io.read_mat_scp(
+            str(tmp_path / dev / "dev" / "fbank40.scp")))
+    lo = min(float(m.min()) for m in stores["cpu"].values())
+    hi = max(float(m.max()) for m in stores["cpu"].values())
+    step = (hi - lo) / 65535.0 + (hi - lo) / 255.0
+    assert sorted(stores["cuda"]) == sorted(stores["cpu"]) and len(stores["cpu"]) == 6
+    for u, want in stores["cpu"].items():
+        np.testing.assert_allclose(stores["cuda"][u], want, rtol=0, atol=step + 1e-3, err_msg=u)

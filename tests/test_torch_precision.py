@@ -14,6 +14,8 @@ import voxsrc2020_speaker_verification_tpu_torch as port
 from voxsrc2020_speaker_verification_tpu_torch.cli import evaluate as tevaluate
 from voxsrc2020_speaker_verification_tpu_torch.cli import export as texport
 from voxsrc2020_speaker_verification_tpu_torch.cli import extract as textract
+from voxsrc2020_speaker_verification_tpu_torch.cli import import_checkpoint as timport
+from voxsrc2020_speaker_verification_tpu_torch.cli import prepare_data as tprepare
 from voxsrc2020_speaker_verification_tpu_torch.cli import score as tscore
 from voxsrc2020_speaker_verification_tpu_torch.cli import serve as tserve
 from voxsrc2020_speaker_verification_tpu_torch.cli import train as ttrain
@@ -34,6 +36,8 @@ CLIS = {
     "export": (texport, ["--exp-dir", "e"]),
     "score": (tscore, ["--trials", "t", "--xvectors", "x"]),
     "evaluate": (tevaluate, ["--artifact", "a", "--trials", "T"]),
+    "import_checkpoint": (timport, ["--ckpt", "c", "--model", "tdnn", "--exp-dir", "e"]),
+    "prepare_data": (tprepare, ["--stage", "2", "--wav-root", "w"]),
 }
 
 
@@ -55,6 +59,8 @@ def test_cli_main_turns_tf32_off(cli, tf32_on, monkeypatch):
     monkeypatch.setattr(port, "resolve_device", stop)
     monkeypatch.setattr(tserve, "make_server", stop)
     monkeypatch.setattr(textract, "extract_dataset", stop)
+    monkeypatch.setattr(timport, "load_snapshot", stop)
+    monkeypatch.setattr(tprepare, "create_dataset", stop)
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     with pytest.raises(Stop):
         module.main(argv)

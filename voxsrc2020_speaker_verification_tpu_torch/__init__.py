@@ -2,12 +2,15 @@
 NVIDIA H100 (Hopper, ``sm_90a``).
 
 The JAX package beside this one is the reference and is imported nowhere
-here. This package serves Res2Net embeddings and verification scores
-(``eval/serving.py``, ``cli/serve.py``), trains the Res2Net family on
-features (``training/``, ``cli/train.py``) and evaluates what it trained
+here. This package serves embeddings and verification scores
+(``eval/serving.py``, ``cli/serve.py``), trains every encoder family on
+features or raw audio, in one process or several (``training/``,
+``cli/train.py``, ``cli/launch.py``), evaluates what it trained
 (``cli/export.py``, ``cli/extract.py``, ``cli/score.py``,
-``cli/evaluate.py``); its device work goes through hand-written CUDA
-kernels (``csrc/``, built at first use by ``kernels.py``).
+``cli/evaluate.py``), imports the reference's TF checkpoints
+(``cli/import_checkpoint.py``) and prepares data (``cli/prepare_data.py``);
+its device work goes through hand-written CUDA kernels (``csrc/``, built at
+first use by ``kernels.py``).
 
 Entry points run on the GPU unless the caller asks for the CPU: ``device=None``
 means ``"cuda"``, and with no CUDA device they raise. On a CPU tensor every

@@ -58,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default=None,
                    help="where to write xvectors (default: the data dirs)")
     p.add_argument("--num-devices", type=int, default=0,
-                   help="0 or 1: the one card (more is not ported)")
+                   help="extraction's cards (cli.extract --num-devices: 0 = every local "
+                        "card, one on --device cpu)")
     p.add_argument("--wire", choices=("float32", "bfloat16"), default="float32",
                    help="host-to-device feature wire for extraction (cli.extract --wire)")
     p.add_argument("--cmvn", choices=("device", "host"), default="device",
@@ -102,13 +103,12 @@ def main(argv=None):
     from ..data import kaldi_io
     from ..eval.metrics import evaluate_trials
     from ..eval.scoring import asnorm_scores, cosine_scores, l2norm, read_trials
+    from ..eval.extract import extraction_devices
     from .extract import extract_dataset
     from .score import load_cohort
 
-    if args.num_devices > 1:
-        raise NotImplementedError("evaluation over more than one device is not ported yet "
-                                  "(ROADMAP.md §1 item 5); use --num-devices 1")
     device = resolve_device(args.device)
+    devices = extraction_devices(args.num_devices, device)
     artifact = resolve_artifact(args)
     test_dir = args.test_dir or os.path.join(args.data_root, "voxceleb1")
     cohort_dir = args.cohort_dir
@@ -129,7 +129,7 @@ def main(argv=None):
             print(f"extracting {data_dir} ...")
             os.makedirs(os.path.dirname(prefix), exist_ok=True)
             scp = extract_dataset(artifact, data_dir, prefix, batch_size=args.batch_size,
-                                  num_devices=args.num_devices, wire=args.wire,
+                                  devices=devices, wire=args.wire,
                                   cmvn=args.cmvn, device=device)
         return scp
 

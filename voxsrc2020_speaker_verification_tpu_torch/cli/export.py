@@ -12,7 +12,8 @@ latest unless ``--step``) into a training state built from the dir's
 none) and writes ``config.json``, ``weights.pt`` and
 ``projection_weight.pkl`` (``eval/export.py``). ``--stablehlo`` (the JAX
 package's serialized embed functions) has no counterpart in the port and
-exits with an error.
+exits with an error; ``--batch-size``, which sizes those functions in the
+JAX package, is accepted and has no effect here.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="experiment dir (default: the recipe's exp_dir)")
     p.add_argument("--step", type=int, default=None, help="checkpoint step (default latest)")
     p.add_argument("--out", default=None, help="artifact dir (default <exp-dir>/artifact)")
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="the JAX package's --stablehlo bucket batch; accepted so its command "
+                        "lines run unchanged (the port's artifact has no batch shape)")
     p.add_argument("--stablehlo", action="store_true",
                    help="not ported: the JAX package's serialized StableHLO embed functions")
     p.add_argument("--device", default=None,

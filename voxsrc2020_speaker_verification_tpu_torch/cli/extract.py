@@ -8,8 +8,10 @@ The reference's per-GPU tf_extract.py orchestration
         --out data/voxceleb1/xvector
 
 One card runs large bucket batches with masked pooling
-(``eval/extract.py``). Sliding CMVN normalizes each FULL utterance before
-chunking, as the reference's apply-cmvn-sliding feeder pipe does
+(``eval/extract.py``); ``--num-devices N`` splits each batch's rows over N
+cards, a replica of the model on each, from this one process. Sliding
+CMVN normalizes each FULL utterance before chunking, as the reference's
+apply-cmvn-sliding feeder pipe does
 (tf_extract.py:63): on the card by default (``--cmvn device``: K7 in
 length-bucketed batches) or on the host when asked (``--cmvn host``: a
 float64 cumulative sum per utterance, the JAX package's default). ``--raw``
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -122,6 +124,7 @@ def extract_dataset(
     wire: str = "float32",
     cmvn: str = "device",
     device: Optional[Union[str, torch.device]] = None,
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
 ) -> str:
     """Extract one embedding per utterance of a data dir into
     ``<out_prefix>.ark/.scp``; returns the scp path.
@@ -133,25 +136,33 @@ def extract_dataset(
     (``data.dataset.sliding_cmn_np`` on numpy rows). ``wire`` is the feature
     type of the forward's input ("float32" or "bfloat16"): the
     host-to-device copy of host-CMVN'd rows, a cast on the device for
-    device-resident ones. ``num_devices`` 0 or 1 means the one card; more
-    raises (not ported)."""
+    device-resident ones.
+
+    ``num_devices`` follows the JAX CLI: 0 means every local card (one on
+    the CPU), more than one splits each bucket batch into that many row
+    blocks, a replica of the model a card (``eval/extract.py:
+    extraction_devices``, ``sharded_embed_fn``), with the batch size rounded
+    up to a multiple of it; more cards than present raises. ``devices``
+    names the devices instead (e.g. ``["cpu"] * 3``, or one card twice).
+    FBANK and CMVN run on the first device."""
     from .. import resolve_device
     from ..data import kaldi_io
     from ..data.dataset import sliding_cmn_np
-    from ..eval.export import load_inference_artifact
-    from ..eval.extract import (default_batch_size, extract_embeddings,
-                                make_bucketed_embed_fn, resolve_wire_dtype)
+    from ..eval.export import load_sharded_inference_artifact
+    from ..eval.extract import (default_batch_size, extract_embeddings, extraction_devices,
+                                make_bucketed_embed_fn, resolve_wire_dtype, round_up_batch)
 
-    if num_devices > 1:
-        raise NotImplementedError("extraction over more than one device is not ported "
-                                  "yet (ROADMAP.md §1 item 5); use --num-devices 1")
     if cmvn not in ("host", "device"):
         raise ValueError(f"cmvn must be device|host, got {cmvn!r}")
     wire_dtype = resolve_wire_dtype(wire)
-    dev = resolve_device(device)
-    config, embed = load_inference_artifact(artifact_dir, dev)
+    if devices is None:
+        devices = extraction_devices(num_devices, device)
+    devices = [resolve_device(d) for d in devices]
+    dev = devices[0]
+    config, embed = load_sharded_inference_artifact(artifact_dir, devices)
     if batch_size is None:
         batch_size = default_batch_size(config.model)
+    batch_size = round_up_batch(batch_size, len(devices))
     fn = make_bucketed_embed_fn(embed, batch_size=batch_size)
 
     if raw:
@@ -195,7 +206,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--raw", action="store_true",
                    help="stream wav.scp through FBANK on the card (no feature store)")
     p.add_argument("--num-devices", type=int, default=0,
-                   help="0 or 1: the one card (more is not ported)")
+                   help="cards to split each bucket batch over, a model replica a card (0 = "
+                        "every local card; one on --device cpu, where N > 1 runs N CPU "
+                        "replicas); the batch is rounded up to a multiple")
     p.add_argument("--wire", choices=("float32", "bfloat16"), default="float32",
                    help="the forward's feature type; bfloat16 halves the host-to-device "
                         "copy of host-CMVN'd features (equal for bf16-compute models, 8 "

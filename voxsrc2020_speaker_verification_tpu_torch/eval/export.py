@@ -21,7 +21,7 @@ import dataclasses
 import json
 import os
 import pickle
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -101,3 +101,16 @@ def load_inference_artifact(
             return net.embed(f, m)
 
     return config, embed
+
+
+def load_sharded_inference_artifact(artifact_dir: str,
+                                    devices: Sequence[Union[str, torch.device]]):
+    """-> (config, embed_fn) over one replica of the artifact a device of
+    ``devices`` (``eval/extract.py:sharded_embed_fn``): a batch's rows are
+    split into ``len(devices)`` contiguous blocks, one a device, and come
+    back in order. One device gives :func:`load_inference_artifact`'s
+    embed fn."""
+    from .extract import sharded_embed_fn
+
+    loaded = [load_inference_artifact(artifact_dir, d) for d in devices]
+    return loaded[0][0], sharded_embed_fn([embed for _, embed in loaded])

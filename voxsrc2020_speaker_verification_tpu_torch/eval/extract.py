@@ -14,12 +14,17 @@ masking make the padded forward equal to the exact-length forward.
 ``embed_fn(feats (B, T, F), mask (B, T))`` returns a (B, D) float32 torch
 tensor, possibly still being computed on the device; the host reads it one
 batch later, so the device works on batch k while the host packs k+1.
+
+Over several devices (:func:`extraction_devices`, :func:`sharded_embed_fn`)
+one process drives a replica of the model on each: every bucket batch is
+split into contiguous row blocks, one a device, as the JAX package's mesh
+shards the batch axis.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -172,3 +177,56 @@ def make_bucketed_embed_fn(embed_fn: Callable, batch_size: Optional[int] = None)
         return embed_fn(feats, mask)
 
     return wrapped
+
+
+def extraction_devices(num_devices: int = 0,
+                       device: Optional[Union[str, torch.device]] = None) -> List[torch.device]:
+    """The devices an extraction runs on, the JAX CLI's ``--num-devices``
+    rule: 0 means every local card (``torch.cuda.device_count()``), or one
+    on the CPU; N > 0 means N, ``cuda:0`` .. ``cuda:N-1`` on the card and N
+    CPU replicas on ``device="cpu"``. Asking for more cards than are present
+    raises: nothing falls back to fewer."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    if num_devices < 0:
+        raise ValueError(f"num_devices must be >= 0, got {num_devices}")
+    if dev.type != "cuda":
+        return [dev] * max(1, num_devices)
+    present = torch.cuda.device_count()
+    n = num_devices or present
+    if n > present:
+        raise ValueError(f"--num-devices {n} asks for more cards than present ({present})")
+    if n == 1:
+        return [dev]
+    if dev.index not in (None, 0):
+        raise ValueError(f"--num-devices {n} takes cuda:0 .. cuda:{n - 1}; got --device {dev}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def round_up_batch(batch_size: int, num_devices: int) -> int:
+    """The bucket batch rounded up to a multiple of the device count."""
+    return -(-batch_size // num_devices) * num_devices
+
+
+def sharded_embed_fn(embed_fns: Sequence[Callable]) -> Callable:
+    """One embed fn over N replicas, ``embed_fns[i]`` on its own device: a
+    batch of B rows (B a multiple of N) is split into N contiguous row
+    blocks, block i goes to replica i (which copies it to its device), all N
+    are launched before any result is read, and the rows come back in order
+    on the first replica's device (device-to-device copies, which do not
+    wait on the host)."""
+    fns = list(embed_fns)
+    if len(fns) == 1:
+        return fns[0]
+
+    def embed(feats, mask):
+        b = feats.shape[0]
+        if b % len(fns):
+            raise ValueError(f"a batch of {b} rows does not split over {len(fns)} devices")
+        k = b // len(fns)
+        outs = [fn(feats[i * k:(i + 1) * k], mask[i * k:(i + 1) * k])
+                for i, fn in enumerate(fns)]
+        return torch.cat([o.to(outs[0].device, non_blocking=True) for o in outs])
+
+    return embed
