@@ -143,11 +143,14 @@ Phases, one JSON line each:
    its error.
 
 The kernels phase also holds the multi-process kernel modes: K1's general path
-(32 kHz, and a 64 ms frame at 16 kHz) against its plain version and
-float64; K5's spanning mode on two halves of (256, 96, 200, 80) against
-whole-batch K5, with an NCCL all-reduce of its sums timed (world size 1);
-K6's class-sharded mode on two class ranges of (2, 256, 5994) against whole
-K6.
+(32 kHz, and a 64 ms frame at 16 kHz, dithered and not, and a batch of 8
+waves) against its plain version and float64, one CUDA kernel a call;
+K5's spanning mode on two halves of (256, 96, 200, 80) and on two ranks of
+a real spanning shape (SPAN_REAL: 16 of 16 ranks' rows at bn_groups 8)
+against whole-batch K5, reruns bit for bit, two CUDA kernels a direction
+(the profiler), a rank's device time beside the bound, with an NCCL
+all-reduce of its sums timed (world size 1); K6's class-sharded mode on two
+class ranges of (2, 256, 5994) against whole K6.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line. Without a CUDA
@@ -2895,6 +2898,10 @@ GENERAL_FBANK_BATCH, GENERAL_FBANK_SECONDS = 8, 4.0
 # K5's spanning mode: one activation of SPAN_SHAPE split over two ranks,
 # BN groups SPAN_GROUPS (every group spans both halves)
 SPAN_SHAPE, SPAN_GROUPS, SPAN_RANKS = (256, 96, 200, 80), 1, 2
+# and a real spanning shape: (a rank's rows, BN groups, data ranks) of
+# res2net50_w8_s6_c16's stage-1 output on 16 data ranks at bn_groups 8 (a
+# 256-row batch, 16 rows a rank: each group spans two ranks)
+SPAN_REAL = ((16, 64, 200, 80), 8, 16)
 # K6's class-sharded mode: cos_all of MARGIN_SPLIT over two class ranges
 MARGIN_SPLIT = (2, 256, 5994)
 # --single-chip: the reference's best system through cli.train on one card
@@ -2906,11 +2913,27 @@ LAUNCH_TIMEOUT_S = 300
 TRACE_STEPS = 2
 
 
+def general_fbank_bound(cfg, batch, samples):
+    """(bound ms, bound_by) of FBANK on ``batch`` waves of ``samples``: fp32
+    FMA of the analysis (re and im) and of the mel sums over the packed mel
+    weights (``mel_columns``: the nonzeros of M), against the waves, A/B and
+    the packed weights read once and the features written once."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
+
+    t, nfft = fb.num_frames(samples, cfg), cfg.padded_frame_length // 2
+    nnz = fb.mel_columns(fb.analysis_matrices(cfg)[2])[2].size
+    flops = batch * (4 * t * cfg.frame_length * nfft + 2 * t * nnz)
+    nbytes = 4 * (batch * samples + 2 * cfg.frame_length * nfft + nnz + batch * t * cfg.num_bins)
+    return bound_ms(nbytes, flops, torch.float32)
+
+
 def check_fbank_general(dev):
     """K1's general path (fbank_general_f32) at GENERAL_FBANK: against the
-    plain version (TOL_FBANK) and float64, reruns bit for bit, times and
-    bound; the dithered variant at the first config; then its launches
-    through ops.fbank.fbank on a batch of 32 kHz waves, counted from 0."""
+    plain version (TOL_FBANK) and float64, reruns bit for bit, one CUDA
+    kernel a call (the profiler), times and bound; the dithered variant at
+    the first config; then its launches through ops.fbank.fbank on a batch
+    of 32 kHz waves, counted from 0, that batch against the plain version
+    and its device time beside its bound."""
     from voxsrc2020_speaker_verification_tpu_torch import kernels
     from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
 
@@ -2928,12 +2951,14 @@ def check_fbank_general(dev):
         rerun = torch.equal(got, fb.fbank(wave, cfg))
         if not rerun:
             fail(f"fbank general {kw}: reruns differ")
-        t, nfft = fb.num_frames(n, cfg), cfg.padded_frame_length // 2
-        flops = 4 * t * cfg.frame_length * nfft + 2 * t * nfft * FEAT_DIM
-        nbytes = 4 * (n + 2 * cfg.frame_length * nfft + nfft * FEAT_DIM + t * FEAT_DIM)
-        bms, by = bound_ms(nbytes, flops, torch.float32)
+        bms, by = general_fbank_bound(cfg, 1, n)
+        launched = cuda_kernels(lambda: fb.fbank(wave, cfg))
+        if sum(launched.values()) != 1:
+            fail(f"fbank general {kw}: CUDA kernels a call {launched} (one)")
         shapes.append(dict(
-            config=kw, seconds=seconds, frames=t, fft_bins=nfft, errors=e, reruns_bit_equal=rerun,
+            config=kw, seconds=seconds, frames=fb.num_frames(n, cfg),
+            fft_bins=cfg.padded_frame_length // 2, errors=e, reruns_bit_equal=rerun,
+            kernels_a_call=launched,
             ms=time_ms(lambda: fb.fbank(wave, cfg), reps=20),
             device_ms=device_ms(lambda: fb.fbank(wave, cfg), "fbank_general_kernel"),
             plain_ms=time_ms(lambda: fb.fbank_reference(wave, cfg), reps=20),
@@ -2948,6 +2973,8 @@ def check_fbank_general(dev):
                              .astype(np.float32)).to(dev)
     dither = hold_fp32("fbank general dithered", "white", fb.fbank(wave, cfg, noise),
                        fb.fbank_reference(wave, cfg, noise), fbank_float64(wave, cfg, noise))
+    dither.update(device_ms=device_ms(lambda: fb.fbank(wave, cfg, noise), "fbank_general_kernel"),
+                  bound_ms=general_fbank_bound(cfg, 2, n)[0], waves=2, seconds=seconds)
     # the launches: a batch of 32 kHz waves through the library entry
     cfg = fb.FbankConfig(num_bins=FEAT_DIM, dither=0.0, **GENERAL_FBANK[0][0])
     waves = torch.from_numpy(fb.pcm16(rng.randn(GENERAL_FBANK_BATCH, int(
@@ -2959,8 +2986,16 @@ def check_fbank_general(dev):
     launches = counts["fbank.fbank_general_f32:plain"]
     if launches < 1 or counts["fbank.fbank_f32:plain"] or not torch.isfinite(feats).all():
         fail(f"fbank general: launches {counts}")
+    batch_err = abs_err(feats, fb.fbank_reference(waves, cfg))
+    if batch_err > TOL_FBANK:
+        fail(f"fbank general batch of {GENERAL_FBANK_BATCH}: {batch_err}")
+    batch = dict(waves=GENERAL_FBANK_BATCH, seconds=GENERAL_FBANK_SECONDS, vs_plain=batch_err,
+                 device_ms=device_ms(lambda: fb.fbank(waves, cfg), "fbank_general_kernel"),
+                 plain_device_ms=device_ms(lambda: fb.fbank_reference(waves, cfg)),
+                 bound_ms=general_fbank_bound(cfg, GENERAL_FBANK_BATCH, waves.shape[1])[0])
     first = shapes[0]
-    emit({"phase": "kernel", "name": "fbank_general", "shapes": shapes, "dithered": dither})
+    emit({"phase": "kernel", "name": "fbank_general", "shapes": shapes, "dithered": dither,
+          "batch": batch})
     return dict(name="fbank_general", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/fbank.py:191 (fbank at the "
@@ -2975,15 +3010,124 @@ def check_fbank_general(dev):
                 plain_device_ms=first["plain_device_ms"], bound_ms=first["bound_ms"],
                 bound_by=first["bound_by"], library_ms=None,
                 library_note="none: no single PyTorch call computes Kaldi FBANK",
-                shapes=shapes, dithered=dither)
+                shapes=shapes, dithered=dither, batch=batch,
+                kernels_a_call=sum(first["kernels_a_call"].values()))
+
+
+def cuda_kernels(fn, calls: int = 10, tries: int = 3):
+    """CUDA kernels one call of ``fn`` launches, from torch.profiler: {name:
+    count a call} over ``calls`` calls after a warm-up, rounded (the
+    profiler has been seen to drop one event of a window); a window in
+    which the profiler saw no device activity at all (it has been seen to
+    miss a process's first window) is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: round(e.count / calls) for e in prof.key_averages()
+                if e.device_type.name == "CUDA"}
+        if seen:
+            return seen
+    return seen
+
+
+def span_halves(x, dy, st, layouts, blocks, relu=True):
+    """K5's spanning mode over the rank blocks of one batch in one process
+    (the partial sums added in place of the all-reduce): (y, dx)."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    sums = sum(ops.bn_span_partials(x[i], lay) for i, lay in zip(blocks, layouts))
+    outs = [ops.bn_span_apply(x[i], sums, s[0], s[1], lay, relu=relu)
+            for i, lay, s in zip(blocks, layouts, st)]
+    bsums = sum(ops.bn_span_bwd_partials(x[i], dy[i], stats, lay, relu=relu)
+                for i, lay, (_, stats) in zip(blocks, layouts, outs))
+    dx = [ops.bn_span_bwd_apply(x[i], dy[i], stats, bsums, lay, relu=relu)[0]
+          for i, lay, (_, stats) in zip(blocks, layouts, outs)]
+    return torch.cat([o[0] for o in outs]), torch.cat(dx)
+
+
+# a relu decision on which K5's spanning mode and a version it is held
+# against may differ: where the float64 pre-relu value lies within this of
+# zero (the two sum the moments in other orders; float32 rounding moves a
+# normalized value by ~1e-6 at these shapes)
+RELU_TIE = 1e-4
+
+
+def relu_ties_exceeded(x, groups, flips):
+    """Flipped relu decisions (``flips``) whose float64 pre-relu value,
+    normalized with the batch groups' float64 moments, lies farther than
+    RELU_TIE from zero (no shortcut: the value is x-hat)."""
+    b, c = x.shape[:2]
+    idx = flips.nonzero(as_tuple=True)
+    if not idx[0].numel():
+        return 0
+    xg = x.movedim(1, -1).reshape(groups, -1, c)
+    mean = torch.stack([g.double().mean(0) for g in xg])
+    var = torch.stack([torch.square(g.double()).mean(0) for g in xg]) - torch.square(mean)
+    grp, ch = idx[0] // (b // groups), idx[1]
+    z = (x[idx].double() - mean[grp, ch]) * torch.rsqrt(var[grp, ch] + 1e-5)
+    return int((z.abs() > RELU_TIE).sum())
+
+
+def span_errors(xs, dys, rm, rv, layouts, blocks, groups):
+    """K5's spanning mode over the rank blocks of ``xs`` (relu) against
+    whole-batch K5 (its cluster design) and against the plain version on the
+    same inputs (``bn_train_reference`` over the whole batch: what
+    ``bn_span_reference`` computes when its all-reduce sums every rank's
+    partials), forward, running update and backward; a rerun bit for bit.
+    Relu flips are counted and those outside RELU_TIE of zero reported."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    stats = [[rm.clone(), rv.clone()] for _ in layouts]
+    y, dx = span_halves(xs, dys, stats, layouts, blocks)
+    y2, dx2 = span_halves(xs, dys, [[rm.clone(), rv.clone()] for _ in layouts], layouts, blocks)
+    out = dict(reruns_bit_equal=bool(torch.equal(y, y2) and torch.equal(dx, dx2)))
+    del y2, dx2
+    for name, fn in (("vs_whole_k5", ops.bn_train), ("vs_plain", ops.bn_train_reference)):
+        xi = xs.detach().requires_grad_(True)
+        want = [rm.clone(), rv.clone()]
+        yw = fn(xi, want[0], want[1], groups=groups, relu=True)
+        yw.backward(dys)
+        yw = yw.detach()
+        same = (y > 0) == (yw > 0)
+        out[name] = dict(
+            y=rel_err(y, yw), dx=rel_err(dx * same, xi.grad * same),
+            relu_flips=int((~same).sum()), flips_off_ties=relu_ties_exceeded(xs, groups, ~same),
+            running=max(rel_err(a, b_) for st in stats for a, b_ in zip(st, want)))
+        del xi, yw, same
+    return out
+
+
+def span_failures(errs):
+    """The tolerance breaches of span_errors' output for each dtype."""
+    bad = []
+    for dtype, e in errs.items():
+        if not e["reruns_bit_equal"]:
+            bad.append(f"{dtype}: reruns differ")
+        for vs in ("vs_whole_k5", "vs_plain"):
+            v = e[vs]
+            tol_y, tol_dx = ((TOL_FP32, TOL_K5_GRAD_FP32) if dtype == "float32"
+                             else (TOL_TRAIN_BF16, TOL_TRAIN_BF16))
+            if v["y"] > tol_y or v["dx"] > tol_dx or v["running"] > TOL_FP32 or v["flips_off_ties"]:
+                bad.append(f"{dtype} {vs}: {v}")
+    return bad
 
 
 def check_bn_span(dev, gen):
-    """K5's spanning mode at SPAN_SHAPE over SPAN_RANKS halves (relu, the
-    partial sums added in place of the all-reduce) against whole-batch K5
-    (its cluster design), float32 and bfloat16, forward, running update and
-    backward; bf16 times of a rank's calls beside the cluster design at the
-    rank's shape, and one NCCL all-reduce of the partial sums (world 1)."""
+    """K5's spanning mode at SPAN_SHAPE over SPAN_RANKS halves and at the
+    real spanning shape SPAN_REAL (its whole batch over its ranks), relu, the
+    partial sums added in place of the all-reduce: against whole-batch K5
+    (its cluster design) and against its plain version, float32 and
+    bfloat16, forward, running update and backward, reruns bit for bit,
+    relu flips only at ties. bf16 device times of a rank's call through
+    ``bn_span`` (autograd, forward + backward) beside the bound, the CUDA
+    kernels a direction from the profiler (two), the cluster design at the
+    rank's shape and one NCCL all-reduce of the partial sums (world 1)."""
     import torch.distributed as dist
     import torch.nn.functional as F
 
@@ -2996,89 +3140,115 @@ def check_bn_span(dev, gen):
     rm, rv = 0.1 * torch.randn(c, generator=gen, device=dev), 0.5 + torch.rand(c, generator=gen, device=dev)
     layouts = [ops.SpanLayout.of(x[:b], SPAN_GROUPS, r, ranks) for r in range(ranks)]
     blocks = [slice(r * b, (r + 1) * b) for r in range(ranks)]
+    errs = {str(dtype).split(".")[-1]: span_errors(x.to(dtype), dy.to(dtype), rm, rv, layouts,
+                                                   blocks, SPAN_GROUPS)
+            for dtype in (torch.float32, torch.bfloat16)}
+    bad = span_failures(errs)
+    if bad:
+        fail(f"bn_train spanning mode at {SPAN_SHAPE}: {bad}")
 
-    def span(xs, dys):
-        sums = sum(ops.bn_span_partials(xs[i], lay) for i, lay in zip(blocks, layouts))
-        outs = [ops.bn_span_apply(xs[i], sums, st[0], st[1], lay, relu=True)
-                for i, lay, st in zip(blocks, layouts, stats)]
-        bsums = sum(ops.bn_span_bwd_partials(xs[i], y, dys[i], s, lay)
-                    for i, lay, (y, s) in zip(blocks, layouts, outs))
-        dx = [ops.bn_span_bwd_apply(xs[i], y, dys[i], s, bsums, lay)[0]
-              for i, lay, (y, s) in zip(blocks, layouts, outs)]
-        return torch.cat([o[0] for o in outs]), torch.cat(dx)
+    def rank_call(xh, dyh, lay, st):
+        """A rank's BN call through the autograd entry: (forward, backward)."""
+        def fwd():
+            with torch.no_grad():
+                return ops.bn_span(xh, st[0], st[1], lay, None, relu=True)
 
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        xs, dys = x.to(dtype), dy.to(dtype)
-        stats = [[rm.clone(), rv.clone()] for _ in range(ranks)]
-        y, dx = span(xs, dys)
-        xi = xs.detach().requires_grad_(True)
-        whole = [rm.clone(), rv.clone()]
-        yw = ops.bn_train(xi, whole[0], whole[1], groups=SPAN_GROUPS, relu=True)
-        yw.backward(dys)
-        same = (y > 0) == (yw > 0)
-        errs[str(dtype).split(".")[-1]] = dict(
-            y=rel_err(y, yw), dx=rel_err(dx * same, xi.grad * same), relu_flips=int((~same).sum()),
-            running=max(rel_err(a, b_) for st in stats for a, b_ in zip(st, whole)))
-        del xs, dys, y, dx, xi, yw, same
-    e32, e16 = errs["float32"], errs["bfloat16"]
-    if (max(e32["y"], e32["running"]) > TOL_FP32 or e32["dx"] > TOL_K5_GRAD_FP32
-            or max(e16["y"], e16["dx"]) > TOL_TRAIN_BF16 or e16["running"] > TOL_FP32):
-        fail(f"bn_train spanning mode vs whole-batch K5: {errs}")
+        def both():
+            xi = xh.detach().requires_grad_(True)
+            y = ops.bn_span(xi, st[0], st[1], lay, None, relu=True)
+            return torch.autograd.grad(y, [xi], dyh)
+        return fwd, both
+
+    def rank_numbers(xh, dyh, lay, st):
+        fwd, both = rank_call(xh, dyh, lay, st)
+        kf, kb = cuda_kernels(fwd), cuda_kernels(both)
+        nf = sum(kf.values())
+        nb = sum(kb.values()) - nf
+        if nf != 2 or nb != 2 or any("span_" not in k for k in kb):
+            fail(f"bn_train span: CUDA kernels a call fwd {kf}, fwd + bwd {kb} (2 a direction)")
+        # bytes, 5 units of one activation: the forward reads x and writes
+        # y, the backward reads x and dy and writes dx (no y: the relu
+        # decision is recomputed from x), x kept on chip across each
+        # all-reduce
+        bms, by = bound_ms(5 * xh.numel() * xh.element_size(), 20.0 * xh.numel(), torch.float32)
+        return dict(kernels_fwd=nf, kernels_bwd=nb, kernel_names=sorted(kb),
+                    device_ms=device_ms(both), device_ms_fwd=device_ms(fwd),
+                    ms=time_ms(both), bound_ms=bms, bound_by=by)
+
     # a rank's calls in bf16 (the training dtype): its half, with its own sums
     xh, dyh = x[:b].bfloat16(), dy[:b].bfloat16()
     lay = layouts[0]
     st = [rm.clone(), rv.clone()]
-    sums = ops.bn_span_partials(xh, lay)
-    y, s = ops.bn_span_apply(xh, sums, st[0], st[1], lay, relu=True)
-    bsums = ops.bn_span_bwd_partials(xh, y, dyh, s, lay)
-    fwd = time_ms(lambda: ops.bn_span_apply(xh, ops.bn_span_partials(xh, lay), st[0], st[1],
-                                            lay, relu=True))
-    bwd = time_ms(lambda: ops.bn_span_bwd_apply(
-        xh, y, dyh, s, ops.bn_span_bwd_partials(xh, y, dyh, s, lay), lay))
-    dev_ms = device_ms(lambda: (ops.bn_span_apply(xh, ops.bn_span_partials(xh, lay), st[0],
-                                                  st[1], lay, relu=True),
-                                ops.bn_span_bwd_apply(xh, y, dyh, s,
-                                                      ops.bn_span_bwd_partials(xh, y, dyh, s,
-                                                                               lay), lay)))
+    half = rank_numbers(xh, dyh, lay, st)
     # the plain version of a rank's half (no group: its own sums)
     plain = time_fwd_bwd(lambda t: ops.bn_span_reference(t, st[0], st[1], lay, None, relu=True),
                          [xh], dyh)
     # the cluster design at the rank's shape (its groups inside the rank)
     cfwd, cbwd = time_fwd_bwd(lambda t: ops.bn_train(t, st[0], st[1], groups=SPAN_GROUPS,
                                                      relu=True), [xh], dyh)
+
+    def cluster_both():
+        xi = xh.detach().requires_grad_(True)
+        y = ops.bn_train(xi, st[0], st[1], groups=SPAN_GROUPS, relu=True)
+        return torch.autograd.grad(y, [xi], dyh)
+    cluster_dev = device_ms(cluster_both)
+
     lfwd, lbwd = time_fwd_bwd(
         lambda t: torch.relu(F.batch_norm(t, st[0].clone(), st[1].clone(), training=True,
                                           momentum=1 - ops.BN_MOMENTUM, eps=ops.BN_EPSILON)),
         [xh], dyh)
+    del xh, dyh, x, dy
+    # the real spanning shape: the whole batch of SPAN_REAL over its ranks
+    real_shape, real_groups, real_ranks = SPAN_REAL
+    rows = real_shape[0]
+    xr = _layout(torch.randn((real_ranks * rows, *real_shape[1:]), generator=gen, device=dev)
+                 * 1.5 + 0.3)
+    dyr = _layout(torch.randn(xr.shape, generator=gen, device=dev))
+    rr = [torch.zeros(real_shape[1], device=dev), torch.ones(real_shape[1], device=dev)]
+    rlays = [ops.SpanLayout.of(xr[:rows], real_groups, r, real_ranks) for r in range(real_ranks)]
+    rblocks = [slice(r * rows, (r + 1) * rows) for r in range(real_ranks)]
+    real_err = {str(dtype).split(".")[-1]: span_errors(xr.to(dtype), dyr.to(dtype), *rr, rlays,
+                                                       rblocks, real_groups)
+                for dtype in (torch.float32, torch.bfloat16)}
+    bad = span_failures(real_err)
+    if bad:
+        fail(f"bn_train span at {SPAN_REAL}: {bad}")
+    xr, dyr = xr.bfloat16(), dyr.bfloat16()
+    real = rank_numbers(xr[:rows], dyr[:rows], rlays[0], rr)
+    real.update(shape=list(real_shape), groups=real_groups, ranks=real_ranks, errors=real_err)
+    del xr, dyr
     # one all-reduce of the forward's sums and one of the backward's, on NCCL
     # at world size 1 (the card's machine has one GPU): the collective's
     # launch and copy at these sizes, not a transfer between cards
+    sums = torch.zeros((SPAN_GROUPS, 2, c), device=dev)
+    bsums = torch.zeros((SPAN_GROUPS, 2, c), device=dev)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
                             world_size=1, rank=0)
     try:
         ar = time_ms(lambda: (dist.all_reduce(sums), dist.all_reduce(bsums)), reps=20)
     finally:
         dist.destroy_process_group()
-    # bytes: forward reads x, writes y; backward reads x, y, dy, writes dx
-    n = xh.numel()
-    bms, by = bound_ms(2 * n * 2 + 2 * n * 4, 20.0 * n, torch.float32)
     emit({"phase": "kernel", "name": "bn_train_span", "shape": list(SPAN_SHAPE), "ranks": ranks,
-          "groups": SPAN_GROUPS, "errors": errs, "rank_ms_fwd": fwd, "rank_ms_bwd": bwd,
+          "groups": SPAN_GROUPS, "errors": errs, "rank_half": half, "real_shape": real,
+          "real_activation_mb": math.prod(real_shape) * 2 / 1e6,
           "cluster_ms_fwd": cfwd, "cluster_ms_bwd": cbwd, "allreduce_ms": ar})
     return dict(name="bn_train_span", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/bn_train.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:117 (_GroupedBN with "
                          "bn_groups across the data axis of make_mesh, GSPMD, forward and "
                          "backward)",
-                max_abs_err=max(e16["y"], e16["dx"]), errors=errs, tolerance=TOL_TRAIN_BF16,
+                max_abs_err=max(errs["bfloat16"][vs][k] for vs in ("vs_whole_k5", "vs_plain")
+                                for k in ("y", "dx")),
+                errors=errs, tolerance=TOL_TRAIN_BF16,
                 dtype="bfloat16", per=f"one rank's half {[b, *SPAN_SHAPE[1:]]} of "
                 f"{list(SPAN_SHAPE)}, groups {SPAN_GROUPS}, relu, forward + backward",
-                ms=fwd + bwd, device_ms=dev_ms, plain_ms=sum(plain), bound_ms=bms,
-                bound_by=by, allreduce_ms=ar,
+                ms=half["ms"], device_ms=half["device_ms"], plain_ms=sum(plain),
+                bound_ms=half["bound_ms"], bound_by=half["bound_by"],
+                kernels_a_direction={"fwd": half["kernels_fwd"], "bwd": half["kernels_bwd"]},
+                real_shape=real, allreduce_ms=ar,
                 allreduce_note="two NCCL all-reduces a step (forward and backward sums), "
                                "world size 1 on one card",
-                cluster_design_ms=cfwd + cbwd,
+                cluster_design_ms=cfwd + cbwd, cluster_design_device_ms=cluster_dev,
                 cluster_design_note="K5's cluster design at the rank's shape, its groups "
                                     "inside the rank",
                 library_ms=lfwd + lbwd,

@@ -1247,73 +1247,241 @@ def test_fbank_general_path_matches_plain(cuda, kw, dither):
     assert torch.equal(got, tfb.fbank(waves, cfg, noise))
 
 
-def span_run(cuda, shape, groups, mode, dtype, ranks=2):
-    """K5's spanning mode over ``ranks`` blocks of one batch in one process
-    (the all-reduce replaced by a sum of the blocks' partials): [y, dx, (ds,)
-    running statistics of each block]."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,seconds,batch", [(dict(sample_rate=48000), 3.0, 2),
+                                              (dict(sample_rate=32000), 128.0, 1),
+                                              (dict(sample_rate=32000), 4.0, 8),
+                                              (dict(frame_length_ms=64.0), 4.0, 8)],
+                         ids=["48k", "32k-128s", "32k-8x4s", "64ms-8x4s"])
+@pytest.mark.parametrize("dither", [False, True])
+def test_fbank_general_path_long_waves_and_batches(cuda, kw, seconds, batch, dither):
+    """K1's general path at 48 kHz (16 bin tiles), a 128 s wave at 32 kHz
+    (200 frame tiles) and batches of 8 waves, dithered and not, against the
+    plain version at 1e-3 log-mel; reruns bit for bit."""
+    cfg = tfb.FbankConfig(dither=1.0 if dither else 0.0, **kw)
+    assert tfb.kernel_route(cfg) == "general"
+    rng = np.random.RandomState(12)
+    n = int(seconds * cfg.sample_rate)
+    waves = torch.from_numpy(tfb.pcm16(rng.randn(batch, n) * 3000).astype(np.float32)).to(cuda)
+    noise = None
+    if dither:
+        noise = torch.from_numpy(rng.randn(batch, tfb.num_frames(n, cfg), cfg.frame_length)
+                                 .astype(np.float32)).to(cuda)
+    got = tfb.fbank(waves, cfg, noise)
+    want = tfb.fbank_reference(waves, cfg, noise)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got, tfb.fbank(waves, cfg, noise))
+
+
+def span_inputs(cuda, shape, dtype):
+    """x, the shortcut, dy and the four running statistics of span_run."""
     x, s, dy = (bn_case(cuda, shape, dtype, seed)[0] for seed in (3, 4, 5))
     g = torch.Generator(device=cuda).manual_seed(6)
     rm, srm = (torch.randn(shape[1], generator=g, device=cuda) * 0.1 for _ in range(2))
     rv, srv = (torch.rand(shape[1], generator=g, device=cuda) + 0.5 for _ in range(2))
-    b = shape[0] // ranks
-    blocks = [slice(r * b, (r + 1) * b) for r in range(ranks)]
-    layouts = [tops.SpanLayout.of(x[i], groups, r, ranks) for r, i in enumerate(blocks)]
-    relu, sc = mode != "plain", mode in ("raw_shortcut", "bn_shortcut")
-    bn_sc = mode == "bn_shortcut"
-    sums = sum(tops.bn_span_partials(x[i], lay) for i, lay in zip(blocks, layouts))
-    ssums = sum(tops.bn_span_partials(s[i], lay) for i, lay in zip(blocks, layouts)) if bn_sc else None
-    fwd = []
-    for i, lay in zip(blocks, layouts):
-        st = [t.clone() for t in (rm, rv, srm, srv)]
-        y, stats = tops.bn_span_apply(
-            x[i], sums, st[0], st[1], lay, relu=relu, shortcut=s[i] if sc else None,
-            shortcut_sums=ssums, shortcut_running_mean=st[2] if bn_sc else None,
-            shortcut_running_var=st[3] if bn_sc else None)
-        fwd.append((y, stats, st))
-    sc_mode = 2 if bn_sc else (1 if sc else 0)
-    bsums = sum(tops.bn_span_bwd_partials(x[i], y if relu else None, dy[i], stats, lay,
-                                          s[i] if bn_sc else None)
-                for i, lay, (y, stats, _) in zip(blocks, layouts, fwd))
-    grads = [tops.bn_span_bwd_apply(x[i], y if relu else None, dy[i], stats, bsums, lay,
-                                    sc_mode, s[i] if bn_sc else None)
-             for i, lay, (y, stats, _) in zip(blocks, layouts, fwd)]
-    y = torch.cat([f[0] for f in fwd])
-    dx = torch.cat([gr[0] for gr in grads])
-    ds = torch.cat([gr[1] for gr in grads]) if sc else None
-    # the whole batch through K5 (autograd)
+    return x, s, dy, [rm, rv, srm, srv]
+
+
+def whole_batch(fn, x, s, dy, running, groups, mode, update=True):
+    """The whole batch through ``fn`` (``bn_train``'s signature) and
+    autograd: (y, dx, ds or None, the running statistics it updated)."""
+    relu, sc, bn_sc = mode != "plain", mode in ("raw_shortcut", "bn_shortcut"), mode == "bn_shortcut"
     xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
-    st = [t.clone() for t in (rm, rv, srm, srv)]
+    st = [None if t is None else t.clone() for t in running]
     kw = dict(groups=groups, relu=relu)
     if sc:
         kw["shortcut"] = si
     if bn_sc:
         kw.update(shortcut_running_mean=st[2], shortcut_running_var=st[3])
-    yw = tops.bn_train(xi, st[0], st[1], **kw)
+    with tops.running_update(update):
+        yw = fn(xi, st[0], st[1], **kw)
     yw.backward(dy)
-    return (y, dx, ds, [f[2] for f in fwd]), (yw.detach(), xi.grad, si.grad if sc else None, st)
+    return yw.detach(), xi.grad, si.grad if sc else None, st
+
+
+def bn_train_float64(x, running_mean, running_var, *, groups=1, relu=False, shortcut=None,
+                     shortcut_running_mean=None, shortcut_running_var=None):
+    """Whole-batch training BN with every moment and product in float64 (no
+    running update): the yardstick of the float32 versions."""
+    def norm(t):
+        rows = t.double().movedim(1, -1)
+        g = rows.reshape(groups, -1, t.shape[1])
+        mean = g.mean(1, keepdim=True)
+        var = torch.square(g).mean(1, keepdim=True) - torch.square(mean)
+        return ((g - mean) * torch.rsqrt(var + tops.BN_EPSILON)).reshape(rows.shape).movedim(-1, 1)
+
+    y = norm(x)
+    if shortcut is not None:
+        y = y + (norm(shortcut) if shortcut_running_mean is not None else shortcut.double())
+    return torch.relu(y) if relu else y
+
+
+def span_run(cuda, shape, groups, mode, dtype, ranks=2, update=True):
+    """K5's spanning mode over ``ranks`` blocks of one batch in one process
+    (the all-reduce replaced by a sum of the blocks' partials): [y, dx, (ds,)
+    running statistics of each block], then the same for the whole batch
+    through K5 (autograd). ``update=False`` runs both with null running
+    statistics (a rematerialized recompute)."""
+    x, s, dy, (rm, rv, srm, srv) = span_inputs(cuda, shape, dtype)
+    b = shape[0] // ranks
+    blocks = [slice(r * b, (r + 1) * b) for r in range(ranks)]
+    layouts = [tops.SpanLayout.of(x[i], groups, r, ranks) for r, i in enumerate(blocks)]
+    relu, sc = mode != "plain", mode in ("raw_shortcut", "bn_shortcut")
+    bn_sc = mode == "bn_shortcut"
+    sc_mode = 2 if bn_sc else (1 if sc else 0)
+    sums = sum(tops.bn_span_partials(x[i], lay, s[i] if bn_sc else None)
+               for i, lay in zip(blocks, layouts))
+    fwd = []
+    for i, lay in zip(blocks, layouts):
+        st = [t.clone() for t in (rm, rv, srm, srv)]
+        y, stats = tops.bn_span_apply(
+            x[i], sums[0] if bn_sc else sums, st[0], st[1], lay, relu=relu,
+            shortcut=s[i] if sc else None, shortcut_sums=sums[1] if bn_sc else None,
+            shortcut_running_mean=st[2] if bn_sc else None,
+            shortcut_running_var=st[3] if bn_sc else None, update=update)
+        fwd.append((y, stats, st))
+    kw = [dict(sc_mode=sc_mode, relu=relu, shortcut=s[i] if bn_sc else None,
+               y=y if sc_mode == 1 else None) for i, (y, _, _) in zip(blocks, fwd)]
+    bsums = sum(tops.bn_span_bwd_partials(x[i], dy[i], stats, lay, **k)
+                for i, lay, (_, stats, _), k in zip(blocks, layouts, fwd, kw))
+    grads = [tops.bn_span_bwd_apply(x[i], dy[i], stats, bsums, lay, **k)
+             for i, lay, (_, stats, _), k in zip(blocks, layouts, fwd, kw)]
+    y = torch.cat([f[0] for f in fwd])
+    dx = torch.cat([gr[0] for gr in grads])
+    ds = torch.cat([gr[1] for gr in grads]) if sc else None
+    whole = whole_batch(tops.bn_train, x, s, dy, [rm, rv, srm, srv], groups, mode, update)
+    return (y, dx, ds, [f[2] for f in fwd]), whole
+
+
+def check_span(got, whole, dtype, running=None, outputs=True):
+    """got against whole-batch K5: the same relu decisions, y, dx and ds
+    (unless ``outputs`` is False) and every block's running statistics
+    (against ``running`` where given)."""
+    (y, dx, ds, sts), (yw, dxw, dsw, stw) = got, whole
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    same = (y > 0) == (yw > 0)
+    assert int((~same).sum()) == 0
+    if outputs:
+        assert rel(y, yw) <= tol and rel(dx, dxw) <= tol
+        if ds is not None:
+            assert rel(ds, dsw) <= tol
+    for st in sts:
+        for a, b in zip(st, stw if running is None else running):
+            assert rel(a, b) <= 1e-4
+
+
+SPAN_MODES = ["plain", "relu", "raw_shortcut", "bn_shortcut"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", [((12, 24, 9, 5), 1), ((12, 24, 9, 5), 3),
                                           ((12, 24, 9, 5), 2), ((12, 40), 1), ((12, 40), 3),
                                           ((12, 10, 9, 5), 3)])
-@pytest.mark.parametrize("mode", ["plain", "relu", "raw_shortcut", "bn_shortcut"])
+@pytest.mark.parametrize("mode", SPAN_MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_span_mode_matches_whole_batch(cuda, shape, groups, mode, dtype):
     """K5's spanning mode on two halves of a batch (groups that span both,
     misaligned ones at 3 groups, 4-D and 2-D, a channel count that is not
     a multiple of 4) with their partial sums added, against whole-batch K5:
-    outputs, gradients and every half's running statistics."""
-    (y, dx, ds, sts), (yw, dxw, dsw, stw) = span_run(cuda, shape, groups, mode, dtype)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    same = (y > 0) == (yw > 0)
-    assert int((~same).sum()) == 0
-    assert rel(y, yw) <= tol and rel(dx, dxw) <= tol
-    if ds is not None:
-        assert rel(ds, dsw) <= tol
-    for st in sts:
-        for a, b in zip(st, stw):
-            assert rel(a, b) <= 1e-4
+    outputs, gradients and every half's running statistics; a rerun is
+    bit-equal."""
+    got, whole = span_run(cuda, shape, groups, mode, dtype)
+    check_span(got, whole, dtype)
+    again = span_run(cuda, shape, groups, mode, dtype)[0]
+    for a, b in zip(got[:3], again[:3]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,ranks", [
+    ((12, 10, 9, 5), 2, 3),      # C = 10: the direct design on single channels; rank 1 meets both groups
+    ((12, 10, 9, 5), 3, 2),      # groups of 4 rows, ranks of 6: offsets in the middle of a group
+    ((15, 24, 7, 3), 3, 5),      # groups of 5 over ranks of 3
+    ((12, 10), 3, 2),            # a 2-D head input with C = 10
+    ((8, 3000), 2, 4),           # a 2-D head wider than 512 16-byte vectors (fp32): channel
+                                 # tiles; 4 rows a group
+    ((16, 3000), 2, 4),          # the same at 8 rows a group
+    ((6, 16, 40, 80), 2, 3)])    # more rows than a CTA's ring holds: several chunks a slab
+@pytest.mark.parametrize("mode", SPAN_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("update", [True, False])
+def test_bn_span_layouts_and_null_running_statistics(cuda, shape, groups, ranks, mode, dtype,
+                                                     update):
+    """K5's spanning mode over more layouts (touched > 1, mid-group offsets,
+    2-D heads, C = 10, channel tiles, multi-chunk slabs) in every shortcut
+    mode, with the running update on and off (null running statistics: left
+    as they were), against whole-batch K5; reruns bit-equal. In float32 the
+    outputs of both K5 designs are held against the float64 version instead,
+    each no further from it than twice the float32 plain version, or 1e-4:
+    at a few rows a group the backward's projection of dy cancels in any
+    float32 computation, so the two designs may stray from each other by
+    more than from float64."""
+    got, whole = span_run(cuda, shape, groups, mode, dtype, ranks, update)
+    x, s, dy, running = span_inputs(cuda, shape, dtype)
+    check_span(got, whole, dtype, running=None if update else running,
+               outputs=dtype != torch.float32)
+    if not update:
+        for a, b in zip(whole[3], running):
+            assert torch.equal(a, b)
+    if dtype == torch.float32:
+        want = whole_batch(bn_train_float64, x.double(), s.double(), dy.double(), running,
+                           groups, mode)
+        plain = whole_batch(tops.bn_train_reference, x, s, dy, running, groups, mode)
+        for name, a, w, p, r in zip(("y", "dx", "ds"), got, whole, plain, want):
+            if r is None:
+                continue
+            tol = max(1e-4, 2 * rel(p, r))
+            assert rel(a, r) <= tol, (name, "span", rel(a, r), tol)
+            assert rel(w, r) <= tol, (name, "whole-batch K5", rel(w, r), tol)
+    again = span_run(cuda, shape, groups, mode, dtype, ranks, update)[0]
+    for a, b in zip(got[:3], again[:3]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", SPAN_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_span_autograd_launches_two_kernels_a_direction(cuda, mode, dtype):
+    """K5's spanning mode through its autograd entry (``bn_span``, no process
+    group: one rank holding the whole batch) against whole-batch K5: two
+    launches a direction, counted, and two CUDA kernels a direction in the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shape, groups = (8, 32, 20, 10), 2
+    x, s, dy = (bn_case(cuda, shape, dtype, seed)[0] for seed in (3, 4, 5))
+    relu, sc, bn_sc = mode != "plain", mode in ("raw_shortcut", "bn_shortcut"), mode == "bn_shortcut"
+    lay = tops.SpanLayout.of(x, groups, 0, 1)
+    outs = []
+    for fn in ("span", "whole"):
+        xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+        st = [f(shape[1], device=cuda) for f in (torch.zeros, torch.ones) * 2]
+        kw = dict(relu=relu, shortcut=si if sc else None,
+                  shortcut_running_mean=st[2] if bn_sc else None,
+                  shortcut_running_var=st[3] if bn_sc else None)
+        if fn == "span":
+            before = dict(kernels.BN_TRAIN.fn_launches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                y = tops.bn_span(xi, st[0], st[1], lay, None, **kw)
+                torch.cuda.synchronize()
+            fwd_kernels = sum(e.count for e in prof.key_averages()
+                              if e.device_type.name == "CUDA" and "span_" in e.key)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                y.backward(dy)
+                torch.cuda.synchronize()
+            bwd_kernels = sum(e.count for e in prof.key_averages()
+                              if e.device_type.name == "CUDA" and "span_" in e.key)
+            after = kernels.BN_TRAIN.fn_launches
+            assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+                "bn_span_stats": 1, "bn_span_normalize": 1, "bn_span_bwd_reduce": 1,
+                "bn_span_bwd_grad": 1}
+            assert (fwd_kernels, bwd_kernels) == (2, 2)
+        else:
+            y = tops.bn_train(xi, st[0], st[1], groups=groups, **kw)
+            y.backward(dy)
+        outs.append((y.detach(), xi.grad, si.grad if sc else None, st))
+    check_span((*outs[0][:3], [outs[0][3]]), outs[1], dtype)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ themselves run only on the card (tests/test_torch_kernels.py)."""
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -245,3 +246,116 @@ def test_sliding_cmvn_plan_past_n_and_long_windows():
     # bins: groups of 8 or 16, fewer rounded up to a multiple of 4
     assert cmvn.sliding_cmvn_plan(2, 400, 30, 300)["groups"] == 2
     assert cmvn.sliding_cmvn_plan(2, 400, 5, 300)["fb"] == 8
+
+
+# K5's spanning mode: (rows a batch row, batch rows a rank, ranks, groups,
+# rank): one data rank's rows of a global batch whose BN groups span ranks
+SPAN_LAYOUTS = [
+    (200 * 80, 128, 2, 1, 0),     # chip_smoke's half of (256, 96, 200, 80), one group
+    (200 * 80, 16, 16, 8, 5),     # a 256-row batch on 16 ranks, 8 groups: two ranks a group
+    (45, 6, 2, 3, 0),             # groups of 4 rows over ranks of 6: a mid-group offset
+    (45, 6, 2, 3, 1),             # and its second rank (touched 2, offset 270)
+    (45, 4, 3, 2, 1),             # the middle rank of 3 meets both groups
+    (1, 6, 2, 3, 1),              # a 2-D head input (per = 1)
+    (1, 16, 2, 1, 1),             # a 2-D head's rank of 16 rows
+    (25 * 10, 3, 5, 3, 2),        # 15 rows in 3 groups of 5 over 5 ranks of 3
+]
+
+
+@pytest.mark.parametrize("per,b,ranks,groups,rank", SPAN_LAYOUTS, ids=lambda v: str(v))
+@pytest.mark.parametrize("channels,dtype", [(96, torch.bfloat16), (64, torch.float32),
+                                            (24, torch.float32), (10, torch.bfloat16),
+                                            (12, torch.bfloat16), (10240, torch.float32),
+                                            (10240, torch.bfloat16), (40, torch.float32)])
+def test_bn_span_plan_covers_each_row_once(per, b, ranks, groups, rank, channels, dtype):
+    """K5's spanning plan (ops/nn.py:bn_span_plan) for a rank's rows: every
+    (row, channel tile) is one CTA's, each CTA's rows lie inside one group
+    (the group it names), the touched groups' CTAs are where their entries
+    say (slab-major, tile-minor), one wave of CTAs on 132 SMs, the geometry
+    covers the row's channels in tiles of at most 512 vectors of 16 bytes
+    (or of single channels where the row does not fill them), and the ring
+    (its chunks for 1-3 tensors, _SPAN_RING_STAGES of them) fits 227 KB."""
+    lay = tops.SpanLayout(b * per, rank * b * per, b * ranks // groups * per, groups)
+    plan = tops.bn_span_plan(lay, channels, dtype, 132)
+    assert tops.bn_span_plan(lay, channels, dtype, 132) is plan
+    vecn = 16 // dtype.itemsize
+    ring = plan["design"] == "ring"
+    assert ring == (channels % vecn == 0 and channels // vecn <= 512)
+    assert plan["vec"] == (vecn if channels % vecn == 0 else 1)
+    ct, rpb, tiles, vec = plan["ct"], plan["rpb"], plan["tiles"], plan["vec"]
+    assert plan["threads"] == ct * rpb <= 512 and rpb & (rpb - 1) == 0 and 2 * ct * rpb > 512
+    assert (tiles - 1) * ct * vec < channels <= tiles * ct * vec and plan["cw"] == ct * vec
+    assert not ring or tiles == 1
+    ctas, segs = plan["ctas"], plan["segs"]
+    assert len(segs) == lay.touched
+    per_sm = 1 if ring else tops._SPAN_DIRECT_CTAS_PER_SM
+    assert len(ctas) <= 132 * per_sm + lay.touched * tiles
+    for t in range(tiles):
+        rows = sorted((lo, hi) for (_, lo, hi, tt) in ctas if tt == t)
+        edges = [0] + [hi for _, hi in rows]
+        assert [lo for lo, _ in rows] == edges[:-1] and edges[-1] == lay.nloc
+        assert all(lo < hi for lo, hi in rows)
+    for (g, lo, hi, _) in ctas:
+        first = g * lay.ngroup - lay.offset
+        assert first <= lo < hi <= first + lay.ngroup
+    for z, (g, first, k) in enumerate(segs):
+        assert g == lay.offset // lay.ngroup + z
+        for j in range(k):
+            for t in range(tiles):
+                assert ctas[first + j * tiles + t][0] == g and ctas[first + j * tiles + t][3] == t
+    assert sum(k for _, _, k in segs) * tiles == len(ctas)
+    assert plan["smem"] <= SMEM - 1024 and plan["smem"] * per_sm <= 233472 - 1024 * per_sm
+    if ring:
+        row = channels * dtype.itemsize
+        assert plan["smem"] == 4 * plan["threads"] * vec + plan["ring_bytes"]
+        for ni, rr in zip((1, 2, 3), plan["ring_rows"]):
+            stages = plan["ring_bytes"] // (ni * rr * row)
+            assert rr % rpb == 0 and stages >= 2
+            assert stages >= tops._SPAN_RING_STAGES or rr == rpb
+            assert plan["ring_bytes"] % 16 == 0
+    else:
+        assert plan["smem"] == 4 * plan["threads"] * vec and plan["ring_bytes"] == 0
+
+
+# K1's general path: the configs the fast design refuses (chip_smoke's two,
+# a 32 ms frame, 600 mel bins at 32 kHz, 48 kHz)
+GENERAL_CONFIGS = [dict(sample_rate=32000), dict(frame_length_ms=64.0),
+                   dict(frame_length_ms=32.0), dict(sample_rate=32000, num_bins=600),
+                   dict(sample_rate=48000)]
+
+
+@pytest.mark.parametrize("kw", GENERAL_CONFIGS, ids=lambda kw: str(sorted(kw.items())))
+@pytest.mark.parametrize("batch,frames", [(1, 798), (8, 398), (2, 1), (3, 12798)])
+def test_fbank_general_plan_covers_every_frame_bin_and_weight(kw, batch, frames):
+    """K1's general tile plan (ops/fbank.py:general_plan): its tiles cover
+    every (frame, FFT bin) once, every packed mel weight is summed once (in
+    exactly one tile's term, the terms of a column partition its run and lie
+    in the tiles the last arrival adds), and the ring fits 227 KB."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as fb
+
+    cfg = fb.FbankConfig(dither=0.0, **kw)
+    assert fb.kernel_route(cfg) == "general"
+    nfft = cfg.padded_frame_length // 2
+    for dither in (False, True):
+        plan = fb.general_plan(cfg, batch, frames, dither)
+        tf, tb = plan["tile_frames"], plan["tile_bins"]
+        assert plan["frame_tiles"] * tf >= frames > (plan["frame_tiles"] - 1) * tf
+        assert plan["bin_tiles"] * tb >= nfft > (plan["bin_tiles"] - 1) * tb
+        assert plan["ctas"] == plan["frame_tiles"] * plan["bin_tiles"] * batch
+        assert plan["smem"] <= SMEM - 1024 and plan["threads"] == 256
+        assert plan["part_floats"] == plan["bin_tiles"] * batch * frames * cfg.num_bins
+        assert plan["tickets"] == batch * plan["frame_tiles"]
+        # the epilogue's buffers (second half's sums, the power) fit the ring
+        assert 4 * (64 * 128 + tf * (tb + 4)) <= plan["smem"]
+    starts, offsets, weights = fb.mel_columns(fb.analysis_matrices(cfg)[2])
+    counts = np.zeros(weights.size, np.int64)
+    tiles_of = {}
+    for t, c, lo, hi in fb.general_mel_terms(cfg):
+        assert t * tb <= lo < hi <= min((t + 1) * tb, nfft)
+        counts[offsets[c] + lo - starts[c]:offsets[c] + hi - starts[c]] += 1
+        tiles_of.setdefault(c, []).append(t)
+    assert (counts == 1).all()
+    for c in range(cfg.num_bins):
+        n = offsets[c + 1] - offsets[c]
+        want = list(range(starts[c] // tb, (starts[c] + n - 1) // tb + 1)) if n else []
+        assert tiles_of.get(c, []) == want, c

@@ -70,9 +70,14 @@
 // forward, x and dy read twice and dx written in the backward (3 and 5
 // units of one activation against the bound's 2 and 3) where a slab does
 // not fit on chip -- and the 4 SMs a grid of 8 groups leaves idle.
+//
+// The spanning mode (bn_span_*: groups that span the data ranks, with an
+// all-reduce between its launches) has its own section below the cluster
+// design: one launch a phase on the cluster design's ring.
 #include <algorithm>
 #include <cooperative_groups.h>
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -136,25 +141,10 @@ __device__ __forceinline__ void write_partials(float (*acc)[V], const Geo& geo,
     }
 }
 
-// The rows a reduction launch covers: the caller holds `nloc` rows that
-// start at global row `offset`, a BN group is `ngroup` consecutive global
-// rows, and grid z walks the groups from g0. The multi-kernel design holds
-// whole groups (offset 0, nloc = G * ngroup, g0 = 0); the spanning mode
-// (bn_span_*) a rank's rows of groups that other ranks share.
-struct Span {
-  long long nloc, offset, ngroup;
-  int g0;
-  // local rows [lo, hi) of grid z's group
-  __device__ __forceinline__ void range(int z, long long& lo, long long& hi) const {
-    const long long g = g0 + z, first = g * ngroup, last = first + ngroup;
-    lo = (first > offset ? first : offset) - offset;
-    hi = (last < offset + nloc ? last : offset + nloc) - offset;
-  }
-};
-
-// Forward statistics pass: sum(x), sum(x^2). Grid (chunks, tiles, groups of the span).
+// Forward statistics pass: sum(x), sum(x^2). Grid (chunks, tiles, groups);
+// a group is n rows.
 template <typename T, int V>
-__global__ void stats_kernel(const T* __restrict__ x, Span span, int channels,
+__global__ void stats_kernel(const T* __restrict__ x, long long n, int channels,
                              Geo geo, float* __restrict__ part) {
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
@@ -163,9 +153,7 @@ __global__ void stats_kernel(const T* __restrict__ x, Span span, int channels,
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
   if (lane_r < geo.rpb && cv < geo.cv) {
-    long long lo, hi;
-    span.range(blockIdx.z, lo, hi);
-    const long long n = hi - lo;
+    const long long lo = blockIdx.z * n;
     const long long r0 = n * blockIdx.x / geo.chunks;
     const long long r1 = n * (blockIdx.x + 1) / geo.chunks;
     const T* base = x + lo * channels + cv * V;
@@ -242,13 +230,13 @@ __global__ void normalize_kernel(const T* __restrict__ x,
                                  const float* __restrict__ sc_mean,
                                  const float* __restrict__ sc_rstd,
                                  T* __restrict__ out, long long nvec,
-                                 int channels, long long group_elems,
-                                 long long elem_offset, int relu, int sc_mode) {
+                                 int channels, long long group_elems, int relu,
+                                 int sc_mode) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
     const long long e = v * V;
-    const long long s = ((e + elem_offset) / group_elems) * channels + e % channels;
+    const long long s = (e / group_elems) * channels + e % channels;
     float xv[V], mu[V], rs[V], sv[V], smu[V], srs[V], o[V];
     vsv::load_v<V>(x + e, xv);
     load_stats<V>(mean + s, mu);
@@ -281,7 +269,7 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
                                   const float* __restrict__ rstd,
                                   const float* __restrict__ sc_mean,
                                   const float* __restrict__ sc_rstd,
-                                  Span span, int channels, Geo geo,
+                                  long long n, int channels, Geo geo,
                                   float* __restrict__ part) {
   const int lane_c = threadIdx.x % geo.cpb;
   const int lane_r = threadIdx.x / geo.cpb;
@@ -292,7 +280,7 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
   if (lane_r < geo.rpb && cv < geo.cv) {
-    const int g = span.g0 + blockIdx.z;
+    const int g = blockIdx.z;
     float mu[V], rs[V], smu[V], srs[V];
     load_stats<V>(mean + g * channels + cv * V, mu);
     load_stats<V>(rstd + g * channels + cv * V, rs);
@@ -300,9 +288,7 @@ __global__ void reduce_bwd_kernel(const T* __restrict__ x, const T* __restrict__
       load_stats<V>(sc_mean + g * channels + cv * V, smu);
       load_stats<V>(sc_rstd + g * channels + cv * V, srs);
     }
-    long long lo, hi;
-    span.range(blockIdx.z, lo, hi);
-    const long long n = hi - lo;
+    const long long lo = g * n;
     const long long r0 = n * blockIdx.x / geo.chunks;
     const long long r1 = n * (blockIdx.x + 1) / geo.chunks;
     const long long off = lo * channels + cv * V;
@@ -352,14 +338,13 @@ __global__ void grad_kernel(const T* __restrict__ x, const T* __restrict__ y,
                             const float* __restrict__ sc_rstd,
                             const float* __restrict__ coef, T* __restrict__ dx,
                             T* __restrict__ dsc, long long nvec, int channels,
-                            int groups, long long group_elems, long long elem_offset,
-                            int sc_mode) {
+                            int groups, long long group_elems, int sc_mode) {
   const long long gc = static_cast<long long>(groups) * channels;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        v < nvec; v += stride) {
     const long long e = v * V;
-    const long long s = ((e + elem_offset) / group_elems) * channels + e % channels;
+    const long long s = (e / group_elems) * channels + e % channels;
     float xv[V], dv[V], yv[V], mu[V], rs[V], a[V], b[V], o[V];
     vsv::load_v<V>(x + e, xv);
     vsv::load_v<V>(dy + e, dv);
@@ -408,16 +393,15 @@ int forward(const void* x, const void* sc, int sc_mode, int relu, long long n,
             cudaStream_t stream) {
   const Geo geo = make_geo<V>(channels, chunks);
   const dim3 grid(chunks, geo.tiles, groups);
-  const Span span{n * groups, 0, n, 0};
   const size_t fin_smem = 2 * sizeof(float) * groups;
   const float inv_n = 1.f / static_cast<float>(n);
-  stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), span,
+  stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), n,
                                                      channels, geo, part);
   finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
       part, groups, chunks, channels, inv_n, eps, mean, rstd, run_mean, run_var,
       mom, upd_mean, upd_var);
   if (sc_mode == 2) {
-    stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(sc), span,
+    stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(sc), n,
                                                        channels, geo, part);
     finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
         part, groups, chunks, channels, inv_n, eps, sc_mean, sc_rstd,
@@ -426,7 +410,7 @@ int forward(const void* x, const void* sc, int sc_mode, int relu, long long n,
   const long long nvec = n * groups * channels / V;
   normalize_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
       static_cast<const T*>(x), mean, rstd, static_cast<const T*>(sc), sc_mean,
-      sc_rstd, static_cast<T*>(out), nvec, channels, n * channels, 0, relu, sc_mode);
+      sc_rstd, static_cast<T*>(out), nvec, channels, n * channels, relu, sc_mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,7 +422,6 @@ int backward(const void* x, const void* y, const void* dy, const void* sc,
              int num_sms, cudaStream_t stream) {
   const Geo geo = make_geo<V>(channels, chunks);
   const dim3 grid(chunks, geo.tiles, groups);
-  const Span span{n * groups, 0, n, 0};
   const float inv_n = 1.f / static_cast<float>(n);
   const T* xt = static_cast<const T*>(x);
   const T* yt = static_cast<const T*>(y);
@@ -448,130 +431,17 @@ int backward(const void* x, const void* y, const void* dy, const void* sc,
   if (sc_mode == 2) {
     ns = 3;
     reduce_bwd_kernel<T, 3, V><<<grid, kThreads, 0, stream>>>(
-        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
+        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, n, channels, geo, part);
   } else {
     reduce_bwd_kernel<T, 2, V><<<grid, kThreads, 0, stream>>>(
-        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
+        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, n, channels, geo, part);
   }
   finalize_bwd_kernel<<<channels, kThreads, 0, stream>>>(
       part, ns, groups, chunks, channels, inv_n, coef);
   const long long nvec = n * groups * channels / V;
   grad_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
       xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, coef, static_cast<T*>(dx),
-      static_cast<T*>(dsc), nvec, channels, groups, n * channels, 0, sc_mode);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// spanning mode: BN groups that span the data ranks of a process group
-// ---------------------------------------------------------------------------
-//
-// Each rank holds nloc consecutive global rows from `offset`; group g is
-// global rows [g * ngroup, (g + 1) * ngroup), whatever the alignment of
-// groups to ranks. The statistics pass of the multi-kernel design runs
-// over the groups the rank touches (Span), a collapse writes the rank's
-// partial sums per (group, sum, channel) for all G groups (zero where it
-// holds none of a group's rows), the caller all-reduces them over the data
-// ranks (torch.distributed), and the finalize and elementwise passes of
-// the multi-kernel design follow on the global sums: the statistics of
-// group g are those of its global rows on every rank. The backward does
-// the same for sum(d), sum(d * xhat) [, sum(d * shat)]. Sums over a rank's
-// chunks are in fixed order; the all-reduce's order is NCCL's.
-
-Span span_of(long long nloc, long long offset, long long ngroup, int* touched) {
-  const long long g0 = offset / ngroup, g1 = (offset + nloc - 1) / ngroup;
-  *touched = static_cast<int>(g1 - g0 + 1);
-  return Span{nloc, offset, ngroup, static_cast<int>(g0)};
-}
-
-// sums[(g * ns + k) * C + c] = the sum over the chunks of part for the
-// span's groups, 0 for the others. One block a channel, a warp a (g, k).
-__global__ void span_collapse_kernel(const float* __restrict__ part, int ns, int g0,
-                                     int touched, int groups, int chunks, int channels,
-                                     float* __restrict__ sums) {
-  const int c = blockIdx.x;
-  const long long stride = static_cast<long long>(ns) * channels;
-  for (int gk = threadIdx.x / 32; gk < groups * ns; gk += blockDim.x / 32) {
-    const int g = gk / ns, k = gk % ns, z = g - g0;
-    float s = 0.f;
-    if (z >= 0 && z < touched)
-      s = warp_chunk_sum(part, static_cast<long long>(z) * chunks * stride + k * channels + c,
-                         chunks, stride);
-    if (threadIdx.x % 32 == 0) sums[(static_cast<long long>(g) * ns + k) * channels + c] = s;
-  }
-}
-
-template <typename T, int V>
-int span_stats(const void* x, Span span, int touched, int groups, int channels, int chunks,
-               float* part, float* sums, cudaStream_t stream) {
-  const Geo geo = make_geo<V>(channels, chunks);
-  stats_kernel<T, V><<<dim3(chunks, geo.tiles, touched), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), span, channels, geo, part);
-  span_collapse_kernel<<<channels, kThreads, 0, stream>>>(part, 2, span.g0, touched, groups,
-                                                          chunks, channels, sums);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int V>
-int span_normalize(const void* x, const void* sc, int sc_mode, int relu, Span span, int groups,
-                   int channels, const float* sums, const float* sc_sums, float* mean,
-                   float* rstd, float* run_mean, float* run_var, float* sc_mean, float* sc_rstd,
-                   float* sc_run_mean, float* sc_run_var, float mom, float upd_mean,
-                   float upd_var, float eps, void* out, int num_sms, cudaStream_t stream) {
-  const size_t fin_smem = 2 * sizeof(float) * groups;
-  const float inv_n = 1.f / static_cast<float>(span.ngroup);
-  finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
-      sums, groups, 1, channels, inv_n, eps, mean, rstd, run_mean, run_var, mom, upd_mean,
-      upd_var);
-  if (sc_mode == 2)
-    finalize_fwd_kernel<<<channels, kThreads, fin_smem, stream>>>(
-        sc_sums, groups, 1, channels, inv_n, eps, sc_mean, sc_rstd, sc_run_mean, sc_run_var,
-        mom, upd_mean, upd_var);
-  const long long nvec = span.nloc * channels / V;
-  normalize_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), mean, rstd, static_cast<const T*>(sc), sc_mean, sc_rstd,
-      static_cast<T*>(out), nvec, channels, span.ngroup * channels, span.offset * channels,
-      relu, sc_mode);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int V>
-int span_bwd_reduce(const void* x, const void* y, const void* dy, const void* sc, int sc_mode,
-                    Span span, int touched, int groups, int channels, int chunks,
-                    const float* mean, const float* rstd, const float* sc_mean,
-                    const float* sc_rstd, float* part, float* sums, cudaStream_t stream) {
-  const Geo geo = make_geo<V>(channels, chunks);
-  const dim3 grid(chunks, geo.tiles, touched);
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  const T* dyt = static_cast<const T*>(dy);
-  const T* st = static_cast<const T*>(sc);
-  const int ns = sc_mode == 2 ? 3 : 2;
-  if (ns == 3)
-    reduce_bwd_kernel<T, 3, V><<<grid, kThreads, 0, stream>>>(
-        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
-  else
-    reduce_bwd_kernel<T, 2, V><<<grid, kThreads, 0, stream>>>(
-        xt, yt, dyt, st, mean, rstd, sc_mean, sc_rstd, span, channels, geo, part);
-  span_collapse_kernel<<<channels, kThreads, 0, stream>>>(part, ns, span.g0, touched, groups,
-                                                          chunks, channels, sums);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int V>
-int span_bwd_grad(const void* x, const void* y, const void* dy, const void* sc, int sc_mode,
-                  Span span, int groups, int channels, const float* mean, const float* rstd,
-                  const float* sc_mean, const float* sc_rstd, const float* sums, float* coef,
-                  void* dx, void* dsc, int num_sms, cudaStream_t stream) {
-  const int ns = sc_mode == 2 ? 3 : 2;
-  finalize_bwd_kernel<<<channels, kThreads, 0, stream>>>(
-      sums, ns, groups, 1, channels, 1.f / static_cast<float>(span.ngroup), coef);
-  const long long nvec = span.nloc * channels / V;
-  grad_kernel<T, V><<<elementwise_blocks(nvec, num_sms), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(dy),
-      static_cast<const T*>(sc), mean, rstd, sc_mean, sc_rstd, coef, static_cast<T*>(dx),
-      static_cast<T*>(dsc), nvec, channels, groups, span.ngroup * channels,
-      span.offset * channels, sc_mode);
+      static_cast<T*>(dsc), nvec, channels, groups, n * channels, sc_mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1240,6 +1110,645 @@ int cluster_backward(const ClusterArgs& a, long long gpart_floats, cudaStream_t 
   return launch_cluster<T>(cluster_bwd_kernel<T, 2, false>, a, 2, 2, gpart_floats, stream);
 }
 
+// ---------------------------------------------------------------------------
+// spanning mode: BN groups that span the data ranks of a process group
+// ---------------------------------------------------------------------------
+//
+// Each rank holds nloc consecutive global rows from `offset`; group g is
+// global rows [g * ngroup, (g + 1) * ngroup), whatever the alignment of
+// groups to ranks, and its statistics are those of its rows on every rank.
+// A BN call is four launches, one a phase; the caller all-reduces the
+// rank's partial sums over the data ranks (torch.distributed) between the
+// first two and between the last two:
+//
+//   span_stats       the rank's sum(x), sum(x^2) [and the normalized
+//                    shortcut's] per (group, channel)
+//   span_normalize   mean/rstd from the global sums (each CTA for its own
+//                    group; CTA 0 also writes them all and applies the
+//                    running update), then y with the epilogue
+//   span_bwd_reduce  sum(d), sum(d * xhat) [, sum(d * shat)]
+//   span_bwd_grad    dx [and the shortcut's gradient] from the global sums
+//
+// The first design ran the multi-kernel design's passes over the
+// rank's rows: 8 kernels a call, the partials through HBM twice, y saved
+// for the backward (x, y, dy read twice: 10 units of one activation a
+// call), 8-byte bf16 accesses. This one is written for Hopper as the
+// cluster design is (bn_cluster_*), without its group barrier, which the
+// all-reduce replaces:
+// - Persistent CTAs, one wave (one CTA an SM at ~220 KB of shared memory).
+//   The plan (ops/nn.py:bn_span_plan) cuts the rank's rows into one slab a
+//   CTA, never across a group boundary, at full channel width, and passes
+//   the slabs as a table. A CTA streams its slab through a ring of chunks
+//   in shared memory filled by 1-D bulk copies (the Tensor Memory
+//   Accelerator) on mbarriers, 16-byte accesses. Each warp releases a
+//   stage when it is done with it and the last one refills it: no
+//   block-wide barrier a chunk.
+// - Reductions: a fixed tree over the CTA's row lanes, the CTAs' partials
+//   to global scratch, and the last CTA to arrive (an integer ticket with
+//   fences; no float atomics) adds them in CTA order, eight loads in flight
+//   a lane, into the (G, ns, C) sums that the all-reduce takes, zero for
+//   groups the rank does not touch.
+// - No finalize launch: the launch after the all-reduce derives its
+//   coefficients from the global sums (G x C floats).
+// - The backward takes no y: the relu decision is recomputed from x (and
+//   a normalized shortcut) with the forward's exact arithmetic; only a raw
+//   shortcut under relu reads the forward output in its place. Without a
+//   shortcut the decision is xhat > relu_edge, which needs no conversion
+//   to bf16 and back (conversions run at a fraction of the FMA rate: with
+//   one an element the backward reduce was compute-bound). The backward
+//   moves x and dy twice and dx once: 5 units (7 before), 8 a call with
+//   the forward's 3.
+// - The launches after an all-reduce walk each slab from its end: the
+//   tail, read last by the launch before, is what is still in L2 (50 MB),
+//   which at a real spanning shape (tens of MB an activation) is most of
+//   it.
+// Where the ring does not apply (channels that do not fill 16-byte vectors,
+// more than 512 vectors a row, unaligned rows) the same launches load
+// directly from global memory in channel tiles (the "direct" design), as
+// 16-byte vectors where the row allows, else single channels.
+// Sums run in a fixed order: reruns agree bit for bit; the all-reduce's
+// order is NCCL's.
+
+constexpr int kSpanThreads = 512;
+
+template <typename T> struct Tag { using type = T; };
+
+// The plan's scalars, as ops/nn.py:bn_span_plan passes them (ints in this
+// order): ring design or direct, elements a vector, vectors a tile, row
+// lanes, channel tiles, the ring's rows a chunk (for this launch's tensor
+// count) and bytes, CTAs, groups touched, dynamic shared memory.
+struct SpanPlan {
+  int ring, vec, ct, rpb, tiles, ring_rows, ring_bytes, ncta, touched, smem;
+};
+
+struct SpanArgs {
+  const void* x;
+  const void* z;      // forward: the shortcut; backward: the shortcut (mode 2) or y (mode 1, relu)
+  const void* dy;
+  void* out;          // y or dx
+  void* dsc;          // the shortcut's gradient (modes 1, 2)
+  const float* sums;  // global sums: forward (G, 2, C) of x; backward (G, NS, C)
+  const float* sc_sums;
+  float* mean;        // (G, C): written by the normalize launch, read by the backward
+  float* rstd;
+  float* sc_mean;
+  float* sc_rstd;
+  float* run_mean;
+  float* run_var;
+  float* sc_run_mean;
+  float* sc_run_var;
+  float* gpart;       // (ncta, NS, cw) the CTAs' partials
+  float* sums_out;    // the rank's sums: forward (NI, G, 2, C), backward (G, NS, C)
+  int* ticket;        // zero before the launch; left zero
+  const long long* table;  // ncta x (group, lo, hi, tile), then touched x (group, first CTA, k)
+  int groups, channels, ncta, touched, tiles, ct, rpb, cw, ring_rows, ring_bytes;
+  int sc_mode, relu;
+  float mom, upd_mean, upd_var, eps, inv_n;
+};
+
+// This CTA's slab: rows [lo, hi) of the rank, inside group g; channel tile.
+struct SpanCta {
+  int g, tile;
+  long long lo, hi;
+};
+
+__device__ __forceinline__ SpanCta span_cta(const SpanArgs& a) {
+  const long long* e = a.table + 4LL * blockIdx.x;
+  return SpanCta{static_cast<int>(e[0]), static_cast<int>(e[3]), e[1], e[2]};
+}
+
+// mean, biased variance and rstd of one (group, channel) from its sums, with
+// explicitly rounded operations: the normalize launch's CTAs and the
+// statistics it publishes for the backward agree bit for bit.
+__device__ __forceinline__ void span_moments(float s, float q, float inv_n, float eps,
+                                             float& mu, float& var, float& rs) {
+  mu = __fmul_rn(s, inv_n);
+  var = __fsub_rn(__fmul_rn(q, inv_n), __fmul_rn(mu, mu));
+  rs = rsqrtf(__fadd_rn(var, eps));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void span_load(const T* p, float* v) {
+  if constexpr (V == 1)
+    v[0] = vsv::to_f(p[0]);
+  else
+    unpack16(__ldg(reinterpret_cast<const uint4*>(p)), v, p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void span_store(T* p, const float* v) {
+  if constexpr (V == 1)
+    p[0] = vsv::from_f<T>(v[0]);
+  else
+    store16(p, v);
+}
+
+// Rows [0, rows) of NI tensors (from src[i], rows of ct 16-byte vectors)
+// through the ring of S chunks of R rows: every thread calls f(row, v) for
+// rows lane_r, lane_r + rpb, ... of each chunk (v[i] its unpacked vector of
+// tensor i) as soon as the chunk's mbarrier says it landed. No block-wide
+// barrier a chunk: each warp counts itself done with a stage (done[], in
+// shared memory), and the last warp to finish it refills it with the chunk
+// S later by bulk copies (the Tensor Memory Accelerator), so warps run up
+// to S - 1 chunks apart. REVERSE takes the chunks, and the rows in each,
+// from the last. The caller synchronizes the block before reusing the ring.
+template <typename T, int NI, bool REVERSE, typename F>
+__device__ __forceinline__ void span_ring(const char* const* src, long long rows, int ct, int rpb,
+                                          int R, int S, uint4* ring, uint64_t* full, int* done,
+                                          F f) {
+  constexpr int V = Vec<T>::n;
+  const int lane_c = threadIdx.x % ct, lane_r = threadIdx.x / ct;
+  const int warps = (blockDim.x + 31) / 32;
+  const long long row_bytes = 16LL * ct;
+  const long long nchunks = (rows + R - 1) / R;
+  const long long ts = static_cast<long long>(R) * ct;  // vectors of one tensor's chunk
+  auto chunk = [&](long long q) { return REVERSE ? nchunks - 1 - q : q; };
+  auto issue = [&](long long q) {
+    const long long k = chunk(q);
+    const int st = static_cast<int>(q % S);
+    const long long nr = min(static_cast<long long>(R), rows - k * R);
+    const uint32_t bytes = static_cast<uint32_t>(nr * row_bytes);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_u32(&full[st])),
+                 "r"(bytes * NI)
+                 : "memory");
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(smem_u32(ring + (st * NI + i) * ts)),
+          "l"(src[i] + k * R * row_bytes), "r"(bytes), "r"(smem_u32(&full[st]))
+          : "memory");
+  };
+  if (threadIdx.x == 0)
+    for (long long q = 0; q < S && q < nchunks; ++q) issue(q);
+  for (long long q = 0; q < nchunks; ++q) {
+    const int st = static_cast<int>(q % S);
+    mbar_wait(&full[st], static_cast<int>((q / S) & 1));
+    const long long k = chunk(q);
+    const long long nr = min(static_cast<long long>(R), rows - k * R);
+    const uint4* stage = ring + st * NI * ts;
+#pragma unroll 2
+    for (long long w = lane_r; w < nr; w += rpb) {
+      const long long u = REVERSE ? nr - 1 - w : w;
+      float v[NI][V];
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+        unpack16(stage[i * ts + u * ct + lane_c], v[i], static_cast<const T*>(nullptr));
+      f(k * R + u, v);
+    }
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) {
+      __threadfence_block();  // this warp's reads of the stage, before its refill
+      if (atomicAdd(&done[st], 1) == warps - 1) {
+        done[st] = 0;
+        if (q + S < nchunks) issue(q + S);
+      }
+    }
+  }
+}
+
+// The ring's mbarriers (one arrival each) and stage counters, before any use.
+__device__ __forceinline__ void span_ring_init(uint64_t* full, int* done) {
+  if (threadIdx.x < kMaxStages) done[threadIdx.x] = 0;
+  ring_init(full);
+}
+
+// The same walk from global memory (the direct design): channels c0 +
+// lane_c * V .. + V - 1 of each row, lanes past the tile's ctv vectors idle.
+template <typename T, int V, int NI, bool REVERSE, typename F>
+__device__ __forceinline__ void span_direct(const T* const* src, long long rows, int channels,
+                                            int c0, int ctv, int ct, int rpb, F f) {
+  const int lane_c = threadIdx.x % ct, lane_r = threadIdx.x / ct;
+  if (lane_c >= ctv) return;
+  const long long off = c0 + static_cast<long long>(lane_c) * V;
+  for (long long w = lane_r; w < rows; w += rpb) {
+    const long long u = REVERSE ? rows - 1 - w : w;
+    float v[NI][V];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) span_load<T, V>(src[i] + u * channels + off, v[i]);
+    f(u, v);
+  }
+}
+
+// This CTA's slab of NI tensors (ops[i], rank rows of C channels) in
+// either design; f(row of the slab, v).
+template <typename T, int V, bool RING, int NI, bool REVERSE, typename F>
+__device__ __forceinline__ void span_walk(const SpanArgs& a, const SpanCta& e,
+                                          const void* const* ops, uint4* ring, uint64_t* full,
+                                          int* done, F f) {
+  const int C = a.channels;
+  const long long rows = e.hi - e.lo;
+  if constexpr (RING) {
+    const char* src[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+      src[i] = reinterpret_cast<const char*>(static_cast<const T*>(ops[i]) + e.lo * C);
+    const int s = a.ring_bytes / (NI * a.ring_rows * C * static_cast<int>(sizeof(T)));
+    span_ring<T, NI, REVERSE>(src, rows, a.ct, a.rpb, a.ring_rows, s < kMaxStages ? s : kMaxStages,
+                              ring, full, done, f);
+  } else {
+    const T* src[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) src[i] = static_cast<const T*>(ops[i]) + e.lo * C;
+    const int c0 = e.tile * a.cw;
+    const int ctv = min(a.ct, (C - c0) / V);
+    span_direct<T, V, NI, REVERSE>(src, rows, C, c0, ctv, a.ct, a.rpb, f);
+  }
+}
+
+// The lane's channels and whether it has any: c0 = the first.
+__device__ __forceinline__ bool span_lane(const SpanArgs& a, const SpanCta& e, int V, int& c0) {
+  const int lane_c = threadIdx.x % a.ct;
+  c0 = e.tile * a.cw + lane_c * V;
+  return c0 < a.channels;
+}
+
+// acc[k][.] summed over the CTA's row lanes (a fixed pairwise tree; rpb a
+// power of two) into gp[k * cw + lane_c * V + j]; red holds blockDim * V floats.
+template <int NS, int V>
+__device__ __forceinline__ void span_partials(float (*acc)[V], float* red, float* gp, int ct,
+                                              int rpb, int cw) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane_c = tid % ct, lane_r = tid / ct;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) red[j * nt + tid] = acc[k][j];
+    __syncthreads();
+    for (int s = rpb / 2; s > 0; s /= 2) {
+      if (lane_r < s)
+#pragma unroll
+        for (int j = 0; j < V; ++j) red[j * nt + tid] += red[j * nt + tid + s * ct];
+      __syncthreads();
+    }
+    if (lane_r == 0)
+#pragma unroll
+      for (int j = 0; j < V; ++j) gp[k * cw + lane_c * V + j] = red[j * nt + tid];
+    __syncthreads();
+  }
+}
+
+// After every CTA wrote its partials: the last CTA to arrive (an integer
+// ticket with fences) adds them per (group, sum, channel) in CTA order into
+// the rank's sums, zero for the groups it holds no row of, and resets the
+// ticket. Up to 32 lanes (a power of two) share one sum, each taking every
+// sub-th CTA in order, joined by a fixed shuffle tree. FWD: sums (NS / 2,
+// G, 2, C), x's then the shortcut's; else (G, NS, C).
+template <int NS, bool FWD>
+__device__ __forceinline__ void span_collapse(const SpanArgs& a) {
+  __shared__ int last;
+  __threadfence();  // this thread's partials, before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1) == a.ncta - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const long long* segs = a.table + 4LL * a.ncta;
+  const int g0 = static_cast<int>(segs[0]);
+  const int C = a.channels, nt = blockDim.x, per_group = NS * C;
+  auto dst = [&](int g, int k, int c) {
+    return FWD ? ((static_cast<long long>(k / 2) * a.groups + g) * 2 + k % 2) * C + c
+               : (static_cast<long long>(g) * NS + k) * C + c;
+  };
+  // zero for the groups this rank holds no row of
+  for (int e = threadIdx.x; e < a.groups * per_group; e += nt) {
+    const int g = e / per_group;
+    if (g < g0 || g >= g0 + a.touched) a.sums_out[dst(g, (e / C) % NS, e % C)] = 0.f;
+  }
+  const int busy = a.touched * per_group;
+  int sub = 1;  // lanes a sum: whole warps only, as the shuffles need them
+  while (sub < 32 && nt % 32 == 0 && busy * sub * 2 <= nt) sub *= 2;
+  const int q = threadIdx.x % sub, per = nt / sub;
+  const long long step = static_cast<long long>(NS) * a.cw;
+  for (int base = 0; base < busy; base += per) {
+    const int e = base + threadIdx.x / sub;
+    const bool in = e < busy;
+    const int z = in ? e / per_group : 0, k = (e / C) % NS, c = e % C;
+    const long long first = segs[3 * z + 1];
+    const int kz = in ? static_cast<int>(segs[3 * z + 2]) : 0;
+    const int t = c / a.cw;
+    const float* p = a.gpart + k * a.cw + (c - t * a.cw) + (first + t) * step;
+    const long long jstep = static_cast<long long>(a.tiles) * step;  // the next slab's CTA
+    // eight loads in flight, added in CTA order
+    float v = 0.f;
+    int j = q;
+    for (; j + 7 * sub < kz; j += 8 * sub) {
+      float w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) w[u] = __ldcg(p + (j + u * sub) * jstep);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v += w[u];
+    }
+    for (; j < kz; j += sub) v += __ldcg(p + j * jstep);
+    for (int o = sub / 2; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (in && q == 0) a.sums_out[dst(static_cast<int>(segs[3 * z]), k, c)] = v;
+  }
+  if (threadIdx.x == 0) atomicExch(a.ticket, 0);
+}
+
+// Statistics: sum(x), sum(x^2) [, of the shortcut] (NI tensors).
+template <typename T, int V, bool RING, int NI>
+__global__ void __launch_bounds__(kSpanThreads) span_stats_kernel(SpanArgs a) {
+  constexpr int NS = 2 * NI;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ int done[kMaxStages];
+  const SpanCta e = span_cta(a);
+  float* red = smem;
+  uint4* ring = reinterpret_cast<uint4*>(smem + blockDim.x * V);
+  if constexpr (RING) span_ring_init(full, done);
+  float acc[NS][V];
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+  const void* ops[2] = {a.x, a.z};
+  span_walk<T, V, RING, NI, false>(a, e, ops, ring, full, done, [&](long long, auto& v) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc[2 * i][j] += v[i][j];
+        acc[2 * i + 1][j] += v[i][j] * v[i][j];
+      }
+  });
+  span_partials<NS, V>(acc, red, a.gpart + static_cast<long long>(blockIdx.x) * NS * a.cw, a.ct,
+                       a.rpb, a.cw);
+  span_collapse<NS, true>(a);
+}
+
+// CTA 0 of the normalize launch: every group's (mean, rstd) [and the
+// shortcut's] for the backward, and the running update (none with null
+// running statistics) with the mean over groups, in group order.
+__device__ __forceinline__ void span_publish(const SpanArgs& a) {
+  const int C = a.channels, G = a.groups;
+  const float inv_g = 1.f / static_cast<float>(G);
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    for (int i = 0; i < (a.sc_mode == 2 ? 2 : 1); ++i) {
+      const float* s = i == 0 ? a.sums : a.sc_sums;
+      float* mean = i == 0 ? a.mean : a.sc_mean;
+      float* rstd = i == 0 ? a.rstd : a.sc_rstd;
+      float msum = 0.f, vsum = 0.f;
+      for (int g = 0; g < G; ++g) {
+        float mu, var, rs;
+        span_moments(s[(2LL * g) * C + c], s[(2LL * g + 1) * C + c], a.inv_n, a.eps, mu, var, rs);
+        mean[static_cast<long long>(g) * C + c] = mu;
+        rstd[static_cast<long long>(g) * C + c] = rs;
+        msum += mu;
+        vsum += var;
+      }
+      float* rm = i == 0 ? a.run_mean : a.sc_run_mean;
+      float* rv = i == 0 ? a.run_var : a.sc_run_var;
+      if (rm != nullptr) {
+        rm[c] = a.mom * rm[c] + a.upd_mean * (msum * inv_g);
+        rv[c] = a.mom * rv[c] + a.upd_var * (vsum * inv_g);
+      }
+    }
+  }
+}
+
+// Normalize with the epilogue; NI = 2 streams the shortcut too (modes 1, 2).
+template <typename T, int V, bool RING, int NI>
+__global__ void __launch_bounds__(kSpanThreads) span_normalize_kernel(SpanArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ int done[kMaxStages];
+  const SpanCta e = span_cta(a);
+  uint4* ring = reinterpret_cast<uint4*>(smem + blockDim.x * V);
+  if constexpr (RING) span_ring_init(full, done);
+  if (blockIdx.x == 0) span_publish(a);
+  const int C = a.channels;
+  int c0 = 0;
+  const bool lane = span_lane(a, e, V, c0);
+  float mu[V], rs[V], smu[V], srs[V], var;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mu[j] = rs[j] = smu[j] = srs[j] = 0.f;
+    if (!lane) continue;
+    const long long s = 2LL * e.g * C + c0 + j;
+    span_moments(a.sums[s], a.sums[s + C], a.inv_n, a.eps, mu[j], var, rs[j]);
+    if (a.sc_mode == 2) span_moments(a.sc_sums[s], a.sc_sums[s + C], a.inv_n, a.eps, smu[j], var, srs[j]);
+  }
+  T* out = static_cast<T*>(a.out) + e.lo * C + c0;
+  const void* ops[2] = {a.x, a.z};
+  span_walk<T, V, RING, NI, true>(a, e, ops, ring, full, done, [&](long long row, auto& v) {
+    float o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      // no shortcut: the store rounds once (bn_out's rounding before it
+      // changes nothing and costs a conversion an element)
+      const float y = NI == 1 ? __fmul_rn(__fsub_rn(v[0][j], mu[j]), rs[j])
+                              : bn_out<T>(v[0][j], mu[j], rs[j], v[NI - 1][j], smu[j], srs[j],
+                                          a.sc_mode);
+      o[j] = a.relu ? fmaxf(y, 0.f) : y;
+    }
+    span_store<T, V>(out + row * C, o);
+  });
+}
+
+// The lane's (mean, rstd) [and the shortcut's] of group g from the
+// statistics the normalize launch published.
+template <int V>
+__device__ __forceinline__ void span_stats_of(const SpanArgs& a, int g, int c0, bool lane,
+                                              float* mu, float* rs, float* smu, float* srs) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const long long s = static_cast<long long>(g) * a.channels + c0 + j;
+    mu[j] = lane ? a.mean[s] : 0.f;
+    rs[j] = lane ? a.rstd[s] : 0.f;
+    smu[j] = lane && a.sc_mode == 2 ? a.sc_mean[s] : 0.f;
+    srs[j] = lane && a.sc_mode == 2 ? a.sc_rstd[s] : 0.f;
+  }
+}
+
+// The largest value that the forward's output rounds to zero: float32 0;
+// bf16 2^-134, half its least subnormal (round to nearest even sends it to
+// zero). Without a shortcut, relu(round(xhat)) > 0 exactly where xhat is
+// above it: the backward takes the decision without a conversion.
+template <typename T> __device__ __forceinline__ float relu_edge();
+template <> __device__ __forceinline__ float relu_edge<float>() { return 0.f; }
+template <> __device__ __forceinline__ float relu_edge<__nv_bfloat16>() {
+  return __uint_as_float(0x00008000u);
+}
+
+// xhat = (x - mean) * rstd, and d = dy where the forward's relu passed it:
+// recomputed from xhat (no shortcut), from x and the normalized shortcut
+// with bn_out (sc_mode 2), or read from the forward output zv (a raw
+// shortcut).
+template <typename T, int V>
+__device__ __forceinline__ void span_grad_in(const SpanArgs& a, const float* xv, const float* dv,
+                                             const float* zv, const float* mu, const float* rs,
+                                             const float* smu, const float* srs, float* xh,
+                                             float* d) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    xh[j] = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]);
+    bool pass = true;
+    if (a.relu) {
+      if (a.sc_mode == 0)
+        pass = xh[j] > relu_edge<T>();
+      else if (a.sc_mode == 1)
+        pass = zv[j] > 0.f;
+      else
+        pass = bn_out<T>(xv[j], mu[j], rs[j], zv[j], smu[j], srs[j], 2) > 0.f;
+    }
+    d[j] = pass ? dv[j] : 0.f;
+  }
+}
+
+// Backward reduce: sum(d), sum(d * xhat) [, sum(d * shat)]. Operands x, dy
+// and (THIRD) the shortcut in mode 2 or the forward output for a raw
+// shortcut under relu.
+template <typename T, int V, bool RING, int NS, bool THIRD>
+__global__ void __launch_bounds__(kSpanThreads) span_bwd_reduce_kernel(SpanArgs a) {
+  constexpr int NI = THIRD ? 3 : 2;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ int done[kMaxStages];
+  const SpanCta e = span_cta(a);
+  float* red = smem;
+  uint4* ring = reinterpret_cast<uint4*>(smem + blockDim.x * V);
+  if constexpr (RING) span_ring_init(full, done);
+  int c0 = 0;
+  const bool lane = span_lane(a, e, V, c0);
+  float mu[V], rs[V], smu[V], srs[V];
+  span_stats_of<V>(a, e.g, c0, lane, mu, rs, smu, srs);
+  float acc[NS][V];
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+  const void* ops[3] = {a.x, a.dy, a.z};
+  span_walk<T, V, RING, NI, false>(a, e, ops, ring, full, done, [&](long long, auto& v) {
+    float d[V], xh[V];
+    span_grad_in<T, V>(a, v[0], v[1], v[NI - 1], mu, rs, smu, srs, xh, d);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      acc[0][j] += d[j];
+      acc[1][j] += d[j] * xh[j];
+      if constexpr (NS == 3) acc[2][j] += d[j] * ((v[NI - 1][j] - smu[j]) * srs[j]);
+    }
+  });
+  span_partials<NS, V>(acc, red, a.gpart + static_cast<long long>(blockIdx.x) * NS * a.cw, a.ct,
+                       a.rpb, a.cw);
+  span_collapse<NS, false>(a);
+}
+
+// Backward elementwise: dx [and the shortcut's gradient] from the global
+// sums (G, NS, C).
+template <typename T, int V, bool RING, int NS, bool THIRD>
+__global__ void __launch_bounds__(kSpanThreads) span_bwd_grad_kernel(SpanArgs a) {
+  constexpr int NI = THIRD ? 3 : 2;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ int done[kMaxStages];
+  const SpanCta e = span_cta(a);
+  uint4* ring = reinterpret_cast<uint4*>(smem + blockDim.x * V);
+  if constexpr (RING) span_ring_init(full, done);
+  const int C = a.channels;
+  int c0 = 0;
+  const bool lane = span_lane(a, e, V, c0);
+  float mu[V], rs[V], smu[V], srs[V], ca[V], cb[V], cbs[V];
+  span_stats_of<V>(a, e.g, c0, lane, mu, rs, smu, srs);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const long long s = static_cast<long long>(e.g) * NS * C + c0 + j;
+    ca[j] = lane ? a.sums[s] * a.inv_n : 0.f;
+    cb[j] = lane ? a.sums[s + C] * a.inv_n : 0.f;
+    cbs[j] = lane && NS == 3 ? a.sums[s + 2 * C] * a.inv_n : 0.f;
+  }
+  T* dx = static_cast<T*>(a.out) + e.lo * C + c0;
+  T* dsc = a.sc_mode ? static_cast<T*>(a.dsc) + e.lo * C + c0 : nullptr;
+  const void* ops[3] = {a.x, a.dy, a.z};
+  span_walk<T, V, RING, NI, true>(a, e, ops, ring, full, done, [&](long long row, auto& v) {
+    float d[V], xh[V], o[V];
+    span_grad_in<T, V>(a, v[0], v[1], v[NI - 1], mu, rs, smu, srs, xh, d);
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = rs[j] * (d[j] - ca[j] - xh[j] * cb[j]);
+    span_store<T, V>(dx + row * C, o);
+    if (a.sc_mode == 1) {
+      span_store<T, V>(dsc + row * C, d);
+    } else if constexpr (NS == 3) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        o[j] = srs[j] * (d[j] - ca[j] - ((v[NI - 1][j] - smu[j]) * srs[j]) * cbs[j]);
+      span_store<T, V>(dsc + row * C, o);
+    }
+  });
+}
+
+// The plan against this source's layout: kPlanMismatch where the Python
+// copy (ops/nn.py:bn_span_plan) drifted. ni: the tensors a launch streams.
+template <typename T>
+int span_check(const SpanPlan& p, int channels, int ni) {
+  constexpr int VN = Vec<T>::n;
+  if (p.ct < 1 || p.rpb < 1 || (p.rpb & (p.rpb - 1)) || p.ct * p.rpb > kSpanThreads ||
+      p.tiles < 1 || p.ncta < 1 || p.touched < 1 || (p.vec != VN && p.vec != 1) ||
+      channels < 1 || channels % p.vec)
+    return vsv::kPlanMismatch;
+  const int cv = channels / p.vec;
+  if (p.tiles * p.ct < cv || (p.tiles - 1) * p.ct >= cv) return vsv::kPlanMismatch;
+  const long long smem = 4LL * p.ct * p.rpb * p.vec + (p.ring ? p.ring_bytes : 0);
+  if (smem != p.smem || smem > kSmemMax) return vsv::kPlanMismatch;
+  if (p.ring && (p.vec != VN || p.tiles != 1 || p.ring_rows < 1 ||
+                 p.ring_bytes < 2LL * ni * p.ring_rows * channels * static_cast<long long>(sizeof(T))))
+    return vsv::kPlanMismatch;
+  return 0;
+}
+
+template <typename K>
+int span_launch(K kernel, const SpanPlan& p, const SpanArgs& a, cudaStream_t stream) {
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<p.ncta, p.ct * p.rpb, p.smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fn(std::integral_constant<int, V>, std::bool_constant<RING>) for the
+// plan's design: the ring on 16-byte vectors, or direct loads of 16-byte
+// vectors or single channels.
+template <typename T, typename Fn>
+int span_design(const SpanPlan& p, Fn fn) {
+  constexpr int VN = Vec<T>::n;
+  if (p.ring) return fn(std::integral_constant<int, VN>{}, std::true_type{});
+  if (p.vec == VN) return fn(std::integral_constant<int, VN>{}, std::false_type{});
+  return fn(std::integral_constant<int, 1>{}, std::false_type{});
+}
+
+SpanArgs span_args(const SpanPlan& p, const long long* table, long long ngroup, int groups,
+                   int channels) {
+  SpanArgs a = {};
+  a.table = table;
+  a.groups = groups;
+  a.channels = channels;
+  a.ncta = p.ncta;
+  a.touched = p.touched;
+  a.tiles = p.tiles;
+  a.ct = p.ct;
+  a.rpb = p.rpb;
+  a.cw = p.ct * p.vec;
+  a.ring_rows = p.ring_rows;
+  a.ring_bytes = p.ring_bytes;
+  a.inv_n = 1.f / static_cast<float>(ngroup);
+  return a;
+}
+
+SpanPlan span_plan(const int* q) {
+  return SpanPlan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9]};
+}
+
+template <typename Fn>
+int span_dtype(int dtype, Fn fn) {
+  if (dtype == 0) return fn(Tag<float>{});
+  if (dtype == 1) return fn(Tag<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Cluster design, 4-D inputs whose channels fill 16-byte vectors
@@ -1351,84 +1860,137 @@ extern "C" int bn_train_bwd(int dtype, const void* x, const void* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Spanning mode (see span_stats above). x: this rank's nloc rows (of C
-// channels, channels-last) from global row `offset`; a group is ngroup
-// rows, G groups in all. Writes the rank's partial sum(x), sum(x^2) per
-// (group, channel) into sums (G, 2, C); part takes touched * chunks * 2 * C
-// floats, touched = the groups the rank's rows meet.
-#define VSV_SPAN_DISPATCH(fn, ...)                                                   \
-  do {                                                                               \
-    const bool vec = channels % 4 == 0;                                              \
-    if (dtype == 0) return (vec ? fn<float, 4> : fn<float, 1>)(__VA_ARGS__);         \
-    if (dtype == 1)                                                                  \
-      return (vec ? fn<__nv_bfloat16, 4> : fn<__nv_bfloat16, 1>)(__VA_ARGS__);       \
-    return static_cast<int>(cudaErrorInvalidValue);                                  \
-  } while (0)
-
-extern "C" int bn_span_stats(int dtype, const void* x, long long nloc, long long offset,
-                             long long ngroup, int groups, int channels, int chunks,
-                             float* part, float* sums, void* stream) {
-  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
-    return vsv::kShapeUnsupported;
-  int touched = 0;
-  const Span span = span_of(nloc, offset, ngroup, &touched);
-  VSV_SPAN_DISPATCH(span_stats, x, span, touched, groups, channels, chunks, part, sums,
-                    static_cast<cudaStream_t>(stream));
+// Spanning mode, one launch a phase (see span_stats_kernel above). Every
+// entry takes: x, this rank's rows (of C channels, channels-last; a group
+// is ngroup global rows, G = groups in all) and the plan of
+// ops/nn.py:bn_span_plan: its ten scalars (`plan`, host memory, the ring's
+// rows for the tensors this launch streams) and its table (`table`, device
+// memory: each CTA's (group, first row, end row, channel tile), then each
+// touched group's (group, first CTA, row slabs)). A plan that differs from
+// this source's layout is refused (kPlanMismatch). Tensors 16-byte
+// aligned; gpart holds ncta * ns * (vectors a tile * vector) floats;
+// ticket one int, zero, left zero.
+//
+// bn_span_stats: sum(x), sum(x^2) [, sum(s), sum(s^2) with a shortcut s to
+// normalize] per (group, channel) into sums (1 or 2, G, 2, C), zero for
+// the groups the rank holds no row of.
+extern "C" int bn_span_stats(int dtype, const void* x, const void* sc, long long ngroup, int groups,
+                             int channels, const int* plan, const long long* table, float* gpart,
+                             int* ticket, float* sums, void* stream) {
+  const SpanPlan p = span_plan(plan);
+  SpanArgs a = span_args(p, table, ngroup, groups, channels);
+  a.x = x; a.z = sc; a.gpart = gpart; a.ticket = ticket; a.sums_out = sums;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ni = sc != nullptr ? 2 : 1;
+  return span_dtype(dtype, [&](auto tag) -> int {
+    using T = typename decltype(tag)::type;
+    const int err = span_check<T>(p, channels, ni);
+    if (err != 0) return err;
+    return span_design<T>(p, [&](auto v, auto ring) -> int {
+      constexpr int V = decltype(v)::value;
+      constexpr bool R = decltype(ring)::value;
+      return ni == 2 ? span_launch(span_stats_kernel<T, V, R, 2>, p, a, s)
+                     : span_launch(span_stats_kernel<T, V, R, 1>, p, a, s);
+    });
+  });
 }
 
-// After the all-reduce of bn_span_stats' sums over the data ranks: mean and
-// rstd per (group, channel), the running update (identical on every rank),
-// and the rank's rows normalized with the epilogue.
-extern "C" int bn_span_normalize(int dtype, const void* x, const void* sc, int sc_mode,
-                                 int relu, long long nloc, long long offset, long long ngroup,
-                                 int groups, int channels, const float* sums,
-                                 const float* sc_sums, float* mean, float* rstd,
-                                 float* run_mean, float* run_var, float* sc_mean,
-                                 float* sc_rstd, float* sc_run_mean, float* sc_run_var,
-                                 float mom, float upd_mean, float upd_var, float eps,
-                                 void* out, int num_sms, void* stream) {
-  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
-    return vsv::kShapeUnsupported;
-  int touched = 0;
-  const Span span = span_of(nloc, offset, ngroup, &touched);
-  VSV_SPAN_DISPATCH(span_normalize, x, sc, sc_mode, relu, span, groups, channels, sums,
-                    sc_sums, mean, rstd, run_mean, run_var, sc_mean, sc_rstd, sc_run_mean,
-                    sc_run_var, mom, upd_mean, upd_var, eps, out, num_sms,
-                    static_cast<cudaStream_t>(stream));
+// After the all-reduce of bn_span_stats' sums over the data ranks: y with
+// the epilogue (sc_mode 0 none, 1 raw shortcut, 2 normalized with sc_sums),
+// mean/rstd (and sc_*) of every (group, channel), and the running update
+// (identical on every rank; null running statistics skip it).
+extern "C" int bn_span_normalize(int dtype, const void* x, const void* sc, int sc_mode, int relu,
+                                 long long ngroup, int groups, int channels, const int* plan,
+                                 const long long* table, const float* sums, const float* sc_sums,
+                                 float* mean, float* rstd, float* run_mean, float* run_var,
+                                 float* sc_mean, float* sc_rstd, float* sc_run_mean,
+                                 float* sc_run_var, float mom, float upd_mean, float upd_var,
+                                 float eps, void* out, void* stream) {
+  const SpanPlan p = span_plan(plan);
+  SpanArgs a = span_args(p, table, ngroup, groups, channels);
+  a.x = x; a.z = sc; a.out = out; a.sums = sums; a.sc_sums = sc_sums;
+  a.mean = mean; a.rstd = rstd; a.sc_mean = sc_mean; a.sc_rstd = sc_rstd;
+  a.run_mean = run_mean; a.run_var = run_var; a.sc_run_mean = sc_run_mean;
+  a.sc_run_var = sc_run_var; a.sc_mode = sc_mode; a.relu = relu;
+  a.mom = mom; a.upd_mean = upd_mean; a.upd_var = upd_var; a.eps = eps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ni = sc_mode != 0 ? 2 : 1;
+  if ((sc_mode != 0) != (sc != nullptr) || (sc_mode == 2) != (sc_sums != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return span_dtype(dtype, [&](auto tag) -> int {
+    using T = typename decltype(tag)::type;
+    const int err = span_check<T>(p, channels, ni);
+    if (err != 0) return err;
+    return span_design<T>(p, [&](auto v, auto ring) -> int {
+      constexpr int V = decltype(v)::value;
+      constexpr bool R = decltype(ring)::value;
+      return ni == 2 ? span_launch(span_normalize_kernel<T, V, R, 2>, p, a, s)
+                     : span_launch(span_normalize_kernel<T, V, R, 1>, p, a, s);
+    });
+  });
 }
 
-// The backward's partial sums per (group, sum, channel) into sums (G, ns,
-// C), ns = 3 with a normalized shortcut, else 2; y (under relu) as in
-// bn_train_bwd.
-extern "C" int bn_span_bwd_reduce(int dtype, const void* x, const void* y, const void* dy,
-                                  const void* sc, int sc_mode, long long nloc,
-                                  long long offset, long long ngroup, int groups,
-                                  int channels, int chunks, const float* mean,
-                                  const float* rstd, const float* sc_mean,
-                                  const float* sc_rstd, float* part, float* sums,
+// The backward's variants: (sums, third operand) by shortcut mode and relu.
+template <typename T, int V, bool R, bool REDUCE>
+int span_bwd_launch(const SpanPlan& p, const SpanArgs& a, cudaStream_t s) {
+  if (a.sc_mode == 2)
+    return REDUCE ? span_launch(span_bwd_reduce_kernel<T, V, R, 3, true>, p, a, s)
+                  : span_launch(span_bwd_grad_kernel<T, V, R, 3, true>, p, a, s);
+  if (a.sc_mode == 1 && a.relu)
+    return REDUCE ? span_launch(span_bwd_reduce_kernel<T, V, R, 2, true>, p, a, s)
+                  : span_launch(span_bwd_grad_kernel<T, V, R, 2, true>, p, a, s);
+  return REDUCE ? span_launch(span_bwd_reduce_kernel<T, V, R, 2, false>, p, a, s)
+                : span_launch(span_bwd_grad_kernel<T, V, R, 2, false>, p, a, s);
+}
+
+template <bool REDUCE>
+int span_backward(int dtype, const SpanPlan& p, const SpanArgs& a, cudaStream_t s) {
+  const bool third = a.sc_mode == 2 || (a.sc_mode == 1 && a.relu);
+  if (third != (a.z != nullptr) || (a.sc_mode == 2) != (a.sc_mean != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return span_dtype(dtype, [&](auto tag) -> int {
+    using T = typename decltype(tag)::type;
+    const int err = span_check<T>(p, a.channels, third ? 3 : 2);
+    if (err != 0) return err;
+    return span_design<T>(p, [&](auto v, auto ring) -> int {
+      return span_bwd_launch<T, decltype(v)::value, decltype(ring)::value, REDUCE>(p, a, s);
+    });
+  });
+}
+
+// The backward's partial sums, sum(d), sum(d * xhat) [, sum(d * shat) in
+// sc_mode 2] per (group, channel) into sums (G, ns, C), with the forward's
+// statistics (mean, rstd, sc_*: (G, C)). z: the shortcut's input (sc_mode
+// 2), the forward output (sc_mode 1 under relu; the relu decision of the
+// other modes is recomputed from x), else null.
+extern "C" int bn_span_bwd_reduce(int dtype, const void* x, const void* z, const void* dy,
+                                  int sc_mode, int relu, long long ngroup, int groups,
+                                  int channels, const int* plan, const long long* table,
+                                  const float* mean, const float* rstd, const float* sc_mean,
+                                  const float* sc_rstd, float* gpart, int* ticket, float* sums,
                                   void* stream) {
-  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
-    return vsv::kShapeUnsupported;
-  int touched = 0;
-  const Span span = span_of(nloc, offset, ngroup, &touched);
-  VSV_SPAN_DISPATCH(span_bwd_reduce, x, y, dy, sc, sc_mode, span, touched, groups, channels,
-                    chunks, mean, rstd, sc_mean, sc_rstd, part, sums,
-                    static_cast<cudaStream_t>(stream));
+  const SpanPlan p = span_plan(plan);
+  SpanArgs a = span_args(p, table, ngroup, groups, channels);
+  a.x = x; a.z = z; a.dy = dy; a.sc_mode = sc_mode; a.relu = relu;
+  a.mean = const_cast<float*>(mean); a.rstd = const_cast<float*>(rstd);
+  a.sc_mean = const_cast<float*>(sc_mean); a.sc_rstd = const_cast<float*>(sc_rstd);
+  a.gpart = gpart; a.ticket = ticket; a.sums_out = sums;
+  return span_backward<true>(dtype, p, a, static_cast<cudaStream_t>(stream));
 }
 
-// After the all-reduce of bn_span_bwd_reduce's sums: dx (and the shortcut's
-// gradient) of the rank's rows; coef takes ns * G * C floats.
-extern "C" int bn_span_bwd_grad(int dtype, const void* x, const void* y, const void* dy,
-                                const void* sc, int sc_mode, long long nloc, long long offset,
-                                long long ngroup, int groups, int channels, const float* mean,
+// After the all-reduce of bn_span_bwd_reduce's sums: dx (and the
+// shortcut's gradient dsc in sc_mode 1, 2) of the rank's rows.
+extern "C" int bn_span_bwd_grad(int dtype, const void* x, const void* z, const void* dy,
+                                int sc_mode, int relu, long long ngroup, int groups, int channels,
+                                const int* plan, const long long* table, const float* mean,
                                 const float* rstd, const float* sc_mean, const float* sc_rstd,
-                                const float* sums, float* coef, void* dx, void* dsc,
-                                int num_sms, void* stream) {
-  if (nloc < 1 || ngroup < 1 || offset < 0 || offset + nloc > ngroup * groups)
-    return vsv::kShapeUnsupported;
-  int touched = 0;
-  const Span span = span_of(nloc, offset, ngroup, &touched);
-  VSV_SPAN_DISPATCH(span_bwd_grad, x, y, dy, sc, sc_mode, span, groups, channels, mean, rstd,
-                    sc_mean, sc_rstd, sums, coef, dx, dsc, num_sms,
-                    static_cast<cudaStream_t>(stream));
+                                const float* sums, void* dx, void* dsc, void* stream) {
+  const SpanPlan p = span_plan(plan);
+  SpanArgs a = span_args(p, table, ngroup, groups, channels);
+  a.x = x; a.z = z; a.dy = dy; a.sc_mode = sc_mode; a.relu = relu; a.sums = sums;
+  a.mean = const_cast<float*>(mean); a.rstd = const_cast<float*>(rstd);
+  a.sc_mean = const_cast<float*>(sc_mean); a.sc_rstd = const_cast<float*>(sc_rstd);
+  a.out = dx; a.dsc = dsc;
+  if ((sc_mode != 0) != (dsc != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  return span_backward<false>(dtype, p, a, static_cast<cudaStream_t>(stream));
 }

@@ -59,20 +59,40 @@
 // not take: more than 256 FFT bins (a padded frame over 512 samples, as at
 // 32 kHz or with a 50 ms frame) or a count not a multiple of 4, more than
 // kMelCap packed mel weights, a frame length or shift over 4096, or a
-// layout over a CTA's shared memory. A simple kernel that is right: a CTA
-// of 256 threads takes kGenFrames frames of one utterance (one frame where
-// the mel accumulators of eight do not fit) and walks the FFT bins in tiles
-// of 256, a thread a bin. For each tile it stages the frames' samples in
-// chunks of kGenRows rows (with dither * noise added, the draw rule of the
-// design above), streams the A/B rows of its bin from global memory (L2:
-// 256 threads read 1 KB of each row together), forms the power of the tile
-// in shared memory, and adds the tile's share of every mel column (the
-// dense M, streamed from L2) into per-(frame, column) accumulators in
-// shared memory; after the last tile, the log. Every sum runs in a fixed
-// order: reruns agree bit for bit. Bound as above (operations); it reads
-// A/B again for every 8 frames, which the design above avoids.
-// All launch decisions (cluster, tile, warps, grid, variant) are made here;
-// the wrapper passes shapes, the packed M and the noise.
+// layout over a CTA's shared memory. Its first design (a thread a bin, 8
+// frames a CTA, A/B and the dense M read from L2 for every 8 frames) ran
+// at ~9 of the 67 TFLOP/s, slower than its plain version. This one is a
+// register-tiled fp32 GEMM of the frames (T x frame_length, read from the
+// wave at stride frame_shift) by [A | B]:
+// - A CTA takes a tile of 64 frames x 64 FFT bins (re and im) of one
+//   utterance, grid (frame tiles x bin tiles, batch); the plan is
+//   ops/fbank.py:general_plan.
+// - The K-loop walks a frame's samples in chunks of 32: the A/B rows of the
+//   tile's bins and the tile's frame samples (zero past the frame and past
+//   the last frame; with the draws beside them, added at staging as
+//   x + dither * noise, the fast design's rule) arrive by cp.async in a
+//   ring of 3 chunks in shared memory, so each staged A/B value serves 64
+//   frames and the next chunks load during this one's arithmetic.
+// - 8 warps: two halves of each chunk's samples, each half 4 warps of 32 x
+//   32 (frames x bins); a thread holds 8 frames (4 apart) x 4 bins x (re,
+//   im) in registers and per 4 samples reads 8 + 8 16-byte words for 256
+//   FMA, each load a broadcast without bank conflicts. The halves add in a
+//   fixed order.
+// - Epilogue: power into shared memory, then each mel column whose packed
+//   run (mel_columns, as the fast design takes M) meets the tile's bins
+//   sums its share; those partials go to a buffer (bin tile, utterance,
+//   frame, column) and the last bin tile of the frame tile to arrive (an
+//   integer ticket with fences) adds each column's tiles in order and takes
+//   the log. No float atomics: reruns agree bit for bit.
+// Bound as above (operations). One tile a CTA: an 8 s wave at 32 kHz is
+// 13 x 8 = 104 CTAs, under the 132 SMs. What holds it well above its
+// bound is the FMA loop's issue rate, not the staging; 8 x 8 register tiles
+// (fewer shared loads an FMA), smaller unrolls and 64-sample chunks did not
+// raise it.
+// The fast design's launch decisions (cluster, tile, warps, grid, variant)
+// are made here; the wrapper passes shapes, the packed M and the noise. The
+// general path's tile plan is ops/fbank.py:general_plan (its column table,
+// scratch and shared memory, which the entry checks against this layout).
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -440,108 +460,258 @@ int launch(Args args, size_t smem, int num_bins, void* stream) {
 // general path
 // ---------------------------------------------------------------------------
 
-constexpr int kGenThreads = 256;  // a thread a FFT bin of the tile
-constexpr int kGenRows = 256;     // samples a frame per staged chunk
-constexpr int kGenFrames = 8;     // frames a CTA (1 where 8 frames' mel sums do not fit)
+constexpr int kGenFrames = 64;    // frames a tile
+constexpr int kGenBins = 64;      // FFT bins a tile, re and im
+constexpr int kGenK = 32;         // samples a staged chunk
+constexpr int kGenStages = 3;     // chunks in the ring
+constexpr int kGenThreads = 256;  // 2 sample halves x 4 warps of 32 x 32
+constexpr int kGenXs = kGenK + 4;      // floats a staged frame row
+constexpr int kGenPw = kGenBins + 4;   // floats a power row
+constexpr int kGenHalf = kGenThreads / 2;
+
+// Floats of one ring stage: A and B chunks (kGenK x kGenBins), the frames'
+// samples (kGenFrames x kGenXs) and, dithered, their draws.
+__host__ __device__ constexpr int gen_stage_floats(bool dither) {
+  return 2 * kGenK * kGenBins + (dither ? 2 : 1) * kGenFrames * kGenXs;
+}
+size_t gen_smem_bytes(bool dither) {
+  return sizeof(float) * kGenStages * static_cast<size_t>(gen_stage_floats(dither));
+}
+// the epilogue reuses the ring: the second half's sums, then the power
+static_assert(kGenHalf * 64 + kGenFrames * kGenPw <= kGenStages * gen_stage_floats(false),
+              "the epilogue's buffers fit the ring");
 
 struct GenArgs {
   const float* waves;
   const float* a;
   const float* b;
-  const float* m;  // (num_fft_bins, num_bins) dense
+  const int* mel_start;  // M by columns, as Args
+  const int* mel_off;
+  const float* mel_w;
+  const int* tile_cols;  // (bin tiles, 2): the columns whose runs meet each bin tile
   float* out;
-  int num_samples, num_frames, frame_length, frame_shift, num_fft_bins, num_bins;
-  int use_power, use_log;
+  float* part;           // (bin tiles, batch, num_frames, num_bins) the tiles' mel sums
+  int* tickets;          // (batch, frame tiles) zero, left zero
+  int batch, num_samples, num_frames, frame_length, frame_shift, num_fft_bins, num_bins;
+  int frame_tiles, bin_tiles, use_power, use_log;
   float floor_value;
   const float* noise;  // (batch, num_frames, frame_length), or null: no dither
   float dither;
 };
 
-size_t gen_smem_bytes(int frames, int num_bins) {
-  return sizeof(float) * static_cast<size_t>(frames) * (kGenRows + kGenThreads + num_bins);
+// Chunk c of the K-loop into its ring stage: rows r0 .. r0 + kGenK - 1 of A
+// and B at the tile's bins, and those samples of the tile's frames (and
+// their draws); zeros past the frame, past the bins and past the last frame.
+// 16-byte copies where the rows allow, else 4-byte ones.
+template <bool kDither>
+__device__ __forceinline__ void gen_stage(const GenArgs& g, float* st, int c, int k0, int t0,
+                                          const float* wave, const float* noise, bool ab16,
+                                          bool x16, bool n16) {
+  const int r0 = c * kGenK, L = g.frame_length, nfft = g.num_fft_bins;
+  float* as = st;
+  float* bs = as + kGenK * kGenBins;
+  float* xs = bs + kGenK * kGenBins;
+  if (ab16) {
+    for (int q = threadIdx.x; q < 2 * kGenK * (kGenBins / 4); q += kGenThreads) {
+      const int m = q / (kGenK * (kGenBins / 4)), rem = q % (kGenK * (kGenBins / 4));
+      const int r = rem / (kGenBins / 4), col = 4 * (rem % (kGenBins / 4));
+      const int k = k0 + col;
+      const int n = r0 + r < L ? max(0, min(4, nfft - k)) : 0;
+      const float* src = (m ? g.b : g.a) + (n ? static_cast<long long>(r0 + r) * nfft + k : 0);
+      cp_async16((m ? bs : as) + r * kGenBins + col, src, 4 * n);
+    }
+  } else {
+    for (int q = threadIdx.x; q < 2 * kGenK * kGenBins; q += kGenThreads) {
+      const int m = q / (kGenK * kGenBins), rem = q % (kGenK * kGenBins);
+      const int r = rem / kGenBins, col = rem % kGenBins, k = k0 + col;
+      const bool ok = r0 + r < L && k < nfft;
+      cp_async4((m ? bs : as) + r * kGenBins + col,
+                (m ? g.b : g.a) + (ok ? static_cast<long long>(r0 + r) * nfft + k : 0), ok);
+    }
+  }
+  // the frames' samples [and draws]: frame t's sample r0 + r at
+  // wave[t * shift + r0 + r] [noise[t * L + r0 + r]]
+  for (int s = 0; s < (kDither ? 2 : 1); ++s) {
+    const float* base = s ? noise : wave;
+    const long long stride = s ? L : g.frame_shift;
+    float* dst = xs + s * kGenFrames * kGenXs;
+    if (s ? n16 : x16) {
+      for (int q = threadIdx.x; q < kGenFrames * (kGenK / 4); q += kGenThreads) {
+        const int f = q / (kGenK / 4), col = 4 * (q % (kGenK / 4)), t = t0 + f;
+        const int n = t < g.num_frames ? max(0, min(4, L - r0 - col)) : 0;
+        cp_async16(dst + f * kGenXs + col, base + (n ? t * stride + r0 + col : 0), 4 * n);
+      }
+    } else {
+      for (int q = threadIdx.x; q < kGenFrames * kGenK; q += kGenThreads) {
+        const int f = q / kGenK, r = q % kGenK, t = t0 + f;
+        const bool ok = t < g.num_frames && r0 + r < L;
+        cp_async4(dst + f * kGenXs + r, base + (ok ? t * stride + r0 + r : 0), ok);
+      }
+    }
+  }
 }
 
-template <int F, bool kDither>
+template <bool kDither>
 __global__ void __launch_bounds__(kGenThreads) fbank_general_kernel(GenArgs g) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                   // F x kGenRows samples of the chunk
-  float* pw = xs + F * kGenRows;      // F x kGenThreads power of the tile
-  float* mel = pw + F * kGenThreads;  // F x num_bins accumulators
-  const int tid = threadIdx.x, nb = g.num_bins;
-  const int bb = blockIdx.y, t0 = blockIdx.x * F;
+  __shared__ int last;
+  constexpr int SF = gen_stage_floats(kDither);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int half = warp >> 2;                          // samples 16 half .. + 15 of each chunk
+  // frames f0 + 4i (i < 8): the warp's 4 frame groups read adjacent staged
+  // rows, in distinct banks, so a quarter warp's load is one wavefront
+  const int f0 = ((warp >> 1) & 1) * 32 + (lane >> 3);
+  const int b0 = (warp & 1) * 32 + (lane & 7) * 4;          // bins b0 .. b0 + 3
+  const int bt = blockIdx.x % g.bin_tiles, ft = blockIdx.x / g.bin_tiles, bb = blockIdx.y;
+  const int k0 = bt * kGenBins, t0 = ft * kGenFrames;
   const float* wave = g.waves + static_cast<long long>(bb) * g.num_samples;
-  for (int i = tid; i < F * nb; i += kGenThreads) mel[i] = 0.f;
-  for (int k0 = 0; k0 < g.num_fft_bins; k0 += kGenThreads) {
-    const int k = k0 + tid;
-    float re[F], im[F];
+  const float* noise =
+      kDither ? g.noise + static_cast<long long>(bb) * g.num_frames * g.frame_length : nullptr;
+  const bool ab16 = g.num_fft_bins % 4 == 0;
+  const bool x16 = g.frame_shift % 4 == 0 && (reinterpret_cast<uintptr_t>(wave) & 15) == 0;
+  const bool n16 = kDither && g.frame_length % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(noise) & 15) == 0;
+  const int nchunks = (g.frame_length + kGenK - 1) / kGenK;
+
 #pragma unroll
-    for (int f = 0; f < F; ++f) re[f] = im[f] = 0.f;
-    for (int r0 = 0; r0 < g.frame_length; r0 += kGenRows) {
-      const int rn = min(kGenRows, g.frame_length - r0);
-      __syncthreads();  // the previous chunk (and tile) is consumed
-      for (int i = tid; i < F * kGenRows; i += kGenThreads) {
-        const int f = i / kGenRows, r = i % kGenRows, t = t0 + f;
-        float v = 0.f;
-        if (t < g.num_frames && r < rn) {
-          const long long s = static_cast<long long>(t) * g.frame_shift + r0 + r;
-          v = s < g.num_samples ? wave[s] : 0.f;
-          if constexpr (kDither)
-            v += g.dither *
-                 g.noise[(static_cast<long long>(bb) * g.num_frames + t) * g.frame_length + r0 + r];
-        }
-        xs[i] = v;
+  for (int c = 0; c < kGenStages - 1; ++c) {
+    if (c < nchunks)
+      gen_stage<kDither>(g, smem + c * SF, c, k0, t0, wave, noise, ab16, x16, n16);
+    cp_async_commit();
+  }
+  float re[8][4], im[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) re[i][k] = im[i][k] = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<kGenStages - 2>();
+    __syncthreads();  // chunk c landed everywhere; chunk c - 1's stage is free
+    float* st = smem + (c % kGenStages) * SF;
+    float* xs = st + 2 * kGenK * kGenBins;
+    if constexpr (kDither) {
+      const float* ns = xs + kGenFrames * kGenXs;
+      for (int q = tid; q < kGenFrames * kGenK; q += kGenThreads) {
+        const int e = (q / kGenK) * kGenXs + q % kGenK;
+        xs[e] = __fadd_rn(xs[e], __fmul_rn(g.dither, ns[e]));
       }
       __syncthreads();
-      if (k < g.num_fft_bins) {
-        for (int r = 0; r < rn; ++r) {
-          const long long row = static_cast<long long>(r0 + r) * g.num_fft_bins + k;
-          const float av = __ldg(g.a + row), bv = __ldg(g.b + row);
+    }
+    if (c + kGenStages - 1 < nchunks)
+      gen_stage<kDither>(g, smem + ((c + kGenStages - 1) % kGenStages) * SF, c + kGenStages - 1,
+                         k0, t0, wave, noise, ab16, x16, n16);
+    cp_async_commit();
+    const float* as = st;
+    const float* bs = st + kGenK * kGenBins;
 #pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const float x = xs[f * kGenRows + r];
-            re[f] = fmaf(x, av, re[f]);
-            im[f] = fmaf(x, bv, im[f]);
-          }
-        }
+    for (int h = 0; h < kGenK / 8; ++h) {
+      const int r = half * (kGenK / 2) + 4 * h;  // 4 samples r .. r + 3
+      float x[8][4], av[4][4], bv[4][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + (f0 + 4 * i) * kGenXs + r);
+        x[i][0] = v.x; x[i][1] = v.y; x[i][2] = v.z; x[i][3] = v.w;
       }
-    }
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float p = re[f] * re[f] + im[f] * im[f];
-      if (!g.use_power) p = sqrtf(p);
-      pw[f * kGenThreads + tid] = p;
-    }
-    __syncthreads();
-    const int kn = min(kGenThreads, g.num_fft_bins - k0);
-    for (int i = tid; i < F * nb; i += kGenThreads) {
-      const int f = i / nb, c = i % nb;
-      const float* mc = g.m + static_cast<long long>(k0) * nb + c;
-      const float* pf = pw + f * kGenThreads;
-      float acc = mel[i];
-      for (int kk = 0; kk < kn; ++kk) acc = fmaf(pf[kk], __ldg(mc + static_cast<long long>(kk) * nb), acc);
-      mel[i] = acc;
+      for (int u = 0; u < 4; ++u) {
+        const float4 va = *reinterpret_cast<const float4*>(as + (r + u) * kGenBins + b0);
+        const float4 vb = *reinterpret_cast<const float4*>(bs + (r + u) * kGenBins + b0);
+        av[u][0] = va.x; av[u][1] = va.y; av[u][2] = va.z; av[u][3] = va.w;
+        bv[u][0] = vb.x; bv[u][1] = vb.y; bv[u][2] = vb.z; bv[u][3] = vb.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            re[i][k] = fmaf(x[i][u], av[u][k], re[i][k]);
+            im[i][k] = fmaf(x[i][u], bv[u][k], im[i][k]);
+          }
     }
   }
-  // each accumulator is read by the thread that wrote it: no barrier needed
-  for (int i = tid; i < F * nb; i += kGenThreads) {
-    const int f = i / nb, c = i % nb, t = t0 + f;
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the epilogue's buffers reuse it
+
+  // the halves' sums in order (first half + second half), then the power
+  float* red = smem;                  // 64 values x kGenHalf threads
+  float* pw = smem + 64 * kGenHalf;   // kGenFrames x kGenPw
+  const int th = tid % kGenHalf;
+  if (half == 1)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        red[(i * 4 + k) * kGenHalf + th] = re[i][k];
+        red[(32 + i * 4 + k) * kGenHalf + th] = im[i][k];
+      }
+  __syncthreads();
+  if (half == 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float p[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float sr = re[i][k] + red[(i * 4 + k) * kGenHalf + th];
+        const float si = im[i][k] + red[(32 + i * 4 + k) * kGenHalf + th];
+        p[k] = sr * sr + si * si;
+        if (!g.use_power) p[k] = sqrtf(p[k]);
+      }
+      *reinterpret_cast<float4*>(pw + (f0 + 4 * i) * kGenPw + b0) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+  __syncthreads();
+
+  // this bin tile's share of each mel column that meets it, in bin order
+  const int c_lo = g.tile_cols[2 * bt], ncols = g.tile_cols[2 * bt + 1] - c_lo;
+  const int kend = min(k0 + kGenBins, g.num_fft_bins);
+  const long long plane = static_cast<long long>(g.num_frames) * g.num_bins;
+  float* part = g.part + (static_cast<long long>(bt) * g.batch + bb) * plane;
+  for (int q = tid; q < kGenFrames * ncols; q += kGenThreads) {
+    const int f = q / ncols, c = c_lo + q % ncols, t = t0 + f;
     if (t >= g.num_frames) continue;
-    float v = mel[i];
-    if (g.use_log) v = logf(fmaxf(v, g.floor_value));
-    g.out[(static_cast<long long>(bb) * g.num_frames + t) * nb + c] = v;
+    const int s0 = g.mel_start[c], off = g.mel_off[c], len = g.mel_off[c + 1] - off;
+    const int lo = max(s0, k0), hi = min(s0 + len, kend);
+    if (lo >= hi) continue;  // a column of the range whose run misses the tile
+    float v = 0.f;
+    for (int k = lo; k < hi; ++k) v = fmaf(pw[f * kGenPw + k - k0], g.mel_w[off + k - s0], v);
+    part[static_cast<long long>(t) * g.num_bins + c] = v;
   }
+
+  // the last bin tile of this frame tile: each column's tiles in order, the log
+  __threadfence();
+  __syncthreads();
+  int* ticket = g.tickets + static_cast<long long>(bb) * g.frame_tiles + ft;
+  if (tid == 0) last = atomicAdd(ticket, 1) == g.bin_tiles - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* parts = g.part + static_cast<long long>(bb) * plane;
+  const long long tstride = static_cast<long long>(g.batch) * plane;
+  for (int q = tid; q < kGenFrames * g.num_bins; q += kGenThreads) {
+    const int f = q / g.num_bins, c = q % g.num_bins, t = t0 + f;
+    if (t >= g.num_frames) continue;
+    const int s0 = g.mel_start[c], len = g.mel_off[c + 1] - g.mel_off[c];
+    float v = 0.f;
+    if (len > 0)
+      for (int tt = s0 / kGenBins; tt <= (s0 + len - 1) / kGenBins; ++tt)
+        v += __ldcg(parts + tt * tstride + static_cast<long long>(t) * g.num_bins + c);
+    if (g.use_log) v = logf(fmaxf(v, g.floor_value));
+    g.out[(static_cast<long long>(bb) * g.num_frames + t) * g.num_bins + c] = v;
+  }
+  if (tid == 0) atomicExch(ticket, 0);
 }
 
-template <int F, bool kDither>
-int launch_general(const GenArgs& args, int batch, void* stream) {
-  const size_t smem = gen_smem_bytes(F, args.num_bins);
-  cudaError_t err = cudaFuncSetAttribute(fbank_general_kernel<F, kDither>,
+template <bool kDither>
+int launch_general(const GenArgs& args, void* stream) {
+  const size_t smem = gen_smem_bytes(kDither);
+  cudaError_t err = cudaFuncSetAttribute(fbank_general_kernel<kDither>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((args.num_frames + F - 1) / F),
-                  static_cast<unsigned>(batch));
-  fbank_general_kernel<F, kDither>
+  const dim3 grid(static_cast<unsigned>(args.frame_tiles * args.bin_tiles),
+                  static_cast<unsigned>(args.batch));
+  fbank_general_kernel<kDither>
       <<<grid, kGenThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -587,39 +757,37 @@ extern "C" int fbank_f32(const float* waves, const float* a, const float* b,
                           : launch<false>(args, smem, num_bins, stream);
 }
 
-// The general path's frames a CTA for num_bins mel columns (8, or 1 where
-// eight frames' accumulators do not fit), 0 if not even one frame's do.
-extern "C" int fbank_general_plan(int num_bins, int* frames_out, int* smem_bytes_out) {
-  const size_t limit = static_cast<size_t>(kSmemMax) - 2048;
-  int frames = 0;
-  if (num_bins >= 1) {
-    if (gen_smem_bytes(kGenFrames, num_bins) <= limit) frames = kGenFrames;
-    else if (gen_smem_bytes(1, num_bins) <= limit) frames = 1;
-  }
-  *frames_out = frames;
-  *smem_bytes_out = frames ? static_cast<int>(gen_smem_bytes(frames, num_bins)) : 0;
-  return frames ? 0 : vsv::kShapeUnsupported;
-}
-
-// The general path: the arguments of fbank_f32, with M dense (num_fft_bins,
-// num_bins) in place of its columns. Any frame length, shift and FFT bin
-// count; mel columns as long as one frame's accumulators fit a CTA
-// (fbank_general_plan).
+// The general path: the arguments of fbank_f32 (M by columns), and the
+// plan of ops/fbank.py:general_plan: tile_cols (bin tiles, 2) int32, the
+// columns whose runs meet each 64-bin tile; part, (bin tiles, batch,
+// num_frames, num_bins) fp32 scratch; tickets, batch x frame tiles ints,
+// zero, left zero; smem, the dynamic shared memory the plan expects (a
+// plan that differs from this source's layout is refused). Any frame
+// length, shift, FFT bin count and mel bank.
 extern "C" int fbank_general_f32(const float* waves, const float* a, const float* b,
-                                 const float* m, float* out, int batch, int num_samples,
-                                 int num_frames, int frame_length, int frame_shift,
-                                 int num_fft_bins, int num_bins, int use_power, int use_log,
-                                 float floor_value, const float* noise, float dither,
-                                 void* stream) {
-  int frames = 0, smem = 0;
-  if (num_fft_bins < 1 || frame_length < 1 || frame_shift < 1 || batch < 1 ||
-      batch > 65535 || fbank_general_plan(num_bins, &frames, &smem) != 0)
+                                 const int* mel_start, const int* mel_off, const float* mel_w,
+                                 const int* tile_cols, float* out, float* part,
+                                 long long part_floats, int* tickets, int num_tickets,
+                                 int batch, int num_samples, int num_frames, int frame_length,
+                                 int frame_shift, int num_fft_bins, int num_bins, int use_power,
+                                 int use_log, float floor_value, const float* noise, float dither,
+                                 int smem, void* stream) {
+  if (num_fft_bins < 1 || frame_length < 1 || frame_shift < 1 || num_bins < 1 || batch < 1 ||
+      batch > 65535 || num_frames < 1)
     return vsv::kShapeUnsupported;
-  const GenArgs args{waves, a, b, m, out, num_samples, num_frames, frame_length, frame_shift,
-                     num_fft_bins, num_bins, use_power, use_log, floor_value, noise, dither};
-  if (frames == kGenFrames)
-    return noise != nullptr ? launch_general<kGenFrames, true>(args, batch, stream)
-                            : launch_general<kGenFrames, false>(args, batch, stream);
-  return noise != nullptr ? launch_general<1, true>(args, batch, stream)
-                          : launch_general<1, false>(args, batch, stream);
+  const long long frame_tiles = (num_frames + kGenFrames - 1) / kGenFrames;
+  const long long bin_tiles = (num_fft_bins + kGenBins - 1) / kGenBins;
+  if (frame_tiles * bin_tiles > (1LL << 31) - 1) return vsv::kShapeUnsupported;
+  // the scratch the caller sized from the plan: a bin tile's mel sums of
+  // every frame, and a ticket a (utterance, frame tile)
+  if (static_cast<size_t>(smem) != gen_smem_bytes(noise != nullptr) ||
+      part_floats < bin_tiles * batch * num_frames * num_bins ||
+      num_tickets < batch * frame_tiles)
+    return vsv::kPlanMismatch;
+  const GenArgs args{waves, a, b, mel_start, mel_off, mel_w, tile_cols, out, part, tickets,
+                     batch, num_samples, num_frames, frame_length, frame_shift, num_fft_bins,
+                     num_bins, static_cast<int>(frame_tiles), static_cast<int>(bin_tiles),
+                     use_power, use_log, floor_value, noise, dither};
+  return noise != nullptr ? launch_general<true>(args, stream)
+                          : launch_general<false>(args, stream);
 }

@@ -150,9 +150,10 @@ FBANK = CudaKernel("fbank", "fbank.cu", {
     "fbank_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _F, _P, _F, _P],
     "fbank_plan": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    "fbank_general_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-                          _F, _P],
-    "fbank_general_plan": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    # waves, a, b, mel_start, mel_off, mel_w, tile_cols, out, part, tickets; batch ..
+    # use_log; floor; noise; dither; smem; stream
+    "fbank_general_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _F, _P, _F, _I, _P],
 }, paths={"fbank_f32": ("plain", "dither"), "fbank_general_f32": ("plain", "dither")})
 SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
     "split_group": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -185,13 +186,15 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                        _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _P, _P],
     "bn_cluster_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
-    "bn_span_stats": [_I, _P, _L, _L, _L, _I, _I, _I, _P, _P, _P],
-    "bn_span_normalize": [_I, _P, _P, _I, _I, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _F, _F, _F, _F, _P, _I, _P],
-    "bn_span_bwd_reduce": [_I, _P, _P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _P, _P, _P, _P,
-                           _P, _P, _P],
-    "bn_span_bwd_grad": [_I, _P, _P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _P],
+    # the spanning mode's entries take the plan's ten scalars as a host int
+    # array and its table as a device pointer (ops/nn.py:bn_span_plan)
+    "bn_span_stats": [_I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P],
+    "bn_span_normalize": [_I, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _F, _F, _F, _F, _P, _P],
+    "bn_span_bwd_reduce": [_I, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P],
+    "bn_span_bwd_grad": [_I, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P],
 })
 MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
@@ -243,6 +246,22 @@ def function_launch_counts() -> Dict[str, int]:
 
 def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# (device, stream, name) -> a scratch tensor of stream_scratch
+_STREAM_SCRATCH = {}
+
+
+def stream_scratch(device: torch.device, name: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """Scratch of at least ``numel`` elements named ``name`` on the current
+    stream of ``device``, zero when made and kept between calls: a kernel's
+    tickets (which every launch leaves zero) or its partials. Launches on
+    one stream run in order, so each stream keeps one of each."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream, name)
+    buf = _STREAM_SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _STREAM_SCRATCH[key] = torch.zeros(max(numel, 1), dtype=dtype, device=device)
+    return buf
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import FBANK, KernelError, check_cuda, ptr
+from ..kernels import FBANK, KernelError, check_cuda, ptr, stream_scratch
 
 # std::numeric_limits<float>::epsilon() -- Kaldi's mel-energy floor.
 FLT_EPSILON = float(np.finfo(np.float32).eps)
@@ -273,16 +273,22 @@ def fbank(waves: torch.Tensor, cfg: FbankConfig = FbankConfig(dither=0.0),
                       device=waves.device)
     if t == 0 or batch == 0:
         return out
-    a, b, m = _device_matrices(cfg, waves.device)
+    a, b, _ = _device_matrices(cfg, waves.device)
+    starts, offsets, weights = _device_mel_columns(cfg, waves.device)
     path = "plain" if noise is None else "dither"
     if kernel_route(cfg) == "general":
+        plan = general_plan(cfg, batch, t, noise is not None)
+        cols = _device_tile_columns(cfg, waves.device)
+        part = torch.empty(plan["part_floats"], dtype=torch.float32, device=waves.device)
+        tickets = stream_scratch(waves.device, "fbank_general_tickets", plan["tickets"],
+                                 torch.int32)
         FBANK.launch(
-            "fbank_general_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(m), ptr(out),
-            batch, num_samples, t, cfg.frame_length, cfg.frame_shift, a.shape[1],
-            cfg.num_bins, int(cfg.use_power), int(cfg.use_log_fbank), FLT_EPSILON,
-            ptr(noise), float(cfg.dither), path=path)
+            "fbank_general_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(starts),
+            ptr(offsets), ptr(weights), ptr(cols), ptr(out), ptr(part), part.numel(),
+            ptr(tickets), tickets.numel(), batch, num_samples, t, cfg.frame_length, cfg.frame_shift, a.shape[1], cfg.num_bins,
+            int(cfg.use_power), int(cfg.use_log_fbank), FLT_EPSILON, ptr(noise),
+            float(cfg.dither), plan["smem"], path=path)
         return out
-    starts, offsets, weights = _device_mel_columns(cfg, waves.device)
     FBANK.launch(
         "fbank_f32", waves.device, ptr(waves), ptr(a), ptr(b), ptr(starts), ptr(offsets),
         ptr(weights), ptr(out), batch, num_samples, t, cfg.frame_length, cfg.frame_shift,
@@ -314,8 +320,8 @@ def fast_smem_bytes(frame_length: int, frame_shift: int) -> int:
 def kernel_route(cfg: FbankConfig) -> str:
     """K1's design for a config: ``"fast"`` (persistent clusters that keep
     the analysis matrices on chip) where its limits hold, else
-    ``"general"`` (``fbank_general_f32``: frames staged, A/B and the dense mel
-    matrix streamed from L2), which takes every shape this module computes:
+    ``"general"`` (``fbank_general_f32``: 64-frame x 64-bin register tiles,
+    :func:`general_plan`), which takes every shape this module computes:
     more than 256 FFT bins (a padded frame over 512 samples: 32 kHz, or a
     frame over 32 ms at 16 kHz), more than 1024 packed mel weights, a frame
     length or shift over 4096, or a layout over the fast design's shared
@@ -343,3 +349,72 @@ def kernel_plan(cfg: FbankConfig = FbankConfig(dither=0.0), device=None) -> dict
         raise KernelError(f"fbank.fbank_plan: CUDA error {code} "
                           f"({lib.vsv_error_string(code).decode()})")
     return {"clusters": clusters.value, "smem_bytes": smem.value}
+
+
+# The general path's tiles (csrc/fbank.cu: kGen*): frames and FFT bins a
+# CTA, samples a staged chunk, chunks in the ring, threads, and the floats
+# of a staged frame row (a chunk and 4 of padding)
+_GEN_FRAMES, _GEN_BINS, _GEN_K, _GEN_STAGES, _GEN_THREADS = 64, 64, 32, 3, 256
+_GEN_XS = _GEN_K + 4
+
+
+@lru_cache(maxsize=32)
+def general_tile_columns(cfg: FbankConfig) -> np.ndarray:
+    """(bin tiles, 2) int32: for each 64-bin tile of the general path, the
+    range [first, end) of the mel columns whose packed runs
+    (:func:`mel_columns`) meet its bins; (0, 0) where none does. Columns
+    inside a range whose runs miss the tile (empty ones) add nothing."""
+    nfft = cfg.padded_frame_length // 2
+    starts, offsets, _ = mel_columns(analysis_matrices(cfg)[2])
+    lens = np.diff(offsets)
+    tiles = -(-nfft // _GEN_BINS)
+    cols = np.zeros((tiles, 2), np.int32)
+    for t in range(tiles):
+        k0, k1 = t * _GEN_BINS, min((t + 1) * _GEN_BINS, nfft)
+        hit = np.flatnonzero((lens > 0) & (starts < k1) & (starts + lens > k0))
+        if hit.size:
+            cols[t] = (hit[0], hit[-1] + 1)
+    return cols
+
+
+@lru_cache(maxsize=8)
+def _device_tile_columns(cfg: FbankConfig, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(general_tile_columns(cfg)).to(device)
+
+
+def general_mel_terms(cfg: FbankConfig):
+    """The general path's mel sums as the kernel takes them: (bin tile,
+    column, first bin, end bin) for every column of a tile's range whose run
+    meets the tile, the bins it adds there; a column's value is the sum of
+    its terms in tile order (what the last tile to arrive adds)."""
+    nfft = cfg.padded_frame_length // 2
+    starts, offsets, _ = mel_columns(analysis_matrices(cfg)[2])
+    terms = []
+    for t, (lo_c, hi_c) in enumerate(general_tile_columns(cfg)):
+        k0, k1 = t * _GEN_BINS, min((t + 1) * _GEN_BINS, nfft)
+        for c in range(lo_c, hi_c):
+            lo, hi = max(int(starts[c]), k0), min(int(starts[c]) + int(offsets[c + 1] - offsets[c]), k1)
+            if lo < hi:
+                terms.append((t, c, lo, hi))
+    return terms
+
+
+def general_plan(cfg: FbankConfig, batch: int, num_frames: int, dither: bool) -> dict:
+    """K1's general-path launch plan (csrc/fbank.cu, fbank_general_kernel):
+    a CTA of ``threads`` a tile of ``tile_frames`` frames x ``tile_bins``
+    FFT bins of one utterance, ``frame_tiles * bin_tiles * batch`` CTAs;
+    its K-loop stages ``chunk`` samples a step in a ring of ``stages``
+    (A/B chunks, the frames' samples and, dithered, their draws): ``smem``
+    bytes of shared memory; ``part_floats`` of scratch for the tiles' mel
+    sums and ``tickets`` ints, one a (utterance, frame tile) (the C entry
+    refuses smaller scratch)."""
+    nfft = cfg.padded_frame_length // 2
+    frame_tiles, bin_tiles = -(-num_frames // _GEN_FRAMES), -(-nfft // _GEN_BINS)
+    stage = 2 * _GEN_K * _GEN_BINS + (2 if dither else 1) * _GEN_FRAMES * _GEN_XS
+    return {"tile_frames": _GEN_FRAMES, "tile_bins": _GEN_BINS, "chunk": _GEN_K,
+            "stages": _GEN_STAGES, "threads": _GEN_THREADS, "frame_tiles": frame_tiles,
+            "bin_tiles": bin_tiles, "ctas": frame_tiles * bin_tiles * batch,
+            "smem": 4 * _GEN_STAGES * stage,
+            "part_floats": bin_tiles * batch * num_frames * cfg.num_bins,
+            "tickets": batch * frame_tiles}
+

@@ -30,6 +30,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import math
@@ -41,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import (ATT_POOL, BN_ACT, BN_TRAIN, STATS_POOL, STATS_POOL_BWD,
-                       KernelError, check_cuda, dtype_code, num_sms, ptr)
+                       KernelError, check_cuda, dtype_code, num_sms, ptr, stream_scratch)
 from ..parallel.sharding import active_mesh, all_reduce_, all_reduce_sum
 
 BN_MOMENTUM = 0.997
@@ -609,24 +610,119 @@ def bn_span_reference(x, running_mean, running_var, layout: SpanLayout, group, *
     return y.contiguous(memory_format=CHANNELS_LAST) if y.ndim == 4 else y
 
 
-def _span_chunks(x: torch.Tensor, layout: SpanLayout) -> int:
-    return _bn_chunks(x.shape[1], min(layout.ngroup, layout.nloc), layout.touched,
-                      num_sms(x.device))
+_SPAN_THREADS = 512          # at most, per CTA of K5's spanning mode
+_SPAN_RING_STAGES = 2        # chunks the ring holds (large ones: a chunk costs a refill)
+_SPAN_DIRECT_CTAS_PER_SM = 4  # the direct design's CTAs (no ring: little shared memory)
 
 
-def bn_span_partials(x: torch.Tensor, layout: SpanLayout) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def bn_span_plan(layout: SpanLayout, channels: int, dtype: torch.dtype, sms: int) -> dict:
+    """K5's spanning-mode launch plan for one rank's rows (``layout``) of
+    ``channels`` channels on a card of ``sms`` SMs, shared by its four
+    launches (``csrc/bn_train.cu``, span_*_kernel):
+
+    * ``design``: ``"ring"`` where a row is whole 16-byte vectors, at most
+      512 of them (a CTA streams its slab through a ring of bulk copies in
+      shared memory), else ``"direct"`` (loads from global memory, in
+      channel tiles of at most 512 vectors; 16-byte vectors where the row
+      allows, ``vec`` 1 otherwise);
+    * CTAs of ``ct * rpb`` threads: ``ct`` vectors of ``vec`` channels (a
+      tile of ``cw`` channels, ``tiles`` of them) by ``rpb`` row lanes, a
+      power of two;
+    * ``ctas``: each CTA's (group, first row, end row, tile), rows of the
+      rank, one wave of them (one an SM for the ring, which takes ~220 KB);
+      every group's rows cut into ``k`` slabs, never across a group
+      boundary; ``segs``: each touched group's (group, first CTA, k), its
+      CTAs slab-major (``first + j * tiles + t``);
+    * the ring: ``ring_bytes`` of shared memory in chunks of
+      ``ring_rows[ni - 1]`` rows for a launch that streams ``ni`` tensors
+      (``_SPAN_RING_STAGES`` chunks), and ``smem``, a CTA's dynamic shared
+      memory (its reduction buffer and the ring).
+
+    Cached per layout; callers read plans and do not modify them."""
+    size = dtype.itemsize
+    vecn = 16 // size
+    if channels % vecn == 0 and channels // vecn <= _SPAN_THREADS:
+        design, vec = "ring", vecn
+    else:
+        design, vec = "direct", vecn if channels % vecn == 0 else 1
+    cv = channels // vec
+    tiles = -(-cv // _SPAN_THREADS)
+    ct = -(-cv // tiles)
+    rpb = 1 << ((_SPAN_THREADS // ct).bit_length() - 1)
+    threads = ct * rpb
+    per_tile = max(1, sms * (1 if design == "ring" else _SPAN_DIRECT_CTAS_PER_SM) // tiles)
+    ctas, segs = [], []
+    for g, lo, hi in _span_segments(layout):
+        n = hi - lo
+        k = max(1, min(-(-per_tile * n // layout.nloc), -(-n // rpb)))
+        segs.append((g, len(ctas), k))
+        ctas.extend((g, lo + n * j // k, lo + n * (j + 1) // k, t)
+                    for j in range(k) for t in range(tiles))
+    fixed = 4 * threads * vec
+    ring, ring_rows = 0, (0, 0, 0)
+    if design == "ring":
+        row = channels * size
+        ring = (_SMEM_BYTES - _BN_SMEM_SLACK - fixed) // 16 * 16
+        ring_rows = tuple(max(1, ring // (_SPAN_RING_STAGES * ni * row * rpb)) * rpb
+                          for ni in (1, 2, 3))
+    return {"design": design, "vec": vec, "cv": cv, "ct": ct, "cw": ct * vec, "tiles": tiles,
+            "rpb": rpb, "threads": threads, "ctas": tuple(ctas), "segs": tuple(segs),
+            "ring_bytes": ring, "ring_rows": ring_rows, "smem": fixed + ring}
+
+
+@functools.lru_cache(maxsize=None)
+def _span_device_plan(layout: SpanLayout, channels: int, dtype: torch.dtype,
+                      device: torch.device):
+    """:func:`bn_span_plan` on ``device``'s card as its launches take it:
+    (plan, its CTA and segment table on the card, its ten scalars as a C int
+    array for a launch streaming 1, 2 or 3 tensors)."""
+    plan = bn_span_plan(layout, channels, dtype, num_sms(device))
+    flat = [v for e in plan["ctas"] for v in e] + [v for e in plan["segs"] for v in e]
+    table = torch.tensor(flat, dtype=torch.int64, device=device)
+    ints = tuple((ctypes.c_int * 10)(
+        int(plan["design"] == "ring"), plan["vec"], plan["ct"], plan["rpb"], plan["tiles"],
+        plan["ring_rows"][ni - 1], plan["ring_bytes"], len(plan["ctas"]), len(plan["segs"]),
+        plan["smem"]) for ni in (1, 2, 3))
+    return plan, table, ints
+
+
+def _span_launch_plan(x: torch.Tensor, layout: SpanLayout, ni: int, ns: int):
+    """(the plan's scalars for the C entry, its table on x's card, the
+    ticket, the partials' scratch) for a launch streaming ``ni`` tensors and
+    summing ``ns`` quantities (0: no reduction). The ticket is one int that
+    every reducing launch leaves zero."""
+    plan, table, ints = _span_device_plan(layout, x.shape[1], x.dtype, x.device)
+    ticket = stream_scratch(x.device, "bn_span_ticket", 1, torch.int32)
+    part = stream_scratch(x.device, "bn_span_partials", len(plan["ctas"]) * ns * plan["cw"],
+                          torch.float32)
+    return ctypes.addressof(ints[ni - 1]), table, ticket, part
+
+
+def _span_operand(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t in the kernel layout at a 16-byte boundary (the bulk copies and
+    vector loads need it): copied where a view starts elsewhere."""
+    if t is None:
+        return None
+    t = _kernel_layout(t)
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=CHANNELS_LAST if t.ndim == 4 else torch.contiguous_format)
+
+
+def bn_span_partials(x: torch.Tensor, layout: SpanLayout,
+                     shortcut: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5's spanning statistics launch (``bn_span_stats``): this rank's
     sum(x), sum(x^2) per (group, channel), (G, 2, C) float32, zero for the
-    groups it holds no row of. x in the kernel layout."""
-    c = x.shape[1]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    chunks = _span_chunks(x, layout)
-    part = torch.empty(layout.touched * chunks * 2 * c, **f32)
-    sums = torch.empty((layout.groups, 2, c), **f32)
-    BN_TRAIN.launch("bn_span_stats", x.device, dtype_code(x.dtype), ptr(x), layout.nloc,
-                    layout.offset, layout.ngroup, layout.groups, c, chunks, ptr(part),
+    groups it holds no row of; with ``shortcut`` (a shortcut to normalize)
+    its sums too, in the same launch: (2, G, 2, C), x's first."""
+    c, ni = x.shape[1], 1 if shortcut is None else 2
+    x, shortcut = _span_operand(x), _span_operand(shortcut)
+    ints, table, ticket, part = _span_launch_plan(x, layout, ni, 2 * ni)
+    sums = torch.empty((ni, layout.groups, 2, c), dtype=torch.float32, device=x.device)
+    BN_TRAIN.launch("bn_span_stats", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
+                    layout.ngroup, layout.groups, c, ints, ptr(table), ptr(part), ptr(ticket),
                     ptr(sums))
-    return sums
+    return sums[0] if shortcut is None else sums
 
 
 def bn_span_apply(x, sums, running_mean, running_var, layout: SpanLayout, *, relu=False,
@@ -640,88 +736,107 @@ def bn_span_apply(x, sums, running_mean, running_var, layout: SpanLayout, *, rel
     if not update:
         running_mean = running_var = shortcut_running_mean = shortcut_running_var = None
     c = x.shape[1]
+    x, shortcut = _span_operand(x), _span_operand(shortcut)
     _, upd_mean, upd_var = _update_factors(x, layout.groups, layout.ngroup)
     stats = torch.empty((4 if sc_mode == 2 else 2, layout.groups, c), dtype=torch.float32,
                         device=x.device)
     sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
     out = torch.empty_like(x)
+    ints, table, _, _ = _span_launch_plan(x, layout, 2 if sc_mode else 1, 0)
     BN_TRAIN.launch(
         "bn_span_normalize", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut), sc_mode,
-        int(relu), layout.nloc, layout.offset, layout.ngroup, layout.groups, c, ptr(sums),
-        ptr(shortcut_sums), ptr(stats[0]), ptr(stats[1]), ptr(running_mean),
-        ptr(running_var), *sc_stats, ptr(shortcut_running_mean), ptr(shortcut_running_var),
-        BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out), num_sms(x.device))
+        int(relu), layout.ngroup, layout.groups, c, ints, ptr(table), ptr(sums),
+        ptr(shortcut_sums), ptr(stats[0]), ptr(stats[1]), ptr(running_mean), ptr(running_var),
+        *sc_stats, ptr(shortcut_running_mean), ptr(shortcut_running_var), BN_MOMENTUM,
+        upd_mean, upd_var, eps, ptr(out))
     return out, stats
 
 
-def bn_span_bwd_partials(x, y, dy, stats, layout: SpanLayout, shortcut=None) -> torch.Tensor:
+def _span_third(sc_mode: int, relu: bool, shortcut, y):
+    """The backward's third operand: the shortcut's input (normalized
+    shortcut), the forward output (raw shortcut under relu), else None."""
+    if sc_mode == 2:
+        if shortcut is None:
+            raise ValueError("a normalized shortcut's backward takes its input")
+        return shortcut
+    if sc_mode == 1 and relu:
+        if y is None:
+            raise ValueError("a raw shortcut under relu: the backward takes the forward output")
+        return y
+    return None
+
+
+def bn_span_bwd_partials(x, dy, stats, layout: SpanLayout, *, sc_mode: int = 0, relu=False,
+                         shortcut=None, y=None) -> torch.Tensor:
     """K5's spanning backward reduce (``bn_span_bwd_reduce``): this rank's
-    sum(d), sum(d * xhat) [, sum(d * shat)] per (group, channel), (G, ns, C);
-    ``y`` (the forward output) under relu, else None; ``shortcut`` the
-    normalized shortcut's input."""
-    c = x.shape[1]
-    ns = 3 if stats.shape[0] == 4 else 2
-    f32 = dict(dtype=torch.float32, device=x.device)
-    chunks = _span_chunks(x, layout)
-    part = torch.empty(layout.touched * chunks * ns * c, **f32)
-    sums = torch.empty((layout.groups, ns, c), **f32)
-    sc_stats = (ptr(stats[2]), ptr(stats[3])) if ns == 3 else (None, None)
-    BN_TRAIN.launch("bn_span_bwd_reduce", x.device, dtype_code(x.dtype), ptr(x), ptr(y),
-                    ptr(dy), ptr(shortcut), 2 if ns == 3 else 0, layout.nloc, layout.offset,
-                    layout.ngroup, layout.groups, c, chunks, ptr(stats[0]), ptr(stats[1]),
-                    *sc_stats, ptr(part), ptr(sums))
+    sum(d), sum(d * xhat) [, sum(d * shat)] per (group, channel), (G, ns,
+    C), d = dy where the forward's relu passed it. The relu decision is
+    recomputed from x (and ``shortcut``, the normalized shortcut's input);
+    for a raw shortcut under relu it takes ``y``, the forward output."""
+    c, ns = x.shape[1], 3 if sc_mode == 2 else 2
+    third = _span_operand(_span_third(sc_mode, relu, shortcut, y))
+    x, dy = _span_operand(x), _span_operand(dy)
+    ints, table, ticket, part = _span_launch_plan(x, layout, 2 + (third is not None), ns)
+    sums = torch.empty((layout.groups, ns, c), dtype=torch.float32, device=x.device)
+    sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
+    BN_TRAIN.launch("bn_span_bwd_reduce", x.device, dtype_code(x.dtype), ptr(x), ptr(third),
+                    ptr(dy), sc_mode, int(relu), layout.ngroup, layout.groups, c, ints,
+                    ptr(table), ptr(stats[0]), ptr(stats[1]), *sc_stats, ptr(part),
+                    ptr(ticket), ptr(sums))
     return sums
 
 
-def bn_span_bwd_apply(x, y, dy, stats, sums, layout: SpanLayout, sc_mode: int = 0,
-                      shortcut=None):
-    """K5's spanning backward elementwise launch (``bn_span_bwd_grad``) on the
-    global sums: (dx, the shortcut's gradient or None)."""
+def bn_span_bwd_apply(x, dy, stats, sums, layout: SpanLayout, *, sc_mode: int = 0, relu=False,
+                      shortcut=None, y=None):
+    """K5's spanning backward elementwise launch (``bn_span_bwd_grad``) on
+    the global sums: (dx, the shortcut's gradient or None); the operands
+    as :func:`bn_span_bwd_partials`."""
     c = x.shape[1]
-    ns = sums.shape[1]
+    third = _span_operand(_span_third(sc_mode, relu, shortcut, y))
+    x, dy = _span_operand(x), _span_operand(dy)
     dx = torch.empty_like(x)
     dsc = torch.empty_like(x) if sc_mode else None
-    coef = torch.empty(ns * layout.groups * c, dtype=torch.float32, device=x.device)
     sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
-    BN_TRAIN.launch("bn_span_bwd_grad", x.device, dtype_code(x.dtype), ptr(x), ptr(y),
-                    ptr(dy), ptr(shortcut), sc_mode, layout.nloc, layout.offset,
-                    layout.ngroup, layout.groups, c, ptr(stats[0]), ptr(stats[1]), *sc_stats,
-                    ptr(sums), ptr(coef), ptr(dx), ptr(dsc), num_sms(x.device))
+    ints, table, _, _ = _span_launch_plan(x, layout, 2 + (third is not None), 0)
+    BN_TRAIN.launch("bn_span_bwd_grad", x.device, dtype_code(x.dtype), ptr(x), ptr(third),
+                    ptr(dy), sc_mode, int(relu), layout.ngroup, layout.groups, c, ints,
+                    ptr(table), ptr(stats[0]), ptr(stats[1]), *sc_stats, ptr(sums), ptr(dx),
+                    ptr(dsc))
     return dx, dsc
 
 
 class _BNSpanFn(torch.autograd.Function):
-    """K5's spanning mode, forward and backward: the statistics launch, one
-    all-reduce of the partial sums over the data ranks (x's and a normalized
-    shortcut's together), the normalize launch; the backward the same with
-    its sums. Saves the forward output under relu, as the multi-kernel
-    design does."""
+    """K5's spanning mode, forward and backward: the statistics launch (x's
+    and a normalized shortcut's sums together), one all-reduce of the
+    partial sums over the data ranks, the normalize launch; the backward
+    the same with its sums. Saves no forward output, except for a raw
+    shortcut under relu (the backward's relu decision needs it in place of
+    the shortcut), as the cluster design does."""
 
     @staticmethod
     def forward(ctx, x, shortcut, running_mean, running_var, sc_running_mean,
                 sc_running_var, layout, relu, eps, update, group):
         sc_mode = 0 if shortcut is None else (2 if sc_running_mean is not None else 1)
-        sums = bn_span_partials(x, layout)
-        if sc_mode == 2:
-            sums = torch.stack([sums, bn_span_partials(shortcut, layout)])
+        sums = bn_span_partials(x, layout, shortcut if sc_mode == 2 else None)
         all_reduce_(sums, group)
         out, stats = bn_span_apply(
             x, sums[0] if sc_mode == 2 else sums, running_mean, running_var, layout,
             relu=relu, shortcut=shortcut, shortcut_sums=sums[1] if sc_mode == 2 else None,
             shortcut_running_mean=sc_running_mean, shortcut_running_var=sc_running_var,
             eps=eps, update=update)
-        ctx.save_for_backward(x, out if relu else None, shortcut if sc_mode == 2 else None,
-                              stats)
-        ctx.config = (layout, sc_mode, group)
+        third = _span_third(sc_mode, relu, shortcut, out)
+        ctx.save_for_backward(x, third, stats)
+        ctx.config = (layout, sc_mode, relu, group)
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, y, shortcut, stats = ctx.saved_tensors
-        layout, sc_mode, group = ctx.config
-        dy = _kernel_layout(dy)
-        sums = all_reduce_(bn_span_bwd_partials(x, y, dy, stats, layout, shortcut), group)
-        dx, dsc = bn_span_bwd_apply(x, y, dy, stats, sums, layout, sc_mode, shortcut)
+        x, third, stats = ctx.saved_tensors
+        layout, sc_mode, relu, group = ctx.config
+        kw = dict(sc_mode=sc_mode, relu=relu, shortcut=third if sc_mode == 2 else None,
+                  y=third if sc_mode == 1 else None)
+        sums = all_reduce_(bn_span_bwd_partials(x, dy, stats, layout, **kw), group)
+        dx, dsc = bn_span_bwd_apply(x, dy, stats, sums, layout, **kw)
         return dx, dsc, None, None, None, None, None, None, None, None, None
 
 
