@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device  -- the card's name and power limit (``nvidia-smi``);
-2. build   -- nvcc builds the nine kernels from ``csrc/`` (in parallel);
+2. build   -- nvcc builds the ten kernel libraries from ``csrc/`` (in parallel);
 3. kernels -- each kernel against its plain PyTorch version on the card, in
    float32 (TF32 off: ``set_float32_precision``, the CLIs' rule) and in
    bfloat16, with timings: K1-K4 at the shapes
@@ -23,7 +23,12 @@ Phases, one JSON line each:
    heads, ECAPA-512's and a ragged shape (ATT_SHAPES), with a row masked
    throughout, a constant row and reruns; K3 / K5 at channel counts that are
    not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM); K4 at the W =
-   1 heads of TDNN and ECAPA.
+   1 heads of TDNN and ECAPA; K9 / K9b (the stride-1 split chain in
+   training) at the bench step's four stride-1 stage shapes and a w24
+   stage (SPLIT_TRAIN_SHAPES): bf16 and float32 against the plain version
+   in float64 on each run's own relu decisions, launch counts a call,
+   reruns bit for bit, device time forward and backward beside the bound,
+   the plain version and today's route (cuDNN conv + K5 + adds + cat).
    ``ms`` is a call's time by CUDA events, host included; ``device_ms``
    (K1, K4, K4b, K6, K7 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
@@ -37,7 +42,8 @@ Phases, one JSON line each:
    res2net50_w8_s6_c16 at the bench shape (B=256 x A=4, 200 frames, 80-d,
    bn_groups=8, bf16, 5994 classes): one warm-up and three timed steps;
    finite loss, schedule-exact lr and margin, and launch counts of K4, K4b,
-   K5 and K6 equal to A x their per-microbatch counts; then resident steps
+   K5, K6 and K9 / K9b equal to A x their per-microbatch counts (every
+   stride-1 chain on K9 / K9b: none through F.conv2d); then resident steps
    with TF32 off and on in turns (the bf16 step's time either way);
 6. train_parity -- one float32 step (TF32 off) of the full-width model at
    B=16, A=1, bn_groups=2 on the card and through the plain path on the CPU
@@ -693,7 +699,8 @@ def train_shapes(cfg, batch, frames, feat_dim, stages=None):
     """The training forward's K5 calls per microbatch at batch x frames, as
     ((B, C, T, F) or (B, C), relu, shortcut mode) with multiplicities, and
     the stats pool's input (C, T, F). With ``stages``, only the calls inside
-    the blocks of those stages (what a rematerialized stage runs again)."""
+    the blocks of those stages (what a rematerialized stage runs again).
+    The stride-1 chains' group BNs are K9's (``train_chains``)."""
     from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
 
     t, f = frames, feat_dim
@@ -711,10 +718,7 @@ def train_shapes(cfg, batch, frames, feat_dim, stages=None):
             stride = s if j == 0 else 1
             add(((batch, cfg.split * w, t, f), True, 0), inside)        # bn1
             t2, f2 = _strided(t, stride), _strided(f, stride)
-            if stride == 1:
-                for _ in range(cfg.split - 1):                          # one per group
-                    add(((batch, w, t, f), True, 0), inside)
-            else:                                                       # all groups at once
+            if stride != 1:                                             # all groups at once
                 add(((batch, w * (cfg.split - 1), t2, f2), True, 0), inside)
             add(((batch, out_c, t2, f2), True, 2 if j == 0 else 1), inside)  # bn3 + shortcut
             t, f = t2, f2
@@ -722,6 +726,42 @@ def train_shapes(cfg, batch, frames, feat_dim, stages=None):
     add(((batch, f * 2 * channels), False, 0), stages is None)          # head pre_bn
     add(((batch, cfg.output_dim), False, 0), stages is None)            # head post_bn
     return k5, (channels, t, f)
+
+
+def train_chains(cfg, batch, frames, feat_dim, stages=None):
+    """The training forward's stride-1 split chains per microbatch (K9 /
+    K9b), as ((B, s*w, T, F), w, s) with multiplicities; with ``stages``,
+    only those inside the blocks of those stages."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
+
+    t, f = frames, feat_dim
+    chains = {}
+    for i, n in enumerate(cfg.block_sizes):
+        w, s = cfg.width[i], cfg.block_strides[i]
+        for j in range(n):
+            stride = s if j == 0 else 1
+            if stride == 1 and (stages is None or i in stages):
+                key = ((batch, cfg.split * w, t, f), w, cfg.split)
+                chains[key] = chains.get(key, 0) + 1
+            t, f = _strided(t, stride), _strided(f, stride)
+    return chains
+
+
+def k9_launches(chains, again=None) -> dict:
+    """K9 / K9b's launches per microbatch for ``chains`` (train_chains), and
+    the forward again for the rematerialized ``again``: s - 1 conv launches
+    and one finishing launch a chain forward, s - 1 of each backward
+    launch."""
+    def conv(c):
+        return sum((s - 1) * n for (_, _, s), n in (c or {}).items())
+
+    def count(c):
+        return sum((c or {}).values())
+
+    return {"split_train.split_train_fwd": conv(chains) + conv(again),
+            "split_train.split_train_finish": count(chains) + count(again),
+            "split_train.split_train_bwd_stats": conv(chains),
+            "split_train.split_train_bwd_grad": conv(chains)}
 
 
 def _layout(t):
@@ -863,6 +903,193 @@ def check_bn_train(dev, gen, k5_calls, groups):
                 bound_by="operations" if by_ops * 2 > tot["bound_ms"] else "bytes",
                 library_ms=lfwd + lbwd, library_vs_kernel_ms=kfwd + kbwd,
                 library_shape=list(shape))
+
+
+# K9 / K9b at the bench step's four stride-1 stage shapes (res2net50_w8_s6_c16,
+# B=256, 200 frames: w = 8, 16, 32, 64 at s = 6) and one w24-family stage
+# (not on the bench step), at bn_groups 8: (x shape, w, s)
+SPLIT_TRAIN_SHAPES = (((256, 48, 200, 80), 8, 6), ((256, 96, 100, 40), 16, 6),
+                      ((256, 192, 50, 20), 32, 6), ((256, 384, 25, 10), 64, 6),
+                      ((128, 96, 200, 80), 24, 4))
+# Each run is held against the plain version in float64 that takes the
+# run's own relu decisions (split_chain_train_reference(relu_masks=)): a
+# decision at a value within rounding of zero may go either way, and moves
+# the gradient there by the whole upstream value. Every decision that went
+# the other way from the float64 chain must be such a tie: within RELU_TIE
+# of zero for float32, within SPLIT_TRAIN_TIE_BF16 for bf16 (its groups'
+# inputs carry bf16 rounding). float32 on the first rows of each shape (two
+# of each of the 8 BN groups), within twice the float32 plain version's own
+# error (against float64 on its own decisions) or TOL_FP32; bf16 on the
+# whole shape, on its bf16 inputs, relative to each tensor's largest
+# magnitude: out, dx and dW within K2's chain tolerance, the running
+# statistics within K5's
+SPLIT_TRAIN_FP64_ROWS = 16
+SPLIT_TRAIN_TIE_BF16 = 2 ** -5
+TOL_SPLIT_TRAIN = {"bf16": TOL_BF16["split_conv"], "stats_bf16": TOL_TRAIN_BF16}
+
+
+def chain_errors(got, want):
+    """Relative errors (to each tensor's largest magnitude) of out, dx, dW
+    and of the running statistics (the largest over groups)."""
+    return [rel_err(a, b) for a, b in zip(got[:3], want[:3])] + [
+        max(rel_err(a, b) for a, b in zip(got[3:], want[3:]))]
+
+
+def chain_run(fn, x, weight, dout, rm, rv, groups, dtype, **kw):
+    """fn's output, dx, dW and updated running statistics (copies), in
+    ``dtype``, for the cotangent ``dout``."""
+    xi = x.to(dtype).detach().clone().requires_grad_(True)
+    wi = weight.to(dtype).detach().clone().requires_grad_(True)
+    st = torch.float64 if dtype == torch.float64 else torch.float32
+    rms, rvs = [r.to(st).clone() for r in rm], [r.to(st).clone() for r in rv]
+    y = fn(xi, wi, rms, rvs, groups, None, **kw)
+    y.backward(dout.to(dtype))
+    return [y.detach(), xi.grad, wi.grad] + rms + rvs
+
+
+def float64_with_decisions(run, x, weight, dout, rm, rv, groups, w, s):
+    """The plain chain in float64 on ``run``'s relu decisions (its output
+    > 0 in each group's slice): (its results, the flip count, the largest
+    |float64 pre-relu value| at a flip)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    masks = [run[0][:, i * w: (i + 1) * w] > 0 for i in range(s - 1)]
+    pre = []
+    ref = chain_run(functools.partial(rn.split_chain_train_reference, relu_masks=masks,
+                                      pre_relu=pre), x, weight, dout, rm, rv, groups,
+                    torch.float64)
+    flips = [m != (v > 0) for m, v in zip(masks, pre)]
+    worst = max((float(v[f].abs().max()) for v, f in zip(pre, flips) if f.any()), default=0.0)
+    return ref, sum(int(f.sum()) for f in flips), worst
+
+
+def check_split_train(dev, gen, chains, groups):
+    """K9 / K9b at SPLIT_TRAIN_SHAPES: against the plain version (bf16 and
+    float32 vs float64), launch counts per call, reruns bit for bit; the
+    kernels' device time forward and backward beside the bytes bound, the
+    plain version's time and today's route's (cuDNN conv + K5 + adds + cat,
+    ``_split_chain_span`` without a mesh), and cuDNN's convs alone (the
+    library yardstick). Returns the kernels line's K9 and K9b rows, their
+    times summed over one bench training step."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+    import torch.nn.functional as F
+
+    detail, fp32, reruns = [], [], 0
+    err16 = stats16 = 0.0
+    keys = ("ms", "device_ms", "plain_ms", "route_ms", "library_ms", "bound_ms")
+    tot = {d: {k: 0.0 for k in keys} for d in ("fwd", "bwd")}
+    for shape, w, s in SPLIT_TRAIN_SHAPES:
+        count = chains.get((shape, w, s), 0)
+        b, c, t, f = shape
+        x = _layout(torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.2)
+        weight = torch.randn(((s - 1) * w, w, 3, 3), generator=gen, device=dev) / math.sqrt(9 * w)
+        dout = _layout(torch.randn(shape, generator=gen, device=dev))
+        rm = [0.1 * torch.randn(w, generator=gen, device=dev) for _ in range(s - 1)]
+        rv = [0.5 + torch.rand(w, generator=gen, device=dev) for _ in range(s - 1)]
+
+        args = (rm, rv, groups)
+        xb, wb, db = x.bfloat16(), weight.bfloat16(), dout.bfloat16()
+        before = kernels.function_launch_counts()
+        got = chain_run(rn.split_chain_train, xb, wb, db, *args, torch.bfloat16)
+        torch.cuda.synchronize()
+        after = kernels.function_launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if launched != k9_launches({(shape, w, s): 1}):
+            fail(f"split_train {shape}: launches {launched}")
+        if not all(torch.isfinite(v.float()).all() for v in got):
+            fail(f"split_train {shape}: non-finite values")
+        if not all(torch.equal(a, b2) for a, b2 in zip(got, chain_run(
+                rn.split_chain_train, xb, wb, db, *args, torch.bfloat16))):
+            fail(f"split_train {shape}: two runs differ")
+        reruns += 1
+        ref, flips16, tie16 = float64_with_decisions(got, xb, wb, db, *args, w, s)
+        e16 = chain_errors(got, ref)
+        del got, ref
+        rows = SPLIT_TRAIN_FP64_ROWS
+        sub = (x[:rows], weight, dout[:rows], *args)
+        k32 = chain_run(rn.split_chain_train, *sub, torch.float32)
+        p32 = chain_run(rn.split_chain_train_reference, *sub, torch.float32)
+        kref, flips32, tie32 = float64_with_decisions(k32, *sub, w, s)
+        pref, pflips32, ptie32 = float64_with_decisions(p32, *sub, w, s)
+        e32, pe32 = chain_errors(k32, kref), chain_errors(p32, pref)
+        del k32, p32, kref, pref
+        fp32.append(dict(shape=[rows, c, t, f], kernel=e32, plain=pe32, kernel_flips=flips32,
+                         kernel_worst_tie=tie32, plain_flips=pflips32, plain_worst_tie=ptie32))
+        if any(e > max(TOL_FP32, 2 * p) for e, p in zip(e32, pe32)):
+            fail(f"split_train {shape}: float32 errors {e32} vs the plain version's {pe32}")
+        if max(tie32, ptie32) > RELU_TIE or tie16 > SPLIT_TRAIN_TIE_BF16:
+            fail(f"split_train {shape}: relu flips beyond a tie: float32 {tie32} (plain "
+                 f"{ptie32}), bf16 {tie16}")
+        if max(e16[:3]) > TOL_SPLIT_TRAIN["bf16"] or e16[3] > TOL_SPLIT_TRAIN["stats_bf16"]:
+            fail(f"split_train {shape}: bf16 errors {e16}")
+        err16, stats16 = max(err16, *e16[:3]), max(stats16, e16[3])
+
+        # times, bf16: the call by CUDA events (host included), the kernels'
+        # own device time by the profiler
+        rms, rvs = [r.clone() for r in rm], [r.clone() for r in rv]
+
+        def chain(fn):
+            return lambda xi, wi: fn(xi, wi, rms, rvs, groups, None)
+
+        fwd, bwd = time_fwd_bwd(chain(rn.split_chain_train), [xb, wb], db)
+        pfwd, pbwd = time_fwd_bwd(chain(rn.split_chain_train_reference), [xb, wb], db)
+        rfwd, rbwd = time_fwd_bwd(chain(rn._split_chain_span), [xb, wb], db)
+        with torch.no_grad():
+            dfwd = device_ms(lambda: rn.split_chain_train(xb, wb, rms, rvs, groups), "k9_")
+        xl, wl = xb.detach().requires_grad_(True), wb.detach().requires_grad_(True)
+        y = rn.split_chain_train(xl, wl, rms, rvs, groups)
+        dbwd = device_ms(lambda: torch.autograd.grad(y, [xl, wl], db, retain_graph=True), "k9b_")
+        del y, xl, wl
+        # cuDNN's s-1 group convs alone: forward, and dgrad + wgrad
+        xg = _layout(xb[:, :w])
+        lf, lb = time_fwd_bwd(lambda xi, wi: F.conv2d(xi, wi, padding=1),
+                              [xg, wb[:w].contiguous()], _layout(db[:, :w]))
+        lf, lb = (s - 1) * lf, (s - 1) * lb
+        flops = (s - 1) * 2 * b * t * f * 9 * w * w
+        unit = 2 * b * c * t * f  # one activation in bf16
+        bf, byf = bound_ms(2 * unit + 2 * wb.numel(), flops, torch.bfloat16)
+        bb, byb = bound_ms(3 * unit + 4 * wb.numel(), 2 * flops, torch.bfloat16)
+        row = dict(shape=list(shape), width=w, split=s, chains_per_microbatch=count,
+                   plan=rn.split_train_plan(w, s, shape, groups, torch.bfloat16),
+                   errors_bf16=e16, bf16_flips=flips16, bf16_worst_tie=tie16,
+                   errors_fp32=fp32[-1],
+                   ms_fwd=fwd, ms_bwd=bwd, device_ms_fwd=dfwd, device_ms_bwd=dbwd,
+                   plain_ms_fwd=pfwd, plain_ms_bwd=pbwd, route_ms_fwd=rfwd, route_ms_bwd=rbwd,
+                   library_ms_fwd=lf, library_ms_bwd=lb, bound_ms_fwd=bf, bound_ms_bwd=bb,
+                   bound_by_fwd=byf, bound_by_bwd=byb)
+        detail.append(row)
+        for d, vals in (("fwd", (fwd, dfwd, pfwd, rfwd, lf, bf)), ("bwd", (bwd, dbwd, pbwd, rbwd,
+                                                                          lb, bb))):
+            for k, v in zip(keys, vals):
+                tot[d][k] += TRAIN_ACCUM * count * v
+        del x, dout, xb, db, xg
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "split_train", "shapes": detail,
+          "reruns_bit_equal": reruns, "tolerance": {**TOL_SPLIT_TRAIN, "fp32": "max(TOL_FP32, "
+                                                    "2 x the float32 plain version's error)"}})
+    rows = []
+    for d, name, fns, what in (
+            ("fwd", "split_train", ("split_train_fwd", "split_train_finish"), "forward"),
+            ("bwd", "split_train_bwd", ("split_train_bwd_stats", "split_train_bwd_grad"),
+             "backward")):
+        t_ = tot[d]
+        rows.append(dict(
+            name=name, route="cuda", library="split_train", functions=fns,
+            source="voxsrc2020_speaker_verification_tpu_torch/csrc/split_train.cu",
+            replaces="voxsrc2020_speaker_verification_tpu/models/res2net.py:82 "
+                     f"(Res2NetSplitConv stride-1 branch in training, XLA, {what})",
+            max_abs_err=err16, max_abs_err_is="relative to each tensor's largest magnitude",
+            max_rel_err_stats_bf16=stats16, fp32_vs_fp64=fp32, tolerance=TOL_SPLIT_TRAIN,
+            reruns_bit_equal=reruns, dtype="bfloat16",
+            per=f"training step, B={TRAIN_BATCH} x A={TRAIN_ACCUM} x {TRAIN_FRAMES} frames "
+                f"({what}, the step's 13 stride-1 chains a microbatch)",
+            ms=t_["ms"], device_ms=t_["device_ms"], plain_ms=t_["plain_ms"],
+            route_ms=t_["route_ms"], bound_ms=t_["bound_ms"], bound_by="bytes",
+            library_ms=t_["library_ms"],
+            library_call="F.conv2d (cuDNN) of each group alone" + (
+                "" if d == "fwd" else ", dgrad + wgrad") + ": the convs only"))
+    return rows
 
 
 def check_stats_pool_bwd(dev, gen, head_shape):
@@ -1354,6 +1581,7 @@ def train_phase(dev, per_microbatch, smi):
     from voxsrc2020_speaker_verification_tpu_torch.data.dataset import (
         BatchFeeder, SyntheticDataset)
     from voxsrc2020_speaker_verification_tpu_torch.losses import schedules
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
     from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
     from voxsrc2020_speaker_verification_tpu_torch.training.loop import fit
     from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (
@@ -1373,9 +1601,11 @@ def train_phase(dev, per_microbatch, smi):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        rn.reset_split_train_routes()
         result = fit(config, feeder, log_every=1, log_fn=lines.append, max_steps=TRAIN_STEPS,
                      checkpoint=False, device=dev, state=state)
         counts = kernels.function_launch_counts()
+        routes = rn.split_train_route_counts()
     finally:
         feeder.stop()
     peak = torch.cuda.max_memory_allocated()
@@ -1397,6 +1627,11 @@ def train_phase(dev, per_microbatch, smi):
     for fn in EVAL_KERNEL_FNS:
         if counts[fn]:
             fail(f"train: eval kernel {fn} launched {counts[fn]} times")
+    # every stride-1 chain on K9 / K9b: none through F.conv2d (the span or
+    # the plain route)
+    chains = per_microbatch["split_train.split_train_finish"]
+    if routes != {"kernels": steps * chains, "span": 0, "plain": 0}:
+        fail(f"train: split chain routes {routes}, expected {steps} x {chains} on the kernels")
     step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
     med = statistics.median(step_s)
     # the bf16 step, resident, with cuDNN's and cuBLAS's TF32 off (the CLIs'
@@ -1430,7 +1665,8 @@ def train_phase(dev, per_microbatch, smi):
           "peak_memory_bytes": peak, "losses": [h["loss"] for h in hist],
           "learning_rates": [h["learning_rate"] for h in hist],
           "margins": [h["margin"] for h in hist], "launches": counts,
-          "launches_per_microbatch": per_microbatch, "log": lines, "card": smi})
+          "launches_per_microbatch": per_microbatch, "split_chain_routes": routes,
+          "log": lines, "card": smi})
     return state, config, counts
 
 
@@ -1495,6 +1731,15 @@ def train_parity_phase(dev, model=TRAIN_MODEL, batch=16, hard=True):
           "hard_check": hard, "gpu_s": tg, "cpu_s": tc, "cpu_float64_s": t64})
     if bad and hard:
         fail(f"train_parity {model}: GPU vs CPU beyond tolerance: {bad}")
+
+
+def row_counts(row, counts):
+    """The launch counts of a kernels-line row's C functions: those of its
+    library (``library``, else its name), only ``functions`` where it names
+    one direction of a library."""
+    lib, fns = row.get("library", row["name"]), row.get("functions")
+    return {k: v for k, v in counts.items() if k.split(".")[0] == lib
+            and (fns is None or k.split(".")[1].split(":")[0] in fns)}
 
 
 def k5_launches(k5, groups):
@@ -1601,7 +1846,10 @@ def lmft_phase(dev, state, smi, workdir):
     k5_remat, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES)
     cluster, multi = k5_launches(k5, LMFT_GROUPS)
     cluster_again, multi_again = k5_launches(k5_remat, LMFT_GROUPS)
-    per_microbatch = {"bn_train.bn_cluster_fwd": cluster + cluster_again,
+    # the recompute of stages 0-2 (policy None) runs their chains' K9 again
+    chains = k9_launches(train_chains(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM),
+                         train_chains(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES))
+    per_microbatch = {**chains, "bn_train.bn_cluster_fwd": cluster + cluster_again,
                       "bn_train.bn_cluster_bwd": cluster,
                       "bn_train.bn_train_fwd": multi + multi_again,
                       "bn_train.bn_train_bwd": multi,
@@ -2531,22 +2779,28 @@ def register_thin_variants():
 
 
 def k5_calls(config, remat_stages):
-    """K5's calls per microbatch of ``config``'s model, read off one
-    training forward and backward of the full-width model through the plain
-    path on the CPU (a small input: bn_groups rows of 24 frames): the
-    ``ops.bn_train`` calls of the forward and of the rematerialized
-    recompute in the backward, each by the design ``bn_train_plan`` gives it
-    at the card's shape, and how many take the single-channel path (C % 4
-    != 0). Returns the expected per-microbatch launch counts."""
+    """K5's and K9 / K9b's calls per microbatch of ``config``'s model, read
+    off one training forward and backward of the full-width model through
+    the plain path on the CPU (a small input: bn_groups rows of 24 frames):
+    the ``ops.bn_train`` and ``split_chain_train`` calls of the forward and
+    of the rematerialized recompute in the backward, K5's each by the design
+    ``bn_train_plan`` gives it at the card's shape, and how many take the
+    single-channel path (C % 4 != 0). Returns the expected per-microbatch
+    launch counts."""
     from voxsrc2020_speaker_verification_tpu_torch.models import get_model
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
 
-    calls, phase = [], ["fwd"]
-    orig = ops.bn_train
+    calls, chains, phase = [], [], ["fwd"]
+    orig, orig_chain = ops.bn_train, rn.split_chain_train
 
     def record(x, *args, **kw):
         calls.append((phase[0], x.ndim, x.shape[1]))
         return orig(x, *args, **kw)
+
+    def record_chain(x, weight, running_means, *args, **kw):
+        chains.append((phase[0], len(running_means) + 1))
+        return orig_chain(x, weight, running_means, *args, **kw)
 
     torch.manual_seed(SEED)
     model = get_model(config.model, feat_dim=config.feat_dim, remat=bool(remat_stages),
@@ -2554,13 +2808,13 @@ def k5_calls(config, remat_stages):
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.05)
     model.set_bn_groups(config.bn_groups)
-    ops.bn_train = record
+    ops.bn_train, rn.split_chain_train = record, record_chain
     try:
         y = model(torch.randn(config.bn_groups, 24, config.feat_dim), True)
         phase[0] = "recompute"
         y.square().sum().backward()
     finally:
-        ops.bn_train = orig
+        ops.bn_train, rn.split_chain_train = orig, orig_chain
 
     def design(ndim, c):
         shape = (config.batch_size, c, 1, 1) if ndim == 4 else (config.batch_size, c)
@@ -2569,7 +2823,10 @@ def k5_calls(config, remat_stages):
     n = {(ph, d): 0 for ph in ("fwd", "recompute") for d in ("cluster", "multi")}
     for ph, ndim, c in calls:
         n[(ph, design(ndim, c))] += 1
-    return {"bn_train.bn_cluster_fwd": n[("fwd", "cluster")] + n[("recompute", "cluster")],
+    k9 = {ph: {(None, None, s): sum(1 for p, s2 in chains if p == ph and s2 == s)
+               for s in {s for _, s in chains}} for ph in ("fwd", "recompute")}
+    return {**k9_launches(k9["fwd"], k9["recompute"]),
+            "bn_train.bn_cluster_fwd": n[("fwd", "cluster")] + n[("recompute", "cluster")],
             "bn_train.bn_cluster_bwd": n[("fwd", "cluster")],
             "bn_train.bn_train_fwd": n[("fwd", "multi")] + n[("recompute", "multi")],
             "bn_train.bn_train_bwd": n[("fwd", "multi")]}, sum(
@@ -3317,6 +3574,7 @@ def check_margin_partial(dev, gen):
 def single_chip_phase(dev, workdir, smi):
     """cli.train --single-chip with the reference's best system: the shape
     the table gives (fails otherwise), its peak memory and step time."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
     from voxsrc2020_speaker_verification_tpu_torch.cli import train as train_cli
     from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe, single_chip_shape
 
@@ -3328,11 +3586,13 @@ def single_chip_phase(dev, workdir, smi):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         run = train_cli.main(argv)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    counts = kernels.function_launch_counts()
     printed = [line for line in out.getvalue().splitlines() if line.startswith("single-chip")]
     hist = run.result.history
     cfg = get_recipe("res2net_vox2_dev_aug", model=SINGLE_CHIP_MODEL, single_chip=True)[0]
@@ -3342,10 +3602,18 @@ def single_chip_phase(dev, workdir, smi):
         fail(f"single_chip: shape {got} vs table {want}, printed {printed}, {len(hist)} steps")
     if not all(math.isfinite(h["loss"]) for h in hist):
         fail("single_chip: non-finite loss")
+    # K5 and K9 / K9b per microbatch, the recompute of the rematerialized
+    # stages included
+    per_microbatch, _ = k5_calls(cfg, cfg.remat_stages if cfg.remat else None)
+    microbatches = SINGLE_CHIP_STEPS * cfg.num_accumulation_steps
+    bad = {fn: (counts[fn], microbatches * n) for fn, n in per_microbatch.items()
+           if counts[fn] != microbatches * n}
+    if bad:
+        fail(f"single_chip: launches (counted, expected) {bad}")
     step_ms = 1e3 * (hist[-1]["time"] - hist[-2]["time"])
     del run
     emit({"phase": "single_chip", "model": SINGLE_CHIP_MODEL, "shape": got, "printed": printed,
-          "peak_memory_bytes": peak, "peak_gb": peak / 1e9, "step_ms": step_ms,
+          "launches_per_microbatch": per_microbatch, "peak_memory_bytes": peak, "peak_gb": peak / 1e9, "step_ms": step_ms,
           "audio_s_per_s": 1024 * TRAIN_FRAMES / 100.0 / (step_ms / 1e3),
           "losses": [h["loss"] for h in hist], "card": smi})
 
@@ -3474,8 +3742,12 @@ def launch_phase(dev, workdir, smi):
                     if line.startswith("kernel launches:")]
         losses = [line.split("loss")[1].split()[0] for o in outs for line in o.splitlines()
                   if line.startswith("step 1/")]
+        # the stride-1 chains: the span route where BN groups span the ranks
+        # (data2: F.conv2d + K5's spanning mode), K9 / K9b where they do not
+        k9 = [sum(v for k, v in rank.items() if k.startswith("split_train.")) for rank in launches]
         if (len(launches) != 2 or any(not all(rank.get(f, 0) for f in want_fns)
                                       for rank in launches)
+                or any((n > 0) != (name == "model2") for n in k9)
                 or not backend or "gloo" not in backend[0] or len(set(losses)) != 1):
             fail(f"launch {name}: backend {backend}, losses {losses}, launches {launches}")
         err = {k: abs(metrics[-1][k] - one_metrics[-1][k]) / max(abs(one_metrics[-1][k]), 1e-12)
@@ -3494,6 +3766,7 @@ def launch_phase(dev, workdir, smi):
                           one_process_fp32_noise=floor, seconds=wall,
                           launches_by_rank=[{f: rank.get(f, 0) for f in want_fns}
                                             for rank in launches],
+                          k9_launches_by_rank=k9,
                           loss=metrics[-1]["loss"])
     exp, outs = _launch(workdir, "nccl1", 1, [])
     backend = [line for line in outs[0].splitlines() if line.startswith("distributed:")]
@@ -3900,6 +4173,7 @@ def main() -> int:
     k2, k3, head = forward_shapes(cfg)
     tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
     k5, train_head = train_shapes(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
+    chains = train_chains(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
     with torch.inference_mode():
         rows = [check_fbank(dev, gen), check_split(dev, gen, k2, cfg.split),
                 check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head, train_head)]
@@ -3910,7 +4184,8 @@ def main() -> int:
 
     train_rows = [check_stats_pool_bwd(dev, gen, train_head),
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
-                  check_margin_ce(dev, gen, 2, 5994)]
+                  check_margin_ce(dev, gen, 2, 5994), *check_split_train(dev, gen, chains,
+                                                                         TRAIN_GROUPS)]
     # K1's general path, K5's spanning and K6's class-sharded modes
     slice12_rows = [check_fbank_general(dev), check_bn_span(dev, gen),
                     check_margin_partial(dev, gen)]
@@ -3925,7 +4200,7 @@ def main() -> int:
     n_cluster, n_multi = k5_launches(k5, TRAIN_GROUPS)
     per_microbatch = {"bn_train.bn_cluster_fwd": n_cluster, "bn_train.bn_cluster_bwd": n_cluster,
                       "bn_train.bn_train_fwd": n_multi, "bn_train.bn_train_bwd": n_multi,
-                      **K6_SLAB_PER_MICROBATCH,
+                      **K6_SLAB_PER_MICROBATCH, **k9_launches(chains),
                       "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -3969,12 +4244,11 @@ def main() -> int:
                                            if k.startswith("split_conv.")}
             row["launches_per_forward_by_function"] = split_per_forward
     for row in train_rows:
-        fns = {k: v for k, v in train_counts.items() if k.split(".")[0] == row["name"]}
+        fns = row_counts(row, train_counts)
         row["launches"] = sum(fns.values())
         row["launches_by_function"] = fns
         row["launches_per_step"] = {k: TRAIN_ACCUM * per_microbatch.get(k, 0) for k in fns}
-        row["launches_lmft"] = {k: v for k, v in lmft_counts.items()
-                                if k.split(".")[0] == row["name"]}
+        row["launches_lmft"] = row_counts(row, lmft_counts)
         row["launches_per_step_lmft"] = {k: TRAIN_ACCUM * lmft_per_microbatch.get(k, 0)
                                          for k in fns}
         for path, info in row.get("paths", {}).items():
@@ -3989,8 +4263,7 @@ def main() -> int:
     cmvn_row["launches_raw"] = raw_counts["sliding_cmvn.sliding_cmvn"]
     cmvn_row["by_shape"][f"{TRAIN_BATCH}x{k7_raw['frames']}"] = k7_raw
     for row in train_rows:
-        row["launches_raw"] = {k: v for k, v in raw_counts.items()
-                               if k.split(".")[0] == row["name"]}
+        row["launches_raw"] = row_counts(row, raw_counts)
     # the encoders phase: K8 / K8b on the attentive families' training and
     # extraction; K3 / K5 (their single-channel paths at dpn68's stem) too
     for row in att_rows:

@@ -13,7 +13,7 @@ peak device memory, the device time per kernel name (and calls per step)
 from ``torch.profiler`` over ``--steps`` steps, the share of the profiled
 window the device was idle, K5's launches per step beside the device
 kernels they ran (its cluster design must run one kernel per call), and
-K4's and K4b's device time per step.
+K4's and K4b's and K9's and K9b's device time per step.
 
 ``--fit-steps N`` also trains N steps through ``training.loop.fit`` with
 the CLI's synthetic feeder (the entry point users run, host-bound) and
@@ -146,9 +146,12 @@ def main() -> int:
         "device_idle_share": (1.0 - busy_us / window_us) if window_us else None,
         "device_ms_and_calls_by_kernel": top, "launches_per_step": launches,
         "k5_device_ms_and_calls": k5, "k5_cluster_calls_one_kernel_each": one_launch,
-        # K4 and K4b (csrc/stats_pool*.cu) by device kernel name
+        # K4 and K4b (csrc/stats_pool*.cu) and K9 / K9b (csrc/split_train.cu)
+        # by device kernel name
         "k4_k4b_device_ms_and_calls": {k: [v, calls[k]] for k, v in by_kernel.items()
                                        if "stats_pool" in k},
+        "k9_k9b_device_ms_and_calls": {k: [v, calls[k]] for k, v in by_kernel.items()
+                                       if "k9_" in k or "k9b_" in k},
         **extra, "nvidia_smi": smi,
     }))
     return 0

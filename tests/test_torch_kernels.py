@@ -21,7 +21,7 @@ from voxsrc2020_speaker_verification_tpu_torch import kernels
 from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
     margin_ce, margin_ce_plan, margin_ce_reference)
 from voxsrc2020_speaker_verification_tpu_torch.models.res2net import (
-    split_chain, split_chain_reference)
+    split_chain, split_chain_reference, split_chain_train)
 from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn as tcmvn
 from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops
@@ -39,6 +39,9 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     tops.bn_act(x, m, v, relu=True, shortcut=x, mask=mask)
     tops.stats_pool(x, mask)
     split_chain(x, torch.randn(12, 4, 3, 3), [m[:4]] * 3, [v[:4]] * 3, mask)
+    split_chain_train(x.clone().requires_grad_(True), torch.randn(12, 4, 3, 3),
+                      [m[:4].clone() for _ in range(3)], [v[:4].clone() for _ in range(3)], 2,
+                      mask).sum().backward()
     xg = x.clone().requires_grad_(True)
     y = tops.bn_train(xg, m.clone(), v.clone(), groups=2, relu=True, shortcut=x,
                       shortcut_running_mean=m.clone(), shortcut_running_var=v.clone())
@@ -782,7 +785,8 @@ def test_margin_ce_kernel_at_unit_cosines(cuda, k, c):
 def test_remat_step_on_the_card_updates_bn_once(cuda, policy):
     """A training step of a small Res2Net on the card with every block
     rematerialized against the plain step from the same state: K5 runs its
-    forward again for each call inside the blocks (its backward once), and
+    forward again for each call inside the blocks (its backward once), K9
+    (the stride-1 chains) again under None and not under dots_saveable, and
     the recomputed forward leaves the BN running statistics alone, so they
     are bit-equal to the plain step's; loss within 1e-5."""
     from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig
@@ -807,10 +811,18 @@ def test_remat_step_on_the_card_updates_bn_once(cuda, policy):
         torch.cuda.synchronize()
         runs.append((state, float(m["loss"]), kernels.function_launch_counts()))
     (plain, lp, cp), (remat, lr_, cr) = runs
-    # per block: bn1, split - 1 = 3 group BNs (stride 1) or 1 (stride 2), bn3
-    again = 5 + 5 + 3
+    # K5 again per block: bn1 and bn3, and the stride-2 block's one BN of its
+    # split groups; the stride-1 chains are K9 (split - 1 = 3 conv launches
+    # and the finishing one), which runs again under None and not under
+    # dots_saveable (that policy keeps K9's outputs)
+    again = 2 + 2 + 3
     assert cr["bn_train.bn_cluster_fwd"] == cp["bn_train.bn_cluster_fwd"] + again
     assert cr["bn_train.bn_cluster_bwd"] == cp["bn_train.bn_cluster_bwd"]
+    k9 = ("split_train.split_train_fwd", "split_train.split_train_finish")
+    k9_again = 0 if policy == "dots_saveable" else 2 * (3 + 1)
+    assert sum(cr[k] for k in k9) == sum(cp[k] for k in k9) + k9_again
+    for k in ("split_train.split_train_bwd_stats", "split_train.split_train_bwd_grad"):
+        assert cr[k] == cp[k] == 2 * 3, k
     for k, v in plain.batch_stats.items():
         assert torch.equal(remat.batch_stats[k], v), k
     assert abs(lr_ - lp) <= 1e-5 * abs(lp)
@@ -1588,3 +1600,200 @@ def test_prepare_stage4_on_k1(cuda, tmp_path):
     assert sorted(stores["cuda"]) == sorted(stores["cpu"]) and len(stores["cpu"]) == 6
     for u, want in stores["cpu"].items():
         np.testing.assert_allclose(stores["cuda"][u], want, rtol=0, atol=step + 1e-3, err_msg=u)
+
+
+# ---------------------------------------------------------------------------
+# K9 / K9b: the stride-1 split chain in training
+# ---------------------------------------------------------------------------
+
+def train_chain_case(cuda, b, width, split, t, f, masked, seed=5):
+    """x, weight, the output's cotangent, running statistics and a mask of
+    lengths (a row masked down to 3 frames) for one chain."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = split * width
+    x = (torch.randn(b, c, t, f, generator=g, device=cuda) * 1.5 + 0.2).contiguous(
+        memory_format=torch.channels_last)
+    weight = torch.randn((split - 1) * width, width, 3, 3, generator=g, device=cuda) / (9 * width) ** 0.5
+    dout = torch.randn(b, c, t, f, generator=g, device=cuda).contiguous(memory_format=torch.channels_last)
+    rm = [0.1 * torch.randn(width, generator=g, device=cuda) for _ in range(split - 1)]
+    rv = [0.5 + torch.rand(width, generator=g, device=cuda) for _ in range(split - 1)]
+    mask = None
+    if masked:
+        lens = torch.tensor([t if i % 2 == 0 else max(1, (t * i) // b) for i in range(b)], device=cuda)
+        lens[-1] = 3
+        mask = (torch.arange(t, device=cuda)[None] < lens[:, None]).float()
+    return x, weight, dout, rm, rv, mask
+
+
+def train_chain_run(fn, x, weight, dout, rm, rv, groups, mask, dtype, **kw):
+    """fn's output, dx, dW and updated running statistics (copies), in
+    ``dtype``."""
+    xi = x.to(dtype).detach().clone().requires_grad_(True)
+    wi = weight.to(dtype).detach().clone().requires_grad_(True)
+    st = torch.float64 if dtype == torch.float64 else torch.float32
+    rmc, rvc = [r.to(st).clone() for r in rm], [r.to(st).clone() for r in rv]
+    y = fn(xi, wi, rmc, rvc, groups, mask, **kw)
+    y.backward(dout.to(dtype))
+    return [y.detach(), xi.grad, wi.grad] + rmc + rvc
+
+
+def chain_errors(got, want):
+    """Relative error (to each tensor's largest magnitude) of out, dx, dW
+    and of the running statistics (the largest over groups)."""
+    errs = [rel(a, b) for a, b in zip(got[:3], want[:3])]
+    return errs + [max(rel(a, b) for a, b in zip(got[3:], want[3:]))]
+
+
+def float64_on_decisions(run, case, groups, mask, width, split):
+    """The plain chain in float64 on ``run``'s relu decisions (its output
+    > 0 in each group's slice; a decision at a value within rounding of
+    zero may go either way, and moves the gradient there by the whole
+    upstream value): (its results, the largest |float64 pre-relu value|
+    where the decision went the other way)."""
+    import functools
+
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    masks = [run[0][:, i * width: (i + 1) * width] > 0 for i in range(split - 1)]
+    pre = []
+    ref = train_chain_run(functools.partial(trn.split_chain_train_reference, relu_masks=masks,
+                                            pre_relu=pre), *case, groups, mask, torch.float64)
+    worst = max((float(v[m != (v > 0)].abs().max()) for v, m in zip(pre, masks)
+                 if (m != (v > 0)).any()), default=0.0)
+    return ref, worst
+
+
+TRAIN_WIDTHS = [(8, 6), (16, 6), (24, 4), (64, 4), (192, 4), (12, 4)]  # (w, s); 12: bf16 on FMA
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,split", TRAIN_WIDTHS)
+@pytest.mark.parametrize("groups,masked", [(1, False), (2, True), (8, False), (8, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_train_kernels_match_plain(cuda, width, split, groups, masked, dtype):
+    """K9 / K9b against split_chain_train's plain version in float64 on the
+    run's own relu decisions (F = 21: two ragged 11-wide F tiles; T = 13; 8
+    samples, one a BN group at 8 groups; w = 12 takes the FMA variant in
+    bfloat16 too): output, dx, dW and the running
+    statistics. bfloat16: on the bf16 inputs, 5e-2 relative to each
+    tensor's largest magnitude (K2's tolerance for a chain), the running
+    statistics 2e-2 (K5's), decisions that went the other way within 2^-5
+    of zero; float32: within twice the float32 plain version's own error
+    (against float64 on its decisions) or 1e-4, decisions that went the
+    other way within 1e-4 of zero. s launches forward and 2 (s - 1)
+    backward, no K5."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    case = train_chain_case(cuda, 8, width, split, 13, 21, masked)
+    if dtype == torch.bfloat16:
+        case = tuple(t.bfloat16() for t in case[:3]) + case[3:]
+    before = kernels.function_launch_counts()
+    got = train_chain_run(trn.split_chain_train, *case[:5], groups, case[5], dtype)
+    torch.cuda.synchronize()
+    after = kernels.function_launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert launched == {"split_train.split_train_fwd": split - 1,
+                        "split_train.split_train_finish": 1,
+                        "split_train.split_train_bwd_stats": split - 1,
+                        "split_train.split_train_bwd_grad": split - 1}
+    assert all(torch.isfinite(t.float()).all() for t in got)
+    ref, tie = float64_on_decisions(got, case[:5], groups, case[5], width, split)
+    errs = chain_errors(got, ref)
+    if dtype == torch.bfloat16:
+        assert max(errs[:3]) <= 5e-2 and errs[3] <= 2e-2 and tie <= 2 ** -5, (errs, tie)
+    else:
+        plain = train_chain_run(trn.split_chain_train_reference, *case[:5], groups, case[5],
+                                torch.float32)
+        pref, ptie = float64_on_decisions(plain, case[:5], groups, case[5], width, split)
+        perrs = chain_errors(plain, pref)
+        assert all(e <= max(1e-4, 2 * p) for e, p in zip(errs, perrs)), (errs, perrs)
+        assert max(tie, ptie) <= 1e-4, (tie, ptie)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,split,t,f", [(16, 6, 40, 20), (64, 4, 25, 10), (24, 4, 9, 80)])
+def test_split_train_kernels_rerun_bit_for_bit(cuda, width, split, t, f):
+    """Two runs of K9 / K9b on the same inputs (bfloat16, masked, 2 BN
+    groups) agree bit for bit: output, dx, dW and running statistics (fixed
+    summation orders, no float atomics)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    case = train_chain_case(cuda, 4, width, split, t, f, True, seed=9)
+    runs = [train_chain_run(trn.split_chain_train, *case[:5], 2, case[5], torch.bfloat16)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_split_train_span_route_under_a_two_rank_mesh(cuda):
+    """Under a mesh of two data ranks, bn_groups 1 spans both ranks: the
+    chain takes the "span" route (F.conv2d + K5's spanning mode), counted,
+    and launches no K9; bn_groups 2 lies inside each rank: K9 / K9b with one
+    group here, equal to the plain version at one group."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+    from voxsrc2020_speaker_verification_tpu_torch.parallel import sharding
+
+    x, weight, dout, rm, rv, _ = train_chain_case(cuda, 4, 16, 4, 12, 10, False)
+    mesh = sharding.Mesh(num_data=2)
+    for groups, route in ((1, "span"), (2, "kernels")):
+        trn.reset_split_train_routes()
+        before = kernels.function_launch_counts()
+        with sharding.active(mesh):
+            got = train_chain_run(trn.split_chain_train, x, weight, dout, rm, rv, groups, None,
+                                  torch.bfloat16)
+        after = kernels.function_launch_counts()
+        k9 = sum(after[k] - before[k] for k in after if k.startswith("split_train."))
+        span = sum(after[k] - before[k] for k in after if k.startswith("bn_train.bn_span"))
+        assert trn.split_train_route_counts() == {"kernels": int(route == "kernels"),
+                                                  "span": int(route == "span"), "plain": 0}
+        assert (k9 > 0, span > 0) == (route == "kernels", route == "span")
+    case = (x.bfloat16(), weight.bfloat16(), dout.bfloat16(), rm, rv)
+    want, tie = float64_on_decisions(got, case, 1, None, 16, 4)
+    errs = chain_errors(got, want)
+    assert max(errs[:3]) <= 5e-2 and errs[3] <= 2e-2 and tie <= 2 ** -5, (errs, tie)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "nothing_saveable", "dots_saveable", "checkpoint_dots"])
+def test_split_train_remat_launches_by_policy(cuda, policy):
+    """A rematerialized bottleneck block in training: under None and
+    nothing_saveable the recompute runs K9 again (s launches) with the
+    running update off; under dots_saveable and checkpoint_dots it takes
+    K9's outputs from the first forward (no launch). Either way the running
+    statistics and the output equal the block's without remat bit for bit,
+    and the gradients within 1e-2 (cuDNN's conv1 / conv3 gradients need not
+    rerun bit for bit)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    torch.manual_seed(4)
+    block = trn.BottleneckBlockV1(24, 6, 1, True, 4, 8).to(cuda)
+    for p in block.parameters():
+        p.data.normal_(0.0, 0.3)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(4, 24, 20, 10, generator=g, device=cuda).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(4, 24, 20, 10, generator=g, device=cuda).bfloat16()
+    state = {k: v.clone() for k, v in block.state_dict().items()}
+    results = []
+    for remat in (False, True):
+        block.load_state_dict(state)
+        xi = x.clone().requires_grad_(True)
+        before = kernels.function_launch_counts()
+        if remat:
+            y = trn.remat_block(block, xi, True, None, None, trn.remat_context(policy))
+        else:
+            y = block(xi, True)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        after = kernels.function_launch_counts()
+        fwd = sum(after[k] - before[k] for k in ("split_train.split_train_fwd",
+                                                 "split_train.split_train_finish"))
+        results.append((fwd, y.detach(), xi.grad, [p.grad.clone() for p in block.parameters()],
+                        {k: v.clone() for k, v in block.state_dict().items()}))
+        block.zero_grad()
+    (f0, y0, dx0, g0, s0), (f1, y1, dx1, g1, s1) = results
+    assert f0 == 4
+    assert f1 == (4 if policy in ("dots_saveable", "checkpoint_dots") else 8)
+    assert torch.equal(y0, y1) and rel(dx1, dx0) <= 1e-2
+    assert all(rel(b, a) <= 1e-2 for a, b in zip(g0, g1))
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)

@@ -129,13 +129,18 @@ def test_wgmma_plan_at_every_width_and_grid():
 @pytest.mark.parametrize("groups", [8, 1])
 def test_bn_train_plan_every_training_call(dtype, groups):
     """Every K5 call of the bench training step (B = 256, in 8 BN groups or
-    one): the 4-D calls take the one-launch cluster design with a valid
-    geometry (threads = ct_v * rpb <= 512 covering the full row, rpb a power
-    of two, ring chunks of whole row-lane rounds, four or more chunks in
-    flight for the most tensors a pass streams, shared memory within one
-    block), the 2-D head calls the multi-kernel design; a second call with
-    the same signature gets the same (cached) plan."""
-    k5, _ = chip_smoke.train_shapes(RES2NET_CONFIGS["res2net50_w8_s6_c16"], 256, 200, 80)
+    one), and the split groups' BN calls of the stride-1 chain's earlier
+    route (F.conv2d + K5 a group, which chip_smoke.py times beside K9): the
+    4-D calls take the one-launch cluster design with a valid geometry
+    (threads = ct_v * rpb <= 512 covering the full row, rpb a power of two,
+    ring chunks of whole row-lane rounds, four or more chunks in flight for
+    the most tensors a pass streams, shared memory within one block), the
+    2-D head calls the multi-kernel design; a second call with the same
+    signature gets the same (cached) plan."""
+    cfg = RES2NET_CONFIGS["res2net50_w8_s6_c16"]
+    k5, _ = chip_smoke.train_shapes(cfg, 256, 200, 80)
+    k5 = list(k5) + [((b, w, t, f), True, 0) for ((b, _, t, f), w, _)
+                     in chip_smoke.train_chains(cfg, 256, 200, 80)]
     vec = 16 // dtype.itemsize
     resident = 0
     for (shape, relu, mode) in k5:
@@ -359,3 +364,120 @@ def test_fbank_general_plan_covers_every_frame_bin_and_weight(kw, batch, frames)
         n = offsets[c + 1] - offsets[c]
         want = list(range(starts[c] // tb, (starts[c] + n - 1) // tb + 1)) if n else []
         assert tiles_of.get(c, []) == want, c
+
+
+# K9 / K9b: every stride-1 chain of every registered Res2Net at its recipes'
+# microbatch (pretraining at 200 frames, LMFT at 600, and the single-chip
+# shapes), the thin test variants' widths, in both dtypes
+def split_train_calls():
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import SINGLE_CHIP_SHAPES
+
+    shapes = {(256, 200, 8), (128, 600, 8), (64, 600, 4)}
+    shapes |= {(v["batch_size"], frames, v["bn_groups"])
+               for (model, frames), v in SINGLE_CHIP_SHAPES.items() if model in RES2NETS}
+    calls = set()
+    for model in RES2NETS:
+        for batch, frames, groups in shapes:
+            for (shape, w, s) in chip_smoke.train_chains(RES2NET_CONFIGS[model], batch, frames, 80):
+                calls.add((shape, w, s, groups))
+    # the thin variants of the CPU tests (w = 4, 6, 8) and chip_smoke's w24 stage
+    calls |= {((8, 24, 13, 21), 6, 4, 2), ((8, 24, 13, 21), 4, 6, 8), ((16, 32, 48, 40), 8, 4, 2),
+              ((128, 96, 200, 80), 24, 4, 8)}
+    return sorted(calls)
+
+
+SPLIT_TRAIN_CALLS = split_train_calls()
+
+
+@pytest.mark.parametrize("shape,width,split,groups", SPLIT_TRAIN_CALLS, ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_train_plan_covers_every_position_once(shape, width, split, groups, dtype):
+    """K9 / K9b's plan (models/res2net.py:split_train_plan) at every chain
+    shape the registered configs reach: the variant (mma for bf16 at w % 8
+    == 0, nt 8-wide n tiles dividing w / 8), shared memory within 227 KB and
+    equal to the layouts' (csrc/split_train.cu conv_smem, wgrad_smem), the
+    patch within 128 positions and the slabs a launch's CTAs; the weight
+    tiles cover every (output, input) channel pair once; a sample's slabs
+    cover its patches (and, for the statistics launch, its positions) once,
+    every slab inside one sample, and the patches every (t, f) once; the
+    scratch sizes as the C entries count them."""
+    b, c, t, f = shape
+    plan = rn.split_train_plan(width, split, shape, groups, dtype)
+    assert rn.split_train_plan(width, split, shape, groups, dtype) is plan
+    mma = dtype == torch.bfloat16 and width % 8 == 0
+    assert plan["route"] == "kernels" and plan["variant"] == ("mma" if mma else "fma")
+    if mma:
+        assert (width // 8) % plan["nt"] == 0 and plan["passes"] * 8 * plan["nt"] == width
+    else:
+        assert plan["nt"] == 0 and plan["passes"] == 1
+    tt, tf, ft = plan["tt"], plan["tf"], plan["ft"]
+    hpos = (tt + 2) * (tf + 2)
+    assert plan["staged"] == (mma and plan["passes"] == 1) == (mma and width <= 32)
+    assert plan["smem_fwd"] == rn._train_conv_smem(width, hpos, mma, plan["staged"]) <= SMEM
+    assert plan["smem_grad"] == max(plan["smem_fwd"], rn._train_wgrad_smem(
+        width, tt, tf, mma)) <= SMEM
+    assert plan["smem_stats"] == 4 * 2 * (8 if mma else 2) * 128
+    assert tt * tf <= 128 and tf <= 16 and ft * tf >= f > (ft - 1) * tf and 1 <= tt <= t
+    assert tt == min(128 // tf, t) or plan["smem_grad"] > SMEM // 2
+    assert plan["patches"] == -(-t // tt) * ft and 1 <= plan["k"] <= plan["patches"]
+    assert plan["slabs"] == b * plan["k"]
+    # weight tiles cover every (output channel, tap, input channel) once:
+    # mma, m tiles of two (8-channel group, tap) chunks by n tiles of 8
+    # output channels, a tile's chunks within three 8-channel groups (its
+    # halo); float, 8 output by ci_tile input channels, every tap
+    cover = np.zeros((width, 9, width), np.int64)
+    if mma:
+        assert plan["nq"] == 9 * (width // 8) and plan["wm"] <= 8 and plan["wn"] <= 4
+        assert plan["went"] == plan["wm"] * 16 * plan["wn"] * 8
+        for wt in range(plan["wtiles"]):
+            mg, ng = divmod(wt, plan["ngroups"])
+            mts = range(mg * plan["wm"], min((mg + 1) * plan["wm"], plan["mtiles"]))
+            chunks = [q for m in mts for q in (2 * m, 2 * m + 1) if q < plan["nq"]]
+            assert chunks and chunks[-1] // 9 - chunks[0] // 9 <= 2
+            co = slice(8 * ng * plan["wn"], 8 * (ng + 1) * plan["wn"])
+            for q in chunks:
+                cover[co, q % 9, 8 * (q // 9): 8 * (q // 9) + 8] += 1
+    else:
+        co_t, ci_t = plan["co_tiles"], plan["ci_tiles"]
+        assert plan["wtiles"] == co_t * ci_t and 9 * plan["ci_tile"] <= 5 * 128
+        assert plan["went"] == 9 * plan["ci_tile"] * plan["co_tile"]
+        for wt in range(plan["wtiles"]):
+            co0, ci0 = (wt // ci_t) * plan["co_tile"], (wt % ci_t) * plan["ci_tile"]
+            cover[co0:co0 + plan["co_tile"], :, ci0:ci0 + plan["ci_tile"]] += 1
+    assert (cover == 1).all()
+    # slabs: sample-major, k a sample, each inside its sample
+    for slab in range(plan["slabs"]):
+        sample, lo, hi = rn.split_train_slab(plan, shape, slab)
+        assert sample == slab // plan["k"] and 0 <= lo < hi <= plan["patches"]
+    for positions, n in ((False, plan["patches"]), (True, t * f)):
+        got = [rn.split_train_slab(plan, shape, slab, positions)[1:]
+               for slab in range(plan["k"])]
+        assert got[0][0] == 0 and got[-1][1] == n
+        assert all(a[1] == b2[0] for a, b2 in zip(got, got[1:]))
+    cover = np.zeros((t, f), np.int64)
+    for pi in range(plan["patches"]):
+        t0, f0 = (pi // ft) * tt, (pi % ft) * tf
+        cover[t0:t0 + tt, f0:f0 + tf] += 1
+    assert (cover == 1).all()
+    # scratch: the slabs' (2, w) partials, the weight tiles' split partials
+    # (went floats each), one ticket and, a weight tile, one a run of 32
+    # splits and one for the runs
+    assert plan["part_floats"] == plan["slabs"] * 2 * width
+    assert plan["wpart_floats"] == plan["wtiles"] * plan["nsplit"] * plan["went"]
+    assert plan["nchunks"] == -(-plan["nsplit"] // 32)
+    assert plan["tickets"] == 1 + plan["wtiles"] * (plan["nchunks"] + 1)
+    assert 1 <= plan["nsplit"] <= b * plan["patches"]
+
+
+def test_split_train_plan_span_route_and_refusals():
+    """Where BN groups span data ranks the plan names the "span" route and
+    nothing else; a shape that is not s groups of w, a batch that does not
+    split into the BN groups, and a width over 256 are refused."""
+    assert rn.split_train_plan(8, 6, (32, 48, 200, 80), 1, torch.float32, span=True) == {
+        "route": "span"}
+    with pytest.raises(ValueError):
+        rn.split_train_plan(8, 6, (32, 40, 200, 80), 1, torch.bfloat16)
+    with pytest.raises(ValueError):
+        rn.split_train_plan(8, 6, (30, 48, 200, 80), 8, torch.bfloat16)
+    with pytest.raises(ValueError):
+        rn.split_train_plan(264, 4, (2, 1056, 10, 10), 1, torch.bfloat16)

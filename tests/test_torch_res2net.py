@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from voxsrc2020_speaker_verification_tpu.ops import nn as jops
 from voxsrc2020_speaker_verification_tpu.models import get_model as jax_get_model
 from voxsrc2020_speaker_verification_tpu.models import (
     register_res2net_variant as jax_register)
@@ -79,6 +80,50 @@ def test_split_conv_stride1_matches_jax(masked):
     port.load_state_dict(from_flax(variables))
     got = port(to_port(x), False, None if mask is None else torch.from_numpy(mask))
     np.testing.assert_allclose(to_nhwc(got), want, **TOL)
+
+
+@pytest.mark.parametrize("split,width", [(4, 6), (6, 4)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_split_conv_stride1_training_matches_jax(split, width, masked, groups):
+    """The stride-1 chain in training (``split_chain_train``'s plain
+    version, K9 / K9b's yardstick) against the JAX module under
+    bn_groups(g): output, updated running mean/var, and the gradients of x
+    and of the kernel (jax.vjp against torch autograd), float32."""
+    rng = np.random.RandomState(10 * split + 2 * groups + int(masked))
+    b, t, f = 4, 11, 6
+    mask = lengths_mask(b, t, [11, 7, 11, 3]) if masked else None
+    x = (rng.randn(b, t, f, split * width) * 1.5 + 0.2).astype(np.float32)
+    cot = rng.randn(b, t, f, split * width).astype(np.float32)
+    mod = JaxSplit(split=split, width=width, strides=1)
+    variables = mod.init(jax.random.PRNGKey(groups), jnp.asarray(x), False)
+    variables = {"params": jax.device_get(variables["params"]),
+                 "batch_stats": perturb(variables["batch_stats"], groups)}
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def f_jax(xj, params):
+        with jops.bn_groups(groups):
+            return mod.apply({"params": params, "batch_stats": variables["batch_stats"]}, xj,
+                             True, jmask, mutable=["batch_stats"])
+
+    want, vjp, mut = jax.vjp(f_jax, jnp.asarray(x), variables["params"], has_aux=True)
+    want_dx, want_dp = vjp(jnp.asarray(cot))
+
+    port = Res2NetSplitConv(split, width, 1)
+    port.load_state_dict(from_flax(variables))
+    for bn in port._bns():
+        bn.groups = groups
+    xt = to_port(x).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    got = port(xt, True, None if mask is None else torch.from_numpy(mask))
+    got.backward(to_port(cot))
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(to_nhwc(xt.grad), np.asarray(want_dx), **TOL)
+    np.testing.assert_allclose(port.weight.grad.permute(2, 3, 1, 0).numpy(),
+                               np.asarray(want_dp["kernel"]), **TOL)
+    for i, bn in enumerate(port._bns()):
+        st = mut["batch_stats"][f"bn{i}"]["bn"]
+        np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(st["mean"]), **TOL)
+        np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(st["var"]), **TOL)
 
 
 def test_split_conv_stride2_matches_jax():

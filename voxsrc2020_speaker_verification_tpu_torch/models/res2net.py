@@ -10,12 +10,15 @@ the 3x3 conv, eval BN and relu. The stride-2 split stage is one grouped conv
 (``F.conv2d(groups=s-1)``) followed by K3 and the 3x3 average pool of the
 last group.
 
-Training mode follows the JAX package's autodiff path: the stride-1 chain
-is, per group, ``F.conv2d`` -> K5 (training BN + relu, ``ops.bn_train``) ->
-the add into the next group; the stride-2 stage is one grouped conv, one K5
-launch over all s-1 groups (statistics are per channel, so this is exact)
-and the average-pool tail. K2 stays the eval path, since its BN uses running
-statistics.
+Training mode: the stride-1 chain is K9 / K9b (``csrc/split_train.cu``,
+wrapped by :func:`split_chain_train`): s launches forward (one a group,
+each staging in_i = x_i + mask * y_{i-1}, the conv, z_i saved and its BN
+statistics; then one that normalizes the last group) and two a group
+backward. Where BN groups span data ranks (K5's spanning mode) the chain
+keeps the per-group ``F.conv2d`` -> K5 route (``"span"``). The stride-2
+stage is one grouped conv, one K5 launch over all s-1 groups (statistics
+are per channel, so this is exact) and the average-pool tail. K2 stays the
+eval path, since its BN uses running statistics.
 
 Rematerialization (``remat``, ``remat_stages``, ``remat_keep_blocks``,
 ``remat_policy``, the JAX package's options) checkpoints whole bottleneck
@@ -27,17 +30,21 @@ statistics are updated once, as in the JAX package.
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from ..kernels import SPLIT_CONV, KernelError, check_cuda, dtype_code, num_sms, ptr
+from ..kernels import (SPLIT_CONV, SPLIT_TRAIN, KernelError, check_cuda, dtype_code, num_sms,
+                       ptr, stream_scratch)
 from ..ops import nn as ops
+from ..parallel.sharding import active_mesh
 
 CHANNELS_LAST = torch.channels_last
 _SPLIT_TN = (12, 8, 6, 4, 3, 2, 1)  # output channels per thread in K2
@@ -272,6 +279,378 @@ def _split_chain_wgmma(x, weight, means, variances, m, out, plan, eps) -> torch.
     return out
 
 
+# ---------------------------------------------------------------------------
+# K9 / K9b: the stride-1 split chain in training
+# ---------------------------------------------------------------------------
+
+# CTAs a forward / dgrad / statistics launch and the weight gradient aim at,
+# at w = 8 and at wider groups (more work a patch: fewer, longer slabs);
+# chosen by timing the bench step's four stride-1 shapes on an H100
+# (PERF.md, PR 15)
+_TRAIN_SLAB_CTAS = {8: 1024, 16: 512}
+_TRAIN_WGRAD_CTAS = {8: 2048, 16: 1024}
+_TRAIN_THREADS = 128
+_TRAIN_CO_TILE = 8        # output channels of a float weight-gradient tile
+_TRAIN_CI_TILE = 64       # input channels of a float weight-gradient tile, at most
+_TRAIN_MMA_MTILES = 8     # m tiles (two (8-channel group, tap) chunks each) of an mma weight tile
+_TRAIN_MMA_NTILES = 4     # n tiles (8 output channels) of an mma weight tile
+_TRAIN_SPLIT_CHUNK = 32   # weight-gradient splits that a first-level sum adds
+# split_train_bwd_stats' reduction buffers: 2 channel slots (or, bf16 at
+# w % 8 == 0, 8 channels) a thread by two sums
+_TRAIN_STATS_SMEM = {False: 4 * 2 * 2 * _TRAIN_THREADS, True: 4 * 2 * 8 * _TRAIN_THREADS}
+
+
+def _align16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _train_conv_smem(width: int, hpos: int, mma: bool, staged: bool) -> int:
+    """Shared memory of K9's conv launches (csrc/split_train.cu:conv_smem):
+    the halo patch (bf16 at the padded stride, or float at an odd stride),
+    the float variant's weight chunk, the warps' and the slab's sums, and
+    the staged weights (``staged``: the mma variant where one pass covers
+    w)."""
+    halo = _align16(hpos * _halo_stride(width) * 2) if mma else _align16(hpos * (width | 1) * 4)
+    smem = _align16(halo + (0 if mma else 9 * width * _TRAIN_CO_TILE * 4) + 4 * 10 * width)
+    return smem + (2 * width * _weight_stride(width) if staged else 0)
+
+
+def _train_wgrad_smem(width: int, tt: int, tf: int, mma: bool) -> int:
+    """Shared memory of K9b's weight-gradient role (csrc/split_train.cu:
+    wgrad_smem): dz at the patch's positions and in_i's halo for the tile's
+    input channels; mma: 128 bf16 rows of the tile's output channels, and a
+    halo of at most three 8-channel groups."""
+    hpos = (tt + 2) * (tf + 2)
+    if mma:
+        wn = min(_TRAIN_MMA_NTILES, width // 8)
+        return (_align16(2 * _TRAIN_THREADS * _halo_stride(8 * wn))
+                + 2 * hpos * _halo_stride(8 * min(3, width // 8)))
+    return 4 * (tt * tf * _TRAIN_CO_TILE + hpos * (min(width, _TRAIN_CI_TILE) | 1))
+
+
+def _train_wgrad_tiles(width: int, mma: bool) -> dict:
+    """K9b's weight-gradient tiles (csrc/split_train.cu:make_plan). mma:
+    chunks q = 8-channel group * 9 + tap, ``nq`` of them, two a 16-row m
+    tile; tiles of ``wm`` m tiles by ``wn`` n tiles of 8 output channels,
+    ``mgroups`` x ``ngroups``; float: ``co_tile`` output by ``ci_tile``
+    input channels, every tap. ``went``: floats of a tile's partial."""
+    if mma:
+        nq = 9 * (width // 8)
+        mtiles = -(-nq // 2)
+        mgroups = -(-mtiles // _TRAIN_MMA_MTILES)
+        wm = -(-mtiles // mgroups)
+        wn = min(_TRAIN_MMA_NTILES, width // 8)
+        ngroups = -(-(width // 8) // wn)
+        return {"nq": nq, "mtiles": mtiles, "mgroups": mgroups, "ngroups": ngroups, "wm": wm,
+                "wn": wn, "wtiles": mgroups * ngroups, "went": wm * 16 * wn * 8}
+    ci_tile = min(width, _TRAIN_CI_TILE)
+    co_tiles, ci_tiles = -(-width // _TRAIN_CO_TILE), -(-width // ci_tile)
+    return {"co_tile": _TRAIN_CO_TILE, "ci_tile": ci_tile, "co_tiles": co_tiles,
+            "ci_tiles": ci_tiles, "wtiles": co_tiles * ci_tiles,
+            "went": 9 * ci_tile * _TRAIN_CO_TILE}
+
+
+@functools.lru_cache(maxsize=None)
+def split_train_plan(width: int, split: int, shape, groups: int, dtype: torch.dtype,
+                     span: bool = False) -> dict:
+    """K9 / K9b's launch plan for a stride-1 chain in training: ``split``
+    groups of width ``width`` on x of ``shape`` (B, s*w, T, F), statistics
+    over ``groups`` BN groups of B / groups samples.
+
+    ``route``: ``"span"`` where BN groups span data ranks (``span``: the
+    chain keeps F.conv2d + K5's spanning mode, nothing else planned), else
+    ``"kernels"``, with:
+
+    * ``variant``: ``"mma"`` (bfloat16, w % 8 == 0: mma.sync, ``nt`` 8-wide
+      n tiles a pass, ``passes`` of them; the weights in shared memory
+      where one pass covers w, ``staged``) or ``"fma"`` (float32 and other
+      widths, CUDA cores);
+    * the patch: ``tt`` x ``tf`` <= 128 positions of one sample, F cut evenly
+      into ``ft`` tiles of at most 16, ``tt`` as large as 128 positions and
+      the shared memory allow; ``patches`` a sample;
+    * the slabs: ``k`` a sample (a run of patches, or of positions for the
+      statistics launch, inside one sample: never across a BN group),
+      ``slabs`` = B * k CTAs a launch, about ``_TRAIN_SLAB_CTAS``'s;
+    * the weight gradient (:func:`_train_wgrad_tiles`): ``wtiles`` tiles,
+      each summed over ``nsplit`` position splits (CTAs): the last of each
+      run of ``_TRAIN_SPLIT_CHUNK`` adds the run in order (``nchunks``
+      runs), the last run the runs;
+    * shared memory of each launch (``smem_fwd``, ``smem_stats``,
+      ``smem_grad``, <= 227 KB), and the scratch: ``part_floats`` (the
+      slabs' (2, w) partials), ``wpart_floats`` (the weight tiles'
+      partials), ``tickets`` (one, and nchunks + 1 a weight tile).
+
+    The C entries recompute the layout from the plan's ints and refuse a
+    plan whose shared memory or scratch differs (kPlanMismatch)."""
+    if span:
+        return {"route": "span"}
+    b, c, t, f = shape
+    if c != split * width or b % groups:
+        raise ValueError(f"split_train_plan: shape {tuple(shape)} is not {split} groups of "
+                         f"{width} in {groups} BN groups")
+    if width > 256:
+        raise ValueError(f"split_train_plan: width {width} > 256")
+    mma = dtype == torch.bfloat16 and width % 8 == 0
+    nt = next(n for n in (4, 3, 2, 1) if (width // 8) % n == 0) if mma else 0
+    passes = width // (8 * nt) if mma else 1
+    staged = mma and passes == 1
+    ft = -(-f // 16)
+    tf = -(-f // ft)
+    for tt in range(max(1, min(_TRAIN_THREADS // tf, t)), 0, -1):
+        smem_fwd = _train_conv_smem(width, (tt + 2) * (tf + 2), mma, staged)
+        smem_grad = max(smem_fwd, _train_wgrad_smem(width, tt, tf, mma))
+        if smem_grad <= _SMEM_BYTES:
+            break
+    else:
+        raise ValueError(f"split_train_plan: width {width} does not fit shared memory")
+    patches = -(-t // tt) * ft
+    narrow = 8 if width <= 8 else 16
+    k = max(1, min(-(-_TRAIN_SLAB_CTAS[narrow] // b), patches))
+    tiles = _train_wgrad_tiles(width, mma)
+    nsplit = max(1, min(-(-_TRAIN_WGRAD_CTAS[narrow] // tiles["wtiles"]), b * patches))
+    nchunks = -(-nsplit // _TRAIN_SPLIT_CHUNK)
+    return {"route": "kernels", "variant": "mma" if mma else "fma", "nt": nt,
+            "passes": passes, "staged": staged, "tt": tt, "tf": tf, "ft": ft,
+            "patches": patches, "k": k, "slabs": b * k,
+            "ci_tile": min(width, _TRAIN_CI_TILE), **tiles, "nsplit": nsplit,
+            "nchunks": nchunks, "smem_fwd": smem_fwd, "smem_stats": _TRAIN_STATS_SMEM[mma],
+            "smem_grad": smem_grad, "part_floats": b * k * 2 * width,
+            "wpart_floats": tiles["wtiles"] * nsplit * tiles["went"],
+            "tickets": 1 + tiles["wtiles"] * (nchunks + 1)}
+
+
+def split_train_slab(plan: dict, shape, slab: int, positions: bool = False):
+    """(sample, first, end) of a slab: the patches it walks in the conv
+    launches, or (``positions``) the flattened (t, f) positions it sums in
+    the statistics launch (csrc/split_train.cu: slab_patches and
+    k9b_stats_kernel)."""
+    b, k = slab // plan["k"], slab % plan["k"]
+    n = shape[2] * shape[3] if positions else plan["patches"]
+    return b, n * k // plan["k"], n * (k + 1) // plan["k"]
+
+
+def _train_plan_ints(plan: dict, shape, split: int, width: int, groups: int):
+    """The plan as the C entries take it: csrc/split_train.cu's Plan ints."""
+    b, _, t, f = shape
+    return (ctypes.c_int * 13)(b, t, f, split, width, groups, int(plan["variant"] == "mma"),
+                               plan["nt"], plan["tt"], plan["tf"], plan["k"], plan["ci_tile"],
+                               plan["nsplit"])
+
+
+def split_chain_train_reference(x, weight, running_means, running_vars, groups, mask=None,
+                                eps=ops.BN_EPSILON, update=True, relu_masks=None,
+                                pre_relu=None) -> torch.Tensor:
+    """Plain version of :func:`split_chain_train`, step for step as the JAX
+    package's stride-1 branch in training (models/res2net.py:82-107): per
+    group the conv, training BN over ``groups`` batch groups with relu
+    (``ops.bn_train_reference``; the running statistics updated unless
+    ``update`` is False), the masked add into the next group; the last group
+    passed through. Differentiable by autograd.
+
+    ``relu_masks`` (s-1 tensors shaped as a group's output, 0/1) takes
+    those relu decisions in place of the computed ones: a float64 yardstick
+    of a run whose decisions at values within rounding of zero went the
+    other way (their gradients differ there by the whole upstream value);
+    with them, ``pre_relu`` (a list) receives each group's normalized value
+    before the decision."""
+    s = len(running_means) + 1
+    w = x.shape[1] // s
+    parts = torch.split(x, w, dim=1)
+    outputs = []
+    for i in range(s - 1):
+        inp = parts[i] if i == 0 else parts[i] + ops.mask_time(outputs[-1], mask)
+        y = F.conv2d(inp, weight[i * w: (i + 1) * w], padding=1)
+        y = ops.bn_train_reference(y, running_means[i], running_vars[i], groups=groups,
+                                   relu=relu_masks is None, eps=eps, update=update)
+        if relu_masks is not None:
+            if pre_relu is not None:
+                pre_relu.append(y.detach())
+            y = y * relu_masks[i].to(y.dtype)
+        outputs.append(y)
+    outputs.append(parts[-1])
+    return torch.cat(outputs, dim=1).contiguous(memory_format=CHANNELS_LAST)
+
+
+def _split_chain_span(x, weight, running_means, running_vars, groups, mask=None,
+                      eps=ops.BN_EPSILON):
+    """The route where BN groups span data ranks: per group F.conv2d and
+    ``ops.bn_train`` (which takes K5's spanning mode on the card)."""
+    w = x.shape[1] // (len(running_means) + 1)
+    parts = torch.split(x, w, dim=1)
+    outputs = []
+    for i, (rm, rv) in enumerate(zip(running_means, running_vars)):
+        inp = parts[i] if i == 0 else parts[i] + ops.mask_time(outputs[-1], mask)
+        y = F.conv2d(inp, weight[i * w: (i + 1) * w], padding=1)
+        outputs.append(ops.bn_train(y, rm, rv, groups=groups, relu=True, eps=eps))
+    outputs.append(parts[-1])
+    return torch.cat(outputs, dim=1).contiguous(memory_format=CHANNELS_LAST)
+
+
+def _split_train_forward(x, weight, running_means, running_vars, mask, groups, eps, update):
+    """K9's s launches: (out, z (s-1, B, T, F, w), stats (s-1, 3, G, w)
+    mean, rstd and biased variance per (BN group, channel))."""
+    s = len(running_means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    plan = split_train_plan(w, s, tuple(x.shape), groups, x.dtype)
+    ints = _train_plan_ints(plan, x.shape, s, w, groups)
+    dev, code = x.device, dtype_code(x.dtype)
+    # rows the output channels, K = tap * w + input channel
+    wk = weight.view(s - 1, w, w, 3, 3).permute(0, 1, 3, 4, 2).contiguous()
+    z = torch.empty((s - 1, b, t, f, w), dtype=x.dtype, device=dev)
+    stats = torch.empty((s - 1, 3, groups, w), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    part = stream_scratch(dev, "split_train_part", plan["part_floats"], torch.float32)
+    ticket = stream_scratch(dev, "split_train_tickets", plan["tickets"], torch.int32)
+    _, upd_mean, upd_var = ops._update_factors(x, groups)
+    for i in range(s - 1):
+        prev = (ptr(z[i - 1]), ptr(stats[i - 1])) if i else (None, None)
+        run = (ptr(running_means[i]), ptr(running_vars[i])) if update else (None, None)
+        SPLIT_TRAIN.launch("split_train_fwd", dev, code, i, ctypes.addressof(ints), ptr(x), *prev,
+                           ptr(mask), ptr(wk[i]), ptr(z[i]), ptr(stats[i]), *run, ptr(out),
+                           ptr(part), ptr(ticket), eps, ops.BN_MOMENTUM, upd_mean, upd_var,
+                           plan["smem_fwd"])
+    SPLIT_TRAIN.launch("split_train_finish", dev, code, ctypes.addressof(ints), ptr(z[s - 2]),
+                       ptr(stats[s - 2]), ptr(out))
+    return out, z, stats
+
+
+def _split_train_backward(x, weight, z, stats, mask, groups, dout):
+    """K9b's 2 (s-1) launches: (dx, the weight's gradient in x's dtype)."""
+    s = z.shape[0] + 1
+    b, c, t, f = x.shape
+    w = c // s
+    plan = split_train_plan(w, s, tuple(x.shape), groups, x.dtype)
+    ints = _train_plan_ints(plan, x.shape, s, w, groups)
+    dev, code = x.device, dtype_code(x.dtype)
+    dout = ops.aligned_operand(dout)
+    # the transposed conv is the conv with flipped weights, rows the input
+    # channels, K = tap * w + output channel
+    wkb = weight.view(s - 1, w, w, 3, 3).flip(3, 4).permute(0, 2, 3, 4, 1).contiguous()
+    dx = torch.empty_like(x)
+    dweight = torch.empty(weight.shape, dtype=x.dtype, device=dev)
+    dy = torch.empty((b, t, f, w), dtype=x.dtype, device=dev)
+    bsums = torch.empty((2, groups, w), dtype=torch.float32, device=dev)
+    part = stream_scratch(dev, "split_train_part", plan["part_floats"], torch.float32)
+    tickets = stream_scratch(dev, "split_train_tickets", plan["tickets"], torch.int32)
+    wpart = stream_scratch(dev, "split_train_wpart", plan["wpart_floats"], torch.float32)
+    for i in reversed(range(s - 1)):
+        SPLIT_TRAIN.launch("split_train_bwd_stats", dev, code, i, ctypes.addressof(ints),
+                           ptr(dout), ptr(dx), ptr(z[i]), ptr(stats[i]), ptr(mask), ptr(dy),
+                           ptr(part), ptr(tickets), ptr(bsums), plan["smem_stats"])
+        prev = (ptr(z[i - 1]), ptr(stats[i - 1])) if i else (None, None)
+        SPLIT_TRAIN.launch("split_train_bwd_grad", dev, code, i, ctypes.addressof(ints), ptr(x),
+                           *prev, ptr(mask), ptr(z[i]), ptr(stats[i]), ptr(bsums), ptr(dy),
+                           ptr(wkb[i]), ptr(dx), ptr(dweight), ptr(wpart),
+                           ptr(tickets) + 4, plan["smem_grad"], wpart.numel())
+    return dx, dweight
+
+
+@torch.library.custom_op(
+    "vsv_torch::split_train_fwd", mutates_args=("running_means", "running_vars"),
+    schema="(Tensor x, Tensor weight, Tensor(a!)[] running_means, Tensor(b!)[] running_vars, "
+           "Tensor? mask, int groups, float eps, bool update) -> (Tensor, Tensor, Tensor)")
+def split_train_fwd_op(x, weight, running_means, running_vars, mask, groups, eps, update):
+    """K9 as one operator (out, z, stats), so that a selective checkpoint can
+    name it: under ``dots_saveable`` the recompute takes its outputs from
+    the first forward (:data:`_SAVED_BY_DOTS`)."""
+    return _split_train_forward(x, weight, running_means, running_vars, mask, groups, eps,
+                                update)
+
+
+class _SplitTrainFn(torch.autograd.Function):
+    """K9 forward, K9b backward. Saves x, the weight, the s-1 conv outputs
+    z_i and their statistics; the running statistics are updated in place
+    by the forward (unless ``update`` is False) and take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, mask, running_means, running_vars, groups, eps, update):
+        out, z, stats = split_train_fwd_op(x, weight, list(running_means), list(running_vars),
+                                           mask, groups, eps, update)
+        ctx.save_for_backward(x, weight, z, stats, mask)
+        ctx.groups = groups
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, z, stats, mask = ctx.saved_tensors
+        dx, dweight = _split_train_backward(x, weight, z, stats, mask, ctx.groups, dout)
+        return dx, dweight, None, None, None, None, None, None
+
+
+# chain calls by route: "kernels" (K9 / K9b on the card), "span" (BN groups
+# across data ranks: F.conv2d + K5's spanning mode), "plain" (CPU tensors)
+_TRAIN_ROUTES = collections.Counter()
+
+
+def split_train_route_counts() -> Dict[str, int]:
+    return {r: _TRAIN_ROUTES[r] for r in ("kernels", "span", "plain")}
+
+
+def reset_split_train_routes() -> None:
+    _TRAIN_ROUTES.clear()
+
+
+def split_chain_train(x: torch.Tensor, weight: torch.Tensor,
+                      running_means: Sequence[torch.Tensor],
+                      running_vars: Sequence[torch.Tensor], groups: int = 1,
+                      mask: Optional[torch.Tensor] = None,
+                      eps: float = ops.BN_EPSILON) -> torch.Tensor:
+    """Stride-1 Res2Net split chain in training, K9 / K9b on CUDA:
+
+        y_i = relu(BN_g(conv3x3_same(x_i + mask * y_{i-1})))   i < s-1
+        y_{s-1} = x_{s-1}
+
+    BN_g: statistics per batch group (``groups``, the model's bn_groups),
+    the running statistics (s-1 float32 (w,) tensors) updated in place
+    unless inside ``ops.running_update(False)``. x: (B, s*w, T, F)
+    channels_last; weight: (w*(s-1), w, 3, 3) OIHW in x's dtype; mask: (B,
+    T') 0/1 with T' >= T. Differentiable in x and the weight.
+
+    Inside a step whose mesh has data ranks, ``groups`` counts the global
+    batch's groups (as ``ops.bn_train``): groups inside each rank run here
+    as ``groups / ranks``; groups that span ranks take the ``"span"`` route,
+    chosen from the mesh. A CPU tensor takes the plain version; a CUDA one
+    launches the kernels or raises."""
+    s = len(running_means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    if c != s * w or weight.shape != (w * (s - 1), w, 3, 3):
+        raise ValueError(f"split_chain_train: x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)} do not make {s} groups of 3x3")
+    update = ops.running_update_enabled()
+    mesh = active_mesh()
+    if mesh is not None and mesh.num_data > 1:
+        if groups % mesh.num_data:
+            _TRAIN_ROUTES["span"] += 1
+            return _split_chain_span(x, weight, running_means, running_vars, groups, mask, eps)
+        groups //= mesh.num_data  # every group inside this rank
+    if b % groups:
+        raise ValueError(f"batch {b} not divisible into {groups} BN groups")
+    if x.device.type == "cpu":
+        _TRAIN_ROUTES["plain"] += 1
+        return split_chain_train_reference(x, weight, running_means, running_vars, groups, mask,
+                                           eps, update)
+    check_cuda("split_chain_train", x, (torch.float32, torch.bfloat16), 4, CHANNELS_LAST)
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise KernelError("split_chain_train: weight must match x's dtype and device")
+    for st in (*running_means, *running_vars):
+        check_cuda("split_chain_train stats", st, (torch.float32,), 1)
+        if st.shape[0] != w:
+            raise KernelError(f"split_chain_train: BN stats of {st.shape[0]} channels, width {w}")
+    if x.numel() == 0:
+        raise KernelError("split_chain_train: empty batch")
+    m = None
+    if mask is not None:
+        m = mask[:, :t].float().contiguous()
+        if m.shape != (b, t) or m.device != x.device:
+            raise KernelError(f"split_chain_train: mask {tuple(mask.shape)} does not cover "
+                              f"(B, T)=({b}, {t})")
+    _TRAIN_ROUTES["kernels"] += 1
+    return _SplitTrainFn.apply(ops.aligned_operand(x), weight, m, tuple(running_means),
+                               tuple(running_vars), groups, eps, update)
+
+
 class Res2NetSplitConv(nn.Module):
     """Hierarchical split-s 3x3 conv stage. ``weight`` is the shared
     [3, 3, w, w*(s-1)] JAX kernel in OIHW, one block of w output rows per
@@ -296,7 +675,9 @@ class Res2NetSplitConv(nn.Module):
         bns = self._bns()
         if self.strides == 1:
             if training:
-                return self._train_chain(x, weight, bns, mask)
+                return split_chain_train(x, weight, [bn.running_mean for bn in bns],
+                                         [bn.running_var for bn in bns], bns[0].groups, mask,
+                                         bns[0].eps)
             return split_chain(x, weight, [bn.running_mean for bn in bns],
                                [bn.running_var for bn in bns], mask, bns[0].eps)
         # stride > 1: no hierarchical adds, so the s-1 convs are one grouped
@@ -318,19 +699,6 @@ class Res2NetSplitConv(nn.Module):
             y = ops.bn_act(y, mean, var, relu=True, eps=bns[0].eps)
         tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], self.strides)
         return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
-
-    def _train_chain(self, x, weight, bns, mask):
-        """Stride-1 chain in training mode, step for step as the JAX
-        package's (models/res2net.py:82-107)."""
-        w = self.width
-        groups = torch.split(x, w, dim=1)
-        outputs = []
-        for i, bn in enumerate(bns):
-            inp = groups[i] if i == 0 else groups[i] + ops.mask_time(outputs[-1], mask)
-            y = F.conv2d(inp, weight[i * w: (i + 1) * w], padding=1)
-            outputs.append(bn(y, True, relu=True))
-        outputs.append(groups[-1])
-        return torch.cat(outputs, dim=1).contiguous(memory_format=CHANNELS_LAST)
 
 
 class BottleneckBlockV1(nn.Module):
@@ -369,14 +737,18 @@ class BottleneckBlockV1(nn.Module):
 
 
 # Rematerialization policies, by their jax.checkpoint_policies names: None
-# and "nothing_saveable" recompute the whole block; "dots_saveable" and
-# "checkpoint_dots" keep the outputs of the convolutions and matmuls (JAX's
-# dots_saveable keeps dot_general and conv_general_dilated outputs) and
-# recompute the rest; "everything_saveable" keeps everything, i.e. no remat.
+# and "nothing_saveable" recompute the whole block (K9 runs again, with the
+# running update off); "dots_saveable" and "checkpoint_dots" keep the
+# outputs of the convolutions and matmuls (JAX's dots_saveable keeps
+# dot_general and conv_general_dilated outputs) and recompute the rest --
+# of the stride-1 chain in training, K9's operator: its conv outputs z_i with
+# their statistics and the chain's output, so K9 does not run again;
+# "everything_saveable" keeps everything, i.e. no remat.
 REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "checkpoint_dots",
                   "everything_saveable")
 _SAVED_BY_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
-                  torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+                  torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+                  torch.ops.vsv_torch.split_train_fwd.default)
 
 
 def remat_context(policy: Optional[str]):

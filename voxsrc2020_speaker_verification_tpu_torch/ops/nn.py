@@ -699,7 +699,7 @@ def _span_launch_plan(x: torch.Tensor, layout: SpanLayout, ni: int, ns: int):
     return ctypes.addressof(ints[ni - 1]), table, ticket, part
 
 
-def _span_operand(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+def aligned_operand(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """t in the kernel layout at a 16-byte boundary (the bulk copies and
     vector loads need it): copied where a view starts elsewhere."""
     if t is None:
@@ -716,7 +716,7 @@ def bn_span_partials(x: torch.Tensor, layout: SpanLayout,
     groups it holds no row of; with ``shortcut`` (a shortcut to normalize)
     its sums too, in the same launch: (2, G, 2, C), x's first."""
     c, ni = x.shape[1], 1 if shortcut is None else 2
-    x, shortcut = _span_operand(x), _span_operand(shortcut)
+    x, shortcut = aligned_operand(x), aligned_operand(shortcut)
     ints, table, ticket, part = _span_launch_plan(x, layout, ni, 2 * ni)
     sums = torch.empty((ni, layout.groups, 2, c), dtype=torch.float32, device=x.device)
     BN_TRAIN.launch("bn_span_stats", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
@@ -736,7 +736,7 @@ def bn_span_apply(x, sums, running_mean, running_var, layout: SpanLayout, *, rel
     if not update:
         running_mean = running_var = shortcut_running_mean = shortcut_running_var = None
     c = x.shape[1]
-    x, shortcut = _span_operand(x), _span_operand(shortcut)
+    x, shortcut = aligned_operand(x), aligned_operand(shortcut)
     _, upd_mean, upd_var = _update_factors(x, layout.groups, layout.ngroup)
     stats = torch.empty((4 if sc_mode == 2 else 2, layout.groups, c), dtype=torch.float32,
                         device=x.device)
@@ -774,8 +774,8 @@ def bn_span_bwd_partials(x, dy, stats, layout: SpanLayout, *, sc_mode: int = 0, 
     recomputed from x (and ``shortcut``, the normalized shortcut's input);
     for a raw shortcut under relu it takes ``y``, the forward output."""
     c, ns = x.shape[1], 3 if sc_mode == 2 else 2
-    third = _span_operand(_span_third(sc_mode, relu, shortcut, y))
-    x, dy = _span_operand(x), _span_operand(dy)
+    third = aligned_operand(_span_third(sc_mode, relu, shortcut, y))
+    x, dy = aligned_operand(x), aligned_operand(dy)
     ints, table, ticket, part = _span_launch_plan(x, layout, 2 + (third is not None), ns)
     sums = torch.empty((layout.groups, ns, c), dtype=torch.float32, device=x.device)
     sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
@@ -792,8 +792,8 @@ def bn_span_bwd_apply(x, dy, stats, sums, layout: SpanLayout, *, sc_mode: int = 
     the global sums: (dx, the shortcut's gradient or None); the operands
     as :func:`bn_span_bwd_partials`."""
     c = x.shape[1]
-    third = _span_operand(_span_third(sc_mode, relu, shortcut, y))
-    x, dy = _span_operand(x), _span_operand(dy)
+    third = aligned_operand(_span_third(sc_mode, relu, shortcut, y))
+    x, dy = aligned_operand(x), aligned_operand(dy)
     dx = torch.empty_like(x)
     dsc = torch.empty_like(x) if sc_mode else None
     sc_stats = (ptr(stats[2]), ptr(stats[3])) if sc_mode == 2 else (None, None)
