@@ -24,8 +24,9 @@ Phases, one JSON line each:
    throughout, a constant row and reruns; K3 / K5 at channel counts that are
    not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM); K4 at the W =
    1 heads of TDNN and ECAPA; K9 / K9b (the stride-1 split chain in
-   training) at the bench step's four stride-1 stage shapes and a w24
-   stage (SPLIT_TRAIN_SHAPES): bf16 and float32 against the plain version
+   training) at the bench step's four stride-1 stage shapes and
+   res2net200_att's four (SPLIT_TRAIN_SHAPES): bf16 and float32 against the
+   plain version
    in float64 on each run's own relu decisions, launch counts a call,
    reruns bit for bit, device time forward and backward beside the bound,
    the plain version and today's route (cuDNN conv + K5 + adds + cat).
@@ -750,8 +751,9 @@ def train_chains(cfg, batch, frames, feat_dim, stages=None):
 def k9_launches(chains, again=None) -> dict:
     """K9 / K9b's launches per microbatch for ``chains`` (train_chains), and
     the forward again for the rematerialized ``again``: s - 1 conv launches
-    and one finishing launch a chain forward, s - 1 of each backward
-    launch."""
+    and one finishing launch a chain forward; backward, one statistics
+    launch (group s-2's) and s - 1 grad launches, which fold the other
+    groups' statistics in."""
     def conv(c):
         return sum((s - 1) * n for (_, _, s), n in (c or {}).items())
 
@@ -760,7 +762,7 @@ def k9_launches(chains, again=None) -> dict:
 
     return {"split_train.split_train_fwd": conv(chains) + conv(again),
             "split_train.split_train_finish": count(chains) + count(again),
-            "split_train.split_train_bwd_stats": conv(chains),
+            "split_train.split_train_bwd_stats": count(chains),
             "split_train.split_train_bwd_grad": conv(chains)}
 
 
@@ -906,11 +908,13 @@ def check_bn_train(dev, gen, k5_calls, groups):
 
 
 # K9 / K9b at the bench step's four stride-1 stage shapes (res2net50_w8_s6_c16,
-# B=256, 200 frames: w = 8, 16, 32, 64 at s = 6) and one w24-family stage
-# (not on the bench step), at bn_groups 8: (x shape, w, s)
+# B=256, 200 frames: w = 8, 16, 32, 64 at s = 6) and res2net200_att's four
+# (B=128, 200 frames: w = 24, 48, 96, 192 at s = 4; not on the bench step),
+# at bn_groups 8: (x shape, w, s)
 SPLIT_TRAIN_SHAPES = (((256, 48, 200, 80), 8, 6), ((256, 96, 100, 40), 16, 6),
                       ((256, 192, 50, 20), 32, 6), ((256, 384, 25, 10), 64, 6),
-                      ((128, 96, 200, 80), 24, 4))
+                      ((128, 96, 200, 80), 24, 4), ((128, 192, 100, 40), 48, 4),
+                      ((128, 384, 50, 20), 96, 4), ((128, 768, 25, 10), 192, 4))
 # Each run is held against the plain version in float64 that takes the
 # run's own relu decisions (split_chain_train_reference(relu_masks=)): a
 # decision at a value within rounding of zero may go either way, and moves

@@ -5,7 +5,7 @@ times another tree of the repository (copy it into that tree's
 ``scripts/``):
 
     python3 scripts/time_split_train.py [--label L] [--save OUT.json]
-        [--chain-reps 10] [--steps 3] [--shapes bench|w24] [--route conv]
+        [--chain-reps 10] [--steps 3] [--shapes bench|w24|all] [--route conv]
         [--skip-step]
 
 1. The chain, forward and forward + backward, at the bench step's four
@@ -16,7 +16,8 @@ times another tree of the repository (copy it into that tree's
    the device time of one forward + backward by kernel name
    (torch.profiler).
    ``--shapes w24`` times res2net200_att's four stride-1 stages instead
-   (B=128, 200 frames: w = 24, 48, 96, 192, s 4); ``--route conv`` times
+   (B=128, 200 frames: w = 24, 48, 96, 192, s 4), ``--shapes all`` the
+   bench's four and those four in one call; ``--route conv`` times
    the chain through F.conv2d + K5 + adds + cat
    (``models.res2net._split_chain_span`` without a mesh, the route before
    K9 / K9b; this tree only).
@@ -48,6 +49,7 @@ SHAPES = {"bench": (((256, 48, 200, 80), 8, 6), ((256, 96, 100, 40), 16, 6),
                     ((128, 96, 200, 80), 24, 4)),
           "w24": (((128, 96, 200, 80), 24, 4), ((128, 192, 100, 40), 48, 4),
                   ((128, 384, 50, 20), 96, 4), ((128, 768, 25, 10), 192, 4))}
+SHAPES["all"] = SHAPES["bench"][:4] + SHAPES["w24"]
 GROUPS = 8
 
 

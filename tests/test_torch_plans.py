@@ -380,9 +380,10 @@ def split_train_calls():
         for batch, frames, groups in shapes:
             for (shape, w, s) in chip_smoke.train_chains(RES2NET_CONFIGS[model], batch, frames, 80):
                 calls.add((shape, w, s, groups))
-    # the thin variants of the CPU tests (w = 4, 6, 8) and chip_smoke's w24 stage
+    # the thin variants of the CPU tests (w = 4, 6, 8), chip_smoke's w24 stage
+    # and a bf16 width of neither tensor-core variant (w = 40: fma)
     calls |= {((8, 24, 13, 21), 6, 4, 2), ((8, 24, 13, 21), 4, 6, 8), ((16, 32, 48, 40), 8, 4, 2),
-              ((128, 96, 200, 80), 24, 4, 8)}
+              ((128, 96, 200, 80), 24, 4, 8), ((8, 160, 13, 21), 40, 4, 2)}
     return sorted(calls)
 
 
@@ -393,51 +394,74 @@ SPLIT_TRAIN_CALLS = split_train_calls()
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_split_train_plan_covers_every_position_once(shape, width, split, groups, dtype):
     """K9 / K9b's plan (models/res2net.py:split_train_plan) at every chain
-    shape the registered configs reach: the variant (mma for bf16 at w % 8
-    == 0, nt 8-wide n tiles dividing w / 8), shared memory within 227 KB and
-    equal to the layouts' (csrc/split_train.cu conv_smem, wgrad_smem), the
-    patch within 128 positions and the slabs a launch's CTAs; the weight
-    tiles cover every (output, input) channel pair once; a sample's slabs
-    cover its patches (and, for the statistics launch, its positions) once,
-    every slab inside one sample, and the patches every (t, f) once; the
-    scratch sizes as the C entries count them."""
+    shape the registered configs reach: the variant (wgmma for bf16 at w =
+    32, 48, 64, 96, 192; mma for bf16 at w = 8, 16, 24, its nt = w / 8 n
+    tiles of 8 in one pass; else fma, as bf16 at w = 40), shared memory within 227 KB and equal to the
+    layouts' (csrc/split_train.cu conv_smem, wgrad_smem; wg_conv_smem,
+    wg_wgrad_layout), the patch within the variant's rows and the slabs a
+    launch's CTAs; the weight tiles cover every (output channel, tap, input
+    channel) once; a sample's slabs cover its patches (and, for the
+    statistics launch, its positions) once, every slab inside one sample,
+    and the patches every (t, f) once; the scratch sizes as the C entries
+    count them, and the backward's folded statistics double-buffered."""
     b, c, t, f = shape
     plan = rn.split_train_plan(width, split, shape, groups, dtype)
     assert rn.split_train_plan(width, split, shape, groups, dtype) is plan
-    mma = dtype == torch.bfloat16 and width % 8 == 0
-    assert plan["route"] == "kernels" and plan["variant"] == ("mma" if mma else "fma")
-    if mma:
-        assert (width // 8) % plan["nt"] == 0 and plan["passes"] * 8 * plan["nt"] == width
-    else:
-        assert plan["nt"] == 0 and plan["passes"] == 1
+    wg = dtype == torch.bfloat16 and width in (32, 48, 64, 96, 192)
+    mma = dtype == torch.bfloat16 and width in (8, 16, 24)
+    assert plan["route"] == "kernels"
+    assert plan["variant"] == ("wgmma" if wg else "mma" if mma else "fma")
+    assert plan["nt"] == (width // 8 if mma else 0)
     tt, tf, ft = plan["tt"], plan["tf"], plan["ft"]
     hpos = (tt + 2) * (tf + 2)
-    assert plan["staged"] == (mma and plan["passes"] == 1) == (mma and width <= 32)
-    assert plan["smem_fwd"] == rn._train_conv_smem(width, hpos, mma, plan["staged"]) <= SMEM
-    assert plan["smem_grad"] == max(plan["smem_fwd"], rn._train_wgrad_smem(
-        width, tt, tf, mma)) <= SMEM
-    assert plan["smem_stats"] == 4 * 2 * (8 if mma else 2) * 128
-    assert tt * tf <= 128 and tf <= 16 and ft * tf >= f > (ft - 1) * tf and 1 <= tt <= t
-    assert tt == min(128 // tf, t) or plan["smem_grad"] > SMEM // 2
-    assert plan["patches"] == -(-t // tt) * ft and 1 <= plan["k"] <= plan["patches"]
-    assert plan["slabs"] == b * plan["k"]
-    # weight tiles cover every (output channel, tap, input channel) once:
-    # mma, m tiles of two (8-channel group, tap) chunks by n tiles of 8
-    # output channels, a tile's chunks within three 8-channel groups (its
-    # halo); float, 8 output by ci_tile input channels, every tap
+    assert tf <= 16 and ft * tf >= f > (ft - 1) * tf and 1 <= tt <= t
+    assert plan["smem_stats"] == 4 * 2 * (8 if wg or mma else 2) * 128
     cover = np.zeros((width, 9, width), np.int64)
-    if mma:
-        assert plan["nq"] == 9 * (width // 8) and plan["wm"] <= 8 and plan["wn"] <= 4
-        assert plan["went"] == plan["wm"] * 16 * plan["wn"] * 8
+    if wg:
+        # the conv: 128 or 256 rows a patch (one or two 64-row m tiles a
+        # consumer warpgroup, w / 2 accumulators each), T cut into even
+        # tiles; the weight gradient: 64-row m tiles of (chunk q = 8-channel
+        # group * 9 + tap, input channel) rows by all w output channels,
+        # 3 wmt a tile, its chunks within nc8 8-channel groups (its halo)
+        assert plan["mt"] * width // 2 <= 96 and tt * tf <= 128 * plan["mt"]
+        assert tt == -(-t // -(-t // tt))  # the T tiles are even
+        # the weights resident at w <= 64 (a slot a slice), else a ring
+        slices = rn._train_wg_slices(width)
+        assert plan["ring"] == slices if width <= 64 else 2 <= plan["ring"] < slices
+        assert plan["smem_fwd"] == rn._train_wg_conv_smem(width, hpos, plan["ring"]) <= SMEM
+        wtt = plan["wtt"]
+        assert plan["ci_tile"] == wtt and wtt * tf <= 256 and wtt == -(-t // -(-t // wtt))
+        assert plan["wpatches"] == -(-t // wtt) * ft
+        assert plan["smem_grad"] == max(plan["smem_fwd"], rn._train_wg_wgrad_smem(
+            width, wtt, tf)) <= SMEM
+        wmt, nq = plan["wmt"], plan["nq"]
+        assert nq == 9 * (width // 8) and wmt * width // 2 <= 96
+        assert plan["went"] == 3 * wmt * 64 * width
         for wt in range(plan["wtiles"]):
-            mg, ng = divmod(wt, plan["ngroups"])
-            mts = range(mg * plan["wm"], min((mg + 1) * plan["wm"], plan["mtiles"]))
-            chunks = [q for m in mts for q in (2 * m, 2 * m + 1) if q < plan["nq"]]
-            assert chunks and chunks[-1] // 9 - chunks[0] // 9 <= 2
-            co = slice(8 * ng * plan["wn"], 8 * (ng + 1) * plan["wn"])
+            chunks = [q for q in range(24 * wmt * wt, 24 * wmt * (wt + 1)) if q < nq]
+            assert chunks and chunks[-1] // 9 - chunks[0] // 9 < plan["nc8"]
             for q in chunks:
-                cover[co, q % 9, 8 * (q // 9): 8 * (q // 9) + 8] += 1
+                cover[:, q % 9, 8 * (q // 9): 8 * (q // 9) + 8] += 1
     else:
+        assert plan["smem_fwd"] == rn._train_conv_smem(width, tt, tf, mma) <= SMEM
+        assert plan["smem_grad"] == max(plan["smem_fwd"], rn._train_wgrad_smem(
+            width, tt, tf, mma)) <= SMEM
+        assert tt * tf <= 128
+        assert tt == min(128 // tf, t) or plan["smem_grad"] > SMEM // 2
+    # weight tiles cover every (output channel, tap, input channel) once:
+    # mma, m tiles of two (8-channel group, tap) chunks by all w output
+    # channels, a tile's chunks within its halo's w / 8 8-channel groups;
+    # float, 8 output by ci_tile input channels, every tap
+    if mma:
+        assert plan["nq"] == 9 * (width // 8) and plan["wm"] <= 8
+        assert plan["went"] == plan["wm"] * 16 * width
+        for wt in range(plan["wtiles"]):
+            mts = range(wt * plan["wm"], min((wt + 1) * plan["wm"], plan["mtiles"]))
+            chunks = [q for m in mts for q in (2 * m, 2 * m + 1) if q < plan["nq"]]
+            assert chunks and chunks[-1] // 9 < width // 8
+            for q in chunks:
+                cover[:, q % 9, 8 * (q // 9): 8 * (q // 9) + 8] += 1
+    elif not wg:
         co_t, ci_t = plan["co_tiles"], plan["ci_tiles"]
         assert plan["wtiles"] == co_t * ci_t and 9 * plan["ci_tile"] <= 5 * 128
         assert plan["went"] == 9 * plan["ci_tile"] * plan["co_tile"]
@@ -445,6 +469,8 @@ def test_split_train_plan_covers_every_position_once(shape, width, split, groups
             co0, ci0 = (wt // ci_t) * plan["co_tile"], (wt % ci_t) * plan["ci_tile"]
             cover[co0:co0 + plan["co_tile"], :, ci0:ci0 + plan["ci_tile"]] += 1
     assert (cover == 1).all()
+    assert plan["patches"] == -(-t // tt) * ft and 1 <= plan["k"] <= plan["patches"]
+    assert plan["slabs"] == b * plan["k"]
     # slabs: sample-major, k a sample, each inside its sample
     for slab in range(plan["slabs"]):
         sample, lo, hi = rn.split_train_slab(plan, shape, slab)
@@ -466,7 +492,11 @@ def test_split_train_plan_covers_every_position_once(shape, width, split, groups
     assert plan["wpart_floats"] == plan["wtiles"] * plan["nsplit"] * plan["went"]
     assert plan["nchunks"] == -(-plan["nsplit"] // 32)
     assert plan["tickets"] == 1 + plan["wtiles"] * (plan["nchunks"] + 1)
-    assert 1 <= plan["nsplit"] <= b * plan["patches"]
+    assert 1 <= plan["nsplit"] <= b * plan["wpatches" if wg else "patches"]
+    # the backward's folded statistics: d_i and its sums, two buffers each
+    # (group i reads one while it writes group i-1's into the other)
+    assert plan["dy_elems"] == 2 * b * t * f * width
+    assert plan["stats_floats"] == 2 * 2 * groups * width
 
 
 def test_split_train_plan_span_route_and_refusals():

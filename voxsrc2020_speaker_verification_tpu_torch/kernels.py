@@ -217,7 +217,7 @@ SPLIT_TRAIN = CudaKernel("split_train", "split_train.cu", {
     "split_train_fwd": [_I, _I] + [_P] * 13 + [_F] * 4 + [_I, _P],
     "split_train_finish": [_I] + [_P] * 4 + [_P],
     "split_train_bwd_stats": [_I, _I] + [_P] * 10 + [_I, _P],
-    "split_train_bwd_grad": [_I, _I] + [_P] * 14 + [_I, _L, _P],
+    "split_train_bwd_grad": [_I, _I] + [_P] * 19 + [_I, _L, _P],
 })
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
            MARGIN_CE, SLIDING_CMVN, ATT_POOL, SPLIT_TRAIN)

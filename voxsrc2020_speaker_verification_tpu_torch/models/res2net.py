@@ -13,8 +13,9 @@ last group.
 Training mode: the stride-1 chain is K9 / K9b (``csrc/split_train.cu``,
 wrapped by :func:`split_chain_train`): s launches forward (one a group,
 each staging in_i = x_i + mask * y_{i-1}, the conv, z_i saved and its BN
-statistics; then one that normalizes the last group) and two a group
-backward. Where BN groups span data ranks (K5's spanning mode) the chain
+statistics; then one that normalizes the last group) and s backward (the
+last group's statistics, then one a group that folds the previous group's
+statistics in). Where BN groups span data ranks (K5's spanning mode) the chain
 keeps the per-group ``F.conv2d`` -> K5 route (``"span"``). The stride-2
 stage is one grouped conv, one K5 launch over all s-1 groups (statistics
 are per channel, so this is exact) and the average-pool tail. K2 stays the
@@ -283,7 +284,7 @@ def _split_chain_wgmma(x, weight, means, variances, m, out, plan, eps) -> torch.
 # K9 / K9b: the stride-1 split chain in training
 # ---------------------------------------------------------------------------
 
-# CTAs a forward / dgrad / statistics launch and the weight gradient aim at,
+# Slabs a forward / dgrad / statistics launch and the weight gradient's CTAs aim at,
 # at w = 8 and at wider groups (more work a patch: fewer, longer slabs);
 # chosen by timing the bench step's four stride-1 shapes on an H100
 # (PERF.md, PR 15)
@@ -293,56 +294,132 @@ _TRAIN_THREADS = 128
 _TRAIN_CO_TILE = 8        # output channels of a float weight-gradient tile
 _TRAIN_CI_TILE = 64       # input channels of a float weight-gradient tile, at most
 _TRAIN_MMA_MTILES = 8     # m tiles (two (8-channel group, tap) chunks each) of an mma weight tile
-_TRAIN_MMA_NTILES = 4     # n tiles (8 output channels) of an mma weight tile
+# bf16 widths of the mma.sync variant: one pass of w / 8 n tiles covers w
+_TRAIN_MMA_W = (8, 16, 24)
 _TRAIN_SPLIT_CHUNK = 32   # weight-gradient splits that a first-level sum adds
 # split_train_bwd_stats' reduction buffers: 2 channel slots (or, bf16 at
 # w % 8 == 0, 8 channels) a thread by two sums
 _TRAIN_STATS_SMEM = {False: 4 * 2 * 2 * _TRAIN_THREADS, True: 4 * 2 * 8 * _TRAIN_THREADS}
+# The Hopper design (csrc/split_train.cu, "wgmma"): bf16 at these widths;
+# persistent CTAs walk about _TRAIN_WG_SLABS slabs, the weight gradient
+# takes at most _TRAIN_WG_WGRAD_CTAS CTAs. That count fixes the split of
+# positions and so the order in which dW's partials are added: it is a
+# constant, not the card's SM count, so that dW is the same bits on every
+# card (132 is an H100 SXM's SMs: one wave there, two or more on a card
+# with fewer). The weight ring's slices by m tiles a consumer warpgroup
+# (_train_wg_mt).
+_TRAIN_WGMMA_W = (32, 48, 64, 96, 192)
+_TRAIN_WG_SLABS = 512
+_TRAIN_WG_WGRAD_CTAS = 132
+_TRAIN_WG_RING = {1: 5, 2: 8}
+_TRAIN_WG_CONSUMERS = 256
+
+
+def _train_wg_mt(width: int) -> int:
+    """64-row m tiles a consumer warpgroup of the Hopper conv
+    (csrc/split_train.cu:wg_mt): two where w / 2 accumulators each fit."""
+    return 2 if width <= 96 else 1
+
+
+def _train_wg_kps(width: int) -> int:
+    """k steps of 16 a weight slice (csrc/split_train.cu:wg_kps)."""
+    return 2 if _train_wg_mt(width) == 2 and (9 * width // 16) % 2 == 0 else 3
+
+
+def _train_wg_slice_bytes(width: int) -> int:
+    """Bytes of a weight-ring slice (wg_kps k steps of 16 rows of w)."""
+    return _train_wg_kps(width) * 16 * width * 2
+
+
+def _train_wg_slices(width: int) -> int:
+    """Slices of the group's 9 w x w weights (csrc/split_train.cu:
+    wg_slices): the ring at w <= 64, where they stay resident."""
+    return 9 * width // 16 // _train_wg_kps(width)
+
+
+def _train_wg_wgrad(width: int) -> dict:
+    """The Hopper weight gradient's tiles (csrc/split_train.cu: wg_mtiles,
+    wg_wmt, wg_nc8): 64-row m tiles of (chunk q = 8-channel group * 9 + tap,
+    input channel) rows by all w output channels, ``wmt`` a warpgroup and
+    three warpgroups a tile; ``nc8`` 8-channel groups of in_i a tile's halo
+    spans at most; ``went`` floats of a tile's partial."""
+    nq = 9 * (width // 8)
+    mtiles = -(-nq // 8)
+    wmt = min(192 // width, -(-mtiles // 3))
+    return {"nq": nq, "mtiles": mtiles, "wmt": wmt, "wtiles": -(-mtiles // (3 * wmt)),
+            "nc8": min(width // 8, (24 * wmt - 1) // 9 + 2), "went": 192 * wmt * width}
+
+
+def _train_wg_conv_smem(width: int, hpos: int, ring: int) -> int:
+    """Shared memory of the Hopper conv launches (csrc/split_train.cu:
+    wg_conv_smem): the weight ring, two halo stages, the consumers' slab-sum
+    buffer, the mbarriers."""
+    return (ring * _train_wg_slice_bytes(width) + 2 * _align16(hpos * _halo_stride(width) * 2)
+            + _TRAIN_WG_CONSUMERS * 16 * 4 + (4 + 2 * ring) * 8)
+
+
+def _train_wg_wgrad_smem(width: int, wtt: int, tf: int) -> int:
+    """Shared memory of the Hopper weight gradient (csrc/split_train.cu:
+    wg_wgrad_layout) at patches of wtt x tf: the operands (dz, rows padded
+    to 16; in_i's halo of the tile's 8-channel groups), the raw rows of the
+    next patch (z_i and d_i; x_i's and z_{i-1}'s halo) and the BN parameter
+    table (6 w floats)."""
+    pr = -(-(wtt * tf) // 16) * 16
+    hpos = (wtt + 2) * (tf + 2)
+    nc = 8 * _train_wg_wgrad(width)["nc8"]
+    return (3 * _align16(pr * width * 2) + _align16(hpos * _halo_stride(nc) * 2)
+            + 2 * _align16(hpos * nc * 2) + 6 * width * 4)
 
 
 def _align16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def _train_conv_smem(width: int, hpos: int, mma: bool, staged: bool) -> int:
+def _train_mma_raw_bytes(width: int, tt: int, items: int) -> int:
+    """The mma variant's raw buffer (csrc/split_train.cu:mma_raw_bytes): two
+    16-byte rows an item, the BN parameters (6, w) and tt + 2 mask rows."""
+    return 32 * items + 4 * (6 * width + tt + 2)
+
+
+def _train_conv_smem(width: int, tt: int, tf: int, mma: bool) -> int:
     """Shared memory of K9's conv launches (csrc/split_train.cu:conv_smem):
     the halo patch (bf16 at the padded stride, or float at an odd stride),
-    the float variant's weight chunk, the warps' and the slab's sums, and
-    the staged weights (``staged``: the mma variant where one pass covers
-    w)."""
+    the float variant's weight chunk, the warps' and the slab's sums; the
+    mma variant's staged weights and its raw buffer (hpos w / 8 items)."""
+    hpos = (tt + 2) * (tf + 2)
     halo = _align16(hpos * _halo_stride(width) * 2) if mma else _align16(hpos * (width | 1) * 4)
     smem = _align16(halo + (0 if mma else 9 * width * _TRAIN_CO_TILE * 4) + 4 * 10 * width)
-    return smem + (2 * width * _weight_stride(width) if staged else 0)
+    if not mma:
+        return smem
+    return (smem + 2 * width * _weight_stride(width)
+            + _train_mma_raw_bytes(width, tt, hpos * (width // 8)))
 
 
 def _train_wgrad_smem(width: int, tt: int, tf: int, mma: bool) -> int:
     """Shared memory of K9b's weight-gradient role (csrc/split_train.cu:
     wgrad_smem): dz at the patch's positions and in_i's halo for the tile's
-    input channels; mma: 128 bf16 rows of the tile's output channels, and a
-    halo of at most three 8-channel groups."""
+    input channels; mma: 128 bf16 rows and the halo, both of all w
+    channels, and the raw buffer of 128 + hpos rows of w / 8 items."""
     hpos = (tt + 2) * (tf + 2)
     if mma:
-        wn = min(_TRAIN_MMA_NTILES, width // 8)
-        return (_align16(2 * _TRAIN_THREADS * _halo_stride(8 * wn))
-                + 2 * hpos * _halo_stride(8 * min(3, width // 8)))
+        hs = _halo_stride(width)
+        return (_align16(2 * _TRAIN_THREADS * hs) + _align16(2 * hpos * hs)
+                + _train_mma_raw_bytes(width, tt, (_TRAIN_THREADS + hpos) * (width // 8)))
     return 4 * (tt * tf * _TRAIN_CO_TILE + hpos * (min(width, _TRAIN_CI_TILE) | 1))
 
 
 def _train_wgrad_tiles(width: int, mma: bool) -> dict:
     """K9b's weight-gradient tiles (csrc/split_train.cu:make_plan). mma:
     chunks q = 8-channel group * 9 + tap, ``nq`` of them, two a 16-row m
-    tile; tiles of ``wm`` m tiles by ``wn`` n tiles of 8 output channels,
-    ``mgroups`` x ``ngroups``; float: ``co_tile`` output by ``ci_tile``
-    input channels, every tap. ``went``: floats of a tile's partial."""
+    tile; ``wtiles`` tiles of ``wm`` m tiles by all w output channels;
+    float: ``co_tile`` output by ``ci_tile`` input channels, every tap.
+    ``went``: floats of a tile's partial."""
     if mma:
         nq = 9 * (width // 8)
         mtiles = -(-nq // 2)
-        mgroups = -(-mtiles // _TRAIN_MMA_MTILES)
-        wm = -(-mtiles // mgroups)
-        wn = min(_TRAIN_MMA_NTILES, width // 8)
-        ngroups = -(-(width // 8) // wn)
-        return {"nq": nq, "mtiles": mtiles, "mgroups": mgroups, "ngroups": ngroups, "wm": wm,
-                "wn": wn, "wtiles": mgroups * ngroups, "went": wm * 16 * wn * 8}
+        wtiles = -(-mtiles // _TRAIN_MMA_MTILES)
+        wm = -(-mtiles // wtiles)
+        return {"nq": nq, "mtiles": mtiles, "wm": wm, "wtiles": wtiles, "went": wm * 16 * width}
     ci_tile = min(width, _TRAIN_CI_TILE)
     co_tiles, ci_tiles = -(-width // _TRAIN_CO_TILE), -(-width // ci_tile)
     return {"co_tile": _TRAIN_CO_TILE, "ci_tile": ci_tile, "co_tiles": co_tiles,
@@ -361,24 +438,34 @@ def split_train_plan(width: int, split: int, shape, groups: int, dtype: torch.dt
     chain keeps F.conv2d + K5's spanning mode, nothing else planned), else
     ``"kernels"``, with:
 
-    * ``variant``: ``"mma"`` (bfloat16, w % 8 == 0: mma.sync, ``nt`` 8-wide
-      n tiles a pass, ``passes`` of them; the weights in shared memory
-      where one pass covers w, ``staged``) or ``"fma"`` (float32 and other
+    * ``variant``: ``"wgmma"`` (bfloat16 at w in ``_TRAIN_WGMMA_W``: the
+      Hopper design, persistent warp-specialized CTAs on wgmma; ``ring``
+      weight slices (all of them, resident, at w <= 64), the patch up to
+      128 or 256 rows, the weight
+      gradient's tiles :func:`_train_wg_wgrad`), ``"mma"`` (bfloat16 at w in
+      ``_TRAIN_MMA_W``: mma.sync, all ``nt`` = w / 8 n tiles in one pass,
+      the weights in shared memory) or ``"fma"`` (float32 and the other
       widths, CUDA cores);
-    * the patch: ``tt`` x ``tf`` <= 128 positions of one sample, F cut evenly
-      into ``ft`` tiles of at most 16, ``tt`` as large as 128 positions and
-      the shared memory allow; ``patches`` a sample;
+    * the patch: ``tt`` x ``tf`` <= 128 positions of one sample (wgmma: 128
+      or 256, :func:`_split_train_wg_plan`), F cut evenly into ``ft`` tiles
+      of at most 16, ``tt`` as large as the rows and the shared memory
+      allow; ``patches`` a sample;
     * the slabs: ``k`` a sample (a run of patches, or of positions for the
       statistics launch, inside one sample: never across a BN group),
-      ``slabs`` = B * k CTAs a launch, about ``_TRAIN_SLAB_CTAS``'s;
-    * the weight gradient (:func:`_train_wgrad_tiles`): ``wtiles`` tiles,
-      each summed over ``nsplit`` position splits (CTAs): the last of each
-      run of ``_TRAIN_SPLIT_CHUNK`` adds the run in order (``nchunks``
-      runs), the last run the runs;
+      ``slabs`` = B * k a launch, about ``_TRAIN_SLAB_CTAS``'s (fma: one
+      CTA a slab; mma: walked by persistent CTAs, as many as fit the card;
+      wgmma: about ``_TRAIN_WG_SLABS``, walked by persistent CTAs);
+    * the weight gradient (:func:`_train_wgrad_tiles`; wgmma:
+      :func:`_train_wg_wgrad`, its own patches of ``wtt`` x ``tf``):
+      ``wtiles`` tiles, each summed over ``nsplit`` position splits (CTAs):
+      the last of each run of ``_TRAIN_SPLIT_CHUNK`` adds the run in order
+      (``nchunks`` runs), the last run the runs;
     * shared memory of each launch (``smem_fwd``, ``smem_stats``,
       ``smem_grad``, <= 227 KB), and the scratch: ``part_floats`` (the
       slabs' (2, w) partials), ``wpart_floats`` (the weight tiles'
-      partials), ``tickets`` (one, and nchunks + 1 a weight tile).
+      partials), ``tickets`` (one, and nchunks + 1 a weight tile), and the
+      backward's folded statistics, double-buffered: ``dy_elems`` (d_i, two
+      (B, T, F, w)) and ``stats_floats`` (its sums, two (2, G, w)).
 
     The C entries recompute the layout from the plan's ints and refuse a
     plan whose shared memory or scratch differs (kPlanMismatch)."""
@@ -390,14 +477,16 @@ def split_train_plan(width: int, split: int, shape, groups: int, dtype: torch.dt
                          f"{width} in {groups} BN groups")
     if width > 256:
         raise ValueError(f"split_train_plan: width {width} > 256")
-    mma = dtype == torch.bfloat16 and width % 8 == 0
-    nt = next(n for n in (4, 3, 2, 1) if (width // 8) % n == 0) if mma else 0
-    passes = width // (8 * nt) if mma else 1
-    staged = mma and passes == 1
+    # the backward's folded statistics: d_i and its sums (mean(d), mean(d
+    # xhat) per BN group and channel), two buffers each
+    folded = {"dy_elems": 2 * b * t * f * width, "stats_floats": 2 * 2 * groups * width}
+    if dtype == torch.bfloat16 and width in _TRAIN_WGMMA_W:
+        return {**_split_train_wg_plan(width, shape), **folded}
+    mma = dtype == torch.bfloat16 and width in _TRAIN_MMA_W
     ft = -(-f // 16)
     tf = -(-f // ft)
     for tt in range(max(1, min(_TRAIN_THREADS // tf, t)), 0, -1):
-        smem_fwd = _train_conv_smem(width, (tt + 2) * (tf + 2), mma, staged)
+        smem_fwd = _train_conv_smem(width, tt, tf, mma)
         smem_grad = max(smem_fwd, _train_wgrad_smem(width, tt, tf, mma))
         if smem_grad <= _SMEM_BYTES:
             break
@@ -409,12 +498,63 @@ def split_train_plan(width: int, split: int, shape, groups: int, dtype: torch.dt
     tiles = _train_wgrad_tiles(width, mma)
     nsplit = max(1, min(-(-_TRAIN_WGRAD_CTAS[narrow] // tiles["wtiles"]), b * patches))
     nchunks = -(-nsplit // _TRAIN_SPLIT_CHUNK)
-    return {"route": "kernels", "variant": "mma" if mma else "fma", "nt": nt,
-            "passes": passes, "staged": staged, "tt": tt, "tf": tf, "ft": ft,
+    return {"route": "kernels", "variant": "mma" if mma else "fma",
+            "nt": width // 8 if mma else 0, "tt": tt, "tf": tf, "ft": ft,
             "patches": patches, "k": k, "slabs": b * k,
             "ci_tile": min(width, _TRAIN_CI_TILE), **tiles, "nsplit": nsplit,
             "nchunks": nchunks, "smem_fwd": smem_fwd, "smem_stats": _TRAIN_STATS_SMEM[mma],
             "smem_grad": smem_grad, "part_floats": b * k * 2 * width,
+            "wpart_floats": tiles["wtiles"] * nsplit * tiles["went"],
+            "tickets": 1 + tiles["wtiles"] * (nchunks + 1), **folded}
+
+
+def _even_tile(t: int, cap: int) -> int:
+    """The tile of the fewest even tiles of at most ``cap`` that cover t."""
+    return -(-t // -(-t // cap))
+
+
+def _split_train_wg_plan(width: int, shape) -> dict:
+    """split_train_plan's ``"wgmma"`` variant: F cut evenly into ``ft``
+    tiles of at most 16; T into the fewest even tiles of ``tt`` with tt * tf
+    within the conv's rows and its shared memory within 227 KB (``ring``
+    weight slices: at w <= 64 all of them, resident (csrc/split_train.cu:
+    wg_resident); wider, a ring of ``_TRAIN_WG_RING``'s, fewer only where
+    that does not fit), and for the weight
+    gradient into even tiles of ``wtt`` (tile rows at most 256, its shared
+    memory within 227 KB: ``wpatches`` a sample)."""
+    b, _, t, f = shape
+    mt = _train_wg_mt(width)
+    ft = -(-f // 16)
+    tf = -(-f // ft)
+    tiles = _train_wg_wgrad(width)
+    rings = (_train_wg_slices(width),) if width <= 64 else range(_TRAIN_WG_RING[mt], 1, -1)
+    for ring in rings:
+        for cap in range(max(1, min(128 * mt // tf, t)), 0, -1):
+            tt = _even_tile(t, cap)
+            hpos = (tt + 2) * (tf + 2)
+            smem_fwd = _train_wg_conv_smem(width, hpos, ring)
+            if smem_fwd <= _SMEM_BYTES:
+                break
+        else:
+            continue
+        break
+    else:
+        raise ValueError(f"split_train_plan: width {width} does not fit shared memory")
+    for cap in range(max(1, min(256 // tf, t)), 0, -1):
+        wtt = _even_tile(t, cap)
+        if _train_wg_wgrad_smem(width, wtt, tf) <= _SMEM_BYTES:
+            break
+    smem_grad = max(smem_fwd, _train_wg_wgrad_smem(width, wtt, tf))
+    patches = -(-t // tt) * ft
+    wpatches = -(-t // wtt) * ft
+    k = max(1, min(-(-_TRAIN_WG_SLABS // b), patches))
+    nsplit = max(1, min(_TRAIN_WG_WGRAD_CTAS // tiles["wtiles"], b * wpatches))
+    nchunks = -(-nsplit // _TRAIN_SPLIT_CHUNK)
+    return {"route": "kernels", "variant": "wgmma", "nt": 0, "ring": ring, "mt": mt, "tt": tt, "tf": tf, "ft": ft, "patches": patches, "k": k,
+            "slabs": b * k, "wtt": wtt, "wpatches": wpatches, "ci_tile": wtt, **tiles,
+            "nsplit": nsplit, "nchunks": nchunks,
+            "smem_fwd": smem_fwd, "smem_stats": _TRAIN_STATS_SMEM[True], "smem_grad": smem_grad,
+            "part_floats": b * k * 2 * width,
             "wpart_floats": tiles["wtiles"] * nsplit * tiles["went"],
             "tickets": 1 + tiles["wtiles"] * (nchunks + 1)}
 
@@ -432,9 +572,10 @@ def split_train_slab(plan: dict, shape, slab: int, positions: bool = False):
 def _train_plan_ints(plan: dict, shape, split: int, width: int, groups: int):
     """The plan as the C entries take it: csrc/split_train.cu's Plan ints."""
     b, _, t, f = shape
-    return (ctypes.c_int * 13)(b, t, f, split, width, groups, int(plan["variant"] == "mma"),
-                               plan["nt"], plan["tt"], plan["tf"], plan["k"], plan["ci_tile"],
-                               plan["nsplit"])
+    variant = ("fma", "mma", "wgmma").index(plan["variant"])
+    return (ctypes.c_int * 13)(b, t, f, split, width, groups, variant,
+                               plan["ring"] if variant == 2 else plan["nt"], plan["tt"],
+                               plan["tf"], plan["k"], plan["ci_tile"], plan["nsplit"])
 
 
 def split_chain_train_reference(x, weight, running_means, running_vars, groups, mask=None,
@@ -495,8 +636,10 @@ def _split_train_forward(x, weight, running_means, running_vars, mask, groups, e
     plan = split_train_plan(w, s, tuple(x.shape), groups, x.dtype)
     ints = _train_plan_ints(plan, x.shape, s, w, groups)
     dev, code = x.device, dtype_code(x.dtype)
-    # rows the output channels, K = tap * w + input channel
-    wk = weight.view(s - 1, w, w, 3, 3).permute(0, 1, 3, 4, 2).contiguous()
+    # rows the output channels, K = tap * w + input channel (wgmma:
+    # [K / 8][row][K % 8], the core matrices of its B operand)
+    wk = weight.view(s - 1, w, w, 3, 3).permute(0, 1, 3, 4, 2)
+    wk = _wg_weight_layout(wk, w) if plan["variant"] == "wgmma" else wk.contiguous()
     z = torch.empty((s - 1, b, t, f, w), dtype=x.dtype, device=dev)
     stats = torch.empty((s - 1, 3, groups, w), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
@@ -515,8 +658,18 @@ def _split_train_forward(x, weight, running_means, running_vars, mask, groups, e
     return out, z, stats
 
 
+def _wg_weight_layout(wk: torch.Tensor, w: int) -> torch.Tensor:
+    """(s-1, rows, 3, 3, w) weights as the Hopper conv's B operand: (s-1, 9 w
+    / 8, rows, 8), [K / 8][row][K % 8] with K = tap * w + channel."""
+    n = wk.shape[0]
+    return wk.reshape(n, w, 9 * w // 8, 8).permute(0, 2, 1, 3).contiguous()
+
+
 def _split_train_backward(x, weight, z, stats, mask, groups, dout):
-    """K9b's 2 (s-1) launches: (dx, the weight's gradient in x's dtype)."""
+    """K9b's s launches: group s-2's statistics, then one a group, i = s-2
+    .. 0, each with group i-1's statistics folded in (d_{i-1} and its sums
+    double-buffered: group i reads one half while it writes the other).
+    Returns (dx, the weight's gradient in x's dtype)."""
     s = z.shape[0] + 1
     b, c, t, f = x.shape
     w = c // s
@@ -526,23 +679,28 @@ def _split_train_backward(x, weight, z, stats, mask, groups, dout):
     dout = ops.aligned_operand(dout)
     # the transposed conv is the conv with flipped weights, rows the input
     # channels, K = tap * w + output channel
-    wkb = weight.view(s - 1, w, w, 3, 3).flip(3, 4).permute(0, 2, 3, 4, 1).contiguous()
+    wkb = weight.view(s - 1, w, w, 3, 3).flip(3, 4).permute(0, 2, 3, 4, 1)
+    wkb = _wg_weight_layout(wkb, w) if plan["variant"] == "wgmma" else wkb.contiguous()
     dx = torch.empty_like(x)
     dweight = torch.empty(weight.shape, dtype=x.dtype, device=dev)
-    dy = torch.empty((b, t, f, w), dtype=x.dtype, device=dev)
-    bsums = torch.empty((2, groups, w), dtype=torch.float32, device=dev)
+    dy = torch.empty(plan["dy_elems"], dtype=x.dtype, device=dev).view(2, b, t, f, w)
+    bsums = torch.empty(plan["stats_floats"], dtype=torch.float32, device=dev).view(2, 2, groups, w)
     part = stream_scratch(dev, "split_train_part", plan["part_floats"], torch.float32)
     tickets = stream_scratch(dev, "split_train_tickets", plan["tickets"], torch.int32)
     wpart = stream_scratch(dev, "split_train_wpart", plan["wpart_floats"], torch.float32)
+    last = s - 2
+    SPLIT_TRAIN.launch("split_train_bwd_stats", dev, code, last, ctypes.addressof(ints),
+                       ptr(dout), ptr(dx), ptr(z[last]), ptr(stats[last]), ptr(mask),
+                       ptr(dy[last % 2]), ptr(part), ptr(tickets), ptr(bsums[last % 2]),
+                       plan["smem_stats"])
     for i in reversed(range(s - 1)):
-        SPLIT_TRAIN.launch("split_train_bwd_stats", dev, code, i, ctypes.addressof(ints),
-                           ptr(dout), ptr(dx), ptr(z[i]), ptr(stats[i]), ptr(mask), ptr(dy),
-                           ptr(part), ptr(tickets), ptr(bsums), plan["smem_stats"])
         prev = (ptr(z[i - 1]), ptr(stats[i - 1])) if i else (None, None)
+        fold = ((ptr(dout), ptr(dy[(i - 1) % 2]), ptr(bsums[(i - 1) % 2]), ptr(part),
+                 ptr(tickets)) if i else (None,) * 5)
         SPLIT_TRAIN.launch("split_train_bwd_grad", dev, code, i, ctypes.addressof(ints), ptr(x),
-                           *prev, ptr(mask), ptr(z[i]), ptr(stats[i]), ptr(bsums), ptr(dy),
-                           ptr(wkb[i]), ptr(dx), ptr(dweight), ptr(wpart),
-                           ptr(tickets) + 4, plan["smem_grad"], wpart.numel())
+                           *prev, ptr(mask), ptr(z[i]), ptr(stats[i]), ptr(bsums[i % 2]),
+                           ptr(dy[i % 2]), ptr(wkb[i]), ptr(dx), ptr(dweight), ptr(wpart),
+                           ptr(tickets) + 4, *fold, plan["smem_grad"], wpart.numel())
     return dx, dweight
 
 
