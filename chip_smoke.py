@@ -22,8 +22,12 @@ Phases, one JSON line each:
    K8 / K8b (attentive pooling) at res2net200_att's serving and training
    heads, ECAPA-512's and a ragged shape (ATT_SHAPES), with a row masked
    throughout, a constant row and reruns; K3 / K5 at channel counts that are
-   not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM); K4 at the W =
-   1 heads of TDNN and ECAPA; K9 / K9b (the stride-1 split chain in
+   not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM); K4 and K4b on
+   their column design at the W = 1 heads of TDNN and ECAPA and a masked
+   1000-frame extraction bucket (POOL_W1_SHAPES: reruns bit for bit,
+   ``torch.var_mean`` and its autograd beside them; rows
+   ``stats_pool:column`` and ``stats_pool_bwd:column``, their launches read
+   off the encoders phase); K9 / K9b (the stride-1 split chain in
    training) at the bench step's four stride-1 stage shapes and
    res2net200_att's four (SPLIT_TRAIN_SHAPES): bf16 and float32 against the
    plain version
@@ -420,6 +424,10 @@ def split_launches_by_function(k2_calls, split) -> dict:
 
 
 # the eval-only kernels: no training step may launch them
+# K4 and K4b once a microbatch, on their ring design (heads of <= 128 frames:
+# the Res2Net and DPN heads)
+POOL_RING_PER_MICROBATCH = {"stats_pool.stats_pool:ring": 1,
+                            "stats_pool_bwd.stats_pool_bwd:ring": 1}
 EVAL_KERNEL_FNS = tuple(f"split_conv.{fn}" for fn in SPLIT_FUNCTIONS.values()) + ("bn_act.bn_act",)
 
 
@@ -1472,29 +1480,106 @@ def check_att_pool(dev, gen):
     return k8, k8b
 
 
+# K4 / K4b's column design (T past the 128-row ring): the W = 1 heads of
+# TDNN (training, B = 1024 x 320 frames) and ECAPA-512 (training, 256 x 200;
+# the attention's [mean; std] input), and an extraction bucket (1000 frames,
+# lengths masked); 1536 channels, bf16
+POOL_W1_SHAPES = (("tdnn", (1024, 1536, 320, 1), False), ("ecapa512", (256, 1536, 200, 1), False),
+                  ("extract1000", (128, 1536, 1000, 1), True))
+
+
 def check_stats_pool_w1(dev, gen):
-    """K4 at the W = 1 heads of TDNN (B = 1024 x 320 frames) and ECAPA-512
-    (256 x 200; the attention's [mean; std] input), 1536 channels, bf16:
-    past its 128-row ring, so on its chunked path. Error against the plain
-    version, device time and bound."""
+    """K4 and K4b at the W = 1 shapes (POOL_W1_SHAPES), on their column
+    design: output and input gradient against the plain version and its
+    autograd (bf16 at each shape, float32 at ECAPA's), reruns bit for bit,
+    device time, bound, and torch.var_mean and its autograd beside them.
+    Returns the kernels line's two rows (launches filled in by main)."""
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
 
-    out = {}
-    for name, shape in (("tdnn", (1024, 1536, 320, 1)), ("ecapa512", (256, 1536, 200, 1))):
+    fwd, bwd = {}, {}
+    for name, shape, masked in POOL_W1_SHAPES:
+        b, c, t, w = shape
+        mask = lengths_mask(gen, b, t, dev) if masked else None
         x = _layout(torch.randn(shape, generator=gen, device=dev) * 2 + 1).bfloat16()
-        e = rel_err(ops.stats_pool(x), ops.stats_pool_reference(x.float()))
-        if e > TOL_BF16["stats_pool"]:
-            fail(f"stats_pool at {shape}: rel err {e}")
-        b, c, _, w = shape
-        out[name] = dict(shape=list(shape), max_rel_err=e,
-                         device_ms=device_ms(lambda: ops.stats_pool(x), "stats_pool_kernel"),
-                         bound_ms=bound_ms(2 * x.numel() + 2 * b * 2 * c * w, 3.0 * x.numel(),
-                                           torch.bfloat16)[0],
-                         library_device_ms=device_ms(var_mean_call(x, backward=False)))
-        del x
+        dout = _layout(torch.randn((b, 2 * c, 1, w), generator=gen, device=dev)).bfloat16()
+        plan = ops.stats_pool_plan(b, t, w, c, torch.bfloat16)
+        if plan["design"] != "column" or plan["x_reads"] != 1:
+            fail(f"stats_pool at {shape}: plan {plan}, not the column design")
+        errs, errs_grad = {}, {}
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if name == "ecapa512" else ()):
+            xd, dd = x.to(dtype), dout.to(dtype)
+            got, again, want = (pool_grad(fn, xd, mask, dd) for fn in (
+                ops.stats_pool, ops.stats_pool, ops.stats_pool_reference))
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                fail(f"stats_pool at {shape}: two {dtype} runs on the same inputs differ")
+            errs[str(dtype)], errs_grad[str(dtype)] = rel_err(got[0], want[0]), rel_err(got[1],
+                                                                                       want[1])
+            tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16["stats_pool"]
+            if errs[str(dtype)] > tol or errs_grad[str(dtype)] > tol:
+                fail(f"stats_pool at {shape} {dtype}: rel err {errs[str(dtype)]}, "
+                     f"grad {errs_grad[str(dtype)]}")
+            del got, again, want, xd, dd
+        mbytes = 0 if mask is None else 4 * b * t
+        xi = x.detach().requires_grad_(True)
+        y = ops.stats_pool(xi, mask)
+        common = dict(shape=list(shape), masked=masked, plan=plan)
+        fwd[name] = dict(
+            common, max_rel_err=errs,
+            ms=time_ms(lambda: ops.stats_pool(x, mask), reps=20),
+            device_ms=device_ms(lambda: ops.stats_pool(x, mask), "stats_pool_kernel"),
+            plain_ms=time_ms(lambda: ops.stats_pool_reference(x, mask), reps=20),
+            plain_device_ms=device_ms(lambda: ops.stats_pool_reference(x, mask)),
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                2 * x.numel() + mbytes + 2 * b * 2 * c * w, 3.0 * x.numel(), torch.bfloat16))),
+            library_ms=time_ms(var_mean_call(x, backward=False), reps=20),
+            library_device_ms=device_ms(var_mean_call(x, backward=False)))
+        bwd[name] = dict(
+            common, max_rel_err=errs_grad,
+            ms=time_ms(lambda: torch.autograd.grad(y, [xi], dout, retain_graph=True), reps=20),
+            device_ms=device_ms(lambda: torch.autograd.grad(y, [xi], dout, retain_graph=True),
+                                "stats_pool_bwd_kernel"),
+            plain_ms=time_fwd_bwd(lambda v: ops.stats_pool_reference(v, mask), [x], dout)[1],
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                2 * 2 * x.numel() + mbytes + 2 * dout.numel(), 6.0 * x.numel(), torch.bfloat16))),
+            library_ms=time_ms(var_mean_call(x, backward=True), reps=20),
+            library_device_ms=device_ms(var_mean_call(x, backward=True)))
+        del x, xi, y, dout, mask
         torch.cuda.empty_cache()
-    emit({"phase": "kernel", "name": "stats_pool_w1", **out})
-    return out
+    emit({"phase": "kernel", "name": "stats_pool_w1", "fwd": fwd, "bwd": bwd})
+    rows, bf16, fp32 = [], str(torch.bfloat16), str(torch.float32)
+    for kname, by, src, what in (
+            ("stats_pool:column", fwd, "stats_pool.cu", "stats_pool"),
+            ("stats_pool_bwd:column", bwd, "stats_pool_bwd.cu",
+             "stats_pool backward, JAX autodiff")):
+        head = by["tdnn"]
+        rows.append(dict(
+            name=kname, route="cuda",
+            source=f"voxsrc2020_speaker_verification_tpu_torch/csrc/{src}",
+            replaces=f"voxsrc2020_speaker_verification_tpu/ops/nn.py:487 ({what}, XLA) at "
+                     "W = 1, T > 128: the TDNN and ECAPA heads",
+            max_abs_err=max(r["max_rel_err"][bf16] for r in by.values()),
+            max_abs_err_is="bfloat16, relative to the plain version's largest magnitude",
+            max_rel_err_bf16=max(r["max_rel_err"][bf16] for r in by.values()),
+            tolerance=TOL_BF16["stats_pool"],
+            max_rel_err_fp32=max(r["max_rel_err"][fp32] for r in by.values()
+                                 if fp32 in r["max_rel_err"]),
+            tolerance_fp32=TOL_FP32, dtype="bfloat16",
+            per=f"one call at TDNN's head {tuple(head['shape'])}; by_shape: every W = 1 shape",
+            ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
+            library_device_ms=head["library_device_ms"],
+            library_call="torch.var_mean over T" + (" and its autograd" if "bwd" in kname
+                                                    else "") + ", no mask",
+            by_shape=by, reruns_bit_equal=True))
+    return rows
+
+
+def pool_grad(fn, x, mask, dout):
+    """(output, input gradient) of the stats pool ``fn`` at x."""
+    xi = x.detach().requires_grad_(True)
+    y = fn(xi, mask)
+    y.backward(dout)
+    return y.detach(), xi.grad
 
 
 def check_bn_any_c(dev, gen):
@@ -1737,6 +1822,11 @@ def train_parity_phase(dev, model=TRAIN_MODEL, batch=16, hard=True):
         fail(f"train_parity {model}: GPU vs CPU beyond tolerance: {bad}")
 
 
+def fn_total(counts, fn):
+    """Launches of C function ``fn`` over its paths (``fn:<path>`` keys)."""
+    return sum(v for k, v in counts.items() if k == fn or k.startswith(fn + ":"))
+
+
 def row_counts(row, counts):
     """The launch counts of a kernels-line row's C functions: those of its
     library (``library``, else its name), only ``functions`` where it names
@@ -1857,8 +1947,7 @@ def lmft_phase(dev, state, smi, workdir):
                       "bn_train.bn_cluster_bwd": cluster,
                       "bn_train.bn_train_fwd": multi + multi_again,
                       "bn_train.bn_train_bwd": multi,
-                      **K6_SLAB_PER_MICROBATCH,
-                      "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
+                      **K6_SLAB_PER_MICROBATCH, **POOL_RING_PER_MICROBATCH}
     microbatches = LMFT_STEPS * config.num_accumulation_steps
     for fn, n in per_microbatch.items():
         if counts[fn] != microbatches * n:
@@ -2126,6 +2215,10 @@ def check_fbank_dither(dev, cfg, crops, noise):
     flops = b * t * (2 * 2 * length * nfft + 2 * length + 2 * nfft * bins)
     nbytes = 4 * (waves.numel() + noise.numel() + 2 * a.size + nfft * bins + b * t * bins)
     bms, by = bound_ms(nbytes, flops, torch.float32)
+    dev_ms = device_ms(lambda: fb.fbank(waves, cfg, noise), "fbank_kernel")
+    dev_ms_off = device_ms(lambda: fb.fbank(waves, off), "fbank_kernel")
+    emit({"phase": "kernel", "name": "fbank:dither", "device_ms": dev_ms,
+          "device_ms_dither_off": dev_ms_off, "dither_over_dither_off": dev_ms / dev_ms_off})
     return dict(name="fbank:dither", route="cuda",
                 source="voxsrc2020_speaker_verification_tpu_torch/csrc/fbank.cu",
                 replaces="voxsrc2020_speaker_verification_tpu/ops/fbank.py:210 (fbank with "
@@ -2136,11 +2229,10 @@ def check_fbank_dither(dev, cfg, crops, noise):
                 dtype="float32", per=f"one raw-training microbatch ({b}, {waves.shape[1]}) "
                                      f"samples, {t} frames, dither {cfg.dither}",
                 ms=time_ms(lambda: fb.fbank(waves, cfg, noise)),
-                device_ms=device_ms(lambda: fb.fbank(waves, cfg, noise), "fbank_kernel"),
+                device_ms=dev_ms,
                 plain_ms=time_ms(lambda: fb.fbank_reference(waves, cfg, noise)),
                 plain_device_ms=device_ms(lambda: fb.fbank_reference(waves, cfg, noise)),
-                device_ms_dither_off=device_ms(
-                    lambda: fb.fbank(waves, off), "fbank_kernel"),
+                device_ms_dither_off=dev_ms_off, dither_over_dither_off=dev_ms / dev_ms_off,
                 framed_draws_bit_equal_to_dithered_wave=framed_equal, reruns_bit_equal=True, bound_ms=bms, bound_by=by, library_ms=None,
                 library_note="none: no single PyTorch call computes Kaldi FBANK")
 
@@ -2783,24 +2875,30 @@ def register_thin_variants():
 
 
 def k5_calls(config, remat_stages):
-    """K5's and K9 / K9b's calls per microbatch of ``config``'s model, read
-    off one training forward and backward of the full-width model through
-    the plain path on the CPU (a small input: bn_groups rows of 24 frames):
-    the ``ops.bn_train`` and ``split_chain_train`` calls of the forward and
-    of the rematerialized recompute in the backward, K5's each by the design
-    ``bn_train_plan`` gives it at the card's shape, and how many take the
-    single-channel path (C % 4 != 0). Returns the expected per-microbatch
-    launch counts."""
+    """K5's, K9 / K9b's and K4 / K4b's calls per microbatch of ``config``'s
+    model, read off one training forward and backward of the full-width
+    model through the plain path on the CPU (a small input: bn_groups rows
+    of 24 frames): the ``ops.bn_train``, ``split_chain_train`` and
+    ``ops.stats_pool`` calls of the forward and of the rematerialized
+    recompute in the backward, K5's each by the design ``bn_train_plan``
+    gives it at the card's shape, K4's by ``stats_pool_plan``'s at the
+    card's frames (the head's 24-frame length scaled to config.feat_length),
+    and how many take K5's single-channel path (C % 4 != 0). Returns the
+    expected per-microbatch launch counts."""
     from voxsrc2020_speaker_verification_tpu_torch.models import get_model
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
 
-    calls, chains, phase = [], [], ["fwd"]
-    orig, orig_chain = ops.bn_train, rn.split_chain_train
+    calls, chains, pools, phase = [], [], [], ["fwd"]
+    orig, orig_chain, orig_pool = ops.bn_train, rn.split_chain_train, ops.stats_pool
 
     def record(x, *args, **kw):
         calls.append((phase[0], x.ndim, x.shape[1]))
         return orig(x, *args, **kw)
+
+    def record_pool(x, *args, **kw):
+        pools.append((phase[0], tuple(x.shape)))
+        return orig_pool(x, *args, **kw)
 
     def record_chain(x, weight, running_means, *args, **kw):
         chains.append((phase[0], len(running_means) + 1))
@@ -2812,13 +2910,13 @@ def k5_calls(config, remat_stages):
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.05)
     model.set_bn_groups(config.bn_groups)
-    ops.bn_train, rn.split_chain_train = record, record_chain
+    ops.bn_train, rn.split_chain_train, ops.stats_pool = record, record_chain, record_pool
     try:
         y = model(torch.randn(config.bn_groups, 24, config.feat_dim), True)
         phase[0] = "recompute"
         y.square().sum().backward()
     finally:
-        ops.bn_train, rn.split_chain_train = orig, orig_chain
+        ops.bn_train, rn.split_chain_train, ops.stats_pool = orig, orig_chain, orig_pool
 
     def design(ndim, c):
         shape = (config.batch_size, c, 1, 1) if ndim == 4 else (config.batch_size, c)
@@ -2829,7 +2927,16 @@ def k5_calls(config, remat_stages):
         n[(ph, design(ndim, c))] += 1
     k9 = {ph: {(None, None, s): sum(1 for p, s2 in chains if p == ph and s2 == s)
                for s in {s for _, s in chains}} for ph in ("fwd", "recompute")}
-    return {**k9_launches(k9["fwd"], k9["recompute"]),
+    if sum(1 for ph, _ in pools if ph == "fwd") != 1:
+        fail(f"k5_calls {config.model}: stats_pool calls {pools}, not one a forward")
+    pool = {}
+    for ph, (_, c, t, w) in pools:
+        frames = -(-t * config.feat_length // 24)
+        d = ops.stats_pool_plan(config.batch_size, frames, w, c, torch.bfloat16)["design"]
+        for fn in ("stats_pool.stats_pool", "stats_pool_bwd.stats_pool_bwd"):
+            if fn.startswith("stats_pool.") or ph == "fwd":
+                pool[f"{fn}:{d}"] = pool.get(f"{fn}:{d}", 0) + 1
+    return {**k9_launches(k9["fwd"], k9["recompute"]), **pool,
             "bn_train.bn_cluster_fwd": n[("fwd", "cluster")] + n[("recompute", "cluster")],
             "bn_train.bn_cluster_bwd": n[("fwd", "cluster")],
             "bn_train.bn_train_fwd": n[("fwd", "multi")] + n[("recompute", "multi")],
@@ -2863,7 +2970,6 @@ def encoder_train(dev, spec, workdir, smi):
     per_microbatch, single_channel = k5_calls(config, stages)
     att = "_att" in model or model.startswith("ecapa")
     per_microbatch.update({
-        "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1,
         "att_pool.att_pool_fwd": int(att), "att_pool.att_pool_bwd": int(att),
         **{k: (v if config.projection == "sc_cm_linear" else 0)
            for k, v in K6_SLAB_PER_MICROBATCH.items()}})
@@ -2951,7 +3057,7 @@ def encoder_extract(dev, state, config, workdir):
     seconds = time.perf_counter() - t0
     counts = kernels.function_launch_counts()
     att = "_att" in cfg.model or cfg.model.startswith("ecapa")
-    if counts["att_pool.att_pool_fwd"] != int(att) or counts["stats_pool.stats_pool"] != 1 \
+    if counts["att_pool.att_pool_fwd"] != int(att) or fn_total(counts, "stats_pool.stats_pool") != 1 \
             or counts["bn_act.bn_act"] == 0 or counts["att_pool.att_pool_bwd"]:
         fail(f"encoders {cfg.model}: extraction launches {counts}")
     emb = np.stack([out[u] for u, _ in feats])
@@ -4196,8 +4302,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     att_rows = list(check_att_pool(dev, gen))
     any_c = check_bn_any_c(dev, gen)
-    with torch.inference_mode():
-        k4_w1 = check_stats_pool_w1(dev, gen)
+    k4_w1 = check_stats_pool_w1(dev, gen)
     torch.cuda.empty_cache()
     # K5's one-launch cluster design takes the 4-D calls, the multi-kernel
     # design the 2-D head calls (bn_train_plan)
@@ -4205,7 +4310,7 @@ def main() -> int:
     per_microbatch = {"bn_train.bn_cluster_fwd": n_cluster, "bn_train.bn_cluster_bwd": n_cluster,
                       "bn_train.bn_train_fwd": n_multi, "bn_train.bn_train_bwd": n_multi,
                       **K6_SLAB_PER_MICROBATCH, **k9_launches(chains),
-                      "stats_pool.stats_pool": 1, "stats_pool_bwd.stats_pool_bwd": 1}
+                      **POOL_RING_PER_MICROBATCH}
 
     with tempfile.TemporaryDirectory() as workdir:
         counts, serve_fn_counts = serve_phase(dev, workdir, per_forward, split_per_forward)
@@ -4277,9 +4382,19 @@ def main() -> int:
         row["launches_on"] = "encoders phase: training and extraction"
         row["launches_by_model"] = {m: {"train": enc_train[m][fn], "extract": enc_extract[m][fn]}
                                     for m in enc_train}
+    # K4 / K4b's column design: the W = 1 heads of the encoders phase (TDNN
+    # and ECAPA-512, training and extraction)
+    for row in k4_w1:
+        fn = ("stats_pool.stats_pool:column" if row["name"] == "stats_pool:column"
+              else "stats_pool_bwd.stats_pool_bwd:column")
+        row["launches"] = sum(c[fn] for c in enc_train.values()) + sum(
+            c[fn] for c in enc_extract.values())
+        row["launches_on"] = "encoders phase: training and extraction"
+        row["launches_by_model"] = {m: {"train": enc_train[m][fn], "extract": enc_extract[m][fn]}
+                                    for m in enc_train}
+        if row["launches"] == 0:
+            fail(f"the encoders phase launched no {row['name']}")
     for row in rows + train_rows:
-        if row["name"] == "stats_pool":
-            row["w1_heads"] = k4_w1
         if row["name"] in ("bn_act", "bn_train"):
             row["any_channel_count"] = any_c
             counts_by = enc_extract if row["name"] == "bn_act" else enc_train
@@ -4302,7 +4417,8 @@ def main() -> int:
         row["launches_slice13"] = {leg: c[row["name"]] for leg, c in slice13.items()}
         if not any(row["launches_slice13"].values()):
             fail(f"slice 13's paths launched no {row['name']}")
-    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows + slice12_rows})
+    emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows + slice12_rows
+          + k4_w1})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

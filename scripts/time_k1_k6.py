@@ -17,9 +17,12 @@ call for the plain versions. Each is measured ``--rounds`` times in turns
 (the spread of one card). Prints one JSON line with the card's name and
 power limit. The script uses only the wrappers' public interfaces, so the
 same file times an older tree of the port when copied into it.
-``--save`` writes K1's outputs (dither off) at the three waves to a file;
+``--save`` writes K1's outputs at the three waves (dither off) and at the
+raw microbatch (dither off and on, the same draws) to a file;
 ``--compare-with`` reads such a file, from another tree on the same card,
-and the JSON line says whether K1's outputs are bit-equal to it.
+and the JSON line says whether K1's outputs are bit-equal to it (the
+outputs both files hold). The line also gives the dithered variant's
+median device time over the dither-off one's at the raw microbatch.
 """
 
 from __future__ import annotations
@@ -121,15 +124,22 @@ def main() -> int:
         rows["k6_step"].append(STEP_CALLS * (f + b))
         rows["k6_plain_step"].append(STEP_CALLS * device_ms(plain_step, None, args.reps))
     outputs = {f"k1_{s}s": fb.fbank(w, cfg).cpu() for s, w in waves.items()}
+    if dither:
+        outputs["k1_raw_off"] = fb.fbank(raw, cfg).cpu()
+        outputs["k1_raw_dither"] = fb.fbank(raw, dcfg, noise).cpu()
+    ratio = None
+    if dither:
+        ratio = float(np.median(rows["k1_raw_dither"]) / np.median(rows["k1_raw_off"]))
     if args.save:
         torch.save(outputs, args.save)
     same = None
     if args.compare_with:
         other = torch.load(args.compare_with)
-        same = {k: bool(torch.equal(v, other[k])) for k, v in outputs.items()}
+        same = {k: bool(torch.equal(v, other[k])) for k, v in outputs.items() if k in other}
     print(json.dumps({"card": smi, "torch": torch.__version__, "reps": args.reps,
                       "rounds": args.rounds, "device_ms": rows,
                       "median": {k: float(np.median(v)) for k, v in rows.items()},
+                      "k1_raw_dither_over_off": ratio,
                       "k1_bit_equal_to_compared": same}), flush=True)
     return 0
 

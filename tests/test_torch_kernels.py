@@ -13,6 +13,8 @@ versions: float32 1e-4 relative to each output's largest magnitude; K5 in
 bfloat16 against the plain version in bfloat16 on the same inputs, 2e-2.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -317,10 +319,26 @@ def pool_run(fn, x, mask, dout):
 
 
 # (B, C, T, F), mask, dtype, x misaligned: the serving head's tile and T
-# (masked, bf16), the training head's (unmasked), T past the slab budget (the
-# chunked path), ragged C (20; 300 = two full fp32 tiles and a ragged third),
-# interior zeros with a fully masked row, weights, a misaligned x
+# (masked, bf16), the training head's (unmasked), T past the ring (the column
+# design), ragged C (20; 300 = two full fp32 tiles and a ragged third),
+# interior zeros with a fully masked row, weights, a misaligned x; W = 1 at
+# the TDNN and ECAPA heads' T (200, 320) and extraction's (1000, 1024), on
+# 128-, 64- and 32-byte tile rows, one misaligned with a ragged tile, one
+# whose rows are no multiple of 16 bytes (both staged by cp.async instead of
+# tensor copies), and one past the on-chip columns (T = 4000: the stream
+# design)
 POOL_CASES = [
+    ((2, 256, 200, 1), None, torch.bfloat16, False),
+    ((2, 256, 200, 1), "lengths", torch.float32, False),
+    ((2, 192, 320, 1), "interior", torch.bfloat16, False),
+    ((2, 96, 320, 1), None, torch.float32, False),
+    ((4, 128, 1000, 1), "lengths", torch.bfloat16, False),
+    ((2, 72, 1000, 1), "weights", torch.float32, False),
+    ((4, 64, 1024, 1), "lengths", torch.float32, False),
+    ((2, 40, 1024, 1), None, torch.bfloat16, True),
+    ((3, 96, 600, 1), "interior", torch.float32, False),
+    ((2, 20, 300, 1), "weights", torch.bfloat16, False),
+    ((2, 64, 4000, 1), "lengths", torch.bfloat16, False),
     ((4, 32, 25, 10), None, torch.float32, False),
     ((4, 32, 25, 10), "lengths", torch.float32, False),
     ((3, 256, 125, 10), "lengths", torch.bfloat16, False),
@@ -345,9 +363,15 @@ def test_stats_pool_backward_kernel_matches_plain(cuda, shape, mask_kind, dtype,
     bfloat16 within 2e-2 of each output's largest magnitude."""
     x, mask, dout = pool_case(cuda, shape, mask_kind, dtype, misaligned)
     assert (x.data_ptr() % 16 != 0) == misaligned
+    b, c, t, f = shape
+    design = tops.stats_pool_plan(b, t, f, c, dtype)["design"]
+    keys = (f"stats_pool.stats_pool:{design}", f"stats_pool_bwd.stats_pool_bwd:{design}")
     before = (kernels.STATS_POOL.launches, kernels.STATS_POOL_BWD.launches)
+    by_path = kernels.function_launch_counts()
     y, dx = pool_run(tops.stats_pool, x, mask, dout)
     assert (kernels.STATS_POOL.launches - before[0], kernels.STATS_POOL_BWD.launches - before[1]) == (1, 1)
+    after = kernels.function_launch_counts()
+    assert [after[k] - by_path[k] for k in keys] == [1, 1]
     yr, dxr = pool_run(tops.stats_pool_reference, x, mask, dout)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert y.dtype == dx.dtype == dtype
@@ -357,7 +381,8 @@ def test_stats_pool_backward_kernel_matches_plain(cuda, shape, mask_kind, dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,mask_kind", [((3, 256, 125, 10), "lengths"),
                                              ((4, 512, 25, 10), None),
-                                             ((2, 64, 1200, 3), "interior")])
+                                             ((2, 64, 1200, 3), "interior"),
+                                             ((8, 1536, 320, 1), "lengths")])
 def test_stats_pool_kernels_rerun_bit_for_bit(cuda, shape, mask_kind):
     """Two runs of K4 and K4b on the same inputs agree bit for bit (each
     lane adds its rows in time order, the warps' sums in warp order)."""
@@ -582,17 +607,22 @@ def test_fbank_dither_kernel_matches_plain(cuda):
     """K1's dithered variant against its plain version on the same draws,
     one launch a call on the dither path: crops with zero tails (the
     training shape's 80,240 samples, 500 frames) and ragged batches whose
-    frame counts are no multiple of 32; within 1e-3 in log-mel, reruns bit
+    frame counts are no multiple of 32, one of 22 ms frames (352 samples: a
+    warp's 44 leave a partial chunk of staged draws), one of 399-sample
+    frames (the last warp's last row lies past the frame: its draw is
+    clamped and its product dropped); within 1e-3 in log-mel, reruns bit
     for bit, the dither-off launch unchanged beside it; framed per-sample
     draws give the dither-off kernel on the dithered wave bit for bit; draws
     that are not contiguous are refused."""
-    for batch, samples in [(6, None), (3, 33333), (1, 4000)]:
+    for batch, samples, frame_ms in [(6, None, 25.0), (3, 33333, 25.0), (3, 21111, 22.0),
+                                     (3, 21111, 24.9375), (1, 4000, 25.0)]:
         if samples is None:
             cfg, (waves_i16, *_), noise = raw_crops(cuda, batch)
             waves = waves_i16.float()
         else:
             waves, _ = fbank_case(cuda, batch, samples, 80, seed=4)
-            cfg = tfb.FbankConfig(dither=1.0)
+            cfg = tfb.FbankConfig(dither=1.0, frame_length_ms=frame_ms)
+            assert tfb.kernel_route(cfg) == "fast"
             noise = tfb.draw_noise(batch, samples, cfg, torch.Generator(device=cuda), cuda)
         before = kernels.function_launch_counts()
         got = tfb.fbank(waves, cfg, noise)
@@ -602,7 +632,7 @@ def test_fbank_dither_kernel_matches_plain(cuda):
         torch.testing.assert_close(got, tfb.fbank_reference(waves, cfg, noise), rtol=0,
                                    atol=1e-3, msg=lambda m: f"{(batch, samples)}: {m}")
         assert torch.equal(got, tfb.fbank(waves, cfg, noise)), (batch, samples)
-        off = tfb.FbankConfig(dither=0.0)
+        off = dataclasses.replace(cfg, dither=0.0)
         torch.testing.assert_close(tfb.fbank(waves, off), tfb.fbank_reference(waves, off),
                                    rtol=0, atol=1e-3)
     # one draw a sample, framed: the dithered kernel is the dither-off

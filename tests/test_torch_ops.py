@@ -172,13 +172,16 @@ def pool_mask(rng, kind, b, t):
 
 
 # masked: False (no mask) or the mask kind; NHWC (B, T, W, C): long T is the
-# kernel's chunked path (T past its slab), ragged C a channel count that is
-# no multiple of its 16-byte vectors
+# kernel's column design (T past its 128-row ring), ragged C a channel count
+# that is no multiple of its 16-byte vectors; W = 1 the TDNN and ECAPA heads
+# (a 1000-frame extraction bucket with lengths, a 200-frame training crop)
 POOL_CASES = {False: ((3, 13, 5, 8), None), True: ((3, 13, 5, 8), "lengths"),
               "interior_zeros": ((4, 13, 5, 8), "interior"),
               "weights": ((3, 13, 5, 8), "weights"),
               "long_t": ((2, 1200, 3, 8), "lengths"),
-              "ragged_c": ((3, 37, 5, 20), "interior")}
+              "ragged_c": ((3, 37, 5, 20), "interior"),
+              "w1_long_t": ((2, 1000, 1, 24), "lengths"),
+              "w1": ((3, 200, 1, 20), None)}
 
 
 @pytest.mark.parametrize("masked", list(POOL_CASES))

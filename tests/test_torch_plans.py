@@ -511,3 +511,101 @@ def test_split_train_plan_span_route_and_refusals():
         rn.split_train_plan(8, 6, (30, 48, 200, 80), 8, torch.bfloat16)
     with pytest.raises(ValueError):
         rn.split_train_plan(264, 4, (2, 1056, 10, 10), 1, torch.bfloat16)
+
+
+# K4 / K4b: (B, C, T, W) at the heads the port pools: the Res2Net ring
+# shapes (serving 125 frames, training 25, W = 10), the W = 1 heads of TDNN
+# (320) and ECAPA (200), extraction buckets up to 1000 frames (and 1024), a
+# ragged and a narrow C, and columns past what fits on chip
+POOL_PLAN_SHAPES = [
+    (128, 1024, 125, 10), (256, 512, 25, 10), (4, 32, 128, 10), (1, 8, 1, 1),
+    (1024, 1536, 320, 1), (256, 1536, 200, 1), (128, 1536, 1000, 1), (3, 1536, 129, 1),
+    (2, 1536, 1024, 1), (2, 20, 1000, 1), (3, 24, 1000, 1), (2, 3, 500, 1), (2, 64, 1200, 3),
+    (1, 1536, 2200, 1), (1, 1536, 3148, 1), (1, 1536, 3149, 1), (1, 1536, 60000, 1),
+    (2, 300, 700, 4),
+]
+
+
+@pytest.mark.parametrize("b,c,t,w", POOL_PLAN_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stats_pool_plan_covers_each_channel_once_on_chip(b, c, t, w, dtype):
+    """K4 / K4b's plan (ops/nn.py:stats_pool_plan): the (b, f, channel tile)
+    work items cover every channel of every (b, f) once and every time row
+    once (row lane q of a CTA of 4 warps takes rows q, q + R, ...); T <= 128
+    plans the ring exactly as before the column design (512-byte rows, the
+    column in one slab, 3 slabs, cp.async: the Res2Net heads' launches
+    unchanged); a longer column up to 1000 rows and more (3,148 at 32-byte
+    rows), in both dtypes, lies on chip (x read once, its rows by tensor
+    copies) in 2 slabs at the widest tile row of 128, 64 or 32 bytes that
+    leaves room for two CTAs an SM (else one), and no wider than C's row
+    needs; only columns past that stream; shared memory stays within 227
+    KB less the 1 KB kept for the mbarriers."""
+    size = dtype.itemsize
+    plan = tops.stats_pool_plan(b, t, w, c, dtype)
+    assert tops.stats_pool_plan(b, t, w, c, dtype) is plan
+    rb, tc, tiles = plan["row_bytes"], plan["tile_channels"], plan["tiles"]
+    assert tc == rb // size and (tiles - 1) * tc < c <= tiles * tc and plan["work"] == b * w * tiles
+    lanes = rb // 16                     # lanes a tile row, each 16 bytes of channels
+    row_lanes = 4 * 32 // lanes          # rows a CTA reads at once
+    assert sorted(c0 + l * (16 // size) + j for c0 in range(0, tiles * tc, tc)
+                  for l in range(lanes) for j in range(16 // size)) == list(range(tiles * tc))
+    rows, column = plan["rows"], plan["design"] == "column"
+    walked = rows if plan["design"] == "stream" else t  # rows a slab's passes read
+    assert sorted(r for q in range(row_lanes) for r in range(q, walked, row_lanes)) == \
+        list(range(walked))
+    part = 4 * (16 // size + 1) * 32 * 4
+    limit = SMEM - 1024  # the rest: the slabs' mbarriers
+    pad = 128 if column else 0  # the column design's slabs start 128-byte aligned
+
+    def smem(stages, n, width):
+        return stages * (n * width + -(-n // 4) * 16) + part + pad
+
+    assert plan["smem"] == smem(plan["stages"], rows, rb) <= limit
+    if t <= 128:
+        assert (plan["design"], rb, rows, plan["stages"], plan["x_reads"]) == \
+            ("ring", 512, t, 3, 1)
+        assert plan["smem"] == 3 * (t * 512 + -(-t // 4) * 16) + part
+    elif column:
+        # tensor copies of at most 256 rows, each a multiple of 4 (128-byte
+        # aligned in the slab), as few as T allows, covering T
+        boxes, box_rows = plan["boxes"], plan["box_rows"]
+        assert boxes == -(-t // 256) and box_rows <= 256 and box_rows % 4 == 0
+        assert rows == boxes * box_rows and t <= rows < t + 4 * boxes
+        # 2 slabs at the widest tile row (no wider than C's row needs) that
+        # leaves room for two CTAs an SM, else the widest that fits one
+        assert plan["stages"] == 2 and plan["x_reads"] == 1
+        wide = next((r for r in (32, 64, 128) if r >= c * size), 128)
+        fit = [r for r in (128, 64, 32) if r <= wide and smem(2, rows, r) <= limit]
+        two = [r for r in fit if 233472 // (smem(2, rows, r) + 1280) >= 2]
+        assert rb == (two or fit)[0] and tops.pool_ctas_per_sm(plan["smem"]) >= (2 if two else 1)
+    else:
+        assert plan["design"] == "stream" and (rb, rows, plan["stages"]) == (128, 256, 2)
+        n = -(-t // 256)
+        padded = n * (-(-(-(-t // n)) // 4) * 4)
+        assert 2 * (padded * 32 + -(-padded // 4) * 16) + part + 128 > limit
+        assert plan["x_reads"] == 2 and plan["boxes"] == 0
+    if w == 1 and t <= 1024:
+        assert plan["x_reads"] == 1 and (t <= 128 or plan["design"] == "column")
+
+
+def test_stats_pool_plan_w1_heads():
+    """The main path's W = 1 plans, as the header of csrc/stats_pool.cuh
+    gives them: TDNN's and ECAPA's 1536 bf16 channels at 128-byte rows
+    (64-channel tiles, two and three CTAs an SM; two tensor copies of 160
+    rows, one of 200), a 1000-frame bucket at 32-byte rows (four copies of
+    252 rows, two CTAs an SM); in float32 the same widths hold 32-channel
+    tiles."""
+    tdnn = tops.stats_pool_plan(1024, 320, 1, 1536, torch.bfloat16)
+    ecapa = tops.stats_pool_plan(256, 200, 1, 1536, torch.bfloat16)
+    bucket = tops.stats_pool_plan(128, 1000, 1, 1536, torch.bfloat16)
+    assert (tdnn["design"], tdnn["row_bytes"], tdnn["tiles"], tdnn["smem"]) == \
+        ("column", 128, 24, 89216)
+    assert (tdnn["boxes"], tdnn["box_rows"], tops.pool_ctas_per_sm(tdnn["smem"])) == (2, 160, 2)
+    assert (ecapa["row_bytes"], ecapa["smem"], ecapa["boxes"]) == (128, 57536, 1)
+    assert tops.pool_ctas_per_sm(ecapa["smem"]) == 3
+    assert (bucket["design"], bucket["row_bytes"], bucket["smem"]) == ("column", 32, 77312)
+    assert (bucket["boxes"], bucket["box_rows"], bucket["rows"]) == (4, 252, 1008)
+    for shape, rb in (((1024, 320, 1, 1536), 128), ((256, 200, 1, 1536), 128),
+                      ((128, 1000, 1, 1536), 32)):
+        p32 = tops.stats_pool_plan(*shape, torch.float32)
+        assert (p32["design"], p32["row_bytes"], p32["tiles"]) == ("column", rb, 1536 * 4 // rb)

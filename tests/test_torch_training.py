@@ -152,20 +152,22 @@ def test_training_bn_epilogue_matches_jax(mode):
 
 # masked: False (no mask), True (lengths 13, 6, 0: one row fully masked) or
 # the case: NHWC (B, T, W, C) and the mask kind; long T is the kernel's
-# chunked path, ragged C no multiple of its 16-byte vectors
+# column design (past its 128-row ring), ragged C no multiple of its 16-byte
+# vectors
 POOL_CASES = {False: ((3, 13, 5, 8), None), True: ((3, 13, 5, 8), "lengths"),
               "interior_zeros": ((4, 13, 5, 8), "interior"),
               "weights": ((3, 13, 5, 8), "weights"),
               "long_t": ((2, 1200, 3, 8), "lengths"),
-              "ragged_c": ((3, 37, 5, 20), "interior")}
+              "ragged_c": ((3, 37, 5, 20), "interior"),
+              "w1_long_t": ((2, 1000, 1, 24), "lengths")}
 
 
 @pytest.mark.parametrize("masked", list(POOL_CASES))
 def test_stats_pool_backward_matches_jax(masked):
     """K4b's plain version (autograd of the plain stats pool) against
     jax.vjp(stats_pool), without a mask, with lengths (one row fully
-    masked), interior zeros (one row fully masked), weights, long T and
-    ragged C."""
+    masked), interior zeros (one row fully masked), weights, long T,
+    ragged C and W = 1 at an extraction bucket's 1000 frames."""
     (b, t, w, c), kind = POOL_CASES[masked]
     rng = np.random.RandomState(11)
     x = (rng.randn(b, t, w, c) * 2 + 1).astype(np.float32)

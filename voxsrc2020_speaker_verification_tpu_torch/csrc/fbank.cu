@@ -47,14 +47,36 @@
 // the frames cannot share one staged run of samples. The caller passes the
 // draws as a contiguous fp32 tensor (batch, num_frames, frame_length); the
 // dithered variant (kDither, picked by a non-null noise pointer) adds
-// dither * noise[b, t, r] to each sample in the FMA loop, read through the
-// read-only path: per sample a lane adds 8 loads (its 8 frames) to 64 FMA,
-// and the 8 lanes that share a frame read one address; a lane's 32-byte
-// sector of a frame serves its next 7 samples from L1. A 32-frame noise
-// tile (51 KB) does not fit beside the 219 KB layout, so all 8 CTAs of the
-// cluster read it through L1/L2; from HBM once (205 MB at the training
-// shape, 256 x 500 frames: 0.06 ms against 0.78 ms of fp32 FMA). The
-// dither-off variant is the same code without those lines.
+// dither * noise[b, t, r] to each framed sample before its FMAs, as the
+// first design did, and its sums run in the same order: its outputs are
+// that design's bit for bit.
+// - Its FMA loop reads staged dithered samples, 8 words and 2 of A/B a
+//   sample for 64 FMA, as the dither-off loop reads the shared samples.
+// - Each warp stages its own rows, 16 samples of the tile's 32 frames at a
+//   time, into a ring of two chunks (frame rows 17 floats apart: the loop's
+//   4 frames at one sample sit in 4 banks) inside `red`, the partial sums'
+//   buffer, which the tile uses only after its FMA loop (a barrier between):
+//   the layout does not grow. A lane loads the next chunk's 16 draws (4
+//   frames x 8 samples a warp load) into registers while the warp
+//   multiplies this chunk, then loads the chunk's 16 samples before it
+//   stores any dithered one (so the loads overlap, instead of each waiting
+//   behind the store before it). At a tile's start the CTAs of a cluster
+//   prefetch the next tile's draws into L2 (rank r: frames 4r .. 4r + 3).
+// - The first design read the 8 draws of each sample in the FMA loop by
+//   __ldg (18 loads per 64 FMA, 4 frames' rows a warp load). What is left
+//   above dither off is the staging itself (scripts/profile_k1.py: issuing
+//   the loads and the adds, not waiting for the loads). Tried on an H100
+//   and dropped (PERF.md): 8- and 24-sample chunks (slower, and faster by
+//   under 1%), draws by tensor copies into a 4-chunk ring (the partial sums
+//   in two halves beside it; slower and, as written, not bit-equal), each
+//   CTA reading another row's draws (slower: the cluster's reads of one
+//   line are L2 hits).
+// - Each CTA of a cluster loads the tile's draws (51 KB) from L2; from HBM
+//   once (205 MB at the training shape, 256 x 500 frames: 0.06 ms against
+//   0.78 ms of fp32 FMA). Staging them once a cluster (a multicast tensor
+//   copy, or one rank's copy read by the others through DSMEM) was not
+//   built: a build that loads no draws at all (scripts/profile_k1.py
+//   --probe) bounds what it could save, about a tenth of the call (PERF.md).
 // General path (fbank_general_f32), for the shapes the design above does
 // not take: more than 256 FFT bins (a padded frame over 512 samples, as at
 // 32 kHz or with a 50 ms frame) or a count not a multiple of 4, more than
@@ -117,10 +139,19 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr int kRowFloats = 2 * kBins;  // an A/B row of the slice: A | B
 constexpr int kFramesPerRank = kFrames / kSplit;
 constexpr int kPad = 4;        // floats after every frame shift of a tile's samples
+// dither: a warp's staged chunk, 32 frames x kDRows samples, frame rows
+// kDStride floats apart (odd: 4 frames at one sample in 4 banks); two of
+// them a warp, inside `red`
+constexpr int kDRows = 16;
+constexpr int kDStride = kDRows + 1;
+constexpr int kDChunk = kFrames * kDStride;
 
 static_assert(kFrames % kSplit == 0, "each rank owns whole frames");
 static_assert(kFrames == 32 && kBins == 32 && kWarps == 8,
               "lane tiles: 4 x 8 frames by 8 x 4 bins; the merge: warp w, frame row w");
+static_assert(kWarps * 2 * kDChunk <= kWarps * kVals * 32,
+              "the dithered samples' ring fits in red");
+static_assert(kDRows % 8 == 0, "a lane stages kDRows / 8 samples of 8 frames a chunk");
 
 __host__ __device__ __forceinline__ int rows_per_warp(int frame_length) {
   return (frame_length + kWarps - 1) / kWarps;
@@ -179,6 +210,56 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+
+// The fast design's phase profile (a build with -DVSV_K1_PROF,
+// scripts/profile_k1.py): lane 0 of every warp laps clock64 into its phases
+// and adds them, once at its end, to g_k1_prof[variant][slot] (variant:
+// dither off, on). Phases: the tile's samples landing (wait), staging the
+// dithered samples (stage: the draws' loads issued, the adds and stores),
+// waiting for the draws' loads (draws: a use of the loaded registers
+// before staging them), the FMA loop (fma), the warps' meeting after it
+// (join), the previous tile's mel (mel), the merge and send of the power
+// (merge); slot kK1Warps counts the warps. Without the flag every call is
+// empty.
+enum { kK1Wait, kK1Stage, kK1Draws, kK1Fma, kK1Join, kK1Mel, kK1Merge, kK1Warps, kK1Slots };
+#ifdef VSV_K1_PROF
+__device__ unsigned long long g_k1_prof[2 * kK1Slots];
+struct K1Prof {
+  unsigned long long v[kK1Slots];
+  long long t;
+  __device__ K1Prof() {
+    for (int i = 0; i < kK1Slots; ++i) v[i] = 0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void lap(int slot) {
+    const long long n = clock64();
+    v[slot] += n - t;
+    t = n;
+  }
+  // wait until the loads into v have landed
+  template <int H>
+  __device__ __forceinline__ void touch(const float (&v)[H][8]) {
+    float t = 0.f;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) t += v[h][m];
+    asm volatile("" ::"f"(t));
+  }
+  __device__ void flush(int variant) {
+    if ((threadIdx.x & 31) != 0) return;
+    v[kK1Warps] = 1;
+    for (int i = 0; i < kK1Slots; ++i) atomicAdd(&g_k1_prof[variant * kK1Slots + i], v[i]);
+  }
+};
+#else
+struct K1Prof {
+  __device__ __forceinline__ void lap(int) {}
+  template <int H>
+  __device__ __forceinline__ void touch(const float (&)[H][8]) {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
 
 struct Args {
   const float* waves;
@@ -284,6 +365,7 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
 
   const int fg = lane >> 3, bg = lane & 7;  // frames fg + 4i (i < 8), bins 4 bg .. + 3
   int it = 0, prev = -1;
+  K1Prof prof;
   for (int j = cid; j < g.work; j += nclusters, ++it) {
     const int cur = it & 1;
     const float* seg = smem + L.seg + cur * segf;
@@ -291,58 +373,156 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
     __syncthreads();  // this tile's samples (and, first, A/B and M) landed everywhere
     if (j + nclusters < g.work) stage_samples(g, smem + L.seg + (cur ^ 1) * segf, j + nclusters);
     cp_async_commit();
+    prof.lap(kK1Wait);
 
     float re[8][4], im[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) re[i][k] = im[i][k] = 0.f;
-    const float* x0 = seg + fg * (sh + kPad);
-    const int xstep = 4 * (sh + kPad);
-    int rp = r0 + kPad * (r0 / sh), rr = r0 % sh;  // padded position of row r
-    // dither: the noise rows of this lane's frames (a frame past the end
-    // reads the last frame's: its output is not written)
-    const float* nz[8];
     if constexpr (kDither) {
-      const long long row0 = static_cast<long long>(j / g.tiles) * g.num_frames;
-      const int t0 = (j % g.tiles) * kFrames + fg;
+      // the warp's rows r0 .. r0 + rpw - 1 in chunks of kDRows; lane
+      // (pf, pj) stages samples r0 + kDRows * k + pj + 8h (h < kDRows / 8)
+      // of frames pf + 4m (m < 8) into chunk k, from the padded samples and
+      // the draws (a frame past the end reads the last frame's draws, a row
+      // past the frame its last draw: their products are not kept)
+      float* ring = red + warp * 2 * kDChunk;
+      const int pf = lane >> 3, pj = lane & 7;
+      const int t0 = (j % g.tiles) * kFrames + pf;
+      const float* nrow =
+          g.noise + static_cast<long long>(j / g.tiles) * g.num_frames * g.frame_length;
+      const float* xf = seg + pf * (sh + kPad);
+      const int nch = (rpw + kDRows - 1) / kDRows;
+      constexpr int kH = kDRows / 8;
+      // the lane's frames' draw rows in nrow (an utterance's draws hold
+      // under 2^31 floats)
+      int noff[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        nz[i] = g.noise + (row0 + min(t0 + 4 * i, g.num_frames - 1)) * g.frame_length;
-    }
-#pragma unroll 2
-    for (int r = r0; r < r0 + rpw; ++r) {
-      float xs[8];
+      for (int m = 0; m < 8; ++m) noff[m] = min(t0 + 4 * m, g.num_frames - 1) * g.frame_length;
+      float nv[kH][8];
+      auto fetch = [&](int k) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) xs[i] = x0[rp + i * xstep];
-      if constexpr (kDither) {
-        // rows past the frame (A/B zero there) read the frame's last draw
-        const int rn = min(r, g.frame_length - 1);
+        for (int h = 0; h < kH; ++h) {
+          const int rr = kDRows * k + pj + 8 * h;
+          if (rr >= rpw) break;
+          const int rn = min(r0 + rr, g.frame_length - 1);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) xs[i] += g.dither * __ldg(nz[i] + rn);
-      }
-      const float4 av = *reinterpret_cast<const float4*>(ab + r * kRowFloats + 4 * bg);
-      const float4 bv = *reinterpret_cast<const float4*>(ab + r * kRowFloats + kBins + 4 * bg);
-      const float as[4] = {av.x, av.y, av.z, av.w};
-      const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          re[i][k] = fmaf(xs[i], as[k], re[i][k]);
-          im[i][k] = fmaf(xs[i], bs[k], im[i][k]);
+          for (int m = 0; m < 8; ++m) nv[h][m] = __ldg(nrow + noff[m] + rn);
         }
-      ++rp;
-      if (++rr == sh) {
-        rr = 0;
-        rp += kPad;
+      };
+      // all the chunk's sample loads before its stores, so they overlap
+      auto put = [&](int k) {
+        float xs[kH][8];
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+          const int r = r0 + kDRows * k + pj + 8 * h;
+          if (r - r0 >= rpw) break;
+          const float* xr = xf + r + kPad * (r / sh);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) xs[h][m] = xr[m * 4 * (sh + kPad)];
+        }
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+          if (kDRows * k + pj + 8 * h >= rpw) break;
+          float* d = ring + (k & 1) * kDChunk + pf * kDStride + pj + 8 * h;
+#pragma unroll
+          for (int m = 0; m < 8; ++m) d[m * 4 * kDStride] = xs[h][m] + g.dither * nv[h][m];
+        }
+      };
+      // the next tile's draws (rank r: frames 4r .. 4r + 3) on their way to
+      // L2 while this tile runs: its loads below then hit L2
+      if (j + nclusters < g.work) {
+        const int jn = j + nclusters;
+        const float* nn = g.noise + (static_cast<long long>(jn / g.tiles) * g.num_frames +
+                                     (jn % g.tiles) * kFrames + rank * kFramesPerRank) *
+                                        g.frame_length;
+        const long long left = (static_cast<long long>(jn / g.tiles) + 1) * g.num_frames *
+                                   g.frame_length -
+                               (nn - g.noise);
+        const int lines = static_cast<int>(
+            (min(left, static_cast<long long>(kFramesPerRank) * g.frame_length) + 31) / 32);
+        for (int q = tid; q < lines; q += kThreads)
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(nn + 32 * q));
       }
+      fetch(0);
+      prof.touch(nv);
+      prof.lap(kK1Draws);
+      put(0);
+      __syncwarp();
+      prof.lap(kK1Stage);
+      // the full chunks, then the last (rpw % kDRows rows)
+      const int nfull = rpw / kDRows;
+      auto rows = [&](int k, int n) {
+        const float* dk = ring + (k & 1) * kDChunk + fg * kDStride;
+#pragma unroll
+        for (int jj = 0; jj < kDRows; ++jj) {
+          if (jj >= n) break;
+          const int r = r0 + kDRows * k + jj;
+          float xs[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) xs[i] = dk[i * 4 * kDStride + jj];
+          const float4 av = *reinterpret_cast<const float4*>(ab + r * kRowFloats + 4 * bg);
+          const float4 bv = *reinterpret_cast<const float4*>(ab + r * kRowFloats + kBins + 4 * bg);
+          const float as[4] = {av.x, av.y, av.z, av.w};
+          const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              re[i][q] = fmaf(xs[i], as[q], re[i][q]);
+              im[i][q] = fmaf(xs[i], bs[q], im[i][q]);
+            }
+        }
+      };
+      for (int k = 0; k < nfull; ++k) {
+        if (k + 1 < nch) fetch(k + 1);
+        prof.lap(kK1Stage);
+        rows(k, kDRows);
+        prof.lap(kK1Fma);
+        prof.touch(nv);
+        prof.lap(kK1Draws);
+        if (k + 1 < nch) put(k + 1);
+        __syncwarp();  // chunk k + 1 staged; chunk k read by every lane
+        prof.lap(kK1Stage);
+      }
+      if (nfull < nch) rows(nfull, rpw - kDRows * nfull);
+      prof.lap(kK1Fma);
+      __syncthreads();  // every warp is done with its ring before red is written
+      prof.lap(kK1Join);
+    } else {
+      const float* x0 = seg + fg * (sh + kPad);
+      const int xstep = 4 * (sh + kPad);
+      int rp = r0 + kPad * (r0 / sh), rr = r0 % sh;  // padded position of row r
+#pragma unroll 2
+      for (int r = r0; r < r0 + rpw; ++r) {
+        float xs[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) xs[i] = x0[rp + i * xstep];
+        const float4 av = *reinterpret_cast<const float4*>(ab + r * kRowFloats + 4 * bg);
+        const float4 bv = *reinterpret_cast<const float4*>(ab + r * kRowFloats + kBins + 4 * bg);
+        const float as[4] = {av.x, av.y, av.z, av.w};
+        const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            re[i][k] = fmaf(xs[i], as[k], re[i][k]);
+            im[i][k] = fmaf(xs[i], bs[k], im[i][k]);
+          }
+        ++rp;
+        if (++rr == sh) {
+          rr = 0;
+          rp += kPad;
+        }
+      }
+      prof.lap(kK1Fma);
     }
 
     // every CTA has sent the previous tile's power (or, first, started):
     // that tile's mel, while the others finish this tile's analysis
     cluster_wait();
     if (prev >= 0) mel_out(g, rcv + (cur ^ 1) * kRcv, wts, mstart, moff, prev, rank);
+    prof.lap(kK1Mel);
 
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -375,10 +555,13 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_kernel(Args g) {
     __syncthreads();  // red is read before the next tile writes it
     cluster_arrive();
     prev = j;
+    prof.lap(kK1Merge);
   }
   // the last tile: after this wait no CTA touches another's memory
   cluster_wait();
   if (prev >= 0) mel_out(g, rcv + ((it - 1) & 1) * kRcv, wts, mstart, moff, prev, rank);
+  prof.lap(kK1Mel);
+  prof.flush(kDither ? 1 : 0);
 }
 
 // Clusters of kSplit CTAs the current card holds at once, cached per
@@ -720,6 +903,18 @@ int launch_general(const GenArgs& args, void* stream) {
 
 // The launch plan of a call: the clusters the card holds at once and the
 // dynamic shared memory a CTA takes (reported by the callers' timing tools).
+#ifdef VSV_K1_PROF
+// The phase profile's sums (2 x kK1Slots), then zero them if `reset`.
+extern "C" int fbank_prof(unsigned long long* host, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_k1_prof, sizeof(g_k1_prof));
+  if (e == cudaSuccess && reset) {
+    static unsigned long long zeros[2 * kK1Slots];
+    e = cudaMemcpyToSymbol(g_k1_prof, zeros, sizeof(zeros));
+  }
+  return static_cast<int>(e);
+}
+#endif
+
 extern "C" int fbank_plan(int frame_length, int frame_shift, int* clusters, int* smem_bytes_out) {
   const size_t smem = smem_bytes(frame_length, frame_shift);
   *smem_bytes_out = static_cast<int>(smem);

@@ -171,12 +171,14 @@ BN_ACT = CudaKernel("bn_act", "bn_epilogue.cu", {
     "bn_act": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,
                _P],
 })
+# K4 / K4b take their plan as a host int array (ops/nn.py:stats_pool_plan);
+# a launch counts under its design
 STATS_POOL = CudaKernel("stats_pool", "stats_pool.cu", {
-    "stats_pool": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-})
+    "stats_pool": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+}, paths={"stats_pool": ("ring", "column", "stream")})
 STATS_POOL_BWD = CudaKernel("stats_pool_bwd", "stats_pool_bwd.cu", {
-    "stats_pool_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-})
+    "stats_pool_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+}, paths={"stats_pool_bwd": ("ring", "column", "stream")})
 BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
     "bn_train_fwd": [_I, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                      _P, _P, _F, _F, _F, _F, _P, _P, _I, _P],

@@ -1009,6 +1009,112 @@ def stats_pool_reference(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -
     return out.to(x.dtype).contiguous(memory_format=CHANNELS_LAST)
 
 
+# K4 / K4b's layout (csrc/stats_pool.cuh): 4 warps a CTA; the ring design
+# (512-byte tile rows, a warp a row) takes columns of up to 128 rows in a
+# ring of 3 slabs; the column design the longer ones in 2 slabs at the
+# widest of 128-, 64- and 32-byte rows that leaves room for two CTAs an SM
+# (else for one); the stream design what is longer still, 256-row chunks of
+# 128-byte rows, 2 in flight.
+_POOL_WARPS = 4
+_POOL_STAGES = 3
+_POOL_COLUMN_STAGES = 2
+_POOL_SM_BYTES = 233472   # an SM's shared memory (228 KB)
+_POOL_CTA_BYTES = 1024 + 256  # the runtime's reserve a CTA and the static mbarriers
+_POOL_RING_ROWS, _POOL_RING_ROW_BYTES = 128, 512
+_POOL_COLUMN_ROW_BYTES = (32, 64, 128)
+_POOL_STREAM_ROWS, _POOL_STREAM_ROW_BYTES, _POOL_STREAM_STAGES = 256, 128, 2
+_POOL_DESIGNS = ("ring", "column", "stream")
+_POOL_SMEM_LIMIT = _SMEM_BYTES - 1024  # a CTA's dynamic shared memory (the rest: mbarriers)
+_POOL_BOX_MAX, _POOL_ALIGN = 256, 128   # a tensor copy's rows at most; the slabs' alignment
+
+
+def _pool_smem(stages: int, rows: int, row_bytes: int, itemsize: int, pad: int = 0) -> int:
+    """stats_pool.cuh's smem_bytes: the slabs, each slab's mask rows (16-byte
+    aligned), the warps' partial sums (4 x (V + 1) x 32 floats) and ``pad``
+    (the column design's room to start its slabs 128-byte aligned)."""
+    part = _POOL_WARPS * (16 // itemsize + 1) * 32 * 4
+    return stages * (rows * row_bytes + -(-rows // 4) * 16) + part + pad
+
+
+def _pool_boxes(t: int) -> Tuple[int, int]:
+    """stats_pool.cuh's box_count and box_rows: a column of t rows as that
+    many tensor copies of at most 256 rows, each a multiple of 4 rows."""
+    n = -(-t // _POOL_BOX_MAX)
+    return n, -(-(-(-t // n)) // 4) * 4
+
+
+def pool_ctas_per_sm(smem: int) -> int:
+    """CTAs of K4 / K4b's layout that fit an SM's shared memory at once."""
+    return _POOL_SM_BYTES // (smem + _POOL_CTA_BYTES)
+
+
+def _pool_column_smem(t: int, row_bytes: int, itemsize: int) -> int:
+    n, rows = _pool_boxes(t)
+    return _pool_smem(_POOL_COLUMN_STAGES, n * rows, row_bytes, itemsize, _POOL_ALIGN)
+
+
+@functools.lru_cache(maxsize=None)
+def stats_pool_plan(batch: int, t: int, w: int, c: int, dtype: torch.dtype) -> dict:
+    """K4 / K4b's launch plan for x (batch, c, t, w) of ``dtype``, as
+    csrc/stats_pool.cuh lays it out (its C entries refuse another):
+
+    * ``design``: ``"ring"`` where t <= 128 (tile rows of 512 bytes, the
+      whole column in one slab, a ring of 3 slabs, by ``cp.async``);
+      ``"column"`` where the column is longer and 2 slabs of it fit at 128-,
+      64- or 32-byte tile rows: the widest (but no wider than c's row needs)
+      whose slabs leave room for two CTAs an SM, else the widest that fits
+      one; its slabs hold ``boxes`` tensor copies of ``box_rows`` rows
+      (``rows`` = their product >= t; per-thread ``cp.async`` where x's rows
+      are not 16-byte aligned); else ``"stream"`` (256-row chunks of 128-byte
+      rows, 2 in flight, x read once a pass, by ``cp.async``);
+    * ``row_bytes``, ``tile_channels`` (channels a tile row), ``tiles``
+      (channel tiles a (b, f)), ``work`` (tiles of the call: each (b, f,
+      channel tile) once), ``rows`` (a slab's rows), ``stages`` (slabs) and
+      ``smem`` (a CTA's dynamic shared memory, at most 231,424 bytes: 227 KB
+      less 1 KB);
+    * ``x_reads``: the times K4 reads x from HBM (1 on chip; K4b's
+      gradient pass reads it once more in the stream design only).
+
+    Cached; callers read plans and do not modify them."""
+    size = dtype.itemsize
+    if t <= _POOL_RING_ROWS:
+        design, rb, rows, stages = "ring", _POOL_RING_ROW_BYTES, t, _POOL_STAGES
+    else:
+        wide = next((r for r in _POOL_COLUMN_ROW_BYTES if r >= c * size),
+                    _POOL_COLUMN_ROW_BYTES[-1])
+        fits = [r for r in reversed(_POOL_COLUMN_ROW_BYTES)
+                if r <= wide and _pool_column_smem(t, r, size) <= _POOL_SMEM_LIMIT]
+        two = [r for r in fits if pool_ctas_per_sm(_pool_column_smem(t, r, size)) >= 2]
+        if fits:
+            design, rb, stages = "column", (two or fits)[0], _POOL_COLUMN_STAGES
+            rows = math.prod(_pool_boxes(t))
+        else:
+            design, rb = "stream", _POOL_STREAM_ROW_BYTES
+            rows, stages = _POOL_STREAM_ROWS, _POOL_STREAM_STAGES
+    tile_channels = rb // size
+    tiles = -(-c // tile_channels)
+    return {"design": design, "row_bytes": rb, "tile_channels": tile_channels, "tiles": tiles,
+            "work": batch * w * tiles, "rows": rows, "stages": stages,
+            "smem": _pool_smem(stages, rows, rb, size, _POOL_ALIGN if design == "column" else 0),
+            "boxes": _pool_boxes(t)[0] if design == "column" else 0,
+            "box_rows": _pool_boxes(t)[1] if design == "column" else 0,
+            "x_reads": 2 if design == "stream" else 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_plan_ints(batch: int, t: int, w: int, c: int, dtype: torch.dtype):
+    """(the design's name, the plan's five ints as the C entries take them)."""
+    plan = stats_pool_plan(batch, t, w, c, dtype)
+    return plan["design"], pool_plan_ints(plan)
+
+
+def pool_plan_ints(plan: dict):
+    """A K4 / K4b plan as the C entries take it: five ints (design, tile row
+    bytes, slab rows, stages, shared memory)."""
+    return (ctypes.c_int * 5)(_POOL_DESIGNS.index(plan["design"]), plan["row_bytes"],
+                              plan["rows"], plan["stages"], plan["smem"])
+
+
 class _StatsPoolFn(torch.autograd.Function):
     """K4 forward, K4b backward (float32 moments recomputed from x)."""
 
@@ -1018,8 +1124,10 @@ class _StatsPoolFn(torch.autograd.Function):
         out = torch.empty((b, 2 * c, 1, w), dtype=x.dtype, device=x.device,
                           memory_format=CHANNELS_LAST)
         if out.numel():
+            design, ints = _pool_plan_ints(b, t, w, c, x.dtype)
             STATS_POOL.launch("stats_pool", x.device, dtype_code(x.dtype), ptr(x),
-                              ptr(m), ptr(out), b, t, w, c, POOL_EPSILON)
+                              ptr(m), ptr(out), b, t, w, c, POOL_EPSILON,
+                              ctypes.addressof(ints), path=design)
         ctx.save_for_backward(x, m)
         return out
 
@@ -1030,9 +1138,10 @@ class _StatsPoolFn(torch.autograd.Function):
         dout = dout.contiguous(memory_format=CHANNELS_LAST)
         dx = torch.empty_like(x)
         if dx.numel():
+            design, ints = _pool_plan_ints(b, t, w, c, x.dtype)
             STATS_POOL_BWD.launch("stats_pool_bwd", x.device, dtype_code(x.dtype),
                                   ptr(x), ptr(m), ptr(dout), ptr(dx), b, t, w, c,
-                                  POOL_EPSILON)
+                                  POOL_EPSILON, ctypes.addressof(ints), path=design)
         return dx, None
 
 
