@@ -22,7 +22,11 @@ Phases, one JSON line each:
    K8 / K8b (attentive pooling) at res2net200_att's serving and training
    heads, ECAPA-512's and a ragged shape (ATT_SHAPES), with a row masked
    throughout, a constant row and reruns; K3 / K5 at channel counts that are
-   not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM); K4 and K4b on
+   not multiples of 4 and at dpn68's stem (ANY_C, DPN_STEM), on the design
+   each plan gives them (ANY_C_DESIGNS: folded 16-byte rows at the stem;
+   rows ``bn_act:fold`` and ``bn_train:fold``, their launches read off the
+   encoders phase's dpn68, and each direction's device time at the stem
+   beside its bound and ``F.batch_norm``'s); K4 and K4b on
    their column design at the W = 1 heads of TDNN and ECAPA and a masked
    1000-frame extraction bucket (POOL_W1_SHAPES: reruns bit for bit,
    ``torch.var_mean`` and its autograd beside them; rows
@@ -428,7 +432,8 @@ def split_launches_by_function(k2_calls, split) -> dict:
 # the Res2Net and DPN heads)
 POOL_RING_PER_MICROBATCH = {"stats_pool.stats_pool:ring": 1,
                             "stats_pool_bwd.stats_pool_bwd:ring": 1}
-EVAL_KERNEL_FNS = tuple(f"split_conv.{fn}" for fn in SPLIT_FUNCTIONS.values()) + ("bn_act.bn_act",)
+EVAL_KERNEL_FNS = tuple(f"split_conv.{fn}" for fn in SPLIT_FUNCTIONS.values()) + tuple(
+    f"bn_act.bn_act:{path}" for path in ("vec", "fold", "single"))
 
 
 def split_launches(k2_calls, split) -> int:
@@ -1342,10 +1347,18 @@ ATT_SHAPES = {"res2net200_att_serving": ((BATCH, 1024, 125, 10), True),
               "res2net200_att_training": ((128, 1024, 25, 10), False),
               "ecapa512_training": ((256, 1536, 200, 1), False),
               "ragged_c20_t1": ((4, 20, 1, 3), False)}
-# K3 / K5 at channel counts that are not multiples of 4 (single-channel
-# paths), and at dpn68's stem shape (B = 256 x 200 frames x 80 bins, C = 10)
+# K3 / K5 at channel counts that are not multiples of 4, and at dpn68's
+# stem shape (B = 256 x 200 frames x 80 bins, C = 10): each takes the design
+# its plan gives it (bn_act_plan, bn_train_plan at groups 1 and 8): the
+# folded rows at the stem, at (64, 10, 25, 10) (K5; K3 in float32) and
+# wherever n % fold == 0 (and F % fold == 0 for K3), the multi-kernel design
+# or single channels elsewhere, such as (16, 10, 9, 5) at groups 8 in bf16
 ANY_C = (1, 3, 10)
 DPN_STEM = (256, 10, 200, 80)
+# the designs these shapes must take (shape, dtype, K3's, K5's at groups 8)
+ANY_C_DESIGNS = {(DPN_STEM, "bfloat16"): ("fold", "fold"), (DPN_STEM, "float32"): ("fold", "fold"),
+                 ((64, 10, 25, 10), "bfloat16"): ("single", "fold"),
+                 ((16, 10, 9, 5), "bfloat16"): ("single", "multi")}
 
 
 def att_inputs(gen, shape, masked, dtype, dev):
@@ -1582,21 +1595,45 @@ def pool_grad(fn, x, mask, dout):
     return y.detach(), xi.grad
 
 
-def check_bn_any_c(dev, gen):
-    """K3 and K5 at ANY_C channels and at DPN_STEM (the single-channel
-    paths) against the plain versions in float32 and bfloat16: K3 with its
-    flags, K5 forward, running update and backward under relu, groups 1 and
-    8; reruns bit for bit; device time at the stem shape. Returns a dict for
-    the bn_act and bn_train rows."""
+def bn_designs(shape, dtype, groups):
+    """(K3's path, K5's design) for one shape: "vec" / "fold" / "single",
+    and "fold" (the cluster design on folded rows), "cluster" or "multi"."""
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    plan = ops.bn_train_plan(tuple(shape), groups, dtype, 0, True)
+    k5 = "fold" if plan["design"] == "cluster" and plan["fold"] > 1 else plan["design"]
+    return ops.bn_act_plan(tuple(shape), dtype)["design"], k5
+
+
+def check_bn_any_c(dev, gen):
+    """K3 and K5 at ANY_C channels and at DPN_STEM against the plain
+    versions in float32 and bfloat16, on the design each plan gives them
+    (ANY_C_DESIGNS: the folded rows and the multi-kernel / single-channel
+    paths): K3 with its flags, K5 forward, running update and backward under
+    relu, groups 1 and 8; reruns bit for bit; at the stem (bf16) each
+    direction's device time beside its bound and F.batch_norm's time.
+    Returns a dict for the bn_act and bn_train rows and the rows of the
+    folded designs (``bn_act:fold``, ``bn_train:fold``)."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+    import torch.nn.functional as F
 
     shapes = [(16, c, 9, 5) for c in ANY_C] + [(64, c, 25, 10) for c in ANY_C] + [DPN_STEM]
     errs = {"bn_act": 0.0, "bn_train": 0.0, "bn_train_grad": 0.0}
+    # the folded designs' own errors (bf16 and float32), for their rows
+    fold_errs = {"bn_act": {}, "bn_train": {}}
+    designs = {}
     flips = 0
     for shape in shapes:
         c, t = shape[1], shape[2]
         for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
             tol = TOL_FP32 if dtype == torch.float32 else TOL_TRAIN_BF16
+            k3_design, _ = bn_designs(shape, dtype, 8)
+            designs[f"{shape}/{dn}"] = {"bn_act": k3_design, **{
+                f"bn_train_g{g}": bn_designs(shape, dtype, g)[1] for g in (1, 8)}}
+            want = ANY_C_DESIGNS.get((shape, dn))
+            if want and (k3_design, designs[f"{shape}/{dn}"]["bn_train_g8"]) != want:
+                fail(f"bn_any_c: {shape} {dn} takes {designs[f'{shape}/{dn}']}, not {want}")
             x = _layout((torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype))
             sc = _layout(torch.randn(shape, generator=gen, device=dev).to(dtype))
             dy = _layout(torch.randn(shape, generator=gen, device=dev).to(dtype))
@@ -1607,6 +1644,8 @@ def check_bn_any_c(dev, gen):
                 got = ops.bn_act(x, m, v, **kw)
                 e = rel_err(got, ops.bn_act_reference(x, m, v, **kw))
                 errs["bn_act"] = max(errs["bn_act"], e)
+                if k3_design == "fold":
+                    fold_errs["bn_act"][dn] = max(fold_errs["bn_act"].get(dn, 0.0), e)
                 if e > tol or not torch.equal(got, ops.bn_act(x, m, v, **kw)):
                     fail(f"bn_act at {shape} {dtype}: rel err {e} or reruns differ")
             for groups in (1, 8):
@@ -1623,6 +1662,10 @@ def check_bn_any_c(dev, gen):
                 eg = rel_err(dx * same, dxr * same)
                 errs["bn_train"] = max(errs["bn_train"], ey)
                 errs["bn_train_grad"] = max(errs["bn_train_grad"], eg)
+                if designs[f"{shape}/{dn}"][f"bn_train_g{groups}"] == "fold":
+                    fold_errs["bn_train"][dn] = max(fold_errs["bn_train"].get(dn, 0.0), ey)
+                    fold_errs["bn_train"][dn + "_grad"] = max(
+                        fold_errs["bn_train"].get(dn + "_grad", 0.0), eg)
                 gtol = TOL_K5_GRAD_FP32 if dtype == torch.float32 else TOL_TRAIN_BF16
                 if ey > tol or eg > gtol or flips > 1:
                     fail(f"bn_train at {shape} g{groups} {dtype}: rel err {ey}, grad {eg}, "
@@ -1632,33 +1675,100 @@ def check_bn_any_c(dev, gen):
                 del runs
         del x, sc, dy
         torch.cuda.empty_cache()
-    # device times at dpn68's stem (bf16): K3 with relu and mask (eval), K5
-    # forward + backward under relu, bn_groups 8
+    # at dpn68's stem (bf16): K3 with relu and mask (eval), K5 forward and
+    # backward under relu, bn_groups 8; F.batch_norm in eval mode, and in
+    # training mode at one group (forward, backward)
     x = _layout(torch.randn(DPN_STEM, generator=gen, device=dev).bfloat16())
     dy = _layout(torch.randn(DPN_STEM, generator=gen, device=dev).bfloat16())
     m, v = torch.zeros(10, device=dev), torch.ones(10, device=dev)
     mask = lengths_mask(gen, DPN_STEM[0], DPN_STEM[2], dev)
     xi = x.detach().requires_grad_(True)
     y = ops.bn_train(xi, m.clone(), v.clone(), groups=8, relu=True)
+    yr = ops.bn_train_reference(xi, m.clone(), v.clone(), groups=8, relu=True)
+    li = x.detach().requires_grad_(True)
+    ly = F.batch_norm(li, m.clone(), v.clone(), training=True, momentum=1 - ops.BN_MOMENTUM,
+                      eps=ops.BN_EPSILON)
+
+    def k5_fwd():
+        with torch.no_grad():
+            return ops.bn_train(x, m.clone(), v.clone(), groups=8, relu=True)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.batch_norm(x, m.clone(), v.clone(), training=True,
+                                momentum=1 - ops.BN_MOMENTUM, eps=ops.BN_EPSILON)
+
     nel = x.numel()
-    stem = dict(shape=list(DPN_STEM),
-                bn_act_device_ms=device_ms(lambda: ops.bn_act(x, m, v, relu=True, mask=mask),
-                                           "bn_act_kernel"),
-                bn_act_plain_device_ms=device_ms(
-                    lambda: ops.bn_act_reference(x, m, v, relu=True, mask=mask)),
-                bn_act_bound_ms=bound_ms(2 * 2 * nel, 0.0, torch.bfloat16)[0],
-                bn_train_fwd_device_ms=device_ms(
-                    lambda: ops.bn_train(x, m.clone(), v.clone(), groups=8, relu=True)),
-                bn_train_bwd_device_ms=device_ms(
-                    lambda: torch.autograd.grad(y, [xi], dy, retain_graph=True)),
-                bn_train_bound_ms=bound_ms(2 * nel * (2 + 3), 20.0 * nel, torch.float32)[0],
-                bn_train_design=ops.bn_train_plan(DPN_STEM, 8, torch.bfloat16, 0, True)["design"])
-    del x, dy, xi, y
+    k3 = lambda: ops.bn_act(x, m, v, relu=True, mask=mask)  # noqa: E731
+    k3_plain = lambda: ops.bn_act_reference(x, m, v, relu=True, mask=mask)  # noqa: E731
+    k3_lib = lambda: F.batch_norm(x, m, v, eps=ops.BN_EPSILON)  # noqa: E731
+    k5_bwd = lambda: torch.autograd.grad(y, [xi], dy, retain_graph=True)  # noqa: E731
+    plain_bwd = lambda: torch.autograd.grad(yr, [xi], dy, retain_graph=True)  # noqa: E731
+    lib_bwd = lambda: torch.autograd.grad(ly, [li], dy, retain_graph=True)  # noqa: E731
+    stem = dict(shape=list(DPN_STEM), dtype="bfloat16", groups=8,
+                designs=designs[f"{DPN_STEM}/bfloat16"],
+                bn_act_ms=time_ms(k3, reps=20), bn_act_device_ms=device_ms(k3, "bn_act"),
+                bn_act_plain_ms=time_ms(k3_plain, reps=20),
+                bn_act_plain_device_ms=device_ms(k3_plain),
+                bn_act_bound_ms=bound_ms(2 * 2 * nel + 4 * DPN_STEM[0] * DPN_STEM[2], 0.0,
+                                         torch.bfloat16)[0],
+                bn_act_library_ms=time_ms(k3_lib, reps=20),
+                bn_act_library_device_ms=device_ms(k3_lib),
+                bn_train_fwd_ms=time_ms(k5_fwd, reps=20), bn_train_bwd_ms=time_ms(k5_bwd, reps=20),
+                bn_train_fwd_device_ms=device_ms(k5_fwd, "cluster_fwd_kernel"),
+                bn_train_bwd_device_ms=device_ms(k5_bwd, "cluster_bwd_kernel"),
+                bn_train_fwd_call_device_ms=device_ms(k5_fwd),
+                bn_train_bwd_call_device_ms=device_ms(k5_bwd),
+                bn_train_plain_fwd_ms=time_ms(lambda: ops.bn_train_reference(
+                    x, m.clone(), v.clone(), groups=8, relu=True), reps=20),
+                bn_train_plain_bwd_ms=time_ms(plain_bwd, reps=20),
+                # x read, y written; x, dy read, dx written
+                bn_train_fwd_bound_ms=bound_ms(2 * 2 * nel, 8.0 * nel, torch.float32)[0],
+                bn_train_bwd_bound_ms=bound_ms(3 * 2 * nel, 12.0 * nel, torch.float32)[0],
+                library_fwd_ms=time_ms(lib_fwd, reps=20), library_bwd_ms=time_ms(lib_bwd, reps=20),
+                library_fwd_device_ms=device_ms(lib_fwd), library_bwd_device_ms=device_ms(lib_bwd))
+    del x, dy, xi, y, yr, li, ly
     torch.cuda.empty_cache()
-    out = dict(channels=list(ANY_C), shapes=[list(sh) for sh in shapes], max_rel_err=errs,
-               max_relu_flips=flips, reruns_bit_equal=True, dpn_stem=stem)
+    out = dict(channels=list(ANY_C), shapes=[list(sh) for sh in shapes], designs=designs,
+               max_rel_err=errs, max_relu_flips=flips, reruns_bit_equal=True, dpn_stem=stem)
     emit({"phase": "kernel", "name": "bn_any_channel_count", **out})
-    return out
+    src = "voxsrc2020_speaker_verification_tpu_torch/csrc/"
+    common = dict(route="cuda", dtype="bfloat16", reruns_bit_equal=True,
+                  per=f"one call at dpn68's stem {DPN_STEM}, bn_groups 8",
+                  max_abs_err_is="bfloat16, relative to the plain version's largest magnitude")
+    rows = [
+        dict(common, name="bn_act:fold", source=src + "bn_epilogue.cu",
+             replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:206 (BatchNorm eval "
+                      "branch + relu/mask_time, XLA) at C % 4 != 0: dpn68's 10-channel calls",
+             max_abs_err=fold_errs["bn_act"]["bfloat16"],
+             max_rel_err_fp32=fold_errs["bn_act"]["float32"], tolerance=TOL_TRAIN_BF16,
+             tolerance_fp32=TOL_FP32, ms=stem["bn_act_ms"], device_ms=stem["bn_act_device_ms"],
+             plain_ms=stem["bn_act_plain_ms"], plain_device_ms=stem["bn_act_plain_device_ms"],
+             bound_ms=stem["bn_act_bound_ms"], bound_by="bytes",
+             library_ms=stem["bn_act_library_ms"],
+             library_device_ms=stem["bn_act_library_device_ms"],
+             library_call="F.batch_norm, eval mode (no relu, no mask)"),
+        dict(common, name="bn_train:fold", source=src + "bn_train.cu",
+             replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:117 (_GroupedBN + relu, "
+                      "XLA, forward and backward) at C % vec != 0: dpn68's 10-channel calls",
+             max_abs_err=fold_errs["bn_train"]["bfloat16"],
+             max_rel_err_fp32=fold_errs["bn_train"]["float32"],
+             max_rel_err_fp32_grad=fold_errs["bn_train"]["float32_grad"],
+             tolerance=TOL_TRAIN_BF16, tolerance_fp32=TOL_FP32,
+             tolerance_fp32_grad=TOL_K5_GRAD_FP32,
+             ms=stem["bn_train_fwd_ms"] + stem["bn_train_bwd_ms"],
+             device_ms=stem["bn_train_fwd_device_ms"] + stem["bn_train_bwd_device_ms"],
+             device_ms_fwd=stem["bn_train_fwd_device_ms"],
+             device_ms_bwd=stem["bn_train_bwd_device_ms"],
+             plain_ms=stem["bn_train_plain_fwd_ms"] + stem["bn_train_plain_bwd_ms"],
+             bound_ms=stem["bn_train_fwd_bound_ms"] + stem["bn_train_bwd_bound_ms"],
+             bound_ms_fwd=stem["bn_train_fwd_bound_ms"],
+             bound_ms_bwd=stem["bn_train_bwd_bound_ms"], bound_by="bytes",
+             library_ms=stem["library_fwd_ms"] + stem["library_bwd_ms"],
+             library_device_ms=stem["library_fwd_device_ms"] + stem["library_bwd_device_ms"],
+             library_call="F.batch_norm, training mode at one group, forward + backward "
+                          "(no relu)")]
+    return out, rows
 
 
 # ----------------------------------------------------------------------
@@ -1836,15 +1946,35 @@ def row_counts(row, counts):
             and (fns is None or k.split(".")[1].split(":")[0] in fns)}
 
 
-def k5_launches(k5, groups):
-    """(cluster-design, multi-kernel-design) K5 calls among ``k5``'s
-    (bn_train_plan picks the design by shape)."""
+K5_LAUNCH_KEYS = ("bn_train.bn_cluster_fwd:row", "bn_train.bn_cluster_bwd:row",
+                  "bn_train.bn_cluster_fwd:fold", "bn_train.bn_cluster_bwd:fold",
+                  "bn_train.bn_train_fwd", "bn_train.bn_train_bwd")
+
+
+def k5_functions(shape, groups, mode, relu):
+    """(forward, backward) launch-count keys of one K5 call: the design
+    bn_train_plan gives it at its real shape in bf16 (the cluster design on
+    rows or on folded rows, or the multi-kernel design)."""
     from voxsrc2020_speaker_verification_tpu_torch.ops.nn import bn_train_plan
 
-    cluster = sum(n for (shape, relu, mode), n in k5.items()
-                  if bn_train_plan(shape, groups, torch.bfloat16, mode, relu)["design"]
-                  == "cluster")
-    return cluster, sum(k5.values()) - cluster
+    plan = bn_train_plan(tuple(shape), groups, torch.bfloat16, mode, relu)
+    if plan["design"] == "multi":
+        return "bn_train.bn_train_fwd", "bn_train.bn_train_bwd"
+    path = "fold" if plan["fold"] > 1 else "row"
+    return f"bn_train.bn_cluster_fwd:{path}", f"bn_train.bn_cluster_bwd:{path}"
+
+
+def k5_launches(k5, groups, again=None) -> dict:
+    """K5's launches per microbatch by C function and design for ``k5``'s
+    calls (train_shapes: (shape, relu, mode) -> count), and the forward
+    again for the rematerialized ``again``."""
+    out = dict.fromkeys(K5_LAUNCH_KEYS, 0)
+    for calls, both in ((k5, True), (again or {}, False)):
+        for (shape, relu, mode), n in calls.items():
+            fwd, bwd = k5_functions(shape, groups, mode, relu)
+            out[fwd] += n
+            out[bwd] += n if both else 0
+    return out
 
 
 def write_feature_store(root, dataset, seed):
@@ -1938,15 +2068,11 @@ def lmft_phase(dev, state, smi, workdir):
     tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
     k5, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM)
     k5_remat, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES)
-    cluster, multi = k5_launches(k5, LMFT_GROUPS)
-    cluster_again, multi_again = k5_launches(k5_remat, LMFT_GROUPS)
+
     # the recompute of stages 0-2 (policy None) runs their chains' K9 again
     chains = k9_launches(train_chains(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM),
                          train_chains(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES))
-    per_microbatch = {**chains, "bn_train.bn_cluster_fwd": cluster + cluster_again,
-                      "bn_train.bn_cluster_bwd": cluster,
-                      "bn_train.bn_train_fwd": multi + multi_again,
-                      "bn_train.bn_train_bwd": multi,
+    per_microbatch = {**chains, **k5_launches(k5, LMFT_GROUPS, k5_remat),
                       **K6_SLAB_PER_MICROBATCH, **POOL_RING_PER_MICROBATCH}
     microbatches = LMFT_STEPS * config.num_accumulation_steps
     for fn, n in per_microbatch.items():
@@ -2881,10 +3007,11 @@ def k5_calls(config, remat_stages):
     of 24 frames): the ``ops.bn_train``, ``split_chain_train`` and
     ``ops.stats_pool`` calls of the forward and of the rematerialized
     recompute in the backward, K5's each by the design ``bn_train_plan``
-    gives it at the card's shape, K4's by ``stats_pool_plan``'s at the
-    card's frames (the head's 24-frame length scaled to config.feat_length),
-    and how many take K5's single-channel path (C % 4 != 0). Returns the
-    expected per-microbatch launch counts."""
+    gives it at the card's shape (B = config.batch_size, the recorded length
+    scaled from 24 frames to config.feat_length, the recorded bins), K4's by
+    ``stats_pool_plan``'s at the card's frames. Returns the expected
+    per-microbatch launch counts and the forward's K5 calls by design
+    (``bn_train.<function>:<path>`` of the forward keys)."""
     from voxsrc2020_speaker_verification_tpu_torch.models import get_model
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
@@ -2893,7 +3020,9 @@ def k5_calls(config, remat_stages):
     orig, orig_chain, orig_pool = ops.bn_train, rn.split_chain_train, ops.stats_pool
 
     def record(x, *args, **kw):
-        calls.append((phase[0], x.ndim, x.shape[1]))
+        mode = 0 if kw.get("shortcut") is None else (
+            2 if kw.get("shortcut_running_mean") is not None else 1)
+        calls.append((phase[0], tuple(x.shape), mode, bool(kw.get("relu", False))))
         return orig(x, *args, **kw)
 
     def record_pool(x, *args, **kw):
@@ -2918,13 +3047,19 @@ def k5_calls(config, remat_stages):
     finally:
         ops.bn_train, rn.split_chain_train, ops.stats_pool = orig, orig_chain, orig_pool
 
-    def design(ndim, c):
-        shape = (config.batch_size, c, 1, 1) if ndim == 4 else (config.batch_size, c)
-        return ops.bn_train_plan(shape, config.bn_groups, torch.bfloat16, 0, False)["design"]
+    def card_shape(shape):
+        if len(shape) == 2:
+            return (config.batch_size, shape[1])
+        return (config.batch_size, shape[1], -(-shape[2] * config.feat_length // 24), shape[3])
 
-    n = {(ph, d): 0 for ph in ("fwd", "recompute") for d in ("cluster", "multi")}
-    for ph, ndim, c in calls:
-        n[(ph, design(ndim, c))] += 1
+    k5 = dict.fromkeys(K5_LAUNCH_KEYS, 0)
+    by_design = {}
+    for ph, shape, mode, relu in calls:
+        fwd, bwd = k5_functions(card_shape(shape), config.bn_groups, mode, relu)
+        k5[fwd] += 1
+        if ph == "fwd":
+            k5[bwd] += 1
+            by_design[fwd] = by_design.get(fwd, 0) + 1
     k9 = {ph: {(None, None, s): sum(1 for p, s2 in chains if p == ph and s2 == s)
                for s in {s for _, s in chains}} for ph in ("fwd", "recompute")}
     if sum(1 for ph, _ in pools if ph == "fwd") != 1:
@@ -2936,12 +3071,7 @@ def k5_calls(config, remat_stages):
         for fn in ("stats_pool.stats_pool", "stats_pool_bwd.stats_pool_bwd"):
             if fn.startswith("stats_pool.") or ph == "fwd":
                 pool[f"{fn}:{d}"] = pool.get(f"{fn}:{d}", 0) + 1
-    return {**k9_launches(k9["fwd"], k9["recompute"]), **pool,
-            "bn_train.bn_cluster_fwd": n[("fwd", "cluster")] + n[("recompute", "cluster")],
-            "bn_train.bn_cluster_bwd": n[("fwd", "cluster")],
-            "bn_train.bn_train_fwd": n[("fwd", "multi")] + n[("recompute", "multi")],
-            "bn_train.bn_train_bwd": n[("fwd", "multi")]}, sum(
-                1 for ph, _, c in calls if ph == "fwd" and c % 4)
+    return {**k9_launches(k9["fwd"], k9["recompute"]), **pool, **k5}, by_design
 
 
 def encoder_train(dev, spec, workdir, smi):
@@ -2967,7 +3097,7 @@ def encoder_train(dev, spec, workdir, smi):
     if config.effective_batch != recipe_cfg.effective_batch:
         fail(f"encoders {model}: effective batch {config.effective_batch}, the recipe's "
              f"{recipe_cfg.effective_batch}")
-    per_microbatch, single_channel = k5_calls(config, stages)
+    per_microbatch, k5_by_design = k5_calls(config, stages)
     att = "_att" in model or model.startswith("ecapa")
     per_microbatch.update({
         "att_pool.att_pool_fwd": int(att), "att_pool.att_pool_bwd": int(att),
@@ -3020,7 +3150,7 @@ def encoder_train(dev, spec, workdir, smi):
           "learning_rates": [h["learning_rate"] for h in hist],
           "margins": [h["margin"] for h in hist],
           "launches_per_microbatch": per_microbatch,
-          "k5_single_channel_calls_per_microbatch": single_channel,
+          "k5_calls_by_design_per_microbatch": k5_by_design,
           "launches": {k: v for k, v in counts.items() if v}, "card": smi})
     state = run.result.state
     del run
@@ -3058,7 +3188,7 @@ def encoder_extract(dev, state, config, workdir):
     counts = kernels.function_launch_counts()
     att = "_att" in cfg.model or cfg.model.startswith("ecapa")
     if counts["att_pool.att_pool_fwd"] != int(att) or fn_total(counts, "stats_pool.stats_pool") != 1 \
-            or counts["bn_act.bn_act"] == 0 or counts["att_pool.att_pool_bwd"]:
+            or fn_total(counts, "bn_act.bn_act") == 0 or counts["att_pool.att_pool_bwd"]:
         fail(f"encoders {cfg.model}: extraction launches {counts}")
     emb = np.stack([out[u] for u, _ in feats])
     if emb.shape != (batch, config_output_dim(cfg)) or not np.isfinite(emb).all():
@@ -4301,15 +4431,13 @@ def main() -> int:
                     check_margin_partial(dev, gen)]
     torch.cuda.empty_cache()
     att_rows = list(check_att_pool(dev, gen))
-    any_c = check_bn_any_c(dev, gen)
+    any_c, fold_rows = check_bn_any_c(dev, gen)
     k4_w1 = check_stats_pool_w1(dev, gen)
     torch.cuda.empty_cache()
     # K5's one-launch cluster design takes the 4-D calls, the multi-kernel
     # design the 2-D head calls (bn_train_plan)
-    n_cluster, n_multi = k5_launches(k5, TRAIN_GROUPS)
-    per_microbatch = {"bn_train.bn_cluster_fwd": n_cluster, "bn_train.bn_cluster_bwd": n_cluster,
-                      "bn_train.bn_train_fwd": n_multi, "bn_train.bn_train_bwd": n_multi,
-                      **K6_SLAB_PER_MICROBATCH, **k9_launches(chains),
+    per_microbatch = {**k5_launches(k5, TRAIN_GROUPS), **K6_SLAB_PER_MICROBATCH,
+                      **k9_launches(chains),
                       **POOL_RING_PER_MICROBATCH}
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -4394,6 +4522,10 @@ def main() -> int:
                                     for m in enc_train}
         if row["launches"] == 0:
             fail(f"the encoders phase launched no {row['name']}")
+    # K3 and K5 by design: the serve / train phases and the encoders phase
+    # (extraction for K3, training for K5); the folded designs' rows count
+    # the encoders phase's launches (dpn68's 10-channel calls), which must
+    # be some
     for row in rows + train_rows:
         if row["name"] in ("bn_act", "bn_train"):
             row["any_channel_count"] = any_c
@@ -4401,6 +4533,22 @@ def main() -> int:
             row["launches_encoders"] = {m: {k: v for k, v in c.items()
                                             if k.split(".")[0] == row["name"] and v}
                                         for m, c in counts_by.items()}
+            main_counts = serve_fn_counts if row["name"] == "bn_act" else train_counts
+            row["launches_by_design"] = {
+                phase: {k.split(".", 1)[1]: v for k, v in c.items()
+                        if k.split(".")[0] == row["name"] and "span" not in k}
+                for phase, c in (("serve" if row["name"] == "bn_act" else "train", main_counts),
+                                 *((f"encoders_{m}", cm) for m, cm in counts_by.items()))}
+    for row in fold_rows:
+        fns = (("bn_act.bn_act:fold",) if row["name"] == "bn_act:fold"
+               else ("bn_train.bn_cluster_fwd:fold", "bn_train.bn_cluster_bwd:fold"))
+        counts_by = enc_extract if row["name"] == "bn_act:fold" else enc_train
+        row["launches_by_model"] = {m: sum(c[fn] for fn in fns) for m, c in counts_by.items()}
+        row["launches"] = sum(row["launches_by_model"].values())
+        row["launches_on"] = ("encoders phase: extraction" if row["name"] == "bn_act:fold"
+                              else "encoders phase: training")
+        if row["launches_by_model"].get("dpn68", 0) == 0:
+            fail(f"the encoders phase's dpn68 launched no {row['name']}")
     # the launch phase's ranks: K5's spanning and K6's partial launches (each
     # rank's, of its one step)
     span_row, partial_row = slice12_rows[1], slice12_rows[2]
@@ -4418,7 +4566,7 @@ def main() -> int:
         if not any(row["launches_slice13"].values()):
             fail(f"slice 13's paths launched no {row['name']}")
     emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows + slice12_rows
-          + k4_w1})
+          + k4_w1 + fold_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

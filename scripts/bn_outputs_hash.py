@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Hashes of K3's and K5's outputs on seeded inputs at channel counts that
-are multiples of 4, on one GPU: to show that two trees of the port give
-them bit for bit (copy this script into the other tree and run both).
+"""Hashes of K3's and K5's outputs on seeded inputs on one GPU: to show
+that two trees of the port give them bit for bit (copy this script into the
+other tree and run both).
 
     python3 scripts/bn_outputs_hash.py --save a.json
     python3 scripts/bn_outputs_hash.py --compare-with a.json
 
 Cases: K3 (``ops.bn_act``) with relu and mask, a raw and a normalized
-shortcut, in float32 and bfloat16; K5 (``ops.bn_train``) forward output,
-input gradients and running statistics under relu with each shortcut mode,
-on the cluster design (4-D) and the multi-kernel design (2-D), groups 8.
-The script uses only the wrappers' public interface. Prints one JSON line:
-the SHA-256 of each output's bytes, and with ``--compare-with`` whether
-every one equals the other file's (exit 1 if not).
+shortcut, in float32 and bfloat16, at channel counts that are multiples of
+4 and at dpn68's 10-channel stem (256, 10, 200, 80) (each element's
+arithmetic is the same on every K3 path); K5 (``ops.bn_train``) forward
+output, input gradients and running statistics under relu with each
+shortcut mode, on the cluster design (4-D) and the multi-kernel design
+(2-D), groups 8, at channel counts that fill 16-byte vectors; and every K5
+call of the bench training step (res2net50_w8_s6_c16, B = 256, 200 frames,
+bf16, bn_groups 8: ``chip_smoke.train_shapes``) with its relu and shortcut
+mode. The script uses only the wrappers' public interface. Prints one JSON
+line: the SHA-256 of each output's bytes, and with ``--compare-with``
+whether every one equals the other file's (exit 1 if not).
 """
 
 from __future__ import annotations
@@ -27,9 +32,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke  # noqa: E402
+from voxsrc2020_speaker_verification_tpu_torch.models import RES2NET_CONFIGS  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops  # noqa: E402
 
-K3_SHAPES = ((64, 96, 200, 80), (32, 1024, 125, 10), (16, 32, 37, 11))
+K3_SHAPES = ((64, 96, 200, 80), (32, 1024, 125, 10), (16, 32, 37, 11), (256, 10, 200, 80))
 K5_SHAPES = (((64, 48, 200, 80), 8), ((32, 64, 25, 10), 8), ((256, 3072), 8), ((64, 40), 8))
 
 
@@ -42,6 +49,26 @@ def inputs(shape, dtype, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
     return x.contiguous(memory_format=torch.channels_last) if x.ndim == 4 else x
+
+
+def k5_digests(shape, groups, dtype, mode, relu, dev):
+    """Digests of K5's y, input gradients and running statistics at one
+    call (shortcut ``mode`` 0, 1 raw or 2 normalized)."""
+    c = shape[1]
+    x, s, dy = (inputs(shape, dtype, seed, dev) for seed in (4, 5, 6))
+    g = torch.Generator(device=dev).manual_seed(7)
+    stats = [0.1 * torch.randn(c, generator=g, device=dev), 0.5 + torch.rand(c, generator=g, device=dev)] * 2
+    stats = [t.clone() for t in stats]
+    xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    kw = dict(groups=groups, relu=relu)
+    if mode:
+        kw["shortcut"] = si
+    if mode == 2:
+        kw.update(shortcut_running_mean=stats[2], shortcut_running_var=stats[3])
+    y = ops.bn_train(xi, stats[0], stats[1], **kw)
+    y.backward(dy)
+    parts = [y, xi.grad] + ([si.grad] if mode else []) + stats
+    return [digest(t) for t in parts]
 
 
 def main() -> int:
@@ -66,22 +93,15 @@ def main() -> int:
                                                  shortcut_var=v, mask=mask))):
                 out[f"bn_act/{dn}/{shape}/{name}"] = digest(ops.bn_act(x, m, v, **kw))
         for shape, groups in K5_SHAPES:
-            c = shape[1]
             for mode in (0, 1, 2):
-                x, s, dy = (inputs(shape, dtype, seed, dev) for seed in (4, 5, 6))
-                g = torch.Generator(device=dev).manual_seed(7)
-                stats = [0.1 * torch.randn(c, generator=g, device=dev), 0.5 + torch.rand(c, generator=g, device=dev)] * 2
-                stats = [t.clone() for t in stats]
-                xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
-                kw = dict(groups=groups, relu=True)
-                if mode:
-                    kw["shortcut"] = si
-                if mode == 2:
-                    kw.update(shortcut_running_mean=stats[2], shortcut_running_var=stats[3])
-                y = ops.bn_train(xi, stats[0], stats[1], **kw)
-                y.backward(dy)
-                parts = [y, xi.grad] + ([si.grad] if mode else []) + stats
-                out[f"bn_train/{dn}/{shape}/g{groups}/mode{mode}"] = [digest(t) for t in parts]
+                out[f"bn_train/{dn}/{shape}/g{groups}/mode{mode}"] = k5_digests(
+                    shape, groups, dtype, mode, True, dev)
+    # the bench training step's K5 calls
+    k5, _ = chip_smoke.train_shapes(RES2NET_CONFIGS["res2net50_w8_s6_c16"], 256, 200, 80)
+    for shape, relu, mode in sorted(k5):
+        out[f"bench_step/{shape}/relu{int(relu)}/mode{mode}"] = k5_digests(
+            shape, 8, torch.bfloat16, mode, relu, dev)
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     line = {"cases": len(out)}
     if args.compare_with:

@@ -123,8 +123,10 @@ def main() -> int:
         if name in K5_DEVICE_KERNELS:
             ms, n = k5.get(name, (0.0, 0))
             k5[name] = (ms + v, n + calls[k])
-    one_launch = all(k5.get(f"cluster_{d}_kernel", (0, 0))[1] == launches.get(f"bn_train.bn_cluster_{d}", 0)
-                     for d in ("fwd", "bwd"))
+    # the cluster design's launches on rows and on folded rows
+    one_launch = all(k5.get(f"cluster_{d}_kernel", (0, 0))[1] == sum(
+        launches.get(f"bn_train.bn_cluster_{d}:{p}", 0) for p in ("row", "fold"))
+        for d in ("fwd", "bwd"))
     extra = {}
     if args.host_calls:
         extra["k5_host_us_per_call"] = host_us_per_bn_call(args.host_calls)

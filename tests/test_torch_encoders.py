@@ -3,7 +3,8 @@ ECAPA-TDNN and the attentive-stats Res2Net, against the JAX package on the
 CPU in float32, with weights converted by ``convert.from_flax`` from
 randomized flax variables (BN statistics perturbed away from identity).
 Thin registered variants keep every structural feature: DPN's 10-channel
-stem (K3/K5's single-channel path on the card), projected and downsampled
+stem (K3/K5 on folded rows on the card, emulated here against JAX's
+_GroupedBN and eval BatchNorm), projected and downsampled
 blocks with SAME stride-2 padding and cardinality; ECAPA's masked split
 stage, SE and attentive pooling at W = 1.
 
@@ -198,6 +199,43 @@ def test_conv2d_same_matches_jax(t, kernel, strides, dilation, card):
     got = to_nhwc(pmod(to_port(x)))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("shape,groups", [((16, 24, 16, 10), 8), ((16, 24, 16, 10), 1),
+                                          ((8, 13, 8, 10), 2)], ids=str)
+def test_folded_bn_matches_jax(shape, groups):
+    """dpn68's 10-channel BN on the cluster design's folded rows (K5,
+    training, with the running update) and K3's folded path (eval, relu and
+    the time mask), emulated on the CPU (tests/test_torch_plans.py) at thin
+    stem shapes from a numpy seed, against the JAX package's _GroupedBN
+    (through BatchNorm under bn_groups) and eval BatchNorm with relu and
+    mask_time, float32, within 1e-4."""
+    from test_torch_plans import bn_act_folded, bn_train_folded
+
+    rng = np.random.RandomState(sum(shape) + groups)
+    x = (rng.randn(*shape) * 1.5 + 0.3).astype(np.float32)
+    mask = lengths_mask(shape[1], rng.randint(1, shape[1] + 1, shape[0]))
+    jmod = jops.BatchNorm()
+    variables = jax_variables(jmod, (jnp.asarray(x),), groups)
+    with jops.bn_groups(groups):
+        want, new_stats = jmod.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    xp = to_port(x).contiguous(memory_format=torch.channels_last)
+    stats = variables["batch_stats"]["bn"]
+    rm, rv = (torch.from_numpy(np.array(stats[k], np.float32)) for k in ("mean", "var"))
+    plan = tops.bn_train_plan(tuple(xp.shape), groups, torch.float32, 0, False)
+    assert plan["design"] == "cluster" and plan["fold"] % 2 == 0
+    got = bn_train_folded(xp, rm, rv, groups, plan, relu=False)
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), **TOL)
+    for k, v in (("mean", rm), ("var", rv)):
+        np.testing.assert_allclose(v.numpy(), np.asarray(new_stats["batch_stats"]["bn"][k]), **TOL)
+
+    eval_y = jmod.apply(variables, jnp.asarray(x), use_running_average=True)
+    want = np.maximum(np.asarray(eval_y), 0) * mask[:, :, None, None]
+    k3 = tops.bn_act_plan(tuple(xp.shape), torch.float32)
+    assert k3 == {"design": "fold", "fold": 2}
+    mean, var = (torch.from_numpy(np.array(stats[k], np.float32)) for k in ("mean", "var"))
+    got = bn_act_folded(xp, mean, var, torch.from_numpy(mask), k3["fold"])
+    np.testing.assert_allclose(to_nhwc(got), want, **TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -463,8 +463,8 @@ def test_bn_train_cluster_saves_no_output(cuda, mode):
     before = dict(kernels.BN_TRAIN.fn_launches)
     outs, saved = bn_run(cuda, (32, 64, 25, 10), 8, mode, torch.bfloat16)
     after = kernels.BN_TRAIN.fn_launches
-    assert after["bn_cluster_fwd"] - before["bn_cluster_fwd"] == 1
-    assert after["bn_cluster_bwd"] - before["bn_cluster_bwd"] == 1
+    assert after["bn_cluster_fwd:row"] - before["bn_cluster_fwd:row"] == 1
+    assert after["bn_cluster_bwd:row"] - before["bn_cluster_bwd:row"] == 1
     y = outs[0]
     holds_y = any(t.data_ptr() == y.data_ptr() for t in saved)
     assert holds_y == (mode == 1)
@@ -848,8 +848,8 @@ def test_remat_step_on_the_card_updates_bn_once(cuda, policy):
     # launch a chain and one grad launch a group (the other groups'
     # statistics folded into the grad launches)
     again = 2 + 2 + 3
-    assert cr["bn_train.bn_cluster_fwd"] == cp["bn_train.bn_cluster_fwd"] + again
-    assert cr["bn_train.bn_cluster_bwd"] == cp["bn_train.bn_cluster_bwd"]
+    assert cr["bn_train.bn_cluster_fwd:row"] == cp["bn_train.bn_cluster_fwd:row"] + again
+    assert cr["bn_train.bn_cluster_bwd:row"] == cp["bn_train.bn_cluster_bwd:row"]
     k9 = ("split_train.split_train_fwd", "split_train.split_train_finish")
     k9_again = 0 if policy == "dots_saveable" else 2 * (3 + 1)
     assert sum(cr[k] for k in k9) == sum(cp[k] for k in k9) + k9_again
@@ -1214,13 +1214,32 @@ def test_att_pool_kernel_edges(cuda):
         tops.att_pool(x, s, mask.cpu())
 
 
+def bn_designs_taken(fn):
+    """(K3's paths, K5's designs) that ``fn()`` launched, from the launch
+    counts by path."""
+    before = kernels.function_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in kernels.function_launch_counts().items()
+             if v != before[k]}
+    k3 = {k.split(":")[1] for k in delta if k.startswith("bn_act.bn_act:")}
+    k5 = {("fold" if k.endswith(":fold") else "cluster") if "cluster" in k else "multi"
+          for k in delta if k.startswith("bn_train.") and "span" not in k}
+    return k3, k5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [1, 3, 10])
 def test_bn_kernels_take_any_channel_count(cuda, channels):
     """K3 (relu, both shortcut modes, mask) and K5 (forward, running
     update, backward, groups 1 and 8) at channel counts that are not
     multiples of 4 (dpn68's 10-channel stem), against the plain versions on
-    the same inputs; dpn68's stem shape at C = 10; reruns bit for bit."""
+    the same inputs; dpn68's stem shape at C = 10; reruns bit for bit. Each
+    call takes the design its plan names, read off the launch counts: the
+    folded rows where n % fold == 0 (K5) or F % fold == 0 (K3), else the
+    multi-kernel design or single channels (a K3 case with F % fold != 0:
+    F = 5; a K5 case whose groups start off a 16-byte boundary: n = 90 rows
+    of 10 bf16 channels at groups 8)."""
     shapes = [(16, channels, 9, 5), (64, channels, 25, 10)]
     if channels == 10:
         shapes.append((256, 10, 200, 80))
@@ -1232,19 +1251,35 @@ def test_bn_kernels_take_any_channel_count(cuda, channels):
             t = shape[2]
             mask = (torch.arange(t, device=cuda)[None] < torch.randint(
                 1, t + 1, (shape[0],), device=cuda)[:, None]).float()
+            k3_plan = tops.bn_act_plan(shape, dtype)
             for kw in (dict(relu=True, mask=mask), dict(shortcut=s),
                        dict(relu=True, shortcut=s, shortcut_mean=sm, shortcut_var=sv)):
                 got = tops.bn_act(x, m, v, **kw)
                 assert rel(got, tops.bn_act_reference(x, m, v, **kw)) <= tol, (shape, kw.keys())
                 assert torch.equal(got, tops.bn_act(x, m, v, **kw))
+                k3, _ = bn_designs_taken(lambda: tops.bn_act(x, m, v, **kw))
+                assert k3 == {k3_plan["design"]}, (shape, dtype)
             dy = bn_case(cuda, shape, dtype, 5)[0]
             for groups in (1, 8):
+                plan = tops.bn_train_plan(shape, groups, dtype, 0, True)
+                want = ("fold" if plan["fold"] > 1 else "cluster") if plan["design"] == "cluster" \
+                    else "multi"
                 runs = []
                 for fn in (tops.bn_train, tops.bn_train_reference, tops.bn_train):
                     xi = x.clone().requires_grad_(True)
                     st = [m.clone(), v.clone()]
-                    y = fn(xi, st[0], st[1], groups=groups, relu=True)
-                    y.backward(dy)
+
+                    def run():
+                        y = fn(xi, st[0], st[1], groups=groups, relu=True)
+                        y.backward(dy)
+                        return y
+                    if fn is tops.bn_train_reference:
+                        y = run()
+                    else:
+                        holder = []
+                        _, k5 = bn_designs_taken(lambda: holder.append(run()))
+                        y = holder[0]
+                        assert k5 == {want}, (shape, dtype, groups)
                     runs.append((y.detach(), xi.grad, *st))
                 (y, dx, rm, rv), (yr, dxr, rmr, rvr), again = runs
                 same = (y > 0) == (yr > 0)
@@ -1252,6 +1287,26 @@ def test_bn_kernels_take_any_channel_count(cuda, channels):
                 assert rel(y, yr) <= tol and rel(dx * same, dxr * same) <= tol, (shape, groups)
                 assert rel(rm, rmr) <= 1e-4 and rel(rv, rvr) <= 1e-4
                 assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    # the designs by shape: F % 4 != 0 keeps K3 on single channels in bf16;
+    # groups of 90 rows of 10 bf16 channels start off a 16-byte boundary
+    if channels == 10:
+        assert tops.bn_act_plan((16, 10, 9, 5), torch.bfloat16)["design"] == "single"
+        assert tops.bn_train_plan((16, 10, 9, 5), 8, torch.bfloat16, 0, True)["design"] == "multi"
+        assert tops.bn_act_plan((256, 10, 200, 80), torch.bfloat16)["design"] == "fold"
+        assert tops.bn_train_plan((256, 10, 200, 80), 8, torch.bfloat16, 0, True)["fold"] == 100
+        # a tensor one element into its buffer: not 16-byte aligned, so K3
+        # takes single channels there and K5 the multi-kernel design
+        buf = torch.randn(16 * 10 * 12 * 8 + 1, device=cuda).bfloat16()
+        xm = buf[1:].view(16, 12, 8, 10).permute(0, 3, 1, 2)
+        assert xm.is_contiguous(memory_format=torch.channels_last) and xm.data_ptr() % 16
+        m, v = torch.zeros(10, device=cuda), torch.ones(10, device=cuda)
+        assert tops.bn_act_plan(tuple(xm.shape), torch.bfloat16)["design"] == "fold"
+        k3, _ = bn_designs_taken(lambda: tops.bn_act(xm, m, v, relu=True))
+        assert k3 == {"single"}
+        assert rel(tops.bn_act(xm, m, v, relu=True),
+                   tops.bn_act_reference(xm, m, v, relu=True)) <= 2e-2
+        _, k5 = bn_designs_taken(lambda: tops.bn_train(xm, m.clone(), v.clone(), groups=8))
+        assert k5 == {"multi"}
 
 
 # ---------------------------------------------------------------------------

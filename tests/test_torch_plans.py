@@ -173,11 +173,21 @@ def test_bn_train_plan_every_training_call(dtype, groups):
 
 def test_bn_train_plan_other_calls():
     """One BN group takes the cluster design too (the kernel spreads the
-    group over the card); channels that do not fill 16-byte vectors, rows
-    wider than 512 vectors and 2-D inputs take the multi-kernel design."""
+    group over the card); channels that do not fill 16-byte vectors take it
+    on folded rows where a group's rows n are a multiple of the fewest rows
+    that fill whole vectors (12 bf16 channels: 2 rows, n = 90; the fold 10
+    of them gives 480 threads), else the multi-kernel design (10 channels:
+    4 rows, 90 % 4 != 0); rows wider than 512 vectors and 2-D inputs take
+    the multi-kernel design."""
     plan = tops.bn_train_plan((256, 96, 200, 80), 1, torch.bfloat16, 0, False)
     assert plan["design"] == "cluster" and plan["rows"] == 256 * 200 * 80
-    assert tops.bn_train_plan((16, 12, 9, 5), 8, torch.bfloat16, 0, True)["design"] == "multi"
+    plan = tops.bn_train_plan((16, 12, 9, 5), 8, torch.bfloat16, 0, True)
+    assert (plan["design"], plan["fold"], plan["ct_v"], plan["rows"]) == ("cluster", 10, 15, 90)
+    assert tops.bn_train_plan((16, 10, 9, 5), 8, torch.bfloat16, 0, True)["design"] == "multi"
+    assert tops.bn_train_plan((16, 10, 9, 5), 1, torch.bfloat16, 0, True)["fold"] == 12
+    # dpn68's stem: 100 rows of 10 bf16 channels, 125 vectors x 4 row lanes
+    plan = tops.bn_train_plan((256, 10, 200, 80), 8, torch.bfloat16, 0, True)
+    assert (plan["fold"], plan["ct_v"], plan["rpb"], plan["threads"]) == (100, 125, 4, 500)
     assert tops.bn_train_plan((16, 12, 9, 5), 8, torch.float32, 0, True)["design"] == "cluster"
     assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.bfloat16, 0, True)["design"] == "cluster"
     assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.float32, 0, True)["design"] == "multi"
@@ -609,3 +619,226 @@ def test_stats_pool_plan_w1_heads():
                       ((128, 1000, 1, 1536), 32)):
         p32 = tops.stats_pool_plan(*shape, torch.float32)
         assert (p32["design"], p32["row_bytes"], p32["tiles"]) == ("column", rb, 1536 * 4 // rb)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K5 on folded rows: dpn68's 10-channel calls
+# ---------------------------------------------------------------------------
+
+# the dpn68 recipes' training shapes (microbatch, frames, bins) and the
+# extraction bucket's (128 rows of 1000 frames)
+DPN_RECIPES = ("dpn_vox2_dev_aug", "dpn_finetune_vox2_dev", "dpn_voxsrc2020_vox2_dev_aug")
+
+
+def dpn68_bn_calls(batch, frames, feat_dim):
+    """Every BN call of a dpn68 training forward at (batch, frames, bins),
+    as (shape, relu, shortcut mode): recorded from a full-width forward on
+    the CPU at 8 frames, the time axis scaled to ``frames`` (the strided
+    stages halve it with SAME padding: ceil)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import get_model
+
+    calls, orig = [], tops.bn_train
+
+    def record(x, *args, **kw):
+        calls.append((tuple(x.shape), bool(kw.get("relu", False))))
+        return orig(x, *args, **kw)
+
+    torch.manual_seed(0)
+    model = get_model("dpn68", feat_dim=feat_dim)
+    tops.bn_train = record
+    try:
+        with torch.no_grad():
+            model(torch.randn(2, 8, feat_dim), True)
+    finally:
+        tops.bn_train = orig
+    out = []
+    for shape, relu in calls:
+        if len(shape) == 4:
+            shape = (batch, shape[1], -(-shape[2] * frames // 8), shape[3])
+        else:
+            shape = (batch, shape[1])
+        out.append((shape, relu))
+    return out
+
+
+def fold_threads(c, fold, vec):
+    """A CTA's threads at super-rows of ``fold`` rows of C channels: ct_v
+    vectors by the most row lanes (a power of two) within 512 threads."""
+    ct_v = c * fold // vec
+    return ct_v * 2 ** int(np.log2(512 // ct_v))
+
+
+def assert_fold_geometry(plan, shape, dtype):
+    """A cluster plan's folded geometry: super-rows of ``fold`` rows fill
+    whole 16-byte vectors (ct_v of them); the fold is a multiple of the
+    fewest rows that do, divides the rows of a group and gives the most
+    threads of all such folds (the smallest of those); each group starts
+    16-byte aligned; the other checks as for rows of C channels."""
+    vec, c = 16 // dtype.itemsize, shape[1]
+    fold, ct_v, rpb = plan["fold"], plan["ct_v"], plan["rpb"]
+    k = int(vec // np.gcd(c, vec))
+    assert fold % k == 0 and ct_v * vec == c * fold
+    # rows that fill 16-byte vectors are not folded
+    folds = [1] if k == 1 else [f for f in range(k, 512 * k + 1, k)
+                                if c * f // vec <= 512 and plan["rows"] % f == 0]
+    most = max(fold_threads(c, f, vec) for f in folds)
+    assert plan["threads"] == most and fold == min(f for f in folds
+                                                   if fold_threads(c, f, vec) == most)
+    assert plan["rows"] % fold == 0 and plan["rows"] * c * dtype.itemsize % 16 == 0
+    assert plan["threads"] == ct_v * rpb <= 512 and rpb & (rpb - 1) == 0 and 2 * ct_v * rpb > 512
+    row = c * fold * dtype.itemsize
+    # the kernel's shared arrays hold C channels (rounded up to 4): the
+    # super-channel sums are folded inside the CTA
+    fixed = 4 * (plan["threads"] * vec + (2 * 2 + 4) * (-(-c // 4) * 4))
+    assert plan["fwd_smem"] == fixed + plan["fwd_ring_bytes"] <= SMEM - 1024
+    for d in ("fwd", "bwd"):
+        rr, ring = plan[f"{d}_ring_rows"], plan[f"{d}_ring_bytes"]
+        assert rr % rpb == 0 and ring % 16 == 0 and 4 <= plan[f"{d}_stages"] <= 16
+        assert plan[f"{d}_stages"] * rr * row <= ring
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [8, 1])
+@pytest.mark.parametrize("recipe", DPN_RECIPES)
+def test_bn_plans_every_dpn68_call(recipe, groups, dtype):
+    """Every BN call of dpn68 under each of its three recipes (at the
+    recipe's microbatch, frames and bins): K5 takes the cluster design, on
+    folded rows with a valid geometry where C does not fill 16-byte vectors
+    (the 10-channel stem, stage 1's first projection and conv_a: three calls
+    a microbatch) unless n % fold != 0 (then the multi-kernel design), the
+    2-D head calls the multi-kernel design; K3 (extraction, eval) takes
+    4-channel vectors where C % 4 == 0, else the fold where F % fold == 0,
+    else single channels."""
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
+
+    cfg, _ = get_recipe(recipe)
+    calls = dpn68_bn_calls(cfg.batch_size, cfg.feat_length, cfg.feat_dim)
+    vec = 16 // dtype.itemsize
+    folded = 0
+    for shape, relu in calls:
+        plan = tops.bn_train_plan(shape, groups, dtype, 0, relu)
+        if len(shape) == 2:
+            assert plan["design"] == "multi"
+            continue
+        c = shape[1]
+        fold = vec // np.gcd(c, vec)
+        n = shape[0] // groups * shape[2] * shape[3]
+        if n % fold:
+            assert plan["design"] == "multi", shape
+            continue
+        assert plan["design"] == "cluster" and plan["rows"] == n, shape
+        assert_fold_geometry(plan, shape, dtype)
+        folded += plan["fold"] > 1
+        k3 = tops.bn_act_plan(shape, dtype)
+        if c % 4 == 0:
+            assert k3 == {"design": "vec", "fold": 0}
+        else:
+            assert k3["design"] == ("fold" if shape[3] % fold == 0 else "single")
+            assert k3["fold"] == (fold if k3["design"] == "fold" else 0)
+    assert folded == 3 and sum(s[1] == 10 for s, _ in calls if len(s) == 4) == 3
+    bucket = tops.bn_act_plan((128, 10, 1000, cfg.feat_dim), dtype)
+    assert bucket == {"design": "fold", "fold": vec // np.gcd(10, vec)}
+
+
+def test_bn_act_plan_paths():
+    """K3's path by shape: the fold needs F % fold == 0 (F = 5 with 4 bf16
+    rows: single channels) and at most 256 vectors a super-row."""
+    assert tops.bn_act_plan((16, 10, 9, 5), torch.bfloat16) == {"design": "single", "fold": 0}
+    assert tops.bn_act_plan((16, 10, 9, 4), torch.bfloat16) == {"design": "fold", "fold": 4}
+    assert tops.bn_act_plan((16, 10, 9, 5), torch.float32) == {"design": "single", "fold": 0}
+    assert tops.bn_act_plan((16, 12, 9, 5), torch.bfloat16) == {"design": "vec", "fold": 0}
+    assert tops.bn_act_plan((4, 3, 9, 8), torch.bfloat16) == {"design": "fold", "fold": 8}
+    # 1021 channels: 8 rows of 1021 bf16 values are 1021 vectors
+    assert tops.bn_act_plan((4, 1021, 3, 8), torch.bfloat16)["design"] == "single"
+
+
+def fold_lanes(plan_fold, channels, dtype):
+    """The kernels' lane map of a super-row: element j of 16-byte vector
+    lane is super-channel lane * vec + j, channel (lane * vec + j) % C."""
+    vec = 16 // dtype.itemsize
+    width = channels * plan_fold
+    assert width % vec == 0
+    return torch.arange(width) % channels
+
+
+def integer_inputs(shape, seed, dtype):
+    """Seeded inputs on a grid of 1/4 in [-4, 4): every float32 sum over a
+    group is exact, so sums taken in any order agree bit for bit."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(-16, 16, size=shape).astype(np.float32) / 4)
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def bn_train_folded(x, running_mean, running_var, groups, plan, relu):
+    """K5's cluster design on folded rows, emulated on the CPU: x's
+    channels-last rows viewed as (G, n / fold, C * fold) super-rows, each
+    super-channel summed over the super-rows, the fold's super-channels of
+    a channel added in order (s = c, c + C, ...), the statistics tiled back
+    onto the super-row by the lane map and applied there. The statistics'
+    arithmetic is the plain version's (mean = sum / n); the running
+    statistics are updated in place."""
+    b, c = x.shape[:2]
+    fold = plan["fold"]
+    sup = x.permute(0, 2, 3, 1).reshape(groups, plan["rows"] // fold, c * fold).float()
+    chan = fold_lanes(fold, c, x.dtype)
+    s1, s2 = sup.sum(1), torch.square(sup).sum(1)
+    sums = [torch.zeros(groups, c), torch.zeros(groups, c)]
+    for i in range(fold):  # the kernel's fold order
+        sums[0] += s1[:, i * c:(i + 1) * c]
+        sums[1] += s2[:, i * c:(i + 1) * c]
+    n = plan["rows"]
+    mean = sums[0] / n
+    var = sums[1] / n - torch.square(mean)
+    _, upd_mean, upd_var = tops._update_factors(x, groups)
+    running_mean.copy_(tops.BN_MOMENTUM * running_mean + upd_mean * mean.mean(0))
+    running_var.copy_(tops.BN_MOMENTUM * running_var + upd_var * var.mean(0))
+    y = ((sup - mean[:, None, chan]) * torch.rsqrt(var[:, None, chan] + tops.BN_EPSILON)).to(x.dtype)
+    if relu:
+        y = torch.relu(y)
+    return y.reshape(b, x.shape[2], x.shape[3], c).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def bn_act_folded(x, mean, var, mask, fold):
+    """K3's folded path with relu and a time mask, emulated on the CPU:
+    super-rows of ``fold`` positions, each lane's statistics by the lane
+    map, and one mask row a super-row, super-row q / (F / fold)."""
+    b, c, t, f = x.shape
+    sup = x.permute(0, 2, 3, 1).reshape(-1, c * fold)
+    chan = fold_lanes(fold, c, x.dtype)
+    y = ((sup.float() - mean[chan]) * torch.rsqrt(var[chan] + tops.BN_EPSILON)).to(x.dtype)
+    y = torch.relu(y)
+    q = torch.arange(sup.shape[0])
+    y = y * mask.reshape(-1)[q // (f // fold)].to(x.dtype)[:, None]
+    return y.reshape(b, t, f, c).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+# thin shapes whose rows fold: dpn68's 10 channels and 3 and 1
+FOLD_SHAPES = [((16, 10, 12, 8), 8), ((16, 10, 12, 8), 1), ((8, 3, 10, 8), 2), ((8, 1, 6, 8), 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", FOLD_SHAPES, ids=str)
+def test_fold_index_math_matches_plain_versions(shape, groups, dtype):
+    """The folded view with its tiled statistics gives bn_train_reference's
+    output and running statistics, and bn_act_reference's output (relu and
+    a time mask), bit for bit, on the plans' folds."""
+    plan = tops.bn_train_plan(shape, groups, dtype, 0, True)
+    assert plan["design"] == "cluster" and plan["fold"] > 1
+    c = shape[1]
+    x = integer_inputs(shape, 1, dtype)
+    rng = np.random.RandomState(2)
+    rm, rv = torch.from_numpy(rng.randn(c).astype(np.float32)), torch.from_numpy(
+        rng.uniform(0.5, 2.0, c).astype(np.float32))
+    want_stats, got_stats = [rm.clone(), rv.clone()], [rm.clone(), rv.clone()]
+    want = tops.bn_train_reference(x, *want_stats, groups=groups, relu=True)
+    got = bn_train_folded(x, *got_stats, groups, plan, relu=True)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_stats, want_stats))
+
+    k3 = tops.bn_act_plan(shape, dtype)
+    assert k3["design"] == "fold"
+    mask = torch.from_numpy((np.arange(shape[2])[None] < rng.randint(
+        1, shape[2] + 1, shape[0])[:, None]).astype(np.float32))
+    want = tops.bn_act_reference(x, rm, rv, relu=True, mask=mask)
+    assert torch.equal(bn_act_folded(x, rm, rv, mask, k3["fold"]), want)

@@ -29,47 +29,66 @@
 // read and dx written in the backward.
 //
 // What bounded the first design (kept below as the "multi-kernel" design,
-// which the 2-D head calls and channel counts that are not multiples of 4
-// take; the latter move single channels instead of 4-channel vectors, with
-// the same arithmetic an element):
+// which the 2-D head calls take, and 4-D calls whose rows cannot be folded
+// (below); at channel counts that are not multiples of 4 it moves single
+// channels instead of 4-channel vectors, with the same arithmetic an
+// element):
 // three launches per direction -- per-block partial sums, a per-channel
 // finalize, an elementwise pass -- with the partials making a round trip
 // through HBM, x read twice in the forward, x, y and dy read twice in the
 // backward (7 units of one activation against the bound's 4), and 8-byte
 // bf16 accesses.
 //
-// The cluster design (4-D inputs whose channel count fills 16-byte vectors;
-// the wrapper chooses it by shape): one launch per direction, filling the
-// card in one wave. Thread-block clusters of 2 CTAs (kClusterSize), k of
-// them per BN group, k the most the card holds at once
-// (cudaOccupancyMaxActiveClusters; one CTA per SM at this shared-memory
-// footprint): on the H100, 8 groups x 8 clusters of 2 = 128 CTAs on the 132
-// SMs, launched cooperatively so that all of them are resident together
-// (larger clusters fit fewer CTAs on the card, as a cluster's CTAs share
-// one GPC). Each CTA owns a contiguous slab of its group's rows, at full
-// channel width, and streams it through a ring of chunks (about four, at
-// most 16) in shared memory filled by bulk copies (the Tensor Memory
-// Accelerator's 1-D form) on mbarriers, so ~200 KB are in flight per SM;
-// it sums its rows with a fixed tree over its threads, the cluster adds
-// its CTAs' sums through distributed shared memory in rank order, and the
-// group's clusters add theirs in order through global memory behind a
-// generation barrier of the group (integer atomics only; a wait that lasts
-// 30 s traps instead of hanging). After it the same launch normalizes
-// (forward) or writes dx (backward), from the slab still in shared memory
-// where it fits in the ring, else streamed again (from L2 for tensors that
-// fit there). The backward takes no y: the relu decision is recomputed
-// from x (and the shortcut) with the forward's exact arithmetic (bn_out
-// below), except for a raw shortcut, whose forward output y the caller
-// saves instead of the shortcut. The running statistics need the mean over
-// groups: each group publishes its (mean, var), and the last group to
-// arrive (an integer ticket with fences) applies the update in group order
-// and resets the ticket. No float atomics anywhere: reruns match bit for
-// bit.
+// The cluster design (4-D inputs; the wrapper chooses it by shape): one
+// launch per direction, filling the card in one wave. Thread-block clusters
+// of 2 CTAs (kClusterSize), k of them per BN group, k the most the card
+// holds at once (cudaOccupancyMaxActiveClusters; one CTA per SM at this
+// shared-memory footprint): on the H100, 8 groups x 8 clusters of 2 = 128
+// CTAs on the 132 SMs, launched cooperatively so that all of them are
+// resident together (larger clusters fit fewer CTAs on the card, as a
+// cluster's CTAs share one GPC). Each CTA owns a contiguous slab of its
+// group's rows, at full channel width, and streams it through a ring of
+// chunks (about four, at most 16) in shared memory filled by bulk copies
+// (the Tensor Memory Accelerator's 1-D form) on mbarriers, so ~200 KB are
+// in flight per SM; it sums its rows with a fixed tree over its threads,
+// the cluster adds its CTAs' sums through distributed shared memory in
+// rank order, and the group's clusters add theirs in order through global
+// memory behind a generation barrier of the group (integer atomics only; a
+// wait that lasts 30 s traps instead of hanging). After it the same launch
+// normalizes (forward) or writes dx (backward), from the slab still in
+// shared memory where it fits in the ring, else streamed again (from L2
+// for tensors that fit there). The backward takes no y: the relu decision
+// is recomputed from x (and the shortcut) with the forward's exact
+// arithmetic (bn_out below), except for a raw shortcut, whose forward
+// output y the caller saves instead of the shortcut. The running
+// statistics need the mean over groups: each group publishes its (mean,
+// var), and the last group to arrive (an integer ticket with fences)
+// applies the update in group order and resets the ticket. No float
+// atomics anywhere: reruns match bit for bit.
+//
+// Folded rows: where C channels do not fill 16-byte vectors (dpn68's
+// 10-channel stem: 20 bytes a bf16 row), k = vec / gcd(C, vec) consecutive
+// rows do (4 rows of 10 bf16 channels are 80 bytes, 5 vectors), and in the
+// channels-last layout they are contiguous. The same kernels then walk
+// super-rows of `fold` rows, fold a multiple of k that divides the group's
+// n rows: a lane's vector holds super-channels s, channel s % C, and the
+// CTA adds each channel's fold super-channel sums in order before the
+// cluster and group reductions, so everything after them (statistics,
+// inv_n, the Bessel factor, the running update) is that of the n rows and
+// C channels. The plan takes the fold that gives the CTA the most threads:
+// at 5 vectors a super-row a CTA holds 320 (10 warps), too few to hide the
+// element arithmetic's latency in bf16; at fold 100 (125 vectors x 4 row
+// lanes) it holds 500. The first design moved 2-byte elements there, with
+// 64-bit index divisions an element, in three launches a direction.
 //
 // What bounds it now: HBM bytes -- x read twice and y written in the
 // forward, x and dy read twice and dx written in the backward (3 and 5
 // units of one activation against the bound's 2 and 3) where a slab does
-// not fit on chip -- and the 4 SMs a grid of 8 groups leaves idle.
+// not fit on chip; the second pass walks the slab from its end, so its
+// first chunks come from L2 -- then the element arithmetic in bf16, which
+// is why the relu decision and the forward's rounding without a shortcut
+// take no conversions (relu_edge, below), and the 4 SMs a grid of 8 groups
+// leaves idle.
 //
 // The spanning mode (bn_span_*: groups that span the data ranks, with an
 // all-reduce between its launches) has its own section below the cluster
@@ -464,31 +483,8 @@ template <typename T> struct Vec;  // elements per 16-byte vector
 template <> struct Vec<float> { static constexpr int n = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int n = 8; };
 
-__device__ __forceinline__ void unpack16(uint4 q, float* v, const float*) {
-  v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
-  v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
-}
-__device__ __forceinline__ void unpack16(uint4 q, float* v, const __nv_bfloat16*) {
-  const unsigned int w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store16(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
-  unsigned int w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    w[j] = *reinterpret_cast<unsigned int*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
+using vsv::store16;
+using vsv::unpack16;
 
 // The forward's output before the relu, K3's rounding order. The backward
 // recomputes it to take the relu decision, so both use this one function,
@@ -503,6 +499,16 @@ __device__ __forceinline__ float bn_out(float x, float mu, float rs, float s,
   else if (sc_mode == 1)
     y = vsv::round_to<T>(__fadd_rn(y, s));
   return y;
+}
+
+// The largest value that the forward's output rounds to zero: float32 0;
+// bf16 2^-134, half its least subnormal (round to nearest even sends it to
+// zero). Without a shortcut, relu(round(xhat)) > 0 exactly where xhat is
+// above it: the backward takes the decision without a conversion.
+template <typename T> __device__ __forceinline__ float relu_edge();
+template <> __device__ __forceinline__ float relu_edge<float>() { return 0.f; }
+template <> __device__ __forceinline__ float relu_edge<__nv_bfloat16>() {
+  return __uint_as_float(0x00008000u);
 }
 
 struct ClusterArgs {
@@ -523,8 +529,10 @@ struct ClusterArgs {
   float* sc_run_mean;
   float* sc_run_var;
   int* sync;         // 2G + 1 ints: arrivals and generation per group, the running update's ticket
-  long long n;       // rows per group
+  long long n;       // rows per group: super-rows of `fold` rows where fold > 1
   int groups, channels, ct_v, rpb;
+  int fold;          // rows a (super-)row holds; 1 where a row fills 16-byte vectors
+  int width;         // elements a (super-)row: channels * fold
   int k;             // clusters per group (set by the launcher)
   int ring_rows, ring_bytes;
   int sc_mode, relu;
@@ -605,10 +613,14 @@ __device__ __forceinline__ void group_barrier(int* count, int* gen, int k, bool 
 }
 
 // Reduce acc[k][.] over the block's row lanes (a fixed pairwise tree, rpb a
-// power of two) into part[k * C + c]; red holds blockDim * V floats.
+// power of two) into part[k * C + c]; red holds blockDim * V floats. With
+// fold > 1 a lane's element is super-channel s of a folded row, channel s %
+// C: the fold's super-channels of each channel are added in order, here,
+// before the cluster and group reductions (which then move C sums, not C *
+// fold).
 template <int NS, int V>
 __device__ __forceinline__ void block_sums(float (*acc)[V], float* red, float* part,
-                                           int ct_v, int rpb) {
+                                           int ct_v, int rpb, int channels, int fold) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane_c = tid % ct_v, lane_r = tid / ct_v;
 #pragma unroll
@@ -622,9 +634,21 @@ __device__ __forceinline__ void block_sums(float (*acc)[V], float* red, float* p
         for (int j = 0; j < V; ++j) red[j * nt + tid] += red[j * nt + tid + s * ct_v];
       __syncthreads();
     }
-    if (lane_r == 0)
+    if (fold == 1) {
+      if (lane_r == 0)
 #pragma unroll
-      for (int j = 0; j < V; ++j) part[(k * ct_v + lane_c) * V + j] = red[j * nt + tid];
+        for (int j = 0; j < V; ++j) part[(k * ct_v + lane_c) * V + j] = red[j * nt + tid];
+    } else {
+      // row lane 0's totals: super-channel e at red[(e % V) * nt + e / V]
+      for (int c = tid; c < channels; c += nt) {
+        float v = 0.f;
+        for (int i = 0; i < fold; ++i) {
+          const int e = i * channels + c;
+          v += red[(e % V) * nt + e / V];
+        }
+        part[k * channels + c] = v;
+      }
+    }
     __syncthreads();
   }
 }
@@ -639,7 +663,7 @@ __device__ __forceinline__ void group_sums(float (*acc)[V], float* red, float* p
                                            const ClusterArgs& a, const Slab& s,
                                            cg::cluster_group& cluster, int old_gen) {
   const int C = a.channels, tid = threadIdx.x;
-  block_sums<NS, V>(acc, red, part, a.ct_v, a.rpb);
+  block_sums<NS, V>(acc, red, part, a.ct_v, a.rpb, C, a.fold);
   cluster.sync();
   for (int e = tid; e < NS * C; e += blockDim.x) {
     float v = 0.f;
@@ -689,8 +713,11 @@ __device__ __forceinline__ void ring_init(uint64_t* full) {
 // tensor) for rows lane_r, lane_r + rpb, ... of each chunk in order. `seq`
 // counts the chunks streamed so far through this ring (the mbarriers'
 // phases). With rows <= S * R the chunks stay in place afterwards:
-// visit_resident reads them again.
-template <typename F>
+// visit_resident reads them again. REVERSE takes the chunks from the last:
+// a second pass over a slab that did not stay in the ring starts with what
+// the first pass read last, the part of it still in L2 (50 MB). The second
+// passes are elementwise, so the order changes no output.
+template <bool REVERSE = false, typename F>
 __device__ __forceinline__ void stream_ring(const char* const* src, int ni, long long rows,
                                           int ct_v, int rpb, int R, int S, uint4* ring,
                                           uint64_t* full, int& seq, F f) {
@@ -698,8 +725,11 @@ __device__ __forceinline__ void stream_ring(const char* const* src, int ni, long
   const long long row_bytes = 16LL * ct_v;
   const long long nchunks = (rows + R - 1) / R;
   const long long ts = static_cast<long long>(R) * ct_v;
-  auto issue = [&](long long k) {
-    const int st = static_cast<int>((seq + k) % S);
+  // the q-th chunk streamed is chunk(q) of the slab
+  auto chunk = [&](long long q) { return REVERSE ? nchunks - 1 - q : q; };
+  auto issue = [&](long long q) {
+    const int st = static_cast<int>((seq + q) % S);
+    const long long k = chunk(q);
     const long long nr = min(static_cast<long long>(R), rows - k * R);
     const uint32_t bytes = static_cast<uint32_t>(nr * row_bytes);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -715,16 +745,17 @@ __device__ __forceinline__ void stream_ring(const char* const* src, int ni, long
           : "memory");
   };
   if (threadIdx.x == 0)
-    for (long long k = 0; k < S && k < nchunks; ++k) issue(k);
-  for (long long k = 0; k < nchunks; ++k) {
-    const long long j = seq + k;
+    for (long long q = 0; q < S && q < nchunks; ++q) issue(q);
+  for (long long q = 0; q < nchunks; ++q) {
+    const long long j = seq + q;
     const int st = static_cast<int>(j % S);
     mbar_wait(&full[st], static_cast<int>((j / S) & 1));
+    const long long k = chunk(q);
     const long long nr = min(static_cast<long long>(R), rows - k * R);
     const uint4* stage = ring + st * ni * ts;
     for (long long u = lane_r; u < nr; u += rpb) f(k * R + u, stage + u * ct_v + lane_c, ts);
     __syncthreads();
-    if (threadIdx.x == 0 && k + S < nchunks) issue(k + S);
+    if (threadIdx.x == 0 && q + S < nchunks) issue(q + S);
   }
   seq += static_cast<int>(nchunks);
 }
@@ -741,18 +772,25 @@ __device__ __forceinline__ void visit_resident(int ni, long long rows, int ct_v,
   }
 }
 
-// Shared memory: red (blockDim * V) | part, tot (NS * C each) | coef (4 *
-// C) floats | the ring (ring_bytes).
+// Shared memory: red (blockDim * V) | part, tot (NS * Cp each) | coef (4 *
+// Cp) floats | the ring (ring_bytes), Cp the channels rounded up to a
+// multiple of 4 (the ring starts 16-byte aligned; Cp = C where a row fills
+// 16-byte vectors). Every array holds true channels: folded rows are
+// reduced to them in block_sums.
+__host__ __device__ __forceinline__ int padded_channels(int channels) {
+  return (channels + 3) / 4 * 4;
+}
+
 template <typename T>
 __host__ __device__ __forceinline__ size_t cluster_smem(int threads, int ns, int channels,
                                                         int ring_bytes) {
   return sizeof(float) * (static_cast<size_t>(threads) * Vec<T>::n +
-                          static_cast<size_t>(2 * ns + 4) * channels) +
+                          static_cast<size_t>(2 * ns + 4) * padded_channels(channels)) +
          static_cast<size_t>(ring_bytes);
 }
 
 // Forward: G * k clusters of cs CTAs, k clusters per group, each CTA a
-// contiguous slab of its group's rows. NS = 2 (x) or 4 (x and the
+// contiguous slab of its group's (super-)rows. NS = 2 (x) or 4 (x and the
 // normalized shortcut).
 template <typename T, int NS>
 __global__ void __launch_bounds__(kClusterThreads, 1) cluster_fwd_kernel(ClusterArgs a) {
@@ -762,21 +800,21 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_fwd_kernel(Cluster
   __shared__ int last;
   cg::cluster_group cluster = cg::this_cluster();
   const Slab s = slab_of(a, cluster);
-  const int tid = threadIdx.x, C = a.channels, ct_v = a.ct_v;
-  const int lane_c = tid % ct_v;
+  const int tid = threadIdx.x, C = a.channels, W = a.width, ct_v = a.ct_v;
+  const int lane_c = tid % ct_v, Cp = padded_channels(C);
   const int old_gen = (a.k > 1 && tid == 0) ? load_acquire(a.sync + a.groups + s.g) : 0;
   float* red = smem;
   float* part = red + blockDim.x * V;
-  float* tot = part + NS * C;
-  float* coef = tot + NS * C;
-  uint4* ring = reinterpret_cast<uint4*>(coef + 4 * C);
+  float* tot = part + NS * Cp;
+  float* coef = tot + NS * Cp;
+  uint4* ring = reinterpret_cast<uint4*>(coef + 4 * Cp);
   const T* x = static_cast<const T*>(a.x);
   const T* sc = static_cast<const T*>(a.sc);
-  const long long row0 = (static_cast<long long>(s.g) * a.n + s.r0) * C;
+  const long long row0 = (static_cast<long long>(s.g) * a.n + s.r0) * W;
   const long long rows = s.r1 - s.r0;
   const char* src[2] = {reinterpret_cast<const char*>(x + row0),
                         a.sc_mode ? reinterpret_cast<const char*>(sc + row0) : nullptr};
-  const int row_bytes = C * static_cast<int>(sizeof(T));
+  const int row_bytes = W * static_cast<int>(sizeof(T));
   // one stage count for both passes (the mbarriers' phases run on), sized
   // for pass 2, which streams as many tensors as pass 1 or more
   const int ni1 = NS / 2, ni2 = a.sc_mode ? 2 : 1;
@@ -856,14 +894,16 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_fwd_kernel(Cluster
   }
 
   // pass 2: normalize with the epilogue, from the rows still in shared
-  // memory or streamed again
+  // memory or streamed again; element j of the lane's vector is channel
+  // (lane_c * V + j) % C
   float mu[V], rs[V], smu[V], srs[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    mu[j] = coef[lane_c * V + j];
-    rs[j] = coef[C + lane_c * V + j];
-    smu[j] = NS == 4 ? coef[2 * C + lane_c * V + j] : 0.f;
-    srs[j] = NS == 4 ? coef[3 * C + lane_c * V + j] : 0.f;
+    const int c = (lane_c * V + j) % C;
+    mu[j] = coef[c];
+    rs[j] = coef[C + c];
+    smu[j] = NS == 4 ? coef[2 * C + c] : 0.f;
+    srs[j] = NS == 4 ? coef[3 * C + c] : 0.f;
   }
   T* out = static_cast<T*>(a.out) + row0 + lane_c * V;
   auto normalize = [&](long long row, const uint4* p, long long ts) {
@@ -872,16 +912,22 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_fwd_kernel(Cluster
     if (a.sc_mode != 0) unpack16(p[ts], sv, x);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const float y = bn_out<T>(xv[j], mu[j], rs[j], a.sc_mode ? sv[j] : 0.f, smu[j], srs[j],
-                                a.sc_mode);
-      o[j] = a.relu ? fmaxf(y, 0.f) : y;
+      if (a.sc_mode == 0) {
+        // without a shortcut the store rounds once: bn_out's rounding
+        // before it changes no output and costs two conversions an element
+        const float y = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]);
+        o[j] = a.relu ? (y > relu_edge<T>() ? y : 0.f) : y;
+      } else {
+        const float y = bn_out<T>(xv[j], mu[j], rs[j], sv[j], smu[j], srs[j], a.sc_mode);
+        o[j] = a.relu ? fmaxf(y, 0.f) : y;
+      }
     }
-    store16(out + row * C, o);
+    store16(out + row * W, o);
   };
   if (ni1 == ni2 && rows <= static_cast<long long>(S) * a.ring_rows)
     visit_resident(ni1, rows, ct_v, a.rpb, a.ring_rows, ring, normalize);
   else
-    stream_ring(src, ni2, rows, ct_v, a.rpb, a.ring_rows, S, ring, full, seq, normalize);
+    stream_ring<true>(src, ni2, rows, ct_v, a.rpb, a.ring_rows, S, ring, full, seq, normalize);
 }
 
 // Backward: the same geometry. NS = 2 (sum d, sum d*xhat) or 3 (and sum
@@ -895,34 +941,37 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_bwd_kernel(Cluster
   __shared__ __align__(8) uint64_t full[kMaxStages];
   cg::cluster_group cluster = cg::this_cluster();
   const Slab s = slab_of(a, cluster);
-  const int tid = threadIdx.x, C = a.channels, ct_v = a.ct_v;
-  const int lane_c = tid % ct_v;
+  const int tid = threadIdx.x, C = a.channels, W = a.width, ct_v = a.ct_v;
+  const int lane_c = tid % ct_v, Cp = padded_channels(C);
   const int old_gen = (a.k > 1 && tid == 0) ? load_acquire(a.sync + a.groups + s.g) : 0;
   float* red = smem;
   float* part = red + blockDim.x * V;
-  float* tot = part + NS * C;
-  float* coef = tot + NS * C;
-  uint4* ring = reinterpret_cast<uint4*>(coef + 4 * C);
+  float* tot = part + NS * Cp;
+  float* coef = tot + NS * Cp;
+  uint4* ring = reinterpret_cast<uint4*>(coef + 4 * Cp);
   const T* x = static_cast<const T*>(a.x);
   const T* dy = static_cast<const T*>(a.dy);
   const T* z = static_cast<const T*>(a.sc_mode == 2 ? a.sc : a.y);
-  const long long row0 = (static_cast<long long>(s.g) * a.n + s.r0) * C;
+  const long long row0 = (static_cast<long long>(s.g) * a.n + s.r0) * W;
   const long long rows = s.r1 - s.r0;
   const char* src[3] = {reinterpret_cast<const char*>(x + row0),
                         reinterpret_cast<const char*>(dy + row0),
                         THIRD ? reinterpret_cast<const char*>(z + row0) : nullptr};
-  const int S = ring_stages(a, NO, C * static_cast<int>(sizeof(T)));
+  const int S = ring_stages(a, NO, W * static_cast<int>(sizeof(T)));
   ring_init(full);
   int seq = 0;
 
+  // element j of the lane's vector is channel ch[j] = (lane_c * V + j) % C
+  int ch[V];
   float mu[V], rs[V], smu[V], srs[V];
-  const long long gc = static_cast<long long>(s.g) * C + lane_c * V;
+  const long long gc = static_cast<long long>(s.g) * C;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    mu[j] = a.mean[gc + j];
-    rs[j] = a.rstd[gc + j];
-    smu[j] = NS == 3 ? a.sc_mean[gc + j] : 0.f;
-    srs[j] = NS == 3 ? a.sc_rstd[gc + j] : 0.f;
+    ch[j] = (lane_c * V + j) % C;
+    mu[j] = a.mean[gc + ch[j]];
+    rs[j] = a.rstd[gc + ch[j]];
+    smu[j] = NS == 3 ? a.sc_mean[gc + ch[j]] : 0.f;
+    srs[j] = NS == 3 ? a.sc_rstd[gc + ch[j]] : 0.f;
   }
   // d = dy where the forward's relu passed it
   auto grad_in = [&](const float* xv, const float* dv, const float* zv, float* d) {
@@ -932,6 +981,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_bwd_kernel(Cluster
       if (a.relu) {
         if (a.sc_mode == 1)
           pass = zv[j] > 0.f;
+        else if (a.sc_mode == 0)  // bn_out's decision, without its conversions
+          pass = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]) > relu_edge<T>();
         else
           pass = bn_out<T>(xv[j], mu[j], rs[j], zv[j], smu[j], srs[j], a.sc_mode) > 0.f;
       }
@@ -965,9 +1016,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_bwd_kernel(Cluster
   float ca[V], cb[V], cbs[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    ca[j] = coef[lane_c * V + j];
-    cb[j] = coef[C + lane_c * V + j];
-    cbs[j] = NS == 3 ? coef[2 * C + lane_c * V + j] : 0.f;
+    ca[j] = coef[ch[j]];
+    cb[j] = coef[C + ch[j]];
+    cbs[j] = NS == 3 ? coef[2 * C + ch[j]] : 0.f;
   }
   T* dx = static_cast<T*>(a.out) + row0 + lane_c * V;
   T* dsc = a.sc_mode ? static_cast<T*>(a.dsc) + row0 + lane_c * V : nullptr;
@@ -980,20 +1031,20 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_bwd_kernel(Cluster
 #pragma unroll
     for (int j = 0; j < V; ++j)
       o[j] = rs[j] * (d[j] - ca[j] - ((xv[j] - mu[j]) * rs[j]) * cb[j]);
-    store16(dx + row * C, o);
+    store16(dx + row * W, o);
     if (a.sc_mode == 1) {
-      store16(dsc + row * C, d);
+      store16(dsc + row * W, d);
     } else if (NS == 3) {
 #pragma unroll
       for (int j = 0; j < V; ++j)
         o[j] = srs[j] * (d[j] - ca[j] - ((zv[j] - smu[j]) * srs[j]) * cbs[j]);
-      store16(dsc + row * C, o);
+      store16(dsc + row * W, o);
     }
   };
   if (rows <= static_cast<long long>(S) * a.ring_rows)
     visit_resident(NO, rows, ct_v, a.rpb, a.ring_rows, ring, grad_row);
   else
-    stream_ring(src, NO, rows, ct_v, a.rpb, a.ring_rows, S, ring, full, seq, grad_row);
+    stream_ring<true>(src, NO, rows, ct_v, a.rpb, a.ring_rows, S, ring, full, seq, grad_row);
 }
 
 // Clusters of `cs` CTAs of one kernel that fit on the current card at once,
@@ -1059,8 +1110,9 @@ int launch_cluster(K kernel, ClusterArgs a, int ns, int ni, long long gpart_floa
   constexpr int cs = kClusterSize;
   const int threads = a.ct_v * a.rpb;
   const size_t smem = cluster_smem<T>(threads, ns, a.channels, a.ring_bytes);
-  const long long chunk = static_cast<long long>(ni) * a.ring_rows * a.channels * sizeof(T);
-  if (threads > kClusterThreads || a.ct_v * Vec<T>::n != a.channels || (a.rpb & (a.rpb - 1)) ||
+  const long long chunk = static_cast<long long>(ni) * a.ring_rows * a.width * sizeof(T);
+  if (threads > kClusterThreads || a.width != a.channels * a.fold ||
+      a.ct_v * Vec<T>::n != a.width || (a.rpb & (a.rpb - 1)) ||
       a.ring_rows < 1 || a.ring_bytes < 2 * chunk || smem > static_cast<size_t>(kSmemMax) ||
       a.groups < 1 || a.n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1563,16 +1615,6 @@ __device__ __forceinline__ void span_stats_of(const SpanArgs& a, int g, int c0, 
   }
 }
 
-// The largest value that the forward's output rounds to zero: float32 0;
-// bf16 2^-134, half its least subnormal (round to nearest even sends it to
-// zero). Without a shortcut, relu(round(xhat)) > 0 exactly where xhat is
-// above it: the backward takes the decision without a conversion.
-template <typename T> __device__ __forceinline__ float relu_edge();
-template <> __device__ __forceinline__ float relu_edge<float>() { return 0.f; }
-template <> __device__ __forceinline__ float relu_edge<__nv_bfloat16>() {
-  return __uint_as_float(0x00008000u);
-}
-
 // xhat = (x - mean) * rstd, and d = dy where the forward's relu passed it:
 // recomputed from xhat (no shortcut), from x and the normalized shortcut
 // with bn_out (sc_mode 2), or read from the forward output zv (a raw
@@ -1751,19 +1793,23 @@ int span_dtype(int dtype, Fn fn) {
 
 }  // namespace
 
-// Cluster design, 4-D inputs whose channels fill 16-byte vectors
-// (channels = ct_v * 16 / element size). The geometry comes from the
-// caller (ops/nn.py:bn_train_plan): CTAs of ct_v * rpb threads (rpb a power
-// of two, at most 512 threads), rows streamed in chunks of ring_rows
+// Cluster design, 4-D inputs whose (super-)rows fill 16-byte vectors: a
+// super-row is `fold` consecutive rows of n (n % fold == 0), fold = 1 where
+// one row of C channels fills them, and holds channels * fold = ct_v * 16 /
+// element size elements. The geometry comes from the caller
+// (ops/nn.py:bn_train_plan): CTAs of ct_v * rpb threads (rpb a power of
+// two, at most 512 threads), super-rows streamed in chunks of ring_rows
 // through ring_bytes of shared memory; the launcher picks the clusters (of
 // kClusterSize CTAs) per group from what the card holds at once. gpart
 // holds at least (clusters the card holds) * ns * channels floats. mean/rstd
 // (and sc_*): (groups, channels) fp32 outputs; var: (2, groups, channels)
 // and gpart: gpart_floats fp32 scratch; sync: 2 * groups + 1 ints, zero
 // before first use and left ready for the next launch on the same stream.
-// Every pointer 16-byte aligned.
+// Every pointer 16-byte aligned. inv_n, the Bessel factor (in upd_var) and
+// the running update are those of the n true rows and C channels.
 extern "C" int bn_cluster_fwd(int dtype, const void* x, const void* sc, int sc_mode, int relu,
-                              long long n, int groups, int channels, int ct_v, int rpb, int ring_rows, int ring_bytes, float* mean, float* rstd,
+                              long long n, int groups, int channels, int fold, int ct_v, int rpb,
+                              int ring_rows, int ring_bytes, float* mean, float* rstd,
                               float* run_mean, float* run_var, float* sc_mean, float* sc_rstd,
                               float* sc_run_mean, float* sc_run_var, float* var, float* gpart,
                               long long gpart_floats, int* sync, float mom, float upd_mean,
@@ -1773,7 +1819,9 @@ extern "C" int bn_cluster_fwd(int dtype, const void* x, const void* sc, int sc_m
   a.mean = mean; a.rstd = rstd; a.sc_mean = sc_mean; a.sc_rstd = sc_rstd; a.var = var;
   a.gpart = gpart; a.run_mean = run_mean; a.run_var = run_var;
   a.sc_run_mean = sc_run_mean; a.sc_run_var = sc_run_var; a.sync = sync;
-  a.n = n; a.groups = groups; a.channels = channels; a.ct_v = ct_v; a.rpb = rpb;
+  if (fold < 1 || n % fold) return static_cast<int>(cudaErrorInvalidValue);
+  a.n = n / fold; a.groups = groups; a.channels = channels; a.ct_v = ct_v; a.rpb = rpb;
+  a.fold = fold; a.width = channels * fold;
   a.ring_rows = ring_rows; a.ring_bytes = ring_bytes; a.sc_mode = sc_mode; a.relu = relu;
   a.mom = mom; a.upd_mean = upd_mean; a.upd_var = upd_var; a.eps = eps;
   a.inv_n = 1.f / static_cast<float>(n);
@@ -1785,10 +1833,11 @@ extern "C" int bn_cluster_fwd(int dtype, const void* x, const void* sc, int sc_m
 
 // y: the forward output, read only for a raw shortcut under relu (sc_mode
 // 1); otherwise the relu decision is recomputed from x (and sc). dsc: the
-// shortcut's gradient (sc_mode 1 or 2), else null.
+// shortcut's gradient (sc_mode 1 or 2), else null. n, fold as
+// bn_cluster_fwd.
 extern "C" int bn_cluster_bwd(int dtype, const void* x, const void* y, const void* dy,
                               const void* sc, int sc_mode, int relu, long long n, int groups,
-                              int channels, int ct_v, int rpb, int ring_rows,
+                              int channels, int fold, int ct_v, int rpb, int ring_rows,
                               int ring_bytes, const float* mean, const float* rstd,
                               const float* sc_mean, const float* sc_rstd, float* gpart,
                               long long gpart_floats, int* sync, void* dx, void* dsc,
@@ -1798,7 +1847,9 @@ extern "C" int bn_cluster_bwd(int dtype, const void* x, const void* y, const voi
   a.mean = const_cast<float*>(mean); a.rstd = const_cast<float*>(rstd);
   a.sc_mean = const_cast<float*>(sc_mean); a.sc_rstd = const_cast<float*>(sc_rstd);
   a.gpart = gpart; a.sync = sync;
-  a.n = n; a.groups = groups; a.channels = channels; a.ct_v = ct_v; a.rpb = rpb;
+  if (fold < 1 || n % fold) return static_cast<int>(cudaErrorInvalidValue);
+  a.n = n / fold; a.groups = groups; a.channels = channels; a.ct_v = ct_v; a.rpb = rpb;
+  a.fold = fold; a.width = channels * fold;
   a.ring_rows = ring_rows; a.ring_bytes = ring_bytes; a.sc_mode = sc_mode; a.relu = relu;
   a.inv_n = 1.f / static_cast<float>(n);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1811,7 +1862,8 @@ extern "C" int bn_cluster_bwd(int dtype, const void* x, const void* y, const voi
 // shortcut normalized with its own batch statistics (sc_mean/sc_rstd written,
 // sc_run_mean/sc_run_var updated). n: rows per group; any channel count
 // (4-channel vectors where channels % 4 == 0, single channels otherwise:
-// dpn68's 10-channel stem). mean/rstd (and sc_*): (groups, channels) fp32
+// 4-D calls whose rows the cluster design cannot fold). mean/rstd (and
+// sc_*): (groups, channels) fp32
 // outputs. part: scratch of 2 * groups * chunks * channels floats.
 extern "C" int bn_train_fwd(int dtype, const void* x, const void* sc,
                             int sc_mode, int relu, long long n, int groups,

@@ -61,6 +61,34 @@ __device__ __forceinline__ void store_v(T* p, const float* v) {
   else *p = from_f<T>(v[0]);
 }
 
+// One 16-byte vector: 4 fp32 or 8 bf16 elements (the pointer argument
+// only picks the element type).
+__device__ __forceinline__ void unpack16(uint4 q, float* v, const float*) {
+  v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack16(uint4 q, float* v, const __nv_bfloat16*) {
+  const unsigned int w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  unsigned int w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<unsigned int*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Returned, beside the CUDA codes, where the caller's launch plan gives a
 // shared-memory size other than the kernel's own layout needs.
 constexpr int kPlanMismatch = 10001;

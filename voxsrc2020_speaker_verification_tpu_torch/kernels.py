@@ -167,10 +167,13 @@ SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
     "split_group_wgmma": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _F, _L, _I, _P],
 })
+# K3 and K5 count their launches by design (ops/nn.py:bn_act_plan,
+# bn_train_plan): K3's 4-channel vectors, folded rows or single channels,
+# K5's cluster design on rows or on folded rows
 BN_ACT = CudaKernel("bn_act", "bn_epilogue.cu", {
     "bn_act": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,
-               _P],
-})
+               _I, _P],
+}, paths={"bn_act": ("vec", "fold", "single")})
 # K4 / K4b take their plan as a host int array (ops/nn.py:stats_pool_plan);
 # a launch counts under its design
 STATS_POOL = CudaKernel("stats_pool", "stats_pool.cu", {
@@ -184,9 +187,9 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                      _P, _P, _F, _F, _F, _F, _P, _P, _I, _P],
     "bn_train_bwd": [_I, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P, _P, _I, _P],
-    "bn_cluster_fwd": [_I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+    "bn_cluster_fwd": [_I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _P, _P],
-    "bn_cluster_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+    "bn_cluster_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     # the spanning mode's entries take the plan's ten scalars as a host int
     # array and its table as a device pointer (ops/nn.py:bn_span_plan)
@@ -197,7 +200,7 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                            _P, _P],
     "bn_span_bwd_grad": [_I, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P],
-})
+}, paths={"bn_cluster_fwd": ("row", "fold"), "bn_cluster_bwd": ("row", "fold")})
 MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "margin_ce_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],

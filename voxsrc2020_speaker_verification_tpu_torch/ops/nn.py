@@ -208,9 +208,9 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
         y = relu?((x - mean) * rsqrt(var + eps)
                   [+ (s - mean_s) * rsqrt(var_s + eps)  or  + s]) * mask?
 
-    x, shortcut: (B, C, T, F) channels_last, any C (the kernel moves 4-channel
-    vectors where C % 4 == 0, single channels otherwise); mean, var: (C,)
-    float32 running statistics; mask: (B, T') float 0/1 with T' >= T.
+    x, shortcut: (B, C, T, F) channels_last, any C (the path by shape,
+    :func:`bn_act_plan`); mean, var: (C,) float32 running statistics; mask:
+    (B, T') float 0/1 with T' >= T.
     """
     if shortcut is not None and shortcut.shape != x.shape:
         raise ValueError(f"shortcut {tuple(shortcut.shape)} != x {tuple(x.shape)}")
@@ -242,12 +242,39 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = bn_act_plan(tuple(x.shape), x.dtype)
+    if plan["design"] == "fold" and any(t.data_ptr() % 16 for t in (x, shortcut, out)
+                                        if t is not None):
+        plan = _BN_ACT_SINGLE  # the folded path moves 16-byte aligned vectors
     BN_ACT.launch(
         "bn_act", x.device, dtype_code(x.dtype), ptr(x), ptr(mean), ptr(var),
         ptr(shortcut), ptr(shortcut_mean), ptr(shortcut_var), ptr(m), ptr(out),
-        x.numel(), c, f, int(relu), sc_mode, eps, sms)
+        x.numel(), c, f, int(relu), sc_mode, eps, num_sms(x.device), plan["fold"],
+        path=plan["design"])
     return out
+
+
+_BN_ACT_SINGLE = {"design": "single", "fold": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def bn_act_plan(shape, dtype: torch.dtype) -> dict:
+    """K3's path for a (B, C, T, F) call: ``"vec"`` (4-channel vectors) where
+    C % 4 == 0; else ``"fold"``, 16-byte vectors over super-rows of ``fold``
+    positions (``fold`` = vec / gcd(C, vec), vec the elements of 16 bytes:
+    the fewest consecutive positions whose channels fill whole vectors), where
+    F % fold == 0 (one mask row a super-row) and a super-row holds at most 256
+    vectors; else ``"single"`` (one element a thread). ``fold`` is 0 off the
+    folded path. The wrapper also needs 16-byte aligned tensors for the fold.
+    Cached per signature and shared: callers do not modify a plan."""
+    c, f = shape[1], shape[3]
+    if c % 4 == 0:
+        return {"design": "vec", "fold": 0}
+    vec = 16 // dtype.itemsize
+    fold = vec // math.gcd(c, vec)
+    if f % fold or c * fold // vec > 256:
+        return _BN_ACT_SINGLE
+    return {"design": "fold", "fold": fold}
 
 
 def _update_factors(x: torch.Tensor, groups: int, n: Optional[int] = None):
@@ -350,30 +377,57 @@ _BN_RING_STAGES = 4        # chunks in flight in the bulk-copy ring (at most 16)
 @functools.lru_cache(maxsize=None)
 def bn_train_plan(shape, groups: int, dtype: torch.dtype, sc_mode: int, relu: bool) -> dict:
     """K5's launch design for one call: ``"cluster"`` (one launch per
-    direction) for a 4-D input whose channels fill 16-byte vectors, at most
-    512 of them a row; else ``"multi"`` (statistics, finalize and
-    elementwise launches: the 2-D head calls). For the cluster design also
-    its geometry: CTAs of ``ct_v * rpb`` threads, ``ct_v`` 16-byte channel
-    vectors (the full row) by ``rpb`` row lanes (a power of two), one CTA an
-    SM, and for each direction its ring of bulk copies: ``*_ring_bytes`` of
-    shared memory in ``*_stages`` chunks of ``*_ring_rows`` rows of each
-    tensor a pass streams (at most), and its shared memory in all. The
-    kernel sets the cluster size and the clusters per group itself: as many
-    as the card holds at once. Plans are cached per call signature and
-    shared: callers read them and do not modify them."""
+    direction) for a 4-D input whose (super-)rows fill 16-byte vectors, at
+    most 512 of them a row; else ``"multi"`` (statistics, finalize and
+    elementwise launches: the 2-D head calls). A super-row is ``fold``
+    consecutive rows (positions of C channels): 1 where C % vec == 0 (vec
+    the elements of 16 bytes), else a multiple of k = vec / gcd(C, vec), the
+    fewest rows that fill whole vectors (4 for dpn68's 10 bf16 channels: 80
+    bytes, 5 vectors), that divides the rows of a group n (``rows``; none:
+    the multi-kernel design) and gives the CTA the most threads (ties: the
+    smaller fold). At 5 vectors a super-row the CTA would hold 5 x 64 = 320
+    threads, 10 warps, too few to hide the latency of the element arithmetic
+    in bf16; dpn68's stem takes fold 100 (125 vectors x 4 row lanes, 500
+    threads). Each group then starts 16-byte aligned (n * C * itemsize is a
+    multiple of 16). For the cluster design
+    also its geometry: CTAs of ``ct_v * rpb`` threads, ``ct_v`` 16-byte
+    vectors (the full super-row) by ``rpb`` row lanes (a power of two), one
+    CTA an SM, and for each direction its ring of bulk copies:
+    ``*_ring_bytes`` of shared memory in ``*_stages`` chunks of
+    ``*_ring_rows`` super-rows of each tensor a pass streams (at most), and
+    its shared memory in all. The kernel folds the super-channel sums into C
+    channels inside each CTA, so its other shared arrays hold C channels
+    (rounded up to a multiple of 4). The kernel sets the cluster size and
+    the clusters per group itself: as many as the card holds at once. Plans
+    are cached per call signature and shared: callers read them and do not
+    modify them."""
     vec = 16 // dtype.itemsize
     c = shape[1]
-    if len(shape) != 4 or c % vec or c // vec > _BN_CLUSTER_THREADS:
+    if len(shape) != 4:
         return {"design": "multi"}
-    ct_v = c // vec
-    rpb = 1 << ((_BN_CLUSTER_THREADS // ct_v).bit_length() - 1)
-    row = c * dtype.itemsize
-    plan = {"design": "cluster", "ct_v": ct_v, "rpb": rpb, "threads": ct_v * rpb,
-            "rows": (shape[0] // groups) * math.prod(shape[2:])}
+    n = (shape[0] // groups) * math.prod(shape[2:])
+    k = vec // math.gcd(c, vec)
+    best = None  # (threads, fold)
+    for fold in range(k, (1 if k == 1 else _BN_CLUSTER_THREADS) * k + 1, k):
+        ct_v = c * fold // vec
+        if ct_v > _BN_CLUSTER_THREADS:
+            break
+        if n % fold == 0:
+            threads = ct_v * (1 << ((_BN_CLUSTER_THREADS // ct_v).bit_length() - 1))
+            if best is None or threads > best[0]:
+                best = (threads, fold)
+    if best is None:
+        return {"design": "multi"}
+    fold = best[1]
+    ct_v = c * fold // vec
+    rpb = best[0] // ct_v
+    row = c * fold * dtype.itemsize
+    plan = {"design": "cluster", "fold": fold, "ct_v": ct_v, "rpb": rpb,
+            "threads": ct_v * rpb, "rows": n}
     bwd_operands = 2 + int(sc_mode == 2 or (sc_mode == 1 and relu))
     for name, ns, streamed in (("fwd", 4 if sc_mode == 2 else 2, 2 if sc_mode else 1),
                                ("bwd", 3 if sc_mode == 2 else 2, bwd_operands)):
-        fixed = 4 * (plan["threads"] * vec + (2 * ns + 4) * c)
+        fixed = 4 * (plan["threads"] * vec + (2 * ns + 4) * (-(-c // 4) * 4))
         ring = (_SMEM_BYTES - _BN_SMEM_SLACK - fixed) // 16 * 16
         # large chunks: each one costs the CTA a barrier and a refill
         rows = max(1, ring // (_BN_RING_STAGES * streamed * row * rpb)) * rpb
@@ -413,7 +467,8 @@ def _cluster_scratch(device: torch.device, groups: int, floats: int) -> Tuple[in
 def _cluster_floats(x: torch.Tensor, groups: int, ns: int) -> Tuple[int, int]:
     """(floats of the groups' variances, floats of the clusters' sums):
     2 * groups * C, and ``ns`` sums of C channels for as many clusters as
-    the card holds (at most one CTA per SM)."""
+    the card holds (at most one CTA per SM). C, not C * fold: each CTA folds
+    its super-channel sums before it hands them on."""
     c = x.shape[1]
     return 2 * groups * c, num_sms(x.device) * ns * c
 
@@ -450,11 +505,11 @@ class _BNTrainFn(torch.autograd.Function):
             sync, var = _cluster_scratch(x.device, groups, nvar + floats)
             BN_TRAIN.launch(
                 "bn_cluster_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut),
-                sc_mode, int(relu), n, groups, c, plan["ct_v"], plan["rpb"],
+                sc_mode, int(relu), n, groups, c, plan["fold"], plan["ct_v"], plan["rpb"],
                 plan["fwd_ring_rows"], plan["fwd_ring_bytes"], ptr(mean), ptr(rstd),
                 ptr(running_mean), ptr(running_var), ptr(sc_mean), ptr(sc_rstd),
                 ptr(sc_running_mean), ptr(sc_running_var), var, var + 4 * nvar, floats,
-                sync, BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out))
+                sync, BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out), path=_cluster_path(plan))
             save_y = relu and sc_mode == 1
         else:
             sms = num_sms(x.device)
@@ -488,9 +543,10 @@ class _BNTrainFn(torch.autograd.Function):
             sync, gpart = _cluster_scratch(x.device, groups, floats)
             BN_TRAIN.launch(
                 "bn_cluster_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(y), ptr(dy),
-                ptr(shortcut), sc_mode, int(relu), n, groups, c, plan["ct_v"], plan["rpb"],
-                plan["bwd_ring_rows"], plan["bwd_ring_bytes"], ptr(stats[0]),
-                ptr(stats[1]), *sc_stats, gpart, floats, sync, ptr(dx), ptr(dsc))
+                ptr(shortcut), sc_mode, int(relu), n, groups, c, plan["fold"], plan["ct_v"],
+                plan["rpb"], plan["bwd_ring_rows"], plan["bwd_ring_bytes"], ptr(stats[0]),
+                ptr(stats[1]), *sc_stats, gpart, floats, sync, ptr(dx), ptr(dsc),
+                path=_cluster_path(plan))
         else:
             f32 = dict(dtype=torch.float32, device=x.device)
             part = torch.empty(3 * groups * chunks * c, **f32)
@@ -501,6 +557,12 @@ class _BNTrainFn(torch.autograd.Function):
                 ptr(stats[1]), *sc_stats, ptr(part), ptr(coef), ptr(dx), ptr(dsc),
                 num_sms(x.device))
         return dx, dsc, None, None, None, None, None, None, None, None
+
+
+def _cluster_path(plan: dict) -> str:
+    """The launch count a cluster-design call goes to: ``"fold"`` where its
+    rows are folded into super-rows, else ``"row"``."""
+    return "fold" if plan["fold"] > 1 else "row"
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -874,8 +936,8 @@ def bn_train(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Ten
     shortcut (``shortcut_running_mean``/``var`` given) is the projection BN
     with its own batch statistics and its own running update.
 
-    x, shortcut: (B, C, T, F) channels_last or (B, C), any C (C % 4 != 0
-    takes the multi-kernel design on single channels, :func:`bn_train_plan`);
+    x, shortcut: (B, C, T, F) channels_last or (B, C), any C (the design by
+    shape, :func:`bn_train_plan`);
     running statistics: (C,) float32, updated in place, except inside ``running_update(False)``
     (a rematerialized block's recompute). Differentiable in x and the
     shortcut.
