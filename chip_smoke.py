@@ -37,7 +37,12 @@ Phases, one JSON line each:
    plain version
    in float64 on each run's own relu decisions, launch counts a call,
    reruns bit for bit, device time forward and backward beside the bound,
-   the plain version and today's route (cuDNN conv + K5 + adds + cat).
+   the plain version and today's route (cuDNN conv + K5 + adds + cat);
+   K5's head design (the 2-D calls) at the bench step's pre_bn and post_bn,
+   dpn68's pre_bn and TDNN's (HEAD_BN_SHAPES), bf16 and float32, one launch
+   a direction, reruns bit for bit, each direction's device time beside its
+   bound, the plain version's and ``F.batch_norm``'s (row ``bn_train:head``,
+   its launches read off the train phase).
    ``ms`` is a call's time by CUDA events, host included; ``device_ms``
    (K1, K4, K4b, K6, K7 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
@@ -52,7 +57,9 @@ Phases, one JSON line each:
    bn_groups=8, bf16, 5994 classes): one warm-up and three timed steps;
    finite loss, schedule-exact lr and margin, and launch counts of K4, K4b,
    K5, K6 and K9 / K9b equal to A x their per-microbatch counts (every
-   stride-1 chain on K9 / K9b: none through F.conv2d); then resident steps
+   stride-1 chain on K9 / K9b: none through F.conv2d; K5's 2-D calls on its
+   head design, 8 + 8 a step, and none on the multi-kernel design, here and
+   in the raw, lmft, encoders and single_chip phases); then resident steps
    with TF32 off and on in turns (the bf16 step's time either way);
 6. train_parity -- one float32 step (TF32 off) of the full-width model at
    B=16, A=1, bn_groups=2 on the card and through the plain path on the CPU
@@ -918,6 +925,142 @@ def check_bn_train(dev, gen, k5_calls, groups):
                 bound_by="operations" if by_ops * 2 > tot["bound_ms"] else "bytes",
                 library_ms=lfwd + lbwd, library_vs_kernel_ms=kfwd + kbwd,
                 library_shape=list(shape))
+
+
+# K5's head design at the 2-D calls (bn_train_plan: "head", one launch a
+# direction): the bench step's pre_bn and post_bn (res2net50_w8_s6_c16 at
+# B = 256: 2 x 512 channels x 10 bins, and output_dim 192), dpn68's pre_bn
+# and TDNN's (1024 rows), bn_groups 8, no relu or shortcut as in the heads;
+# bf16 against the plain version run in bf16 (TOL_TRAIN_BF16) and float32
+# (TOL_FP32, gradients too), reruns bit for bit, one launch a direction on
+# the lanes the plan names (16-byte vectors; single channels at the
+# post_bn's 192, fewer vectors than SMs) and no other K5 launch
+HEAD_BN_SHAPES = {"bench_pre_bn": (256, 10240), "bench_post_bn": (256, 192),
+                  "dpn68_pre_bn": (256, 16640), "tdnn_pre_bn": (1024, 3072)}
+HEAD_BN_GROUPS = 8
+HEAD_BN_KEYS = ("bn_train.bn_head_fwd:vector", "bn_train.bn_head_bwd:vector",
+                "bn_train.bn_head_fwd:single", "bn_train.bn_head_bwd:single")
+
+
+def check_bn_head(dev, gen):
+    """K5's head design at HEAD_BN_SHAPES in bf16 and float32: forward
+    (output, running statistics) and backward against autograd of the plain
+    version, the launches a call read off the counts, reruns bit for bit;
+    each direction's device time beside its bytes bound, the plain
+    version's and F.batch_norm's (training mode, one group) on the same
+    inputs. One line a shape; returns the ``bn_train:head`` row (its times:
+    the bench step's two head calls in bf16, forward + backward)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+    import torch.nn.functional as F
+
+    g = HEAD_BN_GROUPS
+    errs = {"bfloat16": 0.0, "float32": 0.0, "float32_grad": 0.0}
+    by_shape = {}
+    for name, shape in HEAD_BN_SHAPES.items():
+        c = shape[1]
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            plan = ops.bn_train_plan(shape, g, dtype, 0, False)
+            if plan["design"] != "head":
+                fail(f"bn_head: {shape} {dn} takes {plan['design']}")
+            launched = {f"bn_train.bn_head_{d}:{plan['lanes']}": 1 for d in ("fwd", "bwd")}
+            x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            rm = 0.1 * torch.randn(c, generator=gen, device=dev)
+            rv = 0.5 + torch.rand(c, generator=gen, device=dev)
+            runs = []
+            for fn in (ops.bn_train, ops.bn_train_reference, ops.bn_train):
+                xi, st = x.detach().clone().requires_grad_(True), [rm.clone(), rv.clone()]
+                before = kernels.function_launch_counts()
+                y = fn(xi, st[0], st[1], groups=g)
+                y.backward(dy)
+                torch.cuda.synchronize()
+                delta = {k: v - before[k] for k, v in kernels.function_launch_counts().items()
+                         if v != before[k] and k.startswith("bn_train.")}
+                if fn is ops.bn_train and delta != launched:
+                    fail(f"bn_head: {shape} {dn} launched {delta}, not one a direction")
+                runs.append((y.detach(), xi.grad, *st))
+            (y, dx, m, v), (yr, dxr, mr, vr), again = runs
+            ey = max(rel_err(y, yr), rel_err(m, mr), rel_err(v, vr))
+            eg = rel_err(dx, dxr)
+            if dtype == torch.float32:
+                errs["float32"] = max(errs["float32"], ey)
+                errs["float32_grad"] = max(errs["float32_grad"], eg)
+                bad = ey > TOL_FP32 or eg > TOL_FP32
+            else:
+                errs["bfloat16"] = max(errs["bfloat16"], ey, eg)
+                bad = max(ey, eg) > TOL_TRAIN_BF16
+            if bad:
+                fail(f"bn_head: {shape} {dn} rel err {ey}, gradient {eg}")
+            if not all(torch.equal(a, b) for a, b in zip(runs[0], again)):
+                fail(f"bn_head: two runs at {shape} {dn} differ")
+            del runs, again, y, dx, yr, dxr
+
+            st = [rm.clone(), rv.clone()]
+            xi = x.detach().requires_grad_(True)
+            yk = ops.bn_train(xi, st[0], st[1], groups=g)
+            yp = ops.bn_train_reference(xi, st[0].clone(), st[1].clone(), groups=g)
+            li = x.detach().requires_grad_(True)
+            lm, lv = rm.clone(), rv.clone()
+            yl = F.batch_norm(li, lm, lv, training=True, momentum=1 - ops.BN_MOMENTUM,
+                              eps=ops.BN_EPSILON)
+
+            def k_fwd():
+                with torch.no_grad():
+                    return ops.bn_train(x, st[0], st[1], groups=g)
+
+            def p_fwd():
+                with torch.no_grad():
+                    return ops.bn_train_reference(x, rm.clone(), rv.clone(), groups=g)
+
+            def l_fwd():
+                with torch.no_grad():
+                    return F.batch_norm(x, lm, lv, training=True,
+                                        momentum=1 - ops.BN_MOMENTUM, eps=ops.BN_EPSILON)
+
+            k_bwd = lambda: torch.autograd.grad(yk, [xi], dy, retain_graph=True)  # noqa: E731
+            p_bwd = lambda: torch.autograd.grad(yp, [xi], dy, retain_graph=True)  # noqa: E731
+            l_bwd = lambda: torch.autograd.grad(yl, [li], dy, retain_graph=True)  # noqa: E731
+            nbytes = x.numel() * x.element_size()
+            # x read, y written; x, dy read, dx written (the (G, C)
+            # statistics and the running update add < 1%)
+            row = dict(shape=list(shape), groups=g, dtype=dn, plan=dict(plan),
+                       max_rel_err=ey, max_rel_err_grad=eg,
+                       device_ms_fwd=device_ms(k_fwd, "head_fwd_kernel"),
+                       device_ms_bwd=device_ms(k_bwd, "head_bwd_kernel"),
+                       call_device_ms_fwd=device_ms(k_fwd), call_device_ms_bwd=device_ms(k_bwd),
+                       plain_device_ms_fwd=device_ms(p_fwd), plain_device_ms_bwd=device_ms(p_bwd),
+                       library_device_ms_fwd=device_ms(l_fwd),
+                       library_device_ms_bwd=device_ms(l_bwd),
+                       host_ms_fwd=time_ms(k_fwd, reps=20), host_ms_bwd=time_ms(k_bwd, reps=20),
+                       bound_ms_fwd=bound_ms(2 * nbytes, 8.0 * x.numel(), torch.float32)[0],
+                       bound_ms_bwd=bound_ms(3 * nbytes, 12.0 * x.numel(), torch.float32)[0])
+            by_shape[f"{name}/{dn}"] = row
+            emit({"phase": "kernel", "name": "bn_train:head", "call": name, **row})
+            del x, dy, xi, yk, yp, li, yl
+            torch.cuda.empty_cache()
+    bench = [by_shape[f"{k}/bfloat16"] for k in ("bench_pre_bn", "bench_post_bn")]
+
+    def total(key):
+        return sum(r[f"{key}_fwd"] + r[f"{key}_bwd"] for r in bench)
+
+    return dict(name="bn_train:head", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/bn_train.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:117 (_GroupedBN, XLA, "
+                         "forward and backward) at the 2-D head inputs (models/res2net.py's "
+                         "EmbeddingHead pre_bn / post_bn)",
+                functions=("bn_head_fwd", "bn_head_bwd"), library="bn_train",
+                max_abs_err=errs["bfloat16"], max_rel_err_fp32=errs["float32"],
+                max_rel_err_fp32_grad=errs["float32_grad"], tolerance=TOL_TRAIN_BF16,
+                tolerance_fp32=TOL_FP32, reruns_bit_equal=True, dtype="bfloat16",
+                per="the bench step's two head calls, (256, 10240) and (256, 192) at bn_groups "
+                    "8, forward + backward, device time",
+                ms=total("device_ms"), host_ms=total("host_ms"),
+                plain_ms=total("plain_device_ms"), bound_ms=total("bound_ms"),
+                bound_by="bytes", library_ms=total("library_device_ms"),
+                library_call="F.batch_norm, training mode at one group, forward + backward",
+                by_shape=by_shape)
 
 
 # K9 / K9b at the bench step's four stride-1 stage shapes (res2net50_w8_s6_c16,
@@ -1948,18 +2091,23 @@ def row_counts(row, counts):
 
 K5_LAUNCH_KEYS = ("bn_train.bn_cluster_fwd:row", "bn_train.bn_cluster_bwd:row",
                   "bn_train.bn_cluster_fwd:fold", "bn_train.bn_cluster_bwd:fold",
+                  "bn_train.bn_head_fwd:vector", "bn_train.bn_head_bwd:vector",
+                  "bn_train.bn_head_fwd:single", "bn_train.bn_head_bwd:single",
                   "bn_train.bn_train_fwd", "bn_train.bn_train_bwd")
 
 
 def k5_functions(shape, groups, mode, relu):
     """(forward, backward) launch-count keys of one K5 call: the design
     bn_train_plan gives it at its real shape in bf16 (the cluster design on
-    rows or on folded rows, or the multi-kernel design)."""
+    rows or on folded rows, the head design on the 2-D calls, or the
+    multi-kernel design)."""
     from voxsrc2020_speaker_verification_tpu_torch.ops.nn import bn_train_plan
 
     plan = bn_train_plan(tuple(shape), groups, torch.bfloat16, mode, relu)
     if plan["design"] == "multi":
         return "bn_train.bn_train_fwd", "bn_train.bn_train_bwd"
+    if plan["design"] == "head":
+        return (f"bn_train.bn_head_fwd:{plan['lanes']}", f"bn_train.bn_head_bwd:{plan['lanes']}")
     path = "fold" if plan["fold"] > 1 else "row"
     return f"bn_train.bn_cluster_fwd:{path}", f"bn_train.bn_cluster_bwd:{path}"
 
@@ -4433,12 +4581,20 @@ def main() -> int:
     att_rows = list(check_att_pool(dev, gen))
     any_c, fold_rows = check_bn_any_c(dev, gen)
     k4_w1 = check_stats_pool_w1(dev, gen)
+    head_row = check_bn_head(dev, gen)
     torch.cuda.empty_cache()
-    # K5's one-launch cluster design takes the 4-D calls, the multi-kernel
-    # design the 2-D head calls (bn_train_plan)
+    # K5's one-launch cluster design takes the 4-D calls, its one-launch
+    # head design the 2-D head calls (bn_train_plan): 8 + 8 head launches a
+    # bench step, none of the multi-kernel design
     per_microbatch = {**k5_launches(k5, TRAIN_GROUPS), **K6_SLAB_PER_MICROBATCH,
                       **k9_launches(chains),
                       **POOL_RING_PER_MICROBATCH}
+    head_step = {k: TRAIN_ACCUM * per_microbatch[k] for k in K5_LAUNCH_KEYS
+                 if "bn_head" in k or "bn_train_" in k}
+    if (sum(v for k, v in head_step.items() if "bn_head_fwd" in k) != 8
+            or sum(v for k, v in head_step.items() if "bn_head_bwd" in k) != 8
+            or head_step["bn_train.bn_train_fwd"] or head_step["bn_train.bn_train_bwd"]):
+        fail(f"K5 on the bench step's head calls: {head_step}, not 8 + 8 head launches")
 
     with tempfile.TemporaryDirectory() as workdir:
         counts, serve_fn_counts = serve_phase(dev, workdir, per_forward, split_per_forward)
@@ -4539,6 +4695,18 @@ def main() -> int:
                         if k.split(".")[0] == row["name"] and "span" not in k}
                 for phase, c in (("serve" if row["name"] == "bn_act" else "train", main_counts),
                                  *((f"encoders_{m}", cm) for m, cm in counts_by.items()))}
+    # the head design's row: the train phase's launches (the bench step's
+    # head calls), and those of the raw, lmft and encoders phases
+    head_row["launches_by_function"] = {k: train_counts[k] for k in HEAD_BN_KEYS}
+    head_row["launches"] = sum(head_row["launches_by_function"].values())
+    head_row["launches_on"] = "train phase: the bench step's pre_bn and post_bn"
+    head_row["launches_per_step"] = {k: TRAIN_ACCUM * per_microbatch[k] for k in HEAD_BN_KEYS}
+    head_row["launches_raw"] = {k: raw_counts[k] for k in HEAD_BN_KEYS}
+    head_row["launches_lmft"] = {k: lmft_counts[k] for k in HEAD_BN_KEYS}
+    head_row["launches_encoders"] = {m: {k: c[k] for k in HEAD_BN_KEYS}
+                                     for m, c in enc_train.items()}
+    if head_row["launches"] == 0:
+        fail("the train phase launched no bn_train:head")
     for row in fold_rows:
         fns = (("bn_act.bn_act:fold",) if row["name"] == "bn_act:fold"
                else ("bn_train.bn_cluster_fwd:fold", "bn_train.bn_cluster_bwd:fold"))
@@ -4566,7 +4734,7 @@ def main() -> int:
         if not any(row["launches_slice13"].values()):
             fail(f"slice 13's paths launched no {row['name']}")
     emit({"kernels": rows + [k1_dither] + train_rows + [cmvn_row] + att_rows + slice12_rows
-          + k4_w1 + fold_rows})
+          + k4_w1 + fold_rows + [head_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,8 +11,9 @@ shortcut, in float32 and bfloat16, at channel counts that are multiples of
 4 and at dpn68's 10-channel stem (256, 10, 200, 80) (each element's
 arithmetic is the same on every K3 path); K5 (``ops.bn_train``) forward
 output, input gradients and running statistics under relu with each
-shortcut mode, on the cluster design (4-D) and the multi-kernel design
-(2-D), groups 8, at channel counts that fill 16-byte vectors; and every K5
+shortcut mode, on the cluster design (4-D) and the 2-D design (the
+multi-kernel design before slice 19, the head design since), groups 8, at
+channel counts that fill 16-byte vectors; and every K5
 call of the bench training step (res2net50_w8_s6_c16, B = 256, 200 frames,
 bf16, bn_groups 8: ``chip_smoke.train_shapes``) with its relu and shortcut
 mode. The script uses only the wrappers' public interface. Prints one JSON

@@ -45,10 +45,11 @@ from voxsrc2020_speaker_verification_tpu_torch.training.trainer import (  # noqa
 
 
 # the device kernels of csrc/bn_train.cu: the cluster design's two, the
-# multi-kernel design's six
-K5_DEVICE_KERNELS = ("cluster_fwd_kernel", "cluster_bwd_kernel", "stats_kernel",
-                     "finalize_fwd_kernel", "normalize_kernel", "reduce_bwd_kernel",
-                     "finalize_bwd_kernel", "grad_kernel")
+# head design's two (2-D calls), the multi-kernel design's six
+K5_DEVICE_KERNELS = ("cluster_fwd_kernel", "cluster_bwd_kernel", "head_fwd_kernel",
+                     "head_bwd_kernel", "stats_kernel", "finalize_fwd_kernel",
+                     "normalize_kernel", "reduce_bwd_kernel", "finalize_bwd_kernel",
+                     "grad_kernel")
 
 
 def main() -> int:

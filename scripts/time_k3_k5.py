@@ -14,8 +14,14 @@ the f600 finetune shape (256, 10, 600, 80), the voxsrc2020 shape (1024, 10,
 forward (under no_grad) and the backward (``torch.autograd.grad``) apart,
 under relu; its yardstick ``F.batch_norm`` in training mode at one group,
 forward and backward. K3: relu and a time mask (lengths from a seed); its
-yardstick ``F.batch_norm`` in eval mode. K5's 2-D head calls of the bench
-step, (256, 10240) and (256, 256) at bn_groups 8, no relu. Device
+yardstick ``F.batch_norm`` in eval mode. K5's 2-D head calls (no relu),
+bf16 and float32, at their recipes' rows and bn_groups (HEAD_SHAPES): the
+bench step's pre_bn and post_bn (256, 10240) and (256, 192) in 8 groups,
+--single-chip's (512, 10240) in 16, res2net50_w24_s4_c32's and
+res2net50_w24_s4_c64's, res2net200_att's --single-chip (128, 20480) in 4,
+dpn68's, TDNN's at 1024 rows and ECAPA-512's (its recipe's one group, and
+8), each with the plain version's time (``bn_train_reference`` and its
+autograd) beside the kernel's and the library's. Device
 milliseconds come from torch.profiler (CUPTI) over ``--reps`` calls after a
 warm-up, every device kernel of the call, each measured ``--rounds`` times
 in turns; beside each, the CUDA kernels a call launches and the design it
@@ -51,7 +57,18 @@ from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops  # noqa: E40
 K5_SHAPES = {"stem": (256, 10, 200, 80), "f600": (256, 10, 600, 80),
              "voxsrc2020": (1024, 10, 320, 40)}
 K3_SHAPES = dict(K5_SHAPES, bucket1000=(128, 10, 1000, 80))
-HEAD_SHAPES = {"head_pre_bn": (256, 10240), "head_post_bn": (256, 256)}
+# name -> ((B, C), bn_groups); (256, 256) in 8 groups is the post_bn of
+# res2net50_w24_s4_c32, res2net50_w24_s4_c64 and dpn68 alike
+HEAD_SHAPES = {"head_pre_bn": ((256, 10240), 8), "head_post_bn": ((256, 192), 8),
+               "single_chip_pre_bn": ((512, 10240), 16),
+               "single_chip_post_bn": ((512, 192), 16),
+               "w24_c32_pre_bn": ((256, 20480), 8), "w24_post_bn": ((256, 256), 8),
+               "w24_c64_pre_bn": ((256, 40960), 8),
+               "att200_single_chip_pre_bn": ((128, 20480), 4),
+               "dpn68_pre_bn": ((256, 16640), 8),
+               "tdnn_pre_bn": ((1024, 3072), 8), "tdnn_post_bn": ((1024, 256), 8),
+               "ecapa_pre_bn": ((256, 3072), 1), "ecapa_post_bn": ((256, 192), 1),
+               "ecapa_pre_bn_g8": ((256, 3072), 8), "ecapa_post_bn_g8": ((256, 192), 8)}
 GROUPS = 8
 HBM_BYTES_PER_S = 3.35e12
 
@@ -110,24 +127,36 @@ def main() -> int:
     def layout(t):
         return t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
 
-    def k5_case(name, shape, dtype, relu):
+    def k5_case(name, shape, dtype, relu, groups=GROUPS, plain=False):
         x = layout((torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype))
         dy = layout(torch.randn(shape, generator=g, device=dev).to(dtype))
         c = shape[1]
         rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
         xi = x.detach().requires_grad_(True)
-        y = ops.bn_train(xi, rm, rv, groups=GROUPS, relu=relu)
+        y = ops.bn_train(xi, rm, rv, groups=groups, relu=relu)
         nbytes = x.numel() * x.element_size()
 
         def fwd():
             with torch.no_grad():
-                return ops.bn_train(x, rm, rv, groups=GROUPS, relu=relu)
+                return ops.bn_train(x, rm, rv, groups=groups, relu=relu)
 
         calls[f"k5_fwd/{name}"] = fwd
         calls[f"k5_bwd/{name}"] = lambda: torch.autograd.grad(y, [xi], dy, retain_graph=True)
         bounds[f"k5_fwd/{name}"], bounds[f"k5_bwd/{name}"] = bound(2 * nbytes), bound(3 * nbytes)
-        plan = ops.bn_train_plan(tuple(shape), GROUPS, dtype, 0, relu)
-        designs[f"k5/{name}"] = {k: plan[k] for k in ("design", "fold") if k in plan}
+        plan = ops.bn_train_plan(tuple(shape), groups, dtype, 0, relu)
+        designs[f"k5/{name}"] = {k: plan[k] for k in ("design", "fold", "lanes", "cl", "rl",
+                                                      "slab", "ctas") if k in plan}
+        if plain:  # the plain version, forward and its autograd
+            pm, pv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+            py = ops.bn_train_reference(xi, pm, pv, groups=groups, relu=relu)
+
+            def plain_fwd():
+                with torch.no_grad():
+                    return ops.bn_train_reference(x, pm, pv, groups=groups, relu=relu)
+
+            calls[f"plain_fwd/{name}"] = plain_fwd
+            calls[f"plain_bwd/{name}"] = lambda: torch.autograd.grad(py, [xi], dy,
+                                                                     retain_graph=True)
         # the library yardstick: F.batch_norm in training mode, one group
         lm, lv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
         li = x.detach().requires_grad_(True)
@@ -139,7 +168,7 @@ def main() -> int:
         dx = calls[f"k5_bwd/{name}"]()[0]
         rm2, rv2 = torch.zeros(c, device=dev), torch.ones(c, device=dev)
         with torch.no_grad():
-            ops.bn_train(x, rm2, rv2, groups=GROUPS, relu=relu)
+            ops.bn_train(x, rm2, rv2, groups=groups, relu=relu)
         outputs[f"k5/{name}"] = [y[:1].detach().float().cpu(), dx[:1].float().cpu(),
                                  rm2.cpu(), rv2.cpu()]
 
@@ -161,8 +190,10 @@ def main() -> int:
             k5_case(f"{name}/{dn}", shape, dtype, True)
         for name, shape in K3_SHAPES.items():
             k3_case(f"{name}/{dn}", shape, dtype)
-    for name, shape in HEAD_SHAPES.items():
-        k5_case(f"{name}/bfloat16", shape, torch.bfloat16, False)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for name, (shape, groups) in HEAD_SHAPES.items():
+            k5_case(f"{name}/{dn}", shape, dtype, False, groups, plain=True)
 
     rows = {k: [] for k in calls}
     kernels_a_call = {}
@@ -180,6 +211,7 @@ def main() -> int:
                 for k, v in outputs.items() if k in other}
     print(json.dumps({"label": args.label, "card": smi, "torch": torch.__version__,
                       "reps": args.reps, "rounds": args.rounds, "groups": GROUPS,
+                      "head_shapes": HEAD_SHAPES,
                       "device_ms": rows, "median": {k: float(np.median(v)) for k, v in rows.items()},
                       "kernels_a_call": kernels_a_call, "bound_ms": bounds, "design": designs,
                       "max_abs_diff_to_compared": diff}), flush=True)

@@ -255,7 +255,7 @@ def test_bn_train_kernel_matches_plain(cuda, shape, groups, mode, dtype):
     shortcut gradients) against autograd of the plain version: the cluster
     design on 4-D inputs (with one cluster a group and with several behind
     the group barrier; slabs kept in shared memory and streamed twice), the
-    multi-kernel design on 2-D ones."""
+    head design on 2-D ones."""
     x, (rm, rv) = bn_case(cuda, shape, dtype, 3)
     s, (srm, srv) = bn_case(cuda, shape, dtype, 4)
     dy = bn_case(cuda, shape, dtype, 5)[0]
@@ -1223,9 +1223,27 @@ def bn_designs_taken(fn):
     delta = {k: v - before[k] for k, v in kernels.function_launch_counts().items()
              if v != before[k]}
     k3 = {k.split(":")[1] for k in delta if k.startswith("bn_act.bn_act:")}
-    k5 = {("fold" if k.endswith(":fold") else "cluster") if "cluster" in k else "multi"
-          for k in delta if k.startswith("bn_train.") and "span" not in k}
+    k5 = {k5_design_of(k) for k in delta if k.startswith("bn_train.") and "span" not in k}
     return k3, k5
+
+
+def k5_design_of(key):
+    """K5's design from a launch-count key: "fold" / "cluster" (the cluster
+    design on folded rows or on rows), "head" (2-D calls; "head:single" on
+    single-channel lanes) or "multi"."""
+    if "cluster" in key:
+        return "fold" if key.endswith(":fold") else "cluster"
+    if "bn_head" in key:
+        return "head" if key.endswith(":vector") else "head:single"
+    return "multi"
+
+
+def k5_design_of_plan(plan):
+    if plan["design"] == "cluster":
+        return "fold" if plan["fold"] > 1 else "cluster"
+    if plan["design"] == "head":
+        return "head" if plan["lanes"] == "vector" else "head:single"
+    return "multi"
 
 
 @pytest.mark.cuda
@@ -1261,9 +1279,7 @@ def test_bn_kernels_take_any_channel_count(cuda, channels):
                 assert k3 == {k3_plan["design"]}, (shape, dtype)
             dy = bn_case(cuda, shape, dtype, 5)[0]
             for groups in (1, 8):
-                plan = tops.bn_train_plan(shape, groups, dtype, 0, True)
-                want = ("fold" if plan["fold"] > 1 else "cluster") if plan["design"] == "cluster" \
-                    else "multi"
+                want = k5_design_of_plan(tops.bn_train_plan(shape, groups, dtype, 0, True))
                 runs = []
                 for fn in (tops.bn_train, tops.bn_train_reference, tops.bn_train):
                     xi = x.clone().requires_grad_(True)
@@ -1307,6 +1323,100 @@ def test_bn_kernels_take_any_channel_count(cuda, channels):
                    tops.bn_act_reference(xm, m, v, relu=True)) <= 2e-2
         _, k5 = bn_designs_taken(lambda: tops.bn_train(xm, m.clone(), v.clone(), groups=8))
         assert k5 == {"multi"}
+
+
+# K5's head design at the 2-D calls: the bench step's pre_bn and post_bn
+# (bn_groups 8; the post_bn on single-channel lanes), TDNN's pre_bn (1024
+# rows), --single-chip's pre_bn (512 rows in 16 groups), a C that does not
+# fill 16-byte vectors and B whose slabs are read in two rounds (4096 rows,
+# one group) on either lanes
+HEAD_CASES = [((256, 10240), 8), ((256, 192), 8), ((1024, 3072), 8), ((512, 10240), 16),
+              ((64, 41), 8), ((4096, 64), 1), ((4096, 2048), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", HEAD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_head_kernel_matches_plain(cuda, shape, groups, dtype):
+    """K5's head design forward (output, running update; none inside
+    running_update(False)) and backward against autograd of the plain
+    version on the same inputs, at test_bn_train_kernel_matches_plain's
+    tolerances (float32 1e-4, bf16 2e-2 relative to each output's largest
+    magnitude; running statistics 1e-4); one launch a direction, on the
+    lanes the plan names (vector lanes, single-channel lanes where C does
+    not fill 16-byte vectors or x lies off a 16-byte boundary) and no other
+    K5 launch; reruns bit for bit."""
+    x, (rm, rv) = bn_case(cuda, shape, dtype, 3)
+    dy = bn_case(cuda, shape, dtype, 5)[0]
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    buf[1:].copy_(x.flatten())
+    misaligned = buf[1:].view(shape)
+    assert misaligned.data_ptr() % 16
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    y_aligned = None
+    for xin in (x, misaligned):
+        aligned = xin.data_ptr() % 16 == 0
+        plan = tops.bn_train_plan(shape, groups, dtype, 0, False, aligned)
+        assert plan["design"] == "head"
+        runs = []
+        for fn in (tops.bn_train, tops.bn_train_reference, tops.bn_train):
+            xi, st = xin.clone() if fn is tops.bn_train_reference else xin, [rm.clone(), rv.clone()]
+            xi = xi.detach().requires_grad_(True)
+            before = kernels.function_launch_counts()
+            y = fn(xi, st[0], st[1], groups=groups)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in kernels.function_launch_counts().items()
+                     if v != before[k] and k.startswith("bn_train.")}
+            if fn is tops.bn_train:
+                path = plan["lanes"]
+                assert delta == {f"bn_train.bn_head_fwd:{path}": 1,
+                                 f"bn_train.bn_head_bwd:{path}": 1}, (shape, dtype, delta)
+            runs.append((y.detach(), xi.grad, *st))
+        (y, dx, m, v), (yr, dxr, mr, vr), again = runs
+        assert rel(y, yr) <= tol and rel(dx, dxr) <= tol, (shape, dtype, aligned)
+        assert rel(m, mr) <= 1e-4 and rel(v, vr) <= 1e-4
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+        y_aligned = y if y_aligned is None else y_aligned
+    # a rematerialized forward leaves the running statistics alone
+    st = [rm.clone(), rv.clone()]
+    with tops.running_update(False):
+        y = tops.bn_train(x, st[0], st[1], groups=groups)
+    assert torch.equal(st[0], rm) and torch.equal(st[1], rv)
+    assert torch.equal(y, y_aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_head_kernel_shortcut_modes(cuda, dtype):
+    """The head design with relu and both shortcut modes, on vector lanes
+    at (256, 2048) and on single-channel lanes at the bench's post_bn width
+    and a C that does not fill 16-byte vectors, against the plain version
+    (x, shortcut gradients and all running statistics)."""
+    for shape in ((256, 2048), (256, 192), (48, 20)):
+        x, (rm, rv) = bn_case(cuda, shape, dtype, 3)
+        s, (srm, srv) = bn_case(cuda, shape, dtype, 4)
+        dy = bn_case(cuda, shape, dtype, 5)[0]
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for mode in ("raw_shortcut", "bn_shortcut"):
+            outs = []
+            for fn in (tops.bn_train, tops.bn_train_reference):
+                xi, si = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+                st = [t.clone() for t in (rm, rv, srm, srv)]
+                kw = dict(groups=4, relu=True, shortcut=si)
+                if mode == "bn_shortcut":
+                    kw.update(shortcut_running_mean=st[2], shortcut_running_var=st[3])
+                y = fn(xi, st[0], st[1], **kw)
+                y.backward(dy)
+                outs.append((y.detach(), xi.grad, si.grad, st))
+            (y, dx, ds, st), (yr, dxr, dsr, str_) = outs
+            # gradients where both take the same relu decision (RELU_FLIPS)
+            same = (y > 0) == (yr > 0)
+            assert int((~same).sum()) <= 1
+            assert rel(y, yr) <= tol and rel(dx * same, dxr * same) <= tol, (shape, mode)
+            assert rel(ds * same, dsr * same) <= tol, (shape, mode)
+            for a, b in zip(st, str_):
+                assert rel(a, b) <= 1e-4
 
 
 # ---------------------------------------------------------------------------

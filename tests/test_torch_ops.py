@@ -261,6 +261,55 @@ def test_batchnorm_module_head_and_training():
                                np.asarray(mut["batch_stats"]["bn"]["var"]), **TOL)
 
 
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("channels", [24, 10])
+def test_grouped_head_bn_matches_jax(groups, channels):
+    """The 2-D grouped training BN (the head's pre_bn / post_bn) against the
+    JAX package's _GroupedBN (BatchNorm under bn_groups) on the same numpy
+    inputs, float32, within 1e-4: the output, both running statistics (no
+    Bessel factor at 2-D), and the input gradient for a seeded cotangent by
+    jax.vjp; the port's CPU path (bn_train, its plain version and autograd)
+    and K5's head design emulated on the CPU in its kernel's order of sums
+    on its plan's tiling (single-channel lanes at these thin widths)."""
+    from test_torch_plans import bn_head_emulated
+
+    rng = np.random.RandomState(10 * groups + channels)
+    b = 32
+    x = (rng.randn(b, channels) * 1.5 + 0.3).astype(np.float32)
+    dy = rng.randn(b, channels).astype(np.float32)
+    mean, var = bn_stats(rng, channels)
+    variables = {"batch_stats": {"bn": {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}}}
+    jbn = jops.BatchNorm()
+
+    def fwd(xj):
+        with jops.bn_groups(groups):
+            return jbn.apply(variables, xj, mutable=["batch_stats"])
+
+    _, new_stats = fwd(jnp.asarray(x))
+    want, vjp = jax.vjp(lambda xj: fwd(xj)[0], jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(dy))
+    want_stats = [np.asarray(new_stats["batch_stats"]["bn"][k]) for k in ("mean", "var")]
+
+    xi = torch.from_numpy(x).requires_grad_(True)
+    st = [torch.from_numpy(mean.copy()), torch.from_numpy(var.copy())]
+    got = tops.bn_train(xi, st[0], st[1], groups=groups)
+    got.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xi.grad.numpy(), np.asarray(want_dx), **TOL)
+    for a, w in zip(st, want_stats):
+        np.testing.assert_allclose(a.numpy(), w, **TOL)
+
+    plan = tops.bn_train_plan((b, channels), groups, torch.float32, 0, False)
+    assert plan["design"] == "head" and plan["lanes"] == "single"  # thin: few vectors
+    st = [torch.from_numpy(mean.copy()), torch.from_numpy(var.copy())]
+    y, dx = bn_head_emulated(torch.from_numpy(x), st[0], st[1], groups, plan,
+                             torch.from_numpy(dy))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), **TOL)
+    for a, w in zip(st, want_stats):
+        np.testing.assert_allclose(a.numpy(), w, **TOL)
+
+
 @pytest.mark.parametrize("strides", [1, 2])
 def test_avg_pool_3x3_matches_jax(strides):
     rng = np.random.RandomState(7)

@@ -135,8 +135,9 @@ def test_bn_train_plan_every_training_call(dtype, groups):
     (threads = ct_v * rpb <= 512 covering the full row, rpb a power of two,
     ring chunks of whole row-lane rounds, four or more chunks in flight for
     the most tensors a pass streams, shared memory within one block), the
-    2-D head calls the multi-kernel design; a second call with the same
-    signature gets the same (cached) plan."""
+    2-D head calls the head design (``assert_head_geometry``: pre_bn on
+    16-byte vector lanes, post_bn on single-channel lanes); a second call
+    with the same signature gets the same (cached) plan."""
     cfg = RES2NET_CONFIGS["res2net50_w8_s6_c16"]
     k5, _ = chip_smoke.train_shapes(cfg, 256, 200, 80)
     k5 = list(k5) + [((b, w, t, f), True, 0) for ((b, _, t, f), w, _)
@@ -147,7 +148,9 @@ def test_bn_train_plan_every_training_call(dtype, groups):
         plan = tops.bn_train_plan(shape, groups, dtype, mode, relu)
         assert tops.bn_train_plan(torch.Size(shape), groups, dtype, mode, relu) is plan
         if len(shape) == 2:
-            assert plan["design"] == "multi"
+            assert plan["design"] == "head", shape
+            assert plan["lanes"] == ("vector" if shape[1] > 256 else "single"), shape
+            assert_head_geometry(plan, shape, groups, dtype)
             continue
         assert plan["design"] == "cluster", shape
         c, row = shape[1], shape[1] * dtype.itemsize
@@ -177,8 +180,8 @@ def test_bn_train_plan_other_calls():
     on folded rows where a group's rows n are a multiple of the fewest rows
     that fill whole vectors (12 bf16 channels: 2 rows, n = 90; the fold 10
     of them gives 480 threads), else the multi-kernel design (10 channels:
-    4 rows, 90 % 4 != 0); rows wider than 512 vectors and 2-D inputs take
-    the multi-kernel design."""
+    4 rows, 90 % 4 != 0) and rows wider than 512 vectors take the
+    multi-kernel design; 2-D inputs take the head design."""
     plan = tops.bn_train_plan((256, 96, 200, 80), 1, torch.bfloat16, 0, False)
     assert plan["design"] == "cluster" and plan["rows"] == 256 * 200 * 80
     plan = tops.bn_train_plan((16, 12, 9, 5), 8, torch.bfloat16, 0, True)
@@ -191,7 +194,7 @@ def test_bn_train_plan_other_calls():
     assert tops.bn_train_plan((16, 12, 9, 5), 8, torch.float32, 0, True)["design"] == "cluster"
     assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.bfloat16, 0, True)["design"] == "cluster"
     assert tops.bn_train_plan((4, 4096, 3, 3), 1, torch.float32, 0, True)["design"] == "multi"
-    assert tops.bn_train_plan((256, 10240), 8, torch.bfloat16, 0, False)["design"] == "multi"
+    assert tops.bn_train_plan((256, 10240), 8, torch.bfloat16, 0, False)["design"] == "head"
 
 
 # K7: every extraction bucket (a batch of 8), one frame, lengths around the
@@ -706,7 +709,7 @@ def test_bn_plans_every_dpn68_call(recipe, groups, dtype):
     folded rows with a valid geometry where C does not fill 16-byte vectors
     (the 10-channel stem, stage 1's first projection and conv_a: three calls
     a microbatch) unless n % fold != 0 (then the multi-kernel design), the
-    2-D head calls the multi-kernel design; K3 (extraction, eval) takes
+    2-D head calls the head design; K3 (extraction, eval) takes
     4-channel vectors where C % 4 == 0, else the fold where F % fold == 0,
     else single channels."""
     from voxsrc2020_speaker_verification_tpu_torch.recipes import get_recipe
@@ -718,7 +721,9 @@ def test_bn_plans_every_dpn68_call(recipe, groups, dtype):
     for shape, relu in calls:
         plan = tops.bn_train_plan(shape, groups, dtype, 0, relu)
         if len(shape) == 2:
-            assert plan["design"] == "multi"
+            assert plan["design"] == "head", shape
+            assert plan["lanes"] == ("vector" if shape[1] > 256 else "single"), shape
+            assert_head_geometry(plan, shape, groups, dtype)
             continue
         c = shape[1]
         fold = vec // np.gcd(c, vec)
@@ -765,8 +770,8 @@ def integer_inputs(shape, seed, dtype):
     """Seeded inputs on a grid of 1/4 in [-4, 4): every float32 sum over a
     group is exact, so sums taken in any order agree bit for bit."""
     rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randint(-16, 16, size=shape).astype(np.float32) / 4)
-    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+    x = torch.from_numpy(rng.randint(-16, 16, size=shape).astype(np.float32) / 4).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last) if x.ndim == 4 else x
 
 
 def bn_train_folded(x, running_mean, running_var, groups, plan, relu):
@@ -842,3 +847,235 @@ def test_fold_index_math_matches_plain_versions(shape, groups, dtype):
         1, shape[2] + 1, shape[0])[:, None]).astype(np.float32))
     want = tops.bn_act_reference(x, rm, rv, relu=True, mask=mask)
     assert torch.equal(bn_act_folded(x, rm, rv, mask, k3["fold"]), want)
+
+
+# ---------------------------------------------------------------------------
+# K5's head design (the 2-D calls)
+# ---------------------------------------------------------------------------
+
+HEAD_THREADS, HEAD_ROWS = 256, 8  # a CTA's threads at most; rows a thread keeps at once
+
+
+def assert_head_geometry(plan, shape, groups, dtype):
+    """The head design's tiling of a (B, C) call: the channel tiles cover
+    every channel once (ctas * cl lanes of v channels, the last tile ragged
+    by less than one tile), the row lanes' slabs cover all B rows, each
+    slab inside one group (slab divides n), every group the same number of
+    row lanes; the CTA within 256 threads, its tree's shared memory (4
+    sums of v channels a thread forward, 3 backward) within the 48 KB of
+    static launch, and the rows a thread keeps at once (8) in registers
+    (at most 3 operands x 8 rows x 4 registers a 16-byte vector); and the
+    geometry the plan's rules give: the largest slab up to 8 rows that
+    fits; on vector lanes a tile of at most 128 threads where its CTAs
+    number 132 to 396, else the widest that keeps 256 threads and 132 CTAs;
+    on single lanes the widest up to 32 within 256 threads."""
+    b, c = shape
+    n = b // groups
+    vec = 16 // dtype.itemsize
+    v, cl, rl, slab = plan["v"], plan["cl"], plan["rl"], plan["slab"]
+    assert v == (vec if plan["lanes"] == "vector" else 1) and c % v == 0
+    assert plan["lanes"] == "single" or c // vec >= 132
+    lanes = c // v
+    assert plan["ctas"] * cl >= lanes > (plan["ctas"] - 1) * cl
+    assert cl & (cl - 1) == 0 and cl <= (8 if v > 1 else 32)
+    assert rl * slab == b and n % slab == 0 and rl % groups == 0
+    assert plan["threads"] == cl * rl <= HEAD_THREADS
+    assert plan["rounds"] == -(-slab // HEAD_ROWS)
+    assert plan["fwd_smem"] == 4 * 4 * v * cl * rl <= 48 * 1024
+    assert plan["bwd_smem"] == 4 * 3 * v * cl * rl <= plan["fwd_smem"]
+    assert plan["bwd_tile_regs"] == 3 * min(slab, HEAD_ROWS) * (4 if v > 1 else 1) <= 96
+    slab0 = max(d for d in range(1, HEAD_ROWS + 1) if n % d == 0)
+    if v == 1:
+        assert slab == slab0 or b // HEAD_ROWS > 256
+        assert cl == 32 or cl * 2 * rl > HEAD_THREADS
+        return
+
+    def ctas(w):
+        return -(-lanes // w)
+    rl0 = b // slab0
+    small = [w for w in (8, 4, 2) if w * rl0 <= HEAD_THREADS // 2 and 132 <= ctas(w) <= 396]
+    if small:
+        want = small[0]
+    else:
+        want = max([w for w in (8, 4, 2, 1) if w * rl0 <= HEAD_THREADS and ctas(w) >= 132]
+                   or [1])
+    assert cl == want or b // HEAD_ROWS > 256
+    # thinner slabs only while the call gives fewer than 256 threads an SM:
+    # the next larger slab gave fewer, and this one gives as many or has no
+    # thinner slab within 256 threads
+    if slab < slab0:
+        prev = min(d for d in range(slab + 1, slab0 + 1) if n % d == 0)
+        assert plan["ctas"] * cl * (b // prev) < 132 * HEAD_THREADS
+    if b // HEAD_ROWS <= 256:
+        assert plan["ctas"] * plan["threads"] >= 132 * HEAD_THREADS or not any(
+            n % d == 0 and cl * (b // d) <= HEAD_THREADS for d in range(1, slab))
+
+
+def head_calls():
+    """Every 2-D K5 call of the training recipes (EmbeddingHead's pre_bn and
+    post_bn, ECAPA's), as (model, B, C, groups): the bench step's
+    res2net50_w8_s6_c16 and res2net50_w24_s4_c32 from
+    ``chip_smoke.train_shapes``, the --single-chip rows of
+    ``recipes.SINGLE_CHIP_SHAPES`` at 200 frames, and each family's recipe
+    (res2net50_w24_s4_c64, dpn68, TDNN, ECAPA-512) with its widths read off
+    the model's head BNs on the meta device."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import get_model
+    from voxsrc2020_speaker_verification_tpu_torch.recipes import SINGLE_CHIP_SHAPES, get_recipe
+
+    calls = set()
+    for model, b, g in (("res2net50_w8_s6_c16", 256, 8), ("res2net50_w24_s4_c32", 256, 8)):
+        k5, _ = chip_smoke.train_shapes(RES2NET_CONFIGS[model], b, 200, 80)
+        calls.update((model, s[0], s[1], g) for (s, _, _) in k5 if len(s) == 2)
+    runs = [(get_recipe(r)[0], None) for r in ("res2net_vox2_dev_aug", "dpn_vox2_dev_aug",
+                                                "tdnn_voxsrc2020_vox2_dev_aug",
+                                                "ecapa_vox2_dev_aug")]
+    runs += [(None, (m, kw)) for (m, t), kw in SINGLE_CHIP_SHAPES.items() if t == 200]
+    for cfg, single in runs:
+        model, feat_dim = (cfg.model, cfg.feat_dim) if cfg else (single[0], 80)
+        b, g = (cfg.batch_size, cfg.bn_groups) if cfg else (single[1]["batch_size"],
+                                                            single[1]["bn_groups"])
+        with torch.device("meta"):
+            net = get_model(model, feat_dim=feat_dim)
+        for name, mod in net.named_modules():
+            if name.endswith(("pre_bn", "post_bn")):
+                calls.add((model, b, mod.running_mean.shape[0], g))
+    return sorted(calls)
+
+
+HEAD_CALLS = head_calls()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("model,b,c,groups", HEAD_CALLS, ids=str)
+def test_bn_head_plan_every_head_call(model, b, c, groups, dtype):
+    """Each head call takes the head design in one read (its slab in
+    registers, 8 rows but at ECAPA's pre_bn, which thins them to fill the
+    card) with a valid tiling: the pre_bn calls on 16-byte vector
+    lanes, the post_bn calls (192 or 256 channels: fewer vectors than SMs)
+    on single-channel lanes; the bench step's pre_bn at (256, 10240) bf16
+    in 8 groups is 320 CTAs of 4 vectors x 32 row lanes, its post_bn 24 of
+    8 channels x 32 row lanes; a misaligned tensor takes single-channel
+    lanes of the same design, by the plan."""
+    plan = tops.bn_train_plan((b, c), groups, dtype, 0, False)
+    vector = c // (16 // dtype.itemsize) >= 132
+    assert plan["design"] == "head" and plan["lanes"] == ("vector" if vector else "single")
+    assert vector == (c > 256), (model, b, c)
+    assert plan["rounds"] == 1 and (plan["slab"] == 8 or (b, c) == (256, 3072))
+    assert_head_geometry(plan, (b, c), groups, dtype)
+    if c == 3072 and b == 256:  # ECAPA's pre_bn: too small to fill the card on 8-row slabs
+        assert plan["slab"] == (2 if dtype == torch.bfloat16 else 4)
+    single = tops.bn_train_plan((b, c), groups, dtype, 0, False, False)
+    assert single["lanes"] == "single" and single["v"] == 1
+    assert_head_geometry(single, (b, c), groups, dtype)
+    if (b, groups, dtype) == (256, 8, torch.bfloat16) and c in (10240, 192):
+        want = (4, 32, 320, 128) if c == 10240 else (8, 32, 24, 256)
+        assert (plan["cl"], plan["rl"], plan["ctas"], plan["threads"]) == want
+
+
+def test_head_calls_cover_the_table():
+    """The head calls the plan test holds: the bench's pre_bn / post_bn
+    (post_bn at the bench model's output_dim, 192), --single-chip's (512,
+    10240) in 16 groups, the north star's and the recipe default's, dpn68's,
+    TDNN's at 1024 rows and ECAPA's."""
+    calls = {(b, c, g) for (_, b, c, g) in HEAD_CALLS}
+    assert {(256, 10240, 8), (256, 192, 8), (512, 10240, 16), (256, 20480, 8), (256, 256, 8),
+            (256, 40960, 8), (128, 20480, 4), (256, 16640, 8), (1024, 3072, 8),
+            (1024, 256, 8), (256, 3072, 1), (256, 192, 1)} <= calls
+
+
+@pytest.mark.parametrize("shape,groups,dtype,lanes,slab", [
+    ((64, 40), 8, torch.bfloat16, "single", 8), ((64, 41), 8, torch.bfloat16, "single", 8),
+    ((64, 1048), 8, torch.bfloat16, "single", 8), ((64, 1048), 8, torch.float32, "vector", 1),
+    ((40, 40960), 8, torch.float32, "vector", 5), ((4096, 2048), 1, torch.bfloat16, "vector", 16),
+    ((3000, 7), 1, torch.float32, "single", 12), ((2048, 16), 256, torch.bfloat16, "single", 8)],
+    ids=str)
+def test_bn_head_plan_other_calls(shape, groups, dtype, lanes, slab):
+    """C that does not fill 16-byte vectors, or whose vectors number fewer
+    than the card's 132 SMs (1048 bf16 channels: 131 vectors; 1048 float32
+    ones are 262), takes single-channel lanes; n without a divisor of 8 takes
+    its largest divisor up to 8 (n = 5: slab 5), a call too small to give
+    the card 256 threads an SM thinner slabs (64 float32 rows of 1048: one
+    row a lane); a B whose slabs of 8 rows
+    would need more than 256 row lanes reads its slab in rounds (4096 rows:
+    slab 16, 2 rounds; 3000: 12); 256 groups fit and 512 do not."""
+    plan = tops.bn_train_plan(shape, groups, dtype, 0, True)
+    assert (plan["design"], plan["lanes"], plan["slab"]) == ("head", lanes, slab)
+    assert_head_geometry(plan, shape, groups, dtype)
+    with pytest.raises(tops.KernelError):
+        tops.bn_head_plan(4096, 16, 512, dtype)
+
+
+def bn_head_emulated(x, running_mean, running_var, groups, plan, dy=None):
+    """K5's head design emulated on the CPU in float32, in the kernel's
+    order of operations: each row lane's slab summed row by row, each
+    group's row lanes added in the kernel's pairwise tree (lane i adds lane
+    i + s where i % 2s == 0), mean = sum * (1 / n), var = sum(x^2) * (1 / n)
+    - mean^2, the running update in group order (in place), y = (x - mean)
+    * rstd; with ``dy``, dx from sum(dy) and sum(dy * xhat) the same way.
+    Returns (y, dx)."""
+    b, c = x.shape
+    rl, slab, lanes = plan["rl"], plan["slab"], plan["rl"] // groups
+    inv_n = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(b // groups))
+
+    def group_sums(t):  # (B, C) -> (G, C): the slab in order, then the tree
+        rows = t.reshape(rl, slab, c)
+        part = torch.zeros(rl, c)
+        for k in range(slab):
+            part = part + rows[:, k]
+        part = part.reshape(groups, lanes, c).clone()
+        s = 1
+        while s < lanes:
+            for i in range(0, lanes - s, 2 * s):
+                part[:, i] = part[:, i] + part[:, i + s]
+            s *= 2
+        return part[:, 0]
+
+    xf = x.float()
+    mean = group_sums(xf) * inv_n
+    var = group_sums(xf * xf) * inv_n - mean * mean
+    rstd = torch.rsqrt(var + tops.BN_EPSILON)
+    _, upd_mean, upd_var = tops._update_factors(x, groups)
+    msum, vsum = torch.zeros(c), torch.zeros(c)
+    for g in range(groups):
+        msum, vsum = msum + mean[g], vsum + var[g]
+    inv_g = torch.tensor(1.0) / groups
+    running_mean.copy_(tops.BN_MOMENTUM * running_mean + upd_mean * (msum * inv_g))
+    running_var.copy_(tops.BN_MOMENTUM * running_var + upd_var * (vsum * inv_g))
+    g_of = torch.arange(b) // (b // groups)
+    xhat = (xf - mean[g_of]) * rstd[g_of]
+    y = xhat.to(x.dtype)
+    if dy is None:
+        return y, None
+    d = dy.float()
+    ca, cb = group_sums(d) * inv_n, group_sums(d * xhat) * inv_n
+    dx = rstd[g_of] * (d - ca[g_of] - xhat * cb[g_of])
+    return y, dx.to(x.dtype)
+
+
+@pytest.mark.parametrize("shape,groups", [((64, 40), 8), ((64, 40), 1), ((48, 24), 3),
+                                          ((40, 12), 8), ((4096, 8), 1), ((256, 24), 8),
+                                          ((64, 1056), 2)],
+                         ids=str)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_head_emulation_matches_plain_version(shape, groups, aligned):
+    """The head design's order of sums, on its plan's tiling (vector lanes
+    at (64, 1056) aligned, single-channel lanes elsewhere), gives the plain
+    version's output, running statistics and gradient (bn_train_reference,
+    its autograd) on inputs whose sums are exact: to float32 rounding of
+    1 / n against division by n (1e-6)."""
+    plan = tops.bn_train_plan(shape, groups, torch.float32, 0, False, aligned)
+    assert plan["lanes"] == ("vector" if aligned and shape[1] == 1056 else "single")
+    x = integer_inputs(shape, 1, torch.float32)
+    dy = integer_inputs(shape, 2, torch.float32)
+    rng = np.random.RandomState(3)
+    c = shape[1]
+    rm = torch.from_numpy(rng.randn(c).astype(np.float32))
+    rv = torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32))
+    st = [rm.clone(), rv.clone()]
+    y, dx = bn_head_emulated(x, st[0], st[1], groups, plan, dy)
+    xi = x.clone().requires_grad_(True)
+    ref = [rm.clone(), rv.clone()]
+    yr = tops.bn_train_reference(xi, ref[0], ref[1], groups=groups)
+    yr.backward(dy)
+    for a, b in ((y, yr.detach()), (dx, xi.grad), (st[0], ref[0]), (st[1], ref[1])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -29,10 +29,10 @@
 // read and dx written in the backward.
 //
 // What bounded the first design (kept below as the "multi-kernel" design,
-// which the 2-D head calls take, and 4-D calls whose rows cannot be folded
-// (below); at channel counts that are not multiples of 4 it moves single
-// channels instead of 4-channel vectors, with the same arithmetic an
-// element):
+// which 4-D calls whose rows cannot be folded take (below); at channel
+// counts that are not multiples of 4 it moves single channels instead of
+// 4-channel vectors, with the same arithmetic an element; the 2-D head
+// calls have the head design, after the cluster design):
 // three launches per direction -- per-block partial sums, a per-channel
 // finalize, an elementwise pass -- with the partials making a round trip
 // through HBM, x read twice in the forward, x, y and dy read twice in the
@@ -90,11 +90,14 @@
 // take no conversions (relu_edge, below), and the 4 SMs a grid of 8 groups
 // leaves idle.
 //
-// The spanning mode (bn_span_*: groups that span the data ranks, with an
-// all-reduce between its launches) has its own section below the cluster
-// design: one launch a phase on the cluster design's ring.
+// The head design (bn_head_*: the 2-D calls) has its own section below
+// the cluster design: one launch a direction, a CTA a channel tile across
+// all rows. The spanning mode (bn_span_*: groups that span the data ranks,
+// with an all-reduce between its launches) follows it: one launch a phase
+// on the cluster design's ring.
 #include <algorithm>
 #include <cooperative_groups.h>
+#include <cstdint>
 #include <mutex>
 #include <type_traits>
 
@@ -1163,6 +1166,456 @@ int cluster_backward(const ClusterArgs& a, long long gpart_floats, cudaStream_t 
 }
 
 // ---------------------------------------------------------------------------
+// head design: the 2-D calls, one launch per direction
+// ---------------------------------------------------------------------------
+//
+// The (B, C) head inputs (EmbeddingHead's pre_bn and post_bn, ECAPA's) are
+// short and wide: the bench step's pre_bn is (256, 10240), 5 MB a tensor in
+// bf16, in 8 groups of 32 rows. The grid runs over channel tiles. A CTA
+// owns `cl` lanes of V channels (a 16-byte vector; or one channel, where C
+// does not fill enough 16-byte vectors or a tensor is off a 16-byte
+// boundary: ops/nn.py:bn_head_plan) across all B rows, so across all G
+// groups, and needs nothing from any
+// other CTA: no scratch, no ticket, no barrier, no atomics. Its `rl` row
+// lanes each own a slab of `slab` consecutive rows inside one group (slab
+// divides n), so a group is rl / G consecutive row lanes. A thread issues
+// its slab's loads before their first use and keeps them in registers, in
+// rounds of kHeadRows rows (a slab of more rows, for a B past what a CTA
+// holds, is read a second time, from L2); it sums its rows in order, the
+// group's lanes add their sums in a fixed pairwise tree (warp shuffles
+// within a warp, shared memory across warps), and every lane of the group
+// then holds the group's statistics. The forward writes mean / rstd,
+// normalizes from the registers and then applies the running update of
+// the tile's channels in group order; the backward
+// reads x and dy (and the normalized shortcut, or the forward output for a
+// raw shortcut under relu), recomputes the relu decision from x as the
+// cluster design does, sums, and writes dx (and the shortcut's gradient)
+// from the registers. The statistics are the multi-kernel design's (mean =
+// sum / n, var = sum(x^2) / n - mean^2, no Bessel factor at 2-D), the
+// output and the relu decision the cluster design's (bn_out, relu_edge);
+// reruns match bit for bit.
+//
+// What bounds it: latency more than bytes. It moves the bound's own count
+// (x read and y written; x and dy read and dx written), but a call is a
+// few MB: the launch, one DRAM round trip before the first sum and the
+// tree cost as much as the transfer (42-55% of the bytes bound at the
+// bench's pre_bn, PERF.md); at the small head calls ((256, 192): 98 KB a
+// tensor) the launch and a thread's serial work alone. Hence a tile's
+// geometry by measurement (bn_head_plan), two register budgets (below),
+// and shuffles in the tree.
+
+constexpr int kHeadThreads = 256;  // at most, per CTA
+constexpr int kHeadRows = 8;       // rows a thread keeps in registers at once
+
+struct HeadArgs {
+  const void* x;
+  const void* sc;    // shortcut (modes 1, 2); null otherwise
+  const void* y;     // backward, mode 1 with relu: the forward output
+  const void* dy;    // backward
+  void* out;         // forward: y; backward: dx
+  void* dsc;         // backward: the shortcut's gradient (modes 1, 2)
+  float* mean;       // (G, C); forward writes, backward reads
+  float* rstd;
+  float* sc_mean;
+  float* sc_rstd;
+  float* run_mean;   // null: no running update
+  float* run_var;
+  float* sc_run_mean;
+  float* sc_run_var;
+  long long rows;    // B
+  int groups, channels;
+  int cl;            // channel lanes a CTA, V channels each
+  int rl;            // row lanes a CTA, `slab` rows each
+  int slab;
+  int sc_mode, relu;
+  float mom, upd_mean, upd_var, eps, inv_n;
+};
+
+// One lane's V channels of one row: a 16-byte vector kept raw (unpacked
+// at use), or one element.
+template <typename T, int V>
+struct HeadLane {
+  using Raw = typename std::conditional<V == 1, float, uint4>::type;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    if constexpr (V == 1)
+      return vsv::to_f(*p);
+    else
+      return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(const Raw& r, float* v) {
+    if constexpr (V == 1)
+      v[0] = r;
+    else
+      unpack16(r, v, static_cast<const T*>(nullptr));
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    if constexpr (V == 1)
+      *p = vsv::from_f<T>(v[0]);
+    else
+      store16(p, v);
+  }
+};
+
+// Each group's sums of acc[k][.] (NS quantities, V channels) over its L
+// row lanes (consecutive: row lane lr is in group lr / L), by a fixed
+// pairwise tree: lane i of a group adds lane i + s where i % 2s == 0, s =
+// 1, 2, 4, ... The totals come back in acc, in every lane of the group.
+// Where L is a power of two (and the CTA whole warps), the steps whose
+// partner lies in the same warp (s * cl < 32) run as a butterfly of
+// shuffles, which forms the same sums in the same order in every lane (a
+// + b == b + a), and only the steps across warps go through red (NS * V *
+// blockDim floats, free again on return): none where a group's lanes
+// share a warp.
+template <int NS, int V>
+__device__ __forceinline__ void head_group_sums(float (*acc)[V], float* red, int cl, int L) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int i = (tid / cl) % L;
+  int s = 1;
+  if ((L & (L - 1)) == 0 && nt % 32 == 0) {  // the same in every thread
+    for (; s < L && s * cl < 32; s *= 2)
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[k][j] += __shfl_xor_sync(0xffffffffu, acc[k][j], s * cl);
+    if (s >= L) return;
+  }
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) red[(k * V + j) * nt + tid] = acc[k][j];
+  __syncthreads();
+  for (; s < L; s *= 2) {
+    if (i % (2 * s) == 0 && i + s < L)
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          red[(k * V + j) * nt + tid] += red[(k * V + j) * nt + tid + s * cl];
+    __syncthreads();
+  }
+  const int lead = tid - i * cl;  // the group's first row lane, this channel lane
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = red[(k * V + j) * nt + lead];
+  __syncthreads();
+}
+
+// Forward. NS = 2 (x) or 4 (x and the normalized shortcut).
+template <typename T, int V, int NS, int MINB>
+__global__ void __launch_bounds__(kHeadThreads, MINB) head_fwd_kernel(HeadArgs a) {
+  using Lane = HeadLane<T, V>;
+  constexpr int R = kHeadRows;
+  extern __shared__ float red[];
+  const int tid = threadIdx.x, nt = blockDim.x, cl = a.cl, C = a.channels, S = a.slab;
+  const int lc = tid % cl, lr = tid / cl, L = a.rl / a.groups, g = lr / L;
+  const int c0 = (blockIdx.x * cl + lc) * V;  // the lane's first channel
+  const bool on = c0 < C;                     // the last tile may be ragged
+  const bool lead = lr % L == 0;              // the group's first row lane
+  const bool upd = a.run_mean != nullptr;     // the same in every thread
+  const long long base = static_cast<long long>(lr) * S * C + c0;
+  const T* x = static_cast<const T*>(a.x);
+  const T* sc = static_cast<const T*>(a.sc);
+  T* out = static_cast<T*>(a.out);
+  const int rounds = (S + R - 1) / R;
+  const bool keep = rounds == 1;  // the slab stays in registers
+
+  typename Lane::Raw xr[R], sr[R];
+  auto load = [&](int q, bool with_sc) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int r = q * R + k;
+      if (on && r < S) {
+        xr[k] = Lane::load(x + base + static_cast<long long>(r) * C);
+        if (with_sc) sr[k] = Lane::load(sc + base + static_cast<long long>(r) * C);
+      }
+    }
+  };
+
+  // sums of x (and s) over the slab, in row order
+  float acc[NS][V];
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+  for (int q = 0; q < rounds; ++q) {
+    load(q, a.sc_mode != 0 && (NS == 4 || keep));
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (on && q * R + k < S) {
+        float v[V];
+        Lane::unpack(xr[k], v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          acc[0][j] += v[j];
+          acc[1][j] += v[j] * v[j];
+        }
+        if constexpr (NS == 4) {
+          Lane::unpack(sr[k], v);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            acc[2][j] += v[j];
+            acc[3][j] += v[j] * v[j];
+          }
+        }
+      }
+    }
+  }
+  head_group_sums<NS, V>(acc, red, cl, L);
+
+  // the group's statistics (acc keeps each one's mean and variance for the
+  // running update); its first row lane publishes them
+  float mu[V], rs[V], smu[V] = {}, srs[V] = {};
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i)
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float m = acc[2 * i][j] * a.inv_n;
+      const float var = acc[2 * i + 1][j] * a.inv_n - m * m;
+      (i == 0 ? mu : smu)[j] = m;
+      (i == 0 ? rs : srs)[j] = rsqrtf(var + a.eps);
+      acc[2 * i][j] = m;
+      acc[2 * i + 1][j] = var;
+    }
+  if (on && lead) {
+    const long long gc = static_cast<long long>(g) * C + c0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      a.mean[gc + j] = mu[j];
+      a.rstd[gc + j] = rs[j];
+      if constexpr (NS == 4) {
+        a.sc_mean[gc + j] = smu[j];
+        a.sc_rstd[gc + j] = srs[j];
+      }
+    }
+  }
+
+  if (upd && lead)  // the groups' (mean, var), for the running update below
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+#pragma unroll
+      for (int j = 0; j < V; ++j) red[(k * V + j) * nt + tid] = acc[k][j];
+
+  // normalize with the epilogue, from the registers (or the slab read again)
+  for (int q = 0; q < rounds; ++q) {
+    if (!keep) load(q, a.sc_mode != 0);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int r = q * R + k;
+      if (on && r < S) {
+        float xv[V], sv[V] = {}, o[V];
+        Lane::unpack(xr[k], xv);
+        if (a.sc_mode != 0) Lane::unpack(sr[k], sv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (a.sc_mode == 0) {
+            // the store rounds once, as in the cluster design
+            const float y = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]);
+            o[j] = a.relu ? (y > relu_edge<T>() ? y : 0.f) : y;
+          } else {
+            const float y = bn_out<T>(xv[j], mu[j], rs[j], sv[j], smu[j], srs[j], a.sc_mode);
+            o[j] = a.relu ? fmaxf(y, 0.f) : y;
+          }
+        }
+        Lane::store(out + base + static_cast<long long>(r) * C, o);
+      }
+    }
+  }
+
+  // the running update of the tile's channels, once the stores are on
+  // their way: cl * V * NS / 2 tasks, task u (input u / (cl * V), channel
+  // lane l, element j) adding the groups' (mean, var) in group order
+  if (upd) {
+    __syncthreads();
+    const float inv_g = 1.f / static_cast<float>(a.groups);
+    for (int u = tid; u < cl * V * (NS / 2); u += nt) {
+      const int i = u / (cl * V), l = (u % (cl * V)) / V, j = u % V;
+      const int c = (static_cast<int>(blockIdx.x) * cl + l) * V + j;
+      if (c >= C) continue;
+      float msum = 0.f, vsum = 0.f;
+      for (int gg = 0; gg < a.groups; ++gg) {
+        const int from = gg * L * cl + l;  // group gg's first row lane
+        msum += red[((2 * i) * V + j) * nt + from];
+        vsum += red[((2 * i + 1) * V + j) * nt + from];
+      }
+      float* rm = i == 0 ? a.run_mean : a.sc_run_mean;
+      float* rv = i == 0 ? a.run_var : a.sc_run_var;
+      rm[c] = a.mom * rm[c] + a.upd_mean * (msum * inv_g);
+      rv[c] = a.mom * rv[c] + a.upd_var * (vsum * inv_g);
+    }
+  }
+}
+
+// Backward. NS = 2 (sum d, sum d*xhat) or 3 (and sum d*shat, normalized
+// shortcut). Operands: x, dy, then (THIRD) s in mode 2 or, for a raw
+// shortcut under relu, the forward output.
+template <typename T, int V, int NS, bool THIRD, int MINB>
+__global__ void __launch_bounds__(kHeadThreads, MINB) head_bwd_kernel(HeadArgs a) {
+  using Lane = HeadLane<T, V>;
+  constexpr int R = kHeadRows;
+  extern __shared__ float red[];
+  const int tid = threadIdx.x, cl = a.cl, C = a.channels, S = a.slab;
+  const int lc = tid % cl, lr = tid / cl, L = a.rl / a.groups, g = lr / L;
+  const int c0 = (blockIdx.x * cl + lc) * V;
+  const bool on = c0 < C;
+  const long long base = static_cast<long long>(lr) * S * C + c0;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  const T* z = static_cast<const T*>(a.sc_mode == 2 ? a.sc : a.y);
+  const int rounds = (S + R - 1) / R;
+  const bool keep = rounds == 1;
+
+  typename Lane::Raw xr[R], dr[R], zr[R];
+  auto load = [&](int q) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int r = q * R + k;
+      if (on && r < S) {
+        const long long e = base + static_cast<long long>(r) * C;
+        xr[k] = Lane::load(x + e);
+        dr[k] = Lane::load(dy + e);
+        if (THIRD) zr[k] = Lane::load(z + e);
+      }
+    }
+  };
+  float mu[V] = {}, rs[V] = {}, smu[V] = {}, srs[V] = {};
+  if (on) {
+    const long long gc = static_cast<long long>(g) * C + c0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mu[j] = a.mean[gc + j];
+      rs[j] = a.rstd[gc + j];
+      if (NS == 3) {
+        smu[j] = a.sc_mean[gc + j];
+        srs[j] = a.sc_rstd[gc + j];
+      }
+    }
+  }
+  // row k of the registers: x (and z) unpacked, and d = dy where the
+  // forward's relu passed it
+  auto grad_in = [&](int k, float* xv, float* zv, float* d) {
+    float dv[V];
+    Lane::unpack(xr[k], xv);
+    Lane::unpack(dr[k], dv);
+    if (THIRD) Lane::unpack(zr[k], zv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      bool pass = true;
+      if (a.relu) {
+        if (a.sc_mode == 1)
+          pass = zv[j] > 0.f;
+        else if (a.sc_mode == 0)  // bn_out's decision, without its conversions
+          pass = __fmul_rn(__fsub_rn(xv[j], mu[j]), rs[j]) > relu_edge<T>();
+        else
+          pass = bn_out<T>(xv[j], mu[j], rs[j], zv[j], smu[j], srs[j], a.sc_mode) > 0.f;
+      }
+      d[j] = pass ? dv[j] : 0.f;
+    }
+  };
+
+  float acc[NS][V];
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+  for (int q = 0; q < rounds; ++q) {
+    load(q);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (on && q * R + k < S) {
+        float xv[V], zv[V] = {}, d[V];
+        grad_in(k, xv, zv, d);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          acc[0][j] += d[j];
+          acc[1][j] += d[j] * ((xv[j] - mu[j]) * rs[j]);
+          if (NS == 3) acc[NS - 1][j] += d[j] * ((zv[j] - smu[j]) * srs[j]);
+        }
+      }
+    }
+  }
+  head_group_sums<NS, V>(acc, red, cl, L);
+  float ca[V], cb[V], cbs[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    ca[j] = acc[0][j] * a.inv_n;
+    cb[j] = acc[1][j] * a.inv_n;
+    cbs[j] = NS == 3 ? acc[NS - 1][j] * a.inv_n : 0.f;
+  }
+
+  T* dx = static_cast<T*>(a.out);
+  T* dsc = static_cast<T*>(a.dsc);
+  for (int q = 0; q < rounds; ++q) {
+    if (!keep) load(q);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int r = q * R + k;
+      if (on && r < S) {
+        const long long e = base + static_cast<long long>(r) * C;
+        float xv[V], zv[V] = {}, d[V], o[V];
+        grad_in(k, xv, zv, d);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          o[j] = rs[j] * (d[j] - ca[j] - ((xv[j] - mu[j]) * rs[j]) * cb[j]);
+        Lane::store(dx + e, o);
+        if (a.sc_mode == 1) {
+          Lane::store(dsc + e, d);
+        } else if (NS == 3) {
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            o[j] = srs[j] * (d[j] - ca[j] - ((zv[j] - smu[j]) * srs[j]) * cbs[j]);
+          Lane::store(dsc + e, o);
+        }
+      }
+    }
+  }
+}
+
+// One CTA a tile of cl channel lanes, cl * rl threads, ns * V floats of
+// shared memory a thread for the tree. Refuses a geometry whose slabs do
+// not cover the B rows inside the groups, and tensors off a 16-byte
+// boundary for vector lanes.
+template <typename T, int V, typename K>
+int head_launch(K kernel, const HeadArgs& a, int ns, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(a.cl) * a.rl;
+  const void* ptrs[6] = {a.x, a.sc, a.y, a.dy, a.out, a.dsc};
+  for (const void* p : ptrs)
+    if (V > 1 && reinterpret_cast<uintptr_t>(p) % 16) return vsv::kShapeUnsupported;
+  if (a.groups < 1 || a.cl < 1 || a.rl < 1 || a.slab < 1 || threads > kHeadThreads ||
+      a.rows % a.groups || static_cast<long long>(a.rl) * a.slab != a.rows ||
+      (a.rows / a.groups) % a.slab || a.channels < 1 || a.channels % V)
+    return vsv::kShapeUnsupported;
+  const int lanes = a.channels / V;
+  const unsigned grid = static_cast<unsigned>((lanes + a.cl - 1) / a.cl);
+  const size_t smem = sizeof(float) * ns * V * threads;  // at most 32 KB
+  kernel<<<grid, static_cast<unsigned>(threads), smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The heads' own variants (no normalized shortcut, two operands) come
+// twice: for CTAs of more than 128 threads, built for two CTAs an SM (128
+// registers a thread), and for smaller CTAs, with the registers the
+// compiler wants (several CTAs an SM all the same); the variants with a
+// third operand once, for one CTA an SM.
+template <typename T, int V>
+int head_forward(const HeadArgs& a, cudaStream_t s) {
+  if (a.sc_mode == 2) return head_launch<T, V>(head_fwd_kernel<T, V, 4, 1>, a, 4, s);
+  if (a.cl * a.rl > kHeadThreads / 2)
+    return head_launch<T, V>(head_fwd_kernel<T, V, 2, 2>, a, 2, s);
+  return head_launch<T, V>(head_fwd_kernel<T, V, 2, 1>, a, 2, s);
+}
+
+template <typename T, int V>
+int head_backward(const HeadArgs& a, cudaStream_t s) {
+  if (a.sc_mode == 2) return head_launch<T, V>(head_bwd_kernel<T, V, 3, true, 1>, a, 3, s);
+  if (a.sc_mode == 1 && a.relu)
+    return head_launch<T, V>(head_bwd_kernel<T, V, 2, true, 1>, a, 2, s);
+  if (a.cl * a.rl > kHeadThreads / 2)
+    return head_launch<T, V>(head_bwd_kernel<T, V, 2, false, 2>, a, 2, s);
+  return head_launch<T, V>(head_bwd_kernel<T, V, 2, false, 1>, a, 2, s);
+}
+
+// ---------------------------------------------------------------------------
 // spanning mode: BN groups that span the data ranks of a process group
 // ---------------------------------------------------------------------------
 //
@@ -1910,6 +2363,72 @@ extern "C" int bn_train_bwd(int dtype, const void* x, const void* y,
         x, y, dy, sc, sc_mode, n, groups, channels, chunks, mean, rstd, sc_mean, sc_rstd,
         part, coef, dx, dsc, num_sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The head design on the 2-D calls (x: rows x channels, contiguous; a
+// group is rows / groups consecutive rows), in the geometry of
+// ops/nn.py:bn_head_plan: v channels a lane (the 16 bytes of a vector: 4
+// float32, 8 bf16, every tensor 16-byte aligned and channels % v == 0; or
+// 1), cl channel lanes and rl row lanes a CTA (cl * rl <= 256 threads),
+// slab rows a row lane (rl * slab == rows, slab dividing rows / groups).
+// Other geometries are refused (kShapeUnsupported). mean/rstd (and sc_*):
+// (groups, channels) fp32, written forward and read backward; null
+// running statistics skip the update. y: the forward output, read only for
+// a raw shortcut under relu; dsc: the shortcut's gradient (sc_mode 1 or 2),
+// else null.
+static HeadArgs head_args(int sc_mode, int relu, long long rows, int groups, int channels,
+                          int cl, int rl, int slab) {
+  HeadArgs a = {};
+  a.rows = rows; a.groups = groups; a.channels = channels;
+  a.cl = cl; a.rl = rl; a.slab = slab; a.sc_mode = sc_mode; a.relu = relu;
+  a.inv_n = groups > 0 ? 1.f / static_cast<float>(rows / groups) : 0.f;
+  return a;
+}
+
+template <typename F>
+static int head_dtype(int dtype, int v, F fn) {
+  if (dtype == 0 && v == 4) return fn(static_cast<float*>(nullptr), std::integral_constant<int, 4>());
+  if (dtype == 0 && v == 1) return fn(static_cast<float*>(nullptr), std::integral_constant<int, 1>());
+  if (dtype == 1 && v == 8)
+    return fn(static_cast<__nv_bfloat16*>(nullptr), std::integral_constant<int, 8>());
+  if (dtype == 1 && v == 1)
+    return fn(static_cast<__nv_bfloat16*>(nullptr), std::integral_constant<int, 1>());
+  return vsv::kShapeUnsupported;
+}
+
+extern "C" int bn_head_fwd(int dtype, const void* x, const void* sc, int sc_mode, int relu,
+                           long long rows, int groups, int channels, int v, int cl, int rl,
+                           int slab, float* mean, float* rstd, float* run_mean,
+                           float* run_var,
+                           float* sc_mean, float* sc_rstd, float* sc_run_mean, float* sc_run_var,
+                           float mom, float upd_mean, float upd_var, float eps, void* out,
+                           void* stream) {
+  HeadArgs a = head_args(sc_mode, relu, rows, groups, channels, cl, rl, slab);
+  a.x = x; a.sc = sc; a.out = out;
+  a.mean = mean; a.rstd = rstd; a.sc_mean = sc_mean; a.sc_rstd = sc_rstd;
+  a.run_mean = run_mean; a.run_var = run_var; a.sc_run_mean = sc_run_mean;
+  a.sc_run_var = sc_run_var;
+  a.mom = mom; a.upd_mean = upd_mean; a.upd_var = upd_var; a.eps = eps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return head_dtype(dtype, v, [&](auto t, auto vc) {
+    return head_forward<std::remove_pointer_t<decltype(t)>, decltype(vc)::value>(a, s);
+  });
+}
+
+extern "C" int bn_head_bwd(int dtype, const void* x, const void* y, const void* dy,
+                           const void* sc, int sc_mode, int relu, long long rows, int groups,
+                           int channels, int v, int cl, int rl, int slab,
+                           const float* mean,
+                           const float* rstd, const float* sc_mean, const float* sc_rstd,
+                           void* dx, void* dsc, void* stream) {
+  HeadArgs a = head_args(sc_mode, relu, rows, groups, channels, cl, rl, slab);
+  a.x = x; a.y = y; a.dy = dy; a.sc = sc; a.out = dx; a.dsc = dsc;
+  a.mean = const_cast<float*>(mean); a.rstd = const_cast<float*>(rstd);
+  a.sc_mean = const_cast<float*>(sc_mean); a.sc_rstd = const_cast<float*>(sc_rstd);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return head_dtype(dtype, v, [&](auto t, auto vc) {
+    return head_backward<std::remove_pointer_t<decltype(t)>, decltype(vc)::value>(a, s);
+  });
 }
 
 // Spanning mode, one launch a phase (see span_stats_kernel above). Every

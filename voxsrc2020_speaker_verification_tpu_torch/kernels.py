@@ -169,7 +169,8 @@ SPLIT_CONV = CudaKernel("split_conv", "split_conv.cu", {
 })
 # K3 and K5 count their launches by design (ops/nn.py:bn_act_plan,
 # bn_train_plan): K3's 4-channel vectors, folded rows or single channels,
-# K5's cluster design on rows or on folded rows
+# K5's cluster design on rows or on folded rows, its head design (2-D
+# calls) on 16-byte vector lanes or single-channel lanes
 BN_ACT = CudaKernel("bn_act", "bn_epilogue.cu", {
     "bn_act": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,
                _I, _P],
@@ -191,6 +192,12 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                        _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _P, _P],
     "bn_cluster_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    # the head design (2-D calls): dtype, x, sc, mode, relu, rows, groups, C,
+    # then the plan's v, cl, rl, slab (ops/nn.py:bn_head_plan)
+    "bn_head_fwd": [_I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I] + [_P] * 8
+                   + [_F] * 4 + [_P, _P],
+    "bn_head_bwd": [_I, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I] + [_P] * 6
+                   + [_P],
     # the spanning mode's entries take the plan's ten scalars as a host int
     # array and its table as a device pointer (ops/nn.py:bn_span_plan)
     "bn_span_stats": [_I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -200,7 +207,8 @@ BN_TRAIN = CudaKernel("bn_train", "bn_train.cu", {
                            _P, _P],
     "bn_span_bwd_grad": [_I, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P],
-}, paths={"bn_cluster_fwd": ("row", "fold"), "bn_cluster_bwd": ("row", "fold")})
+}, paths={"bn_cluster_fwd": ("row", "fold"), "bn_cluster_bwd": ("row", "fold"),
+          "bn_head_fwd": ("vector", "single"), "bn_head_bwd": ("vector", "single")})
 MARGIN_CE = CudaKernel("margin_ce", "margin_ce.cu", {
     "margin_ce_fwd": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "margin_ce_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],

@@ -374,12 +374,110 @@ _BN_SMEM_SLACK = 1024      # left for the kernels' static shared memory
 _BN_RING_STAGES = 4        # chunks in flight in the bulk-copy ring (at most 16)
 
 
+_HEAD_THREADS = 256  # at most, per CTA of K5's head design
+_HEAD_ROWS = 8       # rows a thread of the head design keeps in registers at once
+_HEAD_SMS = 132      # the H100's SMs: the channel tiles should give as many CTAs
+# CTAs of 128 threads an H100 holds at once (three an SM, at the ~150
+# registers a thread the heads' kernels take below 129 threads)
+_HEAD_RESIDENT_128 = 3 * _HEAD_SMS
+
+
 @functools.lru_cache(maxsize=None)
-def bn_train_plan(shape, groups: int, dtype: torch.dtype, sc_mode: int, relu: bool) -> dict:
-    """K5's launch design for one call: ``"cluster"`` (one launch per
-    direction) for a 4-D input whose (super-)rows fill 16-byte vectors, at
-    most 512 of them a row; else ``"multi"`` (statistics, finalize and
-    elementwise launches: the 2-D head calls). A super-row is ``fold``
+def bn_head_plan(rows: int, channels: int, groups: int, dtype: torch.dtype,
+                 aligned: bool = True) -> dict:
+    """K5's head design for a 2-D (B, C) call, one launch a direction: a CTA
+    owns ``cl`` channel lanes of ``v`` channels across all B rows (all G
+    groups); its ``rl`` row lanes own ``slab`` consecutive rows each, inside
+    one group (slab divides n = B / G), so a group is rl / G row lanes.
+
+    - Lanes (``"lanes"``): ``"vector"``, 16 bytes (``v`` = 8 bf16 or 4
+      float32 channels), where C % v == 0, the tensors are 16-byte aligned
+      (``aligned``) and the vectors give at least 132 of them (the card's
+      SMs); else ``"single"``, one channel a lane (v = 1): by shape or
+      alignment, never on failure. The small head calls ((256, 192): 24
+      bf16 vectors) take single channels, spreading a call that the launch
+      and a thread's serial work bound over 8x the lanes (PERF.md, PR 19).
+    - ``slab``: the largest divisor of n up to 8 (one read, the slab in
+      registers: 8 rows of 16 bytes are 32 registers an operand); where B /
+      slab row lanes would not fit a CTA of 256 threads, the smallest
+      divisor of n that fits, read in rounds of 8 rows, the second pass
+      from L2. A CTA thus holds B = 2048 rows on chip at one channel lane
+      (256 x 8), 256 at eight; more groups than 256 do not fit at all. On
+      vector lanes, a call whose CTAs hold fewer than 256 threads an SM
+      in all takes the next smaller divisors while the CTA stays within
+      256 threads (ECAPA's (256, 3072): slab 2, 2 vectors x 128 row lanes).
+    - ``cl``, a power of two: on vector lanes, the widest of 8, 4 and 2
+      (128 to 32 bytes of a row) whose CTAs of at most 128 threads number
+      132 to 396 (all resident at three an SM, with the registers the
+      kernel wants); else the widest up to 8 that keeps 256 threads a CTA
+      and 132 CTAs (two CTAs an SM: the kernel is built for 128 registers a
+      thread there). The bench's pre_bn takes 4 x 32 (320 CTAs), dpn68's
+      and the larger ones 8 x 32, TDNN's 2 x 128. On single lanes, the
+      widest up to 32 that keeps 256 threads a CTA.
+
+    Also ``threads`` (cl * rl), ``ctas``, ``rounds`` (reads of the slab in
+    rounds of 8 rows), and per direction the shared memory of the tree
+    (``fwd_smem`` / ``bwd_smem`` at the most quantities a direction sums:
+    4 and 3 floats a channel and thread) and the registers that hold the
+    slab (``fwd_tile_regs`` / ``bwd_tile_regs`` at the most operands: 2
+    and 3). Cached per signature and shared: callers do not modify it."""
+    if rows % groups:
+        raise ValueError(f"batch {rows} not divisible into {groups} BN groups")
+    n = rows // groups
+    vec = 16 // dtype.itemsize
+    v = vec if channels % vec == 0 and aligned and channels // vec >= _HEAD_SMS else 1
+    divisors = [d for d in range(1, n + 1) if n % d == 0]
+    slab = max(d for d in divisors if d <= _HEAD_ROWS)
+    if rows // slab > _HEAD_THREADS:
+        fit = [d for d in divisors if rows // d <= _HEAD_THREADS]
+        if not fit:
+            raise KernelError(f"bn_train: {groups} BN groups of a 2-D input; the head "
+                              f"design holds at most {_HEAD_THREADS}")
+        slab = fit[0]
+    rl = rows // slab
+    lanes = channels // v
+
+    def ctas(c):
+        return -(-lanes // c)
+
+    if v == 1:
+        cl = 32
+        while cl > 1 and cl * rl > _HEAD_THREADS:
+            cl //= 2
+    else:
+        small = [c for c in (8, 4, 2) if c * rl <= _HEAD_THREADS // 2
+                 and _HEAD_SMS <= ctas(c) <= _HEAD_RESIDENT_128]
+        cl = small[0] if small else 8
+        while not small and cl > 1 and (cl * rl > _HEAD_THREADS or ctas(cl) < _HEAD_SMS):
+            cl //= 2
+        # a call too small to give the card 256 threads an SM takes thinner
+        # slabs, more row lanes
+        while ctas(cl) * cl * rl < _HEAD_SMS * _HEAD_THREADS:
+            thinner = [d for d in divisors if d < slab and cl * (rows // d) <= _HEAD_THREADS]
+            if not thinner:
+                break
+            slab = thinner[-1]
+            rl = rows // slab
+    threads = cl * rl
+    reg = 4 if v > 1 else 1  # registers a row of one operand
+    held = min(slab, _HEAD_ROWS)
+    return {"design": "head", "lanes": "vector" if v > 1 else "single", "v": v, "cl": cl,
+            "rl": rl, "slab": slab, "threads": threads, "ctas": ctas(cl),
+            "rows": rows, "n": n, "rounds": -(-slab // _HEAD_ROWS),
+            "fwd_smem": 4 * 4 * v * threads, "bwd_smem": 4 * 3 * v * threads,
+            "fwd_tile_regs": 2 * held * reg, "bwd_tile_regs": 3 * held * reg}
+
+
+@functools.lru_cache(maxsize=None)
+def bn_train_plan(shape, groups: int, dtype: torch.dtype, sc_mode: int, relu: bool,
+                  aligned: bool = True) -> dict:
+    """K5's launch design for one call: ``"head"`` (:func:`bn_head_plan`,
+    one launch per direction) for a 2-D input, its lanes chosen by C and
+    ``aligned`` (every tensor 16-byte aligned); ``"cluster"`` (one launch
+    per direction) for a 4-D input whose (super-)rows fill 16-byte vectors,
+    at most 512 of them a row; else ``"multi"`` (statistics, finalize and
+    elementwise launches; 4-D calls only, where the wrapper also sends a
+    4-D call whose tensors are off a 16-byte boundary). A super-row is ``fold``
     consecutive rows (positions of C channels): 1 where C % vec == 0 (vec
     the elements of 16 bytes), else a multiple of k = vec / gcd(C, vec), the
     fewest rows that fill whole vectors (4 for dpn68's 10 bf16 channels: 80
@@ -403,6 +501,8 @@ def bn_train_plan(shape, groups: int, dtype: torch.dtype, sc_mode: int, relu: bo
     modify them."""
     vec = 16 // dtype.itemsize
     c = shape[1]
+    if len(shape) == 2:
+        return bn_head_plan(shape[0], c, groups, dtype, aligned)
     if len(shape) != 4:
         return {"design": "multi"}
     n = (shape[0] // groups) * math.prod(shape[2:])
@@ -477,10 +577,10 @@ class _BNTrainFn(torch.autograd.Function):
     """K5 forward and backward, in the design :func:`bn_train_plan` picks.
     The running statistics are updated in place by the forward launch
     (unless ``update`` is False: the kernel then gets null running-statistic
-    pointers and leaves them alone); they take no gradient. The cluster
-    design's backward recomputes the relu decision from x (and a normalized
-    shortcut), so it saves the forward output only for a raw shortcut under
-    relu; the multi-kernel design saves it under relu."""
+    pointers and leaves them alone); they take no gradient. The cluster and
+    head designs' backward recomputes the relu decision from x (and a
+    normalized shortcut), so it saves the forward output only for a raw
+    shortcut under relu; the multi-kernel design saves it under relu."""
 
     @staticmethod
     def forward(ctx, x, shortcut, running_mean, running_var, sc_running_mean,
@@ -490,9 +590,9 @@ class _BNTrainFn(torch.autograd.Function):
             running_mean = running_var = sc_running_mean = sc_running_var = None
         c = x.shape[1]
         n, upd_mean, upd_var = _update_factors(x, groups)
-        plan = bn_train_plan(x.shape, groups, x.dtype, sc_mode, relu)
-        if plan["design"] == "cluster" and any(
-                t is not None and t.data_ptr() % 16 for t in (x, shortcut)):
+        aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (x, shortcut))
+        plan = bn_train_plan(x.shape, groups, x.dtype, sc_mode, relu, aligned)
+        if plan["design"] == "cluster" and not aligned:
             plan = {"design": "multi"}  # the bulk copies move 16-byte aligned rows
         f32 = dict(dtype=torch.float32, device=x.device)
         stats = torch.empty((4 if sc_mode == 2 else 2, groups, c), **f32)
@@ -510,6 +610,14 @@ class _BNTrainFn(torch.autograd.Function):
                 ptr(running_mean), ptr(running_var), ptr(sc_mean), ptr(sc_rstd),
                 ptr(sc_running_mean), ptr(sc_running_var), var, var + 4 * nvar, floats,
                 sync, BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out), path=_cluster_path(plan))
+            save_y = relu and sc_mode == 1
+        elif plan["design"] == "head":
+            BN_TRAIN.launch(
+                "bn_head_fwd", x.device, dtype_code(x.dtype), ptr(x), ptr(shortcut), sc_mode,
+                int(relu), x.shape[0], groups, c, plan["v"], plan["cl"], plan["rl"],
+                plan["slab"], ptr(mean), ptr(rstd), ptr(running_mean), ptr(running_var),
+                ptr(sc_mean), ptr(sc_rstd), ptr(sc_running_mean), ptr(sc_running_var),
+                BN_MOMENTUM, upd_mean, upd_var, eps, ptr(out), path=plan["lanes"])
             save_y = relu and sc_mode == 1
         else:
             sms = num_sms(x.device)
@@ -547,6 +655,14 @@ class _BNTrainFn(torch.autograd.Function):
                 plan["rpb"], plan["bwd_ring_rows"], plan["bwd_ring_bytes"], ptr(stats[0]),
                 ptr(stats[1]), *sc_stats, gpart, floats, sync, ptr(dx), ptr(dsc),
                 path=_cluster_path(plan))
+        elif plan["design"] == "head":
+            if plan["v"] > 1 and dy.data_ptr() % 16:
+                dy = dy.clone()  # the vector lanes load 16 bytes
+            BN_TRAIN.launch(
+                "bn_head_bwd", x.device, dtype_code(x.dtype), ptr(x), ptr(y), ptr(dy),
+                ptr(shortcut), sc_mode, int(relu), x.shape[0], groups, c, plan["v"],
+                plan["cl"], plan["rl"], plan["slab"], ptr(stats[0]), ptr(stats[1]),
+                *sc_stats, ptr(dx), ptr(dsc), path=plan["lanes"])
         else:
             f32 = dict(dtype=torch.float32, device=x.device)
             part = torch.empty(3 * groups * chunks * c, **f32)
