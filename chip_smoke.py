@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device  -- the card's name and power limit (``nvidia-smi``);
-2. build   -- nvcc builds the ten kernel libraries from ``csrc/`` (in parallel);
+2. build   -- nvcc builds the eleven kernel libraries from ``csrc/`` (in parallel);
 3. kernels -- each kernel against its plain PyTorch version on the card, in
    float32 (TF32 off: ``set_float32_precision``, the CLIs' rule) and in
    bfloat16, with timings: K1-K4 at the shapes
@@ -42,7 +42,14 @@ Phases, one JSON line each:
    dpn68's pre_bn and TDNN's (HEAD_BN_SHAPES), bf16 and float32, one launch
    a direction, reruns bit for bit, each direction's device time beside its
    bound, the plain version's and ``F.batch_norm``'s (row ``bn_train:head``,
-   its launches read off the train phase).
+   its launches read off the train phase); K10 (the stride-2 split stage in
+   eval) at every stride-2 stage of a B=128 x 1000-frame forward of the
+   serving model and of the bench model (res2net50_w8_s6_c16, the one the
+   export phase embeds through): float32 and bf16 against the plain
+   version, the average-pool channels bit-equal, each stage's device time
+   beside the bound, the plain version, today's route (cuDNN grouped conv +
+   K3 + avg_pool_3x3 + cat) and cuDNN's grouped conv alone; three launches
+   a forward in the serve phase, none in any training step.
    ``ms`` is a call's time by CUDA events, host included; ``device_ms``
    (K1, K4, K4b, K6, K7 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
@@ -92,7 +99,7 @@ Phases, one JSON line each:
    rematerialized and a plain step: BN statistics bit-equal, loss and
    gradient norm within TOL_PARITY, lower peak memory with remat;
 9. export  -- the trained state saved as an inference artifact and one batch
-   embedded through the eval path (K2-K4), against the CPU plain path;
+   embedded through the eval path (K2-K4, K10), against the CPU plain path;
 10. evaluate -- the recipe's last leg on the LMFT run of phase 8, through the
    CLIs a user calls: a test set shaped like VoxCeleb1-O (synthetic 16 kHz
    wavs, EVAL_* below; its full 37,720 trials) featurized on the card by
@@ -392,12 +399,13 @@ def lengths_mask(gen, b: int, t: int, dev) -> torch.Tensor:
 
 def forward_shapes(cfg):
     """The serving forward's kernel calls at B x FRAMES: K2 per stride-1
-    split stage as (width, T, F), and K3 as (C, T, F, relu, shortcut mode,
-    mask), with their multiplicities."""
+    split stage as (width, T, F), K3 as (C, T, F, relu, shortcut mode,
+    mask), and K10 per stride-2 split stage as (width, T, F) of its input,
+    with their multiplicities."""
     from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
 
     t, f = FRAMES, FEAT_DIM
-    k2, k3 = {}, {}
+    k2, k3, k10 = {}, {}, {}
 
     def add(d, key):
         d[key] = d.get(key, 0) + 1
@@ -409,13 +417,10 @@ def forward_shapes(cfg):
             stride = s if j == 0 else 1
             add(k3, (cfg.split * w, t, f, True, 0, True))           # bn1
             t2, f2 = _strided(t, stride), _strided(f, stride)
-            if stride == 1:
-                add(k2, (w, t, f))
-            else:
-                add(k3, (w * (cfg.split - 1), t2, f2, True, 0, False))  # split groups
+            add(k2 if stride == 1 else k10, (w, t, f))
             add(k3, (out_c, t2, f2, True, 2 if j == 0 else 1, True))  # bn3 + shortcut
             t, f = t2, f2
-    return k2, k3, (cfg.num_filters[-1] * 4, t, f)
+    return k2, k3, k10, (cfg.num_filters[-1] * 4, t, f)
 
 
 SPLIT_FUNCTIONS = {"fused": "split_chain_fused", "pipe": "split_group_pipe",
@@ -439,8 +444,9 @@ def split_launches_by_function(k2_calls, split) -> dict:
 # the Res2Net and DPN heads)
 POOL_RING_PER_MICROBATCH = {"stats_pool.stats_pool:ring": 1,
                             "stats_pool_bwd.stats_pool_bwd:ring": 1}
+K10_FNS = tuple(f"split_stride2.split_stride2:{d}" for d in ("mma", "vec", "single"))
 EVAL_KERNEL_FNS = tuple(f"split_conv.{fn}" for fn in SPLIT_FUNCTIONS.values()) + tuple(
-    f"bn_act.bn_act:{path}" for path in ("vec", "fold", "single"))
+    f"bn_act.bn_act:{path}" for path in ("vec", "fold", "single")) + K10_FNS
 
 
 def split_launches(k2_calls, split) -> int:
@@ -592,6 +598,108 @@ def check_split(dev, gen, k2_calls, split):
                 library_call="F.conv2d (cuDNN) per group, eval BN folded into weight and "
                              "bias, conv only",
                 bound_by="operations" if by_ops * 2 > tot["bound_ms"] else "bytes")
+
+
+def stride2_route(x, weight, means, var):
+    """The route K10 replaced, on the card (its library yardstick): the
+    padded copy, cuDNN's grouped conv at stride 2, K3 over the s-1 groups,
+    the nine strided adds of the average pool, the concat."""
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+    import torch.nn.functional as F
+
+    s = len(means) + 1
+    w = x.shape[1] // s
+    xp = ops.fixed_padding(x, 3)
+    y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=2,
+                 groups=s - 1).contiguous(memory_format=torch.channels_last)
+    y = ops.bn_act(y, torch.cat(means), torch.cat(var), relu=True)
+    return torch.cat([y, ops.avg_pool_3x3(xp[:, w * (s - 1):], 2)],
+                     dim=1).contiguous(memory_format=torch.channels_last)
+
+
+def check_split_stride2(dev, gen, k10_calls):
+    """K10 at every stride-2 stage of a B x FRAMES forward of each model in
+    ``k10_calls`` ({model: (split, {(w, T, F): calls})}; the first is the
+    serving model, whose forward the row's totals are): float32 and bf16
+    against the plain version (float32, on the same inputs), the
+    average-pool channels bit-equal to the plain version in the kernel's
+    dtype, reruns bit for bit; bf16 ms (events), device ms (profiler: K10's
+    kernel, and the call with its weight layout copy), the plain version's
+    ms, today's route (cuDNN grouped conv + K3 + avg_pool_3x3 + cat) and
+    cuDNN's grouped conv alone on the padded input, and the bytes bound."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+    import torch.nn.functional as F
+
+    err32, err16, tails, reruns, detail = 0.0, 0.0, True, True, []
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "library_route_ms": 0.0, "library_route_device_ms": 0.0, "bound_ms": 0.0}
+    serving = next(iter(k10_calls))
+    for model, (split, calls) in k10_calls.items():
+        for (w, t, f), count in sorted(calls.items()):
+            c, tail = split * w, slice((split - 1) * w, None)
+            mask = lengths_mask(gen, BATCH, t, dev)
+            x = torch.randn((BATCH, c, t, f), generator=gen, device=dev)
+            x = (x * mask[:, None, :, None]).contiguous(memory_format=torch.channels_last)
+            weight = torch.randn((w * (split - 1), w, 3, 3), generator=gen, device=dev) / math.sqrt(9 * w)
+            means = [0.1 * torch.randn(w, generator=gen, device=dev) for _ in range(split - 1)]
+            var = [0.5 + 1.5 * torch.rand(w, generator=gen, device=dev) for _ in range(split - 1)]
+            got = rn.split_stride2(x, weight, means, var)
+            want = rn.split_stride2_reference(x, weight, means, var)
+            e32, t32 = rel_err(got, want), torch.equal(got[:, tail], want[:, tail])
+            del got, want
+            xb, wb = x.bfloat16(), weight.bfloat16()
+            del x
+            gotb = rn.split_stride2(xb, wb, means, var)
+            e16 = rel_err(gotb, rn.split_stride2_reference(xb.float(), wb.float(), means, var))
+            t16 = torch.equal(gotb[:, tail], rn.split_stride2_reference(xb, wb, means, var)[:, tail])
+            rerun = torch.equal(gotb, rn.split_stride2(xb, wb, means, var))
+            del gotb
+            t2, f2 = (t - 1) // 2 + 1, (f - 1) // 2 + 1
+            flops = (split - 1) * 2 * BATCH * t2 * f2 * 9 * w * w
+            nbytes = 2 * BATCH * c * (t * f + t2 * f2) + 2 * wb.numel() + 8 * (split - 1) * w
+            bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+            k10 = lambda: rn.split_stride2(xb, wb, means, var)  # noqa: E731
+            route = lambda: stride2_route(xb, wb, means, var)  # noqa: E731
+            xp = ops.fixed_padding(xb, 3)[:, : w * (split - 1)]
+            conv = lambda: F.conv2d(xp, wb, stride=2, groups=split - 1)  # noqa: E731
+            row = dict(model=model, width=w, split=split, T=t, F=f, calls_per_forward=count,
+                       err_fp32=e32, err_bf16=e16, tail_bit_equal_fp32=t32,
+                       tail_bit_equal_bf16=t16, rerun_bit_equal=rerun,
+                       plan=rn.stride2_plan(w, split, tuple(xb.shape), torch.bfloat16),
+                       ms=time_ms(k10), device_ms=device_ms(k10, "stride2"),
+                       device_ms_call=device_ms(k10),
+                       plain_ms=time_ms(lambda: rn.split_stride2_reference(xb, wb, means, var)),
+                       library_route_ms=time_ms(route), library_route_device_ms=device_ms(route),
+                       library_conv_ms=time_ms(conv), library_conv_device_ms=device_ms(conv),
+                       bound_ms=bms, bound_by=by)
+            detail.append(row)
+            err32, err16 = max(err32, e32), max(err16, e16)
+            tails &= t32 and t16
+            reruns &= rerun
+            if model == serving:
+                for k in ("ms", "device_ms", "plain_ms", "library_route_ms",
+                          "library_route_device_ms", "bound_ms"):
+                    tot[k] += count * row[k]
+                tot["library_ms"] += count * row["library_conv_device_ms"]
+            del xb, xp
+            torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "split_stride2", "shapes": detail})
+    if err32 > TOL_FP32 or err16 > TOL_BF16["split_conv"] or not tails or not reruns:
+        fail(f"split_stride2: rel err fp32 {err32} bf16 {err16}, tails bit-equal {tails}, "
+             f"reruns bit-equal {reruns}")
+    return dict(name="split_stride2", route="cuda",
+                source="voxsrc2020_speaker_verification_tpu_torch/csrc/split_stride2.cu",
+                replaces="voxsrc2020_speaker_verification_tpu/models/res2net.py:52-80 "
+                         "(Res2NetSplitConv strides > 1 branch: fixed_padding, grouped_conv, "
+                         "BN + relu, avg_pool_3x3, concat; XLA)",
+                max_abs_err=err16, max_rel_err_fp32=err32, tolerance=TOL_BF16["split_conv"],
+                tail_bit_equal=tails, dtype="bfloat16",
+                per=f"B={BATCH} x {FRAMES}-frame forward of {serving}", **tot,
+                library_call="cuDNN's grouped conv at stride 2 alone (F.conv2d, groups=s-1, "
+                             "on the padded input), device ms; library_route_*: the route K10 "
+                             "replaced (F.pad + grouped conv + K3 + avg_pool_3x3 + cat)",
+                bound_by="bytes")
 
 
 def check_bn_act(dev, gen, k3_calls):
@@ -2714,8 +2822,8 @@ def export_phase(dev, state, config, workdir):
           "launches": counts, "min_cos_gpu_vs_cpu": cos_min})
     if got.shape != (8, config_output_dim(config)) or not np.isfinite(got).all():
         fail(f"export: embeddings {got.shape} or non-finite")
-    if not all(counts[k] > 0 for k in ("split_conv", "bn_act", "stats_pool")):
-        fail(f"export: the eval path did not run K2-K4: {counts}")
+    if not all(counts[k] > 0 for k in ("split_conv", "bn_act", "stats_pool", "split_stride2")):
+        fail(f"export: the eval path did not run K2-K4 and K10: {counts}")
     if cos_min < TOL_CPU_COS:
         fail(f"export: GPU vs CPU embeddings, min cosine {cos_min}")
 
@@ -2918,7 +3026,8 @@ def evaluate_phase(dev, exp_dir, workdir, smi, k7):
             "--cmvn", mode])
         legs[mode].append(dict(vectors=dict(kaldi_io.read_vec_flt_scp(scp_)), seconds=sec,
                                counts=counts, audio_s_per_s=store_audio_s / sec))
-        need = ("split_conv", "bn_act", "stats_pool") + (("sliding_cmvn",) if mode == "device" else ())
+        need = ("split_conv", "bn_act", "stats_pool", "split_stride2") + (
+            ("sliding_cmvn",) if mode == "device" else ())
         if any(counts[k] == 0 for k in need) or (mode == "host" and counts["sliding_cmvn"]):
             fail(f"evaluate: extract --cmvn {mode} launches {counts}")
     host = legs["host"][0]["vectors"]
@@ -2961,7 +3070,8 @@ def evaluate_phase(dev, exp_dir, workdir, smi, k7):
     if "exporting" in text_dir or text_w.count("extracting") != 0:
         fail(f"evaluate: the artifact or the test xvectors were not reused:\n{text_dir}{text_w}")
     # the default --cmvn (device) runs K7
-    if any(counts_eval[k] == 0 for k in ("split_conv", "bn_act", "stats_pool", "sliding_cmvn")):
+    if any(counts_eval[k] == 0 for k in ("split_conv", "bn_act", "stats_pool", "sliding_cmvn",
+                                          "split_stride2")):
         fail(f"evaluate: cli.evaluate launches {counts_eval}")
     for res in (res_dir, res_w):
         if not all(math.isfinite(x) for pair in res["O"].values() for x in pair):
@@ -3335,8 +3445,11 @@ def encoder_extract(dev, state, config, workdir):
     seconds = time.perf_counter() - t0
     counts = kernels.function_launch_counts()
     att = "_att" in cfg.model or cfg.model.startswith("ecapa")
+    # K10 once a stride-2 stage of the one forward: three in a Res2Net
+    k10 = 3 if cfg.model.startswith("res2net") else 0
     if counts["att_pool.att_pool_fwd"] != int(att) or fn_total(counts, "stats_pool.stats_pool") != 1 \
-            or fn_total(counts, "bn_act.bn_act") == 0 or counts["att_pool.att_pool_bwd"]:
+            or fn_total(counts, "bn_act.bn_act") == 0 or counts["att_pool.att_pool_bwd"] \
+            or fn_total(counts, "split_stride2.split_stride2") != k10:
         fail(f"encoders {cfg.model}: extraction launches {counts}")
     emb = np.stack([out[u] for u, _ in feats])
     if emb.shape != (batch, config_output_dim(cfg)) or not np.isfinite(emb).all():
@@ -4558,17 +4671,20 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = RES2NET_CONFIGS[MODEL]
-    k2, k3, head = forward_shapes(cfg)
+    k2, k3, k10, head = forward_shapes(cfg)
     tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
     k5, train_head = train_shapes(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
     chains = train_chains(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
     with torch.inference_mode():
         rows = [check_fbank(dev, gen), check_split(dev, gen, k2, cfg.split),
-                check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head, train_head)]
+                check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head, train_head),
+                check_split_stride2(dev, gen, {MODEL: (cfg.split, k10), TRAIN_MODEL: (
+                    tcfg.split, forward_shapes(tcfg)[2])})]
         cmvn_row = check_sliding_cmvn(dev)
     split_per_forward = split_launches_by_function(k2, cfg.split)
     per_forward = {"split_conv": split_launches(k2, cfg.split),
-                   "bn_act": sum(k3.values()), "stats_pool": 1}
+                   "bn_act": sum(k3.values()), "stats_pool": 1,
+                   "split_stride2": sum(k10.values())}
 
     train_rows = [check_stats_pool_bwd(dev, gen, train_head),
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
@@ -4636,6 +4752,10 @@ def main() -> int:
             row["launches_by_function"] = {k: v for k, v in serve_fn_counts.items()
                                            if k.startswith("split_conv.")}
             row["launches_per_forward_by_function"] = split_per_forward
+        if row["name"] == "split_stride2":
+            row["launches_by_function"] = {k: serve_fn_counts[k] for k in K10_FNS}
+            row["launches_encoders_extract"] = {m: fn_total(c, "split_stride2.split_stride2")
+                                                for m, c in enc_extract.items()}
     for row in train_rows:
         fns = row_counts(row, train_counts)
         row["launches"] = sum(fns.values())

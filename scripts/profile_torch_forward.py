@@ -10,7 +10,11 @@ the rows half padded). Prints one JSON line: the median forward time by CUDA
 events, the card's name and power limit, and the device time per kernel
 name (and calls per forward) from ``torch.profiler`` over ``--reps``
 forwards, K2's device time by variant, K4's, and the share of the profiled
-window the device was idle.
+window the device was idle. ``stride2_stages``: each stride-2 split stage
+of the forward called alone on its own input (captured from one forward),
+its device time by kernel name over ``--reps`` calls; K10 is the kernel
+named ``stride2``. The script imports nothing newer than the model classes,
+so a copy runs on older trees.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from voxsrc2020_speaker_verification_tpu_torch.config import TrainConfig  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.convert import init_weights  # noqa: E402
+from voxsrc2020_speaker_verification_tpu_torch.models.res2net import Res2NetSplitConv  # noqa: E402
 from voxsrc2020_speaker_verification_tpu_torch.speaker_net import build_speaker_net  # noqa: E402
 
 
@@ -97,6 +102,7 @@ def main() -> int:
         if m:
             ms, n = k2.get(m.group(1), (0.0, 0))
             k2[m.group(1)] = (ms + v, n + calls[k])
+    stages = stride2_stages(net, forward, args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(json.dumps({
@@ -109,9 +115,58 @@ def main() -> int:
         # K4 (csrc/stats_pool.cu) by device kernel name, under the top list's cut
         "k4_device_ms_and_calls": {k: [v, calls[k]] for k, v in kernels.items()
                                    if "stats_pool" in k},
+        "stride2_stages": stages,
+        "stride2_device_ms_per_forward": sum(st["device_ms"] for st in stages),
         "nvidia_smi": smi,
     }))
     return 0
+
+
+def stride2_stages(net, forward, reps):
+    """Each stride-2 split stage of one forward, called alone on the input it
+    got in that forward: device ms a call by torch.profiler (every device
+    activity, and the eight largest by kernel name) and ms by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mods = [m for m in net.modules() if isinstance(m, Res2NetSplitConv) and m.strides == 2]
+    inputs = {}
+
+    def keep(mod, args):
+        inputs.setdefault(id(mod), args[0].clone())
+
+    hooks = [m.register_forward_pre_hook(keep) for m in mods]
+    forward()
+    for h in hooks:
+        h.remove()
+    out = []
+    for m in mods:
+        x = inputs.pop(id(m))
+
+        def call():
+            with torch.inference_mode():
+                return m(x, False)
+
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            call()
+        b.record()
+        b.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        by = {e.key: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")}
+        out.append({"width": m.width, "split": m.split, "input": list(x.shape),
+                    "events_ms": a.elapsed_time(b) / reps, "device_ms": sum(by.values()),
+                    "by_kernel": dict(sorted(by.items(), key=lambda kv: -kv[1])[:8])})
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ no JAX, so it also runs on a GPU machine without it:
 Tolerances: float32 1e-4 (fbank 1e-3 abs in log-mel); bfloat16 kernels
 against the float32 plain version on the same bf16 inputs 2e-2 (K3, K4) and
 5e-2 relative to the output's largest magnitude (K2, a chain of three or
-five groups).
+five groups; K10 under the same bound).
 The training kernels (K4b, K5, K6) against the autograd of their plain
 versions: float32 1e-4 relative to each output's largest magnitude; K5 in
 bfloat16 against the plain version in bfloat16 on the same inputs, 2e-2.
@@ -23,7 +23,8 @@ from voxsrc2020_speaker_verification_tpu_torch import kernels
 from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
     margin_ce, margin_ce_plan, margin_ce_reference)
 from voxsrc2020_speaker_verification_tpu_torch.models.res2net import (
-    split_chain, split_chain_reference, split_chain_train)
+    split_chain, split_chain_reference, split_chain_train, split_stride2,
+    split_stride2_reference)
 from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn as tcmvn
 from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops
@@ -59,8 +60,33 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     x10 = torch.randn(2, 10, 9, 5).contiguous(memory_format=torch.channels_last)
     tops.bn_act(x10, torch.zeros(10), torch.ones(10), relu=True, mask=mask)
     tops.bn_train(x10.requires_grad_(True), torch.zeros(10), torch.ones(10), relu=True).sum().backward()
+    x24 = torch.randn(2, 24, 9, 5).contiguous(memory_format=torch.channels_last)
+    split_stride2(x24, torch.randn(18, 6, 3, 3), [torch.zeros(6)] * 3, [torch.ones(6)] * 3)
     assert kernels.launch_counts() == before
     assert {k.name for k in kernels.KERNELS} == set(before)
+
+
+def test_split_stride2_routes_on_the_cpu():
+    """The stride-2 stage's route counter: "plain" for a CPU tensor in eval
+    (the wrapper's plain version), "train_route" in training (cuDNN's
+    grouped conv, K5, the pool and cat on the card); never "kernel" here."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    stage = rn.Res2NetSplitConv(4, 6, 2)
+    torch.nn.init.normal_(stage.weight, 0, 0.1)
+    x = torch.randn(4, 24, 11, 7).contiguous(memory_format=torch.channels_last)
+    before = rn.split_stride2_route_counts()
+    with torch.no_grad():
+        y = stage(x, False)
+    after = rn.split_stride2_route_counts()
+    assert {k: after[k] - before[k] for k in after} == {"kernel": 0, "plain": 1, "train_route": 0}
+    want = split_stride2_reference(x, stage.weight, [bn.running_mean for bn in stage._bns()],
+                                   [bn.running_var for bn in stage._bns()])
+    assert torch.equal(y, want) and y.shape == (4, 24, 6, 4)
+    stage(x.requires_grad_(True), True).sum().backward()
+    last = rn.split_stride2_route_counts()
+    assert {k: last[k] - after[k] for k in last} == {"kernel": 0, "plain": 0, "train_route": 1}
+    assert x.grad is not None and stage.weight.grad is not None
 
 
 def test_kernel_sources_and_library_names():
@@ -218,6 +244,180 @@ def test_split_chain_wgmma_matches_plain(cuda, b, width, t, f, split, lengths):
     assert (got.float() - want).abs().max() <= 5e-2 * want.abs().max()
     assert torch.equal(got[:, (split - 1) * width:], x[:, (split - 1) * width:])
     assert torch.equal(got, split_chain(x, w, means, var, mask))
+
+
+# K10, the stride-2 split stage in eval: (dtype, batch, width, split, T, F,
+# lengths): the serving model's three stages at a thinner batch (and its
+# stage 4 at the full (128, 768, 250, 20)), the bench model's (s = 6), the
+# thin variants' w = 8 and w = 5 (the single-channel design), odd and even
+# T and F, and inputs with zeroed (masked) rows (lengths, 0 a row masked
+# throughout)
+STRIDE2_CASES = [
+    (torch.bfloat16, 4, 48, 4, 1000, 80, (1000, 613, 0, 1000)),
+    (torch.float32, 2, 48, 4, 1000, 80, (1000, 517)),
+    (torch.bfloat16, 4, 96, 4, 500, 40, (500, 201, 500, 9)),
+    (torch.float32, 2, 96, 4, 101, 40, None),
+    (torch.bfloat16, 128, 192, 4, 250, 20, None),
+    (torch.float32, 2, 192, 4, 49, 19, (49, 30)),
+    (torch.bfloat16, 3, 16, 6, 999, 79, (999, 500, 1)),
+    (torch.bfloat16, 3, 32, 6, 250, 40, None),
+    (torch.bfloat16, 3, 64, 6, 125, 20, (125, 0, 77)),
+    (torch.bfloat16, 3, 8, 4, 17, 9, (17, 5, 0)),
+    (torch.bfloat16, 2, 8, 6, 20, 11, None),
+    (torch.float32, 3, 8, 6, 21, 10, (21, 13, 2)),
+    (torch.bfloat16, 3, 5, 4, 17, 9, (17, 8, 3)),
+    (torch.float32, 2, 5, 4, 18, 10, None),
+    (torch.bfloat16, 2, 56, 4, 33, 20, (33, 12)),
+    (torch.bfloat16, 2, 48, 4, 1, 1, None),
+    (torch.bfloat16, 1, 96, 4, 2, 3, None),
+]
+
+
+def stride2_case(cuda, dtype, b, width, split, t, f, lengths, seed=9):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, split * width, t, f, generator=g, device=cuda)
+    if lengths is not None:
+        mask = (torch.arange(t, device=cuda)[None] < torch.tensor(lengths, device=cuda)[:, None])
+        x = x * mask[:, None, :, None]
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((split - 1) * width, width, 3, 3, generator=g, device=cuda)
+         / (9 * width) ** 0.5).to(dtype)
+    means = [torch.randn(width, generator=g, device=cuda) * 0.1 for _ in range(split - 1)]
+    var = [torch.rand(width, generator=g, device=cuda) + 0.5 for _ in range(split - 1)]
+    return x, w, means, var
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,width,split,t,f,lengths", STRIDE2_CASES, ids=str)
+def test_split_stride2_kernel_matches_plain(cuda, dtype, b, width, split, t, f, lengths):
+    """K10 against its plain version in float32 on the same inputs: float32
+    within 1e-4, bfloat16 within 5e-2 (the split_conv bound), relative to
+    the output's largest magnitude; the average-pool channels bit-equal to
+    the plain version run in the kernel's dtype on the card; one launch on
+    the design the plan names; reruns bit for bit."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import stride2_plan
+
+    x, w, means, var = stride2_case(cuda, dtype, b, width, split, t, f, lengths)
+    design = stride2_plan(width, split, tuple(x.shape), dtype)["design"]
+    key = f"split_stride2:{design}"
+    before = kernels.SPLIT_STRIDE2.fn_launches[key]
+    got = split_stride2(x, w, means, var)
+    assert kernels.SPLIT_STRIDE2.fn_launches[key] - before == 1
+    assert got.shape == (b, split * width, (t - 1) // 2 + 1, (f - 1) // 2 + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = split_stride2_reference(x.float(), w.float(), means, var)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max() <= tol * want.abs().max()
+    tail = slice((split - 1) * width, None)
+    assert torch.equal(got[:, tail], split_stride2_reference(x, w, means, var)[:, tail])
+    assert torch.equal(got, split_stride2(x, w, means, var))
+    if dtype == torch.bfloat16 and width % 8 == 0 and width != 56:
+        assert design == "mma"
+    elif width % (16 // x.element_size()) == 0:
+        assert design == "vec"
+    else:
+        assert design == "single"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,split,t,f", [(48, 4, 37, 80), (96, 4, 51, 40), (192, 4, 61, 20),
+                                             (64, 6, 50, 19), (32, 6, 27, 40), (16, 6, 9, 80),
+                                             (8, 4, 17, 9)])
+def test_split_stride2_every_mma_plan_matches_plain(cuda, width, split, t, f):
+    """Every mma plan K10 can take at a width (stride2_candidates: both warp
+    layouts, resident weights and weight rings of 2-4 slices, one or two
+    channel passes), on a grid whose tiles are those of the serving stage:
+    within 5e-2 of the plain version in float32, the average pool
+    bit-equal to it in bf16, and plans of one K order bit-equal."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    x, w, means, var = stride2_case(cuda, torch.bfloat16, 3, width, split, t, f, (t, t // 2, 1))
+    want = split_stride2_reference(x.float(), w.float(), means, var)
+    tail = slice((split - 1) * width, None)
+    want_tail = split_stride2_reference(x, w, means, var)[:, tail]
+    plans = rn.stride2_candidates(width, split, tuple(x.shape))
+    assert plans
+    by_order = {}
+    for plan in plans:
+        out = torch.empty_like(want, dtype=x.dtype).contiguous(memory_format=torch.channels_last)
+        rn._stride2_launch(x, w, means, var, 1e-5, plan, out)
+        assert (out.float() - want).abs().max() <= 5e-2 * want.abs().max(), plan
+        assert torch.equal(out[:, tail], want_tail), plan
+        first = by_order.setdefault(plan["passes"], out)
+        assert torch.equal(out, first), plan
+
+
+@pytest.mark.cuda
+def test_split_stride2_unaligned_input_takes_the_single_design(cuda):
+    """An input that does not start on a 16-byte boundary takes the
+    single-element design, with the same results as the aligned input."""
+    x, w, means, var = stride2_case(cuda, torch.bfloat16, 2, 48, 4, 37, 21, None)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xu = buf[1:].view(2, 37, 21, 192).permute(0, 3, 1, 2)
+    xu.copy_(x)
+    before = kernels.SPLIT_STRIDE2.fn_launches["split_stride2:single"]
+    got = split_stride2(xu, w, means, var)
+    assert kernels.SPLIT_STRIDE2.fn_launches["split_stride2:single"] - before == 1
+    want = split_stride2_reference(x.float(), w.float(), means, var)
+    assert (got.float() - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_split_stride2_stage_in_eval_launches_k10_alone(cuda, monkeypatch):
+    """Res2NetSplitConv(strides=2) in eval on a CUDA tensor: one K10 launch
+    and nothing of the route it replaced (no F.conv2d, K3, average pool or
+    torch.cat), route "kernel"; in training the route it keeps, counted
+    "train_route", and no K10."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    stage = rn.Res2NetSplitConv(4, 48, 2).to(cuda)
+    with torch.no_grad():
+        stage.weight.normal_(0, 0.05)
+    x, _, _, _ = stride2_case(cuda, torch.bfloat16, 2, 48, 4, 40, 20, (40, 17))
+    want = rn.split_stride2_reference(x, stage.weight.bfloat16(),
+                                      [bn.running_mean for bn in stage._bns()],
+                                      [bn.running_var for bn in stage._bns()])
+
+    def refuse(*a, **k):
+        raise AssertionError("the eval stage ran a step of the replaced route")
+
+    before = (kernels.launch_counts(), rn.split_stride2_route_counts())
+    with monkeypatch.context() as m:
+        for mod, name in ((rn.F, "conv2d"), (rn.ops, "avg_pool_3x3"), (rn.ops, "bn_act"),
+                          (rn.ops, "fixed_padding"), (torch, "cat")):
+            m.setattr(mod, name, refuse)
+        with torch.inference_mode():
+            got = stage(x, False)
+    counts, routes = kernels.launch_counts(), rn.split_stride2_route_counts()
+    assert counts["split_stride2"] - before[0]["split_stride2"] == 1
+    assert counts["bn_act"] == before[0]["bn_act"]
+    assert routes["kernel"] - before[1]["kernel"] == 1
+    assert (got.float() - want.float()).abs().max() <= 5e-2 * want.float().abs().max()
+    stage.train()
+    got = stage(x.float().requires_grad_(True), True)
+    got.sum().backward()
+    assert kernels.launch_counts()["split_stride2"] == counts["split_stride2"]
+    assert rn.split_stride2_route_counts()["train_route"] - routes["train_route"] == 1
+
+
+@pytest.mark.cuda
+def test_split_stride2_refuses_a_plan_of_another_layout(cuda, monkeypatch):
+    """K10's mma design checks the plan's shared-memory size against its own
+    layout's: a plan copied wrong is refused, never launched."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    x, w, means, var = stride2_case(cuda, torch.bfloat16, 2, 96, 4, 23, 19, None)
+    split_stride2(x, w, means, var)
+    size = rn._stride2_smem
+    monkeypatch.setattr(rn, "_stride2_smem", lambda *a: size(*a) - 16)
+    rn.stride2_plan.cache_clear()
+    try:
+        with pytest.raises(kernels.KernelError, match="plan"):
+            split_stride2(x, w, means, var)
+    finally:
+        monkeypatch.undo()
+        rn.stride2_plan.cache_clear()
 
 
 def rel(got, want):

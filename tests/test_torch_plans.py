@@ -1079,3 +1079,167 @@ def test_head_emulation_matches_plain_version(shape, groups, aligned):
     yr.backward(dy)
     for a, b in ((y, yr.detach()), (dx, xi.grad), (st[0], ref[0]), (st[1], ref[1])):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+# K10 (csrc/split_stride2.cu), the stride-2 split stage in eval: its plan at
+# every stride-2 stage of the registered Res2Nets, at the serving buckets
+# (B = 128) and the training shape (200 frames, B = 256)
+def stride2_calls():
+    calls = []
+    for model in RES2NETS:
+        cfg = RES2NET_CONFIGS[model]
+        for frames, batch in ((200, 256), (256, 128), (512, 128), (1000, 128)):
+            t, f = frames, 80
+            for i in range(len(cfg.block_sizes)):
+                if cfg.block_strides[i] == 2:
+                    w = cfg.width[i]
+                    calls.append((model, w, cfg.split, (batch, cfg.split * w, t, f)))
+                    t, f = rn._strided(t, 2), rn._strided(f, 2)
+    return calls
+
+
+STRIDE2_CALLS = stride2_calls()
+
+
+@pytest.mark.parametrize("model,width,split,shape", STRIDE2_CALLS, ids=str)
+def test_stride2_plan_fits_every_stride2_stage(model, width, split, shape):
+    """The bf16 plan takes the mma design at every stride-2 stage: a kernel
+    the C entry instantiates, at most 8 warps, its shared memory (the patch
+    and the weight slices, the layout the kernel checks) within 227 KB, the
+    tile within its warps' rows, F' cut into even tiles of at most 16 and
+    the tiles covering T' x F', the weight slices whole k steps, a ring of
+    at least 2 where the weights do not stay resident, and the epilogue's
+    staged output rows within the patch whose place they take."""
+    t, f = shape[2:]
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+    plan = rn.stride2_plan(width, split, shape, torch.bfloat16)
+    assert plan["design"] == "mma"
+    assert plan == rn.stride2_candidates(width, split, shape)[0]
+    nt, wn, wm, tt, tf = plan["nt"], plan["wn"], plan["wm"], plan["tt"], plan["tf"]
+    passes, ksl, wstages = plan["passes"], plan["ksl"], plan["wstages"]
+    assert (width, nt, passes) in rn._STRIDE2_MMA and nt * 8 * wn == width
+    assert wm * wn <= 8 and plan["threads"] == 32 * wm * wn <= 256
+    assert plan["smem"] == rn._stride2_smem(width, tt, tf, ksl, wstages, passes) <= SMEM
+    assert 1 <= tt * tf <= 32 * wm and tt <= tout and tf <= 16
+    assert -(-fout // tf) == -(-fout // 16) and -(-tout // tt) * tt >= tout
+    kpass = 9 * rn._stride2_tap_cols(width // passes)
+    assert plan["kpad"] == passes * kpass and ksl % 16 == 0 and rn._stride2_tap_cols(width // passes) % 16 == 0
+    slices = passes * -(-kpass // ksl)
+    assert wstages >= slices or (wstages >= 2 and ksl >= 64)
+    patch = (2 * tt + 1) * (2 * tf + 1) * rn._halo_stride(width // passes)
+    assert tt * tf * rn._halo_stride(width) <= patch
+    # the serving model's stages: 128-row tiles, w = 96 and 192 in two passes
+    if model == "res2net50_w24_s4_c32" and t >= 250:
+        assert tt * tf >= 120 and passes == (1 if width == 48 else 2)
+
+
+def test_stride2_plan_other_designs():
+    """float32 and the widths without an mma kernel take the FMA designs:
+    16-byte vectors where w fills them (w % 4 in float32, % 8 in bf16), else
+    single elements, nblk CTAs of 8 tn channels across a group; a shape of
+    another channel count is refused."""
+    for w, dtype, design in ((48, torch.float32, "vec"), (5, torch.float32, "single"),
+                             (6, torch.float32, "single"), (5, torch.bfloat16, "single"),
+                             (12, torch.bfloat16, "single"), (56, torch.bfloat16, "vec"),
+                             (24, torch.bfloat16, "vec"), (192, torch.float32, "vec")):
+        plan = rn.stride2_plan(w, 4, (3, 4 * w, 17, 9), dtype)
+        assert plan["design"] == design, (w, dtype)
+        assert plan["smem"] == 0 and w <= 8 * plan["tn"] * plan["nblk"] < w + 8 * plan["tn"]
+    assert rn.stride2_candidates(56, 4, (3, 224, 17, 9)) == []
+    with pytest.raises(ValueError):
+        rn.stride2_plan(48, 4, (3, 190, 17, 9), torch.bfloat16)
+    with pytest.raises(ValueError):
+        rn.Res2NetSplitConv(4, 8, 3)
+
+
+def emulate_stride2_mma(x, weight, split, plan):
+    """K10's mma design replayed in float64: each item's patch as the kernel
+    stages it (a pass's channels, each row's even columns then its odd ones
+    at the padded stride, zero outside the utterance), A gathered by the
+    kernel's row, tap and chunk offsets (a tap's pad chunk reading the last
+    real chunk), the weights as the wrapper lays them out, and the pool's
+    nine taps out of the patch. Returns (the conv of groups < s-1 before
+    the BN, the pool of the last group)."""
+    import torch.nn.functional as F
+
+    xs = x.double().numpy()
+    b, c, t, f = xs.shape
+    w = c // split
+    passes, tt, tf = plan["passes"], plan["tt"], plan["tf"]
+    wp = w // passes
+    kt = rn._stride2_tap_cols(wp)
+    kpass, hs = 9 * kt, rn._halo_stride(wp)
+    pf_n, pt_n = 2 * tf + 1, 2 * tt + 1
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+    wk = F.pad(weight.double().view(split - 1, w, passes, wp, 3, 3).permute(0, 1, 2, 4, 5, 3),
+               (0, kt - wp)).reshape(split - 1, w, plan["kpad"]).numpy()
+    rows = np.arange(tt * tf)
+    rowoff = (2 * (rows // tf) * pf_n + rows % tf) * hs
+    kcols = []
+    for ks in range(kpass // 16):
+        tap, ksi = divmod(ks, kt // 16)
+        toff = (tap // 3) * pf_n * hs + ((tf + 1) * hs if tap % 3 == 1 else (tap % 3) // 2 * hs)
+        for h in (0, 1):
+            cc = 16 * ksi
+            if (wp // 8) % 2 and cc + 8 * h >= wp:
+                cc -= 8
+            kcols.extend(toff + cc + 8 * h + e for e in range(8))
+    kcols = np.asarray(kcols)
+    conv = np.zeros((b, (split - 1) * w, tout, fout))
+    pool = np.zeros((b, w, tout, fout))
+    for grp in range(split):
+        for bi in range(b):
+            for t0 in range(0, tout, tt):
+                for f0 in range(0, fout, tf):
+                    acc = np.zeros((tt * tf, w))
+                    for p in range(passes):
+                        patch = np.zeros(pt_n * pf_n * hs)
+                        for pt in range(pt_n):
+                            for pf in range(pf_n):
+                                ti, fi = 2 * t0 - 1 + pt, 2 * f0 - 1 + pf
+                                if 0 <= ti < t and 0 <= fi < f:
+                                    slot = tf + 1 + pf // 2 if pf % 2 else pf // 2
+                                    q = (pt * pf_n + slot) * hs
+                                    patch[q:q + wp] = xs[bi, grp * w + p * wp:grp * w + (p + 1) * wp,
+                                                         ti, fi]
+                        if grp < split - 1:
+                            acc += patch[rowoff[:, None] + kcols[None, :]] @ wk[
+                                grp, :, p * kpass:(p + 1) * kpass].T
+                            continue
+                        for r in rows:
+                            ot, of = divmod(r, tf)
+                            if t0 + ot < tout and f0 + of < fout:
+                                taps = [patch[((2 * ot + di) * pf_n + (
+                                    tf + 1 + of if dj == 1 else of + dj // 2)) * hs:][:wp]
+                                    for di in range(3) for dj in range(3)]
+                                pool[bi, p * wp:(p + 1) * wp, t0 + ot, f0 + of] = sum(taps) / 9
+                    if grp < split - 1:
+                        for r in rows:
+                            ot, of = divmod(r, tf)
+                            if t0 + ot < tout and f0 + of < fout:
+                                conv[bi, grp * w:(grp + 1) * w, t0 + ot, f0 + of] = acc[r]
+    return conv, pool
+
+
+@pytest.mark.parametrize("width,split,shape", [
+    (8, 4, (2, 32, 9, 7)), (16, 6, (1, 96, 10, 31)), (48, 4, (1, 192, 21, 19)),
+    (64, 6, (1, 384, 26, 20)), (96, 4, (1, 384, 25, 20)), (192, 4, (1, 768, 24, 19))], ids=str)
+def test_stride2_mma_index_math_matches_plain_version(width, split, shape):
+    """Every mma plan's indexing (stride2_candidates: the patch slots, the
+    row, tap and chunk offsets, one or two channel passes, the tap pad at w
+    = 8, the wrapper's weight layout), replayed in float64, gives the plain
+    version's strided grouped conv and average pool."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(width)
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    weight = torch.randn(width * (split - 1), width, 3, 3, generator=g, dtype=torch.float64)
+    xp = tops.fixed_padding(x, 3)
+    want_conv = F.conv2d(xp[:, :width * (split - 1)], weight, stride=2, groups=split - 1).numpy()
+    want_pool = tops.avg_pool_3x3(xp[:, width * (split - 1):], 2).numpy()
+    plans = rn.stride2_candidates(width, split, shape)
+    assert plans and {p["passes"] for p in plans} >= ({1, 2} if width in (64, 96) else {1})
+    for plan in plans:
+        conv, pool = emulate_stride2_mma(x, weight, split, plan)
+        np.testing.assert_allclose(conv, want_conv, rtol=1e-10, atol=1e-10, err_msg=str(plan))
+        np.testing.assert_allclose(pool, want_pool, rtol=1e-10, atol=1e-10, err_msg=str(plan))

@@ -126,15 +126,55 @@ def test_split_conv_stride1_training_matches_jax(split, width, masked, groups):
         np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(st["var"]), **TOL)
 
 
-def test_split_conv_stride2_matches_jax():
-    rng = np.random.RandomState(2)
-    x = rng.randn(2, 17, 9, 4 * 5).astype(np.float32)
-    variables, want = jax_module_case(JaxSplit(split=4, width=5, strides=2), x, None, 2)
-    port = Res2NetSplitConv(4, 5, 2)
+# the stride-2 stage: (split, width, T, F, lengths (None: no zeroed rows),
+# dtype); odd and even T and F, s = 4 and 6, w = 5 (K10's single-channel
+# design on the card) and 8, inputs whose rows past a length are zero (bn1's
+# masked epilogue); the bf16 case within 2e-2 of JAX relative to the
+# largest magnitude (XLA may fuse the nine bf16 adds of the pool and round
+# once: the pool's bit-equality is held on the card, against the port's
+# own plain version)
+STRIDE2_CASES = [
+    (4, 5, 17, 9, None, "float32"), (4, 8, 16, 10, (16, 7), "float32"),
+    (6, 5, 16, 9, (16, 3), "float32"), (6, 8, 17, 10, None, "float32"),
+    (4, 5, 16, 10, (9, 16), "float32"), (6, 8, 16, 9, (1, 16), "float32"),
+    (4, 8, 17, 11, (17, 0), "float32"), (6, 5, 15, 12, None, "float32"),
+    (4, 8, 16, 10, (16, 7), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("split,width,t,f,lengths,dtype", STRIDE2_CASES, ids=str)
+def test_split_conv_stride2_matches_jax(split, width, t, f, lengths, dtype):
+    """The stride-2 stage in eval (``split_stride2_reference``, K10's plain
+    version, and ``Res2NetSplitConv(strides=2)``) against the JAX module:
+    1e-4 in float32."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import split_stride2_reference
+
+    rng = np.random.RandomState(2 + 10 * split + width + t + f)
+    x = rng.randn(2, t, f, split * width).astype(np.float32)
+    if lengths is not None:
+        x *= lengths_mask(2, t, lengths)[:, :, None, None]
+    variables, want = jax_module_case(JaxSplit(split=split, width=width, strides=2), x, None,
+                                      split + width)
+    port = Res2NetSplitConv(split, width, 2)
     port.load_state_dict(from_flax(variables))
-    got = port(to_port(x))
-    assert got.shape == (2, 20, 9, 5)
-    np.testing.assert_allclose(to_nhwc(got), want, **TOL)
+    xt = to_port(x)
+    if dtype == "bfloat16":
+        jx = jnp.asarray(x, jnp.bfloat16)
+        want = np.asarray(JaxSplit(split=split, width=width, strides=2).apply(
+            variables, jx, False).astype(jnp.float32))
+        xt = xt.bfloat16()
+    bns = port._bns()
+    plain = split_stride2_reference(xt.contiguous(memory_format=torch.channels_last),
+                                    port.weight.to(xt.dtype), [bn.running_mean for bn in bns],
+                                    [bn.running_var for bn in bns])
+    got = port(xt)
+    assert got.shape == plain.shape == (2, split * width, (t - 1) // 2 + 1, (f - 1) // 2 + 1)
+    for out in (plain, got):
+        if dtype == "bfloat16":
+            assert out.dtype == torch.bfloat16
+            assert np.abs(to_nhwc(out.float()) - want).max() <= 2e-2 * np.abs(want).max()
+        else:
+            np.testing.assert_allclose(to_nhwc(out), want, **TOL)
 
 
 @pytest.mark.parametrize("strides,projection", [(1, True), (2, True), (1, False)])

@@ -232,8 +232,13 @@ SPLIT_TRAIN = CudaKernel("split_train", "split_train.cu", {
     "split_train_bwd_stats": [_I, _I] + [_P] * 10 + [_I, _P],
     "split_train_bwd_grad": [_I, _I] + [_P] * 19 + [_I, _L, _P],
 })
+# K10 takes its launch plan as a host int array (models/res2net.py:
+# stride2_plan); a launch counts under its design
+SPLIT_STRIDE2 = CudaKernel("split_stride2", "split_stride2.cu", {
+    "split_stride2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _I, _P],
+}, paths={"split_stride2": ("mma", "vec", "single")})
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
-           MARGIN_CE, SLIDING_CMVN, ATT_POOL, SPLIT_TRAIN)
+           MARGIN_CE, SLIDING_CMVN, ATT_POOL, SPLIT_TRAIN, SPLIT_STRIDE2)
 
 
 def build_all(kernels: Sequence[CudaKernel] = KERNELS) -> float:

@@ -6,9 +6,11 @@ stages with strides (1, 2, 2, 2), and a stats-pool embedding head.
 
 The stride-1 split stage is K2 (``csrc/split_conv.cu``, wrapped by
 :func:`split_chain`): one launch per group fuses the masked hierarchical add,
-the 3x3 conv, eval BN and relu. The stride-2 split stage is one grouped conv
-(``F.conv2d(groups=s-1)``) followed by K3 and the 3x3 average pool of the
-last group.
+the 3x3 conv, eval BN and relu. The stride-2 split stage is K10
+(``csrc/split_stride2.cu``, wrapped by :func:`split_stride2`): one launch
+reads x once, with the padding implicit, and writes the s-1 groups' strided
+conv, eval BN and relu and the last group's 3x3 average pool into the
+concatenated output.
 
 Training mode: the stride-1 chain is K9 / K9b (``csrc/split_train.cu``,
 wrapped by :func:`split_chain_train`): s launches forward (one a group,
@@ -17,9 +19,9 @@ statistics; then one that normalizes the last group) and s backward (the
 last group's statistics, then one a group that folds the previous group's
 statistics in). Where BN groups span data ranks (K5's spanning mode) the chain
 keeps the per-group ``F.conv2d`` -> K5 route (``"span"``). The stride-2
-stage is one grouped conv, one K5 launch over all s-1 groups (statistics
-are per channel, so this is exact) and the average-pool tail. K2 stays the
-eval path, since its BN uses running statistics.
+stage in training is one grouped conv, one K5 launch over all s-1 groups
+(statistics are per channel, so this is exact) and the average-pool tail.
+K2 and K10 stay the eval path, since their BN uses running statistics.
 
 Rematerialization (``remat``, ``remat_stages``, ``remat_keep_blocks``,
 ``remat_policy``, the JAX package's options) checkpoints whole bottleneck
@@ -42,8 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from ..kernels import (SPLIT_CONV, SPLIT_TRAIN, KernelError, check_cuda, dtype_code, num_sms,
-                       ptr, stream_scratch)
+from ..kernels import (SPLIT_CONV, SPLIT_STRIDE2, SPLIT_TRAIN, KernelError, check_cuda,
+                       dtype_code, num_sms, ptr, stream_scratch)
 from ..ops import nn as ops
 from ..parallel.sharding import active_mesh
 
@@ -278,6 +280,231 @@ def _split_chain_wgmma(x, weight, means, variances, m, out, plan, eps) -> torch.
                           plan["tf"], c, (i + 1) * w, c, i * w, (s - 1) * w, (s - 1) * w,
                           w if i == 0 else 0, eps, plan["smem"], sms)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K10: the stride-2 split stage in eval mode
+# ---------------------------------------------------------------------------
+
+_STRIDE2_DESIGNS = ("mma", "vec", "single")
+# the mma design's (width, n tiles a warp, channel passes) (csrc/
+# split_stride2.cu: the instantiated kernels): the stride-2 stages of the
+# registered Res2Nets (48, 96, 192; 16, 32, 64) and the thin variants' 8
+_STRIDE2_MMA = ((8, 1, 1), (16, 1, 1), (32, 2, 1), (48, 3, 1), (64, 4, 1), (64, 4, 2),
+                (96, 6, 1), (96, 6, 2), (192, 6, 1), (192, 12, 2))
+_STRIDE2_MAX_WARPS = 8
+_STRIDE2_MIN_KSL = 64   # K columns a slice of the mma design's weight ring, at least
+_SM_SMEM_BYTES = 233472  # an SM's shared memory (228 KB)
+_CTA_SMEM_RESERVE = 1024  # the runtime's reserve a CTA
+
+
+def _stride2_tap_cols(width: int) -> int:
+    """K columns of a tap in K10's mma weights: w rounded up to 16
+    (csrc/split_stride2.cu:tap_cols)."""
+    return -(-width // 16) * 16
+
+
+def _stride2_smem(width: int, tt: int, tf: int, ksl: int, wstages: int, passes: int) -> int:
+    """Shared memory of K10's mma design (csrc/split_stride2.cu:mma_smem):
+    the (2 tt + 1) x (2 tf + 1) input patch of w / ``passes`` channels at
+    the padded stride, ``wstages`` weight slices of w rows by ``ksl`` + 8 K
+    columns, an mbarrier each."""
+    patch = (2 * tt + 1) * (2 * tf + 1) * _halo_stride(width // passes)
+    return 2 * (patch + wstages * width * (ksl + 8)) + 8 * (1 + wstages)
+
+
+def stride2_candidates(width: int, split: int, shape) -> list:
+    """Every mma plan of K10 that fits 227 KB for a stride-2 stage of
+    ``split`` groups of width ``width`` on x of ``shape`` (B, s*w, T, F), in
+    :func:`stride2_plan`'s order of preference (the first is its pick): the
+    kernels of ``_STRIDE2_MMA`` (``nt`` n tiles a warp, ``wn`` = w / 8 nt
+    warps across the channels, the patch staged in ``passes`` blocks of w /
+    passes channels), ``wm`` warps down a tile of at most 32 wm output rows
+    (``tt`` x ``tf``, F' cut evenly into tiles of at most 16), the weights
+    (``kpad`` K columns: per pass 9 taps of w / passes rounded up to 16)
+    resident (one slice a pass, ``ksl`` the pass's K) or a ring of
+    ``wstages`` slices of ``ksl`` >= 64 K columns. Empty at the other
+    widths.
+
+    The order (timed on an H100 at the stride-2 stages of
+    res2net50_w24_s4_c32 and res2net50_w8_s6_c16, ``scripts/time_k10.py
+    --plans``): resident weights first; then two CTAs an SM by shared
+    memory (they hide each other's patch loads); then the most rows a tile
+    (a streamed weight slice feeds them all); then fewer passes and fewer,
+    larger weight slices. A second patch buffer (the next item's patch
+    landing during this one's compute) lost at every width and is not
+    offered."""
+    _, c, t, f = shape
+    if c != split * width:
+        return []
+    tout, fout = _strided(t, 2), _strided(f, 2)
+    ft = -(-fout // 16)
+    tf = -(-fout // ft)
+    out = []
+    for w, nt, passes in _STRIDE2_MMA:
+        if w != width:
+            continue
+        wn = width // (8 * nt)
+        kpass = 9 * _stride2_tap_cols(width // passes)
+        for wm in (4, 2):
+            if wm * wn > _STRIDE2_MAX_WARPS:
+                continue
+            tt = max(1, min(32 * wm // tf, tout))
+            base = {"design": "mma", "nt": nt, "wn": wn, "wm": wm, "threads": 32 * wm * wn,
+                    "tt": tt, "tf": tf, "passes": passes, "kpad": passes * kpass}
+            smem = _stride2_smem(width, tt, tf, kpass, passes, passes)
+            if smem <= _SMEM_BYTES:  # resident: one slice a pass
+                out.append({**base, "wstages": passes, "ksl": kpass, "smem": smem})
+                continue
+            for wstages in (2, 3, 4):
+                room = _SMEM_BYTES - _stride2_smem(width, tt, tf, 0, wstages, passes)
+                ksl = room // (2 * wstages * width) // 16 * 16
+                if ksl >= _STRIDE2_MIN_KSL and -(-kpass // ksl) * passes > wstages:
+                    out.append({**base, "wstages": wstages, "ksl": ksl,
+                                "smem": _stride2_smem(width, tt, tf, ksl, wstages, passes)})
+
+    def preference(plan):
+        resident = plan["wstages"] >= plan["passes"] * -(-plan["kpad"] // plan["passes"]
+                                                          // plan["ksl"])
+        per_sm = _SM_SMEM_BYTES // (plan["smem"] + _CTA_SMEM_RESERVE)
+        return (not resident, -min(per_sm, 2), -plan["tt"] * plan["tf"], plan["passes"],
+                plan["wstages"])
+
+    return sorted(out, key=preference)
+
+
+@functools.lru_cache(maxsize=None)
+def stride2_plan(width: int, split: int, shape, dtype: torch.dtype) -> dict:
+    """K10's launch plan for a stride-2 stage of ``split`` groups of width
+    ``width`` on x of ``shape`` (B, s*w, T, F); output (T', F') =
+    ((T-1)//2 + 1, (F-1)//2 + 1). One launch.
+
+    ``"mma"`` (bfloat16 where :func:`stride2_candidates` has a plan: its
+    first): persistent CTAs, as many as fit the card, walk the stage's work
+    items group-major, an item a tile of output positions of one group (the
+    last group's items are the average pool).
+
+    ``"vec"`` (w fills 16-byte vectors: w % 4 == 0 in float32, % 8 in
+    bfloat16) and ``"single"`` (other widths): the FMA designs, 128 output
+    positions by 8 ``tn`` output channels a CTA, ``nblk`` channel blocks a
+    group, and a column of CTAs for the average pool. The wrapper also needs
+    16-byte aligned tensors for mma and vec. Cached per signature and
+    shared: callers do not modify a plan."""
+    if shape[1] != split * width:
+        raise ValueError(f"stride2_plan: shape {tuple(shape)} is not {split} groups of {width}")
+    if dtype == torch.bfloat16:
+        cands = stride2_candidates(width, split, shape)
+        if cands:
+            return cands[0]
+    return _stride2_fma_plan(width, "vec" if width % (16 // dtype.itemsize) == 0 else "single")
+
+
+def _stride2_fma_plan(width: int, design: str) -> dict:
+    """stride2_plan's FMA designs: ``tn`` output channels a thread (a CTA
+    8 tn), ``nblk`` CTAs across a group's w channels."""
+    tn = next(n for n in _SPLIT_TN if width % (8 * n) == 0 or n == 1)
+    return {"design": design, "tn": tn, "nblk": -(-width // (8 * tn)), "smem": 0}
+
+
+def _stride2_plan_ints(plan: dict):
+    """The plan as the C entry takes it: design, nt, wm, tt, tf, ksl,
+    wstages, passes, tn (csrc/split_stride2.cu:split_stride2)."""
+    return (ctypes.c_int * 9)(_STRIDE2_DESIGNS.index(plan["design"]),
+                              *(plan.get(k, 0) for k in ("nt", "wm", "tt", "tf", "ksl",
+                                                         "wstages", "passes", "tn")))
+
+
+def split_stride2_reference(x, weight, means, variances, eps=ops.BN_EPSILON) -> torch.Tensor:
+    """Plain version of :func:`split_stride2`, step for step as the JAX
+    package's strides > 1 branch (models/res2net.py:52-80): the padded copy,
+    one grouped conv at stride 2, eval BN + relu of the s-1 groups, the 3x3
+    average pool of the padded last group, the concat."""
+    s = len(means) + 1
+    w = x.shape[1] // s
+    xp = ops.fixed_padding(x, 3)
+    y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=2,
+                 groups=s - 1).contiguous(memory_format=CHANNELS_LAST)
+    y = ops.bn_act_reference(y, torch.cat(list(means)), torch.cat(list(variances)), relu=True,
+                             eps=eps)
+    tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], 2)
+    return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
+
+
+# stride-2 stage calls by route: "kernel" (K10 on the card), "plain" (CPU
+# tensors), "train_route" (training: cuDNN grouped conv + K5 + the average
+# pool + cat)
+_STRIDE2_ROUTES = collections.Counter()
+
+
+def split_stride2_route_counts() -> Dict[str, int]:
+    return {r: _STRIDE2_ROUTES[r] for r in ("kernel", "plain", "train_route")}
+
+
+def split_stride2(x: torch.Tensor, weight: torch.Tensor,
+                  means: Sequence[torch.Tensor], variances: Sequence[torch.Tensor],
+                  eps: float = ops.BN_EPSILON) -> torch.Tensor:
+    """Stride-2 Res2Net split stage in eval mode, K10 on CUDA:
+
+        y_i = relu(BN_i(conv3x3_stride2(pad(x_i))))          i < s-1
+        y_{s-1} = avg_pool3x3_stride2(pad(x_{s-1}))          the pads counted
+
+    x: (B, s*w, T, F) channels_last; weight: (w*(s-1), w, 3, 3) OIHW in x's
+    dtype, group i owning output rows [i*w, (i+1)*w); means/variances: s-1
+    float32 (w,) running statistics. Returns (B, s*w, (T-1)//2 + 1,
+    (F-1)//2 + 1) channels_last. One launch (:func:`stride2_plan`); a CPU
+    tensor takes the plain version, a CUDA one launches the kernel or
+    raises."""
+    s = len(means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    if c != s * w or weight.shape != (w * (s - 1), w, 3, 3):
+        raise ValueError(f"split_stride2: x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)} do not make {s} groups of 3x3")
+    if x.device.type == "cpu":
+        _STRIDE2_ROUTES["plain"] += 1
+        return split_stride2_reference(x, weight, means, variances, eps)
+
+    check_cuda("split_stride2", x, (torch.float32, torch.bfloat16), 4, CHANNELS_LAST)
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise KernelError("split_stride2: weight must match x's dtype and device")
+    for st in (*means, *variances):
+        check_cuda("split_stride2 stats", st, (torch.float32,), 1)
+        if st.shape[0] != w:
+            raise KernelError(f"split_stride2: BN stats of {st.shape[0]} channels, width {w}")
+    out = torch.empty((b, _strided(t, 2), _strided(f, 2), c), dtype=x.dtype,
+                      device=x.device).permute(0, 3, 1, 2)
+    _STRIDE2_ROUTES["kernel"] += 1
+    if x.numel() == 0:
+        return out
+    plan = stride2_plan(w, s, tuple(x.shape), x.dtype)
+    if plan["design"] != "single" and x.data_ptr() % 16:
+        # the mma and vec designs move 16-byte vectors
+        plan = _stride2_fma_plan(w, "single")
+    _stride2_launch(x, weight, means, variances, eps, plan, out)
+    return out
+
+
+def _stride2_launch(x, weight, means, variances, eps, plan, out) -> None:
+    """K10's launch on ``plan`` (:func:`stride2_plan`, or any of
+    :func:`stride2_candidates`), writing ``out``."""
+    s = len(means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    if plan["design"] == "mma":
+        # (s-1, w, passes, 9, tap_cols): row n of group i its output
+        # channel's taps, a pass's block of input channels at a time, each
+        # tap's zero-padded to tap_cols
+        passes = plan["passes"]
+        wp = w // passes
+        wk = F.pad(weight.view(s - 1, w, passes, wp, 3, 3).permute(0, 1, 2, 4, 5, 3),
+                   (0, _stride2_tap_cols(wp) - wp)).reshape(s - 1, w, plan["kpad"])
+    else:
+        wk = weight.permute(2, 3, 1, 0).contiguous()  # the JAX layout (3, 3, w, w*(s-1))
+    ints = _stride2_plan_ints(plan)
+    stats = (ctypes.c_void_p * (2 * (s - 1)))(*(ptr(st) for st in (*means, *variances)))
+    SPLIT_STRIDE2.launch("split_stride2", x.device, dtype_code(x.dtype), ctypes.addressof(ints),
+                         ptr(x), ptr(wk), ctypes.addressof(stats), ptr(out), b, t, f, s, w, eps,
+                         plan["smem"], num_sms(x.device), path=plan["design"])
 
 
 # ---------------------------------------------------------------------------
@@ -816,6 +1043,8 @@ class Res2NetSplitConv(nn.Module):
 
     def __init__(self, split: int, width: int, strides: int = 1):
         super().__init__()
+        if strides not in (1, 2):
+            raise ValueError(f"split stage strides {strides}: the Res2Nets take 1 or 2")
         self.split, self.width, self.strides = split, width, strides
         self.weight = nn.Parameter(torch.empty(width * (split - 1), width, 3, 3))
         for i in range(split - 1):
@@ -838,24 +1067,24 @@ class Res2NetSplitConv(nn.Module):
                                          bns[0].eps)
             return split_chain(x, weight, [bn.running_mean for bn in bns],
                                [bn.running_var for bn in bns], mask, bns[0].eps)
-        # stride > 1: no hierarchical adds, so the s-1 convs are one grouped
-        # conv; BN + relu of all groups is one K3 (eval) or K5 (training) pass
+        if not training:
+            return split_stride2(x, weight, [bn.running_mean for bn in bns],
+                                 [bn.running_var for bn in bns], bns[0].eps)
+        # stride 2 in training: no hierarchical adds, so the s-1 convs are one
+        # grouped conv and BN + relu of all groups one K5 pass
+        _STRIDE2_ROUTES["train_route"] += 1
         xp = ops.fixed_padding(x, 3)
-        y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=self.strides,
+        y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=2,
                      groups=s - 1).contiguous(memory_format=CHANNELS_LAST)
         mean = torch.cat([bn.running_mean for bn in bns])
         var = torch.cat([bn.running_var for bn in bns])
-        if training:
-            y = ops.bn_train(y, mean, var, groups=bns[0].groups, relu=True,
-                             eps=bns[0].eps)
-            if ops.running_update_enabled():
-                with torch.no_grad():  # the update ran on the concatenated copy
-                    for i, bn in enumerate(bns):
-                        bn.running_mean.copy_(mean[i * w: (i + 1) * w])
-                        bn.running_var.copy_(var[i * w: (i + 1) * w])
-        else:
-            y = ops.bn_act(y, mean, var, relu=True, eps=bns[0].eps)
-        tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], self.strides)
+        y = ops.bn_train(y, mean, var, groups=bns[0].groups, relu=True, eps=bns[0].eps)
+        if ops.running_update_enabled():
+            with torch.no_grad():  # the update ran on the concatenated copy
+                for i, bn in enumerate(bns):
+                    bn.running_mean.copy_(mean[i * w: (i + 1) * w])
+                    bn.running_var.copy_(var[i * w: (i + 1) * w])
+        tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], 2)
         return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
 
 
