@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device  -- the card's name and power limit (``nvidia-smi``);
-2. build   -- nvcc builds the eleven kernel libraries from ``csrc/`` (in parallel);
+2. build   -- nvcc builds the twelve kernel libraries from ``csrc/`` (in parallel);
 3. kernels -- each kernel against its plain PyTorch version on the card, in
    float32 (TF32 off: ``set_float32_precision``, the CLIs' rule) and in
    bfloat16, with timings: K1-K4 at the shapes
@@ -49,7 +49,17 @@ Phases, one JSON line each:
    version, the average-pool channels bit-equal, each stage's device time
    beside the bound, the plain version, today's route (cuDNN grouped conv +
    K3 + avg_pool_3x3 + cat) and cuDNN's grouped conv alone; three launches
-   a forward in the serve phase, none in any training step.
+   a forward in the serve phase, none in any training step; K11 / K11b (the
+   stride-2 split stage in training) at the bench step's three stride-2
+   shapes and res2net200_att's (STRIDE2_TRAIN_SHAPES), bf16 and float32
+   against the plain version in float64 on each run's own relu decisions,
+   the tail bit-equal to the plain version's, launch counts a call, reruns
+   bit for bit, device time forward and backward beside the bound, the
+   plain version, today's route (cuDNN grouped conv + K5 + pool + cat,
+   through autograd) and cuDNN's grouped conv alone (forward; dgrad +
+   wgrad); four launches a stride-2 stage a microbatch in every Res2Net
+   training phase (the forward's two again in a rematerialized stage), none
+   of the route but in the launch phase's spanning run.
    ``ms`` is a call's time by CUDA events, host included; ``device_ms``
    (K1, K4, K4b, K6, K7 and K4's library yardsticks)
    the kernel's own time by torch.profiler, the time of record for calls
@@ -136,13 +146,16 @@ Phases, one JSON line each:
 13. launch -- ``cli.launch --num-processes 2`` on the one card (gloo: the
    processes share it), res2net50_w8_s6_c16 at full width, float32, B=32 x
    A=2, one step, the synthetic rows of one source: data 2 at bn_groups 1
-   (every group spans both ranks: K5's spanning mode) and model 2 (the
-   head's classes split: K6's class-sharded mode); each run's metrics.jsonl
+   (every group spans both ranks: K5's spanning mode, and the split
+   stages' span routes, no K9 / K11) and model 2 (the head's classes split:
+   K6's class-sharded mode); each run's metrics.jsonl
    (``load_metrics``) and checkpoint against ``cli.train`` in one process on
    the same rows (loss and BN statistics within TOL_PARITY; the update and
    the gradient norm within twice the one-process step's own float32 noise
    plus TOL_PARITY, as in phase 6); each rank's launches of the spanning
-   and class-sharded kernels; then a one-rank launch, which takes NCCL;
+   and class-sharded kernels; a data-2 run at bn_groups 2 (every group
+   inside a rank: K9 and K11 on each rank with groups / ranks, no spanning
+   kernel); then a one-rank launch, which takes NCCL;
 14. trace -- two bench-shape steps under ``utils.observability.trace``: the
    Chrome trace under ``<exp>/profile`` must name K5's and K6's kernels;
 15. prepare -- ``cli.prepare_data.main`` stages 2, 4 and 5 on the card over
@@ -364,7 +377,8 @@ def device_ms(fn, name=None, reps: int = 20) -> float:
             torch.cuda.synchronize()
         us = sum(e.device_time_total for e in prof.key_averages()
                  if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")
-                 and (name is None or name in e.key))
+                 and (name is None or any(n in e.key for n in (
+                     (name,) if isinstance(name, str) else name))))
         if us > 0:
             return us / reps / 1e3
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -373,7 +387,7 @@ def device_ms(fn, name=None, reps: int = 20) -> float:
         fn()
     b.record()
     b.synchronize()
-    emit({"phase": "device_ms", "call": name or "library call", "source": "cuda_events",
+    emit({"phase": "device_ms", "call": str(name or "library call"), "source": "cuda_events",
           "note": "the profiler reported no device time"})
     return a.elapsed_time(b) / reps
 
@@ -829,7 +843,8 @@ def train_shapes(cfg, batch, frames, feat_dim, stages=None):
     ((B, C, T, F) or (B, C), relu, shortcut mode) with multiplicities, and
     the stats pool's input (C, T, F). With ``stages``, only the calls inside
     the blocks of those stages (what a rematerialized stage runs again).
-    The stride-1 chains' group BNs are K9's (``train_chains``)."""
+    The stride-1 chains' group BNs are K9's (``train_chains``), the stride-2
+    stages' K11's (``train_stride2``)."""
     from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
 
     t, f = frames, feat_dim
@@ -847,8 +862,6 @@ def train_shapes(cfg, batch, frames, feat_dim, stages=None):
             stride = s if j == 0 else 1
             add(((batch, cfg.split * w, t, f), True, 0), inside)        # bn1
             t2, f2 = _strided(t, stride), _strided(f, stride)
-            if stride != 1:                                             # all groups at once
-                add(((batch, w * (cfg.split - 1), t2, f2), True, 0), inside)
             add(((batch, out_c, t2, f2), True, 2 if j == 0 else 1), inside)  # bn3 + shortcut
             t, f = t2, f2
     channels = cfg.num_filters[-1] * 4
@@ -874,6 +887,36 @@ def train_chains(cfg, batch, frames, feat_dim, stages=None):
                 chains[key] = chains.get(key, 0) + 1
             t, f = _strided(t, stride), _strided(f, stride)
     return chains
+
+
+def train_stride2(cfg, batch, frames, feat_dim, stages=None):
+    """The training forward's stride-2 split stages per microbatch (K11 /
+    K11b), as ((B, s*w, T, F), w, s) with multiplicities; with ``stages``,
+    only those inside the blocks of those stages."""
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import _strided
+
+    t, f = frames, feat_dim
+    out = {}
+    for i in range(len(cfg.block_sizes)):
+        w, s = cfg.width[i], cfg.block_strides[i]
+        if s == 2 and (stages is None or i in stages):
+            key = ((batch, cfg.split * w, t, f), w, cfg.split)
+            out[key] = out.get(key, 0) + 1
+        t, f = _strided(t, s), _strided(f, s)
+    return out
+
+
+K11_FNS = tuple(f"split_stride2_train.split_stride2_train_{fn}"
+                for fn in ("fwd", "finish", "bwd_stats", "bwd_grad"))
+
+
+def k11_launches(stages, again=None) -> dict:
+    """K11 / K11b's launches per microbatch for the stride-2 ``stages``
+    (train_stride2, or {key: count}), and the forward again for the
+    rematerialized ``again``: two a stage forward (the conv, the
+    normalization), two backward (the BN sums, the gradients)."""
+    n, m = sum((stages or {}).values()), sum((again or {}).values())
+    return dict(zip(K11_FNS, (n + m, n + m, n, n)))
 
 
 def k9_launches(chains, again=None) -> dict:
@@ -1357,6 +1400,227 @@ def check_split_train(dev, gen, chains, groups):
             library_ms=t_["library_ms"],
             library_call="F.conv2d (cuDNN) of each group alone" + (
                 "" if d == "fwd" else ", dgrad + wgrad") + ": the convs only"))
+    return rows
+
+
+# K11 / K11b (the stride-2 split stage in training): the bench step's three
+# stride-2 shapes (B = 256, bn_groups 8; w = 16, 32, 64 at s = 6) and
+# res2net200_att's and the north-star's (B = 128, 200 frames; w = 48, 96,
+# 192 at s = 4): (x shape, w, s). Held as K9 / K9b are: bf16 on the whole
+# shape against the plain version in float64 on the run's own relu
+# decisions (out, dx and dW within K2's chain tolerance, the running
+# statistics within K5's), the tail bit-equal to the plain version's in
+# bf16 and float32; float32 on the first STRIDE2_TRAIN_FP64_ROWS rows
+# within twice the float32 plain version's own error or TOL_FP32
+STRIDE2_TRAIN_SHAPES = (((256, 96, 200, 80), 16, 6), ((256, 192, 100, 40), 32, 6),
+                        ((256, 384, 50, 20), 64, 6), ((128, 192, 200, 80), 48, 4),
+                        ((128, 384, 100, 40), 96, 4), ((128, 768, 50, 20), 192, 4))
+STRIDE2_TRAIN_FP64_ROWS = 16
+
+
+def stage_run(fn, x, weight, dout, rm, rv, groups, dtype, **kw):
+    """fn's output, dx, dW and updated running statistics (copies), in
+    ``dtype``, for the cotangent ``dout`` (a stride-2 stage in training)."""
+    xi = x.to(dtype).detach().clone().requires_grad_(True)
+    wi = weight.to(dtype).detach().clone().requires_grad_(True)
+    st = torch.float64 if dtype == torch.float64 else torch.float32
+    rms, rvs = [r.to(st).clone() for r in rm], [r.to(st).clone() for r in rv]
+    y = fn(xi, wi, rms, rvs, groups, **kw)
+    y.backward(dout.to(dtype))
+    return [y.detach(), xi.grad, wi.grad] + rms + rvs
+
+
+def stage_float64(run, x, weight, dout, rm, rv, groups, w, s):
+    """The plain stride-2 stage in float64 on ``run``'s relu decisions:
+    (its results, the flip count, the largest |float64 pre-relu value| at a
+    flip)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    masks = [run[0][:, i * w: (i + 1) * w] > 0 for i in range(s - 1)]
+    pre = []
+    ref = stage_run(functools.partial(rn.split_stride2_train_reference, relu_masks=masks,
+                                      pre_relu=pre), x, weight, dout, rm, rv, groups,
+                    torch.float64)
+    flips = [m != (v > 0) for m, v in zip(masks, pre)]
+    worst = max((float(v[f].abs().max()) for v, f in zip(pre, flips) if f.any()), default=0.0)
+    return ref, sum(int(f.sum()) for f in flips), worst
+
+
+K11_DEVICE = ("fwd_mma_kernel", "fwd_fma_kernel", "finish_kernel")
+K11B_DEVICE = ("bwd_stats_kernel", "grad_mma_kernel", "grad_fma_kernel")
+
+
+def check_split_stride2_train(dev, gen, stages, groups):
+    """K11 / K11b at STRIDE2_TRAIN_SHAPES: against the plain version (bf16
+    and float32 vs float64 on each run's own relu decisions), the tail
+    bit-equal to the plain version's, launch counts a call, reruns bit for
+    bit; the kernels' device time forward and backward beside the bytes
+    bound, the plain version's time, today's route (``_split_stride2_span``
+    without a mesh: the padded copy, cuDNN's grouped conv, K5, the pool and
+    the cat, through autograd) and cuDNN's grouped conv alone (the library
+    yardstick: forward; dgrad + wgrad). Returns the kernels line's K11 and
+    K11b rows, their times summed over one bench training step (``stages``:
+    the bench step's stride-2 stages a microbatch)."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+    import torch.nn.functional as F
+
+    detail, fp32, reruns, tails = [], [], 0, True
+    err16 = stats16 = 0.0
+    keys = ("ms", "device_ms", "stage_device_ms", "plain_ms", "route_ms", "route_device_ms",
+            "library_ms", "bound_ms")
+    tot = {d: {k: 0.0 for k in keys} for d in ("fwd", "bwd")}
+    for shape, w, s in STRIDE2_TRAIN_SHAPES:
+        count = stages.get((shape, w, s), 0)
+        b, c, t, f = shape
+        tout, fout = (t - 1) // 2 + 1, (f - 1) // 2 + 1
+        tail = slice((s - 1) * w, None)
+        x = _layout(torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.2)
+        weight = torch.randn(((s - 1) * w, w, 3, 3), generator=gen, device=dev) / math.sqrt(9 * w)
+        dout = _layout(torch.randn((b, c, tout, fout), generator=gen, device=dev))
+        rm = [0.1 * torch.randn(w, generator=gen, device=dev) for _ in range(s - 1)]
+        rv = [0.5 + torch.rand(w, generator=gen, device=dev) for _ in range(s - 1)]
+        args = (rm, rv, groups)
+        xb, wb, db = x.bfloat16(), weight.bfloat16(), dout.bfloat16()
+        before = kernels.function_launch_counts()
+        got = stage_run(rn.split_stride2_train, xb, wb, db, *args, torch.bfloat16)
+        torch.cuda.synchronize()
+        after = kernels.function_launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if launched != k11_launches({shape: 1}):
+            fail(f"split_stride2_train {shape}: launches {launched}")
+        if not all(torch.isfinite(v.float()).all() for v in got):
+            fail(f"split_stride2_train {shape}: non-finite values")
+        if not all(torch.equal(a, b2) for a, b2 in zip(got, stage_run(
+                rn.split_stride2_train, xb, wb, db, *args, torch.bfloat16))):
+            fail(f"split_stride2_train {shape}: two runs differ")
+        reruns += 1
+        t16 = torch.equal(got[0][:, tail], rn.split_stride2_train_reference(
+            xb, wb, [r.clone() for r in rm], [r.clone() for r in rv], groups)[:, tail])
+        ref, flips16, tie16 = stage_float64(got, xb, wb, db, *args, w, s)
+        e16 = chain_errors(got, ref)
+        del got, ref
+        rows = STRIDE2_TRAIN_FP64_ROWS
+        sub = (x[:rows], weight, dout[:rows], *args)
+        k32 = stage_run(rn.split_stride2_train, *sub, torch.float32)
+        p32 = stage_run(rn.split_stride2_train_reference, *sub, torch.float32)
+        t32 = torch.equal(k32[0][:, tail], p32[0][:, tail])
+        kref, flips32, tie32 = stage_float64(k32, *sub, w, s)
+        pref, pflips32, ptie32 = stage_float64(p32, *sub, w, s)
+        e32, pe32 = chain_errors(k32, kref), chain_errors(p32, pref)
+        del k32, p32, kref, pref
+        tails &= t16 and t32
+        fp32.append(dict(shape=[rows, c, t, f], kernel=e32, plain=pe32, kernel_flips=flips32,
+                         kernel_worst_tie=tie32, plain_flips=pflips32, plain_worst_tie=ptie32))
+        if any(e > max(TOL_FP32, 2 * p) for e, p in zip(e32, pe32)):
+            fail(f"split_stride2_train {shape}: float32 errors {e32} vs the plain version's "
+                 f"{pe32}")
+        if max(tie32, ptie32) > RELU_TIE or tie16 > SPLIT_TRAIN_TIE_BF16:
+            fail(f"split_stride2_train {shape}: relu flips beyond a tie: float32 {tie32} "
+                 f"(plain {ptie32}), bf16 {tie16}")
+        if max(e16[:3]) > TOL_SPLIT_TRAIN["bf16"] or e16[3] > TOL_SPLIT_TRAIN["stats_bf16"]:
+            fail(f"split_stride2_train {shape}: bf16 errors {e16}")
+        if not (t16 and t32):
+            fail(f"split_stride2_train {shape}: the tail differs from avg_pool_3x3's "
+                 f"(bf16 {t16}, float32 {t32})")
+        err16, stats16 = max(err16, *e16[:3]), max(stats16, e16[3])
+
+        # times, bf16: the call by CUDA events (host included), the kernels'
+        # own device time by the profiler; today's route through autograd
+        rms, rvs = [r.clone() for r in rm], [r.clone() for r in rv]
+
+        def stage(fn):
+            return lambda xi, wi: fn(xi, wi, rms, rvs, groups)
+
+        fwd, bwd = time_fwd_bwd(stage(rn.split_stride2_train), [xb, wb], db)
+        pfwd, pbwd = time_fwd_bwd(stage(rn.split_stride2_train_reference), [xb, wb], db)
+        rfwd, rbwd = time_fwd_bwd(stage(rn._split_stride2_span), [xb, wb], db)
+        # device ms of K11's / K11b's own kernels, and of the whole call
+        # (stage_*: the weights' relayout and dout's alignment copy included,
+        # as the route's device ms includes everything)
+        with torch.no_grad():
+            k11 = lambda: rn.split_stride2_train(xb, wb, rms, rvs, groups)  # noqa: E731
+            dfwd, sfwd = device_ms(k11, K11_DEVICE), device_ms(k11)
+            drfwd = device_ms(lambda: rn._split_stride2_span(xb, wb, rms, rvs, groups))
+        xl, wl = xb.detach().requires_grad_(True), wb.detach().requires_grad_(True)
+        y = rn.split_stride2_train(xl, wl, rms, rvs, groups)
+        k11b = lambda: torch.autograd.grad(y, [xl, wl], db, retain_graph=True)  # noqa: E731
+        dbwd, sbwd = device_ms(k11b, K11B_DEVICE), device_ms(k11b)
+        y = rn._split_stride2_span(xl, wl, rms, rvs, groups)
+        drbwd = device_ms(lambda: torch.autograd.grad(y, [xl, wl], db, retain_graph=True))
+        del y, xl, wl
+        # cuDNN's grouped conv alone on the padded input: forward, and dgrad
+        # + wgrad for the groups' cotangent
+        xp = ops.fixed_padding(xb, 3)[:, : w * (s - 1)]
+        conv = lambda xi, wi: F.conv2d(xi, wi, stride=2, groups=s - 1)  # noqa: E731
+        with torch.no_grad():
+            lf = device_ms(lambda: conv(xp, wb))
+        xl, wl = xp.detach().requires_grad_(True), wb.detach().requires_grad_(True)
+        y = conv(xl, wl)
+        dz = _layout(db[:, : w * (s - 1)])
+        lb = device_ms(lambda: torch.autograd.grad(y, [xl, wl], dz, retain_graph=True))
+        del y, xl, wl, xp, dz
+        flops = (s - 1) * 2 * b * tout * fout * 9 * w * w
+        x_bytes, out_bytes = 2 * b * c * t * f, 2 * b * c * tout * fout
+        z_bytes = 2 * b * (s - 1) * w * tout * fout
+        # forward: x read, z and the tail written, z read and the groups
+        # written; backward: dout's groups (z's size) and z read (the sums),
+        # dout, z and x read and dx written (the gradients); the weights
+        # each way
+        bf, byf = bound_ms(x_bytes + out_bytes + 2 * z_bytes + 2 * wb.numel(), flops,
+                           torch.bfloat16)
+        bb, byb = bound_ms(3 * z_bytes + out_bytes + 2 * x_bytes + 4 * wb.numel(), 2 * flops,
+                           torch.bfloat16)
+        row = dict(shape=list(shape), width=w, split=s, stages_per_microbatch=count,
+                   plan={k: v for k, v in rn.stride2_train_plan(
+                       w, s, shape, groups, torch.bfloat16).items()},
+                   errors_bf16=e16, bf16_flips=flips16, bf16_worst_tie=tie16,
+                   errors_fp32=fp32[-1], tail_bit_equal=t16 and t32,
+                   ms_fwd=fwd, ms_bwd=bwd, device_ms_fwd=dfwd, device_ms_bwd=dbwd,
+                   stage_device_ms_fwd=sfwd, stage_device_ms_bwd=sbwd,
+                   plain_ms_fwd=pfwd, plain_ms_bwd=pbwd, route_ms_fwd=rfwd, route_ms_bwd=rbwd,
+                   route_device_ms_fwd=drfwd, route_device_ms_bwd=drbwd,
+                   library_conv_device_ms_fwd=lf, library_conv_device_ms_bwd=lb,
+                   bound_ms_fwd=bf, bound_ms_bwd=bb, bound_by_fwd=byf, bound_by_bwd=byb)
+        detail.append(row)
+        for d, vals in (("fwd", (fwd, dfwd, sfwd, pfwd, rfwd, drfwd, lf, bf)),
+                        ("bwd", (bwd, dbwd, sbwd, pbwd, rbwd, drbwd, lb, bb))):
+            for k, v in zip(keys, vals):
+                tot[d][k] += TRAIN_ACCUM * count * v
+        del x, dout, xb, db
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "split_stride2_train", "shapes": detail,
+          "reruns_bit_equal": reruns, "tail_bit_equal": tails,
+          "tolerance": {**TOL_SPLIT_TRAIN, "fp32": "max(TOL_FP32, 2 x the float32 plain "
+                                                   "version's error)"}})
+    rows = []
+    for d, name, fns, what in (
+            ("fwd", "split_stride2_train", ("split_stride2_train_fwd",
+                                            "split_stride2_train_finish"), "forward"),
+            ("bwd", "split_stride2_train_bwd", ("split_stride2_train_bwd_stats",
+                                                "split_stride2_train_bwd_grad"), "backward")):
+        t_ = tot[d]
+        rows.append(dict(
+            name=name, route="cuda", library="split_stride2_train", functions=fns,
+            source="voxsrc2020_speaker_verification_tpu_torch/csrc/split_stride2_train.cu",
+            replaces="voxsrc2020_speaker_verification_tpu/ops/nn.py:223 (grouped_conv "
+                     "custom_vjp, forward 244, backward 248-281) as models/res2net.py:52-80 "
+                     f"calls it in training with BN, avg_pool_3x3 and the concat (XLA, {what})",
+            max_abs_err=err16, max_abs_err_is="relative to each tensor's largest magnitude",
+            max_rel_err_stats_bf16=stats16, fp32_vs_fp64=fp32, tolerance=TOL_SPLIT_TRAIN,
+            reruns_bit_equal=reruns, tail_bit_equal=tails, dtype="bfloat16",
+            per=f"training step, B={TRAIN_BATCH} x A={TRAIN_ACCUM} x {TRAIN_FRAMES} frames "
+                f"({what}, the step's 3 stride-2 stages a microbatch)",
+            ms=t_["ms"], device_ms=t_["device_ms"], stage_device_ms=t_["stage_device_ms"],
+            stage_device_ms_is="every device kernel of the stage's call: K11 / K11b's, the "
+                               "weights' relayout and dout's alignment copy",
+            plain_ms=t_["plain_ms"], route_ms=t_["route_ms"], route_device_ms=t_["route_device_ms"],
+            bound_ms=t_["bound_ms"], bound_by="bytes", library_ms=t_["library_ms"],
+            library_call="cuDNN's grouped conv at stride 2 alone (F.conv2d, groups=s-1, on the "
+                         "padded input), device ms" + ("" if d == "fwd" else ", dgrad + wgrad")
+                         + "; route_*: the route K11 / K11b replaced (F.pad + grouped conv + K5 "
+                           "+ avg_pool_3x3 + cat, through autograd)"))
     return rows
 
 
@@ -2052,10 +2316,12 @@ def train_phase(dev, per_microbatch, smi):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         rn.reset_split_train_routes()
+        s2_before = rn.split_stride2_route_counts()
         result = fit(config, feeder, log_every=1, log_fn=lines.append, max_steps=TRAIN_STEPS,
                      checkpoint=False, device=dev, state=state)
         counts = kernels.function_launch_counts()
         routes = rn.split_train_route_counts()
+        s2_routes = {k: v - s2_before[k] for k, v in rn.split_stride2_route_counts().items()}
     finally:
         feeder.stop()
     peak = torch.cuda.max_memory_allocated()
@@ -2082,6 +2348,11 @@ def train_phase(dev, per_microbatch, smi):
     chains = per_microbatch["split_train.split_train_finish"]
     if routes != {"kernels": steps * chains, "span": 0, "plain": 0}:
         fail(f"train: split chain routes {routes}, expected {steps} x {chains} on the kernels")
+    # every stride-2 stage on K11 / K11b: none through the route
+    stages2 = per_microbatch["split_stride2_train.split_stride2_train_bwd_grad"]
+    if s2_routes != {"kernel": 0, "plain": 0, "train_kernels": steps * stages2,
+                     "train_plain": 0, "span": 0}:
+        fail(f"train: stride-2 routes {s2_routes}, expected {steps} x {stages2} on K11 / K11b")
     step_s = [b["time"] - a["time"] for a, b in zip(hist, hist[1:])]
     med = statistics.median(step_s)
     # the bf16 step, resident, with cuDNN's and cuBLAS's TF32 off (the CLIs'
@@ -2116,7 +2387,7 @@ def train_phase(dev, per_microbatch, smi):
           "learning_rates": [h["learning_rate"] for h in hist],
           "margins": [h["margin"] for h in hist], "launches": counts,
           "launches_per_microbatch": per_microbatch, "split_chain_routes": routes,
-          "log": lines, "card": smi})
+          "stride2_routes": s2_routes, "log": lines, "card": smi})
     return state, config, counts
 
 
@@ -2325,10 +2596,13 @@ def lmft_phase(dev, state, smi, workdir):
     k5, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM)
     k5_remat, _ = train_shapes(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES)
 
-    # the recompute of stages 0-2 (policy None) runs their chains' K9 again
+    # the recompute of stages 0-2 (policy None) runs their chains' K9 and
+    # their stride-2 stages' K11 again
     chains = k9_launches(train_chains(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM),
                          train_chains(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES))
-    per_microbatch = {**chains, **k5_launches(k5, LMFT_GROUPS, k5_remat),
+    k11_again = train_stride2(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM, LMFT_STAGES)
+    stride2 = k11_launches(train_stride2(tcfg, TRAIN_BATCH, LMFT_FRAMES, FEAT_DIM), k11_again)
+    per_microbatch = {**chains, **stride2, **k5_launches(k5, LMFT_GROUPS, k5_remat),
                       **K6_SLAB_PER_MICROBATCH, **POOL_RING_PER_MICROBATCH}
     microbatches = LMFT_STEPS * config.num_accumulation_steps
     for fn, n in per_microbatch.items():
@@ -2394,6 +2668,8 @@ def lmft_phase(dev, state, smi, workdir):
           "learning_rates": [h["learning_rate"] for h in hist],
           "margins": [h["margin"] for h in hist], "launches": counts,
           "launches_per_microbatch": per_microbatch,
+          "k11_reruns_per_microbatch": {"stages_rematerialized": sum(k11_again.values()),
+                                        "split_stride2_train_fwd": sum(k11_again.values())},
           "remat_vs_plain": {"batch": LMFT_CHECK_BATCH, "accumulation": 1,
                              "bn_groups": LMFT_CHECK_GROUPS, "steps": 3, "timed": "the second",
                              "profiled": "the third (batch 2 again)",
@@ -3259,12 +3535,12 @@ def register_thin_variants():
 
 
 def k5_calls(config, remat_stages):
-    """K5's, K9 / K9b's and K4 / K4b's calls per microbatch of ``config``'s
-    model, read off one training forward and backward of the full-width
-    model through the plain path on the CPU (a small input: bn_groups rows
-    of 24 frames): the ``ops.bn_train``, ``split_chain_train`` and
-    ``ops.stats_pool`` calls of the forward and of the rematerialized
-    recompute in the backward, K5's each by the design ``bn_train_plan``
+    """K5's, K9 / K9b's, K11 / K11b's and K4 / K4b's calls per microbatch of
+    ``config``'s model, read off one training forward and backward of the
+    full-width model through the plain path on the CPU (a small input:
+    bn_groups rows of 24 frames): the ``ops.bn_train``, ``split_chain_train``,
+    ``split_stride2_train`` and ``ops.stats_pool`` calls of the forward and of
+    the rematerialized recompute in the backward, K5's each by the design ``bn_train_plan``
     gives it at the card's shape (B = config.batch_size, the recorded length
     scaled from 24 frames to config.feat_length, the recorded bins), K4's by
     ``stats_pool_plan``'s at the card's frames. Returns the expected
@@ -3274,8 +3550,9 @@ def k5_calls(config, remat_stages):
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
 
-    calls, chains, pools, phase = [], [], [], ["fwd"]
+    calls, chains, pools, stride2, phase = [], [], [], [], ["fwd"]
     orig, orig_chain, orig_pool = ops.bn_train, rn.split_chain_train, ops.stats_pool
+    orig_s2 = rn.split_stride2_train
 
     def record(x, *args, **kw):
         mode = 0 if kw.get("shortcut") is None else (
@@ -3291,6 +3568,10 @@ def k5_calls(config, remat_stages):
         chains.append((phase[0], len(running_means) + 1))
         return orig_chain(x, weight, running_means, *args, **kw)
 
+    def record_stride2(*args, **kw):
+        stride2.append(phase[0])
+        return orig_s2(*args, **kw)
+
     torch.manual_seed(SEED)
     model = get_model(config.model, feat_dim=config.feat_dim, remat=bool(remat_stages),
                       remat_stages=remat_stages)
@@ -3298,12 +3579,14 @@ def k5_calls(config, remat_stages):
         torch.nn.init.normal_(p, std=0.05)
     model.set_bn_groups(config.bn_groups)
     ops.bn_train, rn.split_chain_train, ops.stats_pool = record, record_chain, record_pool
+    rn.split_stride2_train = record_stride2
     try:
         y = model(torch.randn(config.bn_groups, 24, config.feat_dim), True)
         phase[0] = "recompute"
         y.square().sum().backward()
     finally:
         ops.bn_train, rn.split_chain_train, ops.stats_pool = orig, orig_chain, orig_pool
+        rn.split_stride2_train = orig_s2
 
     def card_shape(shape):
         if len(shape) == 2:
@@ -3329,7 +3612,8 @@ def k5_calls(config, remat_stages):
         for fn in ("stats_pool.stats_pool", "stats_pool_bwd.stats_pool_bwd"):
             if fn.startswith("stats_pool.") or ph == "fwd":
                 pool[f"{fn}:{d}"] = pool.get(f"{fn}:{d}", 0) + 1
-    return {**k9_launches(k9["fwd"], k9["recompute"]), **pool, **k5}, by_design
+    k11 = k11_launches({None: stride2.count("fwd")}, {None: stride2.count("recompute")})
+    return {**k9_launches(k9["fwd"], k9["recompute"]), **k11, **pool, **k5}, by_design
 
 
 def encoder_train(dev, spec, workdir, smi):
@@ -4246,9 +4530,12 @@ def launch_phase(dev, workdir, smi):
         # the stride-1 chains: the span route where BN groups span the ranks
         # (data2: F.conv2d + K5's spanning mode), K9 / K9b where they do not
         k9 = [sum(v for k, v in rank.items() if k.startswith("split_train.")) for rank in launches]
+        # the stride-2 stages likewise: the route in data2, K11 / K11b in model2
+        k11 = [sum(v for k, v in rank.items() if k.startswith("split_stride2_train."))
+               for rank in launches]
         if (len(launches) != 2 or any(not all(rank.get(f, 0) for f in want_fns)
                                       for rank in launches)
-                or any((n > 0) != (name == "model2") for n in k9)
+                or any((n > 0) != (name == "model2") for n in k9 + k11)
                 or not backend or "gloo" not in backend[0] or len(set(losses)) != 1):
             fail(f"launch {name}: backend {backend}, losses {losses}, launches {launches}")
         err = {k: abs(metrics[-1][k] - one_metrics[-1][k]) / max(abs(one_metrics[-1][k]), 1e-12)
@@ -4267,8 +4554,25 @@ def launch_phase(dev, workdir, smi):
                           one_process_fp32_noise=floor, seconds=wall,
                           launches_by_rank=[{f: rank.get(f, 0) for f in want_fns}
                                             for rank in launches],
-                          k9_launches_by_rank=k9,
+                          k9_launches_by_rank=k9, k11_launches_by_rank=k11,
                           loss=metrics[-1]["loss"])
+    # data 2 at bn_groups 2: every BN group inside a rank, so the split
+    # stages run K9 / K9b and K11 / K11b with groups / ranks = 1 and no BN
+    # launches K5's spanning mode
+    t0 = time.perf_counter()
+    _, outs = _launch(workdir, "data2_g2", 2, ["--bn-groups", "2"])
+    launches = [json.loads(line.split(":", 1)[1]) for o in outs for line in o.splitlines()
+                if line.startswith("kernel launches:")]
+    by_rank = [{k: v for k, v in rank.items()
+                if k.startswith(("split_stride2_train.", "split_train.", "bn_train.bn_span"))}
+               for rank in launches]
+    if len(launches) != 2 or any(
+            not all(rank.get(k, 0) for k in K11_FNS) or not rank.get("split_train.split_train_fwd")
+            or any(v for k, v in rank.items() if k.startswith("bn_train.bn_span"))
+            for rank in by_rank):
+        fail(f"launch data2_g2: launches {by_rank}")
+    runs["data2_g2"] = dict(seconds=time.perf_counter() - t0, bn_groups=2,
+                            split_stage_launches_by_rank=by_rank)
     exp, outs = _launch(workdir, "nccl1", 1, [])
     backend = [line for line in outs[0].splitlines() if line.startswith("distributed:")]
     if not backend or "nccl" not in backend[0]:
@@ -4675,6 +4979,7 @@ def main() -> int:
     tcfg = RES2NET_CONFIGS[TRAIN_MODEL]
     k5, train_head = train_shapes(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
     chains = train_chains(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
+    stride2 = train_stride2(tcfg, TRAIN_BATCH, TRAIN_FRAMES, FEAT_DIM)
     with torch.inference_mode():
         rows = [check_fbank(dev, gen), check_split(dev, gen, k2, cfg.split),
                 check_bn_act(dev, gen, k3), check_stats_pool(dev, gen, head, train_head),
@@ -4689,7 +4994,8 @@ def main() -> int:
     train_rows = [check_stats_pool_bwd(dev, gen, train_head),
                   check_bn_train(dev, gen, k5, TRAIN_GROUPS),
                   check_margin_ce(dev, gen, 2, 5994), *check_split_train(dev, gen, chains,
-                                                                         TRAIN_GROUPS)]
+                                                                         TRAIN_GROUPS),
+                  *check_split_stride2_train(dev, gen, stride2, TRAIN_GROUPS)]
     # K1's general path, K5's spanning and K6's class-sharded modes
     slice12_rows = [check_fbank_general(dev), check_bn_span(dev, gen),
                     check_margin_partial(dev, gen)]
@@ -4703,7 +5009,7 @@ def main() -> int:
     # head design the 2-D head calls (bn_train_plan): 8 + 8 head launches a
     # bench step, none of the multi-kernel design
     per_microbatch = {**k5_launches(k5, TRAIN_GROUPS), **K6_SLAB_PER_MICROBATCH,
-                      **k9_launches(chains),
+                      **k9_launches(chains), **k11_launches(stride2),
                       **POOL_RING_PER_MICROBATCH}
     head_step = {k: TRAIN_ACCUM * per_microbatch[k] for k in K5_LAUNCH_KEYS
                  if "bn_head" in k or "bn_train_" in k}

@@ -12,16 +12,22 @@ line: the median step time by CUDA events, the card's name and power limit,
 peak device memory, the device time per kernel name (and calls per step)
 from ``torch.profiler`` over ``--steps`` steps, the share of the profiled
 window the device was idle, K5's launches per step beside the device
-kernels they ran (its cluster design must run one kernel per call), and
-K4's and K4b's and K9's and K9b's device time per step.
+kernels they ran (its cluster design must run one kernel per call),
+K4's and K4b's and K9's and K9b's device time per step, and each stride-2
+split stage of the step (``stride2_stages``): called alone in training on
+the input it got in the step, its forward and its backward (the gradients
+of x and of the weight) in device ms by kernel. The breakdown uses only
+the module's call, so the script runs on older trees too (copy it in).
 
 ``--fit-steps N`` also trains N steps through ``training.loop.fit`` with
 the CLI's synthetic feeder (the entry point users run, host-bound) and
 reports its step times by the host clock, the first step left out.
 ``--host-calls N`` also times N forward + backward calls of the training
 BN (``ops.nn.bn_train``) on a tiny input (8 groups of (1, 64, 4, 4), bf16,
-relu) by the host clock, synchronizing once at the end: the device work
-per call is a few microseconds, so this is the host cost of one call.
+relu), and of a stride-2 split stage in training (``Res2NetSplitConv(6,
+16, strides=2)`` on (8, 96, 8, 8), bf16, 8 BN groups), by the host clock,
+synchronizing once at the end: the device work per call is a few
+microseconds, so this is the host cost of one call.
 """
 
 from __future__ import annotations
@@ -96,6 +102,7 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    stages = stride2_stages(state.net, lambda: step(state, feats, labels), args.steps)
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
@@ -131,6 +138,7 @@ def main() -> int:
     extra = {}
     if args.host_calls:
         extra["k5_host_us_per_call"] = host_us_per_bn_call(args.host_calls)
+        extra["stride2_host_us_per_call"] = host_us_per_stride2_call(args.host_calls)
     if args.fit_steps:
         del state, step, feats, labels
         torch.cuda.empty_cache()
@@ -155,9 +163,75 @@ def main() -> int:
                                        if "stats_pool" in k},
         "k9_k9b_device_ms_and_calls": {k: [v, calls[k]] for k, v in by_kernel.items()
                                        if "k9_" in k or "k9b_" in k},
+        "stride2_stages": stages,
+        "stride2_device_ms_per_step": args.accum * sum(
+            st["fwd"]["device_ms"] + st["bwd"]["device_ms"] for st in stages),
         **extra, "nvidia_smi": smi,
     }))
     return 0
+
+
+def stride2_stages(net, run_step, reps):
+    """Each stride-2 split stage of the step, called alone in training on the
+    input it got in the step's first microbatch (a forward pre-hook), its BN
+    statistics restored after: the forward (no autograd graph) and the
+    backward (the gradients of x and of the weight for a fixed cotangent,
+    the forward's graph kept) each by CUDA events and in device ms by
+    torch.profiler, summed and by kernel (the ten largest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mods = [m for m in net.modules()
+            if type(m).__name__ == "Res2NetSplitConv" and m.strides == 2]
+    inputs = {}
+
+    def keep(mod, args):
+        inputs.setdefault(id(mod), (args[0].detach().clone(), *args[1:]))
+
+    hooks = [m.register_forward_pre_hook(keep) for m in mods]
+    run_step()
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+
+    def measure(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not e.key.startswith("Command Buffer")}
+        return {"events_ms": a.elapsed_time(b) / reps, "device_ms": sum(by.values()),
+                "by_kernel": dict(sorted(by.items(), key=lambda kv: -kv[1])[:10])}
+
+    out = []
+    for m in mods:
+        x, *rest = inputs.pop(id(m))
+        mask = rest[1] if len(rest) > 1 else None
+        saved = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
+        g = torch.Generator(device="cuda").manual_seed(2)
+        with torch.no_grad():
+            fwd = measure(lambda: m(x, True, mask))
+        xl = x.detach().requires_grad_(True)
+        y = m(xl, True, mask)
+        dy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype).contiguous(
+            memory_format=torch.channels_last)
+        params = [xl, m.weight]
+        bwd = measure(lambda: torch.autograd.grad(y, params, dy, retain_graph=True))
+        m.load_state_dict(saved, strict=False)
+        out.append({"width": m.width, "split": m.split, "input": list(x.shape),
+                    "output": list(y.shape), "fwd": fwd, "bwd": bwd})
+        del x, xl, y, dy, params
+        torch.cuda.empty_cache()
+    return out
 
 
 def host_us_per_bn_call(n: int) -> float:
@@ -175,6 +249,38 @@ def host_us_per_bn_call(n: int) -> float:
     def call():
         xi = x.detach().requires_grad_(True)
         ops.bn_train(xi, rm, rv, groups=8, relu=True).backward(dy)
+
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def host_us_per_stride2_call(n: int) -> float:
+    """Host microseconds per forward + backward call of a stride-2 split
+    stage in training on a tiny input, the device queue never the limit
+    (only the module's call: it times whatever route the tree takes)."""
+    import time
+
+    from voxsrc2020_speaker_verification_tpu_torch.models.res2net import Res2NetSplitConv
+
+    stage = Res2NetSplitConv(6, 16, 2).cuda()
+    for bn in stage._bns():
+        bn.groups = 8
+    with torch.no_grad():
+        stage.weight.normal_(0, 0.1)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(8, 96, 8, 8, generator=g, device="cuda").bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(8, 96, 4, 4, generator=g, device="cuda").bfloat16().contiguous(
+        memory_format=torch.channels_last)
+
+    def call():
+        stage(x.detach().requires_grad_(True), True).backward(dy)
 
     for _ in range(20):
         call()

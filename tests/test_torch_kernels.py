@@ -24,7 +24,7 @@ from voxsrc2020_speaker_verification_tpu_torch.losses.projections import (
     margin_ce, margin_ce_plan, margin_ce_reference)
 from voxsrc2020_speaker_verification_tpu_torch.models.res2net import (
     split_chain, split_chain_reference, split_chain_train, split_stride2,
-    split_stride2_reference)
+    split_stride2_reference, split_stride2_train)
 from voxsrc2020_speaker_verification_tpu_torch.ops import cmvn as tcmvn
 from voxsrc2020_speaker_verification_tpu_torch.ops import fbank as tfb
 from voxsrc2020_speaker_verification_tpu_torch.ops import nn as tops
@@ -62,14 +62,18 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     tops.bn_train(x10.requires_grad_(True), torch.zeros(10), torch.ones(10), relu=True).sum().backward()
     x24 = torch.randn(2, 24, 9, 5).contiguous(memory_format=torch.channels_last)
     split_stride2(x24, torch.randn(18, 6, 3, 3), [torch.zeros(6)] * 3, [torch.ones(6)] * 3)
+    split_stride2_train(x24.clone().requires_grad_(True), torch.randn(18, 6, 3, 3),
+                        [torch.zeros(6) for _ in range(3)], [torch.ones(6) for _ in range(3)],
+                        2).sum().backward()
     assert kernels.launch_counts() == before
     assert {k.name for k in kernels.KERNELS} == set(before)
 
 
 def test_split_stride2_routes_on_the_cpu():
     """The stride-2 stage's route counter: "plain" for a CPU tensor in eval
-    (the wrapper's plain version), "train_route" in training (cuDNN's
-    grouped conv, K5, the pool and cat on the card); never "kernel" here."""
+    (the wrapper's plain version), "train_plain" in training (the training
+    wrapper's plain version, which K11 / K11b replace on the card); never
+    "kernel", "train_kernels" or "span" here."""
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
 
     stage = rn.Res2NetSplitConv(4, 6, 2)
@@ -79,13 +83,16 @@ def test_split_stride2_routes_on_the_cpu():
     with torch.no_grad():
         y = stage(x, False)
     after = rn.split_stride2_route_counts()
-    assert {k: after[k] - before[k] for k in after} == {"kernel": 0, "plain": 1, "train_route": 0}
+    assert {k: after[k] - before[k] for k in after} == {"kernel": 0, "plain": 1,
+                                                        "train_kernels": 0, "train_plain": 0,
+                                                        "span": 0}
     want = split_stride2_reference(x, stage.weight, [bn.running_mean for bn in stage._bns()],
                                    [bn.running_var for bn in stage._bns()])
     assert torch.equal(y, want) and y.shape == (4, 24, 6, 4)
     stage(x.requires_grad_(True), True).sum().backward()
     last = rn.split_stride2_route_counts()
-    assert {k: last[k] - after[k] for k in last} == {"kernel": 0, "plain": 0, "train_route": 1}
+    assert {k: last[k] - after[k] for k in last} == {"kernel": 0, "plain": 0, "train_kernels": 0,
+                                                     "train_plain": 1, "span": 0}
     assert x.grad is not None and stage.weight.grad is not None
 
 
@@ -367,8 +374,8 @@ def test_split_stride2_unaligned_input_takes_the_single_design(cuda):
 def test_split_stride2_stage_in_eval_launches_k10_alone(cuda, monkeypatch):
     """Res2NetSplitConv(strides=2) in eval on a CUDA tensor: one K10 launch
     and nothing of the route it replaced (no F.conv2d, K3, average pool or
-    torch.cat), route "kernel"; in training the route it keeps, counted
-    "train_route", and no K10."""
+    torch.cat), route "kernel"; in training K11 / K11b, counted
+    "train_kernels", and no K10."""
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
 
     stage = rn.Res2NetSplitConv(4, 48, 2).to(cuda)
@@ -398,7 +405,8 @@ def test_split_stride2_stage_in_eval_launches_k10_alone(cuda, monkeypatch):
     got = stage(x.float().requires_grad_(True), True)
     got.sum().backward()
     assert kernels.launch_counts()["split_stride2"] == counts["split_stride2"]
-    assert rn.split_stride2_route_counts()["train_route"] - routes["train_route"] == 1
+    assert kernels.launch_counts()["split_stride2_train"] - counts["split_stride2_train"] == 4
+    assert rn.split_stride2_route_counts()["train_kernels"] - routes["train_kernels"] == 1
 
 
 @pytest.mark.cuda
@@ -1041,18 +1049,26 @@ def test_remat_step_on_the_card_updates_bn_once(cuda, policy):
         torch.cuda.synchronize()
         runs.append((state, float(m["loss"]), kernels.function_launch_counts()))
     (plain, lp, cp), (remat, lr_, cr) = runs
-    # K5 again per block: bn1 and bn3, and the stride-2 block's one BN of its
-    # split groups; the stride-1 chains are K9 (split - 1 = 3 conv launches
-    # and the finishing one), which runs again under None and not under
-    # dots_saveable (that policy keeps K9's outputs); K9b is one statistics
-    # launch a chain and one grad launch a group (the other groups'
-    # statistics folded into the grad launches)
-    again = 2 + 2 + 3
+    # K5 again per block: bn1 and bn3; the stride-1 chains are K9 (split - 1
+    # = 3 conv launches and the finishing one) and the stride-2 stage K11
+    # (its conv launch and the finishing one), which run again under None
+    # and not under dots_saveable (that policy keeps K9's and K11's
+    # outputs); K9b is one statistics launch a chain and one grad launch a
+    # group (the other groups' statistics folded into the grad launches),
+    # K11b two launches a stage
+    again = 2 + 2 + 2
     assert cr["bn_train.bn_cluster_fwd:row"] == cp["bn_train.bn_cluster_fwd:row"] + again
     assert cr["bn_train.bn_cluster_bwd:row"] == cp["bn_train.bn_cluster_bwd:row"]
     k9 = ("split_train.split_train_fwd", "split_train.split_train_finish")
     k9_again = 0 if policy == "dots_saveable" else 2 * (3 + 1)
     assert sum(cr[k] for k in k9) == sum(cp[k] for k in k9) + k9_again
+    k11 = ("split_stride2_train.split_stride2_train_fwd",
+           "split_stride2_train.split_stride2_train_finish")
+    assert sum(cr[k] for k in k11) == sum(cp[k] for k in k11) + (0 if policy else 2) == (
+        2 if policy else 4)
+    for fn in ("bwd_stats", "bwd_grad"):
+        key = f"split_stride2_train.split_stride2_train_{fn}"
+        assert cr[key] == cp[key] == 1
     assert cr["split_train.split_train_bwd_stats"] == cp["split_train.split_train_bwd_stats"] == 2
     assert cr["split_train.split_train_bwd_grad"] == cp["split_train.split_train_bwd_grad"] == 2 * 3
     for k, v in plain.batch_stats.items():
@@ -2193,6 +2209,264 @@ def test_split_train_remat_launches_by_policy(cuda, policy):
     (f0, y0, dx0, g0, s0), (f1, y1, dx1, g1, s1) = results
     assert f0 == 4
     assert f1 == (4 if policy in ("dots_saveable", "checkpoint_dots") else 8)
+    assert torch.equal(y0, y1) and rel(dx1, dx0) <= 1e-2
+    assert all(rel(b, a) <= 1e-2 for a, b in zip(g0, g1))
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+# ---------------------------------------------------------------------------
+# K11 / K11b: the stride-2 split stage in training
+# ---------------------------------------------------------------------------
+
+def stride2_train_case(cuda, b, width, split, t, f, seed=6):
+    """x, weight, the output's cotangent and running statistics for one
+    stride-2 stage in training."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = split * width
+    x = (torch.randn(b, c, t, f, generator=g, device=cuda) * 1.5 + 0.2).contiguous(
+        memory_format=torch.channels_last)
+    weight = torch.randn((split - 1) * width, width, 3, 3, generator=g, device=cuda) / (9 * width) ** 0.5
+    dout = torch.randn(b, c, (t - 1) // 2 + 1, (f - 1) // 2 + 1, generator=g,
+                       device=cuda).contiguous(memory_format=torch.channels_last)
+    rm = [0.1 * torch.randn(width, generator=g, device=cuda) for _ in range(split - 1)]
+    rv = [0.5 + torch.rand(width, generator=g, device=cuda) for _ in range(split - 1)]
+    return x, weight, dout, rm, rv
+
+
+def stride2_train_run(fn, x, weight, dout, rm, rv, groups, dtype, **kw):
+    """fn's output, dx, dW and updated running statistics (copies), in
+    ``dtype``."""
+    xi = x.to(dtype).detach().clone().requires_grad_(True)
+    wi = weight.to(dtype).detach().clone().requires_grad_(True)
+    st = torch.float64 if dtype == torch.float64 else torch.float32
+    rmc, rvc = [r.to(st).clone() for r in rm], [r.to(st).clone() for r in rv]
+    y = fn(xi, wi, rmc, rvc, groups, **kw)
+    y.backward(dout.to(dtype))
+    return [y.detach(), xi.grad, wi.grad] + rmc + rvc
+
+
+def stride2_float64_on_decisions(run, case, groups, width, split):
+    """The plain stage in float64 on ``run``'s relu decisions (as K9's
+    relu_masks): (its results, the largest |float64 pre-relu value| where
+    the decision went the other way)."""
+    import functools
+
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    masks = [run[0][:, i * width: (i + 1) * width] > 0 for i in range(split - 1)]
+    pre = []
+    ref = stride2_train_run(functools.partial(trn.split_stride2_train_reference,
+                                              relu_masks=masks, pre_relu=pre),
+                            *case, groups, torch.float64)
+    worst = max((float(v[m != (v > 0)].abs().max()) for v, m in zip(pre, masks)
+                 if (m != (v > 0)).any()), default=0.0)
+    return ref, worst
+
+
+# (w, s, T, F): the registered stride-2 widths (16-64 at the bench's s = 6,
+# 48-192 at s = 4), the thin variants' 8, and widths on the FMA design in
+# bf16 too (24, 5); odd and even T and F
+STRIDE2_TRAIN_WIDTHS = [(8, 4, 17, 10), (16, 6, 40, 21), (32, 6, 25, 19), (48, 4, 33, 20),
+                        (64, 6, 26, 20), (96, 4, 40, 20), (192, 4, 50, 20), (24, 4, 17, 9),
+                        (5, 4, 15, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,split,t,f", STRIDE2_TRAIN_WIDTHS, ids=str)
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_stride2_train_kernels_match_plain(cuda, width, split, t, f, groups, dtype):
+    """K11 / K11b on stride2_train_plan's own pick (over these widths: mma
+    with the weights resident, mma with two weight buffers, FMA in bf16,
+    FMA in float32; test_stride2_train_widths_cover_every_design) against
+    split_stride2_train's plain version in float64 on the run's own relu
+    decisions: output, dx, dW and the running statistics. bfloat16 on the
+    bf16 inputs within 5e-2 of each tensor's largest magnitude (K2's
+    tolerance), the statistics within 2e-2 (K5's), decisions that went the
+    other way within 2^-5 of zero; float32 within twice the float32 plain
+    version's own error or 1e-4. The tail bit-equal to the plain version's
+    average pool in the same dtype; a rerun bit for bit (dW's splits added
+    in a fixed order); two launches forward and two backward."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    case = stride2_train_case(cuda, 4, width, split, t, f)
+    if dtype == torch.bfloat16:
+        case = tuple(v.bfloat16() for v in case[:3]) + case[3:]
+    before = kernels.function_launch_counts()
+    got = stride2_train_run(trn.split_stride2_train, *case, groups, dtype)
+    torch.cuda.synchronize()
+    after = kernels.function_launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert launched == {f"split_stride2_train.split_stride2_train_{fn}": 1
+                        for fn in ("fwd", "finish", "bwd_stats", "bwd_grad")}
+    tail = slice((split - 1) * width, None)
+    plain = stride2_train_run(trn.split_stride2_train_reference, *case, groups, dtype)
+    assert all(torch.isfinite(v.float()).all() for v in got)
+    assert torch.equal(got[0][:, tail], plain[0][:, tail])
+    assert all(torch.equal(a, b) for a, b in zip(got, stride2_train_run(
+        trn.split_stride2_train, *case, groups, dtype)))
+    ref, tie = stride2_float64_on_decisions(got, case, groups, width, split)
+    errs = chain_errors(got, ref)
+    if dtype == torch.bfloat16:
+        assert max(errs[:3]) <= 5e-2 and errs[3] <= 2e-2 and tie <= 2 ** -5, (errs, tie)
+    else:
+        pref, ptie = stride2_float64_on_decisions(plain, case, groups, width, split)
+        perrs = chain_errors(plain, pref)
+        assert all(e <= max(1e-4, 2 * p) for e, p in zip(errs, perrs)), (errs, perrs)
+        assert max(tie, ptie) <= 1e-4, (tie, ptie)
+
+
+def test_stride2_train_widths_cover_every_design():
+    """The card test's widths reach every path stride2_train_plan picks: mma
+    with the weights resident (ring 1) and in two buffers (ring 2), FMA in
+    bfloat16 and FMA in float32."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    picked = set()
+    for width, split, t, f in STRIDE2_TRAIN_WIDTHS:
+        for groups in (1, 2):
+            for dtype in (torch.float32, torch.bfloat16):
+                plan = trn.stride2_train_plan(width, split, (4, split * width, t, f), groups,
+                                              dtype)
+                picked.add((plan["design"], plan["ring"], dtype))
+    assert picked == {("mma", 1, torch.bfloat16), ("mma", 2, torch.bfloat16),
+                      ("fma", 0, torch.bfloat16), ("fma", 0, torch.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_stride2_train_running_update(cuda, dtype):
+    """K11's running update equals the plain version's (momentum, Bessel
+    over the output's rows of a BN group, the mean over groups) within
+    float32 rounding, and leaves the statistics alone inside
+    ops.running_update(False), the output unchanged."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+    from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
+
+    x, weight, _, rm, rv = stride2_train_case(cuda, 8, 32, 6, 25, 19)
+    x, weight = x.to(dtype), weight.to(dtype)
+    with torch.no_grad():
+        runs = []
+        for fn in (trn.split_stride2_train, trn.split_stride2_train_reference):
+            rmc, rvc = [r.clone() for r in rm], [r.clone() for r in rv]
+            runs.append((fn(x, weight, rmc, rvc, 4), rmc, rvc))
+        (y, km, kv), (_, pm, pv) = runs
+        for a, b in zip(km + kv, pm + pv):
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max(), (a, b)
+        rmc, rvc = [r.clone() for r in rm], [r.clone() for r in rv]
+        with ops.running_update(False):
+            y2 = trn.split_stride2_train(x, weight, rmc, rvc, 4)
+        assert all(torch.equal(a, b) for a, b in zip(rmc + rvc, rm + rv))
+        assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_split_stride2_train_stage_launches_nothing_of_the_route(cuda, monkeypatch):
+    """Res2NetSplitConv(strides=2) in training on a CUDA tensor: K11 / K11b
+    alone, two launches each way, route "train_kernels"; no F.conv2d, K5,
+    average pool, padded copy or torch.cat (all refused while it runs), no
+    K10; its running statistics updated in place."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    stage = rn.Res2NetSplitConv(6, 16, 2).to(cuda)
+    with torch.no_grad():
+        stage.weight.normal_(0, 0.05)
+    x, _, dout, _, _ = stride2_train_case(cuda, 4, 16, 6, 40, 21)
+    xb = x.bfloat16().requires_grad_(True)
+    means = [bn.running_mean.clone() for bn in stage._bns()]
+
+    def refuse(*a, **k):
+        raise AssertionError("the training stage ran a step of the replaced route")
+
+    before = (kernels.function_launch_counts(), rn.split_stride2_route_counts())
+    with monkeypatch.context() as m:
+        for mod, name in ((rn.F, "conv2d"), (rn.ops, "avg_pool_3x3"), (rn.ops, "bn_train"),
+                          (rn.ops, "fixed_padding"), (torch, "cat")):
+            m.setattr(mod, name, refuse)
+        y = stage(xb, True)
+        y.backward(dout.bfloat16())
+        torch.cuda.synchronize()
+    after, routes = kernels.function_launch_counts(), rn.split_stride2_route_counts()
+    launched = {k: after[k] - before[0][k] for k in after if after[k] != before[0][k]}
+    assert launched == {f"split_stride2_train.split_stride2_train_{fn}": 1
+                        for fn in ("fwd", "finish", "bwd_stats", "bwd_grad")}
+    assert routes["train_kernels"] - before[1]["train_kernels"] == 1
+    assert xb.grad is not None and stage.weight.grad is not None
+    assert all(not torch.equal(bn.running_mean, m0) for bn, m0 in zip(stage._bns(), means))
+
+
+@pytest.mark.cuda
+def test_split_stride2_train_span_route_under_a_two_rank_mesh(cuda):
+    """Under a mesh of two data ranks, bn_groups 1 spans both ranks: the
+    stage takes the "span" route (cuDNN's grouped conv + K5's spanning
+    mode), counted, and launches no K11; bn_groups 2 lies inside each rank:
+    K11 / K11b with one group here, equal to the plain version at one
+    group."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+    from voxsrc2020_speaker_verification_tpu_torch.parallel import sharding
+
+    x, weight, dout, rm, rv = stride2_train_case(cuda, 4, 16, 4, 12, 10)
+    mesh = sharding.Mesh(num_data=2)
+    for groups, route in ((1, "span"), (2, "train_kernels")):
+        r0 = trn.split_stride2_route_counts()
+        before = kernels.function_launch_counts()
+        with sharding.active(mesh):
+            got = stride2_train_run(trn.split_stride2_train, x, weight, dout, rm, rv, groups,
+                                    torch.bfloat16)
+        after = kernels.function_launch_counts()
+        r1 = trn.split_stride2_route_counts()
+        k11 = sum(after[k] - before[k] for k in after if k.startswith("split_stride2_train."))
+        span = sum(after[k] - before[k] for k in after if k.startswith("bn_train.bn_span"))
+        assert {k: r1[k] - r0[k] for k in r1 if r1[k] != r0[k]} == {route: 1}
+        assert (k11 > 0, span > 0) == (route == "train_kernels", route == "span")
+    case = (x.bfloat16(), weight.bfloat16(), dout.bfloat16(), rm, rv)
+    want, tie = stride2_float64_on_decisions(got, case, 1, 16, 4)
+    errs = chain_errors(got, want)
+    assert max(errs[:3]) <= 5e-2 and errs[3] <= 2e-2 and tie <= 2 ** -5, (errs, tie)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "nothing_saveable", "dots_saveable", "checkpoint_dots"])
+def test_split_stride2_train_remat_launches_by_policy(cuda, policy):
+    """A rematerialized stride-2 bottleneck block in training: under None
+    and nothing_saveable the recompute runs K11 again (its two forward
+    launches) with the running update off; under dots_saveable and
+    checkpoint_dots it takes K11's outputs from the first forward (the
+    operator runs once a block). Either way the running statistics and the
+    output equal the block's without remat bit for bit, the gradients
+    within 1e-2 (cuDNN's conv1 / conv3 gradients need not rerun bit for
+    bit)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
+
+    torch.manual_seed(4)
+    block = trn.BottleneckBlockV1(24, 16, 2, True, 4, 16).to(cuda)
+    for p in block.parameters():
+        p.data.normal_(0.0, 0.3)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(4, 24, 20, 11, generator=g, device=cuda).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(4, 64, 10, 6, generator=g, device=cuda).bfloat16()
+    state = {k: v.clone() for k, v in block.state_dict().items()}
+    results = []
+    for remat in (False, True):
+        block.load_state_dict(state)
+        xi = x.clone().requires_grad_(True)
+        before = kernels.function_launch_counts()
+        if remat:
+            y = trn.remat_block(block, xi, True, None, None, trn.remat_context(policy))
+        else:
+            y = block(xi, True)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        after = kernels.function_launch_counts()
+        fwd = sum(after[k] - before[k] for k in ("split_stride2_train.split_stride2_train_fwd",
+                                                 "split_stride2_train.split_stride2_train_finish"))
+        results.append((fwd, y.detach(), xi.grad, [p.grad.clone() for p in block.parameters()],
+                        {k: v.clone() for k, v in block.state_dict().items()}))
+        block.zero_grad()
+    (f0, y0, dx0, g0, s0), (f1, y1, dx1, g1, s1) = results
+    assert f0 == 2
+    assert f1 == (2 if policy in ("dots_saveable", "checkpoint_dots") else 4)
     assert torch.equal(y0, y1) and rel(dx1, dx0) <= 1e-2
     assert all(rel(b, a) <= 1e-2 for a, b in zip(g0, g1))
     assert all(torch.equal(s0[k], s1[k]) for k in s0)

@@ -1243,3 +1243,230 @@ def test_stride2_mma_index_math_matches_plain_version(width, split, shape):
         conv, pool = emulate_stride2_mma(x, weight, split, plan)
         np.testing.assert_allclose(conv, want_conv, rtol=1e-10, atol=1e-10, err_msg=str(plan))
         np.testing.assert_allclose(pool, want_pool, rtol=1e-10, atol=1e-10, err_msg=str(plan))
+
+
+# K11 / K11b (csrc/split_stride2_train.cu), the stride-2 split stage in
+# training: its plan at every stride-2 stage of the registered Res2Nets'
+# training shapes (200 and 600 frames, B = 256 and 128, bn_groups 8)
+def stride2_train_calls():
+    calls = []
+    for model in RES2NETS:
+        cfg = RES2NET_CONFIGS[model]
+        for frames, batch in ((200, 256), (600, 256), (200, 128)):
+            for (shape, w, s) in chip_smoke.train_stride2(cfg, batch, frames, 80):
+                calls.append((model, w, s, shape))
+    return calls
+
+
+STRIDE2_TRAIN_CALLS = stride2_train_calls()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("model,width,split,shape", STRIDE2_TRAIN_CALLS, ids=str)
+def test_stride2_train_plan_fits_every_training_stage(model, width, split, shape, dtype):
+    """The plan of every stride-2 stage in training: bf16 on the mma design
+    (32 wm wn threads, wn warps across the w channels, the tile within the
+    warps' rows), float32 on the FMA design (a thread at most 8 rows); F'
+    cut into even tiles of at most 16 and the tiles covering T' x F'; the
+    weights resident (every k step in one buffer) or in two buffers of sk <
+    all k steps; both launches' shared memory as the layout computes it and
+    within 227 KB; the slabs within the tiles a sample (conv) and the
+    positions (statistics); the weight gradient's chunks covering the 9 w
+    (tap, channel) rows; its scratch sized for every partial."""
+    b, c, t, f = shape
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+    plan = rn.stride2_train_plan(width, split, shape, 8, dtype)
+    assert rn.stride2_train_plan(width, split, shape, 8, dtype) is plan
+    tt, tf = plan["tt"], plan["tf"]
+    assert tf <= 16 and -(-fout // tf) == -(-fout // 16) and tt <= tout
+    assert plan["tiles"] == -(-tout // tt) * -(-fout // tf)
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    if dtype == torch.bfloat16:
+        assert plan["design"] == "mma"
+        nt = rn._S2T_MMA_NT[width]
+        wn = width // (8 * nt)
+        assert nt * 8 * wn == width and plan["threads"] == 32 * wn * min(4, 8 // wn) <= 256
+        assert tt * tf <= 32 * (plan["threads"] // 32 // wn)
+        ksteps = 9 * rn._stride2_tap_cols(width) // 16
+        assert (plan["ring"], plan["sk"]) == (1, ksteps) or (
+            plan["ring"] == 2 and 1 <= plan["sk"] < ksteps)
+    else:
+        assert plan["design"] == "fma" and plan["threads"] == 128 and plan["tn"] == 4
+        assert tt * tf <= min(128, (128 // (width // 4)) * 8) and plan["ring"] == 0
+    smem = rn._s2t_smem(width, tt, tf, plan["design"], itemsize, plan["ring"], plan["sk"],
+                        plan["threads"])
+    assert (plan["smem_fwd"], plan["smem_grad"]) == smem and max(smem) <= SMEM
+    assert 1 <= plan["k"] <= plan["tiles"] and 1 <= plan["kstat"] <= tout * fout
+    assert plan["nconv"] == (split - 1) * b * plan["k"]
+    if plan["design"] == "mma":  # m tiles of (tap, 16 channels), w / 2 accumulators each
+        mtiles, warps = 9 * -(-width // 16), plan["threads"] // 32
+        assert plan["upt"] * width // 2 <= 64 or plan["upt"] == 1
+        assert plan["pc"] == warps * plan["upt"] * 16
+        assert plan["nchunks"] == -(-mtiles // (warps * plan["upt"]))
+    else:
+        assert plan["pg"] == plan["threads"] // plan["nb"] and plan["upt"] <= 8
+        assert plan["pc"] * plan["nchunks"] >= 9 * width > plan["pc"] * (plan["nchunks"] - 1)
+    assert 1 <= plan["nsplit"] <= b * plan["tiles"]
+    assert plan["wpart_floats"] == (split - 1) * plan["nchunks"] * plan["nsplit"] * plan[
+        "pc"] * width
+    assert plan["part_floats"] >= 2 * width * max(plan["nconv"], plan["nstat"])
+    # the bench step's stages: 126-128 row tiles, the weights resident
+    if model == "res2net50_w8_s6_c16" and dtype == torch.bfloat16:
+        assert tt * tf >= 120 and plan["ring"] == 1
+
+
+def test_stride2_train_plan_other_shapes():
+    """Widths without an mma kernel take the FMA design (4-channel vectors
+    where w % 4 == 0, else single channels); a shape of another channel
+    count, a batch not in whole BN groups, a width over 256 and one whose
+    single-channel blocks exceed the threads are refused; the weight
+    gradient's split count is a function of the shape alone."""
+    for w, dtype, tn in ((24, torch.bfloat16, 4), (5, torch.bfloat16, 1), (5, torch.float32, 1),
+                         (12, torch.float32, 4), (192, torch.float32, 4)):
+        plan = rn.stride2_train_plan(w, 4, (4, 4 * w, 17, 9), 2, dtype)
+        assert (plan["design"], plan["tn"]) == ("fma", tn), (w, dtype)
+    with pytest.raises(ValueError):
+        rn.stride2_train_plan(48, 4, (4, 190, 17, 9), 2, torch.bfloat16)
+    with pytest.raises(ValueError):
+        rn.stride2_train_plan(48, 4, (6, 192, 17, 9), 4, torch.bfloat16)
+    with pytest.raises(ValueError):
+        rn.stride2_train_plan(260, 4, (4, 1040, 17, 9), 2, torch.float32)
+    with pytest.raises(ValueError):
+        rn.stride2_train_plan(129, 4, (4, 516, 17, 9), 2, torch.float32)
+    a = rn.stride2_train_plan(32, 6, (256, 192, 100, 40), 8, torch.bfloat16)
+    assert a["nsplit"] == -(-rn._S2T_WGRAD_CTAS // (5 * a["nchunks"]))
+
+
+def stride2_train_wgrad_rows(plan, w, chunk):
+    """The (tap, channel) rows q = tap * w + c of weight-gradient chunk
+    ``chunk``, in the order of its partial's rows: mma, m tiles of (tap, 16
+    channels), a channel past w marking a pad row (9 w); fma, the run of
+    pc rows q."""
+    if plan["design"] == "fma":
+        return list(range(chunk * plan["pc"], (chunk + 1) * plan["pc"]))
+    cb, rows = -(-w // 16), []
+    for pl in range(plan["pc"]):
+        mt = chunk * (plan["pc"] // 16) + pl // 16
+        c = (mt % cb) * 16 + pl % 16
+        rows.append(mt // cb * w + c if mt < 9 * cb and c < w else 9 * w)
+    return rows
+
+
+def emulate_stride2_train_backward(x, weight, dz, dout_tail, split, plan):
+    """K11b's index math replayed in float64 (numpy): the dgrad as the
+    kernel gathers it, tile by tile (the dz patch of (tt + 1) x (tf + 1)
+    output positions, zero outside T' x F'; each parity class's rows and
+    its tap slots' patch offsets; the wrapper's dgrad weight layout), the
+    weight gradient (a chunk's (tap, channel) rows over the x patch's slots,
+    the tiles split as the plan splits them, the splits added in order) and
+    the pool's backward (dout / 9 from the 1, 2 or 4 windows covering each
+    input position). Returns (dx, dW)."""
+    xs_ = x.numpy()
+    b, c, t, f = xs_.shape
+    w = c // split
+    tt, tf = plan["tt"], plan["tf"]
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+    pf_n = 2 * tf + 1
+    wkd = rn._stride2_train_weights(weight, split, w, plan["design"], dgrad=True)
+    if plan["design"] == "mma":  # (s-1, c, 9 kt): back to [group][slot][n][c]
+        kt = rn._stride2_tap_cols(w)
+        wkd = wkd.view(split - 1, w, 9, kt)[..., :w].permute(0, 2, 3, 1)
+    wkd = wkd.numpy()
+    dzs = dz.numpy()
+    dx = np.zeros_like(xs_)
+    dw = np.zeros((split - 1, w, w, 9))
+    tiles_f = -(-fout // tf)
+    for grp in range(split - 1):
+        # the dgrad, a tile at a time
+        for bi in range(b):
+            for tile in range(plan["tiles"]):
+                t0, f0 = tile // tiles_f * tt, tile % tiles_f * tf
+                dp = np.zeros(((tt + 1) * (tf + 1), w))
+                for du in range(tt + 1):
+                    for dv in range(tf + 1):
+                        if t0 + du < tout and f0 + dv < fout:
+                            dp[du * (tf + 1) + dv] = dzs[bi, grp * w:(grp + 1) * w, t0 + du,
+                                                         f0 + dv]
+                for cls, (s0, s1) in enumerate(((0, 1), (1, 3), (3, 5), (5, 9))):
+                    pt, pf = divmod(cls, 2)
+                    for u in range(tt):
+                        for v in range(tf):
+                            ti, fi = 2 * (t0 + u) + pt, 2 * (f0 + v) + pf
+                            if ti >= t or fi >= f:
+                                continue
+                            acc = np.zeros(w)
+                            for slot in range(s0, s1):
+                                ktp, kfp = rn._S2T_DGRAD_TAPS[slot]
+                                row = (u + (ktp == 0)) * (tf + 1) + v + (kfp == 0)
+                                acc += dp[row] @ wkd[grp, slot]
+                            dx[bi, grp * w:(grp + 1) * w, ti, fi] = acc
+        # the weight gradient: chunks of (tap, channel) rows, splits of the
+        # group's tiles added in split order
+        ntiles = b * plan["tiles"]
+        for chunk in range(plan["nchunks"]):
+            rows = [q for q in stride2_train_wgrad_rows(plan, w, chunk) if q < 9 * w]
+            total = np.zeros((len(rows), w))
+            for sp in range(plan["nsplit"]):
+                part = np.zeros((len(rows), w))
+                for tile in range(ntiles * sp // plan["nsplit"], ntiles * (sp + 1) // plan["nsplit"]):
+                    bi = tile // plan["tiles"]
+                    t0, f0 = tile % plan["tiles"] // tiles_f * tt, tile % plan["tiles"] % tiles_f * tf
+                    xp = np.zeros(((2 * tt + 1) * pf_n, w))
+                    for pt in range(2 * tt + 1):
+                        for pf in range(pf_n):
+                            ti, fi = 2 * t0 - 1 + pt, 2 * f0 - 1 + pf
+                            if 0 <= ti < t and 0 <= fi < f:
+                                slot = tf + 1 + pf // 2 if pf % 2 else pf // 2
+                                xp[pt * pf_n + slot] = xs_[bi, grp * w:(grp + 1) * w, ti, fi]
+                    for ot in range(min(tt, tout - t0)):
+                        for of in range(min(tf, fout - f0)):
+                            d = dzs[bi, grp * w:(grp + 1) * w, t0 + ot, f0 + of]
+                            for i, q in enumerate(rows):
+                                tap, ch = divmod(q, w)
+                                kf = tap % 3
+                                pos = 2 * ot * pf_n + of + (tap // 3) * pf_n + (
+                                    tf + 1 if kf == 1 else kf // 2)
+                                part[i] += xp[pos, ch] * d
+                total += part
+            for i, q in enumerate(rows):
+                tap, ch = divmod(q, w)
+                dw[grp, :, ch, tap] = total[i]
+    # the pool's backward
+    tail = dout_tail.numpy()
+    for ti in range(t):
+        for fi in range(f):
+            for ot in range(ti // 2, min((ti + 1) // 2, tout - 1) + 1):
+                for of in range(fi // 2, min((fi + 1) // 2, fout - 1) + 1):
+                    dx[:, (split - 1) * w:, ti, fi] += tail[:, :, ot, of] / 9
+    return dx, dw.reshape((split - 1) * w, w, 3, 3)
+
+
+@pytest.mark.parametrize("width,split,shape,dtype", [
+    (8, 4, (2, 32, 9, 7), torch.bfloat16), (16, 6, (1, 96, 12, 11), torch.bfloat16),
+    (5, 4, (2, 20, 10, 9), torch.float32), (12, 4, (1, 48, 11, 10), torch.float32),
+    (48, 4, (1, 192, 8, 7), torch.bfloat16)], ids=str)
+def test_stride2_train_backward_index_math_matches_autograd(width, split, shape, dtype):
+    """K11b's parity decomposition of dx (four dense convs of 1, 2, 2 and 4
+    taps over each tile's dz patch), its weight gradient's chunk, slot and
+    split index math and the pool's gather, replayed in float64 with the
+    plan of each design, give autograd's gradients of F.conv2d (stride 2,
+    pad 1, groups s-1) and of avg_pool_3x3 on the padded input."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(width + shape[2])
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    weight = torch.randn(width * (split - 1), width, 3, 3, generator=g, dtype=torch.float64)
+    b, c, t, f = shape
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+    dz = torch.randn(b, width * (split - 1), tout, fout, generator=g, dtype=torch.float64)
+    dtail = torch.randn(b, width, tout, fout, generator=g, dtype=torch.float64)
+    xl, wl = x.clone().requires_grad_(True), weight.clone().requires_grad_(True)
+    xp = tops.fixed_padding(xl, 3)
+    out = torch.cat([F.conv2d(xp[:, :width * (split - 1)], wl, stride=2, groups=split - 1),
+                     tops.avg_pool_3x3(xp[:, width * (split - 1):], 2)], dim=1)
+    want_dx, want_dw = torch.autograd.grad(out, [xl, wl], torch.cat([dz, dtail], dim=1))
+    plan = rn.stride2_train_plan(width, split, shape, 1, dtype)
+    assert plan["design"] == ("mma" if dtype == torch.bfloat16 else "fma")
+    dx, dw = emulate_stride2_train_backward(x, weight, dz, dtail, split, plan)
+    np.testing.assert_allclose(dx, want_dx.numpy(), rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(dw, want_dw.numpy(), rtol=1e-10, atol=1e-10)

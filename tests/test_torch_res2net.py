@@ -177,6 +177,115 @@ def test_split_conv_stride2_matches_jax(split, width, t, f, lengths, dtype):
             np.testing.assert_allclose(to_nhwc(out), want, **TOL)
 
 
+# the stride-2 stage in training: (split, width, T, F, bn_groups); s = 4 and
+# 6, w = 5 (K11's FMA design on the card) and 8, odd and even T and F
+STRIDE2_TRAIN_CASES = [(4, 5, 11, 9, 1), (4, 8, 12, 10, 2), (6, 5, 12, 9, 2), (6, 8, 11, 10, 1),
+                       (4, 8, 13, 12, 2), (6, 5, 10, 11, 1)]
+
+
+def jax_stride2_train(split, width, x, cot, groups, dtype=jnp.float32):
+    """The JAX module's stride-2 stage in training under bn_groups(groups),
+    through ops.grouped_conv's custom_vjp: (its variables, output, updated
+    batch_stats, dx, dparams)."""
+    mod = JaxSplit(split=split, width=width, strides=2)
+    variables = mod.init(jax.random.PRNGKey(split + width), jnp.asarray(x), False)
+    variables = {"params": jax.device_get(variables["params"]),
+                 "batch_stats": perturb(variables["batch_stats"], width)}
+
+    def f_jax(xj, params):
+        with jops.bn_groups(groups):
+            return mod.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                             xj.astype(dtype), True, mutable=["batch_stats"])
+
+    want, vjp, mut = jax.vjp(f_jax, jnp.asarray(x), variables["params"], has_aux=True)
+    dx, dp = vjp(jnp.asarray(cot, want.dtype)) if dtype == jnp.float32 else (None, None)
+    return variables, want, mut, dx, dp
+
+
+@pytest.mark.parametrize("split,width,t,f,groups", STRIDE2_TRAIN_CASES, ids=str)
+def test_split_conv_stride2_training_matches_jax(split, width, t, f, groups):
+    """The stride-2 stage in training (``split_stride2_train``'s plain
+    version, K11 / K11b's yardstick, through ``Res2NetSplitConv``) against
+    the JAX module under bn_groups(g), whose kernel gradient comes from
+    ops.grouped_conv's custom_vjp: the output, the updated running mean and
+    variance (counted over the output's rows), and the gradients of x and
+    of the kernel (jax.vjp against torch autograd), float32 at 1e-4."""
+    rng = np.random.RandomState(7 * split + width + t + f + groups)
+    b = 4
+    x = (rng.randn(b, t, f, split * width) * 1.5 + 0.2).astype(np.float32)
+    cot = rng.randn(b, (t - 1) // 2 + 1, (f - 1) // 2 + 1, split * width).astype(np.float32)
+    variables, want, mut, want_dx, want_dp = jax_stride2_train(split, width, x, cot, groups)
+
+    port = Res2NetSplitConv(split, width, 2)
+    port.load_state_dict(from_flax(variables))
+    for bn in port._bns():
+        bn.groups = groups
+    xt = to_port(x).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    got = port(xt, True)
+    got.backward(to_port(cot))
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(to_nhwc(xt.grad), np.asarray(want_dx), **TOL)
+    np.testing.assert_allclose(port.weight.grad.permute(2, 3, 1, 0).numpy(),
+                               np.asarray(want_dp["kernel"]), **TOL)
+    for i, bn in enumerate(port._bns()):
+        st = mut["batch_stats"][f"bn{i}"]["bn"]
+        np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(st["mean"]), **TOL)
+        np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(st["var"]), **TOL)
+
+
+def test_split_conv_stride2_training_bf16_forward_matches_jax():
+    """The bf16 forward of the stride-2 stage in training against the JAX
+    module in bf16: within 2e-2 of the largest magnitude (rounding at the
+    same points, summed in another order)."""
+    rng = np.random.RandomState(31)
+    x = (rng.randn(4, 12, 10, 4 * 8) * 1.5 + 0.2).astype(np.float32)
+    variables, want, _, _, _ = jax_stride2_train(4, 8, x, None, 2, jnp.bfloat16)
+    port = Res2NetSplitConv(4, 8, 2)
+    port.load_state_dict(from_flax(variables))
+    for bn in port._bns():
+        bn.groups = 2
+    got = port(to_port(x).bfloat16().contiguous(memory_format=torch.channels_last), True)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    assert np.abs(to_nhwc(got.float()) - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("policy", [None, "nothing_saveable", "dots_saveable"])
+def test_thin_res2net_remat_step_equals_plain(policy):
+    """A training forward and backward of the thin Res2Net (its stride-2
+    block included) with every block rematerialized equals the plain one
+    from the same weights: output and gradients within 1e-6, the BN running
+    statistics bit-equal (the recompute leaves them alone). On the CPU the
+    stride-2 stage takes its plain version ("train_plain"), once more a
+    forward in the recompute; on the card K11 runs again under None and
+    nothing_saveable and not under dots_saveable
+    (tests/test_torch_kernels.py)."""
+    from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
+
+    torch.manual_seed(5)
+    nets = [get_model(THIN, feat_dim=40), get_model(THIN, feat_dim=40, remat=True,
+                                                    remat_policy=policy)]
+    for p in nets[0].parameters():
+        torch.nn.init.normal_(p, std=0.2)
+    nets[1].load_state_dict(nets[0].state_dict())
+    x = torch.from_numpy(np.random.RandomState(8).randn(4, 24, 40).astype(np.float32))
+    runs = []
+    for net in nets:
+        net.set_bn_groups(2)
+        before = rn.split_stride2_route_counts()["train_plain"]
+        y = net(x, True)
+        y.square().sum().backward()
+        runs.append((y.detach(), {k: p.grad.clone() for k, p in net.named_parameters()},
+                     {k: v.clone() for k, v in net.state_dict().items() if "running" in k},
+                     rn.split_stride2_route_counts()["train_plain"] - before))
+    (y0, g0, s0, n0), (y1, g1, s1, n1) = runs
+    assert (n0, n1) == (1, 2)
+    np.testing.assert_allclose(y1.numpy(), y0.numpy(), rtol=1e-6, atol=1e-6)
+    for k, v in g0.items():
+        np.testing.assert_allclose(g1[k].numpy(), v.numpy(), rtol=1e-6, atol=1e-6, err_msg=k)
+    assert all(torch.equal(s1[k], v) for k, v in s0.items())
+
+
 @pytest.mark.parametrize("strides,projection", [(1, True), (2, True), (1, False)])
 def test_bottleneck_matches_jax(strides, projection):
     rng = np.random.RandomState(3)

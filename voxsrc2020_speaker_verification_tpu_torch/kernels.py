@@ -237,8 +237,16 @@ SPLIT_TRAIN = CudaKernel("split_train", "split_train.cu", {
 SPLIT_STRIDE2 = CudaKernel("split_stride2", "split_stride2.cu", {
     "split_stride2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _I, _P],
 }, paths={"split_stride2": ("mma", "vec", "single")})
+# K11 / K11b take their launch plan as a host int array (models/res2net.py:
+# stride2_train_plan)
+SPLIT_STRIDE2_TRAIN = CudaKernel("split_stride2_train", "split_stride2_train.cu", {
+    "split_stride2_train_fwd": [_I] + [_P] * 9 + [_F] * 4 + [_L, _P],
+    "split_stride2_train_finish": [_I] + [_P] * 5,
+    "split_stride2_train_bwd_stats": [_I] + [_P] * 8,
+    "split_stride2_train_bwd_grad": [_I] + [_P] * 11 + [_L, _P],
+})
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,
-           MARGIN_CE, SLIDING_CMVN, ATT_POOL, SPLIT_TRAIN, SPLIT_STRIDE2)
+           MARGIN_CE, SLIDING_CMVN, ATT_POOL, SPLIT_TRAIN, SPLIT_STRIDE2, SPLIT_STRIDE2_TRAIN)
 
 
 def build_all(kernels: Sequence[CudaKernel] = KERNELS) -> float:

@@ -19,9 +19,13 @@ statistics; then one that normalizes the last group) and s backward (the
 last group's statistics, then one a group that folds the previous group's
 statistics in). Where BN groups span data ranks (K5's spanning mode) the chain
 keeps the per-group ``F.conv2d`` -> K5 route (``"span"``). The stride-2
-stage in training is one grouped conv, one K5 launch over all s-1 groups
-(statistics are per channel, so this is exact) and the average-pool tail.
-K2 and K10 stay the eval path, since their BN uses running statistics.
+stage in training is K11 / K11b (``csrc/split_stride2_train.cu``, wrapped
+by :func:`split_stride2_train`): two launches forward (the conv with z
+saved and its BN statistics, and the average-pool tail; then the
+normalization into the output) and two backward (the BN sums of d; then dz
+with the transposed conv gathered by input parity, the pool's backward and
+the weight gradient). K2 and K10 stay the eval path, since their BN uses
+running statistics.
 
 Rematerialization (``remat``, ``remat_stages``, ``remat_keep_blocks``,
 ``remat_policy``, the JAX package's options) checkpoints whole bottleneck
@@ -44,8 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from ..kernels import (SPLIT_CONV, SPLIT_STRIDE2, SPLIT_TRAIN, KernelError, check_cuda,
-                       dtype_code, num_sms, ptr, stream_scratch)
+from ..kernels import (SPLIT_CONV, SPLIT_STRIDE2, SPLIT_STRIDE2_TRAIN, SPLIT_TRAIN, KernelError,
+                       check_cuda, dtype_code, num_sms, ptr, stream_scratch)
 from ..ops import nn as ops
 from ..parallel.sharding import active_mesh
 
@@ -430,14 +434,16 @@ def split_stride2_reference(x, weight, means, variances, eps=ops.BN_EPSILON) -> 
     return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
 
 
-# stride-2 stage calls by route: "kernel" (K10 on the card), "plain" (CPU
-# tensors), "train_route" (training: cuDNN grouped conv + K5 + the average
-# pool + cat)
+# stride-2 stage calls by route: in eval "kernel" (K10 on the card) and
+# "plain" (CPU tensors); in training "train_kernels" (K11 / K11b on the
+# card), "train_plain" (CPU tensors) and "span" (BN groups across data
+# ranks: cuDNN's grouped conv + K5's spanning mode + the pool + cat)
 _STRIDE2_ROUTES = collections.Counter()
+STRIDE2_ROUTES = ("kernel", "plain", "train_kernels", "train_plain", "span")
 
 
 def split_stride2_route_counts() -> Dict[str, int]:
-    return {r: _STRIDE2_ROUTES[r] for r in ("kernel", "plain", "train_route")}
+    return {r: _STRIDE2_ROUTES[r] for r in STRIDE2_ROUTES}
 
 
 def split_stride2(x: torch.Tensor, weight: torch.Tensor,
@@ -1036,6 +1042,408 @@ def split_chain_train(x: torch.Tensor, weight: torch.Tensor,
                                tuple(running_vars), groups, eps, update)
 
 
+# ---------------------------------------------------------------------------
+# K11 / K11b: the stride-2 split stage in training
+# ---------------------------------------------------------------------------
+
+# the mma design's widths and n tiles a warp (csrc/split_stride2_train.cu:
+# mma_nt): the registered Res2Nets' stride-2 widths and the thin variants' 8
+_S2T_MMA_NT = {8: 1, 16: 2, 32: 4, 48: 6, 64: 8, 96: 6, 192: 8}
+_S2T_FMA_THREADS = 128
+_S2T_FMA_TM = 8          # rows a thread of the FMA convs, at most
+_S2T_RED_FLOATS = 2 * _S2T_FMA_THREADS * 4
+_S2T_SLABS = 1024        # conv and statistics slabs a launch, about
+# weight-gradient CTAs a launch, about. It fixes the split of the tiles and
+# so the order in which dW's partials are added: a constant, not the card's
+# SM count, so that dW is the same bits on every card
+_S2T_WGRAD_CTAS = 384
+_S2T_MAX_UPT = 8         # (tap, channel) rows a weight-gradient thread
+_S2T_POOL_CTAS = 264     # the average pool's CTAs (each direction), at most
+# the dgrad's tap slots (kt, kf), by parity class of the input position:
+# (even, even) (1,1); (even, odd) (1,0) (1,2); (odd, even) (0,1) (2,1);
+# (odd, odd) (0,0) (0,2) (2,0) (2,2) (csrc/split_stride2_train.cu)
+_S2T_DGRAD_TAPS = ((1, 1), (1, 0), (1, 2), (0, 1), (2, 1), (0, 0), (0, 2), (2, 0), (2, 2))
+
+
+def _s2t_patch_bytes(tt: int, tf: int, xs: int, itemsize: int, halo: bool) -> int:
+    """Bytes of a staged patch (csrc/split_stride2_train.cu: xpatch_bytes,
+    dpatch_bytes): the x patch of a tt x tf output tile ((2 tt + 1) x (2 tf
+    + 1) input positions) or its dz patch ((tt + 1) x (tf + 1) output
+    positions), at a row stride of xs elements."""
+    pos = (2 * tt + 1) * (2 * tf + 1) if halo else (tt + 1) * (tf + 1)
+    return _align16(pos * xs * itemsize)
+
+
+def _s2t_smem(width: int, tt: int, tf: int, design: str, itemsize: int, ring: int = 0,
+              sk: int = 0, threads: int = 0):
+    """(forward, grad) shared memory of K11 / K11b's conv launches
+    (csrc/split_stride2_train.cu: fwd_smem, grad_smem). mma: the weights
+    (``ring`` buffers of w rows by 16 sk + 8 columns), the x patch and the
+    warps' sums (forward), or the weights and the dz patch (dgrad); fma: a
+    tap's weights as floats, the threads' sums and the x patch, or a tap's
+    weights and the dz patch. The weight gradient's CTAs: the x patch and
+    the dz patch. The grad launch takes the larger."""
+    if design == "mma":
+        xs = _halo_stride(width)
+        wbytes = 2 * ring * width * (16 * sk + 8)
+        fwd = wbytes + _s2t_patch_bytes(tt, tf, xs, 2, True) + 8 * (threads // 32) * width
+        dgrad = wbytes + _s2t_patch_bytes(tt, tf, xs, 2, False)
+        # the weight gradient: the dz patch with a zero row after it, and the
+        # x and dz offsets of the tile's positions in whole k steps of 16
+        wgrad = (_s2t_patch_bytes(tt, tf, xs, 2, True)
+                 + _align16(((tt + 1) * (tf + 1) + 1) * xs * 2) + 2 * 4 * 16 * -(-tt * tf // 16))
+    else:
+        xs = width | 1
+        wbytes = _align16(4 * width * width)
+        fwd = wbytes + 4 * _S2T_RED_FLOATS + _s2t_patch_bytes(tt, tf, xs, itemsize, True)
+        dgrad = wbytes + _s2t_patch_bytes(tt, tf, xs, itemsize, False)
+        wgrad = (_s2t_patch_bytes(tt, tf, xs, itemsize, True)
+                 + _s2t_patch_bytes(tt, tf, xs, itemsize, False))
+    return fwd, max(wgrad, dgrad)
+
+
+@functools.lru_cache(maxsize=None)
+def stride2_train_plan(width: int, split: int, shape, groups: int, dtype: torch.dtype) -> dict:
+    """K11 / K11b's launch plan for a stride-2 stage in training: ``split``
+    groups of width ``width`` on x of ``shape`` (B, s*w, T, F), statistics
+    over ``groups`` BN groups of B / groups samples; output (T', F') =
+    ((T-1)//2 + 1, (F-1)//2 + 1).
+
+    * ``design``: ``"mma"`` (bfloat16 at the widths of ``_S2T_MMA_NT``: the
+      conv, the dgrad and the weight gradient on mma.sync, ``threads`` = 32
+      wm wn, wn = w / (8
+      nt) warps across the channels, wm = min(4, 8 / wn) down 32-row
+      strips; the weights resident (``ring`` 1, ``sk`` all k steps) where
+      they fit beside the patch, else two buffers of ``sk`` k steps) or
+      ``"fma"`` (float32 and the other widths: 128 threads, a thread 8 rows
+      by ``tn`` channels);
+    * the output tile: ``tt`` x ``tf`` positions of one utterance, F' cut
+      evenly into tiles of at most 16, ``tt`` as large as the rows (32 wm;
+      fma: 8 a thread) and 227 KB of shared memory allow;
+    * ``k`` runs of tiles (slabs) a sample in the forward's conv and the
+      dgrad, ``kstat`` runs of positions a sample in the statistics
+      launch, about ``_S2T_SLABS`` a launch (a slab never straddles a BN
+      group); ``pool_ctas`` CTAs for the average pool and its backward;
+    * the weight gradient: ``pc`` (tap, channel) rows a chunk, ``nchunks``
+      chunks a group, ``nsplit`` splits of the group's tiles a chunk (about
+      ``_S2T_WGRAD_CTAS`` CTAs a launch: a constant, so dW's order of
+      addition does not depend on the card). mma: ``upt`` m tiles of (tap,
+      16 channels) a warp, a chunk the CTA's warps' (rows m tile * 16 +
+      row); fma: ``nb`` blocks of 4 output channels, ``pg`` = threads / nb
+      pair groups, ``upt`` rows q = tap * w + c a thread;
+    * shared memory (``smem_fwd``, ``smem_grad``) and scratch:
+      ``part_floats`` (slab partials), ``tickets``, ``wpart_floats``.
+
+    The C entries recompute the layout from the plan's ints and refuse a
+    plan whose shared memory differs (kPlanMismatch). Cached per signature
+    and shared: callers do not modify a plan."""
+    b, c, t, f = shape
+    if c != split * width or not 2 <= split <= 9 or b % groups:
+        raise ValueError(f"stride2_train_plan: shape {tuple(shape)} is not {split} groups of "
+                         f"{width} in {groups} BN groups")
+    if width > 256:
+        raise ValueError(f"stride2_train_plan: width {width} > 256")
+    tout, fout = _strided(t, 2), _strided(f, 2)
+    tf = -(-fout // -(-fout // 16))
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    if dtype == torch.bfloat16 and width in _S2T_MMA_NT:
+        design, tn = "mma", 0
+        wn = width // (8 * _S2T_MMA_NT[width])
+        threads = 32 * wn * min(4, 8 // wn)
+        rows_max = 32 * (threads // 32 // wn)
+    else:
+        design, tn = "fma", (4 if width % 4 == 0 else 1)
+        nbk = -(-width // tn)
+        if nbk > _S2T_FMA_THREADS:
+            raise ValueError(f"stride2_train_plan: width {width} needs 4-channel vectors")
+        threads = _S2T_FMA_THREADS
+        rows_max = min(128, (_S2T_FMA_THREADS // nbk) * _S2T_FMA_TM)
+    ksteps = 9 * _stride2_tap_cols(width) // 16
+    found = None
+    for tt in range(max(1, min(rows_max // tf, tout)), 0, -1):
+        if design == "fma":
+            fwd, grad = _s2t_smem(width, tt, tf, design, itemsize)
+            if max(fwd, grad) <= _SMEM_BYTES:
+                found = (tt, 0, 0, fwd, grad)
+                break
+            continue
+        fwd, grad = _s2t_smem(width, tt, tf, design, 2, 1, ksteps, threads)
+        if max(fwd, grad) <= _SMEM_BYTES:
+            found = (tt, 1, ksteps, fwd, grad)
+            break
+        base = max(_s2t_smem(width, tt, tf, design, 2, 2, 0, threads))
+        sk = min(ksteps - 1, ((_SMEM_BYTES - base) // (2 * 2 * width) - 8) // 16)
+        if sk >= 1:
+            fwd, grad = _s2t_smem(width, tt, tf, design, 2, 2, sk, threads)
+            found = (tt, 2, sk, fwd, grad)
+            break
+    if found is None:
+        raise ValueError(f"stride2_train_plan: width {width} does not fit shared memory")
+    tt, ring, sk, smem_fwd, smem_grad = found
+    tiles = -(-tout // tt) * -(-fout // tf)
+    per = -(-_S2T_SLABS // ((split - 1) * b))
+    k, kstat = max(1, min(per, tiles)), max(1, min(per, tout * fout))
+    vec = 16 // itemsize if width % (16 // itemsize) == 0 else 1
+    pool_ctas = max(1, min(_S2T_POOL_CTAS, -(-b * t * f * (width // vec) // threads)))
+    if design == "mma":
+        # (tap, 16 channels) m tiles, upt of them a warp (at most 64
+        # accumulator registers a thread: w / 2 an m tile), a chunk the
+        # CTA's warps' (csrc/split_stride2_train.cu: wg_wmt)
+        nb = pg = 0
+        mtiles, warps = 9 * -(-width // 16), threads // 32
+        upt = min(-(-mtiles // warps), max(1, 128 // width))
+        pc = warps * upt * 16
+        nchunks = -(-mtiles // (warps * upt))
+    else:
+        nb = -(-width // 4)
+        pg = threads // nb
+        upt = min(_S2T_MAX_UPT, -(-9 * width // pg))
+        pc = pg * upt
+        nchunks = -(-9 * width // pc)
+    nsplit = max(1, min(b * tiles, -(-_S2T_WGRAD_CTAS // ((split - 1) * nchunks))))
+    nconv, nstat = (split - 1) * b * k, (split - 1) * b * kstat
+    nwgrad = (split - 1) * nchunks * nsplit
+    return {"design": design, "tn": tn, "threads": threads, "tt": tt, "tf": tf, "ring": ring,
+            "sk": sk, "k": k, "kstat": kstat, "pool_ctas": pool_ctas, "tiles": tiles,
+            "nb": nb, "pg": pg, "upt": upt, "pc": pc, "nchunks": nchunks, "nsplit": nsplit,
+            "nconv": nconv, "nstat": nstat, "nwgrad": nwgrad, "smem_fwd": smem_fwd,
+            "smem_grad": smem_grad, "part_floats": max(nconv, nstat) * 2 * width,
+            "tickets": (split - 1) * nchunks, "wpart_floats": nwgrad * pc * width}
+
+
+def _stride2_train_ints(plan: dict, shape, split: int, width: int, groups: int):
+    """The plan as the C entries take it (csrc/split_stride2_train.cu:
+    make_plan): 17 ints."""
+    b, _, t, f = shape
+    return (ctypes.c_int * 17)(b, t, f, split, width, groups, ("fma", "mma").index(plan["design"]),
+                               plan["tt"], plan["tf"], plan["k"], plan["kstat"],
+                               plan["pool_ctas"], plan["nsplit"], plan["upt"], plan["sk"],
+                               plan["ring"], plan["threads"])
+
+
+def split_stride2_train_reference(x, weight, running_means, running_vars, groups=1,
+                                  eps=ops.BN_EPSILON, update=True, relu_masks=None,
+                                  pre_relu=None) -> torch.Tensor:
+    """Plain version of :func:`split_stride2_train`, step for step as the
+    JAX package's strides > 1 branch in training (models/res2net.py:52-80):
+    the padded copy, one grouped conv at stride 2 (its output in x's dtype),
+    per group training BN over ``groups`` batch groups with relu
+    (``ops.bn_train_reference``: its running update counts the output's
+    rows, (B / G) T' F'; none where ``update`` is False), the 3x3 average
+    pool of the padded last group, the concat. Differentiable by autograd.
+
+    ``relu_masks`` (s-1 tensors shaped as a group's output, 0/1) takes those
+    relu decisions in place of the computed ones (a float64 yardstick of a
+    run whose decisions near zero went the other way); with them,
+    ``pre_relu`` (a list) receives each group's normalized value before the
+    decision."""
+    s = len(running_means) + 1
+    w = x.shape[1] // s
+    xp = ops.fixed_padding(x, 3)
+    z = F.conv2d(xp[:, : w * (s - 1)], weight, stride=2, groups=s - 1)
+    outputs = []
+    for i in range(s - 1):
+        y = ops.bn_train_reference(z[:, i * w: (i + 1) * w], running_means[i], running_vars[i],
+                                   groups=groups, relu=relu_masks is None, eps=eps,
+                                   update=update)
+        if relu_masks is not None:
+            if pre_relu is not None:
+                pre_relu.append(y.detach())
+            y = y * relu_masks[i].to(y.dtype)
+        outputs.append(y)
+    outputs.append(ops.avg_pool_3x3(xp[:, w * (s - 1):], 2))
+    return torch.cat(outputs, dim=1).contiguous(memory_format=CHANNELS_LAST)
+
+
+def _split_stride2_span(x, weight, running_means, running_vars, groups, eps=ops.BN_EPSILON):
+    """The route where BN groups span data ranks: the padded copy, cuDNN's
+    grouped conv at stride 2, ``ops.bn_train`` over all s-1 groups at once
+    (statistics are per channel; on the card K5's spanning mode) with the
+    running statistics copied back, the average pool, the concat."""
+    s = len(running_means) + 1
+    w = x.shape[1] // s
+    xp = ops.fixed_padding(x, 3)
+    y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=2,
+                 groups=s - 1).contiguous(memory_format=CHANNELS_LAST)
+    mean, var = torch.cat(list(running_means)), torch.cat(list(running_vars))
+    y = ops.bn_train(y, mean, var, groups=groups, relu=True, eps=eps)
+    if ops.running_update_enabled():
+        with torch.no_grad():  # the update ran on the concatenated copy
+            for i, (rm, rv) in enumerate(zip(running_means, running_vars)):
+                rm.copy_(mean[i * w: (i + 1) * w])
+                rv.copy_(var[i * w: (i + 1) * w])
+    tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], 2)
+    return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
+
+
+def _stride2_train_weights(weight: torch.Tensor, s: int, w: int, design: str, dgrad: bool):
+    """K11's (``dgrad`` False) or K11b's weights from the OIHW (w (s-1), w,
+    3, 3) weight. The conv's: mma (s-1, w, 9 tap_cols), rows its output
+    channels, K = tap * tap_cols + input channel; fma (s-1, 9, w, w)
+    [group][tap][input][output]. The dgrad's: mma rows the input channels,
+    K = slot * tap_cols + output channel (the tap slots of
+    _S2T_DGRAD_TAPS); fma [group][slot][output][input]. Each tap's w
+    zero-padded to tap_cols."""
+    wv = weight.view(s - 1, w, w, 3, 3)  # (group, n, c, kt, kf)
+    if dgrad:
+        slots = [3 * kt + kf for kt, kf in _S2T_DGRAD_TAPS]
+        k = wv.permute(0, 3, 4, 1, 2).reshape(s - 1, 9, w, w)[:, slots]  # [g][slot][n][c]
+    else:
+        k = wv.permute(0, 3, 4, 2, 1).reshape(s - 1, 9, w, w)  # [g][tap][c][n]
+    if design == "fma":
+        return k.contiguous()
+    pad = _stride2_tap_cols(w) - w
+    return F.pad(k.permute(0, 3, 1, 2), (0, pad)).reshape(s - 1, w, -1).contiguous()
+
+
+def _split_stride2_train_forward(x, weight, running_means, running_vars, groups, eps, update):
+    """K11's two launches on :func:`stride2_train_plan`'s plan: (out, z
+    (s-1, B, T', F', w), stats
+    (s-1, 3, G, w) mean, rstd and biased variance per (BN group,
+    channel))."""
+    s = len(running_means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    tout, fout = _strided(t, 2), _strided(f, 2)
+    plan = stride2_train_plan(w, s, tuple(x.shape), groups, x.dtype)
+    ints = _stride2_train_ints(plan, x.shape, s, w, groups)
+    dev, code = x.device, dtype_code(x.dtype)
+    wk = _stride2_train_weights(weight, s, w, plan["design"], dgrad=False)
+    z = torch.empty((s - 1, b, tout, fout, w), dtype=x.dtype, device=dev)
+    stats = torch.empty((s - 1, 3, groups, w), dtype=torch.float32, device=dev)
+    out = torch.empty((b, tout, fout, c), dtype=x.dtype, device=dev).permute(0, 3, 1, 2)
+    part = stream_scratch(dev, "split_stride2_train_part", plan["part_floats"], torch.float32)
+    tickets = stream_scratch(dev, "split_stride2_train_tickets", plan["tickets"], torch.int32)
+    # the running update counts the output's rows of a BN group
+    _, upd_mean, upd_var = ops._update_factors(x, groups, n=(b // groups) * tout * fout)
+    run = ((ctypes.c_void_p * (2 * (s - 1)))(*(ptr(r) for r in (*running_means, *running_vars)))
+           if update else None)
+    SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_fwd", dev, code, ctypes.addressof(ints),
+                               ptr(x), ptr(wk), ptr(z), ptr(stats),
+                               None if run is None else ctypes.addressof(run), ptr(out),
+                               ptr(part), ptr(tickets), eps, ops.BN_MOMENTUM, upd_mean, upd_var,
+                               plan["smem_fwd"])
+    SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_finish", dev, code, ctypes.addressof(ints),
+                               ptr(z), ptr(stats), ptr(out))
+    return out, z, stats
+
+
+def _split_stride2_train_backward(x, weight, z, stats, groups, dout):
+    """K11b's two launches on the forward's plan: the sums of d and d
+    xhat, then dz with the parity-gathered dgrad, the pool's backward and
+    the weight gradient. Returns (dx, the weight's gradient in x's
+    dtype)."""
+    s = z.shape[0] + 1
+    b, c, t, f = x.shape
+    w = c // s
+    plan = stride2_train_plan(w, s, tuple(x.shape), groups, x.dtype)
+    ints = _stride2_train_ints(plan, x.shape, s, w, groups)
+    dev, code = x.device, dtype_code(x.dtype)
+    dout = ops.aligned_operand(dout)
+    wkd = _stride2_train_weights(weight, s, w, plan["design"], dgrad=True)
+    dx = torch.empty_like(x)
+    dweight = torch.empty(weight.shape, dtype=x.dtype, device=dev)
+    bsums = torch.empty((s - 1, 2, groups, w), dtype=torch.float32, device=dev)
+    part = stream_scratch(dev, "split_stride2_train_part", plan["part_floats"], torch.float32)
+    tickets = stream_scratch(dev, "split_stride2_train_tickets", plan["tickets"], torch.int32)
+    wpart = stream_scratch(dev, "split_stride2_train_wpart", plan["wpart_floats"], torch.float32)
+    SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_bwd_stats", dev, code,
+                               ctypes.addressof(ints), ptr(dout), ptr(z), ptr(stats), ptr(bsums),
+                               ptr(part), ptr(tickets))
+    SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_bwd_grad", dev, code, ctypes.addressof(ints),
+                               ptr(x), ptr(dout), ptr(z), ptr(stats), ptr(bsums), ptr(wkd),
+                               ptr(dx), ptr(dweight), ptr(wpart), ptr(tickets),
+                               plan["smem_grad"])
+    return dx, dweight
+
+
+@torch.library.custom_op(
+    "vsv_torch::split_stride2_train_fwd", mutates_args=("running_means", "running_vars"),
+    schema="(Tensor x, Tensor weight, Tensor(a!)[] running_means, Tensor(b!)[] running_vars, "
+           "int groups, float eps, bool update) -> (Tensor, Tensor, Tensor)")
+def split_stride2_train_fwd_op(x, weight, running_means, running_vars, groups, eps, update):
+    """K11 as one operator (out, z, stats), so that a selective checkpoint
+    can name it: under ``dots_saveable`` the recompute takes its outputs
+    from the first forward (:data:`_SAVED_BY_DOTS`)."""
+    return _split_stride2_train_forward(x, weight, running_means, running_vars, groups, eps,
+                                        update)
+
+
+class _SplitStride2TrainFn(torch.autograd.Function):
+    """K11 forward, K11b backward. Saves x, the weight, the s-1 conv outputs
+    z_i and their statistics; the running statistics are updated in place
+    by the forward (unless ``update`` is False) and take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, running_means, running_vars, groups, eps, update):
+        out, z, stats = split_stride2_train_fwd_op(x, weight, list(running_means),
+                                                   list(running_vars), groups, eps, update)
+        ctx.save_for_backward(x, weight, z, stats)
+        ctx.groups = groups
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, z, stats = ctx.saved_tensors
+        dx, dweight = _split_stride2_train_backward(x, weight, z, stats, ctx.groups, dout)
+        return dx, dweight, None, None, None, None, None
+
+
+def split_stride2_train(x: torch.Tensor, weight: torch.Tensor,
+                        running_means: Sequence[torch.Tensor],
+                        running_vars: Sequence[torch.Tensor], groups: int = 1,
+                        eps: float = ops.BN_EPSILON) -> torch.Tensor:
+    """Stride-2 Res2Net split stage in training, K11 / K11b on CUDA:
+
+        y_i = relu(BN_g(conv3x3_stride2(pad(x_i))))       i < s-1
+        y_{s-1} = avg_pool3x3_stride2(pad(x_{s-1}))       the pads counted
+
+    BN_g: statistics per batch group (``groups``, the model's bn_groups)
+    over the output's positions, the running statistics (s-1 float32 (w,)
+    tensors) updated in place unless inside ``ops.running_update(False)``.
+    x: (B, s*w, T, F) channels_last; weight: (w*(s-1), w, 3, 3) OIHW in x's
+    dtype. Returns (B, s*w, (T-1)//2 + 1, (F-1)//2 + 1) channels_last.
+    Differentiable in x and the weight.
+
+    Inside a step whose mesh has data ranks, ``groups`` counts the global
+    batch's groups (as ``ops.bn_train``): groups inside each rank run here
+    as ``groups / ranks``; groups that span ranks take the ``"span"`` route.
+    A CPU tensor takes the plain version; a CUDA one launches the kernels or
+    raises."""
+    s = len(running_means) + 1
+    b, c, t, f = x.shape
+    w = c // s
+    if c != s * w or weight.shape != (w * (s - 1), w, 3, 3):
+        raise ValueError(f"split_stride2_train: x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)} do not make {s} groups of 3x3")
+    update = ops.running_update_enabled()
+    mesh = active_mesh()
+    if mesh is not None and mesh.num_data > 1:
+        if groups % mesh.num_data:
+            _STRIDE2_ROUTES["span"] += 1
+            return _split_stride2_span(x, weight, running_means, running_vars, groups, eps)
+        groups //= mesh.num_data  # every group inside this rank
+    if b % groups:
+        raise ValueError(f"batch {b} not divisible into {groups} BN groups")
+    if x.device.type == "cpu":
+        _STRIDE2_ROUTES["train_plain"] += 1
+        return split_stride2_train_reference(x, weight, running_means, running_vars, groups, eps,
+                                             update)
+    check_cuda("split_stride2_train", x, (torch.float32, torch.bfloat16), 4, CHANNELS_LAST)
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise KernelError("split_stride2_train: weight must match x's dtype and device")
+    for st in (*running_means, *running_vars):
+        check_cuda("split_stride2_train stats", st, (torch.float32,), 1)
+        if st.shape[0] != w:
+            raise KernelError(f"split_stride2_train: BN stats of {st.shape[0]} channels, "
+                              f"width {w}")
+    if x.numel() == 0:
+        raise KernelError("split_stride2_train: empty batch")
+    _STRIDE2_ROUTES["train_kernels"] += 1
+    return _SplitStride2TrainFn.apply(ops.aligned_operand(x), weight, tuple(running_means),
+                                      tuple(running_vars), groups, eps, update)
+
+
 class Res2NetSplitConv(nn.Module):
     """Hierarchical split-s 3x3 conv stage. ``weight`` is the shared
     [3, 3, w, w*(s-1)] JAX kernel in OIHW, one block of w output rows per
@@ -1060,32 +1468,15 @@ class Res2NetSplitConv(nn.Module):
             raise ValueError(f"split stage takes {s * w} channels, got {x.shape[1]}")
         weight = self.weight.to(x.dtype)
         bns = self._bns()
+        means, variances = [bn.running_mean for bn in bns], [bn.running_var for bn in bns]
         if self.strides == 1:
             if training:
-                return split_chain_train(x, weight, [bn.running_mean for bn in bns],
-                                         [bn.running_var for bn in bns], bns[0].groups, mask,
+                return split_chain_train(x, weight, means, variances, bns[0].groups, mask,
                                          bns[0].eps)
-            return split_chain(x, weight, [bn.running_mean for bn in bns],
-                               [bn.running_var for bn in bns], mask, bns[0].eps)
-        if not training:
-            return split_stride2(x, weight, [bn.running_mean for bn in bns],
-                                 [bn.running_var for bn in bns], bns[0].eps)
-        # stride 2 in training: no hierarchical adds, so the s-1 convs are one
-        # grouped conv and BN + relu of all groups one K5 pass
-        _STRIDE2_ROUTES["train_route"] += 1
-        xp = ops.fixed_padding(x, 3)
-        y = F.conv2d(xp[:, : w * (s - 1)], weight, stride=2,
-                     groups=s - 1).contiguous(memory_format=CHANNELS_LAST)
-        mean = torch.cat([bn.running_mean for bn in bns])
-        var = torch.cat([bn.running_var for bn in bns])
-        y = ops.bn_train(y, mean, var, groups=bns[0].groups, relu=True, eps=bns[0].eps)
-        if ops.running_update_enabled():
-            with torch.no_grad():  # the update ran on the concatenated copy
-                for i, bn in enumerate(bns):
-                    bn.running_mean.copy_(mean[i * w: (i + 1) * w])
-                    bn.running_var.copy_(var[i * w: (i + 1) * w])
-        tail = ops.avg_pool_3x3(xp[:, w * (s - 1):], 2)
-        return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
+            return split_chain(x, weight, means, variances, mask, bns[0].eps)
+        if training:
+            return split_stride2_train(x, weight, means, variances, bns[0].groups, bns[0].eps)
+        return split_stride2(x, weight, means, variances, bns[0].eps)
 
 
 class BottleneckBlockV1(nn.Module):
@@ -1124,18 +1515,20 @@ class BottleneckBlockV1(nn.Module):
 
 
 # Rematerialization policies, by their jax.checkpoint_policies names: None
-# and "nothing_saveable" recompute the whole block (K9 runs again, with the
-# running update off); "dots_saveable" and "checkpoint_dots" keep the
-# outputs of the convolutions and matmuls (JAX's dots_saveable keeps
+# and "nothing_saveable" recompute the whole block (K9 and K11 run again,
+# with the running update off); "dots_saveable" and "checkpoint_dots" keep
+# the outputs of the convolutions and matmuls (JAX's dots_saveable keeps
 # dot_general and conv_general_dilated outputs) and recompute the rest --
-# of the stride-1 chain in training, K9's operator: its conv outputs z_i with
-# their statistics and the chain's output, so K9 does not run again;
+# of the split stages in training, K9's and K11's operators: their conv
+# outputs z_i with their statistics and the stage's output, so neither runs
+# again;
 # "everything_saveable" keeps everything, i.e. no remat.
 REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "checkpoint_dots",
                   "everything_saveable")
 _SAVED_BY_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
                   torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
-                  torch.ops.vsv_torch.split_train_fwd.default)
+                  torch.ops.vsv_torch.split_train_fwd.default,
+                  torch.ops.vsv_torch.split_stride2_train_fwd.default)
 
 
 def remat_context(policy: Optional[str]):
