@@ -1537,8 +1537,8 @@ def check_split_stride2_train(dev, gen, stages, groups):
         pfwd, pbwd = time_fwd_bwd(stage(rn.split_stride2_train_reference), [xb, wb], db)
         rfwd, rbwd = time_fwd_bwd(stage(rn._split_stride2_span), [xb, wb], db)
         # device ms of K11's / K11b's own kernels, and of the whole call
-        # (stage_*: the weights' relayout and dout's alignment copy included,
-        # as the route's device ms includes everything)
+        # (stage_*: dout's alignment copy included, as the route's device ms
+        # includes everything; the kernels stage the OIHW weight themselves)
         with torch.no_grad():
             k11 = lambda: rn.split_stride2_train(xb, wb, rms, rvs, groups)  # noqa: E731
             dfwd, sfwd = device_ms(k11, K11_DEVICE), device_ms(k11)
@@ -1582,7 +1582,8 @@ def check_split_stride2_train(dev, gen, stages, groups):
                    plain_ms_fwd=pfwd, plain_ms_bwd=pbwd, route_ms_fwd=rfwd, route_ms_bwd=rbwd,
                    route_device_ms_fwd=drfwd, route_device_ms_bwd=drbwd,
                    library_conv_device_ms_fwd=lf, library_conv_device_ms_bwd=lb,
-                   bound_ms_fwd=bf, bound_ms_bwd=bb, bound_by_fwd=byf, bound_by_bwd=byb)
+                   bound_ms_fwd=bf, bound_ms_bwd=bb, bound_by_fwd=byf, bound_by_bwd=byb,
+                   bound_share_fwd=bf / dfwd, bound_share_bwd=bb / dbwd)
         detail.append(row)
         for d, vals in (("fwd", (fwd, dfwd, sfwd, pfwd, rfwd, drfwd, lf, bf)),
                         ("bwd", (bwd, dbwd, sbwd, pbwd, rbwd, drbwd, lb, bb))):
@@ -1613,8 +1614,10 @@ def check_split_stride2_train(dev, gen, stages, groups):
             per=f"training step, B={TRAIN_BATCH} x A={TRAIN_ACCUM} x {TRAIN_FRAMES} frames "
                 f"({what}, the step's 3 stride-2 stages a microbatch)",
             ms=t_["ms"], device_ms=t_["device_ms"], stage_device_ms=t_["stage_device_ms"],
-            stage_device_ms_is="every device kernel of the stage's call: K11 / K11b's, the "
-                               "weights' relayout and dout's alignment copy",
+            stage_device_ms_is="every device kernel of the stage's call: K11 / K11b's and "
+                               "dout's alignment copy",
+            bound_share=t_["bound_ms"] / t_["device_ms"],
+            bound_share_is="bound_ms / device_ms over the bench step's stages",
             plain_ms=t_["plain_ms"], route_ms=t_["route_ms"], route_device_ms=t_["route_device_ms"],
             bound_ms=t_["bound_ms"], bound_by="bytes", library_ms=t_["library_ms"],
             library_call="cuDNN's grouped conv at stride 2 alone (F.conv2d, groups=s-1, on the "

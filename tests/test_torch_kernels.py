@@ -2277,8 +2277,8 @@ STRIDE2_TRAIN_WIDTHS = [(8, 4, 17, 10), (16, 6, 40, 21), (32, 6, 25, 19), (48, 4
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_stride2_train_kernels_match_plain(cuda, width, split, t, f, groups, dtype):
     """K11 / K11b on stride2_train_plan's own pick (over these widths: mma
-    with the weights resident, mma with two weight buffers, FMA in bf16,
-    FMA in float32; test_stride2_train_widths_cover_every_design) against
+    with the weights whole, in slices, in slices with input chunks, FMA in
+    bf16, FMA in float32; test_stride2_train_widths_cover_every_design) against
     split_stride2_train's plain version in float64 on the run's own relu
     decisions: output, dx, dW and the running statistics. bfloat16 on the
     bf16 inputs within 5e-2 of each tensor's largest magnitude (K2's
@@ -2318,8 +2318,10 @@ def test_split_stride2_train_kernels_match_plain(cuda, width, split, t, f, group
 
 def test_stride2_train_widths_cover_every_design():
     """The card test's widths reach every path stride2_train_plan picks: mma
-    with the weights resident (ring 1) and in two buffers (ring 2), FMA in
-    bfloat16 and FMA in float32."""
+    with a group's weights whole in each CTA (forward and dgrad), mma with
+    the forward's output channels in slices and dx's in 16-channel dgrad
+    slices (w = 96), the same with the forward's stages in input-channel
+    chunks (w = 192), FMA in bfloat16 and FMA in float32."""
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as trn
 
     picked = set()
@@ -2328,9 +2330,10 @@ def test_stride2_train_widths_cover_every_design():
             for dtype in (torch.float32, torch.bfloat16):
                 plan = trn.stride2_train_plan(width, split, (4, split * width, t, f), groups,
                                               dtype)
-                picked.add((plan["design"], plan["ring"], dtype))
-    assert picked == {("mma", 1, torch.bfloat16), ("mma", 2, torch.bfloat16),
-                      ("fma", 0, torch.bfloat16), ("fma", 0, torch.float32)}
+                picked.add((plan["design"], plan["nsl"], plan["nkc"], plan["nds"], dtype))
+    assert picked == {("mma", 1, 1, 1, torch.bfloat16), ("mma", 2, 1, 6, torch.bfloat16),
+                      ("mma", 4, 4, 12, torch.bfloat16), ("fma", 0, 0, 0, torch.bfloat16),
+                      ("fma", 0, 0, 0, torch.float32)}
 
 
 @pytest.mark.cuda

@@ -1261,58 +1261,91 @@ def stride2_train_calls():
 STRIDE2_TRAIN_CALLS = stride2_train_calls()
 
 
+def stride2_train_fwd_runs(plan, shape, groups):
+    """The forward's BN partials as the mma design fills them
+    (csrc/split_stride2_train.cu: fwd_run, RunSums): CTA j of k walks the
+    group's (sample, tile) items [items j / k, items (j + 1) / k) and keeps
+    one partial per BN group its run touches. Returns, per partial (j, h),
+    its items."""
+    items = shape[0] * plan["tiles"]
+    bpg = shape[0] // groups
+    parts = {}
+    for j in range(plan["k"]):
+        for e in range(items * j // plan["k"], items * (j + 1) // plan["k"]):
+            g0 = items * j // plan["k"] // plan["tiles"] // bpg
+            parts.setdefault((j, e // plan["tiles"] // bpg - g0), []).append(e)
+    return parts
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("model,width,split,shape", STRIDE2_TRAIN_CALLS, ids=str)
 def test_stride2_train_plan_fits_every_training_stage(model, width, split, shape, dtype):
     """The plan of every stride-2 stage in training: bf16 on the mma design
-    (32 wm wn threads, wn warps across the w channels, the tile within the
-    warps' rows), float32 on the FMA design (a thread at most 8 rows); F'
-    cut into even tiles of at most 16 and the tiles covering T' x F'; the
-    weights resident (every k step in one buffer) or in two buffers of sk <
-    all k steps; both launches' shared memory as the layout computes it and
-    within 227 KB; the slabs within the tiles a sample (conv) and the
-    positions (statistics); the weight gradient's chunks covering the 9 w
-    (tap, channel) rows; its scratch sized for every partial."""
+    (the forward a warp per 32 rows of a tile of at most 128 and per slice
+    half where a slice has 32 channels or more, the width's
+    output slices and input chunks; the grad launch's warps, its tile within
+    the dgrad's rows, dW's m tiles within 96 (w <= 64) or 64 accumulator
+    registers a thread or one a warp, every m tile in a chunk, the dgrad slices within the
+    chunks), float32 on the FMA design (a thread at most 8 rows); F' cut
+    into even tiles of at most 16 and the tiles covering T' x F'; both
+    launches' shared memory as the layout computes it and within 227 KB;
+    the mma forward's CTAs at least one a BN group and one wave (each run
+    within two BN groups), the grad's one wave; the FMA slabs within the
+    tiles a sample; the statistics slabs within the positions; scratch sized
+    for every partial."""
     b, c, t, f = shape
+    groups = 8
     tout, fout = rn._strided(t, 2), rn._strided(f, 2)
-    plan = rn.stride2_train_plan(width, split, shape, 8, dtype)
-    assert rn.stride2_train_plan(width, split, shape, 8, dtype) is plan
-    tt, tf = plan["tt"], plan["tf"]
-    assert tf <= 16 and -(-fout // tf) == -(-fout // 16) and tt <= tout
+    plan = rn.stride2_train_plan(width, split, shape, groups, dtype)
+    assert rn.stride2_train_plan(width, split, shape, groups, dtype) is plan
+    tt, tf, gtt = plan["tt"], plan["tf"], plan["gtt"]
+    assert tf <= 16 and -(-fout // tf) == -(-fout // 16) and tt <= tout and gtt <= tout
     assert plan["tiles"] == -(-tout // tt) * -(-fout // tf)
+    assert plan["gtiles"] == -(-tout // gtt) * -(-fout // tf)
     itemsize = 2 if dtype == torch.bfloat16 else 4
+    ng = split - 1
     if dtype == torch.bfloat16:
         assert plan["design"] == "mma"
-        nt = rn._S2T_MMA_NT[width]
-        wn = width // (8 * nt)
-        assert nt * 8 * wn == width and plan["threads"] == 32 * wn * min(4, 8 // wn) <= 256
-        assert tt * tf <= 32 * (plan["threads"] // 32 // wn)
-        ksteps = 9 * rn._stride2_tap_cols(width) // 16
-        assert (plan["ring"], plan["sk"]) == (1, ksteps) or (
-            plan["ring"] == 2 and 1 <= plan["sk"] < ksteps)
+        assert (plan["nsl"], plan["nkc"]) == rn._S2T_FWD_SLICES[width]
+        assert plan["threads"] == 32 * rn._s2t_fwd_wn(width) * -(-tt * tf // 32) <= 256
+        warps, nds, wnd = rn._S2T_GRAD_WARPS[width]
+        assert plan["gthreads"] == 32 * warps and gtt * tf <= 32 * (warps // wnd)
+        assert width // plan["nsl"] % 8 == 0 and width // plan["nkc"] % 8 == 0
+        assert nds == plan["nds"] and (nds == 1 or width // nds == 16)
+        mtiles, upt, nchunks = rn._s2t_mma_wgrad(width)
+        assert (plan["upt"], plan["nchunks"]) == (upt, nchunks)
+        assert upt * width // 2 <= (96 if width <= 64 else 64) or upt == 1
+        assert nchunks * warps * upt >= mtiles > (nchunks - 1) * warps * upt
+        assert nds <= nchunks and plan["pc"] == warps * upt * 16
+        smem = rn._s2t_smem(width, tt, tf, "mma", 2, plan["threads"], gtt)
+        per_fwd = rn._s2t_per_sm(plan["smem_fwd"], plan["threads"])
+        per_grad = rn._s2t_per_sm(plan["smem_grad"], plan["gthreads"])
+        assert groups <= plan["k"] <= b * plan["tiles"]
+        stage = rn._s2t_patch_bytes(tt, tf, rn._halo_stride(width // plan["nkc"]), 2, True)
+        assert 4 * (2 * plan["k"] + 2 * groups) <= 2 * stage
+        assert plan["k"] == groups or ng * plan["nsl"] * plan["k"] <= rn._S2T_SMS * per_fwd
+        assert plan["nconv"] == ng * plan["nsl"] * plan["k"]
+        assert ng * nchunks * plan["nsplit"] <= rn._S2T_SMS * per_grad or plan["nsplit"] == 1
+        assert plan["part_floats"] >= ng * plan["k"] * 2 * 2 * width
+        assert all(h <= 1 for _, h in stride2_train_fwd_runs(plan, shape, groups))
     else:
         assert plan["design"] == "fma" and plan["threads"] == 128 and plan["tn"] == 4
-        assert tt * tf <= min(128, (128 // (width // 4)) * 8) and plan["ring"] == 0
-    smem = rn._s2t_smem(width, tt, tf, plan["design"], itemsize, plan["ring"], plan["sk"],
-                        plan["threads"])
-    assert (plan["smem_fwd"], plan["smem_grad"]) == smem and max(smem) <= SMEM
-    assert 1 <= plan["k"] <= plan["tiles"] and 1 <= plan["kstat"] <= tout * fout
-    assert plan["nconv"] == (split - 1) * b * plan["k"]
-    if plan["design"] == "mma":  # m tiles of (tap, 16 channels), w / 2 accumulators each
-        mtiles, warps = 9 * -(-width // 16), plan["threads"] // 32
-        assert plan["upt"] * width // 2 <= 64 or plan["upt"] == 1
-        assert plan["pc"] == warps * plan["upt"] * 16
-        assert plan["nchunks"] == -(-mtiles // (warps * plan["upt"]))
-    else:
+        assert tt * tf <= min(128, (128 // (width // 4)) * 8) and gtt == tt
         assert plan["pg"] == plan["threads"] // plan["nb"] and plan["upt"] <= 8
         assert plan["pc"] * plan["nchunks"] >= 9 * width > plan["pc"] * (plan["nchunks"] - 1)
-    assert 1 <= plan["nsplit"] <= b * plan["tiles"]
-    assert plan["wpart_floats"] == (split - 1) * plan["nchunks"] * plan["nsplit"] * plan[
-        "pc"] * width
-    assert plan["part_floats"] >= 2 * width * max(plan["nconv"], plan["nstat"])
-    # the bench step's stages: 126-128 row tiles, the weights resident
+        assert 1 <= plan["k"] <= plan["tiles"] and plan["nconv"] == ng * b * plan["k"]
+        smem = rn._s2t_smem(width, tt, tf, "fma", itemsize)
+        assert plan["part_floats"] >= 2 * width * plan["nconv"]
+    assert (plan["smem_fwd"], plan["smem_grad"]) == smem and max(smem) <= SMEM
+    assert 1 <= plan["kstat"] <= tout * fout and plan["nstat"] == ng * b * plan["kstat"]
+    assert 1 <= plan["nsplit"] <= b * plan["gtiles"]
+    assert plan["wpart_floats"] == ng * plan["nchunks"] * plan["nsplit"] * plan["pc"] * width
+    assert plan["part_floats"] >= 2 * width * plan["nstat"]
+    assert plan["tickets"] == ng * plan["nchunks"]
+    # the bench step's stages: the weights whole and resident, tiles of
+    # 90-126 rows in the forward
     if model == "res2net50_w8_s6_c16" and dtype == torch.bfloat16:
-        assert tt * tf >= 120 and plan["ring"] == 1
+        assert (plan["nsl"], plan["nkc"]) == (1, 1) and 90 <= tt * tf <= 128
 
 
 def test_stride2_train_plan_other_shapes():
@@ -1320,7 +1353,8 @@ def test_stride2_train_plan_other_shapes():
     where w % 4 == 0, else single channels); a shape of another channel
     count, a batch not in whole BN groups, a width over 256 and one whose
     single-channel blocks exceed the threads are refused; the weight
-    gradient's split count is a function of the shape alone."""
+    gradient's split count is a function of the shape alone (mma: the
+    CTAs a wave of _S2T_SMS SMs holds; fma: about _S2T_WGRAD_CTAS)."""
     for w, dtype, tn in ((24, torch.bfloat16, 4), (5, torch.bfloat16, 1), (5, torch.float32, 1),
                          (12, torch.float32, 4), (192, torch.float32, 4)):
         plan = rn.stride2_train_plan(w, 4, (4, 4 * w, 17, 9), 2, dtype)
@@ -1334,101 +1368,171 @@ def test_stride2_train_plan_other_shapes():
     with pytest.raises(ValueError):
         rn.stride2_train_plan(129, 4, (4, 516, 17, 9), 2, torch.float32)
     a = rn.stride2_train_plan(32, 6, (256, 192, 100, 40), 8, torch.bfloat16)
+    assert a["nsplit"] == rn._S2T_SMS * rn._s2t_per_sm(a["smem_grad"], a["gthreads"]) // (
+        5 * a["nchunks"])
+    a = rn.stride2_train_plan(32, 6, (256, 192, 100, 40), 8, torch.float32)
     assert a["nsplit"] == -(-rn._S2T_WGRAD_CTAS // (5 * a["nchunks"]))
+
+
+@pytest.mark.parametrize("shape,width,split", chip_smoke.STRIDE2_TRAIN_SHAPES, ids=str)
+def test_stride2_train_partials_depend_on_the_shape_alone(shape, width, split, monkeypatch):
+    """Which positions each BN partial and each dW partial holds is fixed by
+    the plan, and the plan by the shape: it asks nothing of the card (every
+    query of one raises here), and the same shape gives the same plan. The
+    forward's partials (a CTA's run within one BN group) cover every
+    (sample, tile) item of a group once, each inside one BN group; the grad
+    launch's runs (a chunk's nsplit CTAs) cover every tile once, in
+    order."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+
+    def card(*args, **kwargs):
+        raise AssertionError("the plan asked the card")
+
+    for name in ("get_device_properties", "device_count", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, card)
+    monkeypatch.setattr(kernels, "num_sms", card)
+    before = rn.stride2_train_plan(width, split, shape, 8, torch.bfloat16)
+    rn.stride2_train_plan.cache_clear()
+    plan = rn.stride2_train_plan(width, split, shape, 8, torch.bfloat16)
+    assert plan == before
+    b = shape[0]
+    parts = stride2_train_fwd_runs(plan, shape, 8)
+    covered = sorted(e for items in parts.values() for e in items)
+    assert covered == list(range(b * plan["tiles"]))
+    bpg = b // 8
+    assert all(len({e // plan["tiles"] // bpg for e in items}) == 1 for items in parts.values())
+    ntl = b * plan["gtiles"]
+    runs = [range(ntl * j // plan["nsplit"], ntl * (j + 1) // plan["nsplit"])
+            for j in range(plan["nsplit"])]
+    assert [e for r in runs for e in r] == list(range(ntl)) and all(len(r) for r in runs)
 
 
 def stride2_train_wgrad_rows(plan, w, chunk):
     """The (tap, channel) rows q = tap * w + c of weight-gradient chunk
-    ``chunk``, in the order of its partial's rows: mma, m tiles of (tap, 16
-    channels), a channel past w marking a pad row (9 w); fma, the run of
-    pc rows q."""
+    ``chunk``, in the order of its partial's rows: mma, the chunk's m tiles
+    of (tap, 16 channels) (chunk, chunk + nchunks, ...), a channel past w
+    or an m tile past 9 ceil(w / 16) marking a pad row (9 w); fma, the run
+    of pc rows q."""
     if plan["design"] == "fma":
         return list(range(chunk * plan["pc"], (chunk + 1) * plan["pc"]))
     cb, rows = -(-w // 16), []
     for pl in range(plan["pc"]):
-        mt = chunk * (plan["pc"] // 16) + pl // 16
+        mt = pl // 16 * plan["nchunks"] + chunk
         c = (mt % cb) * 16 + pl % 16
         rows.append(mt // cb * w + c if mt < 9 * cb and c < w else 9 * w)
     return rows
 
 
+def stride2_train_dgrad_weights(weight, split, w, plan):
+    """The dgrad weights as the kernel stages them from the OIHW weight
+    (csrc/split_stride2_train.cu: load_dgrad_weights for mma, each dgrad
+    slice's rows; stage_tap_weights for fma): [group][slot][n][c], n the
+    conv's output channel, c its input channel."""
+    wflat = weight.numpy().reshape(-1)
+    kt = rn._stride2_tap_cols(w)
+    tap_slot = {3 * a + b: i for i, (a, b) in enumerate(rn._S2T_DGRAD_TAPS)}
+    out = np.zeros((split - 1, 9, w, w))
+    if plan["design"] == "fma":  # ws[k][m] = weight[(grp w + k) w + m][tap(slot)]
+        for grp in range(split - 1):
+            for slot, (a, b) in enumerate(rn._S2T_DGRAD_TAPS):
+                for k in range(w):
+                    for m in range(w):
+                        out[grp, slot, k, m] = wflat[((grp * w + k) * w + m) * 9 + 3 * a + b]
+        return out
+    dsw = w // plan["nds"]
+    for grp in range(split - 1):
+        for dsl in range(plan["nds"]):
+            wsm = np.zeros((dsw, 9 * kt))
+            for n in range(w):
+                for idx in range(9 * dsw):  # 8 v + e over the row's vectors
+                    wsm[idx // 9, tap_slot[idx % 9] * kt + n] = wflat[
+                        ((grp * w + n) * w + dsl * dsw) * 9 + idx]
+            for cl in range(dsw):
+                for slot in range(9):
+                    out[grp, slot, :, dsl * dsw + cl] = wsm[cl, slot * kt: slot * kt + w]
+    return out
+
+
 def emulate_stride2_train_backward(x, weight, dz, dout_tail, split, plan):
-    """K11b's index math replayed in float64 (numpy): the dgrad as the
-    kernel gathers it, tile by tile (the dz patch of (tt + 1) x (tf + 1)
-    output positions, zero outside T' x F'; each parity class's rows and
-    its tap slots' patch offsets; the wrapper's dgrad weight layout), the
-    weight gradient (a chunk's (tap, channel) rows over the x patch's slots,
-    the tiles split as the plan splits them, the splits added in order) and
-    the pool's backward (dout / 9 from the 1, 2 or 4 windows covering each
-    input position). Returns (dx, dW)."""
+    """K11b's index math replayed in float64 (numpy), from one dz patch a
+    tile: the grad launch's tiles (gtt x tf; the dz patch of (gtt + 1) x
+    (tf + 1) output positions, zero outside T' x F'), each tile's dgrad
+    (each parity class's rows and its tap slots' patch offsets, the dgrad
+    weights as the kernel stages them from the OIHW weight, dx's slices on
+    their chunks) and its weight gradient (a chunk's (tap, channel) rows
+    over the x patch's slots, the group's tiles split into the plan's
+    nsplit runs, the runs' partials added in run order), and the pool's
+    backward (dout / 9 from the 1, 2 or 4 windows covering each input
+    position). Returns (dx, dW)."""
     xs_ = x.numpy()
     b, c, t, f = xs_.shape
     w = c // split
-    tt, tf = plan["tt"], plan["tf"]
+    tt, tf = plan["gtt"], plan["tf"]
     tout, fout = rn._strided(t, 2), rn._strided(f, 2)
     pf_n = 2 * tf + 1
-    wkd = rn._stride2_train_weights(weight, split, w, plan["design"], dgrad=True)
-    if plan["design"] == "mma":  # (s-1, c, 9 kt): back to [group][slot][n][c]
-        kt = rn._stride2_tap_cols(w)
-        wkd = wkd.view(split - 1, w, 9, kt)[..., :w].permute(0, 2, 3, 1)
-    wkd = wkd.numpy()
+    wkd = stride2_train_dgrad_weights(weight, split, w, plan)
     dzs = dz.numpy()
     dx = np.zeros_like(xs_)
     dw = np.zeros((split - 1, w, w, 9))
     tiles_f = -(-fout // tf)
+    ntiles = b * plan["gtiles"]
+    nds = max(1, plan.get("nds", 1))
     for grp in range(split - 1):
-        # the dgrad, a tile at a time
-        for bi in range(b):
-            for tile in range(plan["tiles"]):
-                t0, f0 = tile // tiles_f * tt, tile % tiles_f * tf
+        wparts = {chunk: [] for chunk in range(plan["nchunks"])}
+        for sp in range(plan["nsplit"]):
+            rows = {chunk: [q for q in stride2_train_wgrad_rows(plan, w, chunk) if q < 9 * w]
+                    for chunk in range(plan["nchunks"])}
+            part = {chunk: np.zeros((len(rows[chunk]), w)) for chunk in rows}
+            for tile in range(ntiles * sp // plan["nsplit"], ntiles * (sp + 1) // plan["nsplit"]):
+                bi = tile // plan["gtiles"]
+                t0 = tile % plan["gtiles"] // tiles_f * tt
+                f0 = tile % plan["gtiles"] % tiles_f * tf
+                # the tile's one dz patch
                 dp = np.zeros(((tt + 1) * (tf + 1), w))
                 for du in range(tt + 1):
                     for dv in range(tf + 1):
                         if t0 + du < tout and f0 + dv < fout:
                             dp[du * (tf + 1) + dv] = dzs[bi, grp * w:(grp + 1) * w, t0 + du,
                                                          f0 + dv]
-                for cls, (s0, s1) in enumerate(((0, 1), (1, 3), (3, 5), (5, 9))):
-                    pt, pf = divmod(cls, 2)
-                    for u in range(tt):
-                        for v in range(tf):
-                            ti, fi = 2 * (t0 + u) + pt, 2 * (f0 + v) + pf
-                            if ti >= t or fi >= f:
-                                continue
-                            acc = np.zeros(w)
-                            for slot in range(s0, s1):
-                                ktp, kfp = rn._S2T_DGRAD_TAPS[slot]
-                                row = (u + (ktp == 0)) * (tf + 1) + v + (kfp == 0)
-                                acc += dp[row] @ wkd[grp, slot]
-                            dx[bi, grp * w:(grp + 1) * w, ti, fi] = acc
-        # the weight gradient: chunks of (tap, channel) rows, splits of the
-        # group's tiles added in split order
-        ntiles = b * plan["tiles"]
-        for chunk in range(plan["nchunks"]):
-            rows = [q for q in stride2_train_wgrad_rows(plan, w, chunk) if q < 9 * w]
-            total = np.zeros((len(rows), w))
-            for sp in range(plan["nsplit"]):
-                part = np.zeros((len(rows), w))
-                for tile in range(ntiles * sp // plan["nsplit"], ntiles * (sp + 1) // plan["nsplit"]):
-                    bi = tile // plan["tiles"]
-                    t0, f0 = tile % plan["tiles"] // tiles_f * tt, tile % plan["tiles"] % tiles_f * tf
-                    xp = np.zeros(((2 * tt + 1) * pf_n, w))
-                    for pt in range(2 * tt + 1):
-                        for pf in range(pf_n):
-                            ti, fi = 2 * t0 - 1 + pt, 2 * f0 - 1 + pf
-                            if 0 <= ti < t and 0 <= fi < f:
-                                slot = tf + 1 + pf // 2 if pf % 2 else pf // 2
-                                xp[pt * pf_n + slot] = xs_[bi, grp * w:(grp + 1) * w, ti, fi]
-                    for ot in range(min(tt, tout - t0)):
-                        for of in range(min(tf, fout - f0)):
-                            d = dzs[bi, grp * w:(grp + 1) * w, t0 + ot, f0 + of]
-                            for i, q in enumerate(rows):
+                # the dgrad, slice by slice of dx's channels
+                for dsl in range(nds):
+                    cs = slice(dsl * w // nds, (dsl + 1) * w // nds)
+                    for cls, (s0, s1) in enumerate(((0, 1), (1, 3), (3, 5), (5, 9))):
+                        pt, pf = divmod(cls, 2)
+                        for u in range(tt):
+                            for v in range(tf):
+                                ti, fi = 2 * (t0 + u) + pt, 2 * (f0 + v) + pf
+                                if ti >= t or fi >= f:
+                                    continue
+                                acc = np.zeros(w)[cs]
+                                for slot in range(s0, s1):
+                                    ktp, kfp = rn._S2T_DGRAD_TAPS[slot]
+                                    row = (u + (ktp == 0)) * (tf + 1) + v + (kfp == 0)
+                                    acc += dp[row] @ wkd[grp, slot][:, cs]
+                                dx[bi, grp * w:(grp + 1) * w, ti, fi][cs] = acc
+                # the weight gradient over the tile's x patch and dz patch
+                xp = np.zeros(((2 * tt + 1) * pf_n, w))
+                for pt in range(2 * tt + 1):
+                    for pf in range(pf_n):
+                        ti, fi = 2 * t0 - 1 + pt, 2 * f0 - 1 + pf
+                        if 0 <= ti < t and 0 <= fi < f:
+                            slot = tf + 1 + pf // 2 if pf % 2 else pf // 2
+                            xp[pt * pf_n + slot] = xs_[bi, grp * w:(grp + 1) * w, ti, fi]
+                for ot in range(tt):
+                    for of in range(tf):
+                        d = dp[ot * (tf + 1) + of]  # zero past T' x F'
+                        for chunk, qs in rows.items():
+                            for i, q in enumerate(qs):
                                 tap, ch = divmod(q, w)
                                 kf = tap % 3
                                 pos = 2 * ot * pf_n + of + (tap // 3) * pf_n + (
                                     tf + 1 if kf == 1 else kf // 2)
-                                part[i] += xp[pos, ch] * d
-                total += part
-            for i, q in enumerate(rows):
+                                part[chunk][i] += xp[pos, ch] * d
+            for chunk in rows:
+                wparts[chunk].append((rows[chunk], part[chunk]))
+        for chunk, splits in wparts.items():
+            total = sum(p for _, p in splits)  # the runs in order
+            for i, q in enumerate(splits[0][0]):
                 tap, ch = divmod(q, w)
                 dw[grp, :, ch, tap] = total[i]
     # the pool's backward
@@ -1444,13 +1548,15 @@ def emulate_stride2_train_backward(x, weight, dz, dout_tail, split, plan):
 @pytest.mark.parametrize("width,split,shape,dtype", [
     (8, 4, (2, 32, 9, 7), torch.bfloat16), (16, 6, (1, 96, 12, 11), torch.bfloat16),
     (5, 4, (2, 20, 10, 9), torch.float32), (12, 4, (1, 48, 11, 10), torch.float32),
-    (48, 4, (1, 192, 8, 7), torch.bfloat16)], ids=str)
+    (48, 4, (1, 192, 8, 7), torch.bfloat16), (96, 4, (1, 384, 7, 6), torch.bfloat16)],
+    ids=str)
 def test_stride2_train_backward_index_math_matches_autograd(width, split, shape, dtype):
     """K11b's parity decomposition of dx (four dense convs of 1, 2, 2 and 4
-    taps over each tile's dz patch), its weight gradient's chunk, slot and
-    split index math and the pool's gather, replayed in float64 with the
-    plan of each design, give autograd's gradients of F.conv2d (stride 2,
-    pad 1, groups s-1) and of avg_pool_3x3 on the padded input."""
+    taps over each tile's one dz patch), the dgrad weights staged from the
+    OIHW weight, the weight gradient's chunk, slot and run index math over
+    the same patch and the pool's gather, replayed in float64 with the plan
+    of each design, give autograd's gradients of F.conv2d (stride 2, pad 1,
+    groups s-1) and of avg_pool_3x3 on the padded input."""
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(width + shape[2])

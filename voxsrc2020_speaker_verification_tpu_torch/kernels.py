@@ -241,8 +241,8 @@ SPLIT_STRIDE2 = CudaKernel("split_stride2", "split_stride2.cu", {
 # stride2_train_plan)
 SPLIT_STRIDE2_TRAIN = CudaKernel("split_stride2_train", "split_stride2_train.cu", {
     "split_stride2_train_fwd": [_I] + [_P] * 9 + [_F] * 4 + [_L, _P],
-    "split_stride2_train_finish": [_I] + [_P] * 5,
-    "split_stride2_train_bwd_stats": [_I] + [_P] * 8,
+    "split_stride2_train_finish": [_I] + [_P] * 6,
+    "split_stride2_train_bwd_stats": [_I] + [_P] * 9,
     "split_stride2_train_bwd_grad": [_I] + [_P] * 11 + [_L, _P],
 })
 KERNELS = (FBANK, SPLIT_CONV, BN_ACT, STATS_POOL, STATS_POOL_BWD, BN_TRAIN,

@@ -1046,19 +1046,32 @@ def split_chain_train(x: torch.Tensor, weight: torch.Tensor,
 # K11 / K11b: the stride-2 split stage in training
 # ---------------------------------------------------------------------------
 
-# the mma design's widths and n tiles a warp (csrc/split_stride2_train.cu:
-# mma_nt): the registered Res2Nets' stride-2 widths and the thin variants' 8
-_S2T_MMA_NT = {8: 1, 16: 2, 32: 4, 48: 6, 64: 8, 96: 6, 192: 8}
 _S2T_FMA_THREADS = 128
 _S2T_FMA_TM = 8          # rows a thread of the FMA convs, at most
 _S2T_RED_FLOATS = 2 * _S2T_FMA_THREADS * 4
-_S2T_SLABS = 1024        # conv and statistics slabs a launch, about
-# weight-gradient CTAs a launch, about. It fixes the split of the tiles and
+_S2T_SLABS = 1024        # FMA conv slabs and statistics slabs a launch, about
+# FMA weight-gradient CTAs a launch, about. It fixes the split of the tiles and
 # so the order in which dW's partials are added: a constant, not the card's
 # SM count, so that dW is the same bits on every card
 _S2T_WGRAD_CTAS = 384
-_S2T_MAX_UPT = 8         # (tap, channel) rows a weight-gradient thread
-_S2T_POOL_CTAS = 264     # the average pool's CTAs (each direction), at most
+_S2T_MAX_UPT = 8         # (tap, channel) rows an FMA weight-gradient thread
+_S2T_POOL_CTAS = 1056    # the average pool's backward CTAs (of 256 threads), at most
+# the mma design's persistent CTAs: as many as fit the H100's 132 SMs at
+# once. A constant, not the card's SM count: it fixes which positions each
+# BN partial and each dW partial holds, so both are the same bits on every
+# card
+_S2T_SMS = 132
+_SM_SMEM_BYTES = 233472  # an SM's shared memory, 1 KB of it reserved a block
+# the mma design (csrc/split_stride2_train.cu: fwd_nsl, fwd_nkc): per width,
+# the forward's slices of a group's output channels (a CTA's resident
+# weights) and chunks of its input channels (a ring stage's x patch)
+_S2T_FWD_SLICES = {8: (1, 1), 16: (1, 1), 32: (1, 1), 48: (1, 1), 64: (1, 1), 96: (2, 1),
+                   192: (4, 4)}
+# and the grad launch's (warps, dgrad slices nds, warps across a slice):
+# nds 1, the dgrad weights whole and each tile's dgrad on one chunk's CTA;
+# else chunk c < nds the dgrad of dx's 16-channel slice c
+_S2T_GRAD_WARPS = {8: (4, 1, 1), 16: (4, 1, 1), 32: (8, 1, 2), 48: (8, 1, 2), 64: (8, 1, 2),
+                   96: (8, 6, 2), 192: (8, 12, 2)}
 # the dgrad's tap slots (kt, kf), by parity class of the input position:
 # (even, even) (1,1); (even, odd) (1,0) (1,2); (odd, even) (0,1) (2,1);
 # (odd, odd) (0,0) (0,2) (2,0) (2,2) (csrc/split_stride2_train.cu)
@@ -1074,32 +1087,70 @@ def _s2t_patch_bytes(tt: int, tf: int, xs: int, itemsize: int, halo: bool) -> in
     return _align16(pos * xs * itemsize)
 
 
-def _s2t_smem(width: int, tt: int, tf: int, design: str, itemsize: int, ring: int = 0,
-              sk: int = 0, threads: int = 0):
+def _s2t_fwd_wn(width: int) -> int:
+    """The mma forward's warps across a slice of the output channels (8 nt
+    channels each; csrc/split_stride2_train.cu: fwd_wn): 2 at slices of 32
+    or more."""
+    return 2 if width // _S2T_FWD_SLICES[width][0] >= 32 else 1
+
+
+def _s2t_mma_wgrad(width: int):
+    """The mma weight gradient (csrc/split_stride2_train.cu: wg_nchunks,
+    wg_upt): m tiles of (tap, 16 input channels), 9 ceil(w / 16); ``upt`` a
+    warp (at most 96 accumulator registers a thread at w <= 64, 64 above, w
+    / 2 an m tile, or one), a chunk the CTA's warps' (chunk c: m tiles c, c
+    + nchunks, ...). Returns (m tiles, upt, nchunks)."""
+    warps = _S2T_GRAD_WARPS[width][0]
+    mtiles = 9 * -(-width // 16)
+    regs = 192 if width <= 64 else 128
+    nchunks = -(-mtiles // (warps * min(-(-mtiles // warps), max(1, regs // width))))
+    return mtiles, -(-mtiles // (nchunks * warps)), nchunks
+
+
+def _s2t_smem(width: int, tt: int, tf: int, design: str, itemsize: int, threads: int = 0,
+              gtt: int = 0):
     """(forward, grad) shared memory of K11 / K11b's conv launches
-    (csrc/split_stride2_train.cu: fwd_smem, grad_smem). mma: the weights
-    (``ring`` buffers of w rows by 16 sk + 8 columns), the x patch and the
-    warps' sums (forward), or the weights and the dz patch (dgrad); fma: a
-    tap's weights as floats, the threads' sums and the x patch, or a tap's
-    weights and the dz patch. The weight gradient's CTAs: the x patch and
-    the dz patch. The grad launch takes the larger."""
+    (csrc/split_stride2_train.cu: fwd_smem, grad_smem). mma: the forward's
+    slice of the weights (rows of 9 tap_cols + 8), two ring stages of the x
+    patch (a chunk of the input channels) and the warps' sums; the grad's
+    dgrad slice of the weights, two ring stages of the x patch and of raw
+    dout and z (gtt x tf tiles), the dz patch with a zero row after it, the
+    weight gradient's row tables and a BN group's 4 w parameters. fma: a
+    tap's weights as floats, the threads' sums and the x patch; the larger
+    of the x and dz patches (the weight gradient) and a tap's weights and
+    the dz patch (the dgrad)."""
     if design == "mma":
-        xs = _halo_stride(width)
-        wbytes = 2 * ring * width * (16 * sk + 8)
-        fwd = wbytes + _s2t_patch_bytes(tt, tf, xs, 2, True) + 8 * (threads // 32) * width
-        dgrad = wbytes + _s2t_patch_bytes(tt, tf, xs, 2, False)
-        # the weight gradient: the dz patch with a zero row after it, and the
-        # x and dz offsets of the tile's positions in whole k steps of 16
-        wgrad = (_s2t_patch_bytes(tt, tf, xs, 2, True)
-                 + _align16(((tt + 1) * (tf + 1) + 1) * xs * 2) + 2 * 4 * 16 * -(-tt * tf // 16))
-    else:
-        xs = width | 1
-        wbytes = _align16(4 * width * width)
-        fwd = wbytes + 4 * _S2T_RED_FLOATS + _s2t_patch_bytes(tt, tf, xs, itemsize, True)
-        dgrad = wbytes + _s2t_patch_bytes(tt, tf, xs, itemsize, False)
-        wgrad = (_s2t_patch_bytes(tt, tf, xs, itemsize, True)
-                 + _s2t_patch_bytes(tt, tf, xs, itemsize, False))
-    return fwd, max(wgrad, dgrad)
+        nsl, nkc = _S2T_FWD_SLICES[width]
+        kt = _stride2_tap_cols(width)
+        fwd = (2 * (width // nsl) * (9 * kt + 8)
+               + 2 * _s2t_patch_bytes(tt, tf, _halo_stride(width // nkc), 2, True)
+               + 8 * (threads // 32 // _s2t_fwd_wn(width)) * (width // nsl))
+        nds = _S2T_GRAD_WARPS[width][1]
+        hs = _halo_stride(width)
+        grad = (2 * (width // nds) * (9 * kt + 8)
+                + 2 * (_s2t_patch_bytes(gtt, tf, hs, 2, True)
+                       + _align16(4 * (gtt + 1) * (tf + 1) * width))
+                + _align16(((gtt + 1) * (tf + 1) + 1) * hs * 2) + 2 * 4 * 16 * -(-gtt * tf // 16)
+                + 16 * width)
+        return fwd, grad
+    xs = width | 1
+    wbytes = _align16(4 * width * width)
+    fwd = wbytes + 4 * _S2T_RED_FLOATS + _s2t_patch_bytes(tt, tf, xs, itemsize, True)
+    grad = max(_s2t_patch_bytes(tt, tf, xs, itemsize, True)
+               + _s2t_patch_bytes(tt, tf, xs, itemsize, False),
+               wbytes + _s2t_patch_bytes(tt, tf, xs, itemsize, False))
+    return fwd, grad
+
+
+def _s2t_even(n: int, most: int) -> int:
+    """The tile extent of at most ``most`` that cuts ``n`` into the fewest
+    pieces, evened out over them."""
+    return -(-n // -(-n // most))
+
+
+def _s2t_per_sm(smem: int, threads: int) -> int:
+    """CTAs of ``smem`` bytes and ``threads`` threads that fit one SM."""
+    return max(1, min(_SM_SMEM_BYTES // (smem + 1024), 2048 // threads, 32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1109,30 +1160,36 @@ def stride2_train_plan(width: int, split: int, shape, groups: int, dtype: torch.
     over ``groups`` BN groups of B / groups samples; output (T', F') =
     ((T-1)//2 + 1, (F-1)//2 + 1).
 
-    * ``design``: ``"mma"`` (bfloat16 at the widths of ``_S2T_MMA_NT``: the
-      conv, the dgrad and the weight gradient on mma.sync, ``threads`` = 32
-      wm wn, wn = w / (8
-      nt) warps across the channels, wm = min(4, 8 / wn) down 32-row
-      strips; the weights resident (``ring`` 1, ``sk`` all k steps) where
-      they fit beside the patch, else two buffers of ``sk`` k steps) or
-      ``"fma"`` (float32 and the other widths: 128 threads, a thread 8 rows
-      by ``tn`` channels);
-    * the output tile: ``tt`` x ``tf`` positions of one utterance, F' cut
-      evenly into tiles of at most 16, ``tt`` as large as the rows (32 wm;
-      fma: 8 a thread) and 227 KB of shared memory allow;
-    * ``k`` runs of tiles (slabs) a sample in the forward's conv and the
-      dgrad, ``kstat`` runs of positions a sample in the statistics
-      launch, about ``_S2T_SLABS`` a launch (a slab never straddles a BN
-      group); ``pool_ctas`` CTAs for the average pool and its backward;
-    * the weight gradient: ``pc`` (tap, channel) rows a chunk, ``nchunks``
-      chunks a group, ``nsplit`` splits of the group's tiles a chunk (about
-      ``_S2T_WGRAD_CTAS`` CTAs a launch: a constant, so dW's order of
-      addition does not depend on the card). mma: ``upt`` m tiles of (tap,
-      16 channels) a warp, a chunk the CTA's warps' (rows m tile * 16 +
-      row); fma: ``nb`` blocks of 4 output channels, ``pg`` = threads / nb
-      pair groups, ``upt`` rows q = tap * w + c a thread;
+    * ``design``: ``"mma"`` (bfloat16 at the widths of ``_S2T_FWD_SLICES``:
+      persistent CTAs on mma.sync) or ``"fma"`` (float32 and the other
+      widths: 128 threads, a thread 8 rows by ``tn`` channels);
+    * the forward's output tile: ``tt`` x ``tf`` positions of one
+      utterance, F' cut evenly into tiles of at most 16; mma: ``tt`` as
+      large as 128 rows (four warps of 32) and 227 KB allow with two ring
+      stages, then evened out over T', ``threads`` a warp per 32 rows and
+      8 nt channels (``_s2t_fwd_wn`` warps across a slice); ``nsl`` slices
+      of the output channels and ``nkc`` chunks of the input channels
+      (``_S2T_FWD_SLICES``); ``k`` CTAs per (group, slice), each a run of
+      the group's B x ``tiles`` (sample, tile) items, as many as fit
+      ``_S2T_SMS`` SMs at once (one wave) and at least ``groups`` (a run
+      then touches at most two BN groups: its partials); fma: ``k`` runs of
+      tiles (slabs) a sample, about ``_S2T_SLABS`` a launch;
+    * the grad launch: mma, ``gthreads`` (``_S2T_GRAD_WARPS``), tiles of
+      ``gtt`` x ``tf`` (``gtiles`` a sample) as large as the dgrad's rows
+      and 227 KB allow, ``upt`` dW m tiles a warp and ``nchunks`` chunks
+      (``_s2t_mma_wgrad``), ``nds`` dgrad slices, ``nsplit`` CTAs per
+      (group, chunk) each a run of the group's tiles, as many as fit
+      ``_S2T_SMS`` SMs at once (one wave); fma, ``pc`` (tap, channel) rows
+      a chunk, ``nb`` blocks of 4 output channels, ``pg`` = threads / nb
+      pair groups, ``upt`` rows a thread, ``nsplit`` splits of the tiles a
+      chunk (about ``_S2T_WGRAD_CTAS`` CTAs a launch). Either way
+      ``nsplit`` fixes the order in which dW's partials are added, by the
+      shape alone;
+    * ``kstat`` runs of positions a sample in the statistics launch (a slab
+      never straddles a BN group), ``pool_ctas`` CTAs for the pool's
+      backward beside them;
     * shared memory (``smem_fwd``, ``smem_grad``) and scratch:
-      ``part_floats`` (slab partials), ``tickets``, ``wpart_floats``.
+      ``part_floats`` (BN partials), ``tickets``, ``wpart_floats``.
 
     The C entries recompute the layout from the plan's ints and refuse a
     plan whose shared memory differs (kPlanMismatch). Cached per signature
@@ -1144,81 +1201,93 @@ def stride2_train_plan(width: int, split: int, shape, groups: int, dtype: torch.
     if width > 256:
         raise ValueError(f"stride2_train_plan: width {width} > 256")
     tout, fout = _strided(t, 2), _strided(f, 2)
-    tf = -(-fout // -(-fout // 16))
+    tf = _s2t_even(fout, 16)
+    tiles_f = -(-fout // tf)
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    if dtype == torch.bfloat16 and width in _S2T_MMA_NT:
-        design, tn = "mma", 0
-        wn = width // (8 * _S2T_MMA_NT[width])
-        threads = 32 * wn * min(4, 8 // wn)
-        rows_max = 32 * (threads // 32 // wn)
+    ng = split - 1
+    plan = {"tf": tf}
+    if dtype == torch.bfloat16 and width in _S2T_FWD_SLICES:
+        nsl, nkc = _S2T_FWD_SLICES[width]
+        gwarps, nds, wnd = _S2T_GRAD_WARPS[width]
+        wn = _s2t_fwd_wn(width)
+        fits = [tt for tt in range(max(1, min(128 // tf, tout)), 0, -1)
+                if _s2t_smem(width, tt, tf, "mma", 2, 32 * wn * -(-tt * tf // 32), 1)[0]
+                <= _SMEM_BYTES]
+        if not fits:
+            raise ValueError(f"stride2_train_plan: width {width} does not fit shared memory")
+        tt = _s2t_even(tout, fits[0])
+        threads = 32 * wn * -(-tt * tf // 32)
+        gfits = [g for g in range(max(1, min(32 * (gwarps // wnd) // tf, tout)), 0, -1)
+                 if _s2t_smem(width, 1, tf, "mma", 2, 32, g)[1] <= _SMEM_BYTES]
+        if not gfits:
+            raise ValueError(f"stride2_train_plan: width {width} does not fit shared memory")
+        gtt = _s2t_even(tout, gfits[0])
+        smem_fwd, smem_grad = _s2t_smem(width, tt, tf, "mma", 2, threads, gtt)
+        tiles, gtiles = -(-tout // tt) * tiles_f, -(-tout // gtt) * tiles_f
+        _, upt, nchunks = _s2t_mma_wgrad(width)
+        gthreads = 32 * gwarps
+        k = min(b * tiles, max(groups, _S2T_SMS * _s2t_per_sm(smem_fwd, threads) // (ng * nsl)))
+        # the last CTA's table of the runs (2 k + 2 G ints) in the two ring stages
+        k = min(k, _s2t_patch_bytes(tt, tf, _halo_stride(width // nkc), 2, True) // 4 - groups)
+        if k < groups:
+            raise ValueError(f"stride2_train_plan: shape {tuple(shape)} leaves no room for "
+                             f"{groups} BN groups' runs")
+        nsplit = min(b * gtiles,
+                     max(1, _S2T_SMS * _s2t_per_sm(smem_grad, gthreads) // (ng * nchunks)))
+        nconv = ng * nsl * k
+        plan.update(design="mma", tn=0, threads=threads, tt=tt, nsl=nsl, nkc=nkc, k=k,
+                    tiles=tiles, gtt=gtt, gtiles=gtiles, gthreads=gthreads, nds=nds, nb=0, pg=0,
+                    upt=upt, pc=gwarps * upt * 16, nchunks=nchunks, nsplit=nsplit, nconv=nconv,
+                    smem_fwd=smem_fwd, smem_grad=smem_grad)
+        fwd_part = ng * k * 2 * 2 * width
     else:
-        design, tn = "fma", (4 if width % 4 == 0 else 1)
+        tn = 4 if width % 4 == 0 else 1
         nbk = -(-width // tn)
         if nbk > _S2T_FMA_THREADS:
             raise ValueError(f"stride2_train_plan: width {width} needs 4-channel vectors")
-        threads = _S2T_FMA_THREADS
         rows_max = min(128, (_S2T_FMA_THREADS // nbk) * _S2T_FMA_TM)
-    ksteps = 9 * _stride2_tap_cols(width) // 16
-    found = None
-    for tt in range(max(1, min(rows_max // tf, tout)), 0, -1):
-        if design == "fma":
-            fwd, grad = _s2t_smem(width, tt, tf, design, itemsize)
-            if max(fwd, grad) <= _SMEM_BYTES:
-                found = (tt, 0, 0, fwd, grad)
+        found = None
+        for tt in range(max(1, min(rows_max // tf, tout)), 0, -1):
+            smem = _s2t_smem(width, tt, tf, "fma", itemsize)
+            if max(smem) <= _SMEM_BYTES:
+                found = (tt, *smem)
                 break
-            continue
-        fwd, grad = _s2t_smem(width, tt, tf, design, 2, 1, ksteps, threads)
-        if max(fwd, grad) <= _SMEM_BYTES:
-            found = (tt, 1, ksteps, fwd, grad)
-            break
-        base = max(_s2t_smem(width, tt, tf, design, 2, 2, 0, threads))
-        sk = min(ksteps - 1, ((_SMEM_BYTES - base) // (2 * 2 * width) - 8) // 16)
-        if sk >= 1:
-            fwd, grad = _s2t_smem(width, tt, tf, design, 2, 2, sk, threads)
-            found = (tt, 2, sk, fwd, grad)
-            break
-    if found is None:
-        raise ValueError(f"stride2_train_plan: width {width} does not fit shared memory")
-    tt, ring, sk, smem_fwd, smem_grad = found
-    tiles = -(-tout // tt) * -(-fout // tf)
-    per = -(-_S2T_SLABS // ((split - 1) * b))
-    k, kstat = max(1, min(per, tiles)), max(1, min(per, tout * fout))
-    vec = 16 // itemsize if width % (16 // itemsize) == 0 else 1
-    pool_ctas = max(1, min(_S2T_POOL_CTAS, -(-b * t * f * (width // vec) // threads)))
-    if design == "mma":
-        # (tap, 16 channels) m tiles, upt of them a warp (at most 64
-        # accumulator registers a thread: w / 2 an m tile), a chunk the
-        # CTA's warps' (csrc/split_stride2_train.cu: wg_wmt)
-        nb = pg = 0
-        mtiles, warps = 9 * -(-width // 16), threads // 32
-        upt = min(-(-mtiles // warps), max(1, 128 // width))
-        pc = warps * upt * 16
-        nchunks = -(-mtiles // (warps * upt))
-    else:
+        if found is None:
+            raise ValueError(f"stride2_train_plan: width {width} does not fit shared memory")
+        tt, smem_fwd, smem_grad = found
+        tiles = -(-tout // tt) * tiles_f
+        k = max(1, min(-(-_S2T_SLABS // (ng * b)), tiles))
         nb = -(-width // 4)
-        pg = threads // nb
+        pg = _S2T_FMA_THREADS // nb
         upt = min(_S2T_MAX_UPT, -(-9 * width // pg))
         pc = pg * upt
         nchunks = -(-9 * width // pc)
-    nsplit = max(1, min(b * tiles, -(-_S2T_WGRAD_CTAS // ((split - 1) * nchunks))))
-    nconv, nstat = (split - 1) * b * k, (split - 1) * b * kstat
-    nwgrad = (split - 1) * nchunks * nsplit
-    return {"design": design, "tn": tn, "threads": threads, "tt": tt, "tf": tf, "ring": ring,
-            "sk": sk, "k": k, "kstat": kstat, "pool_ctas": pool_ctas, "tiles": tiles,
-            "nb": nb, "pg": pg, "upt": upt, "pc": pc, "nchunks": nchunks, "nsplit": nsplit,
-            "nconv": nconv, "nstat": nstat, "nwgrad": nwgrad, "smem_fwd": smem_fwd,
-            "smem_grad": smem_grad, "part_floats": max(nconv, nstat) * 2 * width,
-            "tickets": (split - 1) * nchunks, "wpart_floats": nwgrad * pc * width}
+        nsplit = max(1, min(b * tiles, -(-_S2T_WGRAD_CTAS // (ng * nchunks))))
+        nconv = ng * b * k
+        plan.update(design="fma", tn=tn, threads=_S2T_FMA_THREADS, tt=tt, nsl=0, nkc=0, k=k,
+                    tiles=tiles, gtt=tt, gtiles=tiles, gthreads=_S2T_FMA_THREADS, nds=0, nb=nb,
+                    pg=pg, upt=upt, pc=pc, nchunks=nchunks, nsplit=nsplit, nconv=nconv,
+                    smem_fwd=smem_fwd, smem_grad=smem_grad)
+        fwd_part = nconv * 2 * width
+    kstat = max(1, min(-(-_S2T_SLABS // (ng * b)), tout * fout))
+    vec = 16 // itemsize if width % (16 // itemsize) == 0 else 1
+    nstat, nwgrad = ng * b * kstat, ng * plan["nchunks"] * plan["nsplit"]
+    plan.update(kstat=kstat, nstat=nstat, nwgrad=nwgrad,
+                pool_ctas=max(1, min(_S2T_POOL_CTAS, -(-b * t * f * (width // vec) // 256))),
+                part_floats=max(fwd_part, nstat * 2 * width), tickets=ng * plan["nchunks"],
+                wpart_floats=nwgrad * plan["pc"] * width)
+    return plan
 
 
 def _stride2_train_ints(plan: dict, shape, split: int, width: int, groups: int):
     """The plan as the C entries take it (csrc/split_stride2_train.cu:
-    make_plan): 17 ints."""
+    make_plan): 20 ints."""
     b, _, t, f = shape
-    return (ctypes.c_int * 17)(b, t, f, split, width, groups, ("fma", "mma").index(plan["design"]),
+    return (ctypes.c_int * 20)(b, t, f, split, width, groups, ("fma", "mma").index(plan["design"]),
                                plan["tt"], plan["tf"], plan["k"], plan["kstat"],
-                               plan["pool_ctas"], plan["nsplit"], plan["upt"], plan["sk"],
-                               plan["ring"], plan["threads"])
+                               plan["pool_ctas"], plan["nsplit"], plan["upt"], plan["nsl"],
+                               plan["nkc"], plan["threads"], plan["gtt"], plan["gthreads"],
+                               plan["nds"])
 
 
 def split_stride2_train_reference(x, weight, running_means, running_vars, groups=1,
@@ -1276,29 +1345,10 @@ def _split_stride2_span(x, weight, running_means, running_vars, groups, eps=ops.
     return torch.cat([y, tail], dim=1).contiguous(memory_format=CHANNELS_LAST)
 
 
-def _stride2_train_weights(weight: torch.Tensor, s: int, w: int, design: str, dgrad: bool):
-    """K11's (``dgrad`` False) or K11b's weights from the OIHW (w (s-1), w,
-    3, 3) weight. The conv's: mma (s-1, w, 9 tap_cols), rows its output
-    channels, K = tap * tap_cols + input channel; fma (s-1, 9, w, w)
-    [group][tap][input][output]. The dgrad's: mma rows the input channels,
-    K = slot * tap_cols + output channel (the tap slots of
-    _S2T_DGRAD_TAPS); fma [group][slot][output][input]. Each tap's w
-    zero-padded to tap_cols."""
-    wv = weight.view(s - 1, w, w, 3, 3)  # (group, n, c, kt, kf)
-    if dgrad:
-        slots = [3 * kt + kf for kt, kf in _S2T_DGRAD_TAPS]
-        k = wv.permute(0, 3, 4, 1, 2).reshape(s - 1, 9, w, w)[:, slots]  # [g][slot][n][c]
-    else:
-        k = wv.permute(0, 3, 4, 2, 1).reshape(s - 1, 9, w, w)  # [g][tap][c][n]
-    if design == "fma":
-        return k.contiguous()
-    pad = _stride2_tap_cols(w) - w
-    return F.pad(k.permute(0, 3, 1, 2), (0, pad)).reshape(s - 1, w, -1).contiguous()
-
-
 def _split_stride2_train_forward(x, weight, running_means, running_vars, groups, eps, update):
-    """K11's two launches on :func:`stride2_train_plan`'s plan: (out, z
-    (s-1, B, T', F', w), stats
+    """K11's two launches on :func:`stride2_train_plan`'s plan (the conv
+    and the BN statistics; the normalization and the tail's average pool),
+    reading the OIHW weight as it is: (out, z (s-1, B, T', F', w), stats
     (s-1, 3, G, w) mean, rstd and biased variance per (BN group,
     channel))."""
     s = len(running_means) + 1
@@ -1308,7 +1358,7 @@ def _split_stride2_train_forward(x, weight, running_means, running_vars, groups,
     plan = stride2_train_plan(w, s, tuple(x.shape), groups, x.dtype)
     ints = _stride2_train_ints(plan, x.shape, s, w, groups)
     dev, code = x.device, dtype_code(x.dtype)
-    wk = _stride2_train_weights(weight, s, w, plan["design"], dgrad=False)
+    weight = weight.contiguous()
     z = torch.empty((s - 1, b, tout, fout, w), dtype=x.dtype, device=dev)
     stats = torch.empty((s - 1, 3, groups, w), dtype=torch.float32, device=dev)
     out = torch.empty((b, tout, fout, c), dtype=x.dtype, device=dev).permute(0, 3, 1, 2)
@@ -1319,19 +1369,19 @@ def _split_stride2_train_forward(x, weight, running_means, running_vars, groups,
     run = ((ctypes.c_void_p * (2 * (s - 1)))(*(ptr(r) for r in (*running_means, *running_vars)))
            if update else None)
     SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_fwd", dev, code, ctypes.addressof(ints),
-                               ptr(x), ptr(wk), ptr(z), ptr(stats),
+                               ptr(x), ptr(weight), ptr(z), ptr(stats),
                                None if run is None else ctypes.addressof(run), ptr(out),
                                ptr(part), ptr(tickets), eps, ops.BN_MOMENTUM, upd_mean, upd_var,
                                plan["smem_fwd"])
     SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_finish", dev, code, ctypes.addressof(ints),
-                               ptr(z), ptr(stats), ptr(out))
+                               ptr(x), ptr(z), ptr(stats), ptr(out))
     return out, z, stats
 
 
 def _split_stride2_train_backward(x, weight, z, stats, groups, dout):
     """K11b's two launches on the forward's plan: the sums of d and d
-    xhat, then dz with the parity-gathered dgrad, the pool's backward and
-    the weight gradient. Returns (dx, the weight's gradient in x's
+    xhat with the pool's backward, then dz with the parity-gathered dgrad
+    and the weight gradient. Returns (dx, the weight's gradient in x's
     dtype)."""
     s = z.shape[0] + 1
     b, c, t, f = x.shape
@@ -1340,7 +1390,7 @@ def _split_stride2_train_backward(x, weight, z, stats, groups, dout):
     ints = _stride2_train_ints(plan, x.shape, s, w, groups)
     dev, code = x.device, dtype_code(x.dtype)
     dout = ops.aligned_operand(dout)
-    wkd = _stride2_train_weights(weight, s, w, plan["design"], dgrad=True)
+    weight = weight.contiguous()
     dx = torch.empty_like(x)
     dweight = torch.empty(weight.shape, dtype=x.dtype, device=dev)
     bsums = torch.empty((s - 1, 2, groups, w), dtype=torch.float32, device=dev)
@@ -1349,9 +1399,9 @@ def _split_stride2_train_backward(x, weight, z, stats, groups, dout):
     wpart = stream_scratch(dev, "split_stride2_train_wpart", plan["wpart_floats"], torch.float32)
     SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_bwd_stats", dev, code,
                                ctypes.addressof(ints), ptr(dout), ptr(z), ptr(stats), ptr(bsums),
-                               ptr(part), ptr(tickets))
+                               ptr(part), ptr(tickets), ptr(dx))
     SPLIT_STRIDE2_TRAIN.launch("split_stride2_train_bwd_grad", dev, code, ctypes.addressof(ints),
-                               ptr(x), ptr(dout), ptr(z), ptr(stats), ptr(bsums), ptr(wkd),
+                               ptr(x), ptr(dout), ptr(z), ptr(stats), ptr(bsums), ptr(weight),
                                ptr(dx), ptr(dweight), ptr(wpart), ptr(tickets),
                                plan["smem_grad"])
     return dx, dweight
