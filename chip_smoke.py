@@ -638,9 +638,10 @@ def check_split_stride2(dev, gen, k10_calls):
     against the plain version (float32, on the same inputs), the
     average-pool channels bit-equal to the plain version in the kernel's
     dtype, reruns bit for bit; bf16 ms (events), device ms (profiler: K10's
-    kernel, and the call with its weight layout copy), the plain version's
-    ms, today's route (cuDNN grouped conv + K3 + avg_pool_3x3 + cat) and
-    cuDNN's grouped conv alone on the padded input, and the bytes bound."""
+    kernel, and every device kernel of the call), the plain version's ms,
+    today's route (cuDNN grouped conv + K3 + avg_pool_3x3 + cat) and cuDNN's
+    grouped conv alone on the padded input, the bytes bound and the device
+    ms's share of it."""
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
     from voxsrc2020_speaker_verification_tpu_torch.ops import nn as ops
     import torch.nn.functional as F
@@ -687,6 +688,7 @@ def check_split_stride2(dev, gen, k10_calls):
                        library_route_ms=time_ms(route), library_route_device_ms=device_ms(route),
                        library_conv_ms=time_ms(conv), library_conv_device_ms=device_ms(conv),
                        bound_ms=bms, bound_by=by)
+            row["bound_share"] = bms / row["device_ms"]
             detail.append(row)
             err32, err16 = max(err32, e32), max(err16, e16)
             tails &= t32 and t16

@@ -332,11 +332,11 @@ def test_split_stride2_kernel_matches_plain(cuda, dtype, b, width, split, t, f, 
                                              (64, 6, 50, 19), (32, 6, 27, 40), (16, 6, 9, 80),
                                              (8, 4, 17, 9)])
 def test_split_stride2_every_mma_plan_matches_plain(cuda, width, split, t, f):
-    """Every mma plan K10 can take at a width (stride2_candidates: both warp
-    layouts, resident weights and weight rings of 2-4 slices, one or two
-    channel passes), on a grid whose tiles are those of the serving stage:
-    within 5e-2 of the plain version in float32, the average pool
-    bit-equal to it in bf16, and plans of one K order bit-equal."""
+    """Every mma plan K10 can take at a width (stride2_candidates: the
+    width's kernel, the largest tile at one and at two CTAs an SM), on a
+    grid whose tiles are those of the serving stage: within 5e-2 of the
+    plain version in float32, the average pool bit-equal to it in bf16, and
+    the plans (one kernel, so one K order) bit-equal."""
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
 
     x, w, means, var = stride2_case(cuda, torch.bfloat16, 3, width, split, t, f, (t, t // 2, 1))
@@ -345,14 +345,14 @@ def test_split_stride2_every_mma_plan_matches_plain(cuda, width, split, t, f):
     want_tail = split_stride2_reference(x, w, means, var)[:, tail]
     plans = rn.stride2_candidates(width, split, tuple(x.shape))
     assert plans
-    by_order = {}
+    outs = []
     for plan in plans:
         out = torch.empty_like(want, dtype=x.dtype).contiguous(memory_format=torch.channels_last)
         rn._stride2_launch(x, w, means, var, 1e-5, plan, out)
         assert (out.float() - want).abs().max() <= 5e-2 * want.abs().max(), plan
         assert torch.equal(out[:, tail], want_tail), plan
-        first = by_order.setdefault(plan["passes"], out)
-        assert torch.equal(out, first), plan
+        outs.append(out)
+        assert torch.equal(out, outs[0]), plan
 
 
 @pytest.mark.cuda
@@ -374,8 +374,12 @@ def test_split_stride2_unaligned_input_takes_the_single_design(cuda):
 def test_split_stride2_stage_in_eval_launches_k10_alone(cuda, monkeypatch):
     """Res2NetSplitConv(strides=2) in eval on a CUDA tensor: one K10 launch
     and nothing of the route it replaced (no F.conv2d, K3, average pool or
-    torch.cat), route "kernel"; in training K11 / K11b, counted
-    "train_kernels", and no K10."""
+    torch.cat), route "kernel"; on the card the call's device kernels are
+    K10's and the cast of the model's float32 weight to x's dtype, nothing
+    else (no copy of the weight into another layout); in training K11 /
+    K11b, counted "train_kernels", and no K10."""
+    from torch.profiler import ProfilerActivity, profile
+
     from voxsrc2020_speaker_verification_tpu_torch.models import res2net as rn
 
     stage = rn.Res2NetSplitConv(4, 48, 2).to(cuda)
@@ -389,13 +393,23 @@ def test_split_stride2_stage_in_eval_launches_k10_alone(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the eval stage ran a step of the replaced route")
 
+    with torch.inference_mode():
+        stage(x, False)  # the kernels built and loaded before the profile
+    torch.cuda.synchronize()
     before = (kernels.launch_counts(), rn.split_stride2_route_counts())
-    with monkeypatch.context() as m:
+    with monkeypatch.context() as m, profile(activities=[ProfilerActivity.CUDA]) as prof:
         for mod, name in ((rn.F, "conv2d"), (rn.ops, "avg_pool_3x3"), (rn.ops, "bn_act"),
                           (rn.ops, "fixed_padding"), (torch, "cat")):
             m.setattr(mod, name, refuse)
         with torch.inference_mode():
+            stage.weight.to(x.dtype)  # the weight's cast alone, to name its kernel
             got = stage(x, False)
+        torch.cuda.synchronize()
+    ran = sorted((e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA")
+    # K10 once, the cast twice (the one above and the stage's), nothing else
+    k10 = [k for k, _ in ran if "stride2_" in k]
+    assert len(k10) == 1 and len(ran) == 2 and (k10[0], 1) in ran, ran
+    assert [n for k, n in ran if k != k10[0]] == [2], ran
     counts, routes = kernels.launch_counts(), rn.split_stride2_route_counts()
     assert counts["split_stride2"] - before[0]["split_stride2"] == 1
     assert counts["bn_act"] == before[0]["bn_act"]

@@ -1083,9 +1083,12 @@ def test_head_emulation_matches_plain_version(shape, groups, aligned):
 
 # K10 (csrc/split_stride2.cu), the stride-2 split stage in eval: its plan at
 # every stride-2 stage of the registered Res2Nets, at the serving buckets
-# (B = 128) and the training shape (200 frames, B = 256)
+# (B = 128) and the training shape (200 frames, B = 256), and at the thin
+# test variants' stage (w = 8, s = 4: widths (4, 8), strides (1, 2)) at the
+# CPU tests' shapes and the serving bucket
 def stride2_calls():
-    calls = []
+    calls = [("thin", 8, 4, (b, 32, t, f)) for b, t, f in ((2, 48, 40), (16, 200, 80),
+                                                          (128, 1000, 80), (1, 9, 7))]
     for model in RES2NETS:
         cfg = RES2NET_CONFIGS[model]
         for frames, batch in ((200, 256), (256, 128), (512, 128), (1000, 128)):
@@ -1103,41 +1106,53 @@ STRIDE2_CALLS = stride2_calls()
 
 @pytest.mark.parametrize("model,width,split,shape", STRIDE2_CALLS, ids=str)
 def test_stride2_plan_fits_every_stride2_stage(model, width, split, shape):
-    """The bf16 plan takes the mma design at every stride-2 stage: a kernel
-    the C entry instantiates, at most 8 warps, its shared memory (the patch
-    and the weight slices, the layout the kernel checks) within 227 KB, the
-    tile within its warps' rows, F' cut into even tiles of at most 16 and
-    the tiles covering T' x F', the weight slices whole k steps, a ring of
-    at least 2 where the weights do not stay resident, and the epilogue's
-    staged output rows within the patch whose place they take."""
-    t, f = shape[2:]
+    """The bf16 plan takes the mma design at every stride-2 stage, the thin
+    w = 8 included: a kernel the C entry instantiates (the width's output
+    slices and input chunks, whole k steps a chunk where the input is cut),
+    at most 8 consumer warps of 32 rows and a producer warp, its shared
+    memory (the slice's weights, two ring stages, the output rows, the
+    mbarriers: the layout the kernel checks) within 227 KB and per_sm CTAs
+    of it within an SM, F' cut into even tiles of at most 16, T' into even
+    tiles, the tiles covering T' x F', and the CTAs one wave of the 132
+    SMs."""
+    b, _, t, f = shape
     tout, fout = rn._strided(t, 2), rn._strided(f, 2)
     plan = rn.stride2_plan(width, split, shape, torch.bfloat16)
     assert plan["design"] == "mma"
     assert plan == rn.stride2_candidates(width, split, shape)[0]
-    nt, wn, wm, tt, tf = plan["nt"], plan["wn"], plan["wm"], plan["tt"], plan["tf"]
-    passes, ksl, wstages = plan["passes"], plan["ksl"], plan["wstages"]
-    assert (width, nt, passes) in rn._STRIDE2_MMA and nt * 8 * wn == width
-    assert wm * wn <= 8 and plan["threads"] == 32 * wm * wn <= 256
-    assert plan["smem"] == rn._stride2_smem(width, tt, tf, ksl, wstages, passes) <= SMEM
-    assert 1 <= tt * tf <= 32 * wm and tt <= tout and tf <= 16
-    assert -(-fout // tf) == -(-fout // 16) and -(-tout // tt) * tt >= tout
-    kpass = 9 * rn._stride2_tap_cols(width // passes)
-    assert plan["kpad"] == passes * kpass and ksl % 16 == 0 and rn._stride2_tap_cols(width // passes) % 16 == 0
-    slices = passes * -(-kpass // ksl)
-    assert wstages >= slices or (wstages >= 2 and ksl >= 64)
-    patch = (2 * tt + 1) * (2 * tf + 1) * rn._halo_stride(width // passes)
-    assert tt * tf * rn._halo_stride(width) <= patch
-    # the serving model's stages: 128-row tiles, w = 96 and 192 in two passes
+    nsl, nkc, wn, tt, tf = plan["nsl"], plan["nkc"], plan["wn"], plan["tt"], plan["tf"]
+    mt, tma, wg, ds = plan["mt"], plan["tma"], plan["wg"], plan["ds"]
+    assert (nsl, nkc, mt, tma, wg, ds) == rn._STRIDE2_RING[width]
+    assert not nsl or (width // nkc in (8, 16, 32, 64) or not tma) and (
+        nkc == 1 or width // nkc % 16 == 0)
+    assert wn == rn._stride2_wn(width, nsl, wg) and plan["nt"] * 8 * wn == width // (nsl or 1)
+    assert nsl or (split * width == 64 * nkc and tma and wg and ds)
+    if wg:  # warpgroups of 64 mt rows by the whole slice, a wgmma width
+        warps = 4 * -(-tt * tf // (64 * mt))
+        assert warps <= 8 and width // (nsl or 1) % 16 == 0 and 32 <= width // (nsl or 1) <= 192
+    else:
+        warps = wn * -(-tt * tf // (16 * mt))
+    assert warps <= 8 and plan["threads"] == 32 * (warps + 2 - tma) <= 320
+    assert plan["smem"] == rn._stride2_smem(width, nsl, nkc, tma, wg, ds, tt, tf) <= SMEM
+    assert plan["per_sm"] * (plan["smem"] + 1024) <= 233472 and plan["per_sm"] in (1, 2)
+    assert plan["per_sm"] == 1 or plan["threads"] <= 192
+    assert 1 <= tt <= tout and tf <= 16 and -(-fout // tf) == -(-fout // 16)
+    assert tt == -(-tout // -(-tout // tt))  # T' cut evenly
+    assert plan["tiles"] == -(-tout // tt) * -(-fout // tf)
+    assert plan["k"] <= b * plan["tiles"]
+    assert ((split - 1) * nsl or 1) * plan["k"] <= 132 * plan["per_sm"]
+    # the serving model's stages: the ring over the whole group's weights at
+    # w = 48 and 96, a quarter of them at 192
     if model == "res2net50_w24_s4_c32" and t >= 250:
-        assert tt * tf >= 120 and passes == (1 if width == 48 else 2)
+        assert nsl == {48: 0, 96: 1, 192: 4}[width]
 
 
 def test_stride2_plan_other_designs():
     """float32 and the widths without an mma kernel take the FMA designs:
     16-byte vectors where w fills them (w % 4 in float32, % 8 in bf16), else
-    single elements, nblk CTAs of 8 tn channels across a group; a shape of
-    another channel count is refused."""
+    single elements, nblk CTAs of 8 tn channels across a group; w = 48 has
+    an mma kernel only at the whole-row form's s = 4, so other splits of 48
+    take vec; a shape of another channel count is refused."""
     for w, dtype, design in ((48, torch.float32, "vec"), (5, torch.float32, "single"),
                              (6, torch.float32, "single"), (5, torch.bfloat16, "single"),
                              (12, torch.bfloat16, "single"), (56, torch.bfloat16, "vec"),
@@ -1146,89 +1161,271 @@ def test_stride2_plan_other_designs():
         assert plan["design"] == design, (w, dtype)
         assert plan["smem"] == 0 and w <= 8 * plan["tn"] * plan["nblk"] < w + 8 * plan["tn"]
     assert rn.stride2_candidates(56, 4, (3, 224, 17, 9)) == []
+    assert rn.stride2_candidates(48, 6, (3, 288, 17, 9)) == []
+    assert rn.stride2_plan(48, 6, (3, 288, 17, 9), torch.bfloat16)["design"] == "vec"
     with pytest.raises(ValueError):
         rn.stride2_plan(48, 4, (3, 190, 17, 9), torch.bfloat16)
     with pytest.raises(ValueError):
         rn.Res2NetSplitConv(4, 8, 3)
 
 
-def emulate_stride2_mma(x, weight, split, plan):
-    """K10's mma design replayed in float64: each item's patch as the kernel
-    stages it (a pass's channels, each row's even columns then its odd ones
-    at the padded stride, zero outside the utterance), A gathered by the
-    kernel's row, tap and chunk offsets (a tap's pad chunk reading the last
-    real chunk), the weights as the wrapper lays them out, and the pool's
-    nine taps out of the patch. Returns (the conv of groups < s-1 before
-    the BN, the pool of the last group)."""
-    import torch.nn.functional as F
+def stride2_runs(plan, shape, split):
+    """Each CTA of K10's mma design and its stages in order
+    (csrc/split_stride2.cu: Run): CTA (group, slice, run j of k) takes the
+    group's (sample, tile) items [items j / k, items (j + 1) / k), each
+    nkc stages (its input chunks in order), and the pool stages [ps cta /
+    nconv, ps (cta + 1) / nconv) of all ps = items nkc (item, chunk) pool
+    stages, stage s a pool stage where floor((s + 1) sp / n) > floor(s sp /
+    n). Returns [(grp, sl, [(pool, b, t0, f0, kc), ...]), ...]."""
+    b, _, t, f = shape
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+    nsl, nkc, k, tt, tf = plan["nsl"], plan["nkc"], plan["k"], plan["tt"], plan["tf"]
+    tiles_f = -(-fout // tf)
+    items = b * plan["tiles"]
+    if nsl == 0:  # the whole-row form: CTA j the items' nkc chunks in order
+        out = []
+        for j in range(k):
+            stages = []
+            for item in range(items * j // k, items * (j + 1) // k):
+                bb, tile = divmod(item, plan["tiles"])
+                tr, tc = divmod(tile, tiles_f)
+                stages.extend((False, bb, tr * tt, tc * tf, c) for c in range(nkc))
+            out.append((None, None, stages))
+        return out
+    nconv, ps = (split - 1) * nsl * k, items * nkc
+    out = []
+    for cta in range(nconv):
+        grp, sl, j = cta // (nsl * k), cta // k % nsl, cta % k
+        e0 = items * j // k
+        sc = (items * (j + 1) // k - e0) * nkc
+        q0 = ps * cta // nconv
+        sp = ps * (cta + 1) // nconv - q0
+        n = sc + sp
+        stages = []
+        for s in range(n):
+            pb = s * sp // n
+            pool = (s + 1) * sp // n > pb
+            q = q0 + pb if pool else e0 * nkc + s - pb
+            item, kc = divmod(q, nkc)
+            bb, tile = divmod(item, plan["tiles"])
+            tr, tc = divmod(tile, tiles_f)
+            stages.append((pool, bb, tr * tt, tc * tf, kc))
+        out.append((grp, sl, stages))
+    return out
 
+
+def emulate_stride2_mma(x, weight, split, plan):
+    """K10's mma design replayed in float64, CTA by CTA: the slice's
+    weights staged from OIHW as the kernel lays them out (tap-major K, each
+    tap's w channels padded to tap_cols); each stage as its two TMA boxes
+    land (the patch's even and odd input columns, rows of tf + 1 columns of
+    a chunk of the input channels, zero outside the utterance, each byte at
+    its swizzled offset) in ring slot s % 2 while the next stage lands in
+    the other slot; A gathered at the kernel's swizzled byte offsets (row,
+    tap and chunk; a tap's pad chunk re-reading the last real chunk); the
+    accumulators carried across a tile's chunks and written at its last;
+    the pool's nine taps out of the slot. Returns (the conv of groups < s-1
+    before the BN, the pool of the last group), each output position
+    written once."""
+    if plan["nsl"] == 0:
+        return emulate_stride2_rows(x, weight, split, plan)
     xs = x.double().numpy()
+    wt = weight.double().numpy()
     b, c, t, f = xs.shape
     w = c // split
-    passes, tt, tf = plan["passes"], plan["tt"], plan["tf"]
-    wp = w // passes
-    kt = rn._stride2_tap_cols(wp)
-    kpass, hs = 9 * kt, rn._halo_stride(wp)
-    pf_n, pt_n = 2 * tf + 1, 2 * tt + 1
+    nsl, nkc, tt, tf = plan["nsl"], plan["nkc"], plan["tt"], plan["tf"]
+    wsl, cw = w // nsl, w // nkc
+    kt = rn._stride2_tap_cols(w)
+    ws = 9 * kt + 8
+    ksc = -(-cw // 16)
+    pt_n = 2 * tt + 1
+    tma = plan["tma"]
+    box = -(-rn._stride2_box(w, nkc, tma, tt, tf) // 1024) * 1024
+    rs = rn._stride2_row_bytes(cw, tma)
+    mask = {8: 0, 16: 0x10, 32: 0x30, 64: 0x70}[cw] if tma else 0
     tout, fout = rn._strided(t, 2), rn._strided(f, 2)
-    wk = F.pad(weight.double().view(split - 1, w, passes, wp, 3, 3).permute(0, 1, 2, 4, 5, 3),
-               (0, kt - wp)).reshape(split - 1, w, plan["kpad"]).numpy()
+
+    def swz(off):
+        return off ^ ((off >> 3) & mask)
+
+    def toff(tap):  # bytes: the odd box at kf = 1, row kt, the next column at kf = 2
+        kt_, kf = divmod(tap, 3)
+        return (box if kf == 1 else 0) + (kt_ * (tf + 1) + (kf == 2)) * rs
+
     rows = np.arange(tt * tf)
-    rowoff = (2 * (rows // tf) * pf_n + rows % tf) * hs
-    kcols = []
-    for ks in range(kpass // 16):
-        tap, ksi = divmod(ks, kt // 16)
-        toff = (tap // 3) * pf_n * hs + ((tf + 1) * hs if tap % 3 == 1 else (tap % 3) // 2 * hs)
-        for h in (0, 1):
-            cc = 16 * ksi
-            if (wp // 8) % 2 and cc + 8 * h >= wp:
-                cc -= 8
-            kcols.extend(toff + cc + 8 * h + e for e in range(8))
-    kcols = np.asarray(kcols)
+    rowbase = (2 * (rows // tf) * (tf + 1) + rows % tf) * rs
+    # the A byte offsets and B columns of a stage of chunk kc: k step (tap,
+    # ks), lanes 0-15 the first 8 k, lanes 16-31 the next 8 (the pad chunk
+    # at odd cw / 8)
+    acols, bcols = [], []
+    for tap in range(9):
+        for ks in range(ksc):
+            for h in (0, 1):
+                cc = 16 * ks
+                if (cw // 8) % 2 and cc + 8 * h >= cw:
+                    cc -= 8
+                acols.extend(toff(tap) + 16 * h + 2 * cc + 2 * e for e in range(8))
+                bcols.extend(tap * kt + 16 * ks + 8 * h + e for e in range(8))
+    acols, bcols = np.asarray(acols), np.asarray(bcols)
+
+    def stage(bb, t0, f0, c0):
+        buf = np.zeros(box)  # 2 box bytes as bf16 elements
+        for p in (0, 1):
+            for pt in range(pt_n):
+                ti = 2 * t0 - 1 + pt
+                for i in range(tf + 1):
+                    fi = 2 * f0 - 1 + p + 2 * i
+                    if 0 <= ti < t and 0 <= fi < f:
+                        for ch in range(cw):
+                            off = p * box + (pt * (tf + 1) + i) * rs + ch * 2
+                            buf[swz(off) // 2] = xs[bb, c0 + ch, ti, fi]
+        return buf
+
     conv = np.zeros((b, (split - 1) * w, tout, fout))
     pool = np.zeros((b, w, tout, fout))
-    for grp in range(split):
-        for bi in range(b):
-            for t0 in range(0, tout, tt):
-                for f0 in range(0, fout, tf):
-                    acc = np.zeros((tt * tf, w))
-                    for p in range(passes):
-                        patch = np.zeros(pt_n * pf_n * hs)
-                        for pt in range(pt_n):
-                            for pf in range(pf_n):
-                                ti, fi = 2 * t0 - 1 + pt, 2 * f0 - 1 + pf
-                                if 0 <= ti < t and 0 <= fi < f:
-                                    slot = tf + 1 + pf // 2 if pf % 2 else pf // 2
-                                    q = (pt * pf_n + slot) * hs
-                                    patch[q:q + wp] = xs[bi, grp * w + p * wp:grp * w + (p + 1) * wp,
-                                                         ti, fi]
-                        if grp < split - 1:
-                            acc += patch[rowoff[:, None] + kcols[None, :]] @ wk[
-                                grp, :, p * kpass:(p + 1) * kpass].T
-                            continue
-                        for r in rows:
-                            ot, of = divmod(r, tf)
-                            if t0 + ot < tout and f0 + of < fout:
-                                taps = [patch[((2 * ot + di) * pf_n + (
-                                    tf + 1 + of if dj == 1 else of + dj // 2)) * hs:][:wp]
-                                    for di in range(3) for dj in range(3)]
-                                pool[bi, p * wp:(p + 1) * wp, t0 + ot, f0 + of] = sum(taps) / 9
-                    if grp < split - 1:
-                        for r in rows:
-                            ot, of = divmod(r, tf)
-                            if t0 + ot < tout and f0 + of < fout:
-                                conv[bi, grp * w:(grp + 1) * w, t0 + ot, f0 + of] = acc[r]
+    written = np.zeros((b, c, tout, fout), np.int64)
+    for grp, sl, stages in stride2_runs(plan, x.shape, split):
+        wsm = np.zeros((wsl, ws))
+        for n in range(wsl):
+            for idx in range(9 * w):  # OIHW: c * 9 + tap
+                wsm[n, (idx % 9) * kt + idx // 9] = wt[grp * w + sl * wsl + n, idx // 9,
+                                                        (idx % 9) // 3, idx % 3]
+        ring = [None, None]
+
+        def produce(s):
+            pool_, bb, t0, f0, kc = stages[s]
+            ring[s % 2] = stage(bb, t0, f0, ((split - 1) if pool_ else grp) * w + kc * cw)
+
+        produce(0)
+        acc = np.zeros((tt * tf, wsl))
+        for s, (pool_, bb, t0, f0, kc) in enumerate(stages):
+            if s + 1 < len(stages):
+                produce(s + 1)  # the next stage lands in the other slot meanwhile
+            buf = ring[s % 2]
+            if pool_:
+                for r in rows:
+                    u, v = divmod(r, tf)
+                    if t0 + u < tout and f0 + v < fout:
+                        base = rowbase[r] + 2 * np.arange(cw)
+                        taps = [buf[swz(base + toff(tap)) // 2] for tap in range(9)]
+                        pool[bb, kc * cw:(kc + 1) * cw, t0 + u, f0 + v] = sum(taps) / 9
+                        lo = (split - 1) * w + kc * cw
+                        written[bb, lo:lo + cw, t0 + u, f0 + v] += 1
+                continue
+            acc += buf[swz(rowbase[:, None] + acols[None, :]) // 2] @ wsm[:, kc * cw + bcols].T
+            if kc == nkc - 1:
+                for r in rows:
+                    u, v = divmod(r, tf)
+                    if t0 + u < tout and f0 + v < fout:
+                        lo = grp * w + sl * wsl
+                        conv[bb, lo:lo + wsl, t0 + u, f0 + v] = acc[r]
+                        written[bb, lo:lo + wsl, t0 + u, f0 + v] += 1
+                acc[:] = 0
+    assert (written == 1).all()
+    return conv, pool
+
+
+def emulate_stride2_rows(x, weight, split, plan):
+    """K10's whole-row form replayed in float64 (csrc/split_stride2.cu:
+    stride2_rows_kernel): each stage one tile's chunk of 64 of x's channels
+    as its two TMA boxes land (128-byte rows, swizzled) in ring slot s % 2;
+    a chunk's 16-channel k steps into their conv group's accumulators (that
+    group's weights), its last group's channels pooled; each conv group's
+    output written after the tile's last chunk. Returns (the conv of groups
+    < s-1 before the BN, the pool of the last group), each output position
+    written once."""
+    xs = x.double().numpy()
+    wt = weight.double().numpy()
+    b, c, t, f = xs.shape
+    w = c // split
+    ng, nkc, tt, tf = split - 1, plan["nkc"], plan["tt"], plan["tf"]
+    kt = rn._stride2_tap_cols(w)
+    pt_n, rs = 2 * tt + 1, 128
+    box = -(-pt_n * (tf + 1) * rs // 1024) * 1024
+    tout, fout = rn._strided(t, 2), rn._strided(f, 2)
+
+    def swz(off):
+        return off ^ ((off >> 3) & 0x70)
+
+    def toff(tap):
+        kt_, kf = divmod(tap, 3)
+        return (box if kf == 1 else 0) + (kt_ * (tf + 1) + (kf == 2)) * rs
+
+    rows = np.arange(tt * tf)
+    rowbase = (2 * (rows // tf) * (tf + 1) + rows % tf) * rs
+    # every group's weights, K = tap kt + c
+    wk = np.zeros((ng, w, 9 * kt))
+    for g in range(ng):
+        for idx in range(9 * w):
+            wk[g, :, (idx % 9) * kt + idx // 9] = wt[g * w:(g + 1) * w, idx // 9, (idx % 9) // 3,
+                                                       idx % 3]
+
+    def stage(bb, t0, f0, c0):
+        buf = np.zeros(box)  # 2 box bytes as bf16 elements
+        for p in (0, 1):
+            for pt in range(pt_n):
+                ti = 2 * t0 - 1 + pt
+                for i in range(tf + 1):
+                    fi = 2 * f0 - 1 + p + 2 * i
+                    if 0 <= ti < t and 0 <= fi < f:
+                        for ch in range(min(64, c - c0)):
+                            off = p * box + (pt * (tf + 1) + i) * rs + ch * 2
+                            buf[swz(off) // 2] = xs[bb, c0 + ch, ti, fi]
+        return buf
+
+    conv = np.zeros((b, ng * w, tout, fout))
+    pool = np.zeros((b, w, tout, fout))
+    written = np.zeros((b, c, tout, fout), np.int64)
+    for _, _, stages in stride2_runs(plan, x.shape, split):
+        ring = [None, None]
+        if stages:
+            ring[0] = stage(*stages[0][1:4], 64 * stages[0][4])
+        acc = np.zeros((ng, tt * tf, w))
+        for s, (_, bb, t0, f0, ci) in enumerate(stages):
+            if s + 1 < len(stages):
+                nb, nt0, nf0, nci = stages[s + 1][1:]
+                ring[(s + 1) % 2] = stage(nb, nt0, nf0, 64 * nci)
+            buf = ring[s % 2]
+            for j in range(4):
+                ch = 64 * ci + 16 * j
+                if ch >= ng * w:  # the last group's channels: their pool
+                    for r in rows:
+                        u, v = divmod(r, tf)
+                        if t0 + u < tout and f0 + v < fout:
+                            base = rowbase[r] + 32 * j + 2 * np.arange(16)
+                            taps = [buf[swz(base + toff(tap)) // 2] for tap in range(9)]
+                            lo = ch - ng * w
+                            pool[bb, lo:lo + 16, t0 + u, f0 + v] = sum(taps) / 9
+                            written[bb, ch:ch + 16, t0 + u, f0 + v] += 1
+                    continue
+                g = ch // w
+                acols = np.asarray([toff(tap) + 32 * j + 2 * e for tap in range(9)
+                                    for e in range(16)])
+                bcols = np.asarray([tap * kt + ch % w + e for tap in range(9) for e in range(16)])
+                acc[g] += buf[swz(rowbase[:, None] + acols[None, :]) // 2] @ wk[g][:, bcols].T
+            if ci == nkc - 1:
+                for r in rows:
+                    u, v = divmod(r, tf)
+                    if t0 + u < tout and f0 + v < fout:
+                        for g in range(ng):
+                            conv[bb, g * w:(g + 1) * w, t0 + u, f0 + v] = acc[g, r]
+                            written[bb, g * w:(g + 1) * w, t0 + u, f0 + v] += 1
+                acc[:] = 0
+    assert (written == 1).all()
     return conv, pool
 
 
 @pytest.mark.parametrize("width,split,shape", [
-    (8, 4, (2, 32, 9, 7)), (16, 6, (1, 96, 10, 31)), (48, 4, (1, 192, 21, 19)),
-    (64, 6, (1, 384, 26, 20)), (96, 4, (1, 384, 25, 20)), (192, 4, (1, 768, 24, 19))], ids=str)
+    (8, 4, (2, 32, 9, 7)), (8, 6, (1, 48, 12, 21)), (16, 6, (1, 96, 10, 31)),
+    (48, 4, (1, 192, 21, 19)), (64, 6, (1, 384, 26, 20)), (96, 4, (1, 384, 25, 20)),
+    (192, 4, (1, 768, 24, 19))], ids=str)
 def test_stride2_mma_index_math_matches_plain_version(width, split, shape):
-    """Every mma plan's indexing (stride2_candidates: the patch slots, the
-    row, tap and chunk offsets, one or two channel passes, the tap pad at w
-    = 8, the wrapper's weight layout), replayed in float64, gives the plain
-    version's strided grouped conv and average pool."""
+    """Every mma plan's indexing (stride2_candidates: the CTAs' runs and
+    their pool stages, the ring's slots, the patch slots, the row, tap and
+    chunk offsets, the input chunks and output slices, the tap pad at w =
+    8, the weights staged from OIHW), replayed in float64, gives the plain
+    version's strided grouped conv and average pool, each output written
+    once."""
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(width)
@@ -1238,11 +1435,59 @@ def test_stride2_mma_index_math_matches_plain_version(width, split, shape):
     want_conv = F.conv2d(xp[:, :width * (split - 1)], weight, stride=2, groups=split - 1).numpy()
     want_pool = tops.avg_pool_3x3(xp[:, width * (split - 1):], 2).numpy()
     plans = rn.stride2_candidates(width, split, shape)
-    assert plans and {p["passes"] for p in plans} >= ({1, 2} if width in (64, 96) else {1})
-    for plan in plans:
+    kinds = {(p["nsl"], p["nkc"], p["mt"], p["tma"], p["wg"], p["ds"]) for p in plans}
+    assert plans and kinds == {rn._STRIDE2_RING[width]}
+    # the consumers' rows (mt, wg) move no index the replay reads: one plan
+    # each tiling and staging
+    tilings = {(p["nsl"], p["nkc"], p["tma"], p["tt"], p["k"]): p for p in plans}
+    for plan in tilings.values():
         conv, pool = emulate_stride2_mma(x, weight, split, plan)
         np.testing.assert_allclose(conv, want_conv, rtol=1e-10, atol=1e-10, err_msg=str(plan))
         np.testing.assert_allclose(pool, want_pool, rtol=1e-10, atol=1e-10, err_msg=str(plan))
+
+
+# a stage of each registered (width, split), and every third call
+STRIDE2_KINDS = [next(c for c in STRIDE2_CALLS if c[1:3] == ws)
+                 for ws in sorted({c[1:3] for c in STRIDE2_CALLS})]
+
+
+@pytest.mark.parametrize("model,width,split,shape", STRIDE2_CALLS[::3] + STRIDE2_KINDS, ids=str)
+def test_stride2_plan_depends_on_the_shape_alone(model, width, split, shape, monkeypatch):
+    """K10's plan asks nothing of the card (every query of one raises here)
+    and the same shape gives the same plan; its CTAs' runs cover every
+    (sample, tile) item of each (group, slice) once, in order, and the pool
+    stages once over all CTAs, each CTA's pool stages spread among its conv
+    stages (never two in a row where it has more conv stages); in the
+    whole-row form every item's chunks once, in order."""
+    from voxsrc2020_speaker_verification_tpu_torch import kernels
+
+    def card(*args, **kwargs):
+        raise AssertionError("the plan asked the card")
+
+    for name in ("get_device_properties", "device_count", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, card)
+    monkeypatch.setattr(kernels, "num_sms", card)
+    before = rn.stride2_plan(width, split, shape, torch.bfloat16)
+    rn.stride2_plan.cache_clear()
+    plan = rn.stride2_plan(width, split, shape, torch.bfloat16)
+    assert plan == before
+    items = shape[0] * plan["tiles"]
+    if plan["nsl"] == 0:
+        got = [st[1:] for _, _, stages in stride2_runs(plan, shape, split) for st in stages]
+        assert len(got) == items * plan["nkc"] == len(set(got)) and got == sorted(got)
+        return
+    conv, pools = {}, []
+    for grp, sl, stages in stride2_runs(plan, shape, split):
+        kinds = [st[0] for st in stages]
+        if kinds.count(False) >= kinds.count(True):
+            assert not any(a and b for a, b in zip(kinds, kinds[1:]))
+        for pool, bb, t0, f0, kc in stages:
+            (pools if pool else conv.setdefault((grp, sl), [])).append((bb, t0, f0, kc))
+    tiles = sorted({(bb, t0, f0) for bb, t0, f0, _ in pools})
+    assert len(tiles) == items and len(pools) == items * plan["nkc"] == len(set(pools))
+    assert sorted(conv) == [(g, s) for g in range(split - 1) for s in range(plan["nsl"])]
+    for stages in conv.values():
+        assert stages == sorted(pools, key=lambda st: (st[0], st[1], st[2], st[3]))
 
 
 # K11 / K11b (csrc/split_stride2_train.cu), the stride-2 split stage in
@@ -1323,9 +1568,9 @@ def test_stride2_train_plan_fits_every_training_stage(model, width, split, shape
         assert groups <= plan["k"] <= b * plan["tiles"]
         stage = rn._s2t_patch_bytes(tt, tf, rn._halo_stride(width // plan["nkc"]), 2, True)
         assert 4 * (2 * plan["k"] + 2 * groups) <= 2 * stage
-        assert plan["k"] == groups or ng * plan["nsl"] * plan["k"] <= rn._S2T_SMS * per_fwd
+        assert plan["k"] == groups or ng * plan["nsl"] * plan["k"] <= rn.PLAN_SMS * per_fwd
         assert plan["nconv"] == ng * plan["nsl"] * plan["k"]
-        assert ng * nchunks * plan["nsplit"] <= rn._S2T_SMS * per_grad or plan["nsplit"] == 1
+        assert ng * nchunks * plan["nsplit"] <= rn.PLAN_SMS * per_grad or plan["nsplit"] == 1
         assert plan["part_floats"] >= ng * plan["k"] * 2 * 2 * width
         assert all(h <= 1 for _, h in stride2_train_fwd_runs(plan, shape, groups))
     else:
@@ -1354,7 +1599,7 @@ def test_stride2_train_plan_other_shapes():
     count, a batch not in whole BN groups, a width over 256 and one whose
     single-channel blocks exceed the threads are refused; the weight
     gradient's split count is a function of the shape alone (mma: the
-    CTAs a wave of _S2T_SMS SMs holds; fma: about _S2T_WGRAD_CTAS)."""
+    CTAs a wave of PLAN_SMS SMs holds; fma: about _S2T_WGRAD_CTAS)."""
     for w, dtype, tn in ((24, torch.bfloat16, 4), (5, torch.bfloat16, 1), (5, torch.float32, 1),
                          (12, torch.float32, 4), (192, torch.float32, 4)):
         plan = rn.stride2_train_plan(w, 4, (4, 4 * w, 17, 9), 2, dtype)
@@ -1368,7 +1613,7 @@ def test_stride2_train_plan_other_shapes():
     with pytest.raises(ValueError):
         rn.stride2_train_plan(129, 4, (4, 516, 17, 9), 2, torch.float32)
     a = rn.stride2_train_plan(32, 6, (256, 192, 100, 40), 8, torch.bfloat16)
-    assert a["nsplit"] == rn._S2T_SMS * rn._s2t_per_sm(a["smem_grad"], a["gthreads"]) // (
+    assert a["nsplit"] == rn.PLAN_SMS * rn._s2t_per_sm(a["smem_grad"], a["gthreads"]) // (
         5 * a["nchunks"])
     a = rn.stride2_train_plan(32, 6, (256, 192, 100, 40), 8, torch.float32)
     assert a["nsplit"] == -(-rn._S2T_WGRAD_CTAS // (5 * a["nchunks"]))

@@ -21,43 +21,49 @@
 // to the dtype before the BN, as the JAX package's conv output is; the
 // average pool rounds where avg_pool_3x3 does on the card (a bf16 add
 // rounds its float sum; the division by the scalar 9 is a product with
-// 1.0f / 9.0f), so the tail is that function's bits.
+// 1.0f / 9.0f), so the tail is that function's bits. The weight is read as
+// the module holds it, OIHW ((s-1) w, w, 3, 3).
 //
 // Bound on the card: bytes. A stage reads x once and writes a quarter of it
 // (10 s w bytes an output position in bf16) for 18 w^2 (s-1) flops: 259
 // flop/B at w = 192, s = 4, below Hopper's ridge (~295), less at the
 // narrower widths. The three stride-2 stages of a res2net50_w24_s4_c32
 // serving forward (B = 128, 1000 frames) move 8.60 GB (2.57 ms at 3.35 TB/s)
-// for 0.96 TFLOP (0.97 ms at 989 TFLOP/s). One launch a stage; its work is
-// the output tiles of each group: the conv of groups < s-1, the average
-// pool of group s-1.
+// for 0.96 TFLOP (0.97 ms at 989 TFLOP/s). One launch a stage.
 //
 // * "mma" (bfloat16 at the registered Res2Nets' stride-2 widths, 16-192,
-//   and the thin variants' 8): persistent CTAs, as many as fit the card,
-//   walk the stage's work items, group-major: an item is a tt x tf tile of
-//   one utterance's output positions (128 rows, 64 at w = 64) and one
-//   group. It stages the group's input patch, (2tt+1) x (2tf+1) positions,
-//   straight from x at channel offset i*w by cp.async, zero-filled outside
-//   the utterance; the even and the odd columns of a patch row are stored
-//   apart, so the rows of an mma fragment (consecutive f', two columns
-//   apart in x) are consecutive in shared memory and the row stride, an
-//   odd number of 16-byte units, keeps ldmatrix free of bank conflicts. At
-//   w = 96 and 192 the patch is staged in two passes of w / 2 channels, so
-//   a 128-row tile fits beside the weights. The weights (all w output
-//   channels, K tap-major per pass) stay resident in shared memory where
-//   they fit (w <= 96, reloaded where a CTA's group changes), else go
-//   through a ring of two slices, the next loading while this one
-//   computes. mma.sync m16n8k16 with fp32 accumulation, a warp 32 rows by 8
-//   nt output channels; K is walked tap by tap with no division in the
-//   loop. The epilogue rounds, applies the eval BN and relu, stages the
-//   tile in the patch's place and stores 16-byte rows into the output's
-//   channel slice; the pool items add the nine taps out of their patch.
-//   What bounds it: at w = 48 the patch loads, exposed between items (a
-//   second patch buffer, the next item's landing during this one's
-//   compute, costs occupancy and lost at every width); at w = 192 the
-//   weight stream from L2 (648 KB a group, once a 128-row tile).
-//   models/res2net.py:stride2_candidates lists the plans, in the order
-//   timed on the card.
+//   and the thin variants' 8): persistent CTAs, each a (group, slice of the
+//   group's output channels, run of the group's (sample, tile) items), a
+//   tile tt x tf output positions of one utterance. The slice's weights are
+//   staged once from OIHW and stay resident (the whole group's up to w =
+//   96, a quarter at 192). The run's stages, a stage one tile's x patch of
+//   a chunk of the input channels, go through a two-stage ring that
+//   producer warps fill while the consumer warps run the stage before: one
+//   lane's TMA boxes, or two warps' cp.async (w = 16, where TMA's 32-byte
+//   rows ran slower). A stage is the patch's even and its odd input columns
+//   ((2tt+1) rows of tf + 1 columns two apart, by the tensor map's element
+//   stride), zero-filled outside the utterance, so the rows of an MMA
+//   fragment (consecutive f', two columns apart in x) are consecutive in
+//   shared memory; rows swizzled (TMA) or padded to an odd number of
+//   16-byte units (cp.async) so that ldmatrix meets no bank conflict. The
+//   consumers: a warpgroup on wgmma (m64 x the slice x k16, A from
+//   registers by ldmatrix a group of taps ahead, B the resident weights) at
+//   w >= 32, a warp on mma.sync at w = 8 and 16. The epilogue rounds,
+//   applies the eval BN (staged once a CTA) and relu, and stores from the
+//   accumulators (w = 48, 96, 192: no tile buffer, so larger tiles fit) or
+//   through a tile buffer as 16-byte rows into the output's channel slice.
+//   The last group's average pool is dealt out over every CTA as stages of
+//   their own, spread evenly among its conv stages: a pool stage's patch
+//   comes through the same ring and its nine taps are added out of shared
+//   memory. At w = 48, s = 4 the whole-row form instead: a CTA takes every
+//   group of its tiles, x's 192 channels in three 128-byte-row TMA chunks
+//   (x read once; a 96-byte group slice a request ran at 40-50% of the
+//   bound), each chunk's k steps into their group's accumulators and the
+//   last group's channels pooled. Index math divides by the plan's tile
+//   width by multiply-shift, never per element by a runtime division. The
+//   kernel per width and the tile are the plan's (models/res2net.py:
+//   _STRIDE2_RING, stride2_candidates), the CTA counts from 132 SMs, a
+//   constant: a function of the shape alone.
 // * "vec" / "single" (float32, and bfloat16 at other widths): the same
 //   implicit GEMM as fp32 FMA on CUDA cores (K2's split_group scheme:
 //   128 positions by 8 tn output channels a block), x gathered 16 bytes
@@ -73,11 +79,13 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kSmemMax = 232448;  // 227 KB, the most a block can take
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 320;  // eight consumer warps and two producer warps
 constexpr int kMaxGroups = 8;      // conv groups s - 1, at most
 
 // Each group's running statistics, passed by value: the BN modules' own
@@ -147,18 +155,55 @@ __host__ __device__ constexpr int halo_stride(int width) {
   return width + 2 * ((4 - (width / 2) % 8 + 8) % 8);
 }
 
-// K columns of a tap in the mma design's weights: the W input channels
+// K columns of a tap in the mma design's weights: the w input channels
 // padded to whole k steps of 16 (models/res2net.py:_stride2_tap_cols)
 __host__ __device__ constexpr int tap_cols(int width) { return (width + 15) / 16 * 16; }
 
-// Shared memory of the mma design: the patch of width / passes channels,
-// wstages weight slices, an mbarrier each (models/res2net.py:_stride2_smem)
-__host__ __device__ constexpr long long mma_smem(int width, int tt_n, int tf_n, int ksl,
-                                                 int wstages, int passes) {
-  return 2LL * ((2LL * tt_n + 1) * (2 * tf_n + 1) * halo_stride(width / passes) +
-                static_cast<long long>(wstages) * width * (ksl + 8)) +
-         8LL * (1 + wstages);
-}
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr long long align16(long long v) { return (v + 15) / 16 * 16; }
+
+__host__ __device__ constexpr long long align1024(long long v) { return (v + 1023) / 1024 * 1024; }
+
+// The phase profile (a build with -DVSV_K10_PROF, scripts/profile_k10.py):
+// the first consumer thread and the producer warp's first lane of each CTA
+// lap clock64 into their phases and add them, once at their end, to
+// g_k10_prof[slot]. Without the flag every call is empty.
+enum { kPhPatch, kPhWeight, kPhMma, kPhEpilogue, kPhPool, kPhIssue, kPhProduceWait,
+       kPhEpiWait, kPhEpiRows, kPhTiles, kPhPoolTiles, kPhCtas, kProfSlots };
+#ifdef VSV_K10_PROF
+__device__ unsigned long long g_k10_prof[kProfSlots];
+struct Prof {
+  unsigned long long v[kProfSlots];
+  long long t;
+  bool on;
+  __device__ explicit Prof(bool on_) : on(on_) {
+    for (int i = 0; i < kProfSlots; ++i) v[i] = 0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void lap(int slot) {
+    const long long n = clock64();
+    v[slot] += n - t;
+    t = n;
+  }
+  __device__ __forceinline__ void count(int slot) { ++v[slot]; }
+  __device__ __forceinline__ void mark() { t = clock64(); }
+  __device__ void flush(bool cta) {
+    if (!on) return;
+    v[kPhCtas] = cta;
+    for (int i = 0; i < kProfSlots; ++i) atomicAdd(&g_k10_prof[i], v[i]);
+  }
+};
+#else
+struct Prof {
+  __device__ explicit Prof(bool) {}
+  __device__ __forceinline__ void mark() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void count(int) {}
+  __device__ __forceinline__ void flush(bool) {}
+};
+#endif
 
 // The average pool of one output position (b, ot, of), V channels from c of
 // the last group (channel offset src), in avg_pool_3x3's order and rounding
@@ -192,20 +237,273 @@ __device__ __forceinline__ void pool_at(const T* __restrict__ x, T* __restrict__
 // "mma": bfloat16 on the tensor cores, persistent CTAs
 // ---------------------------------------------------------------------------
 
+using bf16 = __nv_bfloat16;
+
+// n / d by a multiply with ceil(2^32 / d), exact for 0 <= n, n d < 2^32 (a
+// tile's positions): the per-element loops divide by the plan's tile width
+struct FastDiv {
+  unsigned long long m;
+  int d;
+  __device__ explicit FastDiv(int d_)
+      : m(((1ULL << 32) + d_ - 1) / static_cast<unsigned long long>(d_)), d(d_) {}
+  __device__ __forceinline__ int div(int n) const {
+    return static_cast<int>((static_cast<unsigned long long>(n) * m) >> 32);
+  }
+};
+
+// The shape and the plan, passed by value
+struct RingArgs {
+  int batch, tlen, flen, tout, fout, chan, split, tt, tf, tiles_f, tiles, k, nconv;
+  float eps;
+};
+
+// The per-width layout (models/res2net.py:_STRIDE2_RING): WSL output
+// channels a CTA (its resident weights), CW input channels a ring stage.
+// The consumers run the MMAs one of two ways: WG = 0, mma.sync, WN warps
+// across the slice, each NT n tiles of 8, down the tile 16 MT rows a warp;
+// WG = 1, wgmma (m64nWSLk16, A from registers, B from shared memory), a
+// warpgroup 64 MT rows by all WSL channels. A stage's x patch is two boxes,
+// the patch's even and its odd columns, rows of RS bytes (CW channels):
+// TMA = 1, one producer lane's boxes of the tensor map, rows of 16-128
+// bytes swizzled as the map asks (16-byte unit bits 4.. of a byte offset
+// XORed with its bits 7..: SWZ the mask), so that the eight rows an
+// ldmatrix reads fall in eight different bank groups; TMA = 0, two producer
+// warps' cp.async into rows padded to an odd number of 16-byte units, free
+// of conflicts. DS: the epilogue stores straight from the accumulators (no
+// tile buffer, so larger tiles fit); else the tile goes through shared
+// memory to 16-byte rows (the narrow slices, whose rows are one or two
+// sectors).
+template <int W, int NSL, int NKC, int MT, bool TMA, bool WG, bool DS>
+struct RingCfg {
+  static constexpr int WSL = W / NSL, CW = W / NKC;
+  static constexpr int WN = WG ? 1 : (WSL >= 64 ? 2 : 1), NT = WSL / (8 * WN);
+  static constexpr int ROWS = WG ? 64 * MT : 16 * MT;  // a warpgroup's or a warp's rows
+  static constexpr int KT = tap_cols(W), WS = 9 * KT + 8, ZS = halo_stride(WSL);
+  static constexpr int KSC = (CW + 15) / 16, C8 = CW / 8, CO8 = WSL / 8;
+  static constexpr int RS = TMA ? 2 * CW : 2 * halo_stride(CW);
+  static constexpr int PW = TMA ? 1 : 2;  // producer warps
+  static constexpr int SWZ = !TMA || CW == 8 ? 0 : CW == 16 ? 0x10 : CW == 32 ? 0x30 : 0x70;
+  // the weights: mma.sync rows of WS; wgmma [k / 8][n][k % 8]
+  static constexpr bool WGMMA = WG;
+  static constexpr long long OBYTES_ROW = DS ? 0 : 2LL * ZS;  // a tile row's buffer
+  static constexpr long long WBYTES = WG ? 2LL * 9 * KT * WSL : 2LL * WSL * WS;
+  static_assert(W % NSL == 0 && W % NKC == 0 && WSL % 8 == 0 && CW % 8 == 0, "whole vectors");
+  static_assert(!TMA || CW == 8 || CW == 16 || CW == 32 || CW == 64,
+                "a TMA box row of 16-128 bytes");
+  static_assert(NKC == 1 || CW % 16 == 0, "a chunk of whole k steps");
+  static_assert(!WG || (CW % 16 == 0 && WSL % 16 == 0 && WSL >= 32 && WSL <= 192),
+                "a wgmma width");
+  static_assert(WSL % (8 * WN) == 0, "whole n tiles a warp");
+};
+
+// Bytes of one of a ring stage's two boxes (the patch's even or odd
+// columns): 2 tt + 1 input rows of tf + 1 columns, rows of rs bytes
+__host__ __device__ constexpr long long ring_box(int rs, int tt, int tf) {
+  return static_cast<long long>(2 * tt + 1) * (tf + 1) * rs;
+}
+
+// Shared memory of the mma design (models/res2net.py:_stride2_smem): 1 KB
+// to align the ring, two ring stages of two boxes each (1 KB aligned, as
+// the boxes' swizzle needs), the slice's weights, the output tile's rows
+// (unless the epilogue stores straight from the accumulators), the slice's
+// eval BN (mean, 1 / std), the ring's four mbarriers
+template <class C>
+__host__ __device__ constexpr long long ring_smem(int tt, int tf) {
+  return 1024 + 4 * align1024(ring_box(C::RS, tt, tf)) + C::WBYTES +
+         align16(C::OBYTES_ROW * tt * tf) + 8LL * C::WSL + 4 * 8;
+}
+
+// A byte offset in a box as the swizzle places it
+template <int SWZ>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ ((off >> 3) & SWZ);
+}
+
+// Byte offset of tap (kt, kf) in a stage (boxes of `box` bytes, rows of tf
+// + 1 columns of rs bytes), relative to an output position's row offset
+// (2 u (tf + 1) + v) rs: the odd box for kf = 1, row kt, the next column
+// for kf = 2
+__device__ __forceinline__ uint32_t xtap(int tap, int tf, int rs, uint32_t box) {
+  const int kt = tap / 3, kf = tap % 3;
+  return (kf == 1 ? box : 0) + static_cast<uint32_t>((kt * (tf + 1) + (kf == 2)) * rs);
+}
+
+// The conv weights of output channels [n0, n0 + WSL) of group grp from the
+// OIHW weight into wsm, K = tap * tap_cols(W) + input channel: mma.sync
+// rows n of WS (each tap's pad columns zero), wgmma [k / 8][n][k % 8].
+// Plain loads: the caller's barrier publishes them.
+template <class C, int W>
+__device__ void load_weights(bf16* wsm, const bf16* __restrict__ weight, int grp, int n0) {
+  constexpr int KT = C::KT, V9 = 9 * W / 8, WSL = C::WSL;
+  for (int i = threadIdx.x; i < WSL * V9; i += blockDim.x) {
+    const int n = i / V9, v = i - n * V9;
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+        weight + (static_cast<long long>(grp) * W + n0 + n) * W * 9 + 8 * v));
+    const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int idx = 8 * v + e, k = (idx % 9) * KT + idx / 9;  // idx = c * 9 + tap
+      if constexpr (C::WGMMA)
+        wsm[((k / 8) * WSL + n) * 8 + k % 8] = h[e];
+      else
+        wsm[n * C::WS + k] = h[e];
+    }
+  }
+  if constexpr (!C::WGMMA && KT > W)
+    for (int i = threadIdx.x; i < WSL * 9 * (KT - W); i += blockDim.x)
+      wsm[(i / (9 * (KT - W))) * C::WS + (i / (KT - W) % 9) * KT + W + i % (KT - W)] =
+          __float2bfloat16(0.f);
+}
+
+// One k step (16 K columns, step ks of a tap's CW) of a warp's 16 MT rows
+// by 8 NT channels on mma.sync: A rows from the stage at the lane's byte
+// offsets (its rows' and the tap's), B from the weights (row stride WS) at
+// column col
+template <class C, int MT>
+__device__ __forceinline__ void mma_kstep(float (&acc)[MT][4 * C::NT], uint32_t sbase,
+                                          const uint32_t (&rowoff)[MT], uint32_t toff, int ks,
+                                          uint32_t wbase, int col, int lane) {
+  constexpr int NT = C::NT, WS = C::WS;
+  int cc = 16 * ks;
+  // a tap's pad chunk (odd C8: w = 8) reads the last real chunk again, times
+  // the zero weights
+  if (C::C8 % 2 != 0 && cc + (lane / 16) * 8 >= C::CW) cc -= 8;
+  uint32_t af[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    ldmatrix_x4(af[mt], sbase + swz<C::SWZ>(rowoff[mt] + toff + 2 * cc));
+  const int bcol4 = ((lane % 8) + 8 * (lane / 16)) * WS + ((lane / 8) % 2) * 8;
+  const int bcol2 = (lane % 8) * WS + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int np = 0; np + 1 < NT; np += 2) {
+    uint32_t bq[4];
+    ldmatrix_x4(bq, wbase + 2 * (np * 8 * WS + bcol4 + col));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16_16816(acc[mt] + 4 * np, af[mt], bq);
+      mma_bf16_16816(acc[mt] + 4 * np + 4, af[mt], bq + 2);
+    }
+  }
+  if constexpr (NT % 2 != 0) {
+    uint32_t bf[2];
+    ldmatrix_x2(bf, wbase + 2 * ((NT - 1) * 8 * WS + bcol2 + col));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(acc[mt] + 4 * (NT - 1), af[mt], bf);
+  }
+}
+
+// A stage of a warpgroup on wgmma: 9 taps x KSC k steps of chunk kc, in
+// groups of TG taps (one commit each): a group's A fragments (ldmatrix, the
+// warp's 16 rows of each m64 tile) load while the previous group's wgmmas
+// run; all of the stage's wgmmas are done on return. (Carrying the groups
+// across stages left the wgmmas in a divergent path, which the compiler
+// serializes.)
+template <class C, int MT>
+__device__ __forceinline__ void wg_stage(float (&acc)[MT][C::WSL / 2], uint32_t sbase,
+                                         const uint32_t (&rowoff)[MT], uint32_t box, int tf,
+                                         int kc, uint32_t wbase) {
+  constexpr int KSC = C::KSC, N = C::WSL;
+  constexpr int TG = KSC * MT == 1 ? 9 : KSC * MT <= 3 ? 3 : 1, NG = 9 / TG;
+  uint32_t a[2][TG][KSC][MT][4];
+  auto load = [&](int grp, uint32_t (&dst)[TG][KSC][MT][4]) {
+#pragma unroll
+    for (int i = 0; i < TG; ++i) {
+      const uint32_t toff = xtap(grp * TG + i, tf, C::RS, box);
+#pragma unroll
+      for (int ks = 0; ks < KSC; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(dst[i][ks][mt], sbase + swz<C::SWZ>(rowoff[mt] + toff + 32 * ks));
+    }
+  };
+  load(0, a[0]);
+#pragma unroll
+  for (int grp = 0; grp < NG; ++grp) {
+    uint32_t (&cur)[TG][KSC][MT][4] = a[grp & 1];
+#pragma unroll
+    for (int i = 0; i < TG; ++i)
+#pragma unroll
+      for (int ks = 0; ks < KSC; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(cur[i][ks][mt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(acc[mt]);
+    vsv::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < TG; ++i)
+#pragma unroll
+      for (int ks = 0; ks < KSC; ++ks) {
+        // K column tap KT + kc CW + 16 ks: its k / 8 block, N rows of 16 bytes
+        const uint32_t kb = ((grp * TG + i) * C::KT + kc * C::CW + 16 * ks) / 8;
+        const uint64_t desc = vsv::wgmma_desc(wbase + kb * 16 * N, 16 * N, 128);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) vsv::WgmmaRS<N>::mma(acc[mt], cur[i][ks][mt], desc, 1);
+      }
+    vsv::wgmma_commit();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(acc[mt]);
+    if (grp + 1 < NG) {
+      vsv::wgmma_wait<1>();  // the wgmmas that read the other register set are done
+      load(grp + 1, a[(grp + 1) & 1]);
+    }
+  }
+  vsv::wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) vsv::wgmma_fence_regs(acc[mt]);
+}
+
+// A stage of a CTA's run: the conv of chunk kc of item (b, tile), or a pool
+// stage (chunk kc of the last group at item (b, tile))
+struct Stage {
+  bool pool;
+  int b, t0, f0, kc;
+};
+
+// A CTA (group grp, slice sl, run j of k): conv items [e0, e1) of the
+// group's B tiles (sample, tile) items, each NKC stages (chunks of the
+// input channels, in order), and pool stages [q0, q1) of the B tiles NKC
+// (item, chunk) pool stages, dealt over all nconv CTAs in order. The pool
+// stages are spread evenly among the conv stages: stage s is a pool stage
+// where floor((s + 1) sp / n) > floor(s sp / n).
+struct Run {
+  int e0, sc, q0, sp, n;
+  __device__ Run(const RingArgs& a, int cta, int j, int nkc) {
+    const long long items = static_cast<long long>(a.batch) * a.tiles;
+    e0 = static_cast<int>(items * j / a.k);
+    sc = (static_cast<int>(items * (j + 1) / a.k) - e0) * nkc;
+    const long long ps = items * nkc;
+    q0 = static_cast<int>(ps * cta / a.nconv);
+    sp = static_cast<int>(ps * (cta + 1) / a.nconv) - q0;
+    n = sc + sp;
+  }
+  __device__ Stage at(const RingArgs& a, int s, int nkc) const {
+    Stage st;
+    const int pb = static_cast<int>(static_cast<long long>(s) * sp / n);
+    st.pool = static_cast<int>(static_cast<long long>(s + 1) * sp / n) > pb;
+    const int q = st.pool ? q0 + pb : (e0 * nkc + s - pb);
+    const int item = q / nkc;
+    st.kc = q - item * nkc;
+    st.b = item / a.tiles;
+    const int tile = item - st.b * a.tiles, tr = tile / a.tiles_f;
+    st.t0 = tr * a.tt;
+    st.f0 = (tile - tr * a.tiles_f) * a.tf;
+    return st;
+  }
+};
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");
 }
 
-// this thread's arrival on `bar`, triggered when all its cp.async so far land
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
+// A ring wait that lasts this long means a role stopped feeding it: trap (a
+// launch error) rather than hang the card
+constexpr unsigned long long kWaitTimeoutNs = 10000000000ull;
 
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, int parity) {
   uint32_t done = 0;
-  while (!done)
+  unsigned long long t0 = 0;
+  while (true) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -215,280 +513,624 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "=r"(done)
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
+    if (done) return;
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t0 == 0) t0 = t;
+    else if (t - t0 > kWaitTimeoutNs) __trap();
+  }
 }
 
-// Persistent CTAs walk the stage's work items, group-major: item = group *
-// tiles + tile, a tile tt x tf output positions of one utterance. Every item
-// stages its group's input patch by cp.async, a row of the patch a warp at
-// a time, in P passes of W / P channels (P = 2 halves the patch, so a
-// 128-row tile fits beside the weight ring at w = 192 and each weight
-// slice feeds twice the rows); a conv item (group < s-1) runs the implicit
-// GEMM over its weights, an average-pool item (group s-1) adds the nine
-// taps out of the same patch. Weights: all slices resident (wstages >=
-// slices; reloaded where a CTA's group changes), or a ring of wstages
-// slices, wstages - 1 in flight. Each buffer completes on its own mbarrier.
-// K runs pass by pass, then tap by tap, each tap's W / P channels padded to
-// whole k steps of 16 (tap_cols), so a k step never straddles two taps: its
-// A rows are the lane's row offset plus the tap's offset plus the chunk's,
-// with no division in the loop. B fragments come two n tiles to an
-// ldmatrix.x4.
-template <int W, int NT, int P>
-__global__ void __launch_bounds__(kMaxThreads) stride2_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wk,
-    const GroupStats stats, __nv_bfloat16* __restrict__ out, int batch, int tlen, int flen,
-    int tout, int fout, int split, int tt_n, int tf_n, int ksl, int wstages, float eps) {
-  constexpr int WP = W / P, C8 = WP / 8, KT = tap_cols(WP), KSPT = KT / 16;
-  constexpr int KPASS = 9 * KT, KPAD = P * KPASS;
-  constexpr int HS = halo_stride(WP), OS = halo_stride(W), CO8 = W / 8, WN = W / (8 * NT);
+// The consumer warps' own barrier (the producer warp takes no part)
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// A CTA: consumer warps (mma.sync: WN x WM warps of 16 MT rows by 8 NT
+// channels; wgmma: warpgroups of 64 MT rows by the whole slice) and PW
+// producer warps. The producers stage each stage into a ring buffer (TMA:
+// the first lane issues two boxes; else the lanes' cp.async), completing on
+// the buffer's "full" mbarrier, and refill a buffer when the consumer
+// warps' arrivals on its "empty" mbarrier release it; no consumer issues a
+// copy. The consumers run the MMAs (K tap by tap over the stage's chunk,
+// no division in the loop), the epilogue and the pool stages.
+template <int W, int NSL, int NKC, int MT, bool TMA, bool WG, bool DS>
+__global__ void __launch_bounds__(kMaxThreads) stride2_ring_kernel(
+    const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ x,
+    const bf16* __restrict__ weight, const GroupStats stats, bf16* __restrict__ out,
+    const RingArgs a) {
+  using C = RingCfg<W, NSL, NKC, MT, TMA, WG, DS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x, nthreads = blockDim.x, nwarps = nthreads / 32;
-  const int channels = split * W, rows = tt_n * tf_n;
-  const int pf_n = 2 * tf_n + 1, pt_n = 2 * tt_n + 1;
-  const int ws_stride = ksl + 8, nsp = (KPASS + ksl - 1) / ksl, nslices = P * nsp;
-  const bool resident = wstages >= nslices;
-  const int tiles_f = (fout + tf_n - 1) / tf_n, tiles_t = (tout + tt_n - 1) / tt_n;
-  const int ntiles = batch * tiles_t * tiles_f, items = split * ntiles;
-  __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* wsm = patch + pt_n * pf_n * HS;
-  uint64_t* pbar = reinterpret_cast<uint64_t*>(wsm + wstages * W * ws_stride);
-  uint64_t* wbar = pbar + 1;
+  const int cta = blockIdx.x, grp = cta / (NSL * a.k), sl = cta / a.k % NSL, j = cta % a.k;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
+  const int consumers = blockDim.x - 32 * C::PW;
+  const bool producer = tid >= consumers;
+  const int plane = tid - consumers;  // a producer thread's lane of the C::PW producer warps
+  Prof pr(tid == 0 || tid == consumers);
+  const int rows = a.tt * a.tf;
+  const uint32_t box = static_cast<uint32_t>(align1024(ring_box(C::RS, a.tt, a.tf)));
+  // the ring at the first 1 KB boundary: buffer i's boxes at 2 i box, its
+  // odd columns' box box bytes after its even columns'
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+  bf16* wsm = reinterpret_cast<bf16*>(ring_ptr + 4 * box);
+  bf16* obuf = reinterpret_cast<bf16*>(ring_ptr + 4 * box + C::WBYTES);
+  float* bn = reinterpret_cast<float*>(ring_ptr + 4 * box + C::WBYTES +
+                                       align16(C::OBYTES_ROW * rows));
+  uint64_t* full = reinterpret_cast<uint64_t*>(bn + 2 * C::WSL);
+  uint64_t* empty = full + 2;
+  const Run run(a, cta, j, NKC);
+  if (run.n == 0) return;
   if (tid == 0) {
-    for (int i = 0; i < 1 + wstages; ++i) mbar_init(&pbar[i], nthreads);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full[i], TMA ? 1 : 32 * C::PW);
+      mbar_init(&empty[i], consumers / 32);
+    }
   }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  vsv::tma::mbar_init_fence();
   __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
-  // the patch of pass p: position (pt, pf) at row pt, slot pf / 2 (even
-  // pf) or tf + 1 + pf / 2 (odd pf); a warp a row
-  auto load_patch = [&](int item, int p) {
-    const int grp = item / ntiles, tile = item % ntiles;
-    const int b = tile / (tiles_t * tiles_f);
-    const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
-    for (int pt = warp; pt < pt_n; pt += nwarps) {
-      const int t = 2 * t0 - 1 + pt;
-      const bool row_valid = t >= 0 && t < tlen;
-      const long long row = (static_cast<long long>(b) * tlen + t) * flen;
-      for (int j = lane; j < pf_n * C8; j += 32) {
-        const int pf = j / C8, c = (j % C8) * 8, f = 2 * f0 - 1 + pf;
-        const bool valid = row_valid && f >= 0 && f < flen;
-        const int slot = (pf & 1) ? tf_n + 1 + (pf >> 1) : (pf >> 1);
-        cp_async16(smem_u32(patch + (pt * pf_n + slot) * HS + c),
-                   x + (valid ? (row + f) * channels : 0) + grp * W + p * WP + c, valid);
+  const FastDiv tfd(a.tf);
+  // stage s into buffer s % 2: the patch's even columns (2 f0 - 1, 2 f0 +
+  // 1, ..) and its odd ones (2 f0, 2 f0 + 2, ..), rows 2 t0 - 1 onwards,
+  // zeros outside the utterance. TMA: the producer's first lane issues the
+  // two boxes; else the producer warps' lanes copy the same columns by
+  // cp.async, a lane a 16-byte column of the boxes walking its rows, each
+  // lane's arrival on full triggered when its copies land
+  auto produce = [&](int s) {
+    const Stage st = run.at(a, s, NKC);
+    const int c0 = (st.pool ? a.split - 1 : grp) * W + st.kc * C::CW;
+    if constexpr (TMA) {
+      unsigned char* dst = ring_ptr + (s & 1) * 2 * box;
+      vsv::tma::mbar_expect(&full[s & 1], 2 * C::RS * (2 * a.tt + 1) * (a.tf + 1));
+      vsv::tma::copy_4d(dst, &xmap, c0, 2 * st.f0 - 1, 2 * st.t0 - 1, st.b, &full[s & 1]);
+      vsv::tma::copy_4d(dst + box, &xmap, c0, 2 * st.f0, 2 * st.t0 - 1, st.b, &full[s & 1]);
+    } else {
+      const uint32_t dst = ring + (s & 1) * 2 * box;
+      const int cols = 2 * (a.tf + 1) * C::C8, pt_n = 2 * a.tt + 1;
+      const int nrg = imax(1, 32 * C::PW / cols);
+      const long long rowe = static_cast<long long>(a.flen) * a.chan;
+      const bf16* xb = x + static_cast<long long>(st.b) * a.tlen * rowe + c0;
+      for (int cl = plane; cl < cols * nrg; cl += 32 * C::PW) {
+        const int rg = cl / cols, col = cl - rg * cols, i = col / C::C8;
+        const int c = (col - i * C::C8) * 8, p = i > a.tf, slot = i - p * (a.tf + 1);
+        const int f = 2 * st.f0 - 1 + p + 2 * slot;
+        const bool fv = f >= 0 && f < a.flen;
+        for (int pt = rg; pt < pt_n; pt += nrg) {
+          const int t = 2 * st.t0 - 1 + pt;
+          const bool v = fv && t >= 0 && t < a.tlen;
+          cp_async16(dst + p * box + swz<C::SWZ>((pt * (a.tf + 1) + slot) * C::RS + 2 * c),
+                     xb + (v ? t * rowe + f * a.chan + c : 0), v);
+        }
       }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                       smem_u32(&full[s & 1]))
+                   : "memory");
     }
-    cp_async_arrive(pbar);
   };
-  // slice j of group grp's weights (slice j % nsp of pass j / nsp) into
-  // weight buffer buf
-  auto load_slice = [&](int grp, int j, int buf) {
-    const int kp = j % nsp * ksl, k0 = j / nsp * KPASS + kp, k8 = min(ksl, KPASS - kp) / 8;
-    const __nv_bfloat16* wg = wk + static_cast<long long>(grp) * W * KPAD + k0;
-    __nv_bfloat16* ws = wsm + buf * W * ws_stride;
-    for (int i = tid; i < W * k8; i += nthreads) {
-      const int n = i / k8, k = (i % k8) * 8;
-      cp_async16(smem_u32(ws + n * ws_stride + k), wg + static_cast<long long>(n) * KPAD + k,
-                 true);
-    }
-    cp_async_arrive(&wbar[buf]);
-  };
-
-  const int wm_idx = warp / WN, wn_idx = warp % WN;
-  // this lane's A rows (lane % 16 of each m tile) at tap (0, 0); rows past
-  // the tile read a valid row and are never stored
-  int rowoff[2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r = min(wm_idx * 32 + mt * 16 + lane % 16, rows - 1);
-    rowoff[mt] = (2 * (r / tf_n) * pf_n + r % tf_n) * HS + (lane / 16) * 8;
+  if (TMA ? tid == consumers : producer)
+    for (int s = 0; s < min(2, run.n); ++s) produce(s);
+  load_weights<C, W>(wsm, weight, grp, sl * C::WSL);
+  // the slice's eval BN, once: the epilogue reads it from shared memory
+  for (int c = tid; c < C::WSL; c += blockDim.x) {
+    bn[c] = stats.mean[grp][sl * C::WSL + c];
+    bn[C::WSL + c] = 1.f / sqrtf(stats.var[grp][sl * C::WSL + c] + a.eps);
   }
-  // B rows: n tile pairs by ldmatrix.x4 (lanes 16-31 the second tile), a
-  // last odd tile by .x2
-  const int bcol4 = ((lane % 8) + 8 * (lane / 16)) * ws_stride + ((lane / 8) % 2) * 8;
-  const int bcol2 = (lane % 8) * ws_stride + ((lane / 8) % 2) * 8;
-  const int nbase = wn_idx * NT * 8 * ws_stride;
-
-  int fills = 0, q = 0, wloads = 0, wgroup = -1;
-  if (static_cast<int>(blockIdx.x) < items) load_patch(blockIdx.x, 0);
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int grp = item / ntiles, tile = item % ntiles;
-    const int b = tile / (tiles_t * tiles_f);
-    const int t0 = (tile / tiles_f) % tiles_t * tt_n, f0 = tile % tiles_f * tf_n;
-    const bool conv = grp < split - 1;
-    if (conv) {
-      if (!resident) {
-        for (int j = 0; j < min(wstages - 1, nslices); ++j)
-          load_slice(grp, j, (q + j) % wstages);
-      } else if (grp != wgroup) {
-        for (int j = 0; j < nslices; ++j) load_slice(grp, j, j);
-        wgroup = grp;
-        ++wloads;
+  __syncthreads();  // the weights and the BN
+  if (producer) {
+    if (TMA ? plane == 0 : true) {
+      pr.mark();
+      for (int s = 2; s < run.n; ++s) {
+        // the consumers are done with stage s - 2
+        mbar_wait_bounded(&empty[s & 1], ((s >> 1) - 1) & 1);
+        pr.lap(kPhProduceWait);
+        if constexpr (TMA) vsv::tma::fence_async();
+        produce(s);
+        pr.lap(kPhIssue);
       }
+      if constexpr (!TMA) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      pr.flush(false);
     }
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    for (int p = 0; p < P; ++p) {
-      if (p > 0) {  // the next pass's channels into the patch
-        __syncthreads();
-        load_patch(item, p);
-      }
-      mbar_wait(pbar, fills++ & 1);
-      if (!conv) {  // the average pool of the last group, out of the patch
-        for (int i = tid; i < rows * C8; i += nthreads) {
-          const int r = i / C8, c = (i % C8) * 8;
-          const int ot = r / tf_n, of = r % tf_n;
-          if (t0 + ot >= tout || f0 + of >= fout) continue;
-          float v8[8];
-#pragma unroll
-          for (int di = 0; di < 3; ++di)
-#pragma unroll
-            for (int dj = 0; dj < 3; ++dj) {
-              const int slot = dj == 1 ? tf_n + 1 + of : of + dj / 2;
-              float v[8];
-              vsv::unpack16(*reinterpret_cast<const uint4*>(
-                                patch + ((2 * ot + di) * pf_n + slot) * HS + c),
-                            v, patch);
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                v8[e] = (di == 0 && dj == 0) ? v[e] : vsv::round_to<__nv_bfloat16>(v8[e] + v[e]);
-            }
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v8[e] = v8[e] * (1.0f / 9.0f);
-          vsv::store16(out + ((static_cast<long long>(b) * tout + t0 + ot) * fout + f0 + of) *
-                                 channels + grp * W + p * WP + c,
-                       v8);
-        }
-        continue;
-      }
-      const uint32_t pbase = smem_u32(patch);
-      for (int jj = 0; jj < nsp; ++jj) {
-        const int j = p * nsp + jj;
-        int buf = j;
-        if (resident) {
-          mbar_wait(&wbar[j], (wloads - 1) & 1);
-        } else {
-          buf = q % wstages;
-          // keep wstages - 1 slices in flight: the next goes into the
-          // buffer the previous slice freed
-          if (j + wstages - 1 < nslices)
-            load_slice(grp, j + wstages - 1, (q + wstages - 1) % wstages);
-          mbar_wait(&wbar[buf], (q / wstages) & 1);
-        }
-        const int ks0 = jj * ksl / 16, ksteps = min(ksl, KPASS - jj * ksl) / 16;
-        int tap = ks0 / KSPT, ksi = ks0 % KSPT;
-        int toff = (tap / 3) * pf_n * HS + (tap % 3 == 1 ? (tf_n + 1) * HS : (tap % 3) / 2 * HS);
-        const uint32_t wbase = smem_u32(wsm + buf * W * ws_stride + nbase);
-#pragma unroll 2
-        for (int kk = 0; kk < ksteps; ++kk) {
-          // the lane's 8-channel chunk of this tap; a tap's pad chunk (odd
-          // C8) reads the last real chunk again, times the zero weights
-          int cc = 16 * ksi;
-          if (C8 % 2 != 0 && cc + (lane / 16) * 8 >= WP) cc -= 8;
-          uint32_t af[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(af[mt], pbase + 2 * (rowoff[mt] + toff + cc));
-#pragma unroll
-          for (int np = 0; np + 1 < NT; np += 2) {
-            uint32_t bq[4];
-            ldmatrix_x4(bq, wbase + 2 * (np * 8 * ws_stride + bcol4 + 16 * kk));
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_bf16_16816(acc[mt][np], af[mt], bq);
-              mma_bf16_16816(acc[mt][np + 1], af[mt], bq + 2);
-            }
-          }
-          if constexpr (NT % 2 != 0) {
-            uint32_t bf[2];
-            ldmatrix_x2(bf, wbase + 2 * ((NT - 1) * 8 * ws_stride + bcol2 + 16 * kk));
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(acc[mt][NT - 1], af[mt], bf);
-          }
-          if (++ksi == KSPT) {
-            ksi = 0;
-            ++tap;
-            toff = (tap / 3) * pf_n * HS + (tap % 3 == 1 ? (tf_n + 1) * HS : (tap % 3) / 2 * HS);
-          }
-        }
-        if (!resident) {
-          __syncthreads();  // this slice's buffer is free for the refill
-          ++q;
-        }
-      }
-    }
-    if (conv) {
-      if (resident) __syncthreads();  // every warp is done with the patch
-
-      // epilogue: round the conv output to bf16, eval BN, relu, into the
-      // patch's place at stride OS, then 16-byte rows to the output
-      const float* mu = stats.mean[grp];
-      const float* vr = stats.var[grp];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int co = (wn_idx * NT + nt) * 8 + 2 * tg;
-        const float m0 = mu[co], m1 = mu[co + 1];
-        const float i0 = 1.f / sqrtf(vr[co] + eps), i1 = 1.f / sqrtf(vr[co + 1] + eps);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = wm_idx * 32 + mt * 16 + g + 8 * h;
-            if (r >= rows) continue;
-            const float v0 = vsv::round_to<__nv_bfloat16>(acc[mt][nt][2 * h]);
-            const float v1 = vsv::round_to<__nv_bfloat16>(acc[mt][nt][2 * h + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(patch + r * OS + co) =
-                __floats2bfloat162_rn(fmaxf((v0 - m0) * i0, 0.f), fmaxf((v1 - m1) * i1, 0.f));
-          }
-      }
-      __syncthreads();
-      for (int i = tid; i < rows * CO8; i += nthreads) {
-        const int r = i / CO8, c = (i % CO8) * 8;
-        const int ot = t0 + r / tf_n, of = f0 + r % tf_n;
-        if (ot < tout && of < fout)
-          *reinterpret_cast<uint4*>(out + ((static_cast<long long>(b) * tout + ot) * fout + of) *
-                                              channels + grp * W + c) =
-              *reinterpret_cast<const uint4*>(patch + r * OS + c);
-      }
-    }
-    __syncthreads();  // the patch is free for the next item
-    if (item + static_cast<int>(gridDim.x) < items) load_patch(item + gridDim.x, 0);
+    return;
   }
+  pr.lap(kPhWeight);
+  // this lane's A rows (lane % 16 of each of its m16 tiles) at tap (0, 0),
+  // byte offsets in a box; rows past the tile read a valid row and are
+  // never stored. mma.sync: warp (wm, wn), m16 tiles of rows wm 16 MT ..;
+  // wgmma: warp q of warpgroup wg, rows wg 64 MT + 64 mt + 16 q ..
+  const int wn = WG ? 0 : warp % C::WN;
+  const int rbase = WG ? (warp / 4) * C::ROWS + 16 * (warp % 4) : (warp / C::WN) * C::ROWS;
+  constexpr int RSTEP = WG ? 64 : 16;
+  uint32_t rowoff[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = min(rbase + RSTEP * mt + lane % 16, rows - 1), u = tfd.div(r);
+    rowoff[mt] = static_cast<uint32_t>((2 * u * (a.tf + 1) + r - u * a.tf) * C::RS +
+                                       (lane / 16) * 16);
+  }
+  const uint32_t wbase = smem_u32(wsm) + (WG ? 0 : 2 * wn * C::NT * 8 * C::WS);
+  // accumulators: mma.sync [mt][nt][4]; wgmma [mt][WSL / 2], element 4 nt +
+  // 2 h + e the mma.sync fragment's (nt, 2 h + e)
+  constexpr int NACC = C::NT * 4;
+  float acc[MT][NACC];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[mt][e] = 0.f;
+  for (int s = 0; s < run.n; ++s) {
+    mbar_wait_bounded(&full[s & 1], (s >> 1) & 1);
+    pr.lap(kPhPatch);
+    const Stage st = run.at(a, s, NKC);
+    const uint32_t sbase = ring + (s & 1) * 2 * box;
+    if (st.pool) {  // the average pool of chunk kc of the last group
+      bf16* ob = out + (a.split - 1) * W + st.kc * C::CW;
+      const unsigned char* sp = ring_ptr + (s & 1) * 2 * box;
+      for (int i = tid; i < rows * C::C8; i += consumers) {
+        const int r = i / C::C8, c = (i - r * C::C8) * 8, u = tfd.div(r), v = r - u * a.tf;
+        if (st.t0 + u >= a.tout || st.f0 + v >= a.fout) continue;
+        const uint32_t base = static_cast<uint32_t>((2 * u * (a.tf + 1) + v) * C::RS + 2 * c);
+        float v8[8];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const bf16* q =
+              reinterpret_cast<const bf16*>(sp + swz<C::SWZ>(base + xtap(tap, a.tf, C::RS, box)));
+          float t8[8];
+          vsv::unpack16(*reinterpret_cast<const uint4*>(q), t8, q);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v8[e] = tap == 0 ? t8[e] : vsv::round_to<bf16>(v8[e] + t8[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v8[e] = v8[e] * (1.0f / 9.0f);
+        vsv::store16(ob + ((static_cast<long long>(st.b) * a.tout + st.t0 + u) * a.fout + st.f0 +
+                           v) * a.chan + c,
+                     v8);
+      }
+      __syncwarp();
+      if (lane == 0) vsv::tma::mbar_arrive(&empty[s & 1]);
+      pr.count(kPhPoolTiles);
+      pr.lap(kPhPool);
+      continue;
+    }
+    if constexpr (WG) {
+      wg_stage<C, MT>(acc, sbase, rowoff, box, a.tf, st.kc, wbase);
+    } else {
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint32_t toff = xtap(tap, a.tf, C::RS, box);
+#pragma unroll
+        for (int ks = 0; ks < C::KSC; ++ks)
+          mma_kstep<C, MT>(acc, sbase, rowoff, toff, ks, wbase,
+                           tap * C::KT + st.kc * C::CW + 16 * ks, lane);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) vsv::tma::mbar_arrive(&empty[s & 1]);
+    pr.lap(kPhMma);
+    if (st.kc != NKC - 1) continue;
+    // epilogue: the conv output rounded to bf16, eval BN, relu; DS: stored
+    // from the accumulators, a thread's rows (mt, h) at pairs of channels;
+    // else into the tile's rows in shared memory (stride ZS), then 16-byte
+    // rows to the output's slice
+    long long orow[MT][2];
+    if constexpr (DS) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + RSTEP * mt + g + 8 * h, u = tfd.div(r);
+          const int ot = st.t0 + u, of = st.f0 + r - u * a.tf;
+          orow[mt][h] = r < rows && ot < a.tout && of < a.fout
+              ? ((static_cast<long long>(st.b) * a.tout + ot) * a.fout + of) * a.chan + grp * W +
+                    sl * C::WSL
+              : -1;
+        }
+    } else {
+      consumer_sync(consumers);  // every consumer is done with the last tile's rows
+    }
+    pr.lap(kPhEpiWait);
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt) {
+      const int co = (wn * C::NT + nt) * 8 + 2 * tg;
+      const float m0 = bn[co], m1 = bn[co + 1], i0 = bn[C::WSL + co], i1 = bn[C::WSL + co + 1];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + RSTEP * mt + g + 8 * h;
+          const float v0 = vsv::round_to<bf16>(acc[mt][4 * nt + 2 * h]);
+          const float v1 = vsv::round_to<bf16>(acc[mt][4 * nt + 2 * h + 1]);
+          acc[mt][4 * nt + 2 * h] = acc[mt][4 * nt + 2 * h + 1] = 0.f;
+          const __nv_bfloat162 y =
+              __floats2bfloat162_rn(fmaxf((v0 - m0) * i0, 0.f), fmaxf((v1 - m1) * i1, 0.f));
+          if constexpr (DS) {
+            if (orow[mt][h] >= 0) *reinterpret_cast<__nv_bfloat162*>(out + orow[mt][h] + co) = y;
+          } else if (r < rows) {
+            *reinterpret_cast<__nv_bfloat162*>(obuf + r * C::ZS + co) = y;
+          }
+        }
+    }
+    if constexpr (!DS) {
+      consumer_sync(consumers);
+      pr.lap(kPhEpiRows);
+      bf16* ob = out + grp * W + sl * C::WSL;
+      for (int i = tid; i < rows * C::CO8; i += consumers) {
+        const int r = i / C::CO8, c = (i - r * C::CO8) * 8, u = tfd.div(r);
+        const int ot = st.t0 + u, of = st.f0 + r - u * a.tf;
+        if (ot < a.tout && of < a.fout)
+          *reinterpret_cast<uint4*>(
+              ob + ((static_cast<long long>(st.b) * a.tout + ot) * a.fout + of) * a.chan + c) =
+              *reinterpret_cast<const uint4*>(obuf + r * C::ZS + c);
+      }
+    }
+    pr.count(kPhTiles);
+    pr.lap(kPhEpilogue);
+  }
+  pr.flush(true);
 }
 
-template <int W, int NT, int P>
-int launch_mma(const void* x, const void* wk, const GroupStats& stats, void* out, int batch,
-               int tlen, int flen, int split, int wm, int tt_n, int tf_n, int ksl, int wstages,
-               float eps, long long plan_smem, int num_sms, cudaStream_t stream) {
-  const int tout = (tlen - 1) / 2 + 1, fout = (flen - 1) / 2 + 1;
-  const int threads = 32 * wm * (W / (8 * NT)), kpass = 9 * tap_cols(W / P);
-  const int nslices = P * ((kpass + ksl - 1) / ksl);
-  if (threads > kMaxThreads || tt_n < 1 || tf_n < 1 || tf_n > 16 || tt_n * tf_n > 32 * wm ||
-      ksl < 16 || ksl % 16 != 0 || wstages < 1 || wstages > 8 ||
-      (wstages < nslices && wstages < 2) || num_sms < 1)
+template <int W, int NSL, int NKC, int MT, bool TMA, bool WG, bool DS>
+int launch_ring(const void* x, const void* weight, const GroupStats& stats, void* out, int batch,
+                int tlen, int flen, int split, int tt, int tf, int k, int per_sm, float eps,
+                long long plan_smem, cudaStream_t stream) {
+  using C = RingCfg<W, NSL, NKC, MT, TMA, WG, DS>;
+  RingArgs a;
+  a.batch = batch; a.tlen = tlen; a.flen = flen; a.split = split; a.chan = split * W;
+  a.tout = (tlen - 1) / 2 + 1; a.fout = (flen - 1) / 2 + 1;
+  a.tt = tt; a.tf = tf; a.k = k; a.eps = eps;
+  const int groups = WG ? cdiv(tt * tf, C::ROWS) : C::WN * cdiv(tt * tf, C::ROWS);
+  const int threads = 32 * ((WG ? 4 : 1) * groups + C::PW);
+  if (tt < 1 || tf < 1 || tf > 16 || tt > a.tout || 2 * tt + 1 > 256 || threads > kMaxThreads ||
+      k < 1 || per_sm < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = mma_smem(W, tt_n, tf_n, ksl, wstages, P);
+  const long long smem = ring_smem<C>(tt, tf);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   if (smem != plan_smem) return vsv::kPlanMismatch;
-  const long long items = static_cast<long long>(split) * batch * ((tout + tt_n - 1) / tt_n) *
-                          ((fout + tf_n - 1) / tf_n);
-  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = stride2_mma_kernel<W, NT, P>;
+  a.tiles_f = cdiv(a.fout, tf);
+  const long long tiles = static_cast<long long>(cdiv(a.tout, tt)) * a.tiles_f;
+  const long long items = batch * tiles, nconv = static_cast<long long>(split - 1) * NSL * k;
+  if (items * NKC > 0x7fffffffLL || k > items || nconv > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = static_cast<int>(tiles);
+  a.nconv = static_cast<int>(nconv);
+  if ((reinterpret_cast<uintptr_t>(x) & 15) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // TMA: x (B, T, F, C) as a 4-D tensor map, innermost first; a box: CW
+  // channels, tf + 1 columns two apart, 2 tt + 1 rows, zeros past the edges
+  CUtensorMap xmap{};
+  if constexpr (TMA) {
+    const vsv::tma::EncodeTiled encode = vsv::tma::encode_tiled();
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.chan), static_cast<cuuint64_t>(flen),
+                                static_cast<cuuint64_t>(tlen), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {2ULL * a.chan, 2ULL * a.chan * flen,
+                                   2ULL * a.chan * flen * tlen};
+    const cuuint32_t box[4] = {C::CW, static_cast<cuuint32_t>(2 * tf + 1),
+                               static_cast<cuuint32_t>(2 * tt + 1), 1};
+    const cuuint32_t steps[4] = {1, 2, 1, 1};
+    const CUtensorMapSwizzle swizzle = C::SWZ == 0      ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                       : C::SWZ == 0x10 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                       : C::SWZ == 0x30 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                        : CU_TENSOR_MAP_SWIZZLE_128B;
+    if (encode == nullptr ||
+        encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+               box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = stride2_ring_kernel<W, NSL, NKC, MT, TMA, WG, DS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  // the plan's CTAs a SM must fit at once: the run lengths assume one wave
+  int fit = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long grid = std::min<long long>(items, static_cast<long long>(per_sm) * num_sms);
-  kernel<<<static_cast<unsigned>(grid), threads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wk), stats,
-      static_cast<__nv_bfloat16*>(out), batch, tlen, flen, tout, fout, split, tt_n, tf_n, ksl,
-      wstages, eps);
+  if (fit < per_sm) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(nconv), threads, smem, stream>>>(
+      xmap, static_cast<const bf16*>(x), static_cast<const bf16*>(weight), stats,
+      static_cast<bf16*>(out), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The whole-row form (w = 48, s = 4; models/res2net.py:_STRIDE2_RING, nsl =
+// 0): a CTA takes every group of its run's tiles, so x is read once, in
+// 128-byte TMA box rows. A stage is one tile's patch of 64 of x's s w
+// channels (chunk c of NCH); its 16-channel k steps belong to conv groups
+// (wgmma into that group's accumulators, the group's weights resident) or
+// to the last group (the average pool of those channels); the conv
+// groups' epilogue follows the tile's last chunk. One warpgroup or two of
+// consumers, one producer warp.
+template <int W, int SPLIT>
+struct RowsCfg {
+  static constexpr int CH = 64, NCH = SPLIT * W / CH, NG = SPLIT - 1, KT = tap_cols(W);
+  static constexpr int RS = 2 * CH, SWZ = 0x70, NACC = W / 2;
+  static constexpr long long WGROUP = 2LL * 9 * KT * W;  // a group's weights, [k / 8][n][k % 8]
+  static_assert(SPLIT * W % CH == 0 && W % 16 == 0 && W >= 32 && W <= 192, "whole chunks");
+};
+
+// Chunk CI of a tile on wgmma: its conv k steps, tap by tap (a tap's A
+// fragments of the chunk's KS k steps loading while the previous tap's
+// wgmmas run), each into its group's accumulators
+template <int W, int SPLIT, int CI>
+__device__ __forceinline__ void rows_chunk(float (&acc)[SPLIT - 1][W / 2], uint32_t sbase,
+                                           uint32_t rowoff, uint32_t box, int tf,
+                                           uint32_t wbase) {
+  using C = RowsCfg<W, SPLIT>;
+  // the chunk's conv k steps: channels 64 CI + 16 j below (SPLIT - 1) W
+  constexpr int KS = imax(0, (imin(C::CH * (CI + 1), C::NG * W) - C::CH * CI) / 16);
+  if constexpr (KS > 0) {
+    uint32_t a[2][KS][4];
+    auto load = [&](int tap, uint32_t (&dst)[KS][4]) {
+      const uint32_t toff = xtap(tap, tf, C::RS, box);
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+        ldmatrix_x4(dst[j], sbase + swz<C::SWZ>(rowoff + toff + 32 * j));
+    };
+    load(0, a[0]);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      uint32_t (&cur)[KS][4] = a[tap & 1];
+#pragma unroll
+      for (int j = 0; j < KS; ++j) vsv::wgmma_fence_regs(cur[j]);
+#pragma unroll
+      for (int gi = 0; gi < C::NG; ++gi) vsv::wgmma_fence_regs(acc[gi]);
+      vsv::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const int ch = C::CH * CI + 16 * j, gi = ch / W;
+        // K column tap KT + (ch % W) of group gi: its k / 8 block, W rows of
+        // 16 bytes
+        const uint32_t kb = (tap * C::KT + ch % W) / 8;
+        const uint64_t desc = vsv::wgmma_desc(
+            wbase + static_cast<uint32_t>(gi * C::WGROUP) + kb * 16 * W, 16 * W, 128);
+#pragma unroll
+        for (int g2 = 0; g2 < C::NG; ++g2)
+          if (g2 == gi) vsv::WgmmaRS<W>::mma(acc[g2], cur[j], desc, 1);
+      }
+      vsv::wgmma_commit();
+#pragma unroll
+      for (int gi = 0; gi < C::NG; ++gi) vsv::wgmma_fence_regs(acc[gi]);
+      if (tap + 1 < 9) {
+        vsv::wgmma_wait<1>();
+        load(tap + 1, a[(tap + 1) & 1]);
+      }
+    }
+    vsv::wgmma_wait<0>();
+#pragma unroll
+    for (int gi = 0; gi < C::NG; ++gi) vsv::wgmma_fence_regs(acc[gi]);
+  }
+}
+
+template <int W, int SPLIT>
+__global__ void __launch_bounds__(kMaxThreads) stride2_rows_kernel(
+    const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ weight,
+    const GroupStats stats, bf16* __restrict__ out, const RingArgs a) {
+  using C = RowsCfg<W, SPLIT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int j = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
+  const int consumers = blockDim.x - 32;
+  const bool producer = tid >= consumers;
+  Prof pr(tid == 0 || tid == consumers);
+  const int rows = a.tt * a.tf;
+  const uint32_t box = static_cast<uint32_t>(align1024(ring_box(C::RS, a.tt, a.tf)));
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+  bf16* wsm = reinterpret_cast<bf16*>(ring_ptr + 4 * box);
+  float* bn = reinterpret_cast<float*>(ring_ptr + 4 * box + C::NG * C::WGROUP);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bn + 2 * C::NG * W);
+  uint64_t* empty = full + 2;
+  // the run: items [e0, e1) of the B tiles, NCH stages each
+  const long long items = static_cast<long long>(a.batch) * a.tiles;
+  const int e0 = static_cast<int>(items * j / a.k);
+  const int n = (static_cast<int>(items * (j + 1) / a.k) - e0) * C::NCH;
+  if (n == 0) return;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumers / 32);
+    }
+  }
+  vsv::tma::mbar_init_fence();
+  __syncthreads();
+  const FastDiv tfd(a.tf);
+  // stage s: chunk s % NCH of item e0 + s / NCH, the patch's even and odd
+  // columns as two boxes
+  auto item_of = [&](int s, int* b, int* t0, int* f0) {
+    const int item = e0 + s / C::NCH;
+    *b = item / a.tiles;
+    const int tile = item - *b * a.tiles, tr = tile / a.tiles_f;
+    *t0 = tr * a.tt;
+    *f0 = (tile - tr * a.tiles_f) * a.tf;
+  };
+  auto produce = [&](int s) {
+    int b, t0, f0;
+    item_of(s, &b, &t0, &f0);
+    const int c0 = (s % C::NCH) * C::CH;
+    unsigned char* dst = ring_ptr + (s & 1) * 2 * box;
+    vsv::tma::mbar_expect(&full[s & 1], 2 * C::RS * (2 * a.tt + 1) * (a.tf + 1));
+    vsv::tma::copy_4d(dst, &xmap, c0, 2 * f0 - 1, 2 * t0 - 1, b, &full[s & 1]);
+    vsv::tma::copy_4d(dst + box, &xmap, c0, 2 * f0, 2 * t0 - 1, b, &full[s & 1]);
+  };
+  if (tid == consumers)
+    for (int s = 0; s < min(2, n); ++s) produce(s);
+  // every conv group's weights and eval BN, once
+  for (int gi = 0; gi < C::NG; ++gi) {
+    constexpr int V9 = 9 * W / 8;
+    bf16* wg = wsm + gi * (C::WGROUP / 2);
+    for (int i = tid; i < W * V9; i += blockDim.x) {
+      const int nn = i / V9, v = i - nn * V9;
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+          weight + (static_cast<long long>(gi) * W + nn) * W * 9 + 8 * v));
+      const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int idx = 8 * v + e, k = (idx % 9) * C::KT + idx / 9;  // idx = c * 9 + tap
+        wg[((k / 8) * W + nn) * 8 + k % 8] = h[e];
+      }
+    }
+    for (int c = tid; c < W; c += blockDim.x) {
+      bn[2 * gi * W + c] = stats.mean[gi][c];
+      bn[(2 * gi + 1) * W + c] = 1.f / sqrtf(stats.var[gi][c] + a.eps);
+    }
+  }
+  __syncthreads();
+  if (producer) {
+    if (lane == 0) {
+      pr.mark();
+      for (int s = 2; s < n; ++s) {
+        mbar_wait_bounded(&empty[s & 1], ((s >> 1) - 1) & 1);
+        pr.lap(kPhProduceWait);
+        vsv::tma::fence_async();
+        produce(s);
+        pr.lap(kPhIssue);
+      }
+      pr.flush(false);
+    }
+    return;
+  }
+  pr.lap(kPhWeight);
+  // warp q of warpgroup wq: rows 64 wq + 16 q ..
+  const int rbase = (warp / 4) * 64 + 16 * (warp % 4);
+  uint32_t rowoff;
+  {
+    const int r = min(rbase + lane % 16, rows - 1), u = tfd.div(r);
+    rowoff = static_cast<uint32_t>((2 * u * (a.tf + 1) + r - u * a.tf) * C::RS + (lane / 16) * 16);
+  }
+  const uint32_t wbase = smem_u32(wsm);
+  float acc[C::NG][C::NACC];
+#pragma unroll
+  for (int gi = 0; gi < C::NG; ++gi)
+#pragma unroll
+    for (int e = 0; e < C::NACC; ++e) acc[gi][e] = 0.f;
+  for (int s = 0; s < n; ++s) {
+    mbar_wait_bounded(&full[s & 1], (s >> 1) & 1);
+    pr.lap(kPhPatch);
+    const int c = s % C::NCH;
+    int b, t0, f0;
+    item_of(s, &b, &t0, &f0);
+    const uint32_t sbase = ring + (s & 1) * 2 * box;
+    static_assert(C::NCH <= 3, "three chunks a row, at most");
+    if (c == 0)
+      rows_chunk<W, SPLIT, 0>(acc, sbase, rowoff, box, a.tf, wbase);
+    else if (c == 1)
+      rows_chunk<W, SPLIT, 1>(acc, sbase, rowoff, box, a.tf, wbase);
+    else
+      rows_chunk<W, SPLIT, 2>(acc, sbase, rowoff, box, a.tf, wbase);
+    pr.lap(kPhMma);
+    // the chunk's channels of the last group: their average pool
+    const int plo = imax(0, C::NG * W - C::CH * c);
+    if (plo < C::CH) {
+      const unsigned char* sp = ring_ptr + (s & 1) * 2 * box;
+      const int vecs = (C::CH - plo) / 8;
+      for (int i = tid; i < rows * vecs; i += consumers) {
+        const int r = i / vecs, cv = plo + (i - r * vecs) * 8, u = tfd.div(r), v = r - u * a.tf;
+        if (t0 + u >= a.tout || f0 + v >= a.fout) continue;
+        const uint32_t base = static_cast<uint32_t>((2 * u * (a.tf + 1) + v) * C::RS + 2 * cv);
+        float v8[8];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const bf16* q =
+              reinterpret_cast<const bf16*>(sp + swz<C::SWZ>(base + xtap(tap, a.tf, C::RS, box)));
+          float t8[8];
+          vsv::unpack16(*reinterpret_cast<const uint4*>(q), t8, q);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v8[e] = tap == 0 ? t8[e] : vsv::round_to<bf16>(v8[e] + t8[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v8[e] = v8[e] * (1.0f / 9.0f);
+        vsv::store16(out + ((static_cast<long long>(b) * a.tout + t0 + u) * a.fout + f0 + v) *
+                               a.chan + C::CH * c + cv,
+                     v8);
+      }
+      pr.count(kPhPoolTiles);
+      pr.lap(kPhPool);
+    }
+    __syncwarp();
+    if (lane == 0) vsv::tma::mbar_arrive(&empty[s & 1]);
+    if (c != C::NCH - 1) continue;
+    // epilogue: each conv group's output rounded to bf16, eval BN, relu,
+    // stored from the accumulators
+    long long orow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rbase + g + 8 * h, u = tfd.div(r);
+      const int ot = t0 + u, of = f0 + r - u * a.tf;
+      orow[h] = r < rows && ot < a.tout && of < a.fout
+          ? ((static_cast<long long>(b) * a.tout + ot) * a.fout + of) * a.chan
+          : -1;
+    }
+#pragma unroll
+    for (int gi = 0; gi < C::NG; ++gi)
+#pragma unroll
+      for (int nt = 0; nt < W / 8; ++nt) {
+        const int co = nt * 8 + 2 * tg;
+        const float* bg = bn + 2 * gi * W;
+        const float m0 = bg[co], m1 = bg[co + 1], i0 = bg[W + co], i1 = bg[W + co + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = vsv::round_to<bf16>(acc[gi][4 * nt + 2 * h]);
+          const float v1 = vsv::round_to<bf16>(acc[gi][4 * nt + 2 * h + 1]);
+          acc[gi][4 * nt + 2 * h] = acc[gi][4 * nt + 2 * h + 1] = 0.f;
+          if (orow[h] >= 0)
+            *reinterpret_cast<__nv_bfloat162*>(out + orow[h] + gi * W + co) =
+                __floats2bfloat162_rn(fmaxf((v0 - m0) * i0, 0.f), fmaxf((v1 - m1) * i1, 0.f));
+        }
+      }
+    pr.count(kPhTiles);
+    pr.lap(kPhEpilogue);
+  }
+  pr.flush(true);
+}
+
+template <int W, int SPLIT>
+int launch_rows(const void* x, const void* weight, const GroupStats& stats, void* out, int batch,
+                int tlen, int flen, int tt, int tf, int k, int per_sm, float eps,
+                long long plan_smem, cudaStream_t stream) {
+  using C = RowsCfg<W, SPLIT>;
+  RingArgs a;
+  a.batch = batch; a.tlen = tlen; a.flen = flen; a.split = SPLIT; a.chan = SPLIT * W;
+  a.tout = (tlen - 1) / 2 + 1; a.fout = (flen - 1) / 2 + 1;
+  a.tt = tt; a.tf = tf; a.k = k; a.eps = eps;
+  const int threads = 32 * (4 * cdiv(tt * tf, 64) + 1);
+  if (tt < 1 || tf < 1 || tf > 16 || tt > a.tout || 2 * tt + 1 > 256 || threads > kMaxThreads ||
+      k < 1 || per_sm < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = 1024 + 4 * align1024(ring_box(C::RS, tt, tf)) + C::NG * C::WGROUP +
+                         8LL * C::NG * W + 4 * 8;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem != plan_smem) return vsv::kPlanMismatch;
+  a.tiles_f = cdiv(a.fout, tf);
+  const long long tiles = static_cast<long long>(cdiv(a.tout, tt)) * a.tiles_f;
+  const long long items = batch * tiles;
+  if (items * C::NCH > 0x7fffffffLL || k > items || (reinterpret_cast<uintptr_t>(x) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = static_cast<int>(tiles);
+  a.nconv = k;
+  const vsv::tma::EncodeTiled encode = vsv::tma::encode_tiled();
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.chan), static_cast<cuuint64_t>(flen),
+                              static_cast<cuuint64_t>(tlen), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {2ULL * a.chan, 2ULL * a.chan * flen, 2ULL * a.chan * flen * tlen};
+  const cuuint32_t box[4] = {C::CH, static_cast<cuuint32_t>(2 * tf + 1),
+                             static_cast<cuuint32_t>(2 * tt + 1), 1};
+  const cuuint32_t steps[4] = {1, 2, 1, 1};
+  CUtensorMap xmap{};
+  if (encode == nullptr ||
+      encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+             steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = stride2_rows_kernel<W, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int fit = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fit < per_sm) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(k), threads, smem, stream>>>(
+      xmap, static_cast<const bf16*>(weight), stats, static_cast<bf16*>(out), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -643,28 +1285,26 @@ int launch_fma(int tn, const void* x, const void* w, const GroupStats& stats, vo
 }  // namespace
 
 // One stride-2 split stage in eval mode, one launch. dtype: 0 = float32, 1 =
-// bfloat16. plan: 9 host ints (models/res2net.py:stride2_plan): design (0
-// "mma", 1 "vec", 2 "single"), nt, wm, tt, tf, ksl, wstages, passes, tn. x:
-// (B, T, F, split * width) channels-last; wk: "mma" (split-1, width,
-// passes, 9, tap_cols(width / passes)) bfloat16, row n of group i holding
-// output channel n's taps, a pass's block of width / passes input channels
-// at a time, each tap's zero-padded to tap_cols; "vec" / "single" the JAX
-// layout (3, 3, width, width * (split-1)). stats: a host array of 2
+// bfloat16. plan: 12 host ints (models/res2net.py:stride2_plan): design (0
+// "mma", 1 "vec", 2 "single"), nsl, nkc, mt, tma, wg, ds, tt, tf, k,
+// per_sm, tn. x: (B, T, F, split * width) channels-last; wk: "mma" the
+// OIHW weight ((split-1) width, width, 3, 3) bfloat16; "vec" / "single"
+// the JAX layout (3, 3, width, width * (split-1)). stats: a host array of 2
 // (split-1) device pointers, each group's (width,) float32 running mean,
 // then each group's running variance. out: (B, T', F', split * width)
 // channels-last. "mma" and "vec" need 16-byte aligned pointers; "mma" takes
-// bfloat16 at the (width, nt, passes) below, wm * width / (8 nt) warps <= 8,
-// the tile tt x tf <= 32 wm positions, wstages weight buffers (all the
-// slices, or a ring of at least 2), its shared memory mma_smem(...) passed
-// as plan_smem (refused where it differs: vsv::kPlanMismatch), and as many
-// persistent CTAs as fit num_sms SMs; "vec" and "single" pass plan_smem 0.
+// bfloat16 at the kernels below (width, nsl, nkc, mt, tma, wg, ds), tiles
+// of tt x tf (tf <= 16) output positions, (split-1) nsl k persistent CTAs
+// of which per_sm must fit an SM at once, its shared memory ring_smem(...)
+// passed as plan_smem (refused where it differs: vsv::kPlanMismatch);
+// "vec" and "single" pass plan_smem 0.
 extern "C" int split_stride2(int dtype, const int* plan, const void* x, const void* wk,
                              const void* const* stats, void* out, int batch, int tlen, int flen,
-                             int split, int width, float eps, long long plan_smem, int num_sms,
-                             void* stream) {
+                             int split, int width, float eps, long long plan_smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int design = plan[0], nt = plan[1], wm = plan[2], tt_n = plan[3], tf_n = plan[4];
-  const int ksl = plan[5], wstages = plan[6], passes = plan[7], tn = plan[8];
+  const int design = plan[0], nsl = plan[1], nkc = plan[2], mt = plan[3];
+  const bool tma = plan[4] != 0, wg = plan[5] != 0, ds = plan[6] != 0;
+  const int tt = plan[7], tf = plan[8], k = plan[9], per_sm = plan[10], tn = plan[11];
   if (batch < 1 || tlen < 1 || flen < 1 || split < 2 || split - 1 > kMaxGroups || width < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   GroupStats st{};
@@ -673,22 +1313,24 @@ extern "C" int split_stride2(int dtype, const int* plan, const void* x, const vo
     st.var[i] = static_cast<const float*>(stats[split - 1 + i]);
   }
   if (design == 0) {
-    if (dtype != 1 || (wm != 2 && wm != 4)) return static_cast<int>(cudaErrorInvalidValue);
-#define VSV_S2_MMA(W, N, P)                                                                    \
-  if (width == W && nt == N && passes == P)                                                    \
-    return launch_mma<W, N, P>(x, wk, st, out, batch, tlen, flen, split, wm, tt_n, tf_n, ksl,  \
-                               wstages, eps, plan_smem, num_sms, s);
-    VSV_S2_MMA(8, 1, 1)
-    VSV_S2_MMA(16, 1, 1)
-    VSV_S2_MMA(32, 2, 1)
-    VSV_S2_MMA(48, 3, 1)
-    VSV_S2_MMA(64, 4, 1)
-    VSV_S2_MMA(64, 4, 2)
-    VSV_S2_MMA(96, 6, 1)
-    VSV_S2_MMA(96, 6, 2)
-    VSV_S2_MMA(192, 6, 1)
-    VSV_S2_MMA(192, 12, 2)
-#undef VSV_S2_MMA
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (nsl == 0) {  // the whole-row form
+      if (width == 48 && split == 4 && nkc == 3 && mt == 1 && tma && wg && ds)
+        return launch_rows<48, 4>(x, wk, st, out, batch, tlen, flen, tt, tf, k, per_sm, eps,
+                                  plan_smem, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+#define VSV_S2_RING(W, S, K, M, T, G, D)                                                       \
+  if (width == W && nsl == S && nkc == K && mt == M && tma == T && wg == G && ds == D)         \
+    return launch_ring<W, S, K, M, T, G, D>(x, wk, st, out, batch, tlen, flen, split, tt, tf,  \
+                                            k, per_sm, eps, plan_smem, s);
+    VSV_S2_RING(8, 1, 1, 2, true, false, false)
+    VSV_S2_RING(16, 1, 1, 2, false, false, false)
+    VSV_S2_RING(32, 1, 1, 1, true, true, false)
+    VSV_S2_RING(64, 1, 1, 1, true, true, false)
+    VSV_S2_RING(96, 1, 3, 1, true, true, true)
+    VSV_S2_RING(192, 4, 6, 1, true, true, true)
+#undef VSV_S2_RING
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (design != 1 && design != 2) return static_cast<int>(cudaErrorInvalidValue);
@@ -705,3 +1347,16 @@ extern "C" int split_stride2(int dtype, const int* plan, const void* x, const vo
                                        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef VSV_K10_PROF
+// The phase profile's counters (kProfSlots unsigned 64-bit) into host,
+// zeroed after when reset is non-zero: present only in the profile build.
+extern "C" int split_stride2_prof(unsigned long long* host, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_k10_prof, sizeof(g_k10_prof));
+  if (e == cudaSuccess && reset) {
+    static unsigned long long zeros[kProfSlots];
+    e = cudaMemcpyToSymbol(g_k10_prof, zeros, sizeof(zeros));
+  }
+  return static_cast<int>(e);
+}
+#endif

@@ -235,7 +235,7 @@ SPLIT_TRAIN = CudaKernel("split_train", "split_train.cu", {
 # K10 takes its launch plan as a host int array (models/res2net.py:
 # stride2_plan); a launch counts under its design
 SPLIT_STRIDE2 = CudaKernel("split_stride2", "split_stride2.cu", {
-    "split_stride2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _I, _P],
+    "split_stride2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _L, _P],
 }, paths={"split_stride2": ("mma", "vec", "single")})
 # K11 / K11b take their launch plan as a host int array (models/res2net.py:
 # stride2_train_plan)
@@ -280,6 +280,13 @@ def function_launch_counts() -> Dict[str, int]:
 
 def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The persistent stride-2 kernels' (K10, K11) CTA counts: as many as fit the
+# H100's 132 SMs at once. A constant, not num_sms: it keeps their plans, and
+# so which positions each partial sum holds, a function of the shape alone,
+# the same bits on every card
+PLAN_SMS = 132
 
 
 # (device, stream, name) -> a scratch tensor of stream_scratch

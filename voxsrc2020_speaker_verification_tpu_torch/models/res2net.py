@@ -49,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..kernels import (SPLIT_CONV, SPLIT_STRIDE2, SPLIT_STRIDE2_TRAIN, SPLIT_TRAIN, KernelError,
-                       check_cuda, dtype_code, num_sms, ptr, stream_scratch)
+                       PLAN_SMS, check_cuda, dtype_code, num_sms, ptr, stream_scratch)
 from ..ops import nn as ops
 from ..parallel.sharding import active_mesh
 
@@ -291,13 +291,31 @@ def _split_chain_wgmma(x, weight, means, variances, m, out, plan, eps) -> torch.
 # ---------------------------------------------------------------------------
 
 _STRIDE2_DESIGNS = ("mma", "vec", "single")
-# the mma design's (width, n tiles a warp, channel passes) (csrc/
-# split_stride2.cu: the instantiated kernels): the stride-2 stages of the
-# registered Res2Nets (48, 96, 192; 16, 32, 64) and the thin variants' 8
-_STRIDE2_MMA = ((8, 1, 1), (16, 1, 1), (32, 2, 1), (48, 3, 1), (64, 4, 1), (64, 4, 2),
-                (96, 6, 1), (96, 6, 2), (192, 6, 1), (192, 12, 2))
-_STRIDE2_MAX_WARPS = 8
-_STRIDE2_MIN_KSL = 64   # K columns a slice of the mma design's weight ring, at least
+# the mma design's kernel by width (csrc/split_stride2.cu: the instantiated
+# kernels), (nsl, nkc, mt, tma, wg, ds): a CTA keeps w / nsl output
+# channels' weights resident (nsl = 0: the whole-row form, every group's,
+# x's rows in nkc chunks of 64 channels), a ring stage carries w / nkc
+# input channels of a tile's x patch (with tma one producer lane's TMA
+# boxes, rows of 8-64 channels; else two producer warps' cp.async), the
+# consumers run mma.sync (a warp 16 mt rows) or, with wg, wgmma (a
+# warpgroup 64 mt rows by the whole slice), and the epilogue stores from
+# the accumulators (ds) or through the tile's rows in shared memory. Each is
+# the fastest of the forms timed at its width at the registered Res2Nets'
+# stride-2 stages (48, 96, 192; 16, 32, 64) on an H100 (scripts/time_k10.py
+# --plans; PERF.md); the whole-row form needs s w a multiple of 64
+# (s = 4 at w = 48; other splits of 48 have no mma kernel and take vec).
+# The thin variants' 8 takes mma.sync.
+_STRIDE2_RING = {
+    8: (1, 1, 2, 1, 0, 0),
+    16: (1, 1, 2, 0, 0, 0),
+    32: (1, 1, 1, 1, 1, 0),
+    48: (0, 3, 1, 1, 1, 1),
+    64: (1, 1, 1, 1, 1, 0),
+    96: (1, 3, 1, 1, 1, 1),
+    192: (4, 6, 1, 1, 1, 1),
+}
+# consumer warps a CTA, at most (and one TMA or two cp.async producer warps)
+_STRIDE2_CONSUMERS = 8
 _SM_SMEM_BYTES = 233472  # an SM's shared memory (228 KB)
 _CTA_SMEM_RESERVE = 1024  # the runtime's reserve a CTA
 
@@ -308,85 +326,114 @@ def _stride2_tap_cols(width: int) -> int:
     return -(-width // 16) * 16
 
 
-def _stride2_smem(width: int, tt: int, tf: int, ksl: int, wstages: int, passes: int) -> int:
-    """Shared memory of K10's mma design (csrc/split_stride2.cu:mma_smem):
-    the (2 tt + 1) x (2 tf + 1) input patch of w / ``passes`` channels at
-    the padded stride, ``wstages`` weight slices of w rows by ``ksl`` + 8 K
-    columns, an mbarrier each."""
-    patch = (2 * tt + 1) * (2 * tf + 1) * _halo_stride(width // passes)
-    return 2 * (patch + wstages * width * (ksl + 8)) + 8 * (1 + wstages)
+def _stride2_wn(width: int, nsl: int, wg: int) -> int:
+    """The mma design's warps across a CTA's slice of w / nsl output
+    channels (csrc/split_stride2.cu:RingCfg): mma.sync 2 at slices of 64 or
+    more; a wgmma warpgroup takes the whole slice (nsl = 0: every group's)."""
+    return 2 if not wg and nsl and width // nsl >= 64 else 1
+
+
+def _stride2_row_bytes(cw: int, tma: int) -> int:
+    """Bytes of a staged patch position of cw channels: a TMA box row, or a
+    row padded to an odd number of 16-byte units (csrc/split_stride2.cu:
+    RingCfg::RS)."""
+    return 2 * cw if tma else 2 * _halo_stride(cw)
+
+
+def _stride2_box(width: int, nkc: int, tma: int, tt: int, tf: int) -> int:
+    """Bytes of one of a K10 ring stage's two boxes (the patch's even or odd
+    input columns): 2 tt + 1 rows of tf + 1 columns of w / nkc channels
+    (csrc/split_stride2.cu:ring_box)."""
+    return (2 * tt + 1) * (tf + 1) * _stride2_row_bytes(width // nkc, tma)
+
+
+def _stride2_smem(width: int, nsl: int, nkc: int, tma: int, wg: int, ds: int, tt: int,
+                  tf: int) -> int:
+    """Shared memory of K10's mma design (csrc/split_stride2.cu:ring_smem):
+    1 KB to align the ring, two ring stages of two boxes each (each 1 KB
+    aligned), the slice's weights (mma.sync: w / nsl rows of 9 tap_cols + 8
+    K columns; wgmma: 9 tap_cols by w / nsl), the output tile's rows at the
+    padded stride (unless ds: the epilogue stores from the accumulators),
+    the slice's eval BN (mean, 1 / std), four mbarriers."""
+    kt = _stride2_tap_cols(width)
+    if nsl == 0:  # the whole row: every conv group's weights and BN
+        ng = nkc * 64 // width - 1
+        box = -(-(2 * tt + 1) * (tf + 1) * 128 // 1024) * 1024
+        return 1024 + 4 * box + ng * 2 * 9 * kt * width + 8 * ng * width + 4 * 8
+    box = -(-_stride2_box(width, nkc, tma, tt, tf) // 1024) * 1024
+    wsl = width // nsl
+    weights = 2 * 9 * kt * wsl if wg else 2 * wsl * (9 * kt + 8)
+    rows = 0 if ds else _align16(2 * tt * tf * _halo_stride(wsl))
+    return 1024 + 4 * box + weights + rows + 8 * wsl + 4 * 8
 
 
 def stride2_candidates(width: int, split: int, shape) -> list:
-    """Every mma plan of K10 that fits 227 KB for a stride-2 stage of
-    ``split`` groups of width ``width`` on x of ``shape`` (B, s*w, T, F), in
-    :func:`stride2_plan`'s order of preference (the first is its pick): the
-    kernels of ``_STRIDE2_MMA`` (``nt`` n tiles a warp, ``wn`` = w / 8 nt
-    warps across the channels, the patch staged in ``passes`` blocks of w /
-    passes channels), ``wm`` warps down a tile of at most 32 wm output rows
-    (``tt`` x ``tf``, F' cut evenly into tiles of at most 16), the weights
-    (``kpad`` K columns: per pass 9 taps of w / passes rounded up to 16)
-    resident (one slice a pass, ``ksl`` the pass's K) or a ring of
-    ``wstages`` slices of ``ksl`` >= 64 K columns. Empty at the other
-    widths.
+    """Every mma plan of K10 for a stride-2 stage of ``split`` groups of
+    width ``width`` on x of ``shape`` (B, s*w, T, F), in
+    :func:`stride2_plan`'s order of preference (the first is its pick); empty
+    at the widths without a kernel.
 
-    The order (timed on an H100 at the stride-2 stages of
-    res2net50_w24_s4_c32 and res2net50_w8_s6_c16, ``scripts/time_k10.py
-    --plans``): resident weights first; then two CTAs an SM by shared
-    memory (they hide each other's patch loads); then the most rows a tile
-    (a streamed weight slice feeds them all); then fewer passes and fewer,
-    larger weight slices. A second patch buffer (the next item's patch
-    landing during this one's compute) lost at every width and is not
-    offered."""
-    _, c, t, f = shape
-    if c != split * width:
+    A plan: the width's kernel of ``_STRIDE2_RING`` (``nsl``, ``nkc``,
+    ``mt``, ``tma``, ``wg``, ``ds``; ``wn`` mma.sync warps across a CTA's
+    slice, ``nt`` n tiles of 8 each), a tile of ``tt`` x ``tf`` output
+    positions (F' cut evenly into tiles of at most 16; T' into tiles of at
+    most 8 consumer warps' or 2 warpgroups' rows, 227 KB and a TMA box of
+    256 rows, then evenly), ``threads`` (the consumers, and one TMA or two
+    cp.async producer warps), ``per_sm`` CTAs an SM (two only where shared
+    memory and 170 registers a thread allow), ``k`` CTAs per (group,
+    slice), each a run of the group's B ``tiles`` (sample, tile) items, as
+    many as fit ``PLAN_SMS`` SMs at once. The largest tile at one CTA an
+    SM, then at two."""
+    b, c, t, f = shape
+    if c != split * width or width not in _STRIDE2_RING:
         return []
+    nsl, nkc, mt, tma, wg, ds = _STRIDE2_RING[width]
+    if nsl == 0 and split * width != 64 * nkc:
+        return []  # the whole-row form: rows of nkc chunks of 64 channels
     tout, fout = _strided(t, 2), _strided(f, 2)
-    ft = -(-fout // 16)
-    tf = -(-fout // ft)
+    tf = _s2t_even(fout, 16)
+    tiles_f = -(-fout // tf)
+    wn = _stride2_wn(width, nsl, wg)
+    # rows a consumer: a warpgroup of 64 mt (at most 2) or a warp of 16 mt (at
+    # most 8 warps)
+    rows_per, most = (64 * mt, 2) if wg else (16 * mt, _STRIDE2_CONSUMERS // wn)
+
+    def threads(tt):
+        return 32 * ((4 if wg else wn) * -(-tt * tf // rows_per) + 2 - tma)
+
+    largest = {}
+    for tt in range(max(1, min(rows_per * most // tf, tout, 127)), 0, -1):
+        smem = _stride2_smem(width, nsl, nkc, tma, wg, ds, tt, tf)
+        if smem <= _SMEM_BYTES:
+            per_sm = min(2 if threads(tt) <= 192 else 1,
+                         _SM_SMEM_BYTES // (smem + _CTA_SMEM_RESERVE))
+            largest.setdefault(per_sm, tt)
     out = []
-    for w, nt, passes in _STRIDE2_MMA:
-        if w != width:
-            continue
-        wn = width // (8 * nt)
-        kpass = 9 * _stride2_tap_cols(width // passes)
-        for wm in (4, 2):
-            if wm * wn > _STRIDE2_MAX_WARPS:
-                continue
-            tt = max(1, min(32 * wm // tf, tout))
-            base = {"design": "mma", "nt": nt, "wn": wn, "wm": wm, "threads": 32 * wm * wn,
-                    "tt": tt, "tf": tf, "passes": passes, "kpad": passes * kpass}
-            smem = _stride2_smem(width, tt, tf, kpass, passes, passes)
-            if smem <= _SMEM_BYTES:  # resident: one slice a pass
-                out.append({**base, "wstages": passes, "ksl": kpass, "smem": smem})
-                continue
-            for wstages in (2, 3, 4):
-                room = _SMEM_BYTES - _stride2_smem(width, tt, tf, 0, wstages, passes)
-                ksl = room // (2 * wstages * width) // 16 * 16
-                if ksl >= _STRIDE2_MIN_KSL and -(-kpass // ksl) * passes > wstages:
-                    out.append({**base, "wstages": wstages, "ksl": ksl,
-                                "smem": _stride2_smem(width, tt, tf, ksl, wstages, passes)})
-
-    def preference(plan):
-        resident = plan["wstages"] >= plan["passes"] * -(-plan["kpad"] // plan["passes"]
-                                                          // plan["ksl"])
-        per_sm = _SM_SMEM_BYTES // (plan["smem"] + _CTA_SMEM_RESERVE)
-        return (not resident, -min(per_sm, 2), -plan["tt"] * plan["tf"], plan["passes"],
-                plan["wstages"])
-
-    return sorted(out, key=preference)
+    for per_sm in sorted(largest):
+        tt = _s2t_even(tout, largest[per_sm])
+        tiles = -(-tout // tt) * tiles_f
+        out.append({"design": "mma", "nsl": nsl, "nkc": nkc, "mt": mt, "tma": tma, "wg": wg,
+                    "ds": ds, "wn": wn, "nt": width // (nsl or 1) // (8 * wn), "tt": tt,
+                    "tf": tf, "threads": threads(tt), "per_sm": per_sm,
+                    "k": max(1, min(b * tiles, PLAN_SMS * per_sm // ((split - 1) * nsl or 1))),
+                    "tiles": tiles, "smem": _stride2_smem(width, nsl, nkc, tma, wg, ds, tt, tf)})
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def stride2_plan(width: int, split: int, shape, dtype: torch.dtype) -> dict:
     """K10's launch plan for a stride-2 stage of ``split`` groups of width
     ``width`` on x of ``shape`` (B, s*w, T, F); output (T', F') =
-    ((T-1)//2 + 1, (F-1)//2 + 1). One launch.
+    ((T-1)//2 + 1, (F-1)//2 + 1). One launch, a function of the shape
+    alone.
 
     ``"mma"`` (bfloat16 where :func:`stride2_candidates` has a plan: its
-    first): persistent CTAs, as many as fit the card, walk the stage's work
-    items group-major, an item a tile of output positions of one group (the
-    last group's items are the average pool).
+    first): (split - 1) nsl k persistent CTAs, each a (group, slice of the
+    output channels, run of the group's (sample, tile) items) with the
+    slice's weights resident (staged from OIHW), the runs' patches on a
+    two-stage ring fed by TMA or cp.async producer warps, the MMAs on
+    wgmma or mma.sync; the last group's average pool dealt over every CTA
+    as stages of their own.
 
     ``"vec"`` (w fills 16-byte vectors: w % 4 == 0 in float32, % 8 in
     bfloat16) and ``"single"`` (other widths): the FMA designs, 128 output
@@ -411,11 +458,11 @@ def _stride2_fma_plan(width: int, design: str) -> dict:
 
 
 def _stride2_plan_ints(plan: dict):
-    """The plan as the C entry takes it: design, nt, wm, tt, tf, ksl,
-    wstages, passes, tn (csrc/split_stride2.cu:split_stride2)."""
-    return (ctypes.c_int * 9)(_STRIDE2_DESIGNS.index(plan["design"]),
-                              *(plan.get(k, 0) for k in ("nt", "wm", "tt", "tf", "ksl",
-                                                         "wstages", "passes", "tn")))
+    """The plan as the C entry takes it: design, nsl, nkc, mt, tma, wg, ds,
+    tt, tf, k, per_sm, tn (csrc/split_stride2.cu:split_stride2)."""
+    return (ctypes.c_int * 12)(_STRIDE2_DESIGNS.index(plan["design"]),
+                               *(plan.get(k, 0) for k in ("nsl", "nkc", "mt", "tma", "wg", "ds",
+                                                          "tt", "tf", "k", "per_sm", "tn")))
 
 
 def split_stride2_reference(x, weight, means, variances, eps=ops.BN_EPSILON) -> torch.Tensor:
@@ -483,7 +530,8 @@ def split_stride2(x: torch.Tensor, weight: torch.Tensor,
     if x.numel() == 0:
         return out
     plan = stride2_plan(w, s, tuple(x.shape), x.dtype)
-    if plan["design"] != "single" and x.data_ptr() % 16:
+    weight = weight.contiguous()
+    if plan["design"] != "single" and (x.data_ptr() % 16 or weight.data_ptr() % 16):
         # the mma and vec designs move 16-byte vectors
         plan = _stride2_fma_plan(w, "single")
     _stride2_launch(x, weight, means, variances, eps, plan, out)
@@ -492,25 +540,20 @@ def split_stride2(x: torch.Tensor, weight: torch.Tensor,
 
 def _stride2_launch(x, weight, means, variances, eps, plan, out) -> None:
     """K10's launch on ``plan`` (:func:`stride2_plan`, or any of
-    :func:`stride2_candidates`), writing ``out``."""
+    :func:`stride2_candidates`), writing ``out``. The mma design reads the
+    OIHW weight as it is; the FMA designs take it in the JAX layout."""
     s = len(means) + 1
     b, c, t, f = x.shape
     w = c // s
     if plan["design"] == "mma":
-        # (s-1, w, passes, 9, tap_cols): row n of group i its output
-        # channel's taps, a pass's block of input channels at a time, each
-        # tap's zero-padded to tap_cols
-        passes = plan["passes"]
-        wp = w // passes
-        wk = F.pad(weight.view(s - 1, w, passes, wp, 3, 3).permute(0, 1, 2, 4, 5, 3),
-                   (0, _stride2_tap_cols(wp) - wp)).reshape(s - 1, w, plan["kpad"])
+        wk = weight
     else:
         wk = weight.permute(2, 3, 1, 0).contiguous()  # the JAX layout (3, 3, w, w*(s-1))
     ints = _stride2_plan_ints(plan)
     stats = (ctypes.c_void_p * (2 * (s - 1)))(*(ptr(st) for st in (*means, *variances)))
     SPLIT_STRIDE2.launch("split_stride2", x.device, dtype_code(x.dtype), ctypes.addressof(ints),
                          ptr(x), ptr(wk), ctypes.addressof(stats), ptr(out), b, t, f, s, w, eps,
-                         plan["smem"], num_sms(x.device), path=plan["design"])
+                         plan["smem"], path=plan["design"])
 
 
 # ---------------------------------------------------------------------------
@@ -1056,12 +1099,6 @@ _S2T_SLABS = 1024        # FMA conv slabs and statistics slabs a launch, about
 _S2T_WGRAD_CTAS = 384
 _S2T_MAX_UPT = 8         # (tap, channel) rows an FMA weight-gradient thread
 _S2T_POOL_CTAS = 1056    # the average pool's backward CTAs (of 256 threads), at most
-# the mma design's persistent CTAs: as many as fit the H100's 132 SMs at
-# once. A constant, not the card's SM count: it fixes which positions each
-# BN partial and each dW partial holds, so both are the same bits on every
-# card
-_S2T_SMS = 132
-_SM_SMEM_BYTES = 233472  # an SM's shared memory, 1 KB of it reserved a block
 # the mma design (csrc/split_stride2_train.cu: fwd_nsl, fwd_nkc): per width,
 # the forward's slices of a group's output channels (a CTA's resident
 # weights) and chunks of its input channels (a ring stage's x patch)
@@ -1150,7 +1187,7 @@ def _s2t_even(n: int, most: int) -> int:
 
 def _s2t_per_sm(smem: int, threads: int) -> int:
     """CTAs of ``smem`` bytes and ``threads`` threads that fit one SM."""
-    return max(1, min(_SM_SMEM_BYTES // (smem + 1024), 2048 // threads, 32))
+    return max(1, min(_SM_SMEM_BYTES // (smem + _CTA_SMEM_RESERVE), 2048 // threads, 32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1171,7 +1208,7 @@ def stride2_train_plan(width: int, split: int, shape, groups: int, dtype: torch.
       of the output channels and ``nkc`` chunks of the input channels
       (``_S2T_FWD_SLICES``); ``k`` CTAs per (group, slice), each a run of
       the group's B x ``tiles`` (sample, tile) items, as many as fit
-      ``_S2T_SMS`` SMs at once (one wave) and at least ``groups`` (a run
+      ``PLAN_SMS`` SMs at once (one wave) and at least ``groups`` (a run
       then touches at most two BN groups: its partials); fma: ``k`` runs of
       tiles (slabs) a sample, about ``_S2T_SLABS`` a launch;
     * the grad launch: mma, ``gthreads`` (``_S2T_GRAD_WARPS``), tiles of
@@ -1179,7 +1216,7 @@ def stride2_train_plan(width: int, split: int, shape, groups: int, dtype: torch.
       and 227 KB allow, ``upt`` dW m tiles a warp and ``nchunks`` chunks
       (``_s2t_mma_wgrad``), ``nds`` dgrad slices, ``nsplit`` CTAs per
       (group, chunk) each a run of the group's tiles, as many as fit
-      ``_S2T_SMS`` SMs at once (one wave); fma, ``pc`` (tap, channel) rows
+      ``PLAN_SMS`` SMs at once (one wave); fma, ``pc`` (tap, channel) rows
       a chunk, ``nb`` blocks of 4 output channels, ``pg`` = threads / nb
       pair groups, ``upt`` rows a thread, ``nsplit`` splits of the tiles a
       chunk (about ``_S2T_WGRAD_CTAS`` CTAs a launch). Either way
@@ -1226,14 +1263,14 @@ def stride2_train_plan(width: int, split: int, shape, groups: int, dtype: torch.
         tiles, gtiles = -(-tout // tt) * tiles_f, -(-tout // gtt) * tiles_f
         _, upt, nchunks = _s2t_mma_wgrad(width)
         gthreads = 32 * gwarps
-        k = min(b * tiles, max(groups, _S2T_SMS * _s2t_per_sm(smem_fwd, threads) // (ng * nsl)))
+        k = min(b * tiles, max(groups, PLAN_SMS * _s2t_per_sm(smem_fwd, threads) // (ng * nsl)))
         # the last CTA's table of the runs (2 k + 2 G ints) in the two ring stages
         k = min(k, _s2t_patch_bytes(tt, tf, _halo_stride(width // nkc), 2, True) // 4 - groups)
         if k < groups:
             raise ValueError(f"stride2_train_plan: shape {tuple(shape)} leaves no room for "
                              f"{groups} BN groups' runs")
         nsplit = min(b * gtiles,
-                     max(1, _S2T_SMS * _s2t_per_sm(smem_grad, gthreads) // (ng * nchunks)))
+                     max(1, PLAN_SMS * _s2t_per_sm(smem_grad, gthreads) // (ng * nchunks)))
         nconv = ng * nsl * k
         plan.update(design="mma", tn=0, threads=threads, tt=tt, nsl=nsl, nkc=nkc, k=k,
                     tiles=tiles, gtt=gtt, gtiles=gtiles, gthreads=gthreads, nds=nds, nb=0, pg=0,
